@@ -1,0 +1,357 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (videovector_tpu_torch) on one CUDA card.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout. It
+1. builds the Hopper kernels from videovector_tpu_torch/csrc with nvcc;
+2. holds each kernel against its plain PyTorch version on the card, at the
+   shapes the serving path gives it and at the JAX package's kernel-test
+   shapes (tolerances below);
+3. drives RetrievalPipeline at full width (the default config: 256x256 uint8
+   frames, 227 crop, CaffeNet conv1..fc7, 4096-d tower, bf16) with random
+   weights from a seeded torch.Generator: a 4-video gallery padded to 20,000
+   rows, then 3 queries of 50 frames, counting kernel launches;
+4. compares embed_frames through the kernels with the plain versions, and
+   times both at batch 50 and 256 with CUDA events.
+
+Exits non-zero, with no result line, without a CUDA card or outside a
+checkout. The last line of stdout is {"ok": true, "device": {...}}; the line
+before it is the per-kernel JSON summary.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+import traceback
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+
+# max |kernel - plain| allowed, relative to max |plain|, by output dtype: f32
+# outputs differ only by summation order; a bf16 output can differ by one
+# rounding step (2**-8 relative) where the f32 sums straddle a bf16 boundary
+REL_TOL = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
+BATCH = 50
+GALLERY_ROWS = 20_000
+N_QUERIES = 3
+K1_PER_EMBED = 3          # fc6, fc7, tower
+K2_PER_EMBED = 8          # conv1..conv5 launches: 1 + 2 + 1 + 2 + 2 groups
+
+
+def log(*args) -> None:
+    print(*args, flush=True)
+
+
+def gpu_name_and_power_limit() -> str:
+    proc = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {proc.stderr}")
+    return proc.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of fn() in ms, over `iters` back-to-back calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def compare(name: str, got: torch.Tensor, ref: torch.Tensor) -> float:
+    """Max abs error of got vs ref; raises past the dtype's tolerance."""
+    torch.cuda.synchronize()
+    if got.shape != ref.shape or got.dtype != ref.dtype:
+        raise AssertionError(f"{name}: {tuple(got.shape)} {got.dtype} vs "
+                             f"{tuple(ref.shape)} {ref.dtype}")
+    g, r = got.float(), ref.float()
+    if not torch.isfinite(g).all():
+        raise AssertionError(f"{name}: non-finite kernel output")
+    err = (g - r).abs().max().item()
+    scale = r.abs().max().item()
+    tol = REL_TOL[ref.dtype] * scale
+    log(f"  {name}: max_abs_err {err:.3e} (tol {tol:.3e}, max|ref| {scale:.3e})")
+    if not err <= tol:
+        raise AssertionError(f"{name}: max_abs_err {err} > tol {tol}")
+    return err
+
+
+def kernel_phases(dev, gen):
+    from videovector_tpu_torch.ops.hopper import conv_gemm as k2
+    from videovector_tpu_torch.ops.hopper import matmul as k1
+
+    def randn(*shape, dtype=torch.float32, std=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
+
+    stats = {"K1": {"err": 0.0, "ms": 0.0, "plain_ms": 0.0},
+             "K2": {"err": 0.0, "ms": 0.0, "plain_ms": 0.0}}
+    bf = torch.bfloat16
+
+    log("K1 at the JAX kernel-test shapes (f32):")
+    for (m, k, n), bias, relu in (((256, 512, 256), False, False),
+                                  ((128, 256, 128), True, True),
+                                  ((100, 300, 70), False, False)):
+        x, w = randn(m, k), randn(k, n)
+        b = randn(n) if bias else None
+        err = compare(f"K1 {m}x{k}x{n} bias={bias} relu={relu}",
+                      k1.matmul(x, w, b, fuse_relu=relu),
+                      k1.matmul_plain(x, w, b, fuse_relu=relu))
+        stats["K1"]["err"] = max(stats["K1"]["err"], err)
+    log(f"K1 at the serving path's shapes (batch {BATCH}, bf16 -> f32, "
+        f"bias + ReLU):")
+    for name, k, n in (("fc6", 9216, 4096), ("fc7", 4096, 4096),
+                       ("tower", 4096, 4096)):
+        x, w, b = randn(BATCH, k, dtype=bf), randn(k, n, dtype=bf, std=0.02), randn(n)
+        run = lambda: k1.matmul(x, w, b, fuse_relu=True)
+        plain = lambda: k1.matmul_plain(x, w, b, fuse_relu=True)
+        err = compare(f"K1 {name} {BATCH}x{k}x{n}", run(), plain())
+        ms_p, ms_k = time_ms(plain), time_ms(run)
+        ms_k2, ms_p2 = time_ms(run), time_ms(plain)
+        ms, ms_plain = (ms_k + ms_k2) / 2, (ms_p + ms_p2) / 2
+        log(f"  K1 {name} time: kernel {ms:.4f} ms, plain {ms_plain:.4f} ms")
+        stats["K1"]["err"] = max(stats["K1"]["err"], err)
+        stats["K1"]["ms"] += ms
+        stats["K1"]["plain_ms"] += ms_plain
+
+    log("K2 at the JAX kernel-test shape (2x3x9x9, 8 filters 3x3, stride 2, "
+        "pad 1, f32):")
+    x, w, b = randn(2, 3, 9, 9), randn(8, 3, 3, 3), randn(8)
+    err = compare("K2 2x3x9x9 s2 p1",
+                  k2.conv2d_im2col_gemm(x, w, b, stride=(2, 2), pad=(1, 1)),
+                  k2.conv2d_im2col_gemm_plain(x, w, b, stride=(2, 2),
+                                              pad=(1, 1)))
+    stats["K2"]["err"] = max(stats["K2"]["err"], err)
+    log(f"K2 at CaffeNet's convs (batch {BATCH}, NHWC bf16, bias + ReLU):")
+    for name, hw, c, o, ksz, s, p, g in (
+            ("conv1", 227, 3, 96, 11, 4, 0, 1),
+            ("conv2", 27, 96, 256, 5, 1, 2, 2),
+            ("conv3", 13, 256, 384, 3, 1, 1, 1),
+            ("conv4", 13, 384, 384, 3, 1, 1, 2),
+            ("conv5", 13, 384, 256, 3, 1, 1, 2)):
+        x = randn(BATCH, hw, hw, c, dtype=bf)
+        w = randn(ksz, ksz, c // g, o, dtype=bf, std=(2.0 / (ksz * ksz * c // g)) ** 0.5)
+        b = randn(o, std=0.1)
+        kw = dict(stride=(s, s), pad=(p, p), groups=g, fuse_relu=True,
+                  out_dtype=bf)
+        run = lambda: k2.conv2d_gemm_nhwc(x, w, b, **kw)
+        plain = lambda: k2.conv2d_gemm_nhwc_plain(x, w, b, **kw)
+        err = compare(f"K2 {name} g={g}", run(), plain())
+        ms_p, ms_k = time_ms(plain, iters=10), time_ms(run, iters=10)
+        ms_k2, ms_p2 = time_ms(run, iters=10), time_ms(plain, iters=10)
+        ms, ms_plain = (ms_k + ms_k2) / 2, (ms_p + ms_p2) / 2
+        log(f"  K2 {name} time: kernel {ms:.4f} ms, plain {ms_plain:.4f} ms")
+        stats["K2"]["err"] = max(stats["K2"]["err"], err)
+        stats["K2"]["ms"] += ms
+        stats["K2"]["plain_ms"] += ms_plain
+    return stats
+
+
+def frames(rng, n):
+    return rng.randint(0, 256, (n, 256, 256, 3)).astype(np.uint8)
+
+
+def slice_phase(dev):
+    from videovector_tpu_torch.data.transformer import (
+        TransformConfig, sample_transform_params,
+    )
+    from videovector_tpu_torch.models.retrieval_pipeline import (
+        RetrievalPipeline, RetrievalPipelineConfig,
+    )
+    from videovector_tpu_torch.ops.hopper.conv_gemm import conv2d_im2col_gemm
+    from videovector_tpu_torch.ops.hopper.matmul import matmul
+
+    cfg = RetrievalPipelineConfig()
+    mean = np.full((3, 256, 256), 110, np.float32)
+    pipe = RetrievalPipeline(cfg, mean=mean, device=dev)
+    plain = RetrievalPipeline(cfg, mean=mean, device=dev, plain=True)
+    params = pipe.init(torch.Generator(device=dev).manual_seed(0))
+
+    rng = np.random.RandomState(0)
+    videos = [torch.as_tensor(frames(rng, BATCH), device=dev) for _ in range(4)]
+    h, w, m = sample_transform_params(BATCH, cfg.image_hw,
+                                      TransformConfig(crop_size=cfg.crop),
+                                      train=False, rng=rng)
+    pad = rng.randn(GALLERY_ROWS - len(videos), cfg.embed_dim).astype(np.float32)
+    pad /= np.linalg.norm(pad, axis=1, keepdims=True)
+    pad_ids = np.arange(1000, 1000 + len(pad), dtype=np.int32)
+    torch.cuda.synchronize()
+
+    # the main path, counted: gallery build, then the queries
+    matmul.launches = conv2d_im2col_gemm.launches = 0
+    t0 = time.perf_counter()
+    gal, ids = pipe.build_gallery(params, [(v, h, w, m) for v in videos],
+                                  [np.full(BATCH, i) for i in range(len(videos))])
+    gallery = torch.cat([gal, torch.as_tensor(pad, device=dev)])
+    gallery_ids = torch.cat([ids, torch.as_tensor(pad_ids, device=dev)])
+    results = [pipe.query(params, videos[q], h, w, m, gallery, gallery_ids)
+               for q in range(N_QUERIES)]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {"K1": matmul.launches, "K2": conv2d_im2col_gemm.launches}
+    n_embed = len(videos) + N_QUERIES
+    log(f"main path: {len(videos)} gallery batches + {N_QUERIES} queries of "
+        f"{BATCH} frames in {seconds:.3f} s (host clock, first calls "
+        f"included); launches {launches}")
+    expect = {"K1": K1_PER_EMBED * n_embed, "K2": K2_PER_EMBED * n_embed}
+    if launches != expect:
+        raise AssertionError(f"launch counts {launches} != expected {expect}")
+
+    if gallery.shape != (GALLERY_ROWS, cfg.embed_dim):
+        raise AssertionError(f"gallery shape {tuple(gallery.shape)}")
+    for q, (top_ids, top_scores) in enumerate(results):
+        if top_ids.shape != (BATCH, cfg.top_k) or top_scores.shape != (BATCH, cfg.top_k):
+            raise AssertionError(f"query {q}: shapes {tuple(top_ids.shape)}, "
+                                 f"{tuple(top_scores.shape)}")
+        if not torch.isfinite(top_scores).all():
+            raise AssertionError(f"query {q}: non-finite scores")
+        if (top_scores[:, 1:] > top_scores[:, :-1]).any():
+            raise AssertionError(f"query {q}: top-k scores not descending")
+        if not (top_ids[:, 0] < len(videos)).all():
+            raise AssertionError(f"query {q}: a random padding row outranked "
+                                 "every real video")
+        hit = (top_ids[:, 0] == q).float().mean().item()
+        log(f"  query {q}: top-1 is the query's own video for {hit:.2f} of "
+            f"frames; top-1 score {top_scores[:, 0].mean().item():.4f}")
+
+    # kernels vs plain versions through the whole path (bf16 bound)
+    emb = pipe.embed_frames(params, videos[0], h, w, m)
+    ref = plain.embed_frames(params, videos[0], h, w, m)
+    norms = emb.norm(dim=1)
+    if not torch.isfinite(emb).all() or (norms - 1).abs().max().item() > 1e-4:
+        raise AssertionError(f"embeddings not finite unit rows: {norms}")
+    err = (emb - ref).abs().max().item()
+    tol = REL_TOL[torch.bfloat16] * ref.abs().max().item()
+    cos = torch.nn.functional.cosine_similarity(emb, ref).min().item()
+    log(f"embed_frames kernels vs plain: max_abs_err {err:.3e} (tol {tol:.3e}),"
+        f" min cosine {cos:.6f}")
+    if not err <= tol:
+        raise AssertionError(f"embed_frames kernels vs plain: {err} > {tol}")
+
+    for batch in (BATCH, 256):
+        pix = torch.as_tensor(frames(rng, batch), device=dev)
+        hb, wb, mb = sample_transform_params(
+            batch, cfg.image_hw, TransformConfig(crop_size=cfg.crop),
+            train=False, rng=rng)
+        run = lambda: pipe.embed_frames(params, pix, hb, wb, mb)
+        ref_run = lambda: plain.embed_frames(params, pix, hb, wb, mb)
+        iters = 10 if batch == BATCH else 4
+        t = [time_ms(ref_run, iters), time_ms(run, iters),
+             time_ms(run, iters), time_ms(ref_run, iters)]
+        ms, ms_plain = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+        log(f"embed_frames batch {batch}: kernels {ms:.3f} ms = "
+            f"{batch / ms * 1e3:.1f} frames/s; plain {ms_plain:.3f} ms = "
+            f"{batch / ms_plain * 1e3:.1f} frames/s (plain, kernel, kernel, "
+            f"plain: {', '.join(f'{v:.3f}' for v in t)} ms)")
+    return launches, pipe, params, videos[0], (h, w, m)
+
+
+def device_breakdown(pipe, params, pix, hwm) -> None:
+    """Profiles one embed_frames (after warm-up): device time by kernel, and
+    a failure if a cuBLAS or cuDNN GEMM/conv ran there. Reports "not
+    measured" if the profiler sees no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+    pipe.embed_frames(params, pix, *hwm)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()           # one call, unprofiled, host clock
+    pipe.embed_frames(params, pix, *hwm)
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        pipe.embed_frames(params, pix, *hwm)
+        torch.cuda.synchronize()
+    by_name: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    if not by_name:
+        log("profiler: no device events (breakdown and library-kernel check "
+            "not measured)")
+        return
+    library = sorted(n for n in by_name
+                     if any(s in n.lower() for s in ("cudnn", "cublas", "xmma",
+                                                     "cutlass", "gemv", "sm90_"))
+                     or ("gemm" in n.lower() and "vv::" not in n))
+    busy = sum(by_name.values())
+    k1 = sum(v for n, v in by_name.items() if "vv::MatGeom" in n)
+    k2 = sum(v for n, v in by_name.items() if "vv::ConvGeom" in n)
+    log(f"profile of one embed_frames (batch {pix.shape[0]}): device busy "
+        f"{busy:.1f} us (profiled call) vs {wall_us:.1f} us host wall of an "
+        f"unprofiled call, idle share {1 - busy / wall_us:.3f}; K1 "
+        f"{k1:.1f} us, K2 {k2:.1f} us, other {busy - k1 - k2:.1f} us over "
+        f"{len(by_name)} distinct kernels; top 8:")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"    {us:9.1f} us  {name[:110]}")
+    if library:
+        raise AssertionError(f"library GEMM/conv kernels on the path: {library}")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "needs a CUDA card", file=sys.stderr)
+        return 2
+    if not (ROOT / "videovector_tpu_torch" / "csrc").is_dir():
+        print(f"chip_smoke: no videovector_tpu_torch/csrc beside {__file__}; "
+              "run it from a checkout of the repo", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    from videovector_tpu_torch import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    log(f"gpu: {gpu_name_and_power_limit()}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} python "
+        f"{sys.version.split()[0]}")
+    t0 = time.perf_counter()
+    lib = _build.build_library()
+    _build.load_library()
+    log(f"built {lib.relative_to(ROOT)} in {time.perf_counter() - t0:.1f} s")
+
+    with torch.no_grad():
+        stats = kernel_phases(dev, torch.Generator(device=dev).manual_seed(1))
+        launches, pipe, params, pix, hwm = slice_phase(dev)
+        device_breakdown(pipe, params, pix, hwm)
+
+    kernels = [
+        {"name": "K1 matmul (GEMM + bias + ReLU epilogue)", "route": "cuda",
+         "source": "videovector_tpu_torch/csrc/matmul.cu",
+         "replaces": "videovector_tpu/ops/pallas/matmul.py:50",
+         "launches": launches["K1"], "max_abs_err": stats["K1"]["err"],
+         "ms": stats["K1"]["ms"], "plain_ms": stats["K1"]["plain_ms"]},
+        {"name": "K2 conv2d_im2col_gemm (implicit-GEMM conv)", "route": "cuda",
+         "source": "videovector_tpu_torch/csrc/conv_gemm.cu",
+         "replaces": "videovector_tpu/ops/pallas/conv_gemm.py:18",
+         "launches": launches["K2"], "max_abs_err": stats["K2"]["err"],
+         "ms": stats["K2"]["ms"], "plain_ms": stats["K2"]["plain_ms"]},
+    ]
+    log("(ms, plain_ms: summed over the serving path's shapes at batch "
+        f"{BATCH}: K1 fc6 + fc7 + tower, K2 conv1..conv5)")
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except Exception:  # noqa: BLE001 - report any failed phase, exit non-zero
+        traceback.print_exc()
+        sys.exit(1)

@@ -1,0 +1,106 @@
+"""Builds the Hopper kernels in `csrc/` at first use and loads them.
+
+All `csrc/*.cu` sources compile with `nvcc` into one shared library with a
+plain C interface (no PyTorch headers, so a build takes seconds), which is
+loaded through `ctypes`. The library lands in `_build/` beside this file,
+named after a hash of the sources and the flags, so an edited source
+rebuilds and an unchanged one is reused. There is no fallback: a missing
+`nvcc` or a failed build raises with the compiler's output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+# C signatures of the kernels' entry points (csrc/*.cu). Every pointer and
+# the stream is a c_void_p: an undeclared pointer would be cut to 32 bits.
+SIGNATURES = {
+    "vv_matmul": [_P, _P, _P, _P, _I, _I, _I] + [_L] * 6 + [_I] * 4 + [_P],
+    "vv_conv_gemm": [_P, _P, _P, _P] + [_I] * 13 + [_L] * 12 + [_I] * 4 + [_P],
+}
+
+
+def _find_nvcc() -> str | None:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    return str(cand) if cand.is_file() else None
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC_DIR.glob("*.cu*")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build_library(build_dir: Path = BUILD_DIR) -> Path:
+    """Compiles csrc/*.cu into `build_dir` unless a build of the same sources
+    is there already; returns the library's path."""
+    lib = Path(build_dir) / f"libvvtorch_{_digest()}.so"
+    if lib.is_file():
+        return lib
+    nvcc = _find_nvcc()
+    if nvcc is None:
+        raise RuntimeError(
+            "nvcc not found (looked on PATH and in CUDA_HOME/bin): the Hopper "
+            "kernels of videovector_tpu_torch cannot be built")
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    # build under a temporary name, then rename: a concurrent build never
+    # loads a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=lib.parent)
+    os.close(fd)
+    cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", tmp,
+           *map(str, _sources())]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                f"{proc.stderr}{proc.stdout}")
+        os.replace(tmp, lib)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """The kernels' library, built if needed, with argument types declared."""
+    lib = ctypes.CDLL(str(build_library()))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raises if a kernel's C entry point returned a CUDA error code."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc} at launch")
