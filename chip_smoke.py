@@ -7,11 +7,15 @@ Run from the root of a checkout. It
 1. builds the Hopper kernels from videovector_tpu_torch/csrc with nvcc;
 2. holds each kernel against its plain PyTorch version on the card, at the
    shapes the serving path gives it and at the JAX package's kernel-test
-   shapes (tolerances below);
+   shapes (tolerances below), and times K1's sm90 route at fc6, fc7 and the
+   tower (batch 50 and 256) and at the training tower (1920 rows, for
+   information) against its plain version and, as a yardstick that is never
+   on the path, torch.matmul (cuBLAS) on the same bf16 operands;
 3. drives RetrievalPipeline at full width (the default config: 256x256 uint8
    frames, 227 crop, CaffeNet conv1..fc7, 4096-d tower, bf16) with random
    weights from a seeded torch.Generator: a 4-video gallery padded to 20,000
-   rows, then 3 queries of 50 frames, counting kernel launches;
+   rows, then 3 queries of 50 frames, counting kernel launches (every K1
+   launch must take the sm90 route);
 4. compares embed_frames through the kernels with the plain versions, and
    times both at batch 50 and 256 with CUDA events.
 
@@ -23,6 +27,7 @@ before it is the per-kernel JSON summary.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -43,6 +48,16 @@ GALLERY_ROWS = 20_000
 N_QUERIES = 3
 K1_PER_EMBED = 3          # fc6, fc7, tower
 K2_PER_EMBED = 8          # conv1..conv5 launches: 1 + 2 + 1 + 2 + 2 groups
+# (rows, name, K, N) of K1's calls: the serving path's at batch 50 and 256,
+# and the training slice's tower (bench.py's B = 128 x 15 roles)
+K1_FC = (("fc6", 9216, 4096), ("fc7", 4096, 4096), ("tower", 4096, 4096))
+K1_CASES = tuple((m, *fc) for m in (BATCH, 256) for fc in K1_FC) + \
+    ((1920, "train tower", 4096, 4096),)
+# K1's timings cycle through copies of w that together exceed the H100's
+# 50 MB L2 by this factor, so that each call reads its weights from HBM as
+# it does on the path (fc6, fc7 and the tower evict each other there)
+L2_BYTES = 50 * 2**20
+L2_EXCESS = 2.5
 
 
 def log(*args) -> None:
@@ -71,6 +86,20 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_graph_ms(fn, args: list, iters: int = 10) -> float:
+    """Mean device time of one fn(a) in ms: a CUDA graph holds one call for
+    each a in `args` and is replayed `iters` times, so the host's cost of a
+    call (measured apart) stays out of the number."""
+    for a in args:
+        fn(a)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for a in args:
+            fn(a)
+    return time_ms(graph.replay, iters=iters, warmup=2) / len(args)
 
 
 def compare(name: str, got: torch.Tensor, ref: torch.Tensor) -> float:
@@ -112,21 +141,54 @@ def kernel_phases(dev, gen):
                       k1.matmul(x, w, b, fuse_relu=relu),
                       k1.matmul_plain(x, w, b, fuse_relu=relu))
         stats["K1"]["err"] = max(stats["K1"]["err"], err)
-    log(f"K1 at the serving path's shapes (batch {BATCH}, bf16 -> f32, "
-        f"bias + ReLU):")
-    for name, k, n in (("fc6", 9216, 4096), ("fc7", 4096, 4096),
-                       ("tower", 4096, 4096)):
-        x, w, b = randn(BATCH, k, dtype=bf), randn(k, n, dtype=bf, std=0.02), randn(n)
-        run = lambda: k1.matmul(x, w, b, fuse_relu=True)
-        plain = lambda: k1.matmul_plain(x, w, b, fuse_relu=True)
-        err = compare(f"K1 {name} {BATCH}x{k}x{n}", run(), plain())
-        ms_p, ms_k = time_ms(plain), time_ms(run)
-        ms_k2, ms_p2 = time_ms(run), time_ms(plain)
-        ms, ms_plain = (ms_k + ms_k2) / 2, (ms_p + ms_p2) / 2
-        log(f"  K1 {name} time: kernel {ms:.4f} ms, plain {ms_plain:.4f} ms")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    log("K1 sm90 route at the serving path's shapes and the training tower "
+        "(bf16 -> f32, bias + ReLU; device time per call from CUDA graphs "
+        "over copies of w beyond L2; cuBLAS = torch.matmul on the same bf16 "
+        "operands, a yardstick only):")
+    for m, name, k, n in K1_CASES:
+        x, b = randn(m, k, dtype=bf), randn(n)
+        ws = [randn(k, n, dtype=bf, std=0.02)
+              for _ in range(max(2, math.ceil(L2_EXCESS * L2_BYTES / (k * n * 2))))]
+        if k1.k1_route(x, ws[0], torch.float32) != "sm90":
+            raise AssertionError(f"K1 {name}: not on the sm90 route")
+        run = lambda w: k1.matmul(x, w, b, fuse_relu=True)
+        plain = lambda w: k1.matmul_plain(x, w, b, fuse_relu=True)
+        cublas = lambda w: torch.matmul(x, w)
+        before = k1.matmul.launches_sm90
+        err = compare(f"K1 {name} {m}x{k}x{n}", run(ws[0]), plain(ws[0]))
+        if k1.matmul.launches_sm90 != before + 1:
+            raise AssertionError(f"K1 {name}: the sm90 route did not launch")
+        if m == BATCH and name == "fc6":
+            got = [k1.matmul(x, ws[0], b, fuse_relu=True, out_dtype=bf)
+                   for _ in range(2)]
+            compare(f"K1 {name} {m}x{k}x{n} bf16 out", got[0],
+                    k1.matmul_plain(x, ws[0], b, fuse_relu=True, out_dtype=bf))
+            if not torch.equal(got[0], got[1]):
+                raise AssertionError("K1: two runs of the split-K route differ")
+        order = (plain, run, cublas, cublas, run, plain)
+        t = [time_graph_ms(fn, ws) for fn in order]
+        ms, ms_plain, ms_cublas = (t[1] + t[4]) / 2, (t[0] + t[5]) / 2, (t[2] + t[3]) / 2
+        _, splits = k1.k1_split_plan(m, n, k, sms)
+        gbytes = (m * k * 2 + k * n * 2 + m * n * 4) / 1e9
+        log(f"  K1 {name} {m}x{k}x{n}: kernel {ms:.4f} ms ({splits} splits, "
+            f"{gbytes / ms * 1e3:.0f} GB/s, {2 * m * k * n / ms / 1e9:.1f} "
+            f"TFLOP/s), plain {ms_plain:.4f} ms, cuBLAS {ms_cublas:.4f} ms")
         stats["K1"]["err"] = max(stats["K1"]["err"], err)
-        stats["K1"]["ms"] += ms
-        stats["K1"]["plain_ms"] += ms_plain
+        if m == BATCH:
+            stats["K1"]["ms"] += ms
+            stats["K1"]["plain_ms"] += ms_plain
+        if name == "fc7" and m == BATCH:
+            # the host's cost of one call (checks, allocations, two tensor
+            # maps encoded, the ctypes call) against its device time
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(200):
+                run(ws[i % len(ws)])
+            host_us = (time.perf_counter() - t0) / 200 * 1e6
+            torch.cuda.synchronize()
+            log(f"  K1 {name} host time per call (enqueue, unsynchronised): "
+                f"{host_us:.1f} us against {ms * 1e3:.1f} us on the device")
 
     log("K2 at the JAX kernel-test shape (2x3x9x9, 8 filters 3x3, stride 2, "
         "pad 1, f32):")
@@ -192,7 +254,7 @@ def slice_phase(dev):
     torch.cuda.synchronize()
 
     # the main path, counted: gallery build, then the queries
-    matmul.launches = conv2d_im2col_gemm.launches = 0
+    matmul.launches = matmul.launches_sm90 = conv2d_im2col_gemm.launches = 0
     t0 = time.perf_counter()
     gal, ids = pipe.build_gallery(params, [(v, h, w, m) for v in videos],
                                   [np.full(BATCH, i) for i in range(len(videos))])
@@ -206,10 +268,14 @@ def slice_phase(dev):
     n_embed = len(videos) + N_QUERIES
     log(f"main path: {len(videos)} gallery batches + {N_QUERIES} queries of "
         f"{BATCH} frames in {seconds:.3f} s (host clock, first calls "
-        f"included); launches {launches}")
+        f"included); launches {launches}, of K1 on the sm90 route "
+        f"{matmul.launches_sm90}")
     expect = {"K1": K1_PER_EMBED * n_embed, "K2": K2_PER_EMBED * n_embed}
     if launches != expect:
         raise AssertionError(f"launch counts {launches} != expected {expect}")
+    if matmul.launches_sm90 != matmul.launches:
+        raise AssertionError(f"{matmul.launches - matmul.launches_sm90} K1 "
+                             "launches of the path left the sm90 route")
 
     if gallery.shape != (GALLERY_ROWS, cfg.embed_dim):
         raise AssertionError(f"gallery shape {tuple(gallery.shape)}")
@@ -260,24 +326,32 @@ def slice_phase(dev):
     return launches, pipe, params, videos[0], (h, w, m)
 
 
-def device_breakdown(pipe, params, pix, hwm) -> None:
-    """Profiles one embed_frames (after warm-up): device time by kernel, and
-    a failure if a cuBLAS or cuDNN GEMM/conv ran there. Reports "not
-    measured" if the profiler sees no device activity."""
+def device_breakdown(pipe, params, pix, hwm, calls: int = 5) -> None:
+    """Profiles a window of `calls` back-to-back embed_frames (after
+    warm-up): device time by kernel per call, the device's idle share over
+    an unprofiled window of the same calls, and a failure if a cuBLAS or
+    cuDNN GEMM/conv ran there. Reports "not measured" if the profiler sees
+    no device activity."""
     from torch.profiler import ProfilerActivity, profile
-    pipe.embed_frames(params, pix, *hwm)
+
+    def window():
+        for _ in range(calls):
+            pipe.embed_frames(params, pix, *hwm)
+    window()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()           # one call, unprofiled, host clock
-    pipe.embed_frames(params, pix, *hwm)
+    t0 = time.perf_counter()           # unprofiled window, host clock
+    window()
+    enqueue_us = (time.perf_counter() - t0) * 1e6 / calls
     torch.cuda.synchronize()
-    wall_us = (time.perf_counter() - t0) * 1e6
+    wall_us = (time.perf_counter() - t0) * 1e6 / calls
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        pipe.embed_frames(params, pix, *hwm)
+        window()
         torch.cuda.synchronize()
     by_name: dict[str, float] = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us() / calls)
     if not by_name:
         log("profiler: no device events (breakdown and library-kernel check "
             "not measured)")
@@ -287,14 +361,23 @@ def device_breakdown(pipe, params, pix, hwm) -> None:
                                                      "cutlass", "gemv", "sm90_"))
                      or ("gemm" in n.lower() and "vv::" not in n))
     busy = sum(by_name.values())
-    k1 = sum(v for n, v in by_name.items() if "vv::MatGeom" in n)
-    k2 = sum(v for n, v in by_name.items() if "vv::ConvGeom" in n)
-    log(f"profile of one embed_frames (batch {pix.shape[0]}): device busy "
-        f"{busy:.1f} us (profiled call) vs {wall_us:.1f} us host wall of an "
-        f"unprofiled call, idle share {1 - busy / wall_us:.3f}; K1 "
-        f"{k1:.1f} us, K2 {k2:.1f} us, other {busy - k1 - k2:.1f} us over "
-        f"{len(by_name)} distinct kernels; top 8:")
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+
+    def share(*keys):
+        return sum(v for n, v in by_name.items() if any(s in n for s in keys))
+    # K1: the sm90 route's GEMM and split-K reduction, or the core (MatGeom)
+    k1_gemm, k1_reduce = share("gemm_tma_wgmma", "vv::MatGeom"), share("splitk_reduce")
+    k1, k2 = k1_gemm + k1_reduce, share("vv::ConvGeom")
+    casts = share("copy_kernel")
+    log(f"profile of {calls} back-to-back embed_frames (batch "
+        f"{pix.shape[0]}), per call: device busy {busy:.1f} us (profiled "
+        f"window) vs {wall_us:.1f} us host wall of an unprofiled window "
+        f"({enqueue_us:.1f} us for the host to enqueue), idle share "
+        f"{1 - busy / wall_us:.3f}; K1 "
+        f"{k1:.1f} us (GEMM {k1_gemm:.1f}, split-K reduction "
+        f"{k1_reduce:.1f}), K2 {k2:.1f} us, other {busy - k1 - k2:.1f} us "
+        f"(of which dtype casts and copies {casts:.1f}) over {len(by_name)} "
+        "distinct kernels; top 12:")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         log(f"    {us:9.1f} us  {name[:110]}")
     if library:
         raise AssertionError(f"library GEMM/conv kernels on the path: {library}")
@@ -329,8 +412,9 @@ def main() -> int:
         device_breakdown(pipe, params, pix, hwm)
 
     kernels = [
-        {"name": "K1 matmul (GEMM + bias + ReLU epilogue)", "route": "cuda",
-         "source": "videovector_tpu_torch/csrc/matmul.cu",
+        {"name": "K1 matmul (TMA + wgmma GEMM, split-K, bias + ReLU "
+                 "epilogue)", "route": "cuda",
+         "source": "videovector_tpu_torch/csrc/matmul_sm90.cu",
          "replaces": "videovector_tpu/ops/pallas/matmul.py:50",
          "launches": launches["K1"], "max_abs_err": stats["K1"]["err"],
          "ms": stats["K1"]["ms"], "plain_ms": stats["K1"]["plain_ms"]},
@@ -341,7 +425,8 @@ def main() -> int:
          "ms": stats["K2"]["ms"], "plain_ms": stats["K2"]["plain_ms"]},
     ]
     log("(ms, plain_ms: summed over the serving path's shapes at batch "
-        f"{BATCH}: K1 fc6 + fc7 + tower, K2 conv1..conv5)")
+        f"{BATCH}: K1 fc6 + fc7 + tower with w cycled beyond L2, K2 "
+        "conv1..conv5)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,6 @@
-"""The port's Hopper kernels (K1, K2) against their plain versions on a CUDA
-card: ragged shapes, strided operands, groups, both dtypes, and the launch
-preconditions. Skipped without a card.
+"""The port's Hopper kernels (K1's two routes, K2) against their plain
+versions on a CUDA card: ragged shapes, strided operands, groups, both
+dtypes, split-K, and the launch preconditions. Skipped without a card.
 
 On the card (where JAX is absent, so the repo's conftest cannot load):
     python -m pytest tests/test_torch_cuda_kernels.py -m cuda --noconftest -q
@@ -72,6 +72,62 @@ def test_k1_rejects(dev):
         k1.matmul(x, torch.ones(7, 4, device=dev))
     with pytest.raises(NotImplementedError, match="training slice"):
         k1.matmul(x.requires_grad_(), torch.ones(8, 4, device=dev))
+    xb = torch.ones(64, 64, device=dev, dtype=torch.bfloat16)
+    assert k1.k1_route(xb, xb, torch.float32) == "sm90"
+    with pytest.raises(NotImplementedError, match="training slice"):
+        k1.matmul(xb.requires_grad_(), xb)
+
+
+def _randn(gen, *shape, dev):
+    return torch.randn(shape, generator=gen, device=dev).bfloat16()
+
+
+@pytest.mark.parametrize("n", [8, 520, 4096])
+@pytest.mark.parametrize("k", [64, 4096, 9216, 1000])
+@pytest.mark.parametrize("m", [1, 50, 63, 64, 65, 256, 1920])
+def test_k1_sm90_matches_plain_and_core(dev, m, k, n):
+    """The sm90 route against the plain version and the core route (w read
+    through a transposed view of a transposed copy), both output types,
+    with and without bias and ReLU."""
+    gen = torch.Generator(device=dev).manual_seed(m * 7 + k * 3 + n)
+    x, w = _randn(gen, m, k, dev=dev), _randn(gen, k, n, dev=dev)
+    b = torch.randn(n, generator=gen, device=dev)
+    w_core = w.T.contiguous().T
+    assert k1.k1_route(x, w, torch.float32) == "sm90"
+    assert k1.k1_route(x, w_core, torch.float32) == "core"
+    for out_dtype in (torch.float32, torch.bfloat16):
+        for bias, relu in ((None, False), (b, True)):
+            before = (k1.matmul.launches, k1.matmul.launches_sm90)
+            got = k1.matmul(x, w, bias, fuse_relu=relu, out_dtype=out_dtype)
+            assert (k1.matmul.launches, k1.matmul.launches_sm90) == \
+                (before[0] + 1, before[1] + 1)
+            _close(got, k1.matmul_plain(x, w, bias, fuse_relu=relu,
+                                        out_dtype=out_dtype))
+            _close(got, k1.matmul(x, w_core, bias, fuse_relu=relu,
+                                  out_dtype=out_dtype))
+            assert k1.matmul.launches_sm90 == before[1] + 1
+
+
+@pytest.mark.parametrize("mkn", [(50, 9216, 4096), (256, 1000, 520)])
+def test_k1_sm90_split_counts_agree_and_repeat_bitwise(dev, mkn, monkeypatch):
+    """One split against the plan's and against one split per BK tile; each
+    run twice gives the same bits (no atomics in the split-K reduction)."""
+    m, k, n = mkn
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x, w = _randn(gen, m, k, dev=dev), _randn(gen, k, n, dev=dev)
+    b = torch.randn(n, generator=gen, device=dev)
+    plan = k1.k1_split_plan
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    block_m, planned = plan(m, n, k, sms)
+    assert planned > 1
+    ref = k1.matmul_plain(x, w, b, fuse_relu=True, out_dtype=torch.bfloat16)
+    for splits in (1, planned, -(-k // k1.SM90_BK)):
+        monkeypatch.setattr(k1, "k1_split_plan",
+                            lambda *_, s=splits: (block_m, s))
+        runs = [k1.matmul(x, w, b, fuse_relu=True, out_dtype=torch.bfloat16)
+                for _ in range(2)]
+        _close(runs[0], ref)
+        assert torch.equal(runs[0], runs[1]), splits
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -1,8 +1,9 @@
 """Builds the Hopper kernels in `csrc/` at first use and loads them.
 
-All `csrc/*.cu` sources compile with `nvcc` into one shared library with a
-plain C interface (no PyTorch headers, so a build takes seconds), which is
-loaded through `ctypes`. The library lands in `_build/` beside this file,
+Each `csrc/*.cu` source compiles with its own `nvcc`, all started together,
+and the objects link into one shared library with a plain C interface (no
+PyTorch headers, so a build takes seconds), which is loaded through
+`ctypes`. The library lands in `_build/` beside this file,
 named after a hash of the sources and the flags, so an edited source
 rebuilds and an unchanged one is reused. There is no fallback: a missing
 `nvcc` or a failed build raises with the compiler's output.
@@ -23,7 +24,7 @@ PKG_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -33,6 +34,7 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     "vv_matmul": [_P, _P, _P, _P, _I, _I, _I] + [_L] * 6 + [_I] * 4 + [_P],
     "vv_conv_gemm": [_P, _P, _P, _P] + [_I] * 13 + [_L] * 12 + [_I] * 4 + [_P],
+    "vv_matmul_sm90": [_P] * 5 + [_I] * 3 + [_L] * 4 + [_I] * 5 + [_P],
 }
 
 
@@ -58,6 +60,13 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _raise_on_failure(cmd: list[str], returncode: int, out: str,
+                      err: str) -> None:
+    if returncode != 0:
+        raise RuntimeError(f"nvcc failed ({returncode}): {' '.join(cmd)}\n"
+                           f"{err}{out}")
+
+
 def build_library(build_dir: Path = BUILD_DIR) -> Path:
     """Compiles csrc/*.cu into `build_dir` unless a build of the same sources
     is there already; returns the library's path."""
@@ -70,22 +79,23 @@ def build_library(build_dir: Path = BUILD_DIR) -> Path:
             "nvcc not found (looked on PATH and in CUDA_HOME/bin): the Hopper "
             "kernels of videovector_tpu_torch cannot be built")
     lib.parent.mkdir(parents=True, exist_ok=True)
-    # build under a temporary name, then rename: a concurrent build never
+    # build in a temporary directory, then rename: a concurrent build never
     # loads a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=lib.parent)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", tmp,
-           *map(str, _sources())]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stderr}{proc.stdout}")
-        os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    with tempfile.TemporaryDirectory(dir=lib.parent) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in _sources()]
+        cmds = [[nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-c", "-o", str(obj),
+                 str(src)] for obj, src in zip(objs, _sources())]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for cmd in cmds]
+        outs = [proc.communicate() for proc in procs]
+        for cmd, proc, (out, err) in zip(cmds, procs, outs):
+            _raise_on_failure(cmd, proc.returncode, out, err)
+        so = Path(tmp) / lib.name
+        link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(so), *map(str, objs)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        _raise_on_failure(link, proc.returncode, proc.stdout, proc.stderr)
+        os.replace(so, lib)
     return lib
 
 

@@ -52,6 +52,6 @@ extern "C" int vv_conv_gemm(const void* x, const void* w, const void* bias,
   g.son = soc;
   g.soh = soh;
   g.sow = sow;
-  return vv::launch(x, w, static_cast<const float*>(bias), out, g, dtype_in,
-                    dtype_out, relu, device, stream);
+  return vv::launch<vv::kEpiConv>(x, w, static_cast<const float*>(bias), out, g,
+                                  dtype_in, dtype_out, relu, device, stream);
 }

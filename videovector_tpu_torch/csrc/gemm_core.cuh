@@ -13,11 +13,13 @@
 // - bf16 operands: tensor cores through WMMA 16x16x16 (mma.sync), f32 sums;
 // - f32 operands: FMA register tiles in f32, so f32 results keep f32 accuracy.
 //
-// Epilogue, in f32 arithmetic with rounding to the output type TO:
-//   v = round(acc); if bias: v = round(v + round(bias[n])); if relu: v = max(v, 0)
-// For an f32 output this is act(x.w + b); for a bf16 output it is the bf16
-// conv epilogue of models/mednet.py (the conv emits bf16, bias and ReLU
-// follow in bf16).
+// Epilogue, in f32 arithmetic with rounding to the output type TO, in one of
+// two modes (`Epilogue`), which agree for an f32 output (act(x.w + b)):
+// - kEpiK1 (K1): round(act(acc + bias[n])), one rounding at the end, as the
+//   Pallas `_matmul_kernel` does;
+// - kEpiConv (K2): v = round(acc); if bias: v = round(v + round(bias[n]));
+//   then act: the bf16 conv of models/mednet.py, which emits bf16 and adds
+//   the bias and applies ReLU in bf16.
 //
 // This first version is simple on purpose: one tile in shared memory and
 // the next in registers, no cp.async/TMA pipeline and no wgmma. Tile sizes
@@ -216,19 +218,33 @@ __device__ __forceinline__ void k_loop(const T* __restrict__ a,
   }
 }
 
-template <typename TO, class G>
+enum Epilogue { kEpiK1 = 0, kEpiConv = 1 };
+
+// The epilogue of output column n on its f32 sum (modes above).
+template <int EPI, typename TO>
+__device__ __forceinline__ TO epilogue(float acc, const float* __restrict__ bias,
+                                       int n, int relu) {
+  float v;
+  if (EPI == kEpiK1) {
+    v = bias ? acc + bias[n] : acc;
+  } else {
+    v = round_to<TO>(acc);
+    if (bias) v = round_to<TO>(v + round_to<TO>(bias[n]));
+  }
+  if (relu && v < 0.f) v = 0.f;  // keeps NaN, as max(x, 0) does
+  return from_f32<TO>(v);
+}
+
+template <int EPI, typename TO, class G>
 __device__ __forceinline__ void store_one(TO* __restrict__ out,
                                           const float* __restrict__ bias,
                                           const G& g, const RowInfo& ri, int n,
                                           float acc, int relu) {
-  float v = round_to<TO>(acc);
-  if (bias) v = round_to<TO>(v + round_to<TO>(bias[n]));
-  if (relu && v < 0.f) v = 0.f;  // keeps NaN, as max(x, 0) does
-  out[ri.o + n * g.son] = from_f32<TO>(v);
+  out[ri.o + n * g.son] = epilogue<EPI, TO>(acc, bias, n, relu);
 }
 
 // bf16 operands, tensor cores.
-template <class C, class G, typename TO>
+template <int EPI, class C, class G, typename TO>
 __global__ void __launch_bounds__(C::NT)
     gemm_mma(const bf16* __restrict__ a, const bf16* __restrict__ b,
              const float* __restrict__ bias, TO* __restrict__ out, G g,
@@ -284,7 +300,7 @@ __global__ void __launch_bounds__(C::NT)
       for (int e = lane; e < 256; e += 32) {
         const int lr = wm * FM * 16 + i * 16 + e / 16;
         const int n = n0 + wn * FN * 16 + j * 16 + e % 16;
-        if (m0 + lr < g.M && n < g.N) store_one<TO>(out, bias, g, rows[lr], n, st[e], relu);
+        if (m0 + lr < g.M && n < g.N) store_one<EPI, TO>(out, bias, g, rows[lr], n, st[e], relu);
       }
       __syncwarp();
     }
@@ -292,7 +308,7 @@ __global__ void __launch_bounds__(C::NT)
 }
 
 // f32 operands, FMA register tiles.
-template <class C, class G, typename TO>
+template <int EPI, class C, class G, typename TO>
 __global__ void __launch_bounds__(C::NT)
     gemm_fma(const float* __restrict__ a, const float* __restrict__ b,
              const float* __restrict__ bias, TO* __restrict__ out, G g,
@@ -339,12 +355,12 @@ __global__ void __launch_bounds__(C::NT)
 #pragma unroll
     for (int j = 0; j < C::TN; ++j) {
       const int n = n0 + tx + j * CS;
-      if (n < g.N) store_one<TO>(out, bias, g, rows[lr], n, acc[i][j], relu);
+      if (n < g.N) store_one<EPI, TO>(out, bias, g, rows[lr], n, acc[i][j], relu);
     }
   }
 }
 
-template <class C, class G>
+template <int EPI, class C, class G>
 void launch_cfg(const void* a, const void* b, const float* bias, void* out,
                 const G& g, int dtype_in, int dtype_out, int relu,
                 cudaStream_t s) {
@@ -353,21 +369,22 @@ void launch_cfg(const void* a, const void* b, const float* bias, void* out,
     const bf16* pa = static_cast<const bf16*>(a);
     const bf16* pb = static_cast<const bf16*>(b);
     if (dtype_out == kBF16)
-      gemm_mma<C, G, bf16><<<grid, C::NT, 0, s>>>(pa, pb, bias, static_cast<bf16*>(out), g, relu);
+      gemm_mma<EPI, C, G, bf16><<<grid, C::NT, 0, s>>>(pa, pb, bias, static_cast<bf16*>(out), g, relu);
     else
-      gemm_mma<C, G, float><<<grid, C::NT, 0, s>>>(pa, pb, bias, static_cast<float*>(out), g, relu);
+      gemm_mma<EPI, C, G, float><<<grid, C::NT, 0, s>>>(pa, pb, bias, static_cast<float*>(out), g, relu);
   } else {
     const float* pa = static_cast<const float*>(a);
     const float* pb = static_cast<const float*>(b);
     if (dtype_out == kBF16)
-      gemm_fma<C, G, bf16><<<grid, C::NT, 0, s>>>(pa, pb, bias, static_cast<bf16*>(out), g, relu);
+      gemm_fma<EPI, C, G, bf16><<<grid, C::NT, 0, s>>>(pa, pb, bias, static_cast<bf16*>(out), g, relu);
     else
-      gemm_fma<C, G, float><<<grid, C::NT, 0, s>>>(pa, pb, bias, static_cast<float*>(out), g, relu);
+      gemm_fma<EPI, C, G, float><<<grid, C::NT, 0, s>>>(pa, pb, bias, static_cast<float*>(out), g, relu);
   }
 }
 
-// Launches the core on `stream` and returns cudaGetLastError() as an int.
-template <class G>
+// Launches the core on `stream` with epilogue mode EPI and returns
+// cudaGetLastError() as an int.
+template <int EPI, class G>
 int launch(const void* a, const void* b, const float* bias, void* out,
            const G& g, int dtype_in, int dtype_out, int relu, int device,
            void* stream) {
@@ -383,9 +400,9 @@ int launch(const void* a, const void* b, const float* bias, void* out,
   const long long big_blocks = (long long)((g.M + BigCfg::BM - 1) / BigCfg::BM) *
                                ((g.N + BigCfg::BN - 1) / BigCfg::BN);
   if (big_blocks >= sms)
-    launch_cfg<BigCfg>(a, b, bias, out, g, dtype_in, dtype_out, relu, s);
+    launch_cfg<EPI, BigCfg>(a, b, bias, out, g, dtype_in, dtype_out, relu, s);
   else
-    launch_cfg<SmallCfg>(a, b, bias, out, g, dtype_in, dtype_out, relu, s);
+    launch_cfg<EPI, SmallCfg>(a, b, bias, out, g, dtype_in, dtype_out, relu, s);
   return (int)cudaGetLastError();
 }
 

@@ -23,6 +23,6 @@ extern "C" int vv_matmul(const void* x, const void* w, const void* bias,
                          long long som, long long son, int dtype_in,
                          int dtype_out, int relu, int device, void* stream) {
   vv::MatGeom g{M, N, K, sxm, sxk, swk, swn, som, son};
-  return vv::launch(x, w, static_cast<const float*>(bias), out, g, dtype_in,
-                    dtype_out, relu, device, stream);
+  return vv::launch<vv::kEpiK1>(x, w, static_cast<const float*>(bias), out, g,
+                                dtype_in, dtype_out, relu, device, stream);
 }

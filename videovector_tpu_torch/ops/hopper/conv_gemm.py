@@ -9,7 +9,9 @@ Two entry points share the kernel and its launch count,
 `conv2d_im2col_gemm.launches`:
 - `conv2d_im2col_gemm`: the JAX signature (NCHW/OIHW, f32 out, no groups);
 - `conv2d_gemm_nhwc`: MedNet's conv (NHWC/HWIO, groups as one launch per
-  group on channel-slice views, K1's bias + ReLU epilogue, chosen out dtype).
+  group on channel-slice views, bias + ReLU epilogue, chosen out dtype).
+The epilogue is MedNet's (`conv_epilogue_plain`), not K1's: a bf16 output
+rounds the sum, adds the rounded bias, rounds again, then applies ReLU.
 Each runs its plain version (`*_plain`: im2col + matmul) for CPU tensors and
 launches the kernel for CUDA tensors; on any other device it raises.
 """
@@ -22,8 +24,18 @@ from videovector_tpu_torch import _build
 from videovector_tpu_torch.ops.conv import im2col
 from videovector_tpu_torch.ops.hopper.matmul import (
     DTYPE_CODES, INT_MAX, bias_f32, check_cuda_operands, dtype_code,
-    matmul_plain,
 )
+
+
+def conv_epilogue_plain(acc: torch.Tensor, b: torch.Tensor | None,
+                        fuse_relu: bool, out_dtype: torch.dtype) -> torch.Tensor:
+    """K2's epilogue on an f32 sum, as models/mednet.py's bf16 conv: round
+    to out_dtype, add the bias rounded to out_dtype, ReLU (the f32 case is
+    act(acc + b), as K1's)."""
+    y = acc.to(out_dtype)
+    if b is not None:
+        y = y + b.to(out_dtype)
+    return torch.relu(y) if fuse_relu else y
 
 
 def _out_hw(h, w, kh, kw, stride, pad):
@@ -61,8 +73,8 @@ def _conv_plain(x, w, b, stride, pad, groups, fuse_relu, out_dtype):
         lhs = cols[:, g * ck:(g + 1) * ck].permute(0, 2, 3, 1).reshape(-1, ck)
         rhs = w[g * og:(g + 1) * og].float().reshape(og, ck).T
         bg = None if b is None else b[g * og:(g + 1) * og]
-        outs.append(matmul_plain(lhs, rhs, bg, fuse_relu=fuse_relu,
-                                 out_dtype=out_dtype).reshape(n, oh, ow, og))
+        outs.append(conv_epilogue_plain(lhs @ rhs, bg, fuse_relu,
+                                        out_dtype).reshape(n, oh, ow, og))
     return torch.cat(outs, dim=3).permute(0, 3, 1, 2)
 
 
