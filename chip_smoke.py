@@ -7,17 +7,24 @@ Run from the root of a checkout. It
 1. builds the Hopper kernels from videovector_tpu_torch/csrc with nvcc;
 2. holds each kernel against its plain PyTorch version on the card, at the
    shapes the serving path gives it and at the JAX package's kernel-test
-   shapes (tolerances below), and times K1's sm90 route at fc6, fc7 and the
+   shapes (tolerances below), and times both kernels' sm90 routes by
+   CUDA-graph replay beside their bounds (computed from the shapes and the
+   H100's published peaks) and, as yardsticks that are never on the path,
+   one PyTorch call computing the same function: K1 at fc6, fc7 and the
    tower (batch 50 and 256) and at the training tower (1920 rows, for
-   information) against its plain version and, as a yardstick that is never
-   on the path, torch.matmul (cuBLAS) on the same bf16 operands;
+   information) against its plain version and torch.matmul (cuBLAS); K2 at
+   CaffeNet's five convs (batch 50 and 256) against its plain version, its
+   core route and F.conv2d (cuDNN), checking that two runs give the same
+   bits;
 3. drives RetrievalPipeline at full width (the default config: 256x256 uint8
    frames, 227 crop, CaffeNet conv1..fc7, 4096-d tower, bf16) with random
    weights from a seeded torch.Generator: a 4-video gallery padded to 20,000
    rows, then 3 queries of 50 frames, counting kernel launches (every K1
-   launch must take the sm90 route);
+   and K2 launch must take its sm90 route);
 4. compares embed_frames through the kernels with the plain versions, and
-   times both at batch 50 and 256 with CUDA events.
+   times both at batch 50 and 256 with CUDA events, then profiles a window
+   of calls (device time by kernel, idle share, no cuBLAS or cuDNN GEMM or
+   conv on the path).
 
 Exits non-zero, with no result line, without a CUDA card or outside a
 checkout. The last line of stdout is {"ok": true, "device": {...}}; the line
@@ -47,7 +54,16 @@ BATCH = 50
 GALLERY_ROWS = 20_000
 N_QUERIES = 3
 K1_PER_EMBED = 3          # fc6, fc7, tower
-K2_PER_EMBED = 8          # conv1..conv5 launches: 1 + 2 + 1 + 2 + 2 groups
+K2_PER_EMBED = 5          # conv1..conv5, one sm90 launch each
+# CaffeNet's convs: name, input hw, C, O, kernel, stride, pad, groups
+CAFFENET_CONVS = (("conv1", 227, 3, 96, 11, 4, 0, 1),
+                  ("conv2", 27, 96, 256, 5, 1, 2, 2),
+                  ("conv3", 13, 256, 384, 3, 1, 1, 1),
+                  ("conv4", 13, 384, 384, 3, 1, 1, 2),
+                  ("conv5", 13, 384, 256, 3, 1, 1, 2))
+# the H100 SXM's published peaks (dense bf16 tensor cores, HBM3)
+PEAK_FLOPS = 989e12
+PEAK_BYTES = 3.35e12
 # (rows, name, K, N) of K1's calls: the serving path's at batch 50 and 256,
 # and the training slice's tower (bench.py's B = 128 x 15 roles)
 K1_FC = (("fc6", 9216, 4096), ("fc7", 4096, 4096), ("tower", 4096, 4096))
@@ -102,6 +118,19 @@ def time_graph_ms(fn, args: list, iters: int = 10) -> float:
     return time_ms(graph.replay, iters=iters, warmup=2) / len(args)
 
 
+def conv_bound_ms(n, hw, c, o, k, s, p, g) -> tuple[float, str]:
+    """The least time the card could take for one bf16 conv with bias
+    (NHWC in, bf16 out): the larger of its bytes (input, weights, bias and
+    output, each once) over HBM bandwidth and its FLOPs over the bf16 peak.
+    """
+    ohw = (hw + 2 * p - k) // s + 1
+    m = n * ohw * ohw
+    flops = 2 * m * k * k * (c // g) * o
+    nbytes = n * hw * hw * c * 2 + k * k * (c // g) * o * 2 + o * 4 + m * o * 2
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
 def compare(name: str, got: torch.Tensor, ref: torch.Tensor) -> float:
     """Max abs error of got vs ref; raises past the dtype's tolerance."""
     torch.cuda.synchronize()
@@ -127,8 +156,8 @@ def kernel_phases(dev, gen):
     def randn(*shape, dtype=torch.float32, std=1.0):
         return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
 
-    stats = {"K1": {"err": 0.0, "ms": 0.0, "plain_ms": 0.0},
-             "K2": {"err": 0.0, "ms": 0.0, "plain_ms": 0.0}}
+    stats = {k: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                 "library_ms": 0.0} for k in ("K1", "K2")}
     bf = torch.bfloat16
 
     log("K1 at the JAX kernel-test shapes (f32):")
@@ -178,6 +207,9 @@ def kernel_phases(dev, gen):
         if m == BATCH:
             stats["K1"]["ms"] += ms
             stats["K1"]["plain_ms"] += ms_plain
+            stats["K1"]["library_ms"] += ms_cublas
+            stats["K1"]["bound_ms"] += max(gbytes * 1e9 / PEAK_BYTES,
+                                           2 * m * k * n / PEAK_FLOPS) * 1e3
         if name == "fc7" and m == BATCH:
             # the host's cost of one call (checks, allocations, two tensor
             # maps encoded, the ctypes call) against its device time
@@ -198,29 +230,94 @@ def kernel_phases(dev, gen):
                   k2.conv2d_im2col_gemm_plain(x, w, b, stride=(2, 2),
                                               pad=(1, 1)))
     stats["K2"]["err"] = max(stats["K2"]["err"], err)
-    log(f"K2 at CaffeNet's convs (batch {BATCH}, NHWC bf16, bias + ReLU):")
-    for name, hw, c, o, ksz, s, p, g in (
-            ("conv1", 227, 3, 96, 11, 4, 0, 1),
-            ("conv2", 27, 96, 256, 5, 1, 2, 2),
-            ("conv3", 13, 256, 384, 3, 1, 1, 1),
-            ("conv4", 13, 384, 384, 3, 1, 1, 2),
-            ("conv5", 13, 384, 256, 3, 1, 1, 2)):
-        x = randn(BATCH, hw, hw, c, dtype=bf)
-        w = randn(ksz, ksz, c // g, o, dtype=bf, std=(2.0 / (ksz * ksz * c // g)) ** 0.5)
-        b = randn(o, std=0.1)
-        kw = dict(stride=(s, s), pad=(p, p), groups=g, fuse_relu=True,
-                  out_dtype=bf)
-        run = lambda: k2.conv2d_gemm_nhwc(x, w, b, **kw)
-        plain = lambda: k2.conv2d_gemm_nhwc_plain(x, w, b, **kw)
-        err = compare(f"K2 {name} g={g}", run(), plain())
-        ms_p, ms_k = time_ms(plain, iters=10), time_ms(run, iters=10)
-        ms_k2, ms_p2 = time_ms(run, iters=10), time_ms(plain, iters=10)
-        ms, ms_plain = (ms_k + ms_k2) / 2, (ms_p + ms_p2) / 2
-        log(f"  K2 {name} time: kernel {ms:.4f} ms, plain {ms_plain:.4f} ms")
-        stats["K2"]["err"] = max(stats["K2"]["err"], err)
-        stats["K2"]["ms"] += ms
-        stats["K2"]["plain_ms"] += ms_plain
+    log("K2 sm90 route at CaffeNet's convs (NHWC bf16, bias + ReLU, bf16 "
+        "out): against the plain version and the core route (x one element "
+        "past an aligned address) at batch 50 and 256, two runs bit for bit; "
+        "device time per "
+        "call from CUDA graphs, in turns, beside cuDNN (F.conv2d on "
+        "channels-last bf16 with the bias, a yardstick only) and the bound "
+        f"({sms} SMs; bf16 {PEAK_FLOPS / 1e12:.0f} TFLOP/s, "
+        f"{PEAK_BYTES / 1e12:.2f} TB/s):")
+    for batch in (BATCH, 256):
+        for name, hw, c, o, ksz, s, p, g in CAFFENET_CONVS:
+            x = randn(batch, hw, hw, c, dtype=bf)
+            w = randn(ksz, ksz, c // g, o, dtype=bf,
+                      std=(2.0 / (ksz * ksz * c // g)) ** 0.5)
+            b = randn(o, std=0.1)
+            # the same values one element past an aligned address: the
+            # operands the core took on the path before the sm90 route
+            x_core = torch.empty(x.numel() + 8, dtype=bf, device=dev)[
+                1:1 + x.numel()].view(x.shape).copy_(x)
+            kw = dict(stride=(s, s), pad=(p, p), groups=g, fuse_relu=True,
+                      out_dtype=bf)
+            if (k2.k2_route(x, w, bf, stride=(s, s), pad=(p, p)) != "sm90"
+                    or k2.k2_route(x_core, w, bf, stride=(s, s),
+                                   pad=(p, p)) != "core"):
+                raise AssertionError(f"K2 {name}: routes not sm90 / core")
+            run = lambda _=None: k2.conv2d_gemm_nhwc(x, w, b, **kw)
+            core = lambda _=None: k2.conv2d_gemm_nhwc(x_core, w, b, **kw)
+            plain = lambda _=None: k2.conv2d_gemm_nhwc_plain(x, w, b, **kw)
+            before = (k2.conv2d_im2col_gemm.launches,
+                      k2.conv2d_im2col_gemm.launches_sm90)
+            got = run()
+            if (k2.conv2d_im2col_gemm.launches,
+                    k2.conv2d_im2col_gemm.launches_sm90) != \
+                    (before[0] + 1, before[1] + 1):
+                raise AssertionError(f"K2 {name}: not one sm90 launch")
+            err = compare(f"K2 {name} b{batch} g={g} sm90 vs plain", got,
+                          plain())
+            compare(f"K2 {name} b{batch} sm90 vs core", got, core())
+            if not torch.equal(got, run()):
+                raise AssertionError(f"K2 {name} b{batch}: two runs differ")
+            stats["K2"]["err"] = max(stats["K2"]["err"], err)
+            xc = x.permute(0, 3, 1, 2)             # channels-last NCHW view
+            wc = w.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            bc = b.to(bf)
+            cudnn = lambda _=None: torch.nn.functional.conv2d(
+                xc, wc, bc, stride=s, padding=p, groups=g)
+            calls = [0, 1, 2, 3]
+            order = ((run, core, plain, cudnn, cudnn, plain, core, run)
+                     if batch == BATCH else (run, cudnn, cudnn, run))
+            t = [time_graph_ms(fn, calls) for fn in order]
+            ms, ms_cudnn = (t[0] + t[-1]) / 2, (t[len(t) // 2 - 1]
+                                                + t[len(t) // 2]) / 2
+            bound, bound_by = conv_bound_ms(batch, hw, c, o, ksz, s, p, g)
+            line = (f"  K2 {name} b{batch}: sm90 {ms:.4f} ms, cuDNN "
+                    f"{ms_cudnn:.4f} ms, bound {bound:.4f} ms ({bound_by}; "
+                    f"{bound / ms:.3f} of it)")
+            if batch == BATCH:
+                ms_core, ms_plain = (t[1] + t[6]) / 2, (t[2] + t[5]) / 2
+                line += f", core {ms_core:.4f} ms, plain {ms_plain:.4f} ms"
+                stats["K2"]["ms"] += ms
+                stats["K2"]["plain_ms"] += ms_plain
+                stats["K2"]["library_ms"] += ms_cudnn
+                stats["K2"]["bound_ms"] += bound
+                if name == "conv1":
+                    line += "; " + repack_phase(k2, x, w, s, stats)
+            log(line + f" (turns: {', '.join(f'{v:.4f}' for v in t)})")
     return stats
+
+
+def repack_phase(k2, x, w, s, stats) -> str:
+    """conv1's space-to-depth repack kernel (part of K2's sm90 route) against
+    its plain version, bit for bit, and its time beside its bound (each
+    byte of x, w and their repacks moved once)."""
+    got, ref = k2.space_to_depth(x, w, s), k2.space_to_depth_plain(x, w, s)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+        raise AssertionError("K2 space_to_depth: kernel differs from plain")
+    order = (k2.space_to_depth, k2.space_to_depth_plain,
+             k2.space_to_depth_plain, k2.space_to_depth)
+    t = [time_graph_ms(lambda _, fn=fn: fn(x, w, s), [0, 1, 2, 3])
+         for fn in order]
+    nbytes = sum(a.numel() * a.element_size() for a in (x, w, *got))
+    stats["repack"] = {"err": 0.0, "ms": (t[0] + t[3]) / 2,
+                       "plain_ms": (t[1] + t[2]) / 2,
+                       "bound_ms": nbytes / PEAK_BYTES * 1e3}
+    return (f"of sm90's time, the space-to-depth repack kernel "
+            f"{stats['repack']['ms']:.4f} ms (plain {stats['repack']['plain_ms']:.4f}"
+            f" ms, bound {stats['repack']['bound_ms']:.4f} ms, equal bits)")
 
 
 def frames(rng, n):
@@ -234,7 +331,9 @@ def slice_phase(dev):
     from videovector_tpu_torch.models.retrieval_pipeline import (
         RetrievalPipeline, RetrievalPipelineConfig,
     )
-    from videovector_tpu_torch.ops.hopper.conv_gemm import conv2d_im2col_gemm
+    from videovector_tpu_torch.ops.hopper.conv_gemm import (
+        conv2d_im2col_gemm, space_to_depth,
+    )
     from videovector_tpu_torch.ops.hopper.matmul import matmul
 
     cfg = RetrievalPipelineConfig()
@@ -254,7 +353,9 @@ def slice_phase(dev):
     torch.cuda.synchronize()
 
     # the main path, counted: gallery build, then the queries
-    matmul.launches = matmul.launches_sm90 = conv2d_im2col_gemm.launches = 0
+    matmul.launches = matmul.launches_sm90 = 0
+    conv2d_im2col_gemm.launches = conv2d_im2col_gemm.launches_sm90 = 0
+    space_to_depth.launches = 0
     t0 = time.perf_counter()
     gal, ids = pipe.build_gallery(params, [(v, h, w, m) for v in videos],
                                   [np.full(BATCH, i) for i in range(len(videos))])
@@ -264,18 +365,24 @@ def slice_phase(dev):
                for q in range(N_QUERIES)]
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {"K1": matmul.launches, "K2": conv2d_im2col_gemm.launches}
+    launches = {"K1": matmul.launches, "K2": conv2d_im2col_gemm.launches,
+                "repack": space_to_depth.launches}
+    k2_sm90 = conv2d_im2col_gemm.launches_sm90
     n_embed = len(videos) + N_QUERIES
     log(f"main path: {len(videos)} gallery batches + {N_QUERIES} queries of "
         f"{BATCH} frames in {seconds:.3f} s (host clock, first calls "
-        f"included); launches {launches}, of K1 on the sm90 route "
-        f"{matmul.launches_sm90}")
-    expect = {"K1": K1_PER_EMBED * n_embed, "K2": K2_PER_EMBED * n_embed}
+        f"included); launches {launches}, on the sm90 routes: K1 "
+        f"{matmul.launches_sm90}, K2 {k2_sm90}")
+    expect = {"K1": K1_PER_EMBED * n_embed, "K2": K2_PER_EMBED * n_embed,
+              "repack": n_embed}
     if launches != expect:
         raise AssertionError(f"launch counts {launches} != expected {expect}")
     if matmul.launches_sm90 != matmul.launches:
         raise AssertionError(f"{matmul.launches - matmul.launches_sm90} K1 "
                              "launches of the path left the sm90 route")
+    if k2_sm90 != launches["K2"]:
+        raise AssertionError(f"{launches['K2'] - k2_sm90} K2 launches of the "
+                             "path left the sm90 route")
 
     if gallery.shape != (GALLERY_ROWS, cfg.embed_dim):
         raise AssertionError(f"gallery shape {tuple(gallery.shape)}")
@@ -308,14 +415,16 @@ def slice_phase(dev):
     if not err <= tol:
         raise AssertionError(f"embed_frames kernels vs plain: {err} > {tol}")
 
+    inputs = {}
     for batch in (BATCH, 256):
         pix = torch.as_tensor(frames(rng, batch), device=dev)
         hb, wb, mb = sample_transform_params(
             batch, cfg.image_hw, TransformConfig(crop_size=cfg.crop),
             train=False, rng=rng)
+        inputs[batch] = (pix, (hb, wb, mb))
         run = lambda: pipe.embed_frames(params, pix, hb, wb, mb)
         ref_run = lambda: plain.embed_frames(params, pix, hb, wb, mb)
-        iters = 10 if batch == BATCH else 4
+        iters = 30 if batch == BATCH else 6
         t = [time_ms(ref_run, iters), time_ms(run, iters),
              time_ms(run, iters), time_ms(ref_run, iters)]
         ms, ms_plain = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
@@ -323,7 +432,7 @@ def slice_phase(dev):
             f"{batch / ms * 1e3:.1f} frames/s; plain {ms_plain:.3f} ms = "
             f"{batch / ms_plain * 1e3:.1f} frames/s (plain, kernel, kernel, "
             f"plain: {', '.join(f'{v:.3f}' for v in t)} ms)")
-    return launches, pipe, params, videos[0], (h, w, m)
+    return launches, pipe, params, inputs
 
 
 def device_breakdown(pipe, params, pix, hwm, calls: int = 5) -> None:
@@ -366,7 +475,10 @@ def device_breakdown(pipe, params, pix, hwm, calls: int = 5) -> None:
         return sum(v for n, v in by_name.items() if any(s in n for s in keys))
     # K1: the sm90 route's GEMM and split-K reduction, or the core (MatGeom)
     k1_gemm, k1_reduce = share("gemm_tma_wgmma", "vv::MatGeom"), share("splitk_reduce")
-    k1, k2 = k1_gemm + k1_reduce, share("vv::ConvGeom")
+    # K2: the sm90 route's conv, or the core (ConvGeom)
+    k1, k2 = k1_gemm + k1_reduce, share("conv_wgmma", "vv::ConvGeom",
+                                        "space_to_depth")
+    repack = share("space_to_depth")
     casts = share("copy_kernel")
     log(f"profile of {calls} back-to-back embed_frames (batch "
         f"{pix.shape[0]}), per call: device busy {busy:.1f} us (profiled "
@@ -374,7 +486,8 @@ def device_breakdown(pipe, params, pix, hwm, calls: int = 5) -> None:
         f"({enqueue_us:.1f} us for the host to enqueue), idle share "
         f"{1 - busy / wall_us:.3f}; K1 "
         f"{k1:.1f} us (GEMM {k1_gemm:.1f}, split-K reduction "
-        f"{k1_reduce:.1f}), K2 {k2:.1f} us, other {busy - k1 - k2:.1f} us "
+        f"{k1_reduce:.1f}), K2 {k2:.1f} us (conv1's repack {repack:.1f}), "
+        f"other {busy - k1 - k2:.1f} us "
         f"(of which dtype casts and copies {casts:.1f}) over {len(by_name)} "
         "distinct kernels; top 12:")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
@@ -408,8 +521,9 @@ def main() -> int:
 
     with torch.no_grad():
         stats = kernel_phases(dev, torch.Generator(device=dev).manual_seed(1))
-        launches, pipe, params, pix, hwm = slice_phase(dev)
-        device_breakdown(pipe, params, pix, hwm)
+        launches, pipe, params, inputs = slice_phase(dev)
+        for pix, hwm in inputs.values():
+            device_breakdown(pipe, params, pix, hwm)
 
     kernels = [
         {"name": "K1 matmul (TMA + wgmma GEMM, split-K, bias + ReLU "
@@ -417,16 +531,30 @@ def main() -> int:
          "source": "videovector_tpu_torch/csrc/matmul_sm90.cu",
          "replaces": "videovector_tpu/ops/pallas/matmul.py:50",
          "launches": launches["K1"], "max_abs_err": stats["K1"]["err"],
-         "ms": stats["K1"]["ms"], "plain_ms": stats["K1"]["plain_ms"]},
-        {"name": "K2 conv2d_im2col_gemm (implicit-GEMM conv)", "route": "cuda",
-         "source": "videovector_tpu_torch/csrc/conv_gemm.cu",
+         "ms": stats["K1"]["ms"], "plain_ms": stats["K1"]["plain_ms"],
+         "bound_ms": stats["K1"]["bound_ms"], "bound_by": "bytes",
+         "library_ms": stats["K1"]["library_ms"]},
+        {"name": "K2 conv2d_im2col_gemm (implicit-GEMM conv: cp.async "
+                 "gathers + TMA + wgmma, one launch per conv)", "route": "cuda",
+         "source": "videovector_tpu_torch/csrc/conv_gemm_sm90.cu",
          "replaces": "videovector_tpu/ops/pallas/conv_gemm.py:18",
          "launches": launches["K2"], "max_abs_err": stats["K2"]["err"],
-         "ms": stats["K2"]["ms"], "plain_ms": stats["K2"]["plain_ms"]},
+         "ms": stats["K2"]["ms"], "plain_ms": stats["K2"]["plain_ms"],
+         "bound_ms": stats["K2"]["bound_ms"], "bound_by": "operations",
+         "library_ms": stats["K2"]["library_ms"]},
+        {"name": "K2 space_to_depth (conv1's operands repacked for the sm90 "
+                 "route; its time is inside K2's conv1)", "route": "cuda",
+         "source": "videovector_tpu_torch/csrc/conv_gemm_sm90.cu",
+         "replaces": "videovector_tpu/ops/pallas/conv_gemm.py:18",
+         "launches": launches["repack"], "max_abs_err": stats["repack"]["err"],
+         "ms": stats["repack"]["ms"], "plain_ms": stats["repack"]["plain_ms"],
+         "bound_ms": stats["repack"]["bound_ms"], "bound_by": "bytes",
+         "library_ms": None},
     ]
-    log("(ms, plain_ms: summed over the serving path's shapes at batch "
-        f"{BATCH}: K1 fc6 + fc7 + tower with w cycled beyond L2, K2 "
-        "conv1..conv5)")
+    log("(ms, plain_ms, bound_ms, library_ms: summed over the serving "
+        f"path's shapes at batch {BATCH}: K1 fc6 + fc7 + tower with w cycled "
+        "beyond L2, library cuBLAS torch.matmul; K2 conv1..conv5, library "
+        "cuDNN F.conv2d)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
-"""The port's Hopper kernels (K1's two routes, K2) against their plain
-versions on a CUDA card: ragged shapes, strided operands, groups, both
-dtypes, split-K, and the launch preconditions. Skipped without a card.
+"""The port's Hopper kernels (K1's and K2's two routes each) against their
+plain versions on a CUDA card: ragged shapes, strided operands, groups, both
+dtypes, split-K, tile shapes, and the launch preconditions. Skipped without
+a card.
 
 On the card (where JAX is absent, so the repo's conftest cannot load):
     python -m pytest tests/test_torch_cuda_kernels.py -m cuda --noconftest -q
@@ -163,3 +164,122 @@ def test_k2_nhwc_groups_match_plain(dev, dtype, geom):
     got = k2.conv2d_gemm_nhwc(x, w, b, **kw)
     assert k2.conv2d_im2col_gemm.launches == before + g
     _close(got, k2.conv2d_gemm_nhwc_plain(x, w, b, **kw))
+
+
+# (x NHWC, w HWIO, stride, pad): CaffeNet's five convs at batch 2, then
+# ragged ones: M not a tile multiple, Cg = 48, groups 1/2/3, stride 1/2/4,
+# pad 0/1/2, Og masked in one or two tiles, a 1x1 conv, space-to-depth
+K2_SM90_GEOMS = {
+    "conv1": ((2, 227, 227, 3), (11, 11, 3, 96), 4, 0),
+    "conv2": ((2, 27, 27, 96), (5, 5, 48, 256), 1, 2),
+    "conv3": ((2, 13, 13, 256), (3, 3, 256, 384), 1, 1),
+    "conv4": ((2, 13, 13, 384), (3, 3, 192, 384), 1, 1),
+    "conv5": ((2, 13, 13, 384), (3, 3, 192, 256), 1, 1),
+    "g2_cg8_m243": ((3, 9, 9, 16), (3, 3, 8, 16), 1, 1),
+    "cg48_og40_p2": ((3, 11, 7, 48), (5, 5, 48, 40), 1, 2),
+    "g3_s2": ((2, 13, 13, 72), (3, 3, 24, 48), 2, 1),
+    "s4_p2_direct": ((2, 35, 35, 16), (7, 7, 16, 32), 4, 2),
+    "1x1_og200": ((2, 31, 31, 64), (1, 1, 64, 200), 1, 0),
+    "s2d_small": ((3, 23, 23, 3), (11, 11, 3, 16), 4, 0),
+}
+
+
+def _k2_operands(gen, geom, dev):
+    xs, ws, s, p = geom
+    fan_in = ws[0] * ws[1] * ws[2]
+    x = _randn(gen, *xs, dev=dev)
+    w = (torch.randn(ws, generator=gen, device=dev) * fan_in ** -0.5).bfloat16()
+    b = torch.randn(ws[3], generator=gen, device=dev) * 0.1
+    return x, w, b, dict(stride=(s, s), pad=(p, p),
+                         groups=xs[3] // ws[2])
+
+
+def _core_view(w):
+    """The same HWIO weights as a strided view, which the route sends to the
+    core."""
+    return w.permute(3, 0, 1, 2).contiguous().permute(1, 2, 3, 0)
+
+
+@pytest.mark.parametrize("name", list(K2_SM90_GEOMS))
+def test_k2_sm90_matches_plain_and_core(dev, name):
+    """One launch per conv on the sm90 route, against the plain version and
+    the core route on the same bf16 operands, both output types, with and
+    without bias and ReLU; a second run gives the same bits."""
+    gen = torch.Generator(device=dev).manual_seed(len(name))
+    x, w, b, geo = _k2_operands(gen, K2_SM90_GEOMS[name], dev)
+    w_core = _core_view(w)
+    route_kw = dict(stride=geo["stride"], pad=geo["pad"])
+    assert k2.k2_route(x, w, torch.bfloat16, **route_kw) == "sm90"
+    assert k2.k2_route(x, w_core, torch.bfloat16, **route_kw) == "core"
+    for out_dtype in (torch.float32, torch.bfloat16):
+        for bias, relu in ((None, False), (b, True)):
+            kw = dict(geo, fuse_relu=relu, out_dtype=out_dtype)
+            before = (k2.conv2d_im2col_gemm.launches,
+                      k2.conv2d_im2col_gemm.launches_sm90)
+            got = k2.conv2d_gemm_nhwc(x, w, bias, **kw)
+            assert (k2.conv2d_im2col_gemm.launches,
+                    k2.conv2d_im2col_gemm.launches_sm90) == \
+                (before[0] + 1, before[1] + 1)
+            _close(got, k2.conv2d_gemm_nhwc_plain(x, w, bias, **kw))
+            _close(got, k2.conv2d_gemm_nhwc(x, w_core, bias, **kw))
+            assert k2.conv2d_im2col_gemm.launches_sm90 == before[1] + 1
+            assert torch.equal(got, k2.conv2d_gemm_nhwc(x, w, bias, **kw))
+
+
+@pytest.mark.parametrize("name", ["conv1", "conv2", "conv4", "g3_s2",
+                                  "cg48_og40_p2"])
+def test_k2_sm90_bit_for_bit_on_integers(dev, name):
+    """Integer operands in [-2, 2] keep every f32 sum exact, so the kernel's
+    output equals conv_epilogue_plain's on the plain f32 sum bit for bit;
+    a bias of odd eighths makes the bf16 epilogue round."""
+    xs, ws, s, p = K2_SM90_GEOMS[name]
+    rs = np.random.RandomState(7)
+    x = torch.as_tensor(rs.randint(-2, 3, xs).astype(np.float32), device=dev)
+    w = torch.as_tensor(rs.randint(-2, 3, ws).astype(np.float32), device=dev)
+    b = torch.as_tensor((2 * rs.randint(-64, 64, ws[3]) + 1) / 8,
+                        dtype=torch.float32, device=dev)
+    kw = dict(stride=(s, s), pad=(p, p), groups=xs[3] // ws[2], fuse_relu=True)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        before = k2.conv2d_im2col_gemm.launches_sm90
+        got = k2.conv2d_gemm_nhwc(x.bfloat16(), w.bfloat16(), b,
+                                  out_dtype=out_dtype, **kw)
+        assert k2.conv2d_im2col_gemm.launches_sm90 == before + 1
+        ref = k2.conv2d_gemm_nhwc_plain(x, w, b, out_dtype=out_dtype, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("block_m,block_n", k2.SM90_TILES)
+def test_k2_sm90_every_tile_shape(dev, block_m, block_n, monkeypatch):
+    """Each of the kernel's tile shapes on a grouped conv whose group width
+    (96) some of them divide and others mask."""
+    gen = torch.Generator(device=dev).manual_seed(block_m + block_n)
+    x, w, b, geo = _k2_operands(gen, ((3, 10, 10, 32), (3, 3, 16, 192), 1, 1),
+                                dev)
+    plan = k2.k2_sm90_plan
+    monkeypatch.setattr(k2, "k2_sm90_plan", lambda *a: (block_m, block_n,
+                                                        plan(*a)[2]))
+    for out_dtype in (torch.float32, torch.bfloat16):
+        kw = dict(geo, fuse_relu=True, out_dtype=out_dtype)
+        before = k2.conv2d_im2col_gemm.launches_sm90
+        got = k2.conv2d_gemm_nhwc(x, w, b, **kw)
+        assert k2.conv2d_im2col_gemm.launches_sm90 == before + 1
+        _close(got, k2.conv2d_gemm_nhwc_plain(x, w, b, **kw))
+
+
+@pytest.mark.parametrize("shape,k,stride", [((2, 227, 227, 3), 11, 4),
+                                            ((3, 23, 19, 3), 11, 4),
+                                            ((2, 9, 9, 2), 3, 2)])
+def test_space_to_depth_kernel_equals_plain(dev, shape, k, stride):
+    """The repack kernel moves bits: equal to the plain version's."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    x = _randn(gen, *shape, dev=dev)
+    w = _randn(gen, k, k, shape[3], 16, dev=dev)
+    before = k2.space_to_depth.launches
+    xs, ws = k2.space_to_depth(x, w, stride)
+    assert k2.space_to_depth.launches == before + 1
+    ref_x, ref_w = k2.space_to_depth_plain(x, w, stride)
+    torch.cuda.synchronize()
+    assert torch.equal(xs, ref_x) and torch.equal(ws, ref_w)
+    with pytest.raises(ValueError, match="contiguous bf16"):
+        k2.space_to_depth(x.float(), w.float(), stride)

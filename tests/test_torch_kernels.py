@@ -14,6 +14,7 @@ import torch
 import jax.numpy as jnp
 from jax import lax
 
+from videovector_tpu.models.mednet import MedNet as JaxMedNet
 from videovector_tpu.ops.conv import conv2d as jax_conv2d
 from videovector_tpu.ops.conv import im2col as jax_im2col
 from videovector_tpu.ops.normalization import l2_normalize_rows as jax_l2n
@@ -109,6 +110,12 @@ def test_k1_bf16_out_rounds_once_after_bias():
 
 def _bf16(*shape):
     return torch.zeros(shape, dtype=torch.bfloat16)
+
+
+def _misaligned(x):
+    """A contiguous copy of x whose data starts 2 bytes past 16."""
+    buf = torch.zeros(x.numel() + 8, dtype=x.dtype)
+    return buf[1:1 + x.numel()].view(x.shape).copy_(x)
 
 
 @pytest.mark.parametrize("case,route", [
@@ -229,6 +236,198 @@ def test_k2_grouped_nhwc_matches_jax_conv(rng, fuse_relu):
         pad=(2, 2), groups=2, fuse_relu=fuse_relu)
     np.testing.assert_allclose(got.numpy().transpose(0, 3, 1, 2), ref,
                                atol=1e-3)
+
+
+# CaffeNet's convs as (x NHWC, w HWIO, stride, pad), at batch 2
+CAFFENET_K2 = {
+    "conv1": ((2, 227, 227, 3), (11, 11, 3, 96), 4, 0),
+    "conv2": ((2, 27, 27, 96), (5, 5, 48, 256), 1, 2),
+    "conv3": ((2, 13, 13, 256), (3, 3, 256, 384), 1, 1),
+    "conv4": ((2, 13, 13, 384), (3, 3, 192, 384), 1, 1),
+    "conv5": ((2, 13, 13, 384), (3, 3, 192, 256), 1, 1),
+}
+
+
+@pytest.mark.parametrize("case,route", [
+    *((name, "sm90") for name in CAFFENET_K2),
+    ("conv3_f32_out", "sm90"),
+    ("f32", "core"),
+    ("f32_out_f32_in", "core"),
+    ("odd_channel_stride", "core"),
+    ("misaligned_data", "core"),
+    ("cg_12_stride_1", "core"),
+    ("conv1_padded", "core"),
+    ("conv1_ragged_step", "core"),
+    ("og_not_multiple_of_8", "core"),
+    ("w_not_contiguous", "core"),
+    ("conv1_w_not_contiguous", "core"),
+    ("conv1_misaligned_data", "core"),
+])
+def test_k2_route(case, route):
+    name = case if case in CAFFENET_K2 else "conv3"
+    xs, ws, s, p = CAFFENET_K2[name]
+    x, w, out = _bf16(*xs), _bf16(*ws), torch.bfloat16
+    if case == "conv3_f32_out":
+        out = torch.float32
+    elif case == "f32":
+        x, w = x.float(), w.float()
+    elif case == "f32_out_f32_in":
+        x, w, out = x.float(), w.float(), torch.float32
+    elif case == "odd_channel_stride":
+        x = _bf16(2, 13, 13, 512)[..., ::2]          # channel stride 2
+    elif case == "misaligned_data":
+        x = _bf16(2, 13, 13, 264)[..., 1:257]        # data 2 bytes past 16
+    elif case == "cg_12_stride_1":
+        x, w = _bf16(2, 9, 9, 24), _bf16(3, 3, 12, 32)   # 24-byte chunks
+    elif case == "conv1_padded":
+        x, w = _bf16(2, 227, 227, 3), _bf16(11, 11, 3, 96)
+        s, p = 4, 1
+    elif case == "conv1_ragged_step":
+        x, w = _bf16(2, 228, 228, 3), _bf16(11, 11, 3, 96)   # (228-11) % 4
+        s = 4
+    elif case == "og_not_multiple_of_8":
+        w = _bf16(3, 3, 128, 12)                      # 2 groups of 6 outputs
+    elif case == "w_not_contiguous":
+        w = _bf16(384, 3, 3, 256).permute(1, 2, 3, 0)
+    elif case == "conv1_w_not_contiguous":
+        xs, ws, s, p = CAFFENET_K2["conv1"]
+        x, w = _bf16(*xs), _bf16(96, 11, 11, 3).permute(1, 2, 3, 0)
+    elif case == "conv1_misaligned_data":
+        xs, ws, s, p = CAFFENET_K2["conv1"]
+        x, w = _misaligned(_bf16(*xs)), _bf16(*ws)
+    assert k2.k2_route(x, w, out, stride=(s, s), pad=(p, p)) == route
+
+
+@pytest.mark.parametrize("m,og,groups", [
+    (151_250, 96, 1), (36_450, 128, 2), (8_450, 384, 1), (8_450, 192, 2),
+    (8_450, 128, 2), (774_400, 96, 1), (43_264, 192, 2), (1, 8, 1),
+    (100, 40, 3), (300, 520, 2), (65, 200, 1)])
+def test_k2_sm90_plan_covers_every_tile_and_no_tile_crosses_a_group(
+        m, og, groups):
+    sms = 132
+    block_m, block_n, grid = k2.k2_sm90_plan(m, og, groups, sms)
+    assert block_m in k2.SM90_BLOCK_M and block_n in k2.SM90_BLOCK_N
+    assert grid[2] == groups
+    assert (grid[0] - 1) * block_m < m <= grid[0] * block_m
+    for g in range(groups):
+        cols = []
+        for j in range(grid[1]):
+            lo = g * og + j * block_n
+            hi = g * og + min((j + 1) * block_n, og)
+            assert g * og <= lo < hi <= (g + 1) * og      # inside group g
+            cols.extend(range(lo, hi))
+        assert cols == list(range(g * og, (g + 1) * og))  # each column once
+    assert block_m == (128 if -(-m // 128) * grid[1] * groups >= 2 * sms
+                       else 64)
+
+
+def test_k2_sm90_plan_caffenet():
+    """Tiles that divide each conv's group width (conv1's after the
+    space-to-depth repack); 128 rows per block where that still gives two
+    blocks per SM (conv1, conv2), else 64."""
+    plans = {(m, og, g): k2.k2_sm90_plan(m, og, g, 132)[:2]
+             for m, og, g in ((151_250, 96, 1), (36_450, 128, 2),
+                              (8_450, 384, 1), (8_450, 192, 2),
+                              (8_450, 128, 2))}
+    assert list(plans.values()) == [(128, 96), (128, 128), (64, 192),
+                                    (64, 192), (64, 128)]
+    # batch 256: every conv has enough 128-row blocks
+    assert k2.k2_sm90_plan(43_264, 384, 1, 132)[:2] == (128, 192)
+    assert k2.k2_sm90_plan(43_264, 128, 2, 132)[:2] == (128, 128)
+
+
+@pytest.mark.parametrize("shape", [(2, 23, 23, 3), (1, 227, 227, 3),
+                                   (2, 19, 27, 3)])
+def test_space_to_depth_matches_jax_and_the_plain_conv(shape):
+    """The port's repack, then the plain stride-1 conv, against JAX's
+    MedNet._conv_space_to_depth (square images only, as JAX's) and against
+    the plain 11x11/4 conv on the original operands (f32)."""
+    rs = np.random.RandomState(4)
+    x = rs.randn(*shape).astype(np.float32)
+    w = (rs.randn(11, 11, 3, 8) * 0.1).astype(np.float32)
+    xs, ws = k2.space_to_depth(torch.as_tensor(x), torch.as_tensor(w), 4)
+    h, wd = shape[1:3]
+    assert xs.shape == (shape[0], (h + 1) // 4, (wd + 1) // 4, 48)
+    assert ws.shape == (3, 3, 48, 8)
+    got = k2.conv2d_gemm_nhwc_plain(xs, ws).numpy()
+    if h == wd:
+        ref = np.asarray(JaxMedNet._conv_space_to_depth(
+            jnp.asarray(x), jnp.asarray(w), 4, jnp.float32))
+        np.testing.assert_allclose(got, ref, atol=1e-4)
+    direct = k2.conv2d_gemm_nhwc_plain(torch.as_tensor(x), torch.as_tensor(w),
+                                       stride=(4, 4)).numpy()
+    np.testing.assert_allclose(got, direct, atol=1e-4)
+
+
+def _sm90_gathered_a(x, w_shape, stride, pad, groups, block_m):
+    """The implicit A matrix as csrc/conv_gemm_sm90.cu's producer warpgroup
+    writes it, stage by stage, for every M tile and group: the same row and
+    chunk decomposition, 128-byte swizzle and zero fill, read back through
+    the swizzle. Returns (groups, M, k_tiles * 64)."""
+    n, h, wd, c = x.shape
+    kh, kw, cg, _ = w_shape
+    oh, ow = k2._out_hw(h, wd, kh, kw, stride, pad)
+    m_total, k_total = n * oh * ow, kh * kw * cg
+    k_tiles = -(-k_total // 64)
+    flat = x.reshape(-1)
+    sxn, sxh, sxw = h * wd * c, wd * c, c
+    a = np.zeros((groups, -(-m_total // block_m) * block_m, k_tiles * 64),
+                 np.float32)
+    for grp in range(groups):
+        for m0 in range(0, m_total, block_m):
+            for t in range(k_tiles):
+                smem = np.full(block_m * 64, np.nan, np.float32)
+                for p in range(128):
+                    q = p % 8
+                    k = t * 64 + q * 8
+                    tap, ch = divmod(k, cg)
+                    i, j = divmod(tap, kw)
+                    for r in range(block_m * 8 // 128):
+                        row = p // 8 + 16 * r
+                        m = m0 + row
+                        ox, rest = m % ow, m // ow
+                        oy, nn = rest % oh, rest // oh
+                        y0 = oy * stride[0] - pad[0] if m < m_total else -2**30
+                        x0 = ox * stride[1] - pad[1]
+                        off = nn * sxn + y0 * sxh + x0 * sxw + grp * cg
+                        ok = (k < k_total and 0 <= y0 + i < h
+                              and 0 <= x0 + j < wd)
+                        dst = row * 64 + (q ^ (row & 7)) * 8
+                        src = off + i * sxh + j * sxw + ch
+                        smem[dst:dst + 8] = flat[src:src + 8] if ok else 0
+                tile = smem.reshape(block_m, 8, 8)
+                unswizzled = np.stack([tile[r, [q ^ (r & 7) for q in range(8)]]
+                                       for r in range(block_m)])
+                a[grp, m0:m0 + block_m, t * 64:(t + 1) * 64] = \
+                    unswizzled.reshape(block_m, 64)
+    return a[:, :m_total]
+
+
+@pytest.mark.parametrize("geom", [
+    # (n, h, w, c), (kh, kw, cg, o), stride, pad, groups
+    ((2, 9, 9, 16), (3, 3, 8, 16), (1, 1), (1, 1), 2),
+    ((1, 11, 7, 48), (5, 5, 48, 8), (1, 1), (2, 2), 1),
+    ((1, 13, 13, 24), (3, 3, 8, 24), (2, 2), (1, 1), 3),
+    ((1, 11, 11, 48), (3, 3, 48, 96), (1, 1), (0, 0), 1),   # conv1 after s2d
+])
+def test_sm90_gather_index_math_is_im2col(geom):
+    """The sm90 route's A tiles, written and read as the kernel does, are the
+    plain im2col patches in (i, j, c) order, zeros past K and in the padding,
+    for both tile heights."""
+    xs, ws, stride, pad, groups = geom
+    x = np.random.RandomState(5).randn(*xs).astype(np.float32)
+    kh, kw, cg, _ = ws
+    cols = tconv.im2col(torch.as_tensor(x).permute(0, 3, 1, 2), kernel=(kh, kw),
+                        stride=stride, pad=pad)          # (n, c kh kw, oh, ow)
+    n, _, oh, ow = cols.shape
+    # im2col orders (c, i, j); the kernel and HWIO weights order (i, j, c)
+    patches = cols.reshape(n, groups, cg, kh, kw, oh, ow) \
+        .permute(1, 0, 5, 6, 3, 4, 2).reshape(groups, n * oh * ow, kh * kw * cg)
+    for block_m in k2.SM90_BLOCK_M:
+        a = _sm90_gathered_a(x, ws, stride, pad, groups, block_m)
+        k_total = kh * kw * cg
+        np.testing.assert_array_equal(a[:, :, :k_total], patches.numpy())
+        assert not a[:, :, k_total:].any()
 
 
 def test_plain_conv_and_im2col_match_jax(rng):

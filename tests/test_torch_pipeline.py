@@ -2,8 +2,10 @@
 retrieval_pipeline.py) and VideoEmbeddingModel against the JAX package on
 the CPU, at the small configuration of tests/test_retrieval_pipeline.py
 (f32; params carried across with params_from_jax). Ids must be equal,
-scores within atol 1e-5. Also: the port imports with JAX blocked."""
+scores within atol 1e-5. Also: the port imports with JAX blocked, and the
+pipeline runs on the card unless asked for the CPU."""
 
+import inspect
 import subprocess
 import sys
 import textwrap
@@ -30,10 +32,12 @@ torch.set_num_threads(1)
 
 def _tiny(pkg_rp, pkg_med, pkg_emb, layout):
     """The _tiny_pipeline configuration, built from either package (two
-    convs here, the second grouped, so groups and LRN are on the path)."""
+    convs here, the second grouped, so groups and LRN are on the path; the
+    port's on the CPU)."""
+    on_cpu = {"device": "cpu"} if pkg_rp is trp else {}
     p = pkg_rp.RetrievalPipeline(pkg_rp.RetrievalPipelineConfig(
         image_hw=(36, 36), crop=32, embed_dim=16, top_k=3,
-        compute_dtype="float32", pixels_layout=layout))
+        compute_dtype="float32", pixels_layout=layout), **on_cpu)
     p.mednet = pkg_med.MedNet(pkg_med.MedNetConfig(
         convs=(pkg_med.ConvSpec("conv1", 8, 5, stride=2, pool=True, lrn=True),
                pkg_med.ConvSpec("conv2", 8, 3, pad=1, group=2)),
@@ -130,7 +134,8 @@ def test_embedding_extract_matches_jax(rng):
 
 def test_init_shapes_match_jax():
     jp = jrp.RetrievalPipeline(jrp.RetrievalPipelineConfig(embed_dim=32))
-    tp = trp.RetrievalPipeline(trp.RetrievalPipelineConfig(embed_dim=32))
+    tp = trp.RetrievalPipeline(trp.RetrievalPipelineConfig(embed_dim=32),
+                               device="cpu")
     jshapes = jax.eval_shape(jp.init, jax.random.PRNGKey(0))
     tparams = tp.init(torch.Generator().manual_seed(0))
     flat_j = jax.tree_util.tree_flatten_with_path(jshapes)[0]
@@ -139,6 +144,21 @@ def test_init_shapes_match_jax():
         for key in path:
             node = node[key.key]
         assert tuple(node.shape) == leaf.shape, path
+
+
+@pytest.mark.parametrize("device", [None, "cuda", "cuda:0"])
+def test_pipeline_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch,
+                                                            device):
+    """The default device is the card; without one, asking for it (by
+    default or by name) raises, and nothing goes on on the CPU."""
+    sig = inspect.signature(trp.RetrievalPipeline)
+    assert sig.parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = trp.RetrievalPipelineConfig(embed_dim=16)
+    kw = {} if device is None else {"device": device}
+    with pytest.raises(RuntimeError, match="is_available"):
+        trp.RetrievalPipeline(cfg, **kw)
+    assert trp.RetrievalPipeline(cfg, device="cpu").device == torch.device("cpu")
 
 
 def test_port_imports_without_jax():

@@ -3,6 +3,8 @@ transformer.py) against the JAX make_batch_transform, on the CPU: both
 layouts, the gather branch with mirror and mean, and the static center crop.
 Exact arithmetic (uint8 - f32 mean) * scale, so tolerance rtol 1e-6."""
 
+import inspect
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -36,7 +38,7 @@ def test_gather_mirror_mean_matches_jax(rng, layout, with_mean):
                           layout=layout))(jnp.asarray(pix), jnp.asarray(h),
                                           jnp.asarray(w), jnp.asarray(m))
     got = make_batch_transform(TransformConfig(**kw), mean, (10, 12),
-                               layout=layout)(torch.as_tensor(pix), h, w, m)
+                               layout=layout, device="cpu")(torch.as_tensor(pix), h, w, m)
     assert got.dtype == torch.float32 and got.shape == ref.shape
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-6)
 
@@ -50,14 +52,14 @@ def test_static_center_crop_matches_jax(rng, layout):
     f_jax = jax_mbt(JaxTransformConfig(crop_size=5), mean, (9, 9),
                     layout=layout)
     f = make_batch_transform(TransformConfig(crop_size=5), mean, (9, 9),
-                             layout=layout)
+                             layout=layout, device="cpu")
     ref = f_jax(jnp.asarray(pix), 2, 1, None)
     got = f(torch.as_tensor(pix), 2, 1, None)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-6)
     # no crop: whole frame minus mean
     f_jax = jax_mbt(JaxTransformConfig(scale=2.0), mean, (9, 9), layout=layout)
     f = make_batch_transform(TransformConfig(scale=2.0), mean, (9, 9),
-                             layout=layout)
+                             layout=layout, device="cpu")
     np.testing.assert_allclose(
         f(torch.as_tensor(pix), 0, 0, None).numpy(),
         np.asarray(f_jax(jnp.asarray(pix), 0, 0, None)), rtol=1e-6)
@@ -74,8 +76,26 @@ def test_sample_params_and_guards_match_jax():
         for a, b in zip(ours, ref):
             np.testing.assert_array_equal(a, b)
     with pytest.raises(ValueError, match="mirror requires crop_size"):
-        make_batch_transform(TransformConfig(mirror=True), None, (8, 8))
+        make_batch_transform(TransformConfig(mirror=True), None, (8, 8),
+                             device="cpu")
     f = make_batch_transform(TransformConfig(crop_size=4), None, (8, 8),
-                             layout="NHWC")
+                             layout="NHWC", device="cpu")
     with pytest.raises(ValueError, match="pixels_layout"):
         f(torch.zeros(2, 3, 8, 8, dtype=torch.uint8), 0, 0, None)
+
+
+@pytest.mark.parametrize("device", [None, "cuda"])
+def test_transform_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch,
+                                                             device):
+    """The default device is the card; without one, building the transform
+    for it raises rather than going on on the CPU."""
+    sig = inspect.signature(make_batch_transform)
+    assert sig.parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    kw = {} if device is None else {"device": device}
+    with pytest.raises(RuntimeError, match="is_available"):
+        make_batch_transform(TransformConfig(crop_size=4), None, (8, 8), **kw)
+    f = make_batch_transform(TransformConfig(crop_size=4), None, (8, 8),
+                             layout="NHWC", device="cpu")
+    assert f(torch.zeros(2, 8, 8, 3, dtype=torch.uint8), 2, 2,
+             None).device == torch.device("cpu")

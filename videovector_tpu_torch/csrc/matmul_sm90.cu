@@ -37,23 +37,17 @@
 //   issue wgmma m64n128k16 with both operands in shared memory, A K-major and
 //   B (w's N-contiguous rows) MN-major through the transpose bit, both in
 //   the 128-byte swizzle that TMA writes. Sums stay in registers.
-#include <cuda.h>
-#include <cuda_runtime.h>
-
 #include <algorithm>
 #include <cstdint>
 
 #include "gemm_core.cuh"
+#include "sm90.cuh"
 
 namespace vv {
 namespace sm90 {
 
 constexpr int BN = 128;                 // output columns per block
-constexpr int BK = 64;                  // one 128-byte swizzle row of bf16
-constexpr int BOX_N = 64;               // w columns per TMA box (128 bytes)
 constexpr int B_BYTES = BK * BN * 2;    // one stage of w: 16 KB
-constexpr int SW_ROW = 128;             // bytes per swizzled row
-constexpr int SW_ATOM = 8 * SW_ROW;     // 8 rows: one swizzle pattern
 
 // NC consumer warpgroups of 64 rows each, then one producer warp.
 template <int NC>
@@ -66,89 +60,6 @@ struct Tile {
   // ring, full and empty barriers, slack to align the ring to 1024 bytes
   static constexpr int SMEM = STAGES * STAGE_BYTES + 2 * STAGES * 8 + 1024;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// TMA: the box at (c0 innermost, c1) of `map` into shared memory at dst,
-// completing `bytes` of the transaction on barrier bar.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor for a 128-byte-swizzled operand: start
-// address, leading and stride byte offsets (16-byte units), layout B128.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>(lbo >> 4) << 16 |
-         static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
-}
-
-// Keeps the compiler from moving accumulator reads or writes across the
-// asynchronous wgmma instructions.
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d += A (64 x 16, K-major) . B (16 x 128, MN-major: transpose bit set).
-__device__ __forceinline__ void wgmma_128(float (&d)[64], uint64_t da,
-                                          uint64_t db) {
-#define VV_F4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
-#define VV_F16(i) VV_F4(i), VV_F4(i + 4), VV_F4(i + 8), VV_F4(i + 12)
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"  // scale-d: D = A.B + D
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 1;\n"
-      "}\n"
-      : VV_F16(0), VV_F16(16), VV_F16(32), VV_F16(48)
-      : "l"(da), "l"(db), "r"(1));
-#undef VV_F16
-#undef VV_F4
-}
 
 // Block (m-tile, n-tile, split): sums x[m0:m0+BM, ks] . w[ks, n0:n0+BN] over
 // the split's K tiles [split * k_tiles / splits, (split + 1) * k_tiles /
@@ -196,7 +107,7 @@ __global__ void __launch_bounds__(Tile<NC>::THREADS)
         const int k0 = (t_begin + t) * BK;
         tma_load(a_dst, &tx, full + 8 * s, k0, m0);
         tma_load(b_dst, &tw, full + 8 * s, n0, k0);
-        tma_load(b_dst + BK * SW_ROW, &tw, full + 8 * s, n0 + BOX_N, k0);
+        tma_load(b_dst + BOX_BYTES, &tw, full + 8 * s, n0 + BOX_N, k0);
       }
     }
     return;
@@ -217,8 +128,8 @@ __global__ void __launch_bounds__(Tile<NC>::THREADS)
     for (int kk = 0; kk < BK / 16; ++kk) {
       // A: 16 k = 32 bytes along a swizzled row; rows in 8-row atoms.
       // B: 16 k = 16 rows of 128 bytes; n 64..127 in the second box.
-      wgmma_128(d, sw128_desc(a_tile + kk * 32, 16, SW_ATOM),
-                sw128_desc(b_tile + kk * 16 * SW_ROW, BK * SW_ROW, SW_ATOM));
+      wgmma<BN>(d, sw128_desc(a_tile + kk * 32, 16, SW_ATOM),
+                sw128_desc(b_tile + kk * 16 * SW_ROW, BOX_BYTES, SW_ATOM));
     }
     asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
     asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
@@ -226,8 +137,7 @@ __global__ void __launch_bounds__(Tile<NC>::THREADS)
     if (threadIdx.x % 128 == 0) mbar_arrive(empty + 8 * s);
   }
 
-  // wgmma accumulator layout: warp w of the group holds rows 16w..16w+15;
-  // d[4j + 2h + c] is row lane/4 + 8h, column 8j + 2(lane%4) + c.
+  // the wgmma accumulator layout (sm90.cuh)
   const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
   const int row0 = m0 + wg * 64 + warp * 16 + lane / 4;
   const int col0 = n0 + 2 * (lane % 4);
@@ -266,50 +176,6 @@ __global__ void splitk_reduce(const float* __restrict__ ws,
     const int m = static_cast<int>(i / N), n = static_cast<int>(i % N);
     out[m * som + n * son] = epilogue<kEpiK1, TO>(acc, bias, n, relu);
   }
-}
-
-// cuTensorMapEncodeTiled's signature (CUDA 12.0 driver API), fetched through
-// the runtime so that the library needs no -lcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = []() -> EncodeTiled {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (e != cudaSuccess || q != cudaDriverEntryPointSuccess) return nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// A row-major bf16 matrix (rows x cols, row stride in elements) as a TMA map
-// of (box_cols x box_rows) boxes, 128-byte swizzle, zero fill outside.
-int encode(CUtensorMap* map, const void* ptr, int rows, int cols,
-           long long row_stride, int box_rows, int box_cols) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(row_stride) * 2};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
-                             static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem_strides[2] = {1, 1};
-  return static_cast<int>(
-      fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
-         strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
 }
 
 template <int NC, typename TO, bool PARTIAL>

@@ -18,6 +18,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from videovector_tpu_torch.device import DEFAULT, resolve
+
 
 @dataclass
 class TransformConfig:
@@ -30,14 +32,17 @@ class TransformConfig:
 
 def make_batch_transform(cfg: TransformConfig, mean: np.ndarray | None,
                          image_hw: tuple[int, int], *, layout: str = "NCHW",
-                         device="cpu"):
+                         device=DEFAULT):
     """Build f(pixels_u8, h_off (N,), w_off (N,), mirror (N,)) -> f32 batch on
     `device`, in `layout` ("NCHW", Caffe blob order, or "NHWC", decode order).
+    `device` is the card unless the caller asks for the CPU; without a card
+    a CUDA device raises here.
 
     Python-int offsets with no mirroring take the static center-crop branch
     (slices); otherwise each item is gathered at its own offsets, and
     mirroring flips the column indices, so (pixel - mean) is flipped jointly
     (the mean is indexed at the source position, as in Caffe)."""
+    device = resolve(device)
     cs = cfg.crop_size
     h, w = image_hw
     if cfg.mirror and not cs:

@@ -6,8 +6,8 @@ activations, HWIO conv weights, (in, out) fc weights, and fc6's rows in
 H, W, C order (the flatten before fc6 is HWC, not CHW).
 
 Every convolution runs on K2 (ops/hopper/conv_gemm.py) with the bias + ReLU
-epilogue fused, one launch per group; fc6 and fc7 run on K1
-(ops/hopper/matmul.py). `plain=True` routes the same calls to the kernels'
+epilogue fused (in bf16, one launch per conv on its sm90 route); fc6 and
+fc7 run on K1 (ops/hopper/matmul.py). `plain=True` routes the same calls to the kernels'
 plain PyTorch versions, for comparing the two on one device.
 
 In bf16 mode each conv emits bf16 and the bias + ReLU, pooling and LRN run

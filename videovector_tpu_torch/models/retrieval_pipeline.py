@@ -22,6 +22,7 @@ from videovector_tpu_torch.convert import map_params
 from videovector_tpu_torch.data.transformer import (
     TransformConfig, make_batch_transform,
 )
+from videovector_tpu_torch.device import DEFAULT, resolve
 from videovector_tpu_torch.models.embedding import (
     VideoEmbeddingConfig, VideoEmbeddingModel,
 )
@@ -50,12 +51,14 @@ def top_k_stable(scores: torch.Tensor, k: int):
 
 class RetrievalPipeline:
     def __init__(self, cfg: RetrievalPipelineConfig = RetrievalPipelineConfig(),
-                 *, mean: np.ndarray | None = None, device="cpu",
+                 *, mean: np.ndarray | None = None, device=DEFAULT,
                  plain: bool = False):
-        """`plain=True` runs every kernel's plain PyTorch version instead of
-        the kernel (to compare the two on one device)."""
+        """Runs on the card unless `device` asks for the CPU; without a card
+        a CUDA device raises here. `plain=True` runs every kernel's plain
+        PyTorch version instead of the kernel (to compare the two on one
+        device)."""
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve(device)
         self.mednet = MedNet(MedNetConfig(
             input_hw=(cfg.crop, cfg.crop), fc7=4096,
             compute_dtype=cfg.compute_dtype), plain=plain)
