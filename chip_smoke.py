@@ -24,7 +24,15 @@ Run from the root of a checkout. It
 4. compares embed_frames through the kernels with the plain versions, and
    times both at batch 50 and 256 with CUDA events, then profiles a window
    of calls (device time by kernel, idle share, no cuBLAS or cuDNN GEMM or
-   conv on the path).
+   conv on the path);
+5. drives the training slice through solver.train.train at bench.py's
+   width (B = 128 windows of 15 roles, D = E = 4096, bf16 tower, SGD with
+   momentum, weight decay and the inv policy, dropout 0.9): 3 steps with K1
+   against 3 with the plain tower (dropout off), then the counted main path
+   (one K1 launch per step, all sm90), timed with CUDA events and profiled
+   (idle share, top kernels, no library GEMM on the tower forward), two
+   remat_tower steps, the weight-gradient product's time, and the B = 1024
+   (gm 1 and 8) and B = 8192 (gm 64) points.
 
 Exits non-zero, with no result line, without a CUDA card or outside a
 checkout. The last line of stdout is {"ok": true, "device": {...}}; the line
@@ -33,6 +41,7 @@ before it is the per-kernel JSON summary.
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import subprocess
@@ -64,11 +73,22 @@ CAFFENET_CONVS = (("conv1", 227, 3, 96, 11, 4, 0, 1),
 # the H100 SXM's published peaks (dense bf16 tensor cores, HBM3)
 PEAK_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
-# (rows, name, K, N) of K1's calls: the serving path's at batch 50 and 256,
-# and the training slice's tower (bench.py's B = 128 x 15 roles)
+# (rows, name, K, N) of K1's calls: the serving path's at batch 50 and 256
+# (bias + ReLU epilogue), and the training tower's (bench.py's B = 128 x 15
+# roles; bias epilogue only, the ReLU runs after it)
 K1_FC = (("fc6", 9216, 4096), ("fc7", 4096, 4096), ("tower", 4096, 4096))
+TRAIN_TOWER = "train tower"
 K1_CASES = tuple((m, *fc) for m in (BATCH, 256) for fc in K1_FC) + \
-    ((1920, "train tower", 4096, 4096),)
+    ((1920, TRAIN_TOWER, 4096, 4096),)
+# the training slice's workload, bench.py's: B = 128 windows of 15 roles
+# (target, 4 context, 10 negatives), D = E = 4096, bf16 tower, SGD with
+# momentum 0.9, weight decay 5e-4 and the inv lr policy
+TRAIN_BATCH = 128
+TRAIN_NEG = 10
+# 5 warm-up steps, 20 timed, 5 profiled and the one that closes the window
+TRAIN_MAIN_STEPS = 31
+TRAIN_SOLVER = dict(base_lr=0.001, momentum=0.9, weight_decay=5e-4,
+                    lr_policy="inv", gamma=0.001, power=0.75)
 # K1's timings cycle through copies of w that together exceed the H100's
 # 50 MB L2 by this factor, so that each call reads its weights from HBM as
 # it does on the path (fc6, fc7 and the tower evict each other there)
@@ -171,18 +191,19 @@ def kernel_phases(dev, gen):
                       k1.matmul_plain(x, w, b, fuse_relu=relu))
         stats["K1"]["err"] = max(stats["K1"]["err"], err)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    log("K1 sm90 route at the serving path's shapes and the training tower "
-        "(bf16 -> f32, bias + ReLU; device time per call from CUDA graphs "
-        "over copies of w beyond L2; cuBLAS = torch.matmul on the same bf16 "
-        "operands, a yardstick only):")
+    log("K1 sm90 route at the serving path's shapes (bias + ReLU) and the "
+        "training tower's (bias only) (bf16 -> f32; device time per call "
+        "from CUDA graphs over copies of w beyond L2; cuBLAS = torch.matmul "
+        "on the same bf16 operands, a yardstick only):")
     for m, name, k, n in K1_CASES:
         x, b = randn(m, k, dtype=bf), randn(n)
+        relu = name != TRAIN_TOWER
         ws = [randn(k, n, dtype=bf, std=0.02)
               for _ in range(max(2, math.ceil(L2_EXCESS * L2_BYTES / (k * n * 2))))]
         if k1.k1_route(x, ws[0], torch.float32) != "sm90":
             raise AssertionError(f"K1 {name}: not on the sm90 route")
-        run = lambda w: k1.matmul(x, w, b, fuse_relu=True)
-        plain = lambda w: k1.matmul_plain(x, w, b, fuse_relu=True)
+        run = lambda w: k1.matmul(x, w, b, fuse_relu=relu)
+        plain = lambda w: k1.matmul_plain(x, w, b, fuse_relu=relu)
         cublas = lambda w: torch.matmul(x, w)
         before = k1.matmul.launches_sm90
         err = compare(f"K1 {name} {m}x{k}x{n}", run(ws[0]), plain(ws[0]))
@@ -203,13 +224,20 @@ def kernel_phases(dev, gen):
         log(f"  K1 {name} {m}x{k}x{n}: kernel {ms:.4f} ms ({splits} splits, "
             f"{gbytes / ms * 1e3:.0f} GB/s, {2 * m * k * n / ms / 1e9:.1f} "
             f"TFLOP/s), plain {ms_plain:.4f} ms, cuBLAS {ms_cublas:.4f} ms")
-        stats["K1"]["err"] = max(stats["K1"]["err"], err)
+        t_bytes, t_ops = gbytes * 1e9 / PEAK_BYTES, 2 * m * k * n / PEAK_FLOPS
+        bound = max(t_bytes, t_ops) * 1e3
+        if name == TRAIN_TOWER:
+            stats["K1 train"] = {
+                "err": err, "ms": ms, "plain_ms": ms_plain,
+                "library_ms": ms_cublas, "bound_ms": bound,
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        else:
+            stats["K1"]["err"] = max(stats["K1"]["err"], err)
         if m == BATCH:
             stats["K1"]["ms"] += ms
             stats["K1"]["plain_ms"] += ms_plain
             stats["K1"]["library_ms"] += ms_cublas
-            stats["K1"]["bound_ms"] += max(gbytes * 1e9 / PEAK_BYTES,
-                                           2 * m * k * n / PEAK_FLOPS) * 1e3
+            stats["K1"]["bound_ms"] += bound
         if name == "fc7" and m == BATCH:
             # the host's cost of one call (checks, allocations, two tensor
             # maps encoded, the ctypes call) against its device time
@@ -496,6 +524,255 @@ def device_breakdown(pipe, params, pix, hwm, calls: int = 5) -> None:
         raise AssertionError(f"library GEMM/conv kernels on the path: {library}")
 
 
+def _train_setup(dev, batch: int, **model_kw):
+    """bench.py's training workload at `batch` windows: the config, params
+    from a seeded generator, and (15, batch, 4096) f32 role-major data drawn
+    on the card."""
+    from videovector_tpu_torch.models.embedding import (
+        VideoEmbeddingConfig, VideoEmbeddingModel,
+    )
+    cfg = VideoEmbeddingConfig(**{"num_negatives": TRAIN_NEG, **model_kw})
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = VideoEmbeddingModel(cfg).init(gen)
+    data = torch.randn((cfg.num_roles, batch, cfg.feature_dim), generator=gen,
+                       device=dev)
+    return cfg, params, {"data": data}
+
+
+def _train(cfg, params, batch, steps, *, gm=1, plain=False, hooks=None,
+           display=0, data=None):
+    """`steps` iterations of solver.train.train on the card through the
+    entry point a user calls, bench.py's solver, role-major data."""
+    from videovector_tpu_torch.models.embedding import VideoEmbeddingModel
+    from videovector_tpu_torch.solver import SolverConfig
+    from videovector_tpu_torch.solver.train import train
+    model = VideoEmbeddingModel(cfg, plain=plain)
+
+    def loss_fn(p, b, generator):
+        return model.loss(p, b, generator=generator, train=True,
+                          role_major=True)
+    solver = SolverConfig(**TRAIN_SOLVER, max_iter=steps, display=display,
+                          grad_microbatch=gm, random_seed=1)
+    if data is None:
+        data = itertools.repeat(batch)
+    return train(loss_fn, params, data, solver, device="cuda",
+                 batch_axes={"data": 1}, hooks=hooks)
+
+
+class _StepTimer:
+    """Hooks for train(): CUDA events and host clocks around iterations
+    [start, stop), and a profiler window over [stop, stop + profiled)."""
+
+    def __init__(self, start: int, stop: int, profiled: int = 0):
+        from torch.profiler import ProfilerActivity, profile
+        self.start, self.stop, self.profiled = start, stop, profiled
+        self.events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        self.prof = profile(activities=[ProfilerActivity.CPU,
+                                        ProfilerActivity.CUDA],
+                            record_shapes=True) if profiled else None
+
+    def hook(self, params, it):
+        if it == self.start:
+            torch.cuda.synchronize()
+            self.t0 = time.perf_counter()
+            self.events[0].record()
+        elif it == self.stop:
+            self.events[1].record()
+            self.enqueue_s = time.perf_counter() - self.t0
+            torch.cuda.synchronize()
+            self.wall_s = time.perf_counter() - self.t0
+            if self.prof is not None:
+                self.prof.start()
+        elif self.prof is not None and it == self.stop + self.profiled:
+            torch.cuda.synchronize()
+            self.prof.stop()
+
+    def ms_per_step(self) -> float:
+        return self.events[0].elapsed_time(self.events[1]) / (self.stop - self.start)
+
+
+def training_parity(dev) -> None:
+    """Three steps through train() with K1 and with the plain tower, from the
+    same params, dropout off: losses within 1e-3 relative and updated
+    params within 2e-2 of the largest update."""
+    cfg, params, batch = _train_setup(dev, TRAIN_BATCH, dropout_rate=0.0)
+    runs = {}
+    for plain in (False, True):
+        res = _train(cfg, params, batch, 3, plain=plain, display=1,
+                     data=iter([batch] * 3))
+        runs[plain] = (res, [m["loss"] for _, m in res.metrics_history])
+    (rk, lk), (rp, lp) = runs[False], runs[True]
+    w0 = params["tower"]["w"]
+    dw = (rp.params["tower"]["w"] - w0).abs().max().item()
+    errs = {k: (rk.params["tower"][k] - rp.params["tower"][k]).abs().max().item()
+            for k in ("w", "b")}
+    db = (rp.params["tower"]["b"] - params["tower"]["b"]).abs().max().item()
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
+    log(f"training, 3 steps at B={TRAIN_BATCH} (dropout off), K1 vs plain "
+        f"tower: losses {lk} vs {lp} (max rel err {loss_err:.2e}, tol 1e-3); "
+        f"max|w_K1 - w_plain| {errs['w']:.3e} against max|dw| {dw:.3e} (tol "
+        f"2e-2 of it); max|b_K1 - b_plain| {errs['b']:.3e} against max|db| "
+        f"{db:.3e}")
+    if not all(math.isfinite(v) for v in lk) or len(lk) != 3:
+        raise AssertionError(f"training losses {lk}")
+    if not loss_err <= 1e-3:
+        raise AssertionError(f"training loss K1 vs plain: {loss_err} > 1e-3")
+    if not (errs["w"] <= 2e-2 * dw and errs["b"] <= 2e-2 * db):
+        raise AssertionError(f"training params K1 vs plain: {errs}, "
+                             f"updates {dw}, {db}")
+
+
+def training_main_path(dev) -> int:
+    """bench.py's step at B=128 (dropout 0.9) through train(), counted: K1's
+    launches must be one per step, all on the sm90 route; the step timed by
+    CUDA events over 20 steps after 5 of warm-up, then profiled over 5 more
+    (device busy against host wall, top kernels, and no library GEMM on the
+    tower forward's shapes). Then one remat_tower step pair (two K1 launches
+    a step)."""
+    from videovector_tpu_torch.ops.hopper.matmul import matmul
+    cfg, params, batch = _train_setup(dev, TRAIN_BATCH)
+    timer = _StepTimer(5, 25, profiled=5)
+    steps = TRAIN_MAIN_STEPS
+    torch.cuda.synchronize()
+    matmul.launches = matmul.launches_sm90 = 0
+    res = _train(cfg, params, batch, steps, hooks=[(1, timer.hook)])
+    torch.cuda.synchronize()
+    launches = {"K1": matmul.launches, "K1 sm90": matmul.launches_sm90}
+    if launches != {"K1": steps, "K1 sm90": steps}:
+        raise AssertionError(f"training K1 launches {launches}, expected "
+                             f"{steps} (one per step), all sm90")
+    w = res.params["tower"]["w"]
+    if not (torch.isfinite(w).all() and res.state["iter"] == steps):
+        raise AssertionError("training params not finite after the run")
+    ms = timer.ms_per_step()
+    wall = timer.wall_s / (timer.stop - timer.start) * 1e3
+    enqueue = timer.enqueue_s / (timer.stop - timer.start) * 1e3
+    log(f"training main path: {steps} steps at B={TRAIN_BATCH} (dropout "
+        f"{cfg.dropout_rate}), K1 launches {launches}; step {ms:.4f} ms (CUDA "
+        f"events over {timer.stop - timer.start} steps) = "
+        f"{TRAIN_BATCH * TRAIN_NEG / ms * 1e3:,.0f} triplets/s; host wall "
+        f"{wall:.4f} ms a step, {enqueue:.4f} ms to enqueue it")
+    training_profile(timer.prof, timer.profiled, wall)
+
+    cfg_r, params_r, batch_r = _train_setup(dev, TRAIN_BATCH, remat_tower=True)
+    matmul.launches = matmul.launches_sm90 = 0
+    _train(cfg_r, params_r, batch_r, 2)
+    torch.cuda.synchronize()
+    if (matmul.launches, matmul.launches_sm90) != (4, 4):
+        raise AssertionError(f"remat_tower: K1 launches {matmul.launches} "
+                             f"({matmul.launches_sm90} sm90), expected 4")
+    log("remat_tower: 2 steps, 4 K1 launches (the forward recomputed in "
+        "backward), all sm90")
+    return launches["K1"] + 4
+
+
+def training_profile(prof, steps: int, wall_ms: float) -> None:
+    """Device time by kernel per step over the profiled steps, the idle
+    share against the unprofiled host wall, and the check that the tower
+    forward's (1920 x 4096) . (4096 x 4096) product never went to a library
+    GEMM: the only cuBLAS products are the weight gradient's and the
+    scoring block's."""
+    by_name: dict[str, float] = {}
+    n_device_ops = 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            n_device_ops += 1
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us() / steps)
+    if not by_name:
+        log("training profile: no device events (breakdown not measured)")
+        return
+    rows = TRAIN_BATCH * (1 + 4 + TRAIN_NEG)
+    fwd_shapes = [[rows, 4096], [4096, 4096]]
+    products = {}
+    for e in prof.events():
+        if e.name in ("aten::mm", "aten::addmm", "aten::bmm"):
+            shapes = [s for s in e.input_shapes if s]
+            products.setdefault(str(shapes), 0)
+            products[str(shapes)] += 1
+            if shapes[-2:] == fwd_shapes:
+                raise AssertionError("the tower forward went to a library "
+                                     f"GEMM: {e.name} {shapes}")
+    busy = sum(by_name.values()) / 1e3
+    k1 = sum(v for n, v in by_name.items()
+             if "gemm_tma_wgmma" in n or "splitk_reduce" in n) / 1e3
+    library = sum(v for n, v in by_name.items()
+                  if any(s in n.lower() for s in ("cublas", "xmma", "cutlass",
+                                                  "gemm", "sm90_"))
+                  and "vv::" not in n and "gemm_tma_wgmma" not in n) / 1e3
+    log(f"training profile over {steps} steps at B={TRAIN_BATCH}, per step: "
+        f"device busy {busy:.4f} ms against {wall_ms:.4f} ms host wall "
+        f"(unprofiled), idle share {1 - busy / wall_ms:.3f}; "
+        f"{n_device_ops / steps:.1f} device operations (kernels, copies, "
+        f"fills) a step; K1 {k1:.4f} ms, "
+        f"library GEMMs {library:.4f} ms, other {busy - k1 - library:.4f} ms; "
+        f"aten products (input shapes: calls in {steps} steps): {products}; "
+        "top 12 kernels:")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
+        log(f"    {us:9.1f} us  {name[:110]}")
+
+
+def step_part_times(dev) -> None:
+    """Parts of the B=128 step timed alone by CUDA-graph replay: the tower's
+    weight-gradient product as the backward runs it (f32 x^T . dY, TF32
+    off) and, for information only (never on the path: it changes results
+    against the CPU reference), with dY rounded to bf16; and one
+    solver_update of the tower's params (bench.py's solver)."""
+    from videovector_tpu_torch.solver import (
+        SolverConfig, init_solver_state, solver_update,
+    )
+    rows = TRAIN_BATCH * (1 + 4 + TRAIN_NEG)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    xc = torch.randn((rows, 4096), generator=gen, device=dev).bfloat16()
+    dy = torch.randn((rows, 4096), generator=gen, device=dev)
+    f32 = lambda _: xc.float().T @ dy
+    bf16 = lambda _: xc.T @ dy.bfloat16()
+    t = [time_graph_ms(fn, [0, 1]) for fn in (f32, bf16, bf16, f32)]
+    ms, ms_bf = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+    flops = 2 * rows * 4096 * 4096
+    log(f"tower wgrad (4096 x {rows}) . ({rows} x 4096): f32 as on the path "
+        f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s; bound at 67 TFLOP/s "
+        f"f32 {flops / 67e12 * 1e3:.4f} ms); with dY in bf16 (information "
+        f"only, not on the path) {ms_bf:.4f} ms")
+    cfg = SolverConfig(**TRAIN_SOLVER)
+    params = {"tower": {"w": torch.randn((4096, 4096), generator=gen,
+                                         device=dev),
+                        "b": torch.randn(4096, generator=gen, device=dev)}}
+    grads = {"tower": {k: torch.randn(v.shape, generator=gen, device=dev)
+                       for k, v in params["tower"].items()}}
+    state = init_solver_state(cfg, params)
+    ms_opt = time_graph_ms(
+        lambda _: solver_update(cfg, params, grads, state), [0, 1])
+    nbytes = 5 * 4 * sum(v.numel() for v in params["tower"].values())
+    log(f"solver_update of the tower's {nbytes // 20:,} params: "
+        f"{ms_opt:.4f} ms (bound {nbytes / PEAK_BYTES * 1e3:.4f} ms: w, h "
+        "and g read, w and h written)")
+
+
+def training_cells(dev) -> None:
+    """The large-batch points for the auto-microbatch rule: B=1024 with gm 1
+    and 8, B=8192 with gm 64; CUDA events over 2 steps after 1. K1 launches
+    once per microbatch, on the sm90 route."""
+    from videovector_tpu_torch.ops.hopper.matmul import matmul
+    steps = 4
+    for batch, gm in ((1024, 1), (1024, 8), (8192, 64)):
+        cfg, params, data = _train_setup(dev, batch)
+        timer = _StepTimer(1, 3)
+        matmul.launches = matmul.launches_sm90 = 0
+        _train(cfg, params, data, steps, gm=gm, hooks=[(1, timer.hook)])
+        torch.cuda.synchronize()
+        if (matmul.launches, matmul.launches_sm90) != (steps * gm,) * 2:
+            raise AssertionError(
+                f"training B={batch} gm={gm}: K1 launches {matmul.launches} "
+                f"({matmul.launches_sm90} sm90), expected {steps * gm}")
+        ms = timer.ms_per_step()
+        log(f"training B={batch} gm={gm}: {ms:.3f} ms a step = "
+            f"{batch * TRAIN_NEG / ms * 1e3:,.0f} triplets/s (host wall "
+            f"{timer.wall_s / 2 * 1e3:.3f} ms a step)")
+        del params, data
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -524,6 +801,13 @@ def main() -> int:
         launches, pipe, params, inputs = slice_phase(dev)
         for pix, hwm in inputs.values():
             device_breakdown(pipe, params, pix, hwm)
+    del pipe, params, inputs
+    torch.cuda.empty_cache()
+
+    training_parity(dev)
+    step_part_times(dev)
+    train_launches = training_main_path(dev)
+    training_cells(dev)
 
     kernels = [
         {"name": "K1 matmul (TMA + wgmma GEMM, split-K, bias + ReLU "
@@ -534,6 +818,14 @@ def main() -> int:
          "ms": stats["K1"]["ms"], "plain_ms": stats["K1"]["plain_ms"],
          "bound_ms": stats["K1"]["bound_ms"], "bound_by": "bytes",
          "library_ms": stats["K1"]["library_ms"]},
+        {"name": "K1 matmul, the training tower's call (TMA + wgmma GEMM, "
+                 "split-K, bias epilogue, f32 out)", "route": "cuda",
+         "source": "videovector_tpu_torch/csrc/matmul_sm90.cu",
+         "replaces": "videovector_tpu/ops/pallas/matmul.py:50",
+         "launches": train_launches,
+         **{k: stats["K1 train"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                             "bound_by", "library_ms")},
+         "max_abs_err": stats["K1 train"]["err"]},
         {"name": "K2 conv2d_im2col_gemm (implicit-GEMM conv: cp.async "
                  "gathers + TMA + wgmma, one launch per conv)", "route": "cuda",
          "source": "videovector_tpu_torch/csrc/conv_gemm_sm90.cu",
@@ -554,7 +846,9 @@ def main() -> int:
     log("(ms, plain_ms, bound_ms, library_ms: summed over the serving "
         f"path's shapes at batch {BATCH}: K1 fc6 + fc7 + tower with w cycled "
         "beyond L2, library cuBLAS torch.matmul; K2 conv1..conv5, library "
-        "cuDNN F.conv2d)")
+        "cuDNN F.conv2d. K1's training entry: one (1920 x 4096) . (4096 x "
+        "4096) call, bf16 in, f32 out, its launches those of the training "
+        f"main path, {TRAIN_MAIN_STEPS} steps + 2 remat_tower steps)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

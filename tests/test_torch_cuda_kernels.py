@@ -71,11 +71,11 @@ def test_k1_rejects(dev):
         k1.matmul(x, torch.ones(8, 4, device=dev, dtype=torch.bfloat16))
     with pytest.raises(ValueError):
         k1.matmul(x, torch.ones(7, 4, device=dev))
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(NotImplementedError, match="forward only"):
         k1.matmul(x.requires_grad_(), torch.ones(8, 4, device=dev))
     xb = torch.ones(64, 64, device=dev, dtype=torch.bfloat16)
     assert k1.k1_route(xb, xb, torch.float32) == "sm90"
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(NotImplementedError, match="forward only"):
         k1.matmul(xb.requires_grad_(), xb)
 
 
@@ -283,3 +283,62 @@ def test_space_to_depth_kernel_equals_plain(dev, shape, k, stride):
     assert torch.equal(xs, ref_x) and torch.equal(ws, ref_w)
     with pytest.raises(ValueError, match="contiguous bf16"):
         k2.space_to_depth(x.float(), w.float(), stride)
+
+
+def _mm_calls(fn) -> int:
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.key == "aten::mm")
+
+
+@pytest.mark.parametrize("kn", [64, 4096])
+@pytest.mark.parametrize("m", [60, 1920])
+def test_tower_function_on_k1(dev, m, kn):
+    """The training tower (ops.linear.tower_matmul, bf16 operands, f32 out,
+    bias epilogue, no fused ReLU) on K1's sm90 route: the forward against
+    matmul_plain; dW (rounded to bf16) and db against the plain Function's
+    backward on the same dY, and against their formulas; the ReLU tie of an
+    all-zero row against a zero bias; and no dX product unless x asks for a
+    gradient. (dY is fed to the Function itself: through relu, a kernel
+    output a rounding away from 0 on the other side of it than the plain
+    one would change dY there.)"""
+    from videovector_tpu_torch.ops.activations import relu
+    from videovector_tpu_torch.ops.linear import tower_matmul
+    gen = torch.Generator(device=dev).manual_seed(m + kn)
+    x = torch.randn(m, kn, generator=gen, device=dev)
+    x[0] = 0.0
+    w0 = torch.randn(kn, kn, generator=gen, device=dev) * kn ** -0.5
+    b0 = torch.randn(kn, generator=gen, device=dev)
+    b0[:8] = 0.0
+    g = torch.randn(m, kn, generator=gen, device=dev)
+    out = {}
+    for plain in (False, True):
+        w, b = w0.clone().requires_grad_(), b0.clone().requires_grad_()
+        before = (k1.matmul.launches, k1.matmul.launches_sm90)
+        h = tower_matmul(x, w, b, compute_dtype=torch.bfloat16, plain=plain)
+        assert (k1.matmul.launches, k1.matmul.launches_sm90) == (
+            (before[0] + 1, before[1] + 1) if not plain else before)
+        n_mm = _mm_calls(lambda: h.backward(g))
+        assert n_mm == 1            # dW only: x does not ask for a gradient
+        out[plain] = (h.detach(), w.grad, b.grad)
+    (h, dw, db), (h_ref, dw_ref, db_ref) = out[False], out[True]
+    _close(h, k1.matmul_plain(x.bfloat16(), w0.bfloat16(), b0))
+    _close(h, h_ref)
+    assert torch.equal(dw, dw_ref) and torch.equal(db, db_ref)
+    assert torch.equal(dw, dw.bfloat16().float())       # rounded to bf16
+    _close(dw, (x.bfloat16().float().T @ g).bfloat16().float())
+    _close(db, g.sum(0))
+    # the tie through relu: h[0, :8] == 0 exactly, and its gradient is 0.5
+    assert (h[0, :8] == 0).all()
+    w, b = w0.clone().requires_grad_(), b0.clone().requires_grad_()
+    hk = tower_matmul(x, w, b, compute_dtype=torch.bfloat16)
+    relu(hk).backward(g)
+    dy = g * torch.where(h > 0, 1.0, torch.where(h == 0, 0.5, 0.0))
+    _close(b.grad, dy.sum(0))
+    xg = x.clone().requires_grad_()
+    w = w0.clone().requires_grad_()
+    h2 = tower_matmul(xg, w, b0, compute_dtype=torch.bfloat16)
+    assert _mm_calls(lambda: h2.backward(g)) == 2
+    _close(xg.grad, (g @ w0.bfloat16().float().T).bfloat16().float())

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 from jax import lax
 
@@ -463,6 +464,79 @@ def test_relu(rng):
                                   np.maximum(x, 0))
     np.testing.assert_allclose(relu(torch.as_tensor(x), 0.1).numpy(),
                                np.where(x > 0, x, 0.1 * x), rtol=1e-6)
+
+
+@pytest.mark.parametrize("slope", [0.0, 0.1])
+def test_relu_gradient_at_the_tie_matches_jax(slope):
+    """Value and gradient at -1, 0 and 1: JAX's maximum splits the tie at 0
+    evenly, so the gradient there is 0.5 (0.5 + 0.5 * slope with a leak)."""
+    from videovector_tpu.ops.activations import relu as jax_relu
+    x = np.array([-1.0, 0.0, 1.0], np.float32)
+    ref_v = np.asarray(jax_relu(jnp.asarray(x), slope))
+    ref_g = np.asarray(jax.grad(lambda v: jnp.sum(jax_relu(v, slope)))(
+        jnp.asarray(x)))
+    xt = torch.tensor(x, requires_grad=True)
+    y = relu(xt, slope)
+    y.sum().backward()
+    np.testing.assert_array_equal(y.detach().numpy(), ref_v)
+    np.testing.assert_array_equal(xt.grad.numpy(), ref_g)
+    assert xt.grad[1].item() == np.float32(0.5 + 0.5 * slope)
+
+
+def _mm_calls(fn) -> int:
+    """aten::mm calls made by fn() (the CPU profiler's count)."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        fn()
+    return sum(e.count for e in prof.key_averages() if e.key == "aten::mm")
+
+
+def test_tower_bf16_matches_jax_bit_for_bit():
+    """The tower Function (ops.linear.tower_matmul, then relu) in bf16
+    against JAX's VideoEmbeddingModel.embed, on integer inputs whose f32
+    sums are exact: the forward, the bf16-rounded dW and db equal JAX's bit
+    for bit; an all-zero input row against a zero bias hits the ReLU tie,
+    whose gradient 0.5 reaches db; dX is computed only when asked for."""
+    from videovector_tpu.models.embedding import (
+        VideoEmbeddingConfig as JCfg, VideoEmbeddingModel as JModel,
+    )
+    from videovector_tpu_torch.ops.linear import tower_matmul
+    rs = np.random.RandomState(0)
+    m, d, e = 64, 64, 48
+    x = rs.randint(-4, 5, (m, d)).astype(np.float32)
+    x[0] = 0.0
+    w = rs.randint(-4, 5, (d, e)).astype(np.float32)
+    b = rs.randint(-8, 9, e).astype(np.float32)
+    b[:8] = 0.0
+    g = rs.randint(-8, 9, (m, e)).astype(np.float32)
+    jm = JModel(JCfg(feature_dim=d, embed_dim=e, dropout_rate=0.0,
+                     compute_dtype="bfloat16"))
+    jp = {"tower": {"w": jnp.asarray(w), "b": jnp.asarray(b)}}
+    ref, vjp = jax.vjp(lambda p: jm.embed(p, jnp.asarray(x)), jp)
+    jg = vjp(jnp.asarray(g))[0]["tower"]
+    wt, bt = torch.tensor(w, requires_grad=True), torch.tensor(b, requires_grad=True)
+    xt = torch.tensor(x)
+    h = tower_matmul(xt, wt, bt, compute_dtype=torch.bfloat16)
+    y = relu(h)
+    n_mm = _mm_calls(lambda: y.backward(torch.tensor(g)))
+    np.testing.assert_array_equal(y.detach().numpy(), np.asarray(ref))
+    np.testing.assert_array_equal(wt.grad.numpy(), np.asarray(jg["w"]))
+    np.testing.assert_array_equal(bt.grad.numpy(), np.asarray(jg["b"]))
+    # the tie: row 0 is zero and so is b[:8], so h[0, :8] == 0
+    assert (h.detach()[0, :8] == 0).all()
+    hn = h.detach().numpy()
+    dy = g * np.where(hn > 0, 1.0, np.where(hn == 0, 0.5, 0.0))
+    np.testing.assert_array_equal(bt.grad.numpy(), dy.sum(0))
+    # dW really is rounded to bf16: the exact f32 product differs
+    assert (x.T @ dy != wt.grad.numpy()).any()
+    assert n_mm == 1 and xt.grad is None     # dW only
+    xg = torch.tensor(x, requires_grad=True)
+    y2 = relu(tower_matmul(xg, wt, bt, compute_dtype=torch.bfloat16))
+    assert _mm_calls(lambda: y2.backward(torch.tensor(g))) == 2
+    np.testing.assert_array_equal(
+        xg.grad.numpy(),
+        (torch.tensor(dy, dtype=torch.float32) @ torch.tensor(w).T)
+        .bfloat16().float().numpy())
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

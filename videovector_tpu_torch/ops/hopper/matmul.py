@@ -13,8 +13,9 @@ Each source note says what bounds its kernel on the H100.
 `matmul` launches a kernel for CUDA tensors and runs `matmul_plain`, the
 plain PyTorch version, for CPU tensors; on any other device it raises.
 `matmul.launches` counts every launch, `matmul.launches_sm90` those of the
-sm90 route. The kernels are forward only: the backward comes with the
-training slice.
+sm90 route. The kernels are forward only, as the Pallas kernel is: the
+training tower reaches K1 through ops.linear.tower_matmul, an autograd
+Function whose backward is torch.matmul.
 """
 
 from __future__ import annotations
@@ -37,8 +38,9 @@ def dtype_code(dtype: torch.dtype, what: str) -> int:
 
 
 def check_cuda_operands(*tensors: torch.Tensor | None) -> None:
-    """The common launch preconditions: CUDA tensors on one device, no graph.
-    """
+    """The common launch preconditions: CUDA tensors on one device, and no
+    autograd graph to extend (inside an autograd Function's forward, grad
+    mode is off and the check passes)."""
     dev = tensors[0].device
     for t in tensors:
         if t is None:
@@ -47,8 +49,9 @@ def check_cuda_operands(*tensors: torch.Tensor | None) -> None:
             raise ValueError(f"operands on different devices: {t.device} vs {dev}")
         if t.requires_grad and torch.is_grad_enabled():
             raise NotImplementedError(
-                "the Hopper kernels are forward only; their backward arrives "
-                "with the training slice (run under torch.no_grad())")
+                "the Hopper kernels are forward only: call them under "
+                "torch.no_grad(), or through ops.linear.tower_matmul, whose "
+                "autograd Function carries the backward")
 
 
 def bias_f32(b: torch.Tensor | None, n: int) -> torch.Tensor | None:
