@@ -32,7 +32,16 @@ Run from the root of a checkout. It
    (one K1 launch per step, all sm90), timed with CUDA events and profiled
    (idle share, top kernels, no library GEMM on the tower forward), two
    remat_tower steps, the weight-gradient product's time, and the B = 1024
-   (gm 1 and 8) and B = 8192 (gm 64) points.
+   (gm 1 and 8) and B = 8192 (gm 64) points;
+6. runs the flagship's test-interval eval through train (B = 128, 10 steps,
+   test_interval 5): extract on (673, 4, 4096) test batches (one sm90 K1
+   launch each, held against the plain tower), then the dense
+   retrieval_stats with class = video id, its Test net output lines
+   checked, one eval timed and split into K1 and retrieval_stats; then the
+   gallery-scale eval: retrieval_stats_chunked at 20,000 x 4096 with the
+   count and the sort engine (equal results, timed, the faster profiled, a
+   4,096-row subsample against the CPU), the same in bf16, the csv report
+   at 20,000 rows, and one pass at 100,000 x 4096.
 
 Exits non-zero, with no result line, without a CUDA card or outside a
 checkout. The last line of stdout is {"ok": true, "device": {...}}; the line
@@ -43,6 +52,7 @@ from __future__ import annotations
 
 import itertools
 import json
+import logging
 import math
 import subprocess
 import sys
@@ -78,8 +88,20 @@ PEAK_BYTES = 3.35e12
 # roles; bias epilogue only, the ReLU runs after it)
 K1_FC = (("fc6", 9216, 4096), ("fc7", 4096, 4096), ("tower", 4096, 4096))
 TRAIN_TOWER = "train tower"
+TEST_TOWER = "test tower"
+# the flagship's test eval (projects/videovec_embedding/generate_net.py's
+# TEST branch): batches of 673 windows of 4 raw context frames, video ids
+# over about 100 videos, class = video id
+TEST_BATCH = 673
+TEST_FRAMES = 4
+TEST_VIDEOS = 100
 K1_CASES = tuple((m, *fc) for m in (BATCH, 256) for fc in K1_FC) + \
-    ((1920, TRAIN_TOWER, 4096, 4096),)
+    ((1920, TRAIN_TOWER, 4096, 4096), (TEST_BATCH, TEST_TOWER, 4096, 4096))
+# K1 calls timed apart from the serving path's sums: their stats keys
+K1_APART = {TRAIN_TOWER: "K1 train", TEST_TOWER: "K1 test"}
+# the retrieval eval's gallery cells (f32 rows x 4096; GALLERY_ROWS also in
+# bf16 and through the csv report)
+BIG_GALLERY_ROWS = 100_000
 # the training slice's workload, bench.py's: B = 128 windows of 15 roles
 # (target, 4 context, 10 negatives), D = E = 4096, bf16 tower, SGD with
 # momentum 0.9, weight decay 5e-4 and the inv lr policy
@@ -226,8 +248,8 @@ def kernel_phases(dev, gen):
             f"TFLOP/s), plain {ms_plain:.4f} ms, cuBLAS {ms_cublas:.4f} ms")
         t_bytes, t_ops = gbytes * 1e9 / PEAK_BYTES, 2 * m * k * n / PEAK_FLOPS
         bound = max(t_bytes, t_ops) * 1e3
-        if name == TRAIN_TOWER:
-            stats["K1 train"] = {
+        if name in K1_APART:
+            stats[K1_APART[name]] = {
                 "err": err, "ms": ms, "plain_ms": ms_plain,
                 "library_ms": ms_cublas, "bound_ms": bound,
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
@@ -540,9 +562,11 @@ def _train_setup(dev, batch: int, **model_kw):
 
 
 def _train(cfg, params, batch, steps, *, gm=1, plain=False, hooks=None,
-           display=0, data=None):
+           display=0, data=None, test_interval=0, eval_fn=None,
+           test_data=None):
     """`steps` iterations of solver.train.train on the card through the
-    entry point a user calls, bench.py's solver, role-major data."""
+    entry point a user calls, bench.py's solver, role-major data; with
+    eval_fn, one test batch every `test_interval` iterations."""
     from videovector_tpu_torch.models.embedding import VideoEmbeddingModel
     from videovector_tpu_torch.solver import SolverConfig
     from videovector_tpu_torch.solver.train import train
@@ -552,11 +576,13 @@ def _train(cfg, params, batch, steps, *, gm=1, plain=False, hooks=None,
         return model.loss(p, b, generator=generator, train=True,
                           role_major=True)
     solver = SolverConfig(**TRAIN_SOLVER, max_iter=steps, display=display,
-                          grad_microbatch=gm, random_seed=1)
+                          grad_microbatch=gm, random_seed=1,
+                          test_interval=test_interval, test_iter=(1,))
     if data is None:
         data = itertools.repeat(batch)
     return train(loss_fn, params, data, solver, device="cuda",
-                 batch_axes={"data": 1}, hooks=hooks)
+                 batch_axes={"data": 1}, hooks=hooks, eval_fn=eval_fn,
+                 test_data=test_data)
 
 
 class _StepTimer:
@@ -773,6 +799,296 @@ def training_cells(dev) -> None:
         torch.cuda.empty_cache()
 
 
+def _device_profile(fn, wall_ms: float, top: int = 8) -> str:
+    """One profiled call of fn(): device busy time, the idle share against
+    `wall_ms` (the host wall of an unprofiled call) and the `top` device
+    operations by time, as a log line; "not measured" if the profiler sees
+    no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name: dict[str, list] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            t = by_name.setdefault(e.name, [0.0, 0])
+            t[0] += e.time_range.elapsed_us() / 1e3
+            t[1] += 1
+    if not by_name:
+        return "profile: no device events (busy time not measured)"
+    busy = sum(t for t, _ in by_name.values())
+    ops = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return (f"device busy {busy:.3f} ms against {wall_ms:.3f} ms host wall, "
+            f"idle share {max(0.0, 1 - busy / wall_ms):.3f}; "
+            f"{sum(n for _, n in by_name.values())} device operations; top: "
+            + "; ".join(f"{t:.3f} ms x{n} {name[:70]}"
+                        for name, (t, n) in ops))
+
+
+def _test_windows(dev, gen, n: int):
+    """n flagship test batches drawn on the card: (673, 4, 4096) f32 raw
+    context frames near their video's center, and (673,) video ids."""
+    centers = torch.randn((TEST_VIDEOS, 4096), generator=gen, device=dev)
+    out = []
+    for _ in range(n):
+        vids = torch.randint(0, TEST_VIDEOS, (TEST_BATCH,), generator=gen,
+                             device=dev, dtype=torch.int32)
+        data = centers[vids][:, None, :] + torch.randn(
+            (TEST_BATCH, TEST_FRAMES, 4096), generator=gen, device=dev)
+        out.append({"data": data, "video_ids": vids})
+    return out
+
+
+def _flagship_eval_fn(model):
+    """The TEST branch as an eval_fn for train: extract (frames averaged,
+    tower + ReLU on K1, L2 normalize), then RETRIEVAL_STATS with class =
+    video id and exclude_same_video_shots false, under the TEST branch's
+    top names."""
+    from videovector_tpu_torch.metrics import retrieval_stats
+
+    def eval_fn(p, batch):
+        vids = batch["video_ids"]
+        out = retrieval_stats(model.extract(p, batch["data"]), vids, vids,
+                              exclude_same_video_shots=False)
+        return {"test_map": out["mean_ap"], "test_hit1": out["hit_at_1"],
+                "test_hit5": out["hit_at_5"]}
+    return eval_fn
+
+
+class _Collect(logging.Handler):
+    def __init__(self):
+        super().__init__()
+        self.lines: list[str] = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def eval_through_train(dev) -> int:
+    """The flagship's test-interval eval through train() at B=128: 10 steps,
+    test_interval 5, test_iter 1 (evals at 0, 5 and 10). Checks the Test
+    net output lines, one sm90 K1 launch per test batch and outputs in
+    [0, 1]; then, on the trained params, the eval with K1 against the plain
+    tower, and one eval timed with CUDA events and split into K1 and the
+    dense retrieval_stats. Returns the eval's K1 launches."""
+    from videovector_tpu_torch.metrics import retrieval_stats
+    from videovector_tpu_torch.models.embedding import VideoEmbeddingModel
+    from videovector_tpu_torch.ops.hopper.matmul import matmul
+    steps, interval = 10, 5
+    cfg, params, batch = _train_setup(dev, TRAIN_BATCH)
+    windows = _test_windows(dev, torch.Generator(device=dev).manual_seed(5), 2)
+    model, plain = VideoEmbeddingModel(cfg), VideoEmbeddingModel(cfg, plain=True)
+    inner = _flagship_eval_fn(model)
+    per_eval = []
+
+    def eval_fn(p, b):
+        before = (matmul.launches, matmul.launches_sm90)
+        out = inner(p, b)
+        per_eval.append((matmul.launches - before[0],
+                         matmul.launches_sm90 - before[1]))
+        return out
+    lines = _Collect()
+    logging.getLogger("videovector_tpu_torch.solver.train").addHandler(lines)
+    try:
+        res = _train(cfg, params, batch, steps, test_interval=interval,
+                     eval_fn=eval_fn, test_data=itertools.cycle(windows))
+    finally:
+        logging.getLogger("videovector_tpu_torch.solver.train") \
+            .removeHandler(lines)
+    torch.cuda.synchronize()
+    tests = [l for l in lines.lines if l.startswith("    Test net output #")]
+    for line in tests:
+        log(line)
+    n_evals = steps // interval + 1
+    if len(tests) != 3 * n_evals or [i for i, _ in res.test_history] != \
+            list(range(0, steps + 1, interval)):
+        raise AssertionError(f"test lines {tests}, history {res.test_history}")
+    if per_eval != [(1, 1)] * n_evals:
+        raise AssertionError(f"K1 launches per test batch (all, sm90): "
+                             f"{per_eval}, expected one sm90 launch each")
+    values = [v for _, m in res.test_history for v in m.values()]
+    if not all(0.0 <= v <= 1.0 for v in values):
+        raise AssertionError(f"test outputs outside [0, 1]: {res.test_history}")
+    log(f"test eval through train: {steps} steps at B={TRAIN_BATCH}, "
+        f"{n_evals} evals of {TEST_BATCH} windows, K1 launches per eval "
+        f"{per_eval} (all, sm90)")
+
+    p, w = res.params, windows[0]
+    vids = w["video_ids"]
+    with torch.no_grad():
+        emb = model.extract(p, w["data"])
+        ref = plain.extract(p, w["data"])
+        compare(f"test eval embeddings {TEST_BATCH}x4096, K1 vs plain", emb,
+                ref)
+        outs = [retrieval_stats(e, vids, vids) for e in (emb, ref)]
+        top1 = []
+        for e in (emb, ref):
+            d = -2.0 * (e @ e.T)
+            d.fill_diagonal_(float("inf"))
+            top1.append(torch.argmin(d, dim=1))
+        differ = int((top1[0] != top1[1]).sum())
+        log(f"  test_map K1 {float(outs[0]['mean_ap']):.6f}, plain "
+            f"{float(outs[1]['mean_ap']):.6f}; test_hit1 "
+            f"{float(outs[0]['hit_at_1']):.6f} / "
+            f"{float(outs[1]['hit_at_1']):.6f}; queries whose top-1 differs: "
+            f"{differ} of {TEST_BATCH}")
+
+        x = torch.mean(w["data"], dim=1).bfloat16()
+        wt, bt = p["tower"]["w"].bfloat16(), p["tower"]["b"]
+        parts = {
+            "eval": lambda: inner(p, w),
+            "extract": lambda: model.extract(p, w["data"]),
+            "K1": lambda: matmul(x, wt, bt, fuse_relu=True),
+            "retrieval_stats": lambda: retrieval_stats(emb, vids, vids),
+        }
+        ms = {k: time_ms(fn, iters=20) for k, fn in parts.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            out = inner(p, w)
+            float(out["test_map"])        # train reads each output back
+        wall = (time.perf_counter() - t0) / 10 * 1e3
+        log(f"  one eval: {ms['eval']:.4f} ms (CUDA events over 20), of it "
+            f"extract {ms['extract']:.4f} (K1 alone {ms['K1']:.4f}), dense "
+            f"retrieval_stats at N={TEST_BATCH} {ms['retrieval_stats']:.4f}; "
+            f"host wall with the outputs read back {wall:.4f} ms; "
+            + _device_profile(lambda: float(inner(p, w)["test_map"]), wall))
+    return sum(n for n, _ in per_eval)
+
+
+def _class_gallery(dev, gen, n: int, d: int = 4096, classes: int = 50):
+    """(n, d) f32 L2-normalized rows, center of their class + noise, as
+    scripts/bench_gallery_eval.py and tests/test_metrics.py make them, and
+    n // 10 videos, drawn on the card in blocks of rows. The centers are
+    scaled by 0.2, not 2.0: at 4096 dims 2.0 separates the classes fully
+    (mAP 1.0, every engine's answer trivial); 0.2 leaves them overlapping
+    (mAP ≈ 0.57 at 4,000 rows on the CPU)."""
+    cls = torch.randint(0, classes, (n,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    vids = torch.randint(0, n // 10, (n,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    centers = torch.randn((classes, d), generator=gen, device=dev)
+    feats = torch.empty((n, d), device=dev)
+    for s in range(0, n, 8192):
+        f = centers[cls[s:s + 8192]] * 0.2 + torch.randn(
+            (min(8192, n - s), d), generator=gen, device=dev)
+        feats[s:s + 8192] = f / f.norm(dim=1, keepdim=True)
+    return feats, vids, cls
+
+
+def _engine_ulps(a: dict, b: dict) -> dict:
+    """count - sort per output, in f32 ulps. hit@1 and hit@5 must be equal:
+    each query's acc@1 and acc@5 are the same values and sum alike. mean_ap
+    may differ by one ulp and no more: each query's ap adds the same terms,
+    but over its M class members in one engine and its N ranked positions
+    in the other, an order no reduction of PyTorch's shares."""
+    ulps = {k: (float(a[k]) - float(b[k])) / float(np.spacing(np.float32(b[k])))
+            for k in a}
+    if ulps["hit_at_1"] or ulps["hit_at_5"] or abs(ulps["mean_ap"]) > 1:
+        raise AssertionError(f"count {a} vs sort {b}: {ulps} ulps")
+    return ulps
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def gallery_eval(dev) -> None:
+    """retrieval_stats_chunked and retrieval_stats_report on the card at
+    gallery scale: 20,000 x 4096 f32 with both engines (equal results, both
+    timed, the faster profiled, a 4,096-row subsample against the CPU), the
+    same gallery in bf16, the csv report, then 100,000 x 4096 in one timed
+    pass."""
+    import tempfile
+
+    from videovector_tpu_torch.metrics import retrieval as R
+    gen = torch.Generator(device=dev).manual_seed(11)
+    n = GALLERY_ROWS
+    feats, vids, cls = _class_gallery(dev, gen, n)
+    members = R._class_member_table(cls.cpu().numpy())[0].shape[1]
+    auto = "count" if R._auto_uses_count(dev, members, n) else "sort"
+    R.retrieval_stats_chunked(feats[:512], vids[:512], cls[:512])  # warm-up
+    outs, secs = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        for m in ("count", "sort"):
+            outs[dtype, m], secs[dtype, m] = _timed(
+                lambda: R.retrieval_stats_chunked(feats, vids, cls, method=m,
+                                                  gallery_dtype=dtype))
+        ulps = _engine_ulps(outs[dtype, "count"], outs[dtype, "sort"])
+        log(f"gallery {n}x4096 {dtype}, 50 classes (largest {members} rows), "
+            f"{n // 10} videos: count {secs[dtype, 'count']:.3f} s, sort "
+            f"{secs[dtype, 'sort']:.3f} s (host clock, one pass each); "
+            + ", ".join(f"{k} {float(v):.7f}"
+                        for k, v in outs[dtype, "count"].items())
+            + f", count - sort in f32 ulps {ulps}; 'auto' picks {auto}")
+    # the faster engine first; the other's profile says where its time goes
+    # (the count engine's compare cube is a hand-kernel candidate)
+    for m in sorted(("count", "sort"), key=lambda m: secs["float32", m]):
+        log(f"  profile of one f32 pass of the {m} engine: "
+            + _device_profile(lambda: R.retrieval_stats_chunked(
+                feats, vids, cls, method=m), secs["float32", m] * 1e3))
+
+    # the subsample's rows rounded to multiples of 2**-10, so that every
+    # distance is exact in any summation order (|x.y| <= 1 in units of
+    # 2**-20 needs 21 bits): the card and the CPU then rank alike, and only
+    # the f32 sums of the ap terms differ in order
+    sub = 4096
+    q = torch.round(feats[:sub] * 1024) / 1024
+    card = R.retrieval_stats_chunked(q, vids[:sub], cls[:sub])
+    cpu = R.retrieval_stats_chunked(q.cpu(), vids[:sub].cpu(),
+                                    cls[:sub].cpu(), device="cpu")
+    log(f"  {sub}-row subsample on a 2**-10 grid, card ('auto') vs CPU "
+        "('auto'): "
+        + ", ".join(f"{k} {float(card[k]):.7f} / {float(cpu[k]):.7f}"
+                    for k in card))
+    for k in card:
+        if not math.isclose(float(card[k]), float(cpu[k]), rel_tol=1e-6):
+            raise AssertionError(f"subsample {k}: card {card} vs CPU {cpu}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "report.csv")
+        agg, sec = _timed(lambda: R.retrieval_stats_report(feats, vids, cls,
+                                                           path))
+        rows = [l.split(",") for l in
+                Path(path).read_text().splitlines()[1:]]
+    v = vids.cpu().numpy()
+    top5 = np.array([[int(x) for x in r[5:10]] for r in rows])
+    if len(rows) != n or (v[top5] == v[:, None]).any():
+        raise AssertionError(f"report: {len(rows)} rows, or a top-5 id from "
+                             "the query's own video")
+    log(f"  retrieval_stats_report at {n} rows: {sec:.3f} s (host clock, csv "
+        f"written), {len(rows)} rows, every top-5 id from another video; "
+        + ", ".join(f"{k} {val:.6f}" for k, val in agg.items()))
+
+    t20 = secs["float32", auto]
+    del feats, vids, cls
+    torch.cuda.empty_cache()
+    big = BIG_GALLERY_ROWS
+    feats, vids, cls = _class_gallery(dev, gen, big)
+    members_big = R._class_member_table(cls.cpu().numpy())[0].shape[1]
+    pick = "count" if R._auto_uses_count(dev, members_big, big) else "sort"
+    projected = t20 * (big / n) ** 2 * (members_big / members)
+    why = f"'auto' picks {pick}"
+    if pick == "count" and projected > 60:
+        pick = "sort"
+        why += (f", but its 20k time projects to {projected:.0f} s here, past "
+                "60 s: running sort")
+    out, sec = _timed(lambda: R.retrieval_stats_chunked(feats, vids, cls,
+                                                        method=pick))
+    if not all(0.0 <= float(x) <= 1.0 for x in out.values()):
+        raise AssertionError(f"100k: {out}")
+    log(f"gallery {big}x4096 f32 (largest class {members_big} rows; {why}): "
+        f"{pick} {sec:.3f} s, one pass (host clock); "
+        + ", ".join(f"{k} {float(x):.6f}" for k, x in out.items()))
+    del feats, vids, cls
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -808,6 +1124,10 @@ def main() -> int:
     step_part_times(dev)
     train_launches = training_main_path(dev)
     training_cells(dev)
+    eval_launches = eval_through_train(dev)
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        gallery_eval(dev)
 
     kernels = [
         {"name": "K1 matmul (TMA + wgmma GEMM, split-K, bias + ReLU "
@@ -826,6 +1146,14 @@ def main() -> int:
          **{k: stats["K1 train"][k] for k in ("ms", "plain_ms", "bound_ms",
                                              "bound_by", "library_ms")},
          "max_abs_err": stats["K1 train"]["err"]},
+        {"name": "K1 matmul, the test eval's tower call (673 x 4096 x 4096, "
+                 "bf16 in, f32 out, bias + ReLU)", "route": "cuda",
+         "source": "videovector_tpu_torch/csrc/matmul_sm90.cu",
+         "replaces": "videovector_tpu/ops/pallas/matmul.py:50",
+         "launches": eval_launches,
+         **{k: stats["K1 test"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                            "bound_by", "library_ms")},
+         "max_abs_err": stats["K1 test"]["err"]},
         {"name": "K2 conv2d_im2col_gemm (implicit-GEMM conv: cp.async "
                  "gathers + TMA + wgmma, one launch per conv)", "route": "cuda",
          "source": "videovector_tpu_torch/csrc/conv_gemm_sm90.cu",
@@ -848,7 +1176,9 @@ def main() -> int:
         "beyond L2, library cuBLAS torch.matmul; K2 conv1..conv5, library "
         "cuDNN F.conv2d. K1's training entry: one (1920 x 4096) . (4096 x "
         "4096) call, bf16 in, f32 out, its launches those of the training "
-        f"main path, {TRAIN_MAIN_STEPS} steps + 2 remat_tower steps)")
+        f"main path, {TRAIN_MAIN_STEPS} steps + 2 remat_tower steps. K1's "
+        f"test-eval entry: one ({TEST_BATCH} x 4096) . (4096 x 4096) call "
+        "with bias + ReLU, its launches the test evals' in train)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -342,3 +342,72 @@ def test_tower_function_on_k1(dev, m, kn):
     h2 = tower_matmul(xg, w, b0, compute_dtype=torch.bfloat16)
     assert _mm_calls(lambda: h2.backward(g)) == 2
     _close(xg.grad, (g @ w0.bfloat16().float().T).bfloat16().float())
+
+
+def test_test_eval_tower_on_k1_at_673_rows(dev):
+    """The flagship test eval's tower: VideoEmbeddingModel.extract on one
+    (673, 4, 4096) test batch, without gradients, is one K1 launch on the
+    sm90 route (bias + ReLU epilogue, f32 out), against matmul_plain and
+    the plain model."""
+    from videovector_tpu_torch.models.embedding import (
+        VideoEmbeddingConfig, VideoEmbeddingModel,
+    )
+    cfg = VideoEmbeddingConfig()
+    gen = torch.Generator(device=dev).manual_seed(6)
+    params = VideoEmbeddingModel(cfg).init(gen)
+    params["tower"]["b"] = torch.randn(4096, generator=gen, device=dev) * 0.01
+    feats = torch.randn((673, 4, 4096), generator=gen, device=dev)
+    x = torch.mean(feats, dim=1).bfloat16()
+    w, b = params["tower"]["w"].bfloat16(), params["tower"]["b"]
+    assert k1.k1_route(x, w, torch.float32) == "sm90"
+    with torch.no_grad():
+        before = (k1.matmul.launches, k1.matmul.launches_sm90)
+        emb = VideoEmbeddingModel(cfg).extract(params, feats)
+        assert (k1.matmul.launches, k1.matmul.launches_sm90) == \
+            (before[0] + 1, before[1] + 1)
+        ref = VideoEmbeddingModel(cfg, plain=True).extract(params, feats)
+        _close(emb, ref)
+        _close(k1.matmul(x, w, b, fuse_relu=True),
+               k1.matmul_plain(x, w, b, fuse_relu=True))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_count_engine_equals_sort_on_the_card(dev, dtype):
+    """retrieval_stats_chunked's two engines on the card give the same
+    results on a 2,000-row gallery of overlapping classes, f32 and bf16."""
+    from videovector_tpu_torch.metrics import retrieval as tr
+    gen = torch.Generator(device=dev).manual_seed(7)
+    n, d, c = 2000, 256, 20
+    cls = torch.randint(0, c, (n,), generator=gen, device=dev)
+    vids = torch.randint(0, n // 10, (n,), generator=gen, device=dev)
+    centers = torch.randn((c, d), generator=gen, device=dev)
+    feats = centers[cls] * 0.3 + torch.randn((n, d), generator=gen, device=dev)
+    feats = feats / feats.norm(dim=1, keepdim=True)
+    outs = [tr.retrieval_stats_chunked(feats, vids, cls, method=m,
+                                       gallery_dtype=dtype, query_chunk=128,
+                                       exclude_same_video_shots=ex)
+            for ex in (False, True) for m in ("count", "sort")]
+    for a, b in (outs[:2], outs[2:]):
+        assert all(float(a[k]) == float(b[k]) for k in a), (a, b)
+        assert 0.05 < float(a["mean_ap"]) < 0.99
+
+
+def test_bf16_gallery_stays_bf16_on_the_card(dev):
+    """A bf16 gallery is never copied to f32 on the card: the distance
+    product is bf16 x bf16 with an f32 output. The peak memory of a sort
+    pass over a (20,000 x 4096) bf16 gallery stays below what an f32 copy
+    of it alone would take."""
+    from videovector_tpu_torch.metrics import retrieval as tr
+    gen = torch.Generator(device=dev).manual_seed(8)
+    n, d = 20_000, 4096
+    feats = torch.randn((n, d), generator=gen, device=dev).bfloat16()
+    feats = feats / feats.float().norm(dim=1, keepdim=True).bfloat16()
+    vids = torch.randint(0, 500, (n,), generator=gen, device=dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = tr.retrieval_stats_chunked(feats, vids, vids % 7, method="sort",
+                                     gallery_dtype="bfloat16", query_chunk=64)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated(dev) - base < n * d * 4
+    assert 0.0 <= float(out["mean_ap"]) <= 1.0

@@ -176,6 +176,9 @@ def test_port_imports_without_jax():
         import videovector_tpu_torch.models.mednet
         import videovector_tpu_torch.models.retrieval_pipeline
         import videovector_tpu_torch.device
+        import videovector_tpu_torch.metrics
+        import videovector_tpu_torch.metrics.classification
+        import videovector_tpu_torch.metrics.retrieval
         import videovector_tpu_torch.ops.activations
         import videovector_tpu_torch.ops.conv
         import videovector_tpu_torch.ops.hopper.conv_gemm

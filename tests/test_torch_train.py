@@ -631,6 +631,72 @@ def test_display_and_test_log_lines_equal_jax():
         _close(tnum, jnum, rtol=2e-5, atol=1e-6)
 
 
+def _test_windows(n, *, b=40, frames=4, videos=10, seed=12):
+    """Test batches of the flagship's TEST branch at width D: (b, frames, D)
+    raw context frames near their video's center, and (b,) video ids."""
+    rs = np.random.RandomState(seed)
+    centers = rs.randn(videos, D).astype(np.float32)
+    out = []
+    for _ in range(n):
+        vids = rs.randint(0, videos, size=b).astype(np.int32)
+        data = centers[vids][:, None, :] + 0.8 * rs.randn(b, frames, D)
+        out.append({"data": data.astype(np.float32), "video_ids": vids})
+    return out
+
+
+def test_flagship_test_eval_lines_equal_jax():
+    """The flagship's test-interval eval (generate_net.py's TEST branch:
+    context frames averaged, fc7 tower + ReLU, L2 normalize, then
+    RETRIEVAL_STATS with class = video id and exclude_same_video_shots
+    false) through both packages' train at test_interval 2: the Test net
+    output lines (test_hit1, test_hit5, test_map) are JAX's text, their
+    numbers within 2e-5."""
+    from videovector_tpu.metrics import retrieval_stats as jstats
+    from videovector_tpu_torch.metrics import retrieval_stats as tstats
+    jm, tm = _models(dropout_rate=0.0, compute_dtype="float32")
+    jlog = logging.getLogger("videovector_tpu.solver.train")
+    tlog = logging.getLogger("videovector_tpu_torch.solver.train")
+    jh, th = _Lines(JaxGlog()), _Lines(TorchGlog())
+    jlog.addHandler(jh)
+    tlog.addHandler(th)
+    windows = _test_windows(3)
+
+    def named(out):
+        return {"test_map": out["mean_ap"], "test_hit1": out["hit_at_1"],
+                "test_hit5": out["hit_at_5"]}
+
+    def jeval(p, b):
+        return named(jstats(jm.extract(p, b["data"]), b["video_ids"],
+                            b["video_ids"], exclude_same_video_shots=False))
+
+    def teval(p, b):
+        return named(tstats(tm.extract(p, b["data"]), b["video_ids"],
+                            b["video_ids"], exclude_same_video_shots=False))
+    try:
+        rj, rt = _train_both(
+            4, model_kw=dict(dropout_rate=0.0, compute_dtype="float32"),
+            solver_kw=dict(display=2, test_interval=2, test_iter=(1,)),
+            jax_kw=dict(eval_fn=jeval, test_data=iter(
+                [jax.tree.map(jnp.asarray, b) for b in windows])),
+            port_kw=dict(eval_fn=teval, test_data=iter(windows)))
+    finally:
+        jlog.removeHandler(jh)
+        tlog.removeHandler(th)
+    tests = [l for l in th.lines if l.startswith("    Test net output #")]
+    assert [l.split(" = ")[0] for l in tests[:3]] == [
+        "    Test net output #0: test_hit1", "    Test net output #1: test_hit5",
+        "    Test net output #2: test_map"]
+    assert len(tests) == 9 and [i for i, _ in rt.test_history] == [0, 2, 4]
+    values = [v for _, m in rt.test_history for v in m.values()]
+    assert all(0.0 <= v <= 1.0 for v in values) and max(values) > 0.2
+    assert len(th.lines) == len(jh.lines)
+    for tl, jl in zip(th.lines, jh.lines):
+        ttext, tnum = _split_numbers(tl)
+        jtext, jnum = _split_numbers(jl)
+        assert ttext == jtext, (tl, jl)
+        _close(tnum, jnum, rtol=2e-5, atol=1e-6)
+
+
 def test_train_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):
     assert inspect.signature(ttrain.train).parameters["device"].default == \
         "cuda"
