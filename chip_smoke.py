@@ -41,7 +41,16 @@ Run from the root of a checkout. It
    gallery-scale eval: retrieval_stats_chunked at 20,000 x 4096 with the
    count and the sort engine (equal results, timed, the faster profiled, a
    4,096-row subsample against the CPU), the same in bf16, the csv report
-   at 20,000 rows, and one pass at 100,000 x 4096.
+   at 20,000 rows, and one pass at 100,000 x 4096;
+7. trains the flagship from its host plane (host_fed_training): the port's
+   writers make a 640-video x 12-shot training store and a 673-window test
+   store at 4096 dims; the port parses the repo's solver prototxt and
+   generate_net.py's net, builds the sampler (WINDOW, 10 negatives from a
+   5,000-shot reservoir) and the test source from the stores as the JAX
+   package's data factory does, and train runs 31 steps (test every 10),
+   snapshots, resumes and runs 5 more: K1 launches one per step and per
+   test batch, all sm90; then the host-fed step, the sampler, the H2D copy
+   and the test batch's assembly are timed beside the device-resident step.
 
 Exits non-zero, with no result line, without a CUDA card or outside a
 checkout. The last line of stdout is {"ok": true, "device": {...}}; the line
@@ -111,6 +120,23 @@ TRAIN_NEG = 10
 TRAIN_MAIN_STEPS = 31
 TRAIN_SOLVER = dict(base_lr=0.001, momentum=0.9, weight_decay=5e-4,
                     lr_policy="inv", gamma=0.001, power=0.75)
+# the flagship's host plane (projects/videovec_embedding): a training store
+# like make_synthetic_data.py's at 640 videos x 12 shots (7,680 distinct
+# shots: the flagship's reservoir holds 5,000) and a test store of 673
+# windows x 4 context shots over 100 videos, 4096 dims; the repo's solver
+# prototxt and generate_net.py's net, parsed by the port
+HOST_VIDEOS = 640
+HOST_SHOTS = 12
+HOST_DIM = 4096
+SOLVER_PROTOTXT = ROOT / "projects/videovec_embedding/mednet_embedding_train_solver.prototxt"
+GENERATE_NET = ROOT / "projects/videovec_embedding/generate_net.py"
+# 31 steps (tests at 0, 10, 20, 30), a snapshot at the end, then 5 resumed
+HOST_STEPS = 31
+HOST_INTERVAL = 10
+HOST_RESUMED = 5
+# steps timed (their tests excluded) and steps profiled, in the first run
+HOST_TIMED = range(1, 21)
+HOST_PROFILED = range(21, 26)
 # K1's timings cycle through copies of w that together exceed the H100's
 # 50 MB L2 by this factor, so that each call reads its weights from HBM as
 # it does on the path (fc6, fc7 and the tower evict each other there)
@@ -648,13 +674,13 @@ def training_parity(dev) -> None:
                              f"updates {dw}, {db}")
 
 
-def training_main_path(dev) -> int:
+def training_main_path(dev) -> tuple[int, float]:
     """bench.py's step at B=128 (dropout 0.9) through train(), counted: K1's
     launches must be one per step, all on the sm90 route; the step timed by
     CUDA events over 20 steps after 5 of warm-up, then profiled over 5 more
     (device busy against host wall, top kernels, and no library GEMM on the
     tower forward's shapes). Then one remat_tower step pair (two K1 launches
-    a step)."""
+    a step). Returns the K1 launches and the step's ms."""
     from videovector_tpu_torch.ops.hopper.matmul import matmul
     cfg, params, batch = _train_setup(dev, TRAIN_BATCH)
     timer = _StepTimer(5, 25, profiled=5)
@@ -689,7 +715,7 @@ def training_main_path(dev) -> int:
                              f"({matmul.launches_sm90} sm90), expected 4")
     log("remat_tower: 2 steps, 4 K1 launches (the forward recomputed in "
         "backward), all sm90")
-    return launches["K1"] + 4
+    return launches["K1"] + 4, ms
 
 
 def training_profile(prof, steps: int, wall_ms: float) -> None:
@@ -720,6 +746,8 @@ def training_profile(prof, steps: int, wall_ms: float) -> None:
                 raise AssertionError("the tower forward went to a library "
                                      f"GEMM: {e.name} {shapes}")
     busy = sum(by_name.values()) / 1e3
+    # a host-fed step's batch copy runs on a copy engine: busy, but no kernel
+    h2d = sum(v for n, v in by_name.items() if n.startswith("Memcpy HtoD")) / 1e3
     k1 = sum(v for n, v in by_name.items()
              if "gemm_tma_wgmma" in n or "splitk_reduce" in n) / 1e3
     library = sum(v for n, v in by_name.items()
@@ -728,7 +756,9 @@ def training_profile(prof, steps: int, wall_ms: float) -> None:
                   and "vv::" not in n and "gemm_tma_wgmma" not in n) / 1e3
     log(f"training profile over {steps} steps at B={TRAIN_BATCH}, per step: "
         f"device busy {busy:.4f} ms against {wall_ms:.4f} ms host wall "
-        f"(unprofiled), idle share {1 - busy / wall_ms:.3f}; "
+        f"(unprofiled), idle share {1 - busy / wall_ms:.3f} ({h2d:.4f} ms "
+        f"of the busy time H2D copies; without them "
+        f"{1 - (busy - h2d) / wall_ms:.3f}); "
         f"{n_device_ops / steps:.1f} device operations (kernels, copies, "
         f"fills) a step; K1 {k1:.4f} ms, "
         f"library GEMMs {library:.4f} ms, other {busy - k1 - library:.4f} ms; "
@@ -1089,6 +1119,275 @@ def gallery_eval(dev) -> None:
     torch.cuda.empty_cache()
 
 
+def _emit():
+    """generate_net.py's emit, loaded from its file (the module imports
+    argparse only; its main, which imports the JAX package, is not run)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("generate_net", GENERATE_NET)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.emit
+
+
+def _write_host_stores(tmp: Path) -> tuple[str, str]:
+    """The training and test stores, written by the port's writers:
+    make_synthetic_data.py's statistics (per video, |center + 0.4 randn|)
+    from a seed, HOST_VIDEOS x HOST_SHOTS shots, and TEST_BATCH windows of
+    TEST_FRAMES context shots over TEST_VIDEOS videos."""
+    from videovector_tpu_torch.data.records import RecordWriter
+    from videovector_tpu_torch.data.shots import ShotDataset, ShotVideo
+    from videovector_tpu_torch.data.wire import Datum, TestVideoShotWindows
+    rng = np.random.RandomState(0)
+    videos = []
+    for v in range(HOST_VIDEOS):
+        center = rng.randn(HOST_DIM).astype(np.float32)
+        feats = np.abs(center + 0.4 * rng.randn(HOST_SHOTS, HOST_DIM)
+                       .astype(np.float32))
+        videos.append(ShotVideo(v + 1, np.arange(HOST_SHOTS, dtype=np.int32),
+                                feats))
+    train_path, test_path = tmp / "train_shots.vvr", tmp / "test_windows.vvr"
+    t0 = time.perf_counter()
+    ShotDataset(videos).to_records(str(train_path))
+    t1 = time.perf_counter()
+    with RecordWriter(str(test_path)) as w:
+        for i in range(TEST_BATCH):
+            video = videos[i % TEST_VIDEOS]
+            ids = rng.choice(HOST_SHOTS, size=TEST_FRAMES, replace=False)
+            w.append(str(i), TestVideoShotWindows(
+                video_id=int(video.video_id), context_shot_words=[
+                    Datum(float_data=video.features[j]) for j in ids]).encode())
+    t2 = time.perf_counter()
+    log(f"host stores written by the port: {train_path.name} "
+        f"{HOST_VIDEOS} videos x {HOST_SHOTS} shots x {HOST_DIM}, "
+        f"{train_path.stat().st_size / 1e6:.1f} MB in {t1 - t0:.3f} s; "
+        f"{test_path.name} {TEST_BATCH} windows x {TEST_FRAMES} shots, "
+        f"{test_path.stat().st_size / 1e6:.1f} MB in {t2 - t1:.3f} s")
+    return str(train_path), str(test_path)
+
+
+class _HostFedTimer:
+    """Marks (a CUDA event and the host clock) at the top of each iteration
+    (a train hook, which runs after that iteration's test) and where each
+    test batch is asked for, so that a step runs from its mark to the next
+    one and a test, its batch's assembly included, stays out of it; and the
+    profiler over the iterations `profiled`."""
+
+    def __init__(self, timed: range, profiled: range):
+        from torch.profiler import ProfilerActivity, profile
+        self.timed, self.profiled = timed, profiled
+        self.marks: list[tuple] = []          # (iteration or None, event, s)
+        self.prof = profile(activities=[ProfilerActivity.CPU,
+                                        ProfilerActivity.CUDA],
+                            record_shapes=True)
+
+    def _mark(self, it):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.marks.append((it, ev, time.perf_counter()))
+
+    def hook(self, params, it):
+        self._mark(it)
+        if it == self.profiled.start:
+            torch.cuda.synchronize()
+            self.prof.start()
+        elif it == self.profiled.stop:
+            torch.cuda.synchronize()
+            self.prof.stop()
+
+    def tests(self, source):
+        while True:
+            self._mark(None)
+            yield source.next_batch()
+
+    def per_step(self) -> tuple[float, float]:
+        """Mean ms of the timed steps: by CUDA events, and by host clock."""
+        torch.cuda.synchronize()
+        dev_ms = host_ms = 0.0
+        for (it, ev, t), (_, ev2, t2) in zip(self.marks, self.marks[1:]):
+            if it in self.timed:
+                dev_ms += ev.elapsed_time(ev2)
+                host_ms += (t2 - t) * 1e3
+        n = len(self.timed)
+        return dev_ms / n, host_ms / n
+
+
+def host_fed_training(dev, resident_ms: float) -> dict:
+    """The flagship trained from its host plane through the port's entry
+    points: stores written and read by the port, the net and solver parsed
+    by it, the sources built from them as the JAX package's data factory
+    builds them (graph/data_factory.py), and train run on the card, with a
+    snapshot and a resume. Returns the K1 launches of its training steps
+    and of its test batches."""
+    import dataclasses
+    import tempfile
+
+    from videovector_tpu_torch.config import parse, parse_file
+    from videovector_tpu_torch.data.records import convert_dir_or_file
+    from videovector_tpu_torch.data.shots import (
+        SampledShotsConfig, ShotDataset, TestWindowDataset,
+        VideoSampledShotsSource, VideoShotWindowTestSource,
+    )
+    from videovector_tpu_torch.models.embedding import (
+        VideoEmbeddingConfig, VideoEmbeddingModel,
+    )
+    from videovector_tpu_torch.ops.hopper.matmul import matmul
+    from videovector_tpu_torch.solver import SolverConfig
+    from videovector_tpu_torch.solver.train import train
+
+    card = gpu_name_and_power_limit()
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = Path(tmp_name)
+        train_path, test_path = _write_host_stores(tmp)
+
+        # the net, as generate_net.py writes it, and its two data layers
+        net = parse(_emit()(train_path, test_path, buffer_size=5000))
+        layers = {(l.get("type"), l.get_msg("include").get("phase")): l
+                  for l in net.get_list("layers")}
+        train_layer = layers["VIDEO_SAMPLED_SHOTS_DATA", "TRAIN"]
+        test_layer = layers["VIDEO_SHOT_WINDOW_TEST_DATA", "TEST"]
+        solver = SolverConfig.from_message(parse_file(str(SOLVER_PROTOTXT)))
+        overrides = dict(max_iter=HOST_STEPS, test_interval=HOST_INTERVAL,
+                         snapshot=HOST_STEPS,
+                         snapshot_prefix=str(tmp / "flagship"))
+        for k, v in overrides.items():
+            log(f"  solver override: {k} {getattr(solver, k)!r} -> {v!r}")
+        solver = dataclasses.replace(solver, **overrides)
+        log(f"  solver from {SOLVER_PROTOTXT.relative_to(ROOT)}: {solver}")
+
+        # graph/data_factory.py's VIDEO_SAMPLED_SHOTS_DATA and
+        # VIDEO_SHOT_WINDOW_TEST_DATA branches (the Python sampler)
+        p = train_layer.get_msg("video_sampled_shots_data_param")
+        scfg = SampledShotsConfig.from_message(p)
+        scfg.seed = solver.random_seed if solver.random_seed >= 0 else 1234
+        scfg.output_video_ids = len(train_layer.get_list("top")) > 1
+        t0 = time.perf_counter()
+        dataset = ShotDataset.from_records(convert_dir_or_file(p.get("source")))
+        t1 = time.perf_counter()
+        sampler = VideoSampledShotsSource(dataset, scfg)
+        t2 = time.perf_counter()
+        tp = test_layer.get_msg("video_shot_window_test_data_param")
+        test_set = TestWindowDataset.from_records(
+            convert_dir_or_file(tp.get("source")))
+        t3 = time.perf_counter()
+        test_source = VideoShotWindowTestSource(
+            test_set, int(tp.get("batch_size", 1)),
+            include_positives=bool(tp.get("include_positives", True)),
+            include_negatives=bool(tp.get("include_negatives", True)),
+            display_all_ids=bool(tp.get("display_all_ids", False)))
+        log(f"  stores read by the port: training {t1 - t0:.3f} s "
+            f"({len(dataset)} videos, {sum(v.num_shots for v in dataset.videos)}"
+            f" shots), reservoir filled in {t2 - t1:.3f} s "
+            f"({sampler.reservoir.max_size} shots), test {t3 - t2:.3f} s "
+            f"({len(test_set.windows)} windows); sampler {scfg}")
+
+        # the model from the net's own numbers (the flagship's defaults)
+        fc7 = next(l for l in net.get_list("layers") if l.get("name") == "fc7")
+        drop = next(l for l in net.get_list("layers") if l.get("name") == "drop7")
+        loss_layer = next(l for l in net.get_list("layers")
+                          if l.get("type") == "MAX_MARGIN_LOSS")
+        ipp = fc7.get_msg("inner_product_param")
+        cfg = VideoEmbeddingConfig(
+            feature_dim=dataset.feature_dim, embed_dim=ipp.get("num_output"),
+            num_context=scfg.context_size - 1,
+            num_negatives=scfg.num_negative_samples,
+            margin=loss_layer.get_msg("max_margin_loss_param").get("margin"),
+            dropout_rate=drop.get_msg("dropout_param").get("dropout_ratio"),
+            weight_std=ipp.get_msg("weight_filler").get("std"))
+        if cfg != VideoEmbeddingConfig():
+            raise AssertionError(f"the net's model {cfg} is not the flagship's")
+        model = VideoEmbeddingModel(cfg)
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        batch_size = scfg.batch_size
+        inner = _flagship_eval_fn(model)
+        per_eval = []
+
+        def eval_fn(p, b):
+            # the RETRIEVAL_STATS layer casts the float video ids to int32
+            before = (matmul.launches, matmul.launches_sm90)
+            out = inner(p, {**b, "video_ids": b["video_ids"].to(torch.int32)})
+            per_eval.append((matmul.launches - before[0],
+                             matmul.launches_sm90 - before[1]))
+            return out
+
+        def loss_fn(p, b, generator):
+            return model.loss(p, b, generator=generator, train=True)
+
+        timer = _HostFedTimer(HOST_TIMED, HOST_PROFILED)
+        data, tests = iter(sampler), timer.tests(test_source)
+        torch.cuda.synchronize()
+        matmul.launches = matmul.launches_sm90 = 0
+        first = train(loss_fn, params, data, solver, device="cuda",
+                      batch_axes={"data": 0}, eval_fn=eval_fn,
+                      test_data=tests, hooks=[(1, timer.hook)])
+        state = tmp / f"flagship_iter_{HOST_STEPS}.vvstate"
+        resumed = train(loss_fn, params, data, dataclasses.replace(
+            solver, max_iter=HOST_STEPS + HOST_RESUMED), device="cuda",
+            batch_axes={"data": 0}, eval_fn=eval_fn, test_data=tests,
+            resume_state_path=str(state))
+        torch.cuda.synchronize()
+        launches = (matmul.launches, matmul.launches_sm90)
+
+    steps = HOST_STEPS + HOST_RESUMED
+    n_tests = len(range(0, HOST_STEPS, HOST_INTERVAL))
+    losses = [m["loss"] for r in (first, resumed) for _, m in r.metrics_history]
+    values = [v for r in (first, resumed) for _, m in r.test_history
+              for v in m.values()]
+    log(f"  host-fed training: {HOST_STEPS} steps, snapshot {state.name}, "
+        f"resumed for {HOST_RESUMED}; iter {first.state['iter']} then "
+        f"{resumed.state['iter']}; K1 launches {launches[0]} ({launches[1]} "
+        f"sm90) for {steps} steps + {n_tests} test batches; per test batch "
+        f"{per_eval}; losses {losses}; test history "
+        f"{first.test_history + resumed.test_history}")
+    if (first.state["iter"], resumed.state["iter"]) != (HOST_STEPS, steps):
+        raise AssertionError("host-fed training: iterations "
+                             f"{first.state['iter']}, {resumed.state['iter']}")
+    if launches != (steps + n_tests,) * 2 or per_eval != [(1, 1)] * n_tests:
+        raise AssertionError(f"host-fed K1 launches {launches}, per eval "
+                             f"{per_eval}: expected {steps} + {n_tests}, all sm90")
+    w = resumed.params["tower"]["w"]
+    if not (losses and all(math.isfinite(v) for v in losses)
+            and torch.isfinite(w).all()):
+        raise AssertionError(f"host-fed training: losses {losses}, or params "
+                             "not finite")
+    if len(values) != 3 * n_tests or not all(0.0 <= v <= 1.0 for v in values):
+        raise AssertionError(f"host-fed test outputs {values}")
+
+    step_ms, wall_ms = timer.per_step()
+    training_profile(timer.prof, len(HOST_PROFILED), wall_ms)
+    t0 = time.perf_counter()
+    batches = [sampler.next_batch() for _ in range(20)]
+    sampler_ms = (time.perf_counter() - t0) / 20 * 1e3
+    nbytes = batches[0]["data"].nbytes
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches[:10]:
+        torch.as_tensor(b["data"], device=dev)
+    torch.cuda.synchronize()
+    h2d_ms = (time.perf_counter() - t0) / 10 * 1e3
+    t0 = time.perf_counter()
+    for _ in range(5):
+        test_source.next_batch()
+    test_ms = (time.perf_counter() - t0) / 5 * 1e3
+    neg = cfg.num_negatives
+    for line in (
+            f"host-fed step at B={batch_size}: {step_ms:.4f} ms (CUDA events "
+            f"over {len(HOST_TIMED)} steps, tests excluded) = "
+            f"{batch_size * neg / step_ms * 1e3:,.0f} triplets/s",
+            f"host-fed step host wall: {wall_ms:.4f} ms",
+            f"device-resident step at B={TRAIN_BATCH} (training main path, "
+            f"this run): {resident_ms:.4f} ms = "
+            f"{TRAIN_BATCH * TRAIN_NEG / resident_ms * 1e3:,.0f} triplets/s",
+            f"sampler next_batch: {sampler_ms:.3f} ms a batch (host clock "
+            "over 20)",
+            f"H2D of one {nbytes / 1e6:.1f} MB batch from pageable memory: "
+            f"{h2d_ms:.3f} ms ({nbytes / h2d_ms / 1e6:.2f} GB/s; host clock "
+            "over 10)",
+            f"test batch host assembly ({TEST_BATCH} windows): {test_ms:.3f} "
+            "ms (host clock over 5)"):
+        log(f"  {line} [{card}]")
+    return {"train": steps, "test": n_tests}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1122,9 +1421,13 @@ def main() -> int:
 
     training_parity(dev)
     step_part_times(dev)
-    train_launches = training_main_path(dev)
+    train_launches, resident_ms = training_main_path(dev)
     training_cells(dev)
     eval_launches = eval_through_train(dev)
+    torch.cuda.empty_cache()
+    host_launches = host_fed_training(dev, resident_ms)
+    train_launches += host_launches["train"]
+    eval_launches += host_launches["test"]
     torch.cuda.empty_cache()
     with torch.no_grad():
         gallery_eval(dev)
@@ -1176,9 +1479,11 @@ def main() -> int:
         "beyond L2, library cuBLAS torch.matmul; K2 conv1..conv5, library "
         "cuDNN F.conv2d. K1's training entry: one (1920 x 4096) . (4096 x "
         "4096) call, bf16 in, f32 out, its launches those of the training "
-        f"main path, {TRAIN_MAIN_STEPS} steps + 2 remat_tower steps. K1's "
+        f"main path, {TRAIN_MAIN_STEPS} steps + 2 remat_tower steps, and of "
+        f"the host-fed run, {HOST_STEPS} + {HOST_RESUMED} steps. K1's "
         f"test-eval entry: one ({TEST_BATCH} x 4096) . (4096 x 4096) call "
-        "with bias + ReLU, its launches the test evals' in train)")
+        "with bias + ReLU, its launches the test evals' in train, drawn on "
+        "the card and read from the test store)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

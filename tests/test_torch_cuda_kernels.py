@@ -411,3 +411,42 @@ def test_bf16_gallery_stays_bf16_on_the_card(dev):
     torch.cuda.synchronize()
     assert torch.cuda.max_memory_allocated(dev) - base < n * d * 4
     assert 0.0 <= float(out["mean_ap"]) <= 1.0
+
+
+def test_training_step_ignores_the_process_tf32_setting(dev):
+    """One train step at the flagship's layout, dropout 0.9, with torch's
+    global TF32 flag on equals one with it off, bit for bit: the tower's
+    backward products and the scores product run in full f32 (TF32 off)
+    whatever the process sets, and the flag is back as it was after."""
+    from videovector_tpu_torch.models.embedding import (
+        VideoEmbeddingConfig, VideoEmbeddingModel,
+    )
+    from videovector_tpu_torch.solver import SolverConfig
+    from videovector_tpu_torch.solver.train import train
+    cfg = VideoEmbeddingConfig(feature_dim=512, embed_dim=512)
+    model = VideoEmbeddingModel(cfg)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    params = model.init(gen)
+    batch = {"data": torch.randn((cfg.num_roles, 64, 512), generator=gen,
+                                 device=dev)}
+    x = torch.randn((256, 512), generator=gen, device=dev)
+    runs = []
+    for flag in (True, False):
+        torch.backends.cuda.matmul.allow_tf32 = flag
+        try:
+            # the flag does reach an unscoped f32 product
+            runs.append([x @ x.T])
+            res = train(lambda p, b, g: model.loss(p, b, generator=g,
+                                                   train=True, role_major=True),
+                        params, iter([batch]), SolverConfig(
+                            base_lr=0.05, momentum=0.9, max_iter=1,
+                            random_seed=3), device="cuda",
+                        batch_axes={"data": 1})
+            assert torch.backends.cuda.matmul.allow_tf32 is flag
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        runs[-1] += [res.params["tower"]["w"], res.params["tower"]["b"]]
+    torch.cuda.synchronize()
+    assert not torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+    assert torch.equal(runs[0][2], runs[1][2])

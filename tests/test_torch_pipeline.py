@@ -169,9 +169,15 @@ def test_port_imports_without_jax():
         sys.modules["jax"] = None
         import videovector_tpu_torch
         import videovector_tpu_torch._build
+        import videovector_tpu_torch.config
+        import videovector_tpu_torch.config.textformat
+        import videovector_tpu_torch.config.upgrade
         import videovector_tpu_torch.convert
         import videovector_tpu_torch.core.fillers
+        import videovector_tpu_torch.data.records
+        import videovector_tpu_torch.data.shots
         import videovector_tpu_torch.data.transformer
+        import videovector_tpu_torch.data.wire
         import videovector_tpu_torch.models.embedding
         import videovector_tpu_torch.models.mednet
         import videovector_tpu_torch.models.retrieval_pipeline

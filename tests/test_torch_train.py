@@ -11,6 +11,7 @@ within 1e-5 relative in f32 and one bf16 step (2**-8) of max|w| in bf16,
 since both packages sum in their own order.
 """
 
+import functools
 import inspect
 import logging
 import re
@@ -695,6 +696,182 @@ def test_flagship_test_eval_lines_equal_jax():
         jtext, jnum = _split_numbers(jl)
         assert ttext == jtext, (tl, jl)
         _close(tnum, jnum, rtol=2e-5, atol=1e-6)
+
+
+# -- the dropout stream on resume ------------------------------------------
+
+def test_iteration_seed_is_splitmix64_of_seed_and_iteration():
+    assert ttrain.iteration_seed(0, 0) == 0xE220A8397B1DCDAF
+    seeds = {ttrain.iteration_seed(s, it) for s in (0, 1, 5) for it in range(50)}
+    assert len(seeds) == 150 and all(0 <= x < 2 ** 64 for x in seeds)
+    assert ttrain.iteration_seed(5, 7) == ttrain.iteration_seed(5 + 2 ** 32, 7)
+
+
+@pytest.mark.parametrize("gm", [1, 2])
+def test_dropout_run_resumed_from_a_snapshot_equals_the_run_through(tmp_path,
+                                                                   gm):
+    """Dropout 0.9: 6 steps equal 3 steps, a snapshot, a resume from its
+    .vvstate and 3 more steps, bit for bit (params, history, displayed
+    losses), with grad_microbatch 1 and 2: each iteration draws its masks
+    from (seed, iteration), as JAX's fold_in(key, it) does."""
+    _, tm = _models(dropout_rate=0.9, compute_dtype="float32")
+    tp = tm.init(torch.Generator().manual_seed(6))
+    batches = _batches(8, b=4)
+    kw = dict(BENCH_SOLVER, display=1, random_seed=11, grad_microbatch=gm)
+    run = functools.partial(ttrain.train, _port_loss(tm), tp, device="cpu",
+                            batch_axes={"data": 1})
+    whole = run(iter(batches), tsol.SolverConfig(**kw, max_iter=6))
+    run(iter(batches[:3]), tsol.SolverConfig(
+        **kw, max_iter=3, snapshot_prefix=str(tmp_path / "p")))
+    resumed = run(iter(batches[3:]), tsol.SolverConfig(**kw, max_iter=6),
+                  resume_state_path=str(tmp_path / "p_iter_3.vvstate"))
+    assert [i for i, _ in resumed.metrics_history] == [3, 4, 5]
+    assert _losses(resumed) == _losses(whole)[3:]
+    for tree in ("params", "state"):
+        a, b = getattr(resumed, tree), getattr(whole, tree)
+        a, b = (a, b) if tree == "params" else (a["history"], b["history"])
+        for path, leaf in convert.leaves_with_paths(a):
+            ref = b
+            for k in path:
+                ref = ref[k]
+            assert torch.equal(leaf, ref), (tree, path)
+    # the masks did move the trajectory: dropout off ends elsewhere
+    off = ttrain.train(_port_loss(_models(dropout_rate=0.0,
+                                          compute_dtype="float32")[1]), tp,
+                       iter(batches), tsol.SolverConfig(**kw, max_iter=6),
+                       device="cpu", batch_axes={"data": 1})
+    assert not torch.equal(off.params["tower"]["w"], whole.params["tower"]["w"])
+
+
+# -- host-fed training: the port's sampler and stores feeding train --------
+
+HOST = dict(feature_dim=32, embed_dim=16, num_context=4, num_negatives=10,
+            weight_std=0.1, dropout_rate=0.0, compute_dtype="float32")
+
+
+def _host_stores(tmp_path):
+    """A training store of 30 videos x 10 shots and a test store of 24
+    windows of 4 context shots over 6 videos, at 32 dims, as
+    projects/videovec_embedding/make_synthetic_data.py makes them."""
+    from videovector_tpu_torch.data import records as trec
+    from videovector_tpu_torch.data import shots as tshots
+    from videovector_tpu_torch.data import wire as twire
+    rs = np.random.RandomState(21)
+    videos = []
+    for v in range(30):
+        center = rs.randn(32).astype(np.float32)
+        feats = np.abs(center + 0.4 * rs.randn(10, 32).astype(np.float32))
+        videos.append(tshots.ShotVideo(v + 1, np.arange(10, dtype=np.int32),
+                                       feats))
+    train_path, test_path = str(tmp_path / "train.vvr"), str(tmp_path / "test.vvr")
+    tshots.ShotDataset(videos).to_records(train_path)
+    with trec.RecordWriter(test_path) as w:
+        for i in range(24):
+            video = videos[i % 6]
+            ids = rs.choice(10, size=4, replace=False)
+            w.append(str(i), twire.TestVideoShotWindows(
+                video_id=int(video.video_id), context_shot_words=[
+                    twire.Datum(float_data=video.features[j])
+                    for j in ids]).encode())
+    return train_path, test_path
+
+
+def _host_sources(shots, train_path, test_path):
+    cfg = shots.SampledShotsConfig(
+        batch_size=8, num_negative_samples=10, max_buffer_size=100,
+        negative_swap_percentage=50, max_same_video_negs=6,
+        context_type="WINDOW", context_size=5, output_video_ids=False,
+        seed=1234)
+    train = shots.VideoSampledShotsSource(
+        shots.ShotDataset.from_records(train_path), cfg)
+    test = shots.VideoShotWindowTestSource(
+        shots.TestWindowDataset.from_records(test_path), 12)
+    return iter(train), iter(test)
+
+
+def test_host_fed_training_matches_jax(tmp_path):
+    """Each package's sampler, reading the same VVR stores, feeds its own
+    train: 10 steps of the flagship's layout (B, 15, D) at D=32, E=16,
+    dropout off, with the flagship's test eval every 5 iterations (video
+    ids cast to int32, as the RETRIEVAL_STATS layer does). Trajectories
+    within 1e-5 relative, test lines within 2e-5."""
+    from videovector_tpu.data import shots as jshots
+    from videovector_tpu.metrics import retrieval_stats as jstats
+    from videovector_tpu_torch.data import shots as tshots
+    from videovector_tpu_torch.metrics import retrieval_stats as tstats
+    train_path, test_path = _host_stores(tmp_path)
+    jm = jemb.VideoEmbeddingModel(jemb.VideoEmbeddingConfig(**HOST))
+    tm = temb.VideoEmbeddingModel(temb.VideoEmbeddingConfig(**HOST))
+    jp, tp = _params(jm)
+
+    def named(out):
+        return {"test_map": out["mean_ap"], "test_hit1": out["hit_at_1"],
+                "test_hit5": out["hit_at_5"]}
+
+    def jeval(p, b):
+        vids = jnp.asarray(b["video_ids"]).astype(jnp.int32)
+        return named(jstats(jm.extract(p, b["data"]), vids, vids,
+                            exclude_same_video_shots=False))
+
+    def teval(p, b):
+        vids = b["video_ids"].to(torch.int32)
+        return named(tstats(tm.extract(p, b["data"]), vids, vids,
+                            exclude_same_video_shots=False))
+    skw = dict(BENCH_SOLVER, max_iter=10, display=1, test_interval=5,
+               test_iter=(1,))
+    jlog = logging.getLogger("videovector_tpu.solver.train")
+    tlog = logging.getLogger("videovector_tpu_torch.solver.train")
+    jh, th = _Lines(JaxGlog()), _Lines(TorchGlog())
+    jlog.addHandler(jh)
+    tlog.addHandler(th)
+    try:
+        jdata, jtest = _host_sources(jshots, train_path, test_path)
+        rj = jtrain.train(
+            lambda p, b, key: jm.loss(p, b, rng=key, train=True), jp, jdata,
+            jsol.SolverConfig(**skw), eval_fn=jeval, test_data=jtest)
+        tdata, ttest = _host_sources(tshots, train_path, test_path)
+        rt = ttrain.train(
+            lambda p, b, gen: tm.loss(p, b, generator=gen, train=True), tp,
+            tdata, tsol.SolverConfig(**skw), device="cpu",
+            batch_axes={"data": 0}, eval_fn=teval, test_data=ttest)
+    finally:
+        jlog.removeHandler(jh)
+        tlog.removeHandler(th)
+    assert len(_losses(rt)) == 10 and rt.state["iter"] == 10
+    _close(_losses(rt), _losses(rj), rtol=1e-5)
+    jw = np.asarray(rj.params["tower"]["w"])
+    _tree_close(rt.params, jax.tree.map(np.asarray, rj.params), 1e-5,
+                1e-5 * np.abs(jw).max())
+    assert [i for i, _ in rt.test_history] == [0, 5, 10]
+    values = [v for _, m in rt.test_history for v in m.values()]
+    assert all(0.0 <= v <= 1.0 for v in values) and max(values) > 0.2
+    tests = [l for l in th.lines if l.startswith("    Test net output #")]
+    assert len(tests) == 9 and len(th.lines) == len(jh.lines)
+    # a reservoir negative can be the target shot itself: its score then
+    # ties the true score, and rounding decides whether it counts as a
+    # violation, so that count may differ by the number of such ties
+    ties = iter(_target_negative_ties(tshots, train_path, test_path, 10))
+    for tl, jl in zip(th.lines, jh.lines):
+        ttext, tnum = _split_numbers(tl)
+        jtext, jnum = _split_numbers(jl)
+        assert ttext == jtext, (tl, jl)
+        if "violations = " in tl:
+            n_ties = next(ties)
+            assert abs(tnum[-1] - jnum[-1]) <= n_ties, (tl, jl, n_ties)
+            tnum, jnum = tnum[:-1], jnum[:-1]
+        _close(tnum, jnum, rtol=2e-5, atol=1e-6)
+    assert next(ties, None) is None
+
+
+def _target_negative_ties(shots, train_path, test_path, n):
+    """For each of the first n batches, how many negatives are the item's
+    target shot itself."""
+    data, _ = _host_sources(shots, train_path, test_path)
+    out = []
+    for _ in range(n):
+        b = next(data)["data"]
+        out.append(int((b[:, None, 0] == b[:, 5:]).all(-1).sum()))
+    return out
 
 
 def test_train_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):

@@ -1,14 +1,17 @@
-"""The fused on-device image transform; counterpart of the device path of
-videovector_tpu/data/transformer.py (`TransformConfig`,
-`make_batch_transform`, `sample_transform_params`).
+"""Image Datum preprocessing (Caffe's DataTransformer); counterpart of
+videovector_tpu/data/transformer.py.
+
+Two paths, as there:
+- `transform_datum`: the host path in numpy, one Datum at a time, with the
+  reference's exact per-item semantics (data_transformer.cpp:9-152).
+- `make_batch_transform`: the fused device path. uint8 pixels go to the
+  device; crop, mirror, mean subtraction and scale run there. The crop
+  gathers uint8 pixels and the mean at the source positions, so only the
+  cropped window is widened to f32.
 
 The JAX module imports jax.numpy at its top, so the port carries its own copy
-of the two host-side pieces (the config and the numpy parameter sampler)
-instead of importing them.
-
-uint8 pixels go to the device; crop, mirror, mean subtraction and scale run
-there. The crop gathers uint8 pixels and the mean at the source positions,
-so only the cropped window is widened to f32.
+of the host-side pieces (the config, the numpy paths and the parameter
+sampler) instead of importing them.
 """
 
 from __future__ import annotations
@@ -18,16 +21,86 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from videovector_tpu_torch.data.wire import Datum
 from videovector_tpu_torch.device import DEFAULT, resolve
 
 
 @dataclass
 class TransformConfig:
-    """Mirror of TransformationParameter (Caffe's caffe.proto), without
-    use_datum_scales, which the fused transform rejects in JAX too."""
+    """Mirror of TransformationParameter (ref caffe.proto:393-404)."""
     crop_size: int = 0
     mirror: bool = False
     scale: float = 1.0
+    use_datum_scales: bool = False
+
+    @classmethod
+    def from_message(cls, msg) -> "TransformConfig":
+        kw = {}
+        for f in ("crop_size", "mirror", "scale", "use_datum_scales"):
+            if msg.has(f):
+                kw[f] = msg.get(f)
+        return cls(**kw)
+
+
+def datum_to_array(datum: Datum) -> np.ndarray:
+    """uint8 `data` preferred, else float_data (ref :118-140)."""
+    c, h, w = datum.channels, datum.height, datum.width
+    if datum.data:
+        return np.frombuffer(datum.data, np.uint8).reshape(c, h, w)
+    return np.asarray(datum.float_data, np.float32).reshape(c, h, w)
+
+
+def transform_datum(datum: Datum, cfg: TransformConfig, *,
+                    mean: np.ndarray | None = None,
+                    train: bool = False,
+                    rng: np.random.RandomState | None = None,
+                    preset: tuple | None = None) -> np.ndarray:
+    """Exact reference semantics, one datum -> (C, crop, crop) f32.
+
+    `preset=(h_off, w_off, do_mirror)` is the reference's preset-transform
+    path (ref data_transformer.cpp:53-55): a multi-frame item draws ONE
+    crop/mirror and applies it to every frame."""
+    arr = datum_to_array(datum)
+    c, h, w = arr.shape
+    if cfg.crop_size:
+        cs = cfg.crop_size
+        if preset is not None:
+            h_off, w_off, do_mirror = preset
+        elif not datum.data:
+            raise ValueError("cropping requires uint8 data (ref :52)")
+        elif train:
+            rng = rng or np.random.RandomState()
+            h_off = rng.randint(h - cs)
+            w_off = rng.randint(w - cs)
+            do_mirror = bool(cfg.mirror and rng.randint(2))
+        else:
+            h_off = (h - cs) // 2
+            w_off = (w - cs) // 2
+            do_mirror = False
+        patch = arr[:, h_off:h_off + cs, w_off:w_off + cs].astype(np.float32)
+        if cfg.use_datum_scales:
+            mins = np.asarray(datum.min, np.float32)[:, None, None]
+            maxs = np.asarray(datum.max, np.float32)[:, None, None]
+            means = np.asarray(datum.mean, np.float32)[:, None, None]
+            out = mins + patch * (maxs - mins) / 255.0 - means
+        else:
+            m = (mean[:, h_off:h_off + cs, w_off:w_off + cs]
+                 if mean is not None else 0.0)
+            out = (patch - m) * cfg.scale
+        if do_mirror:
+            out = out[:, :, ::-1]
+        return np.ascontiguousarray(out)
+    if cfg.use_datum_scales:
+        raise ValueError("use_datum_scales requires crop (ref :115)")
+    if cfg.mirror:
+        # ref data_transformer.cpp:43-45: LOG(FATAL) "Current implementation
+        # requires mirror and crop_size to be set at the same time"
+        raise ValueError("mirror requires crop_size (ref "
+                         "data_transformer.cpp:43-45 LOG(FATAL))")
+    out = arr.astype(np.float32)
+    if mean is not None:
+        out = out - mean
+    return out * cfg.scale
 
 
 def make_batch_transform(cfg: TransformConfig, mean: np.ndarray | None,
@@ -45,6 +118,13 @@ def make_batch_transform(cfg: TransformConfig, mean: np.ndarray | None,
     device = resolve(device)
     cs = cfg.crop_size
     h, w = image_hw
+    if cfg.use_datum_scales:
+        # the per-item min/max/mean rescale needs each datum's own scale
+        # vectors, which the (pixels, offsets, mirror) signature does not
+        # carry: transform_datum implements it
+        raise ValueError("use_datum_scales is not supported by the fused "
+                         "batch transform — use the host transform_datum "
+                         "path")
     if cfg.mirror and not cs:
         raise ValueError("mirror requires crop_size (ref "
                          "data_transformer.cpp:43-45 LOG(FATAL))")

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from videovector_tpu_torch.device import DEFAULT, resolve
+from videovector_tpu_torch.ops.linear import no_tf32
 
 _I32_MIN = -2**31
 _I32_MAX = 2**31 - 1
@@ -45,12 +46,8 @@ def _neg2_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     never copied to f32; on the CPU an upcast to f32, which is exact."""
     if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
         return -2.0 * torch.mm(a, b.T, out_dtype=torch.float32)
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
+    with no_tf32():
         return -2.0 * (a.float() @ b.float().T)
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 class IdToClassMap:

@@ -25,9 +25,33 @@ from videovector_tpu_torch.core import fillers
 from videovector_tpu_torch.models.mednet import torch_dtype
 from videovector_tpu_torch.ops import activations
 from videovector_tpu_torch.ops.hopper.matmul import matmul, matmul_plain
-from videovector_tpu_torch.ops.linear import tower_matmul
+from videovector_tpu_torch.ops.linear import no_tf32, tower_matmul
 from videovector_tpu_torch.ops.losses import max_margin_loss
 from videovector_tpu_torch.ops.normalization import l2_normalize_rows
+
+
+class _NegDot(torch.autograd.Function):
+    """einsum("nbd,bd->nb"): each negative's dot with its context mean, its
+    products in full f32 (TF32 off) in forward and backward alike, whatever
+    the process sets (autograd runs a backward outside any block that the
+    forward ran in)."""
+
+    @staticmethod
+    def forward(ctx, negs, ctx_avg):
+        ctx.save_for_backward(negs, ctx_avg)
+        with no_tf32():
+            return torch.einsum("nbd,bd->nb", negs, ctx_avg)
+
+    @staticmethod
+    def backward(ctx, g):
+        negs, ctx_avg = ctx.saved_tensors
+        d_negs = d_ctx = None
+        with no_tf32():
+            if ctx.needs_input_grad[0]:
+                d_negs = torch.einsum("nb,bd->nbd", g, ctx_avg)
+            if ctx.needs_input_grad[1]:
+                d_ctx = torch.einsum("nb,nbd->bd", g, negs)
+        return d_negs, d_ctx
 
 
 @dataclass(frozen=True)
@@ -155,7 +179,7 @@ class VideoEmbeddingModel:
             torch.sum((negs * negs).float(), -1))                        # (N, B)
 
         s_true = torch.sum(ctx_avg * target, -1) * ctx_inv * tgt_inv     # (B,)
-        ctx_dot_negs = torch.einsum("nbd,bd->nb", negs.float(), ctx_avg)
+        ctx_dot_negs = _NegDot.apply(negs.float(), ctx_avg)            # (N, B)
         s_neg = (ctx_dot_negs * neg_inv * ctx_inv[None, :]).T           # (B, N)
         emb = {"target": target * tgt_inv[:, None],
                "context": ctx_avg * ctx_inv[:, None]}

@@ -15,14 +15,29 @@ backward of `jnp.dot` to XLA (K1 has no backward there). It copies the
 JAX step's rounding: the operands are cast to the compute dtype before the
 product, so the weight gradient, the cotangent of that cast, is rounded to
 the compute dtype and back to f32: dW = f32(cdt(x_cdt^T . dY)), with the
-product in f32 (PyTorch's default, TF32 off).
+product in f32 with TF32 off (`no_tf32`), whatever the process sets.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from videovector_tpu_torch.ops.hopper.matmul import matmul, matmul_plain
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """f32 products on the card in full f32 (TF32 off) inside the block,
+    whatever the process's setting, which is restored after it: the JAX
+    package's f32 dots are full f32."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def _matmul(x, w):
@@ -76,10 +91,11 @@ class _TowerMatmul(torch.autograd.Function):
     def backward(ctx, dy):
         xc, wc = ctx.saved_tensors
         dx = dw = db = None
-        if ctx.needs_input_grad[0]:
-            dx = (dy @ wc.float().T).to(xc.dtype).to(ctx.x_dtype)
-        if ctx.needs_input_grad[1]:
-            dw = (xc.float().T @ dy).to(wc.dtype).float()
+        with no_tf32():
+            if ctx.needs_input_grad[0]:
+                dx = (dy @ wc.float().T).to(xc.dtype).to(ctx.x_dtype)
+            if ctx.needs_input_grad[1]:
+                dw = (xc.float().T @ dy).to(wc.dtype).float()
         if ctx.needs_input_grad[2]:
             db = dy.sum(0)
         return dx, dw, db, None, None

@@ -14,13 +14,14 @@ sign for L1):
 Momentum multiplies the lr-scaled gradient (Caffe's convention). The
 operations run in the JAX function's order, each in f32, and the learning
 rate is an f32 value computed as JAX computes it, so both packages follow
-the same trajectory. `SolverConfig.from_message` (the prototxt parser)
-comes with the product-path slice.
+the same trajectory. `SolverConfig.from_message` reads a solver prototxt
+parsed by `videovector_tpu_torch.config.parse`.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from typing import Any
 
 import numpy as np
 import torch
@@ -57,11 +58,18 @@ class SolverConfig:
     snapshot_after_train: bool = True
     snapshot_diff: bool = False         # store gradients in snapshots
     test_initialization: bool = True    # test at iter 0
+    test_compute_loss: bool = False     # include the test net's loss
     random_seed: int = -1
+    # extension: "vv" (the npz pair) or "caffe" (also the reference's
+    # .caffemodel/.solverstate pair), for the prototxt-level solver
+    snapshot_format: str = "vv"
     # the JAX package's choice of PRNG for the dropout keys; checked here as
     # there, so that one config serves both packages. The port draws its
     # masks from a torch.Generator (Philox) either way.
     dropout_prng: str = "threefry"
+    # net, train_net, test_net, solver_mode, device_id as the prototxt has
+    # them (for the prototxt-level solver)
+    extras: dict = field(default_factory=dict)
 
     def __post_init__(self):
         if self.solver_type == "ADAGRAD" and self.momentum:
@@ -72,6 +80,34 @@ class SolverConfig:
             raise ValueError(
                 f"dropout_prng must be 'threefry' or 'rbg', "
                 f"got {self.dropout_prng!r}")
+
+    @classmethod
+    def from_message(cls, msg) -> "SolverConfig":
+        """Build from a parsed solver prototxt Message (the JAX package's
+        field mapping: solver_type by name or enum number, test_iter as a
+        tuple, the net and device fields into `extras`)."""
+        type_map = {0: "SGD", 1: "NESTEROV", 2: "ADAGRAD",
+                    "SGD": "SGD", "NESTEROV": "NESTEROV", "ADAGRAD": "ADAGRAD"}
+        kw: dict[str, Any] = {}
+        for fname in ("base_lr", "lr_policy", "gamma", "power", "stepsize",
+                      "momentum", "weight_decay", "regularization_type",
+                      "delta", "max_iter", "iter_size", "grad_microbatch",
+                      "display", "test_interval", "snapshot",
+                      "snapshot_prefix", "snapshot_after_train",
+                      "snapshot_diff", "test_initialization",
+                      "test_compute_loss", "random_seed", "snapshot_format",
+                      "dropout_prng"):
+            if msg.has(fname):
+                kw[fname] = msg.get(fname)
+        if msg.has("solver_type"):
+            kw["solver_type"] = type_map[msg.get("solver_type")]
+        if msg.has("test_iter"):
+            kw["test_iter"] = tuple(int(v) for v in msg.get_list("test_iter"))
+        cfg = cls(**kw)
+        cfg.extras = {k: msg.get(k) for k in ("net", "train_net", "test_net",
+                                              "solver_mode", "device_id")
+                      if msg.has(k)}
+        return cfg
 
 
 def _f32_pow(base, exponent) -> np.float32:

@@ -143,6 +143,21 @@ def build_fused_step(grad_fn, cfg: SolverConfig, n_accum: int, gm: int, *,
     return fstep
 
 
+_MASK64 = (1 << 64) - 1
+
+
+def iteration_seed(seed: int, it: int) -> int:
+    """The dropout generator's seed for iteration `it`: SplitMix64 of
+    seed << 32 | it (both as 32-bit words). Each iteration's masks then
+    depend on (seed, it) alone, as JAX's fold_in(PRNGKey(seed), it) does,
+    so a run resumed at iteration N draws iteration N's masks."""
+    z = (((seed & 0xFFFFFFFF) << 32) | (it & 0xFFFFFFFF))
+    z = (z + 0x9E3779B97F4A7C15) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return z ^ (z >> 31)
+
+
 def auto_grad_microbatch(batch, batch_axes: dict | None = None) -> int:
     """The JAX package's large-batch rule, as it stands: cut so that each
     microbatch carries ~128 batch rows, a power of two that divides every
@@ -174,8 +189,12 @@ def train(loss_fn: Callable, params, data: Iterator[dict], cfg: SolverConfig,
           fused_accum: bool = True) -> TrainResult:
     """loss_fn(params, batch, generator) -> (loss, aux dict): the loss of
     one batch, with dropout masks drawn from `generator`, one
-    torch.Generator on the device seeded with cfg.random_seed (0 when it is
-    -1) for the whole run.
+    torch.Generator on the device. At the top of each iteration it is
+    reseeded from (cfg.random_seed, iteration) (`iteration_seed`; a seed of
+    -1 means 0, as before), and every draw of that iteration runs on from
+    there: each microbatch of the fused step, each iter_size sub-batch, and
+    the display-gated forward after the loop. A resumed run therefore draws
+    the masks of the iteration it resumes at.
     eval_fn(params, batch) -> dict of scalars: averaged over cfg.test_iter
     batches of test_data every cfg.test_interval iterations.
     device: where the params, the batches and the work go; the card unless
@@ -204,8 +223,10 @@ def train(loss_fn: Callable, params, data: Iterator[dict], cfg: SolverConfig,
         start_iter = state["iter"]
         log.info("Restoring previous solver status from %s (iter %d)",
                  resume_state_path, start_iter)
-    generator = torch.Generator(device=dev).manual_seed(
-        cfg.random_seed if cfg.random_seed >= 0 else 0)
+    seed = cfg.random_seed if cfg.random_seed >= 0 else 0
+    # one generator, reseeded on the host at each iteration (no new tensor
+    # per step)
+    generator = torch.Generator(device=dev)
 
     def on_device(batch):
         return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
@@ -287,6 +308,7 @@ def train(loss_fn: Callable, params, data: Iterator[dict], cfg: SolverConfig,
                 if interval and it % interval == 0:
                     hook(params, it)
 
+            generator.manual_seed(iteration_seed(seed, it))
             if cfg.iter_size > 1 and not fused_accum:
                 grads_acc = None
                 for _ in range(cfg.iter_size):
@@ -361,6 +383,7 @@ def train(loss_fn: Callable, params, data: Iterator[dict], cfg: SolverConfig,
         except StopIteration:
             batch = None  # a finite iterator: the reference's never ends
         if batch is not None:
+            generator.manual_seed(iteration_seed(seed, it))
             with torch.no_grad():
                 final_loss = loss_fn(params, on_device(batch), generator)[0]
             log.info("Iteration %d, loss = %g", it,
