@@ -50,7 +50,18 @@ Run from the root of a checkout. It
    package's data factory does, and train runs 31 steps (test every 10),
    snapshots, resumes and runs 5 more: K1 launches one per step and per
    test batch, all sm90; then the host-fed step, the sampler, the H2D copy
-   and the test batch's assembly are timed beside the device-resident step.
+   and the test batch's assembly are timed beside the device-resident step;
+8. trains the same prototxt through the port's graph engine (net_training):
+   the port's Net for TRAIN and TEST, the sources from its data factory (the
+   C++ sampler it builds from native/vvdata.cpp), train with the Net's
+   lr/decay multipliers, 31 steps (test every 10), a snapshot and 5 resumed
+   steps, every INNER_PRODUCT one K1 launch on the f32 core route; then the
+   Net with K1 against its plain version (3 steps each), the bf16 Net
+   against the hand-written model's loss and gradients, one step's bias
+   update against solver_update with the multipliers, the device-resident
+   step in f32 and bf16 and the native-fed one, each profiled, and K1's
+   core route at f32 on the Net's two shapes beside its plain version,
+   torch.matmul and its bound.
 
 Exits non-zero, with no result line, without a CUDA card or outside a
 checkout. The last line of stdout is {"ok": true, "device": {...}}; the line
@@ -137,6 +148,17 @@ HOST_RESUMED = 5
 # steps timed (their tests excluded) and steps profiled, in the first run
 HOST_TIMED = range(1, 21)
 HOST_PROFILED = range(21, 26)
+# the prototxt through the graph engine (net_training): 31 steps with tests
+# every 10, a snapshot, 5 resumed; the device-resident steps timed over
+# iterations 5..24 and profiled over 25..29 (_StepTimer(5, 25, 5))
+NET_STEPS = 31
+NET_INTERVAL = 10
+NET_RESUMED = 5
+# the H100 SXM's published f32 peak outside the tensor cores (K1's core
+# route at f32 runs on FMA tiles)
+PEAK_FLOPS_F32 = 67e12
+# the TRAIN net's INNER_PRODUCT rows: B x (1 target + 4 context + 10 negatives)
+NET_ROWS = TRAIN_BATCH * (1 + 4 + TRAIN_NEG)
 # K1's timings cycle through copies of w that together exceed the H100's
 # 50 MB L2 by this factor, so that each call reads its weights from HBM as
 # it does on the path (fc6, fc7 and the tower evict each other there)
@@ -749,7 +771,8 @@ def training_profile(prof, steps: int, wall_ms: float) -> None:
     # a host-fed step's batch copy runs on a copy engine: busy, but no kernel
     h2d = sum(v for n, v in by_name.items() if n.startswith("Memcpy HtoD")) / 1e3
     k1 = sum(v for n, v in by_name.items()
-             if "gemm_tma_wgmma" in n or "splitk_reduce" in n) / 1e3
+             if any(s in n for s in ("gemm_tma_wgmma", "splitk_reduce",
+                                     "vv::MatGeom"))) / 1e3
     library = sum(v for n, v in by_name.items()
                   if any(s in n.lower() for s in ("cublas", "xmma", "cutlass",
                                                   "gemm", "sm90_"))
@@ -1211,10 +1234,10 @@ class _HostFedTimer:
         return dev_ms / n, host_ms / n
 
 
-def host_fed_training(dev, resident_ms: float) -> dict:
+def host_fed_training(dev, resident_ms: float, stores: tuple) -> dict:
     """The flagship trained from its host plane through the port's entry
-    points: stores written and read by the port, the net and solver parsed
-    by it, the sources built from them as the JAX package's data factory
+    points: stores written (`stores`, _write_host_stores) and read by the
+    port, the net and solver parsed by it, the sources built from them as the JAX package's data factory
     builds them (graph/data_factory.py), and train run on the card, with a
     snapshot and a resume. Returns the K1 launches of its training steps
     and of its test batches."""
@@ -1237,7 +1260,7 @@ def host_fed_training(dev, resident_ms: float) -> dict:
     card = gpu_name_and_power_limit()
     with tempfile.TemporaryDirectory() as tmp_name:
         tmp = Path(tmp_name)
-        train_path, test_path = _write_host_stores(tmp)
+        train_path, test_path = stores
 
         # the net, as generate_net.py writes it, and its two data layers
         net = parse(_emit()(train_path, test_path, buffer_size=5000))
@@ -1388,6 +1411,370 @@ def host_fed_training(dev, resident_ms: float) -> dict:
     return {"train": steps, "test": n_tests}
 
 
+def _net_message(train_path: str, test_path: str, *, dropout=None):
+    """generate_net.py's net for the two stores, parsed by the port; with
+    `dropout`, every DROPOUT layer's ratio rewritten (as JAX's
+    tests/test_embedding_model.py does for its engine-vs-model check)."""
+    from videovector_tpu_torch.config import parse
+    msg = parse(_emit()(train_path, test_path, buffer_size=5000))
+    if dropout is not None:
+        for layer in msg.get_list("layers"):
+            if layer.get("type") == "DROPOUT":
+                layer.get_msg("dropout_param").fields["dropout_ratio"] = [dropout]
+    return msg
+
+
+def _net_loss_fn(net):
+    """The TRAIN net as train's loss_fn: the loss, and every element of
+    every net output as a train metric (the JAX SolverDriver's aux)."""
+    def loss_fn(p, b, generator):
+        loss, outs = net.apply(p, b, generator=generator)
+        return loss, {k: v.reshape(-1) for k, v in outs.items()}
+    return loss_fn
+
+
+def _k1_core_times(dev) -> dict:
+    """K1's core route with f32 operands at the Net's two INNER_PRODUCT
+    shapes, (1920 x 4096) . (4096 x 4096) for TRAIN and (673 x 4096) .
+    (4096 x 4096) for TEST, bias epilogue, f32 out: held against the plain
+    version, then timed by CUDA-graph replay over copies of w beyond L2 in
+    turns with the plain version and torch.matmul (cuBLAS f32, TF32 off, a
+    yardstick only), beside the bound (operations at the f32 FMA peak)."""
+    from videovector_tpu_torch.ops.hopper import matmul as k1
+    gen = torch.Generator(device=dev).manual_seed(13)
+    out = {}
+    for rows in (NET_ROWS, TEST_BATCH):
+        k = n = 4096
+        x = torch.randn((rows, k), generator=gen, device=dev)
+        b = torch.randn(n, generator=gen, device=dev)
+        ws = [torch.randn((k, n), generator=gen, device=dev) * 0.02
+              for _ in range(max(2, math.ceil(L2_EXCESS * L2_BYTES / (k * n * 4))))]
+        if k1.k1_route(x, ws[0], torch.float32) != "core":
+            raise AssertionError(f"K1 {rows}x{k}x{n} f32: not on the core route")
+        err = compare(f"K1 core f32 {rows}x{k}x{n}", k1.matmul(x, ws[0], b),
+                      k1.matmul_plain(x, ws[0], b))
+        run = lambda w: k1.matmul(x, w, b)
+        plain = lambda w: k1.matmul_plain(x, w, b)
+        cublas = lambda w: torch.matmul(x, w)
+        t = [time_graph_ms(fn, ws) for fn in (plain, run, cublas, cublas, run,
+                                              plain)]
+        ms, ms_plain, ms_lib = (t[1] + t[4]) / 2, (t[0] + t[5]) / 2, (t[2] + t[3]) / 2
+        flops = 2 * rows * k * n
+        nbytes = (rows * k + k * n + n + rows * n) * 4
+        t_ops, t_bytes = flops / PEAK_FLOPS_F32, nbytes / PEAK_BYTES
+        out[rows] = {"err": err, "ms": ms, "plain_ms": ms_plain,
+                     "library_ms": ms_lib, "bound_ms": max(t_ops, t_bytes) * 1e3,
+                     "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        log(f"  K1 core route f32 {rows}x{k}x{n}: kernel {ms:.4f} ms "
+            f"({flops / ms / 1e9:.1f} TFLOP/s), plain {ms_plain:.4f} ms, "
+            f"cuBLAS f32 (TF32 off) {ms_lib:.4f} ms, bound "
+            f"{out[rows]['bound_ms']:.4f} ms ({out[rows]['bound_by']}, "
+            f"{PEAK_FLOPS_F32 / 1e12:.0f} TFLOP/s f32; "
+            f"{out[rows]['bound_ms'] / ms:.3f} of it) (turns: "
+            f"{', '.join(f'{v:.4f}' for v in t)})")
+    return out
+
+
+def net_training(dev, resident_ms: float, stores: tuple) -> dict:
+    """generate_net.py's prototxt through the port's graph engine: the Net
+    for TRAIN and TEST, the sources from the port's data factory (the C++
+    sampler for the VVR WINDOW store), train with the Net's lr/decay
+    multipliers (a snapshot and a resume), every INNER_PRODUCT one K1
+    launch on the core route. Then the checks against the plain version,
+    the hand-written model and solver_update, and the timings. Returns the
+    main path's K1 launches and K1's core-route stats."""
+    import dataclasses
+
+    from videovector_tpu_torch.config import parse_file
+    from videovector_tpu_torch.data.native import NativeSampledShotsSource
+    from videovector_tpu_torch.graph import Net
+    from videovector_tpu_torch.graph.data_factory import (
+        MergedSource, make_data_source,
+    )
+    from videovector_tpu_torch.graph.layers import DATA_LAYER_TYPES
+    from videovector_tpu_torch.ops.hopper.matmul import matmul
+    from videovector_tpu_torch.solver import (
+        SolverConfig, init_solver_state, solver_update,
+    )
+    from videovector_tpu_torch.solver.train import (
+        iteration_seed, train, value_and_grad,
+    )
+
+    card = gpu_name_and_power_limit()
+    msg = _net_message(*stores)
+    solver = SolverConfig.from_message(parse_file(str(SOLVER_PROTOTXT)))
+    # the seed the JAX SolverDriver gives the sources and the fillers
+    seed = solver.random_seed if solver.random_seed >= 0 else 1234
+    t0 = time.perf_counter()
+    train_net, test_net = Net(msg, "TRAIN"), Net(msg, "TEST")
+
+    def sources(net, phase, s):
+        return MergedSource([make_data_source(l, phase=phase, seed=s)
+                             for l in net.layers
+                             if l.get("type") in DATA_LAYER_TYPES])
+    train_src = sources(train_net, "TRAIN", seed)
+    test_src = sources(test_net, "TEST", seed + 1)
+    sampler = train_src.sources[0].source
+    t1 = time.perf_counter()
+    try:
+        if not isinstance(sampler, NativeSampledShotsSource):
+            raise AssertionError(f"the TRAIN source is {type(sampler).__name__}, "
+                                 "not the native sampler")
+        batch0, test0 = train_src.next_batch(), test_src.next_batch()
+        params, _ = train_net.init(torch.Generator(device=dev).manual_seed(seed),
+                                   batch0)
+        test_net.init(torch.Generator(device=dev).manual_seed(seed), test0)
+        lr, decay = train_net.param_multipliers()
+        t2 = time.perf_counter()
+        if (lr, decay) != ({"fc7": {"w": 1.0, "b": 2.0}},
+                           {"fc7": {"w": 1.0, "b": 0.0}}):
+            raise AssertionError(f"the Net's multipliers {lr}, {decay}")
+        log(f"  the Net: TRAIN {len(train_net.layers)} layers, TEST "
+            f"{len(test_net.layers)}; sources from the data factory in "
+            f"{t1 - t0:.3f} s (TRAIN {type(sampler).__name__}, seed {seed}), "
+            f"first batches and init on the card {t2 - t1:.3f} s; params "
+            f"{ {k: {n: tuple(v.shape) for n, v in d.items()} for k, d in params.items()} }, "
+            f"lr_mults {lr}, decay_mults {decay}")
+        out = _net_main_path(dev, train_net, test_net, params, lr, decay, solver,
+                             itertools.chain([batch0], train_src), test_src,
+                             card)
+        t0 = time.perf_counter()
+        for _ in range(20):
+            sampler.next_batch()
+        native_ms = (time.perf_counter() - t0) / 20 * 1e3
+    finally:
+        sampler.close()
+    log(f"  native sampler next_batch: {native_ms:.3f} ms a batch (host "
+        f"clock over 20) [{card}]")
+
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in batch0.items()}
+    quiet = dataclasses.replace(solver, test_interval=0, snapshot=0,
+                                snapshot_prefix="")
+    loss_fn = _net_loss_fn(train_net)
+
+    # the multipliers act: one step's update of fc7/b through train equals
+    # solver_update's with lr_mult 2 and decay_mult 0
+    one = dataclasses.replace(quiet, max_iter=1, display=0)
+    stepped = train(loss_fn, params, iter([batch]), one, lr_mults=lr,
+                    decay_mults=decay, device="cuda")
+    g = torch.Generator(device=dev).manual_seed(
+        iteration_seed(max(solver.random_seed, 0), 0))
+    _, grads = value_and_grad(loss_fn)(params, batch, g)
+    fresh = init_solver_state(one, params)
+    want, _ = solver_update(one, params, grads, fresh,
+                            lr_mults={"fc7": {"w": 1.0, "b": 2.0}},
+                            decay_mults={"fc7": {"w": 1.0, "b": 0.0}})
+    unit, _ = solver_update(one, params, grads, fresh)
+    b0 = params["fc7"]["b"]
+    err = (stepped.params["fc7"]["b"] - want["fc7"]["b"]).abs().max().item()
+    upd = (want["fc7"]["b"] - b0).abs().max().item()
+    off = (unit["fc7"]["b"] - want["fc7"]["b"]).abs().max().item()
+    log(f"  multipliers: one step's fc7/b update through train vs "
+        f"solver_update(lr_mult 2, decay_mult 0): max|diff| {err:.3e} against "
+        f"max|update| {upd:.3e}; without multipliers it would differ by "
+        f"{off:.3e}")
+    if not (err <= 1e-6 * upd and off > 1e-3 * upd):
+        raise AssertionError(f"multipliers: {err}, {upd}, {off}")
+
+    net_parity(dev, msg, params, batch, quiet)
+    net_vs_hand_model(dev, stores, out["params"], batch)
+
+    for dtype in ("float32", "bfloat16"):
+        net = train_net if dtype == "float32" else Net(
+            msg, "TRAIN", compute_dtype=dtype)
+        if dtype == "bfloat16":
+            net.init(torch.Generator(device=dev).manual_seed(seed), batch0)
+        timer = _StepTimer(5, 25, profiled=5)
+        torch.cuda.synchronize()
+        matmul.launches = matmul.launches_sm90 = 0
+        res = train(_net_loss_fn(net), params, itertools.repeat(batch),
+                    dataclasses.replace(quiet, max_iter=TRAIN_MAIN_STEPS),
+                    lr_mults=lr, decay_mults=decay, device="cuda",
+                    batch_axes={"data": 0}, hooks=[(1, timer.hook)])
+        torch.cuda.synchronize()
+        sm90 = TRAIN_MAIN_STEPS if dtype == "bfloat16" else 0
+        if (matmul.launches, matmul.launches_sm90) != (TRAIN_MAIN_STEPS, sm90):
+            raise AssertionError(f"resident Net {dtype}: K1 launches "
+                                 f"{matmul.launches} ({matmul.launches_sm90} sm90)")
+        if not torch.isfinite(res.params["fc7"]["w"]).all():
+            raise AssertionError(f"resident Net {dtype}: params not finite")
+        ms = timer.ms_per_step()
+        wall = timer.wall_s / (timer.stop - timer.start) * 1e3
+        enqueue = timer.enqueue_s / (timer.stop - timer.start) * 1e3
+        log(f"  Net device-resident step at B={TRAIN_BATCH}, {dtype} "
+            f"operands (K1 {'sm90' if sm90 else 'core'} route): {ms:.4f} ms "
+            f"(CUDA events over {timer.stop - timer.start} steps) = "
+            f"{TRAIN_BATCH * TRAIN_NEG / ms * 1e3:,.0f} triplets/s; host wall "
+            f"{wall:.4f} ms a step, {enqueue:.4f} ms to enqueue it [{card}]")
+        training_profile(timer.prof, timer.profiled, wall)
+    log(f"  hand-written model's device-resident step at B={TRAIN_BATCH} "
+        f"(bf16, training main path, this run): {resident_ms:.4f} ms = "
+        f"{TRAIN_BATCH * TRAIN_NEG / resident_ms * 1e3:,.0f} triplets/s "
+        f"[{card}]")
+    out["k1"] = _k1_core_times(dev)
+    return out
+
+
+def _net_main_path(dev, train_net, test_net, params, lr, decay, solver, data,
+                   test_src, card) -> dict:
+    """The counted main path: NET_STEPS steps fed by the native sampler,
+    tests every NET_INTERVAL, a snapshot, NET_RESUMED resumed steps."""
+    import dataclasses
+    import tempfile
+
+    from videovector_tpu_torch.ops.hopper.matmul import matmul
+    from videovector_tpu_torch.solver.train import train
+    per_eval = []
+
+    def eval_fn(p, b):
+        before = (matmul.launches, matmul.launches_sm90)
+        _, outs = test_net.apply(p, b)
+        per_eval.append((matmul.launches - before[0],
+                         matmul.launches_sm90 - before[1]))
+        return outs
+    loss_fn = _net_loss_fn(train_net)
+    timer = _HostFedTimer(HOST_TIMED, HOST_PROFILED)
+    tests = timer.tests(test_src)
+    with tempfile.TemporaryDirectory() as tmp_name:
+        cfg = dataclasses.replace(
+            solver, max_iter=NET_STEPS, test_interval=NET_INTERVAL,
+            snapshot=NET_STEPS, snapshot_prefix=str(Path(tmp_name) / "net"))
+        kw = dict(lr_mults=lr, decay_mults=decay, device="cuda",
+                  batch_axes={"data": 0}, eval_fn=eval_fn, test_data=tests)
+        torch.cuda.synchronize()
+        matmul.launches = matmul.launches_sm90 = 0
+        first = train(loss_fn, params, data, cfg, hooks=[(1, timer.hook)], **kw)
+        state = Path(tmp_name) / f"net_iter_{NET_STEPS}.vvstate"
+        resumed = train(loss_fn, params, data, dataclasses.replace(
+            cfg, max_iter=NET_STEPS + NET_RESUMED),
+            resume_state_path=str(state), **kw)
+        torch.cuda.synchronize()
+        launches = (matmul.launches, matmul.launches_sm90)
+
+    steps = NET_STEPS + NET_RESUMED
+    n_tests = len(range(0, NET_STEPS, NET_INTERVAL))
+    losses = [m["loss"] for r in (first, resumed) for _, m in r.metrics_history]
+    values = [v for r in (first, resumed) for _, m in r.test_history
+              for v in m.values()]
+    log(f"  Net training: {NET_STEPS} steps, snapshot {state.name}, resumed "
+        f"for {NET_RESUMED}; iter {first.state['iter']} then "
+        f"{resumed.state['iter']}; K1 launches {launches[0]} ({launches[1]} "
+        f"sm90) for {steps} steps + {n_tests} test batches; per test batch "
+        f"{per_eval}; losses {losses}; test history "
+        f"{first.test_history + resumed.test_history}")
+    if (first.state["iter"], resumed.state["iter"]) != (NET_STEPS, steps):
+        raise AssertionError("Net training: iterations "
+                             f"{first.state['iter']}, {resumed.state['iter']}")
+    if launches != (steps + n_tests, 0) or per_eval != [(1, 0)] * n_tests:
+        raise AssertionError(f"Net K1 launches {launches}, per eval "
+                             f"{per_eval}: expected {steps} + {n_tests}, all "
+                             "on the core route")
+    w = resumed.params["fc7"]["w"]
+    if not (losses and all(math.isfinite(v) for v in losses)
+            and torch.isfinite(w).all()):
+        raise AssertionError(f"Net training: losses {losses}, or params "
+                             "not finite")
+    if len(values) != 3 * n_tests or not all(0.0 <= v <= 1.0 for v in values):
+        raise AssertionError(f"Net test outputs {values}")
+    step_ms, wall_ms = timer.per_step()
+    log(f"  Net native-fed step at B={TRAIN_BATCH} (f32, K1 core route): "
+        f"{step_ms:.4f} ms (CUDA events over {len(HOST_TIMED)} steps, tests "
+        f"excluded) = {TRAIN_BATCH * TRAIN_NEG / step_ms * 1e3:,.0f} "
+        f"triplets/s; host wall {wall_ms:.4f} ms a step [{card}]")
+    training_profile(timer.prof, len(HOST_PROFILED), wall_ms)
+    return {"launches": launches[0], "params": resumed.params}
+
+
+def net_parity(dev, msg, params, batch, quiet) -> None:
+    """Three steps of the f32 Net with K1 and three with K1's plain version
+    (the Net's plain switch), the same params, batch and dropout masks:
+    losses within 1e-3 relative, params within 2e-2 of the largest update
+    (the tolerances of the hand-written step's K1-vs-plain check)."""
+    import dataclasses
+
+    from videovector_tpu_torch.graph import Net
+    from videovector_tpu_torch.solver.train import train
+    runs = {}
+    for plain in (False, True):
+        net = Net(msg, "TRAIN", plain=plain)
+        net.init(torch.Generator(device=dev).manual_seed(0), batch)
+        lr, decay = net.param_multipliers()
+        res = train(_net_loss_fn(net), params, iter([batch] * 3),
+                    dataclasses.replace(quiet, max_iter=3, display=1),
+                    lr_mults=lr, decay_mults=decay, device="cuda")
+        runs[plain] = (res.params["fc7"], [m["loss"] for _, m in
+                                           res.metrics_history])
+    (pk, lk), (pp, lp) = runs[False], runs[True]
+    dw = (pp["w"] - params["fc7"]["w"]).abs().max().item()
+    db = (pp["b"] - params["fc7"]["b"]).abs().max().item()
+    errs = {k: (pk[k] - pp[k]).abs().max().item() for k in ("w", "b")}
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
+    log(f"  Net, 3 steps at B={TRAIN_BATCH} (f32, dropout 0.9, the same "
+        f"masks), K1 vs plain: losses {lk} vs {lp} (max rel err "
+        f"{loss_err:.2e}, tol 1e-3); max|w_K1 - w_plain| {errs['w']:.3e} "
+        f"against max|dw| {dw:.3e}, max|b_K1 - b_plain| {errs['b']:.3e} "
+        f"against max|db| {db:.3e} (tol 2e-2 of each)")
+    if len(lk) != 3 or not all(math.isfinite(v) for v in lk):
+        raise AssertionError(f"Net parity losses {lk}")
+    if not loss_err <= 1e-3:
+        raise AssertionError(f"Net loss K1 vs plain: {loss_err} > 1e-3")
+    if not (errs["w"] <= 2e-2 * dw and errs["b"] <= 2e-2 * db):
+        raise AssertionError(f"Net params K1 vs plain: {errs}, updates "
+                             f"{dw}, {db}")
+
+
+def net_vs_hand_model(dev, stores, params, batch) -> None:
+    """The Net with bf16 operands (K1's sm90 route) against the hand-written
+    VideoEmbeddingModel.loss, dropout rewritten to 0, on the same params and
+    batch: loss within 1e-4 relative (JAX's bound for the same check,
+    tests/test_embedding_model.py) and fc7's gradients within 1e-4 of their
+    largest magnitude, where the weight gradient may also differ by one
+    bf16 step (2**-7 of its value at most): both round an f32 sum to bf16,
+    and the two f32 sums, taken through differently written scoring heads,
+    can straddle a rounding boundary."""
+    from videovector_tpu_torch.graph import Net
+    from videovector_tpu_torch.models.embedding import (
+        VideoEmbeddingConfig, VideoEmbeddingModel,
+    )
+    from videovector_tpu_torch.ops.hopper.matmul import matmul
+    net = Net(_net_message(*stores, dropout=0.0), "TRAIN",
+              compute_dtype="bfloat16")
+    net.init(torch.Generator(device=dev).manual_seed(0), batch)
+    model = VideoEmbeddingModel(VideoEmbeddingConfig(
+        feature_dim=batch["data"].shape[-1],
+        embed_dim=params["fc7"]["w"].shape[1], dropout_rate=0.0))
+    p_net = {"fc7": {k: v.detach().clone().requires_grad_()
+                     for k, v in params["fc7"].items()}}
+    p_hand = {"tower": {k: v.detach().clone().requires_grad_()
+                        for k, v in params["fc7"].items()}}
+    before = matmul.launches_sm90
+    with torch.enable_grad():
+        l_net = net.loss_fn(p_net, batch)
+        l_hand, _ = model.loss(p_hand, batch, train=True)
+        l_net.backward()
+        l_hand.backward()
+    torch.cuda.synchronize()
+    if matmul.launches_sm90 != before + 2:
+        raise AssertionError("Net vs hand model: not one sm90 K1 launch each")
+    loss_err = abs(l_net.item() - l_hand.item()) / abs(l_hand.item())
+    gw, rw = p_net["fc7"]["w"].grad, p_hand["tower"]["w"].grad
+    gb, rb = p_net["fc7"]["b"].grad, p_hand["tower"]["b"].grad
+    w_scale, b_scale = rw.abs().max().item(), rb.abs().max().item()
+    dw = (gw - rw).abs()
+    w_excess = (dw - 1e-4 * w_scale - 2.0**-7 * rw.abs()).max().item()
+    b_err = (gb - rb).abs().max().item()
+    log(f"  Net (bf16, sm90) vs VideoEmbeddingModel.loss, dropout 0: loss "
+        f"{l_net.item():.7f} vs {l_hand.item():.7f} (rel err {loss_err:.2e}, "
+        f"tol 1e-4); fc7 dW max|diff| {dw.max().item():.3e} against max|dW| "
+        f"{w_scale:.3e}, {int((dw > 1e-4 * w_scale).sum())} of {dw.numel()} "
+        f"elements past 1e-4 of it (each within one bf16 step: "
+        f"{w_excess <= 0}), relative L2 {dw.norm().item() / rw.norm().item():.2e}; "
+        f"db max|diff| {b_err:.3e} against max|db| {b_scale:.3e}")
+    if not (loss_err <= 1e-4 and w_excess <= 0 and b_err <= 1e-4 * b_scale):
+        raise AssertionError(f"Net vs hand model: loss {loss_err}, dW excess "
+                             f"{w_excess}, db {b_err} (scale {b_scale})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1398,6 +1785,8 @@ def main() -> int:
               "run it from a checkout of the repo", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    import tempfile
+
     from videovector_tpu_torch import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1425,9 +1814,13 @@ def main() -> int:
     training_cells(dev)
     eval_launches = eval_through_train(dev)
     torch.cuda.empty_cache()
-    host_launches = host_fed_training(dev, resident_ms)
-    train_launches += host_launches["train"]
-    eval_launches += host_launches["test"]
+    with tempfile.TemporaryDirectory() as stores_dir:
+        stores = _write_host_stores(Path(stores_dir))
+        host_launches = host_fed_training(dev, resident_ms, stores)
+        train_launches += host_launches["train"]
+        eval_launches += host_launches["test"]
+        torch.cuda.empty_cache()
+        net = net_training(dev, resident_ms, stores)
     torch.cuda.empty_cache()
     with torch.no_grad():
         gallery_eval(dev)
@@ -1457,6 +1850,14 @@ def main() -> int:
          **{k: stats["K1 test"][k] for k in ("ms", "plain_ms", "bound_ms",
                                             "bound_by", "library_ms")},
          "max_abs_err": stats["K1 test"]["err"]},
+        {"name": "K1 matmul, the Net's INNER_PRODUCT (f32 operands, core "
+                 "route)", "route": "cuda",
+         "source": "videovector_tpu_torch/csrc/matmul.cu",
+         "replaces": "videovector_tpu/ops/pallas/matmul.py:50",
+         "launches": net["launches"],
+         **{k: net["k1"][NET_ROWS][k] for k in ("ms", "plain_ms", "bound_ms",
+                                                "bound_by", "library_ms")},
+         "max_abs_err": max(v["err"] for v in net["k1"].values())},
         {"name": "K2 conv2d_im2col_gemm (implicit-GEMM conv: cp.async "
                  "gathers + TMA + wgmma, one launch per conv)", "route": "cuda",
          "source": "videovector_tpu_torch/csrc/conv_gemm_sm90.cu",
@@ -1483,7 +1884,11 @@ def main() -> int:
         f"the host-fed run, {HOST_STEPS} + {HOST_RESUMED} steps. K1's "
         f"test-eval entry: one ({TEST_BATCH} x 4096) . (4096 x 4096) call "
         "with bias + ReLU, its launches the test evals' in train, drawn on "
-        "the card and read from the test store)")
+        "the card and read from the test store. K1's Net entry: one (1920 x "
+        "4096) . (4096 x 4096) call, f32 in and out, bias, on the core route "
+        "(bound: operations at the f32 FMA peak; library cuBLAS f32, TF32 "
+        f"off), its launches the Net's, {NET_STEPS} + {NET_RESUMED} steps and "
+        "their test batches; its max_abs_err over that shape and 673 rows)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -450,3 +450,59 @@ def test_training_step_ignores_the_process_tf32_setting(dev):
     assert not torch.equal(runs[0][0], runs[1][0])
     assert torch.equal(runs[0][1], runs[1][1])
     assert torch.equal(runs[0][2], runs[1][2])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_net_on_k1_matches_the_net_on_plain(dev, dtype):
+    """generate_net.py's TRAIN and TEST nets at small widths (D = 256, E =
+    128, B = 16) through the port's Net with K1 and with its plain version
+    (Net(plain=True)), on the same params and batch: one K1 launch per
+    forward, on the core route for f32 operands and the sm90 route for
+    bf16; loss within 1e-4 relative, fc7's gradients and the TEST net's
+    normalized embeddings within 1e-3 of their largest magnitude."""
+    import importlib.util
+    from pathlib import Path
+
+    from videovector_tpu_torch.config import parse
+    from videovector_tpu_torch.graph import Net
+    spec = importlib.util.spec_from_file_location(
+        "generate_net", Path(__file__).resolve().parent.parent
+        / "projects/videovec_embedding/generate_net.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    msg = parse(mod.emit("train.vvr", "test.vvr", batch=16, test_batch=40,
+                         embed=128, weight_std=0.05))
+    cd = None if dtype == "float32" else dtype
+    gen = torch.Generator(device=dev).manual_seed(4)
+    batch = {"data": torch.randn((16, 15, 256), generator=gen, device=dev)}
+    test = {"data": torch.randn((40, 4, 256), generator=gen, device=dev),
+            "video_ids": torch.randint(0, 8, (40,), generator=gen,
+                                       device=dev).float()}
+    route = "launches_sm90" if dtype == "bfloat16" else "launches"
+    outs = []
+    for plain in (False, True):
+        net = Net(msg, "TRAIN", compute_dtype=cd, plain=plain)
+        params, _ = net.init(torch.Generator(device=dev).manual_seed(0), batch)
+        p = {k: {n: v.requires_grad_() for n, v in d.items()}
+             for k, d in params.items()}
+        before = (k1.matmul.launches, k1.matmul.launches_sm90)
+        loss = net.loss_fn(p, batch, torch.Generator(device=dev).manual_seed(1))
+        loss.backward()
+        test_net = Net(msg, "TEST", compute_dtype=cd, plain=plain)
+        test_net.init(torch.Generator(device=dev).manual_seed(0), test)
+        with torch.no_grad():
+            _, tout = test_net.apply(p, test, return_blobs=True)
+        torch.cuda.synchronize()
+        launched = (k1.matmul.launches - before[0],
+                    k1.matmul.launches_sm90 - before[1])
+        assert launched == ((0, 0) if plain else
+                            (2, 2 if dtype == "bfloat16" else 0)), route
+        outs.append((loss.item(), p["fc7"]["w"].grad, p["fc7"]["b"].grad,
+                     tout))
+    (lk, wk, bk, tk), (lp, wp, bp, tp) = outs
+    assert abs(lk - lp) <= 1e-4 * abs(lp)
+    for got, ref in ((wk, wp), (bk, bp)):
+        assert (got - ref).abs().max().item() <= \
+            1e-3 * ref.abs().max().item()
+    assert 0.0 <= tk["test_map"].item() <= 1.0
+    assert (tk["ctxn"] - tp["ctxn"]).abs().max().item() <= 1e-3

@@ -174,6 +174,7 @@ def test_port_imports_without_jax():
         import videovector_tpu_torch.config.upgrade
         import videovector_tpu_torch.convert
         import videovector_tpu_torch.core.fillers
+        import videovector_tpu_torch.data.native
         import videovector_tpu_torch.data.records
         import videovector_tpu_torch.data.shots
         import videovector_tpu_torch.data.transformer
@@ -182,6 +183,10 @@ def test_port_imports_without_jax():
         import videovector_tpu_torch.models.mednet
         import videovector_tpu_torch.models.retrieval_pipeline
         import videovector_tpu_torch.device
+        import videovector_tpu_torch.graph
+        import videovector_tpu_torch.graph.data_factory
+        import videovector_tpu_torch.graph.layers
+        import videovector_tpu_torch.graph.net
         import videovector_tpu_torch.metrics
         import videovector_tpu_torch.metrics.classification
         import videovector_tpu_torch.metrics.retrieval
@@ -194,6 +199,7 @@ def test_port_imports_without_jax():
         import videovector_tpu_torch.ops.lrn
         import videovector_tpu_torch.ops.normalization
         import videovector_tpu_torch.ops.pooling
+        import videovector_tpu_torch.ops.reductions
         import videovector_tpu_torch.solver
         import videovector_tpu_torch.solver.checkpoint
         import videovector_tpu_torch.solver.solvers

@@ -397,6 +397,40 @@ def test_ten_step_trajectory_matches_jax(dtype):
         > 10 * atol
 
 
+@pytest.mark.parametrize("schedule", [
+    {}, {"solver": dict(grad_microbatch=2), "axes": {"data": 1}},
+    {"solver": dict(iter_size=2), "fused": False}])
+def test_lr_and_decay_multipliers_match_jax(schedule):
+    """Two steps with the bias at lr_mult 2 and decay_mult 0 (the flagship
+    fc7's blobs_lr 1, 2 and weight_decay 1, 0), through the plain step, the
+    fused grad_microbatch step and the host iter_size loop: JAX's
+    trajectory within 1e-5, and not the one without multipliers."""
+    lr = {"tower": {"w": 1.0, "b": 2.0}}
+    decay = {"tower": {"w": 1.0, "b": 0.0}}
+    solver_kw = dict(weight_decay=0.5, **schedule.get("solver", {}))
+    batches = _batches(5)
+    port_kw = dict(lr_mults=lr, decay_mults=decay,
+                   batch_axes=schedule.get("axes"),
+                   fused_accum=schedule.get("fused", True))
+    rj, rt = _train_both(2, model_kw=dict(dropout_rate=0.0,
+                                          compute_dtype="float32"),
+                         solver_kw=solver_kw, batches=batches,
+                         jax_kw=port_kw, port_kw=port_kw)
+    jw = np.asarray(rj.params["tower"]["w"])
+    _close(_losses(rt), _losses(rj), rtol=1e-5)
+    _tree_close(rt.params, jax.tree.map(np.asarray, rj.params), 1e-5,
+                1e-5 * np.abs(jw).max())
+    _tree_close(rt.state["history"],
+                jax.tree.map(np.asarray, rj.state["history"]), 1e-5, 1e-8)
+    without = {k: v for k, v in port_kw.items() if not k.endswith("mults")}
+    _, none = _train_both(2, model_kw=dict(dropout_rate=0.0,
+                                           compute_dtype="float32"),
+                          solver_kw=solver_kw, batches=batches,
+                          jax_kw=without, port_kw=without)
+    assert not torch.allclose(none.params["tower"]["b"],
+                              rt.params["tower"]["b"])
+
+
 def test_dropout_trajectory_with_jax_masks_matches_jax(monkeypatch):
     """3 steps at dropout 0.9 with JAX's per-iteration masks (bernoulli of
     fold_in(PRNGKey(seed), it)) injected into the port."""

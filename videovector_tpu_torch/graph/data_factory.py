@@ -1,0 +1,142 @@
+"""Data-source factory: host batch sources from data-layer configs;
+counterpart of videovector_tpu/graph/data_factory.py.
+
+The reference's data layers construct themselves from LayerParameter inside
+Net::Init (ref:src/caffe/layer_factory.cpp:177-309 dispatch; per-layer params
+ref:src/caffe/proto/caffe.proto:497-688,1010-1041). Here the Net treats their
+tops as inputs and this factory builds the matching host-side source from
+the same LayerParameter message, renaming source fields to the layer's top
+names so that batches slot straight into `Net.apply`.
+
+Ported: the flagship's two data layers, VIDEO_SAMPLED_SHOTS_DATA (the C++
+sampler for a VVR WINDOW source, as the JAX package chooses, else the
+Python one) and VIDEO_SHOT_WINDOW_TEST_DATA. The others raise
+NotImplementedError naming the ROADMAP item that ports them.
+"""
+
+from __future__ import annotations
+
+import os
+
+from videovector_tpu_torch.config.textformat import Message
+from videovector_tpu_torch.data import native
+from videovector_tpu_torch.data.records import convert_dir_or_file, is_vvr
+from videovector_tpu_torch.data.shots import (
+    SampledShotsConfig, ShotDataset, TestWindowDataset,
+    VideoSampledShotsSource, VideoShotWindowTestSource,
+)
+
+# data-layer types whose sources come with a later item of ROADMAP queue 1
+_PENDING = {
+    "VIDEO_SHOTS_DATA": "6c", "FIXED_VIDEO_SHOT_TEST_DATA": "6c",
+    "DATA": "1b", "IMAGE_DATA": "1b", "WINDOW_DATA": "1b", "HDF5_DATA": "1b",
+    "VIDEO_SHOT_WINDOW_DATA": "1b", "FLEXIBLE_DATA": "1b",
+    "TRACKING_WINDOWS_DATA": "1b", "TRACKING_WINDOWS_SOCIAL_DATA": "1b",
+}
+
+
+class _RenamingSource:
+    """Wrap a source whose dict keys are positional; rename to top names."""
+
+    def __init__(self, source, field_order: list[str], tops: list[str]):
+        self.source = source
+        self.mapping = dict(zip(field_order, tops))
+
+    def next_batch(self):
+        batch = self.source.next_batch()
+        return {self.mapping[k]: v for k, v in batch.items()
+                if k in self.mapping}
+
+    def batch_axes(self) -> dict:
+        """top name -> batch axis (the axis a grad_microbatch split cuts).
+        0 unless the source declares a `batch_axes` attribute keyed by
+        canonical field names."""
+        src_axes = getattr(self.source, "batch_axes", {})
+        return {top: src_axes.get(canon, 0)
+                for canon, top in self.mapping.items()}
+
+    def __iter__(self):
+        while True:
+            yield self.next_batch()
+
+
+def make_data_source(layer: Message, *, phase: str = "TRAIN", seed: int = 1234):
+    """layer: a data-layer LayerParameter Message. Returns an iterator of
+    batches (numpy arrays) keyed by the layer's top names. `seed`: the
+    JAX SolverDriver passes the solver's random_seed, or 1234 when it is
+    -1."""
+    ltype = layer.get("type")
+    tops = [str(t) for t in layer.get_list("top")]
+
+    if ltype == "VIDEO_SAMPLED_SHOTS_DATA":
+        p = layer.get_msg("video_sampled_shots_data_param")
+        cfg = SampledShotsConfig.from_message(p)
+        cfg.seed = seed
+        cfg.output_video_ids = len(tops) > 1
+        if p.get("device_negatives"):
+            raise NotImplementedError(
+                "device_negatives (the on-device negative sampler) is not "
+                "ported to videovector_tpu_torch yet (ROADMAP queue 1, "
+                "item 7)")
+        # the C++ sampler (WINDOW mode, no separate negative dataset, VVR
+        # store) with its own prefetch thread, as the JAX package's factory
+        # chooses it; VVTPU_NATIVE_DATA=0 disables
+        if (cfg.context_type == "WINDOW" and not p.get("negative_dataset")
+                and is_vvr(p.get("source"))
+                and os.environ.get("VVTPU_NATIVE_DATA", "1") != "0"
+                and native.available()):
+            src = native.NativeSampledShotsSource(
+                convert_dir_or_file(p.get("source")),
+                batch_size=cfg.batch_size,
+                context_size=cfg.context_size,
+                num_negative_samples=cfg.num_negative_samples,
+                max_buffer_size=cfg.max_buffer_size,
+                negative_swap_percentage=cfg.negative_swap_percentage,
+                max_same_video_negs=cfg.max_same_video_negs, seed=seed)
+            return _RenamingSource(src, ["data", "video_id"], tops)
+        ds = ShotDataset.from_records(convert_dir_or_file(p.get("source")))
+        neg = p.get("negative_dataset")
+        neg_ds = ShotDataset.from_records(convert_dir_or_file(neg)) if neg else None
+        src = VideoSampledShotsSource(ds, cfg, neg_ds)
+        return _RenamingSource(src, ["data", "video_id"], tops)
+
+    if ltype == "VIDEO_SHOT_WINDOW_TEST_DATA":
+        p = layer.get_msg("video_shot_window_test_data_param")
+        ds = TestWindowDataset.from_records(convert_dir_or_file(p.get("source")))
+        src = VideoShotWindowTestSource(
+            ds, int(p.get("batch_size", 1)),
+            include_positives=bool(p.get("include_positives", True)),
+            include_negatives=bool(p.get("include_negatives", True)),
+            display_all_ids=bool(p.get("display_all_ids", False)))
+        return _RenamingSource(src, ["data", "video_ids"], tops)
+
+    if ltype in _PENDING:
+        raise NotImplementedError(
+            f"the {ltype} data source is not ported to videovector_tpu_torch "
+            f"yet (ROADMAP queue 1, item {_PENDING[ltype]})")
+    raise NotImplementedError(f"no data-source factory for {ltype!r}")
+
+
+class MergedSource:
+    """Merge several data-layer sources feeding one net (Caffe nets can hold
+    multiple data layers per phase)."""
+
+    def __init__(self, sources: list):
+        self.sources = sources
+
+    def next_batch(self) -> dict:
+        out: dict = {}
+        for s in self.sources:
+            out.update(s.next_batch())
+        return out
+
+    def batch_axes(self) -> dict:
+        out: dict = {}
+        for s in self.sources:
+            if hasattr(s, "batch_axes"):
+                out.update(s.batch_axes())
+        return out
+
+    def __iter__(self):
+        while True:
+            yield self.next_batch()

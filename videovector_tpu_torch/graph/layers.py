@@ -1,0 +1,355 @@
+"""Layer registry: adapts the port's ops to prototxt-configured graph nodes;
+counterpart of videovector_tpu/graph/layers.py.
+
+A layer is a pair of functions:
+
+  init(generator, cfg, in_shapes) -> params     (dict name -> tensor; may be {})
+  apply(params, inputs, cfg, ctx) -> outputs    (list of tensors)
+
+`cfg` is the LayerParameter `Message`; `ctx` carries the phase, the dropout
+generator, the host-loaded side tables, the GEMM operand dtype and the
+switch to K1's plain version. Autograd replaces every Backward. Data-layer
+types are not here: the Net treats their tops as graph inputs fed by the
+data pipeline (see graph/net.py, graph/data_factory.py).
+
+The flagship's compute types are registered (generate_net.py's nets);
+the JAX package's other registered types raise NotImplementedError in the
+Net, naming the ROADMAP item that ports them (`PENDING_TYPES`).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Callable
+
+import torch
+
+from videovector_tpu_torch.core import fillers
+from videovector_tpu_torch.metrics import retrieval as retrieval_metrics
+from videovector_tpu_torch.ops import activations, reductions
+from videovector_tpu_torch.ops.linear import inner_product, tower_matmul
+from videovector_tpu_torch.ops.losses import max_margin_loss
+from videovector_tpu_torch.ops.normalization import l2_normalize_rows
+
+
+@dataclass
+class ApplyContext:
+    phase: str = "TRAIN"            # TRAIN or TEST
+    # dropout's masks: drawn from this generator, in layer order
+    generator: torch.Generator | None = None
+    side: dict = field(default_factory=dict)   # layer_name -> host-loaded tables
+    # GEMM operand dtype (f32 sums either way). None = f32, the reference's
+    # numerics; torch.bfloat16 is the throughput extension (solver
+    # prototxt `compute_dtype` -> Net(compute_dtype=...)), the cast
+    # discipline of models/embedding.py's compute_dtype
+    compute_dtype: torch.dtype | None = None
+    # run K1's plain PyTorch version in place of the kernel (to compare the
+    # two on one device, and for the shape pass on "meta" tensors)
+    plain: bool = False
+    # int8 PTQ side table {layer_name: ...} of the JAX package's serving
+    # exporter; not ported yet (ROADMAP item 10)
+    quant: Any = None
+
+
+@dataclass(frozen=True)
+class LayerDef:
+    init: Callable   # (generator, cfg, in_shapes) -> params
+    apply: Callable  # (params, inputs, cfg, ctx) -> list[outputs]
+    # default loss weights per top; None => all zeros (not a loss layer)
+    default_loss_weights: tuple | None = None
+
+    @property
+    def has_params(self) -> bool:
+        return self.init is not _no_params
+
+
+LAYERS: dict[str, LayerDef] = {}
+
+# Types whose tops come from the host data pipeline (the reference's data
+# layers, ref:include/caffe/data_layers.hpp): the Net maps their tops to
+# graph inputs.
+DATA_LAYER_TYPES = {
+    "DATA", "IMAGE_DATA", "WINDOW_DATA", "MEMORY_DATA", "HDF5_DATA",
+    "VIDEO_SHOT_WINDOW_DATA", "VIDEO_SHOTS_DATA", "VIDEO_SAMPLED_SHOTS_DATA",
+    "VIDEO_SHOT_WINDOW_TEST_DATA", "FIXED_VIDEO_SHOT_TEST_DATA",
+    "FLEXIBLE_DATA", "TRACKING_WINDOWS_DATA", "TRACKING_WINDOWS_SOCIAL_DATA",
+}
+
+# Sink layers: no tops in the graph; the Net records them in `host_sinks`
+# and dumps their bottoms host-side after the step.
+SINK_LAYER_TYPES = {"WRITE_TO_FILE", "HDF5_OUTPUT"}
+
+# Layers that carry recurrent state across batches (ref next_cell_/next_out_,
+# lstm_layer.cpp:171-173,261-264).
+STATEFUL_LAYER_TYPES = {"LSTM", "LSTM_LINEAR"}
+
+# The JAX package's other registered compute types, by the ROADMAP queue-1
+# item that ports them.
+PENDING_TYPES = {
+    **{t: "9" for t in STATEFUL_LAYER_TYPES | {
+        "LSTM_ENC_DEC", "LSTM_CONDITIONAL", "LSTM_SINGLE_STEP",
+        "SOCIAL_POOLING"}},
+    **{t: "6c" for t in SINK_LAYER_TYPES | {
+        "ID_TO_WEIGHT_MAPPING", "CONVOLUTION", "POOLING", "LRN", "IM2COL",
+        "SIGMOID", "TANH", "BNLL", "ABSVAL", "POWER", "THRESHOLD", "SOFTMAX",
+        "SPLIT", "FLATTEN", "FLATTEN_BATCH", "SILENCE", "ARGMAX", "MVN",
+        "EUCLIDEAN_LOSS", "HINGE_LOSS", "SOFTMAX_LOSS",
+        "MULTINOMIAL_LOGISTIC_LOSS", "SIGMOID_CROSS_ENTROPY_LOSS",
+        "INFOGAIN_LOSS", "CONTRASTIVE_LOSS", "ACCURACY",
+        "RETRIEVAL_RANK_STATS", "RETRIEVAL_RANK_STATS_FIXED_REF",
+        "CLASSIFICATION_STATS", "DUMMY_DATA"}},
+}
+
+
+def register(name: str, *, loss_weights=None):
+    def deco(builder):
+        init_fn, apply_fn = builder()
+        LAYERS[name] = LayerDef(init_fn, apply_fn, loss_weights)
+        return builder
+    return deco
+
+
+def _no_params(generator, cfg, in_shapes):
+    return {}
+
+
+def _flat_dim(shape):
+    out = 1
+    for d in shape[1:]:
+        out *= int(d)
+    return out
+
+
+def _filler(p, name):
+    return fillers.get_filler(p.get_msg(name) if p.has(name) else None)
+
+
+# ---------------------------------------------------------------------------
+# Compute layers
+# ---------------------------------------------------------------------------
+
+@register("INNER_PRODUCT")
+def _inner_product():
+    def init(generator, cfg, in_shapes):
+        p = cfg.get_msg("inner_product_param")
+        n = int(p.get("num_output"))
+        k = _flat_dim(in_shapes[0])
+        # Caffe blob layout is (num_output, K); ours is (K, num_output) for
+        # x @ W: fill in Caffe layout, then transpose (contiguous, so that
+        # a bf16 copy is one TMA can address)
+        params = {"w": _filler(p, "weight_filler")(generator, (n, k))
+                  .T.contiguous()}
+        if p.get("bias_term", True):
+            params["b"] = _filler(p, "bias_filler")(generator, (n,))
+        return params
+
+    def apply(params, inputs, cfg, ctx):
+        """With regularization <= 0, the forward is one K1 launch on a CUDA
+        tensor (ops.linear.tower_matmul: bias epilogue, f32 out, backward in
+        torch.matmul), with the operands in the Net's compute dtype (f32
+        when unset; a negative regularization is inert and keeps f32, as in
+        JAX). A positive one keeps ops.linear.inner_product's (1 + r/2)
+        weight-gradient quirk, in f32."""
+        if (ctx.quant or {}).get(cfg.get("name")) is not None:
+            raise NotImplementedError(
+                "int8 INNER_PRODUCT (Net.quant) is not ported to "
+                "videovector_tpu_torch yet (ROADMAP queue 1, item 10)")
+        p = cfg.get_msg("inner_product_param")
+        reg = float(p.get("regularization", 0.0))
+        x, w, b = inputs[0], params["w"], params.get("b")
+        if reg > 0.0:
+            return [inner_product(x, w, b, regularization=reg)]
+        if x.dim() > 2:
+            x = x.reshape(x.shape[0], -1)
+        cdt = ctx.compute_dtype if reg == 0.0 and ctx.compute_dtype \
+            is not None else torch.float32
+        return [tower_matmul(x, w, b, compute_dtype=cdt, plain=ctx.plain)]
+
+    return init, apply
+
+
+# ---------------------------------------------------------------------------
+# Neuron layers
+# ---------------------------------------------------------------------------
+
+def _simple(fn):
+    def apply(params, inputs, cfg, ctx):
+        return [fn(inputs[0], cfg, ctx)]
+    return _no_params, apply
+
+
+@register("RELU")
+def _relu():
+    return _simple(lambda x, cfg, ctx: activations.relu(
+        x, float(cfg.get_msg("relu_param").get("negative_slope", 0.0))))
+
+
+@register("DROPOUT")
+def _dropout():
+    def apply(params, inputs, cfg, ctx):
+        """Masks come from ctx.generator, the one generator the caller hands
+        Net.apply (train's, reseeded at each iteration), drawn in layer order
+        with one torch.rand of the blob's shape per DROPOUT layer
+        (ops.activations.dropout_mask). JAX folds crc32(layer name) into its
+        key instead; the streams cannot match, so parity tests inject JAX's
+        masks through dropout_mask."""
+        rate = float(cfg.get_msg("dropout_param").get("dropout_ratio", 0.5))
+        if ctx.phase == "TRAIN" and ctx.generator is None and rate > 0:
+            # the reference ALWAYS drops at TRAIN (dropout_layer.cpp):
+            # silently disabling dropout because no generator was passed
+            # would train a different model than the prototxt describes
+            raise ValueError(
+                f"DROPOUT {cfg.get('name')!r}: TRAIN-phase forward needs "
+                f"generator= (pass a torch.Generator to Net.apply/loss_fn)")
+        deterministic = ctx.phase != "TRAIN" or ctx.generator is None
+        return [activations.dropout(inputs[0], rate=rate,
+                                    generator=ctx.generator,
+                                    deterministic=deterministic)]
+    return _no_params, apply
+
+
+# ---------------------------------------------------------------------------
+# Shape / glue layers
+# ---------------------------------------------------------------------------
+
+@register("CONCAT")
+def _concat():
+    def apply(params, inputs, cfg, ctx):
+        dim = int(cfg.get_msg("concat_param").get("concat_dim", 1))
+        return [torch.cat(inputs, dim=dim)]
+    return _no_params, apply
+
+
+@register("SLICE")
+def _slice():
+    def apply(params, inputs, cfg, ctx):
+        p = cfg.get_msg("slice_param")
+        dim = int(p.get("slice_dim", 1))
+        points = [int(v) for v in p.get_list("slice_point")]
+        x = inputs[0]
+        n_out = len(cfg.get_list("top"))
+        if points:
+            # ref slice_layer.cpp:32-44: CHECK_EQ(#points, #tops - 1) and
+            # each point strictly increasing within (0, size): a short
+            # list would silently DROP trailing channels, a non-increasing
+            # one would emit empty slices
+            if len(points) != n_out - 1:
+                raise ValueError(
+                    f"SLICE {cfg.get('name')!r}: {len(points)} slice_point "
+                    f"for {n_out} tops (the reference CHECK_EQs "
+                    f"#slice_point == #tops - 1)")
+            prev = 0
+            for pt in points:
+                if not prev < pt < x.shape[dim]:
+                    raise ValueError(
+                        f"SLICE {cfg.get('name')!r}: slice_point {pt} not "
+                        f"strictly increasing within (0, {x.shape[dim]})")
+                prev = pt
+            bounds = [0] + points + [x.shape[dim]]
+        else:
+            if x.shape[dim] % n_out != 0:
+                # ref slice_layer.cpp:60-66 CHECK_EQ-fails here; a silent
+                # remainder would cause shape drift downstream.
+                raise ValueError(
+                    f"SLICE {cfg.get('name')!r}: dim {dim} size "
+                    f"{x.shape[dim]} not divisible by {n_out} tops and no "
+                    "slice_point given")
+            step = x.shape[dim] // n_out
+            bounds = [i * step for i in range(n_out)] + [x.shape[dim]]
+        # one split (its backward concatenates the tops' gradients), not
+        # n_out narrows (each narrow's backward scatters into a zero tensor
+        # of x's shape, and autograd sums the n_out of them)
+        return list(torch.split(
+            x, [bounds[i + 1] - bounds[i] for i in range(n_out)], dim=dim))
+    return _no_params, apply
+
+
+@register("ELTWISE")
+def _eltwise():
+    def apply(params, inputs, cfg, ctx):
+        p = cfg.get_msg("eltwise_param")
+        op = p.get("operation", "SUM")
+        if op == "PROD":
+            return [reductions.eltwise_prod(
+                *inputs,
+                stable_grad=bool(p.get("stable_prod_grad", True)))]
+        if op == "MAX":
+            return [reductions.eltwise_max(*inputs)]
+        coeffs = [float(c) for c in p.get_list("coeff")] or None
+        return [reductions.eltwise_sum(*inputs, coeffs=coeffs)]
+    return _no_params, apply
+
+
+@register("NORMALIZATION")
+def _normalization():
+    return _simple(lambda x, cfg, ctx: l2_normalize_rows(x))
+
+
+@register("SUM")
+def _sum():
+    def apply(params, inputs, cfg, ctx):
+        num_output = int(cfg.get_msg("sum_param").get("num_output", 1))
+        return [reductions.sum_reduce(inputs[0], num_output)]
+    return _no_params, apply
+
+
+# ---------------------------------------------------------------------------
+# Loss and eval-stats layers
+# ---------------------------------------------------------------------------
+
+@register("MAX_MARGIN_LOSS", loss_weights=(1.0, 0.0))
+def _max_margin():
+    def apply(params, inputs, cfg, ctx):
+        p = cfg.get_msg("max_margin_loss_param")
+        margin = float(p.get("margin", 1.0))
+        norm = p.get("norm", "L1")  # proto default = L1 (caffe.proto:864)
+        weights = None
+        if len(inputs) == 3:
+            third = inputs[2]
+            if p.get("use_direct_weight", False):
+                weights = third
+            else:
+                # id -> weight csv loaded at net build into ctx.side
+                table = ctx.side.get(cfg.get("name"))
+                if table is not None:
+                    ids_sorted, w_sorted = (t.to(third.device) for t in table)
+                    q = third.reshape(-1).to(torch.int32)
+                    pos = torch.searchsorted(ids_sorted, q).clamp(
+                        0, ids_sorted.shape[0] - 1)
+                    w = torch.where(ids_sorted[pos] == q, w_sorted[pos], 0.0)
+                    weights = w.reshape(third.shape)
+        loss, violations = max_margin_loss(
+            inputs[0], inputs[1], margin=margin, norm=norm, weights=weights)
+        return [loss, violations]
+    return _no_params, apply
+
+
+@register("RETRIEVAL_STATS", loss_weights=(0.0, 0.0, 0.0))
+def _retrieval_stats():
+    def apply(params, inputs, cfg, ctx):
+        p = cfg.get_msg("retrieval_stats_param")
+        id_map = ctx.side.get(cfg.get("name"))
+        feats = inputs[0].reshape(inputs[0].shape[0], -1)
+        vids = inputs[1].reshape(-1).to(torch.int32)
+        if bool(p.get("video_level_retrieval", False)):
+            # average shots per video first, then rank the videos
+            # (ref:src/caffe/layers/retrieval_stats_layer.cpp:165-208);
+            # max_num_videos must equal the distinct-id count, which
+            # Net.batch_validators checks on the host
+            nv = int(p.get("max_num_videos", 0))
+            if nv <= 0:
+                raise ValueError(
+                    "video_level_retrieval requires max_num_videos > 0 "
+                    "(= the distinct video-id count; the reference CHECKs "
+                    "equality, retrieval_stats_layer.cpp:188)")
+            feats, vids = retrieval_metrics.video_level_average(
+                feats, vids, nv)
+        classes = id_map.lookup(vids) if id_map is not None else vids
+        out = retrieval_metrics.retrieval_stats(
+            feats, vids, classes,
+            # proto default is TRUE (ref caffe.proto RetrievalStatsParameter
+            # exclude_same_video_shots = 3 [default = true])
+            exclude_same_video_shots=bool(p.get("exclude_same_video_shots",
+                                                True)))
+        return [out["mean_ap"], out["hit_at_1"], out["hit_at_5"]]
+    return _no_params, apply

@@ -1,0 +1,607 @@
+"""Net: the graph engine; counterpart of videovector_tpu/graph/net.py.
+
+Interprets a Caffe-style NetParameter (parsed by config/textformat) for one
+phase into `apply(params, batch) -> (loss, outputs)`, the equivalent of
+`Net::Init` + `ForwardFromTo` (ref:src/caffe/net.cpp:34-224, :502-543).
+Differences by design, as in the JAX package:
+
+- No InsertSplits (ref:src/caffe/util/insert_splits.cpp): a blob read by
+  several layers needs no copy layer.
+- In-place layers (top == bottom) are name rebinding.
+- Backward is autograd of the loss.
+- Data-layer tops are graph inputs fed by the host data pipeline
+  (graph/data_factory.py).
+
+Phase filtering (`include`/`exclude` NetStateRule, ref:src/caffe/net.cpp:226-329,
+rules caffe.proto:193-209) is applied at construction. The Net runs the
+per-layer graph: the JAX package's scoring-head fusion (graph/fuse.py) and
+role-major inputs are not ported (ROADMAP items 6b and 7). Tensors decide
+where the work runs: params on the device of the generator given to
+`init`, batches wherever the caller puts them.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from typing import Any
+
+import numpy as np
+import torch
+
+from videovector_tpu_torch.config.textformat import Message
+from videovector_tpu_torch.config.upgrade import net_needs_upgrade, upgrade_net
+from videovector_tpu_torch.graph.layers import (
+    DATA_LAYER_TYPES, LAYERS, PENDING_TYPES, SINK_LAYER_TYPES, ApplyContext,
+)
+from videovector_tpu_torch.metrics.retrieval import (
+    IdToClassMap, check_num_videos, retrieval_stats_report,
+    video_level_average,
+)
+from videovector_tpu_torch.models.mednet import torch_dtype
+from videovector_tpu_torch.utils.logging import get_logger
+
+log = get_logger(__name__)
+
+
+def _state_meets_rule(rule: Message, phase: str, level: int, stages: set) -> bool:
+    """ref:src/caffe/net.cpp:271-329 (StateMeetsRule)."""
+    if rule.has("phase") and rule.get("phase") != phase:
+        return False
+    if rule.has("min_level") and level < int(rule.get("min_level")):
+        return False
+    if rule.has("max_level") and level > int(rule.get("max_level")):
+        return False
+    for s in rule.get_list("stage"):
+        if s not in stages:
+            return False
+    for s in rule.get_list("not_stage"):
+        if s in stages:
+            return False
+    return True
+
+
+def filter_layers(net_msg: Message, phase: str, level: int = 0,
+                  stages: tuple = ()) -> list[Message]:
+    """ref:src/caffe/net.cpp:226-268 (FilterNet): a layer with include rules
+    is kept iff ANY include rule matches; otherwise it is dropped iff any
+    exclude rule matches."""
+    stages_set = set(stages)
+    kept = []
+    for layer in net_msg.get_list("layers") + net_msg.get_list("layer"):
+        includes = layer.get_list("include")
+        excludes = layer.get_list("exclude")
+        if includes:
+            keep = any(_state_meets_rule(r, phase, level, stages_set)
+                       for r in includes)
+        else:
+            keep = not any(_state_meets_rule(r, phase, level, stages_set)
+                           for r in excludes)
+        if keep:
+            kept.append(layer)
+    return kept
+
+
+@dataclass
+class ParamMeta:
+    """lr/decay multipliers per layer blob (ref blobs_lr / weight_decay
+    repeated fields on V1 LayerParameter; net.cpp:467-499)."""
+    lr_mult: float = 1.0
+    decay_mult: float = 1.0
+    shared_owner: str | None = None  # layer name that owns the tensor, if shared
+    shared_shape: tuple | None = None  # consumer's own blob shape, when it
+    # differs from the owner's (PERMISSIVE count-matched share; Caffe gives
+    # each consumer its own Blob shape over the shared data, net.cpp:405-464)
+
+
+def _meta_tensor(spec) -> torch.Tensor:
+    """A "meta" tensor (shape and dtype, no data) like `spec`: a tensor, a
+    numpy array, or anything with .shape and a numpy or torch .dtype."""
+    dtype = spec.dtype
+    if not isinstance(dtype, torch.dtype):
+        dtype = torch.from_numpy(np.empty(0, dtype)).dtype
+    return torch.empty(tuple(spec.shape), dtype=dtype, device="meta")
+
+
+class Net:
+    """A compiled view of a NetParameter for one phase.
+
+    compute_dtype: None (f32, the reference's numerics), "float32" or
+    "bfloat16" (the INNER_PRODUCT operands; sums stay f32). plain: run K1's
+    plain version in place of the kernel on CUDA tensors."""
+
+    def __init__(self, net_msg: Message, phase: str = "TRAIN", *,
+                 level: int = 0, stages: tuple = (), side: dict | None = None,
+                 compute_dtype=None, plain: bool = False):
+        self.compute_dtype = (torch_dtype(compute_dtype)
+                              if compute_dtype is not None else None)
+        self.plain = plain
+        # int8 PTQ side table: not ported (ROADMAP item 10); INNER_PRODUCT
+        # raises on a layer named in it
+        self.quant = None
+        # legacy V0 auto-upgrade on load (ref ReadNetParamsFromTextFileOrDie
+        # -> UpgradeV0Net, util/upgrade_proto.cpp)
+        if net_needs_upgrade(net_msg):
+            log.info("Upgrading legacy V0 NetParameter")
+            net_msg = upgrade_net(net_msg)
+        self.name = net_msg.get("name", "net")
+        self.phase = phase
+        self.layers = filter_layers(net_msg, phase, level, stages)
+        self.side = dict(side or {})
+        self.param_meta: dict[str, dict[str, ParamMeta]] = {}
+        self._load_side_tables()
+
+        # graph inputs: NetParameter-level `input`/`input_dim` plus all tops of
+        # data layers
+        self.input_names: list[str] = list(net_msg.get_list("input"))
+        self.data_layer_tops: dict[str, list[str]] = {}
+        for layer in self.layers:
+            if layer.get("type") in DATA_LAYER_TYPES:
+                tops = [str(t) for t in layer.get_list("top")]
+                self.data_layer_tops[layer.get("name")] = tops
+                self.input_names.extend(tops)
+                if layer.get("type") == "MEMORY_DATA" \
+                        and layer.has("memory_data_param"):
+                    # ref memory_data_layer.cpp:18-20 CHECK_GT(batch_size *
+                    # channels * height * width, 0). A param-less
+                    # MEMORY_DATA stays the documented extension: shapes
+                    # come from the fed batch (our Reset() equivalent).
+                    mp = layer.get_msg("memory_data_param")
+                    dims = [int(mp.get(k, 0) or 0) for k in
+                            ("batch_size", "channels", "height", "width")]
+                    if min(dims) <= 0:
+                        raise ValueError(
+                            f"layer {layer.get('name')!r}: batch_size, "
+                            f"channels, height, and width must be specified "
+                            f"and positive in memory_data_param (got "
+                            f"{dims}; ref memory_data_layer.cpp:18-20)")
+
+        # host sinks: file-writing layers, dumped host-side from the
+        # returned blobs by process_host_sinks
+        self.host_sinks = [
+            {"name": l.get("name"), "type": l.get("type"),
+             "bottoms": [str(b) for b in l.get_list("bottom")], "cfg": l}
+            for l in self.layers if l.get("type") in SINK_LAYER_TYPES
+        ]
+        for s in self.host_sinks:
+            # reference count contracts: WriteToFile takes exactly one
+            # bottom (ref:include/caffe/loss_layers.hpp:35), HDF5Output
+            # exactly two, data + label (ref:include/caffe/
+            # data_layers.hpp:700): a different count would silently
+            # write files the reference's format never produces
+            want = 1 if s["type"] == "WRITE_TO_FILE" else 2
+            if len(s["bottoms"]) != want:
+                raise ValueError(
+                    f"layer {s['name']!r} ({s['type']}): expected exactly "
+                    f"{want} bottom blob(s), got {len(s['bottoms'])} "
+                    f"(the reference CHECKs ExactNumBottomBlobs)")
+        # RETRIEVAL_STATS with stats_output_file also dumps a per-item csv
+        # (ref:src/caffe/layers/retrieval_stats_layer.cpp:148-155,310-340)
+        self.host_sinks += [
+            {"name": l.get("name"), "type": l.get("type"),
+             "bottoms": [str(b) for b in l.get_list("bottom")], "cfg": l}
+            for l in self.layers
+            if l.get("type") == "RETRIEVAL_STATS"
+            and l.get_msg("retrieval_stats_param").get("stats_output_file")
+        ]
+
+        # AutoTopBlobs (ref:include/caffe/layer.hpp:258 + net.cpp AppendTop):
+        # loss layers may omit `top:`; auto-name the implicit loss tops.
+        # Copy-on-write: the caller's NetParameter Messages must not gain
+        # synthetic tops (serializing/diffing the config afterwards would
+        # emit tops the user never wrote)
+        for li, layer in enumerate(self.layers):
+            ldef = LAYERS.get(layer.get("type"))
+            if (ldef is not None and ldef.default_loss_weights
+                    and not layer.get_list("top")):
+                copy = Message()
+                for k, vals in layer.fields.items():
+                    for v in vals:
+                        copy.add(k, v)
+                for i in range(len(ldef.default_loss_weights)):
+                    copy.add("top", f"{layer.get('name')}_auto_top_{i}")
+                self.layers[li] = copy
+
+        # loss weights per (layer, top index)
+        self.loss_weights: dict[str, list[float]] = {}
+        for layer in self.layers:
+            ltype = layer.get("type")
+            if ltype in DATA_LAYER_TYPES:
+                continue
+            n_top = len(layer.get_list("top"))
+            given = [float(v) for v in layer.get_list("loss_weight")]
+            ldef = LAYERS.get(ltype)
+            defaults = list(ldef.default_loss_weights or ()) if ldef else []
+            weights = []
+            for i in range(n_top):
+                if i < len(given):
+                    weights.append(given[i])
+                elif i < len(defaults):
+                    weights.append(defaults[i])
+                else:
+                    weights.append(0.0)
+            self.loss_weights[layer.get("name")] = weights
+
+        self._check_types()
+
+    def output_loss_weights(self) -> dict[str, float]:
+        """blob name -> loss weight of its (latest) producing top: the
+        reference's blob_loss_weights_ lookup behind the display suffix
+        '(* w = x loss)' on loss-weighted output lines
+        (ref:src/caffe/solver.cpp:204-214, tools/caffe.cpp:177-185)."""
+        out: dict[str, float] = {}
+        for layer in self.layers:
+            if layer.get("type") in DATA_LAYER_TYPES:
+                continue
+            ws = self.loss_weights.get(layer.get("name"), [])
+            for i, t in enumerate(str(x) for x in layer.get_list("top")):
+                out[t] = ws[i] if i < len(ws) else 0.0
+        return out
+
+    # ------------------------------------------------------------------
+    def _check_types(self):
+        for layer in self.layers:
+            ltype = layer.get("type")
+            if ltype in DATA_LAYER_TYPES or ltype in LAYERS:
+                continue
+            where = f"layer type {ltype!r} (layer {layer.get('name')!r})"
+            if ltype in PENDING_TYPES:
+                raise NotImplementedError(
+                    f"{where} is not ported to videovector_tpu_torch yet "
+                    f"(ROADMAP queue 1, item {PENDING_TYPES[ltype]})")
+            raise NotImplementedError(f"{where} is not registered")
+
+    def _load_side_tables(self):
+        """Load csv side tables referenced by layer configs (id->class maps for
+        retrieval stats, id->weight for max-margin).
+
+        A path that is DECLARED but missing is a hard error, matching the
+        reference's CHECK-fail semantics: a typo'd csv must not silently
+        degrade retrieval classes to raw video ids or margin weights to None
+        (ref:src/caffe/layers/retrieval_stats_layer.cpp:48
+        CHECK_GE(video_id_to_class_.size(), 1);
+        max_margin_loss_layer.cpp:26-33). An UNSET id_to_class_file keeps
+        the documented identity-classes extension (see projects/
+        videovec_embedding/generate_net.py). Pre-seeding self.side[name]
+        (the `side=` ctor arg) is the explicit opt-out for tests. Tables
+        stay on the host; the layers move them to their inputs' device."""
+        def _require(path, layer_name, what):
+            if not os.path.exists(path):
+                raise ValueError(
+                    f"layer {layer_name!r}: {what} {path!r} does not exist "
+                    f"(the reference CHECK-fails on a missing/empty side "
+                    f"table; fix the path or pre-seed Net(side=...))")
+
+        for layer in self.layers:
+            name = layer.get("name")
+            if name in self.side:
+                continue
+            path = layer.get_msg("retrieval_stats_param").get("id_to_class_file")
+            if path:
+                _require(path, name, "id_to_class_file")
+                id_map = IdToClassMap.from_csv(path)
+                if id_map.ids.shape[0] < 1:
+                    raise ValueError(
+                        f"layer {name!r}: id_to_class_file {path!r} has no "
+                        f"entries (ref CHECK_GE(video_id_to_class_.size(), 1),"
+                        f" retrieval_stats_layer.cpp:48)")
+                self.side[name] = id_map
+                continue
+            if layer.get_msg("infogain_loss_param").get("source"):
+                raise NotImplementedError(
+                    f"layer {name!r}: the infogain matrix (and INFOGAIN_LOSS) "
+                    "is not ported to videovector_tpu_torch yet (ROADMAP "
+                    "queue 1, item 6c)")
+            path = layer.get_msg("max_margin_loss_param").get("id_to_weight_file")
+            if path:
+                _require(path, name, "id_to_weight_file")
+                ids, ws = [], []
+                with open(path) as f:
+                    for line in f:
+                        line = line.strip()
+                        if not line:
+                            continue
+                        a, b = line.split(",")
+                        ids.append(int(a))
+                        w = float(b)
+                        if w < 0:  # ref CHECK_GE(weight, 0)
+                            raise ValueError(
+                                f"layer {name!r}: negative weight {w} in "
+                                f"{path!r} (ref max_margin_loss_layer.cpp:34)")
+                        ws.append(w)
+                order = np.argsort(ids)
+                self.side[name] = (
+                    torch.as_tensor(np.asarray(ids)[order].astype(np.int32)),
+                    torch.as_tensor(np.asarray(ws)[order].astype(np.float32)))
+
+    # ------------------------------------------------------------------
+    def batch_validators(self):
+        """Host-side per-batch checks that the forward does not make.
+
+        RETRIEVAL_STATS with video_level_retrieval needs the batch's
+        distinct-video-id count to EQUAL max_num_videos: extra ids are
+        silently dropped by video_level_average and missing segments pad
+        with zeros, corrupting video-level mAP with no error. The reference
+        CHECKs this at forward
+        (ref:src/caffe/layers/retrieval_stats_layer.cpp:188). Returns a list
+        of callables(batch_dict) to run on each host batch before it is fed
+        to an eval; they raise ValueError on violation."""
+        validators = []
+        for layer in self.layers:
+            if layer.get("type") != "RETRIEVAL_STATS":
+                continue
+            p = layer.get_msg("retrieval_stats_param")
+            if not bool(p.get("video_level_retrieval", False)):
+                continue
+            nv = int(p.get("max_num_videos", 0))
+            bottoms = [str(b) for b in layer.get_list("bottom")]
+            if len(bottoms) < 2:
+                continue
+            vid_blob = bottoms[1]
+
+            def _check(batch, vid_blob=vid_blob, nv=nv):
+                if vid_blob in batch:  # only checkable for graph-input ids
+                    check_num_videos(batch[vid_blob], nv)
+            validators.append(_check)
+        return validators
+
+    # ------------------------------------------------------------------
+    def _context(self, generator=None, *, plain=None) -> ApplyContext:
+        return ApplyContext(phase=self.phase, generator=generator,
+                            side=self.side, compute_dtype=self.compute_dtype,
+                            plain=self.plain if plain is None else plain,
+                            quant=self.quant)
+
+    def init(self, generator: torch.Generator, batch_spec: dict[str, Any]):
+        """Create params on the generator's device, drawing every filler from
+        it in layer order. batch_spec maps every graph-input blob name to a
+        tensor, an array, or anything with .shape and .dtype. Returns
+        (params, param_meta): params is {layer_name: {blob_name: tensor}},
+        param_meta the lr/decay multipliers and sharing info (ref
+        AppendParam net.cpp:405-464).
+
+        Shapes are inferred without real work: each layer up to the last
+        one that holds params runs on "meta" tensors (no data; K1's plain
+        version, which reaches no kernel). The layers after it need no
+        input shapes."""
+        blobs: dict[str, torch.Tensor] = {}
+        for name in self.input_names:
+            if name not in batch_spec:
+                raise ValueError(f"batch_spec missing graph input {name!r}")
+            blobs[name] = _meta_tensor(batch_spec[name])
+
+        params: dict[str, dict[str, torch.Tensor]] = {}
+        meta: dict[str, dict[str, ParamMeta]] = {}
+        shared_owner_by_name: dict[str, tuple[str, str]] = {}
+        # dropout draws on "meta" tensors consume nothing from this one
+        ctx = self._context(torch.Generator(), plain=True)
+        compute = [l for l in self.layers
+                   if l.get("type") not in DATA_LAYER_TYPES]
+        last = max((i for i, l in enumerate(compute)
+                    if LAYERS[l.get("type")].has_params), default=-1)
+
+        for layer in compute[:last + 1]:
+            ltype = layer.get("type")
+            lname = layer.get("name")
+            bottoms = [str(b) for b in layer.get_list("bottom")]
+            in_shapes = []
+            for b in bottoms:
+                if b not in blobs:
+                    raise ValueError(
+                        f"layer {lname!r} bottom {b!r} not produced yet")
+                in_shapes.append(tuple(blobs[b].shape))
+
+            ldef = LAYERS[ltype]
+            lparams = ldef.init(generator, layer, in_shapes)
+
+            # named-param sharing (V1 `param:` strings on LayerParameter)
+            share_names = [str(s) for s in layer.get_list("param")]
+            lr_mults = [float(v) for v in layer.get_list("blobs_lr")]
+            decay_mults = [float(v) for v in layer.get_list("weight_decay")]
+            # a non-empty multiplier list must cover every param blob
+            # exactly, and multipliers are non-negative: the reference
+            # CHECK_EQs/CHECK_GEs (net.cpp:467-499); silently defaulting a
+            # missing entry to 1 would leave a blob the user meant to
+            # freeze trainable
+            for fname, mults in (("blobs_lr", lr_mults),
+                                 ("weight_decay", decay_mults)):
+                if mults and len(mults) != len(lparams):
+                    raise ValueError(
+                        f"layer {lname!r}: {fname} has {len(mults)} entries "
+                        f"for {len(lparams)} param blobs (the reference "
+                        f"CHECK_EQs the counts, net.cpp:472-496)")
+                if any(v < 0 for v in mults):
+                    raise ValueError(
+                        f"layer {lname!r}: negative {fname} multiplier "
+                        f"(reference CHECK_GE, net.cpp:476,491)")
+            lmeta: dict[str, ParamMeta] = {}
+            for i, pname in enumerate(list(lparams.keys())):
+                m = ParamMeta(
+                    lr_mult=lr_mults[i] if i < len(lr_mults) else 1.0,
+                    decay_mult=decay_mults[i] if i < len(decay_mults) else 1.0)
+                if i < len(share_names) and share_names[i]:
+                    sname = share_names[i]
+                    if sname in shared_owner_by_name:
+                        owner_layer, owner_blob = shared_owner_by_name[sname]
+                        owned = params[owner_layer][owner_blob]
+                        modes = layer.get_list("blob_share_mode")
+                        mode = str(modes[i]) if i < len(modes) else "STRICT"
+                        if owned.shape != lparams[pname].shape:
+                            # PERMISSIVE: element-count match suffices
+                            # (ref AppendParam net.cpp:405-464, DimCheckMode)
+                            if mode != "PERMISSIVE" or \
+                                    owned.numel() != lparams[pname].numel():
+                                raise ValueError(
+                                    f"shared param {sname!r} shape mismatch: "
+                                    f"{tuple(owned.shape)} vs "
+                                    f"{tuple(lparams[pname].shape)}")
+                            m.shared_shape = tuple(lparams[pname].shape)
+                        del lparams[pname]
+                        m.shared_owner = owner_layer
+                    else:
+                        shared_owner_by_name[sname] = (lname, pname)
+                lmeta[pname] = m
+            if lparams:
+                params[lname] = lparams
+            if lmeta:
+                meta[lname] = lmeta
+
+            # shape inference: the layer's apply on meta tensors
+            resolved = {k: v.to("meta") for k, v in
+                        self._resolve_params(params, meta, lname).items()}
+            with torch.no_grad():
+                outs = ldef.apply(resolved, [blobs[b] for b in bottoms],
+                                  layer, ctx)
+            for t, o in zip((str(t) for t in layer.get_list("top")), outs):
+                blobs[t] = o
+
+        self.param_meta = meta
+        return params, meta
+
+    def _resolve_params(self, params, meta, lname):
+        """Materialize a layer's param dict, following shared_owner links."""
+        out = dict(params.get(lname, {}))
+        for pname, m in meta.get(lname, {}).items():
+            if m.shared_owner is not None:
+                # owner stores it under the same blob name by construction
+                arr = params[m.shared_owner][pname]
+                if m.shared_shape is not None:
+                    # PERMISSIVE count-matched share: view the owner's data
+                    # through this consumer's blob shape (Caffe keeps a
+                    # per-consumer Blob shape over shared storage)
+                    arr = arr.reshape(m.shared_shape)
+                out[pname] = arr
+        return out
+
+    def param_multipliers(self) -> tuple[dict, dict]:
+        """(lr_mults, decay_mults): trees shaped like the params `init`
+        returned (owned blobs only), of each blob's blobs_lr and
+        weight_decay multipliers, for train(lr_mults=, decay_mults=) (the
+        JAX SolverDriver builds the same trees, solver/driver.py:252-261).
+        """
+        lr, decay = {}, {}
+        for lname, lmeta in self.param_meta.items():
+            for pname, m in lmeta.items():
+                if m.shared_owner is None:
+                    lr.setdefault(lname, {})[pname] = m.lr_mult
+                    decay.setdefault(lname, {})[pname] = m.decay_mult
+        return lr, decay
+
+    # ------------------------------------------------------------------
+    def apply(self, params, batch: dict[str, Any], *,
+              generator: torch.Generator | None = None,
+              return_blobs: bool = False, max_layers: int | None = None,
+              return_sink_blobs: bool = False):
+        """Forward pass. Returns (loss, outputs) where outputs maps every
+        blob name that is not consumed downstream (net outputs,
+        ref:src/caffe/net.cpp:206-212), or all blobs if return_blobs. The
+        loss is sum(w * sum(top)) over the tops with a nonzero loss weight.
+
+        `generator`: the torch.Generator that DROPOUT draws its masks from
+        (required at TRAIN when a DROPOUT layer's ratio is > 0).
+
+        `max_layers` stops after the first N compute layers (the engine
+        analogue of Net::ForwardFromTo, ref:src/caffe/net.cpp:502-514).
+
+        `return_sink_blobs` appends one more element: the host-sink
+        bottom blobs ({name: tensor}), for feeding process_host_sinks."""
+        blobs: dict[str, Any] = {}
+        for name in self.input_names:
+            if name not in batch:
+                raise ValueError(f"batch missing graph input {name!r}")
+            blobs[name] = batch[name]
+
+        ctx = self._context(generator)
+        loss = None
+        consumed: set[str] = set()
+        applied = 0
+        for layer in self.layers:
+            ltype = layer.get("type")
+            lname = layer.get("name")
+            if ltype in DATA_LAYER_TYPES:
+                continue
+            if max_layers is not None and applied >= max_layers:
+                break
+            applied += 1
+            bottoms = [str(b) for b in layer.get_list("bottom")]
+            consumed.update(bottoms)
+            # re-producing a blob (in-place top) makes it available again:
+            # the reference erases bottoms from available_blobs and
+            # re-inserts tops (net.cpp AppendBottom/AppendTop), so a net
+            # ENDING in an in-place layer still reports that blob as a
+            # net output (net.cpp:206-212)
+            consumed.difference_update(str(t) for t in layer.get_list("top"))
+            outs = LAYERS[ltype].apply(
+                self._resolve_params(params, self.param_meta, lname),
+                [blobs[b] for b in bottoms], layer, ctx)
+            weights = self.loss_weights.get(lname, [])
+            for i, (t, o) in enumerate(zip(
+                    (str(t) for t in layer.get_list("top")), outs)):
+                blobs[t] = o
+                w = weights[i] if i < len(weights) else 0.0
+                if w != 0.0:
+                    term = w * torch.sum(o)
+                    loss = term if loss is None else loss + term
+        if loss is None:
+            dev = next((v.device for v in blobs.values()
+                        if isinstance(v, torch.Tensor)), None)
+            loss = torch.zeros((), dtype=torch.float32, device=dev)
+
+        tail = ()
+        if return_sink_blobs:
+            tail = ({b: blobs[b] for s in self.host_sinks
+                     for b in s["bottoms"]},)
+        if return_blobs:
+            return (loss, blobs) + tail
+        outputs = {k: v for k, v in blobs.items() if k not in consumed}
+        return (loss, outputs) + tail
+
+    def loss_fn(self, params, batch, generator=None):
+        loss, _ = self.apply(params, batch, generator=generator)
+        return loss
+
+    def process_host_sinks(self, blobs: dict):
+        """Dump sink-layer bottoms (call with `return_blobs=True` outputs, or
+        the `return_sink_blobs` map): RETRIEVAL_STATS's stats_output_file
+        becomes the per-query report csv, truncated on every call as the
+        reference truncates it on every Forward
+        (retrieval_stats_layer.cpp:150). WRITE_TO_FILE and HDF5_OUTPUT are
+        not ported yet (ROADMAP item 6c)."""
+        for sink in self.host_sinks:
+            if sink["type"] != "RETRIEVAL_STATS":
+                raise NotImplementedError(
+                    f"{sink['type']} ({sink['name']!r}) is not ported to "
+                    "videovector_tpu_torch yet (ROADMAP queue 1, item 6c)")
+            p = sink["cfg"].get_msg("retrieval_stats_param")
+            feats = blobs[sink["bottoms"][0]]
+            feats = feats.reshape(feats.shape[0], -1)
+            vids = blobs[sink["bottoms"][1]].reshape(-1).to(torch.int32)
+            if bool(p.get("video_level_retrieval", False)):
+                nv = int(p.get("max_num_videos", 0))
+                # host-side twin of the reference's CHECK_EQ
+                # (retrieval_stats_layer.cpp:188)
+                check_num_videos(vids, nv)
+                feats, vids = video_level_average(feats, vids, nv)
+            id_map = self.side.get(sink["name"])
+            classes = id_map.lookup(vids) if id_map is not None else vids
+            retrieval_stats_report(
+                feats.detach().cpu().numpy(), vids.cpu().numpy(),
+                classes.cpu().numpy(), p.get("stats_output_file"),
+                exclude_same_video_shots=bool(
+                    p.get("exclude_same_video_shots", True)),
+                # extension: `gallery_dtype: "bfloat16"` stores the gallery
+                # compact; ranks exact w.r.t. the quantized distances
+                gallery_dtype=str(p.get("gallery_dtype", "float32")
+                                  or "float32"),
+                device=feats.device)
+
+    # ------------------------------------------------------------------
+    def flat_param_list(self, params):
+        """(layer_name, blob_name, lr_mult, decay_mult) for every owned param,
+        in deterministic order: the solver's view (ref net params vector)."""
+        out = []
+        for lname in sorted(params.keys()):
+            for pname in sorted(params[lname].keys()):
+                m = self.param_meta.get(lname, {}).get(pname, ParamMeta())
+                out.append((lname, pname, m.lr_mult, m.decay_mult))
+        return out

@@ -104,11 +104,13 @@ def accumulate_microbatches(vg_fn, params, batch: dict, axes: dict,
 
 
 def build_fused_step(grad_fn, cfg: SolverConfig, n_accum: int, gm: int, *,
+                     lr_mults=None, decay_mults=None,
                      batch_axes: dict | None = None):
     """One step over n_accum step batches, each cut into gm microbatches:
     the n_accum x gm gradients are averaged, then one solver update (the
     reference's iter_size semantics; equal to the big-batch update up to f32
-    summation order). Returns
+    summation order) with the per-blob `lr_mults` / `decay_mults` trees
+    (solver_update's). Returns
     fstep(params, state, batches_tuple, generator) -> (params, state,
     metrics), with batches_tuple holding n_accum batch dicts."""
     n_total = n_accum * gm
@@ -131,7 +133,8 @@ def build_fused_step(grad_fn, cfg: SolverConfig, n_accum: int, gm: int, *,
         grads, loss_sum, aux_all = accumulate_microbatches(
             grad_fn, p, full, axes, n_total, generator)
         grads = map_params(lambda g: g / n_total, grads)
-        p2, s2 = solver_update(cfg, p, grads, s)
+        p2, s2 = solver_update(cfg, p, grads, s, lr_mults=lr_mults,
+                               decay_mults=decay_mults)
         # the displayed loss is the microbatch mean (the big-batch mean for
         # equal microbatches); other outputs are the last microbatch's
         # (counts such as `violations` must not average)
@@ -181,7 +184,8 @@ def auto_grad_microbatch(batch, batch_axes: dict | None = None) -> int:
 
 
 def train(loss_fn: Callable, params, data: Iterator[dict], cfg: SolverConfig,
-          *, device=DEFAULT, eval_fn: Callable | None = None,
+          *, lr_mults=None, decay_mults=None, device=DEFAULT,
+          eval_fn: Callable | None = None,
           test_data: Iterator[dict] | None = None,
           resume_state_path: str | None = None,
           hooks: list | None = None,
@@ -195,6 +199,9 @@ def train(loss_fn: Callable, params, data: Iterator[dict], cfg: SolverConfig,
     there: each microbatch of the fused step, each iter_size sub-batch, and
     the display-gated forward after the loop. A resumed run therefore draws
     the masks of the iteration it resumes at.
+    lr_mults / decay_mults: trees shaped like params of per-blob learning
+    rate and weight decay multipliers (Caffe's blobs_lr / weight_decay;
+    Net.param_multipliers builds them from a prototxt), 1.0 where absent.
     eval_fn(params, batch) -> dict of scalars: averaged over cfg.test_iter
     batches of test_data every cfg.test_interval iterations.
     device: where the params, the batches and the work go; the card unless
@@ -232,10 +239,11 @@ def train(loss_fn: Callable, params, data: Iterator[dict], cfg: SolverConfig,
         return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
 
     grad_fn = value_and_grad(loss_fn)
+    mults = {"lr_mults": lr_mults, "decay_mults": decay_mults}
 
     def step(p, s, batch):
         (loss, aux), grads = grad_fn(p, batch, generator)
-        p2, s2 = solver_update(cfg, p, grads, s)
+        p2, s2 = solver_update(cfg, p, grads, s, **mults)
         metrics = {"loss": loss, **aux}
         if cfg.snapshot_diff:
             metrics["__diff__"] = grads
@@ -316,7 +324,8 @@ def train(loss_fn: Callable, params, data: Iterator[dict], cfg: SolverConfig,
                                                on_device(next(data)))
                 if cfg.snapshot_diff:
                     last_grads = grads_acc
-                params, state = solver_update(cfg, params, grads_acc, state)
+                params, state = solver_update(cfg, params, grads_acc, state,
+                                              **mults)
             else:
                 batch = on_device(next(data))
                 if fused_accum and fused_plan is None:
@@ -331,7 +340,8 @@ def train(loss_fn: Callable, params, data: Iterator[dict], cfg: SolverConfig,
                             "grad_microbatch=%d (one update per step)",
                             n_accum, gm)
                         fused_step = build_fused_step(
-                            grad_fn, cfg, n_accum, gm, batch_axes=batch_axes)
+                            grad_fn, cfg, n_accum, gm, **mults,
+                            batch_axes=batch_axes)
                 if fused_step is not None:
                     batches = (batch,) + tuple(
                         on_device(next(data)) for _ in range(fused_plan[0] - 1))
