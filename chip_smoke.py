@@ -61,7 +61,16 @@ Run from the root of a checkout. It
    update against solver_update with the multipliers, the device-resident
    step in f32 and bf16 and the native-fed one, each profiled, and K1's
    core route at f32 on the Net's two shapes beside its plain version,
-   torch.matmul and its bound.
+   torch.matmul and its bound;
+9. drives the product path's front door (cli_training): generate_net.py's
+   net and a copy of the repo's solver prototxt (max_iter 60, a test every
+   10, a snapshot at 30) through tools.cli.main: train (the native sampler
+   through the prefetcher's pinned copies, every K1 launch on the f32 core
+   route, the step timed and profiled), train --snapshot from iteration 30,
+   test on the final weights, time (segmented, then --backward) and
+   device_query; then the TRAIN Net with and without the scoring fusion on
+   one batch (loss and gradients compared, each device-resident step timed
+   and profiled) and the fused Net fed through the prefetcher.
 
 Exits non-zero, with no result line, without a CUDA card or outside a
 checkout. The last line of stdout is {"ok": true, "device": {...}}; the line
@@ -154,6 +163,18 @@ HOST_PROFILED = range(21, 26)
 NET_STEPS = 31
 NET_INTERVAL = 10
 NET_RESUMED = 5
+# the CLI on the flagship solver (cli_training): CLI_STEPS iterations with
+# a test every CLI_INTERVAL and a snapshot every CLI_SNAPSHOT, then a resume
+# from that snapshot for CLI_RESUMED; the steps timed and profiled in the
+# first run; `test` over CLI_TEST_ITERS batches; `time` over CLI_TIME_ITERS
+CLI_STEPS = 60
+CLI_INTERVAL = 10
+CLI_SNAPSHOT = 30
+CLI_RESUMED = 5
+CLI_TIMED = range(1, 21)
+CLI_PROFILED = range(21, 26)
+CLI_TEST_ITERS = 4
+CLI_TIME_ITERS = 10
 # the H100 SXM's published f32 peak outside the tensor cores (K1's core
 # route at f32 runs on FMA tiles)
 PEAK_FLOPS_F32 = 67e12
@@ -740,12 +761,13 @@ def training_main_path(dev) -> tuple[int, float]:
     return launches["K1"] + 4, ms
 
 
-def training_profile(prof, steps: int, wall_ms: float) -> None:
+def training_profile(prof, steps: int, wall_ms: float) -> dict:
     """Device time by kernel per step over the profiled steps, the idle
     share against the unprofiled host wall, and the check that the tower
     forward's (1920 x 4096) . (4096 x 4096) product never went to a library
     GEMM: the only cuBLAS products are the weight gradient's and the
-    scoring block's."""
+    scoring block's. Returns the per-step device busy ms, H2D ms and
+    device operations ({} if the profiler saw no device events)."""
     by_name: dict[str, float] = {}
     n_device_ops = 0
     for e in prof.events():
@@ -755,7 +777,7 @@ def training_profile(prof, steps: int, wall_ms: float) -> None:
                                + e.time_range.elapsed_us() / steps)
     if not by_name:
         log("training profile: no device events (breakdown not measured)")
-        return
+        return {}
     rows = TRAIN_BATCH * (1 + 4 + TRAIN_NEG)
     fwd_shapes = [[rows, 4096], [4096, 4096]]
     products = {}
@@ -789,6 +811,7 @@ def training_profile(prof, steps: int, wall_ms: float) -> None:
         "top 12 kernels:")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         log(f"    {us:9.1f} us  {name[:110]}")
+    return {"busy_ms": busy, "h2d_ms": h2d, "ops": n_device_ops / steps}
 
 
 def step_part_times(dev) -> None:
@@ -1221,6 +1244,12 @@ class _HostFedTimer:
         while True:
             self._mark(None)
             yield source.next_batch()
+
+    def marked(self, batches):
+        """The batches of an iterator, a mark where each is asked for."""
+        while True:
+            self._mark(None)
+            yield next(batches)
 
     def per_step(self) -> tuple[float, float]:
         """Mean ms of the timed steps: by CUDA events, and by host clock."""
@@ -1775,6 +1804,331 @@ def net_vs_hand_model(dev, stores, params, batch) -> None:
                              f"{w_excess}, db {b_err} (scale {b_scale})")
 
 
+class _CliCapture(logging.Handler):
+    """The port's log records while a CLI command runs."""
+
+    def __init__(self):
+        super().__init__()
+        self.records = []
+
+    def __enter__(self):
+        logging.getLogger("videovector_tpu_torch").addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        logging.getLogger("videovector_tpu_torch").removeHandler(self)
+
+    def emit(self, record):
+        self.records.append(record)
+
+    def lines(self, *prefixes) -> list[str]:
+        out = [r.getMessage() for r in self.records]
+        return [l for l in out if l.startswith(prefixes)] if prefixes else out
+
+
+def _cli_solver(path: Path, net_path: Path, prefix: Path, **fields) -> Path:
+    """A copy of the repo's solver prototxt with `net` pointed at net_path,
+    `snapshot_prefix` at prefix and `fields` set; every other line as it
+    is."""
+    fields = {"net": f'"{net_path}"', "snapshot_prefix": f'"{prefix}"',
+              **{k: str(v) for k, v in fields.items()}}
+    lines = []
+    for line in SOLVER_PROTOTXT.read_text().splitlines():
+        key = line.split(":")[0].strip()
+        lines.append(f"{key}: {fields.pop(key)}" if key in fields else line)
+    lines += [f"{k}: {v}" for k, v in fields.items()]
+    path.write_text("\n".join(lines) + "\n")
+    return path
+
+
+def _counted(fn):
+    """fn() with K1's counts set to 0 just before and read just after:
+    (fn's value, (launches, sm90 launches))."""
+    from videovector_tpu_torch.ops.hopper.matmul import matmul
+    torch.cuda.synchronize()
+    matmul.launches = matmul.launches_sm90 = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (matmul.launches, matmul.launches_sm90)
+
+
+def cli_training(dev, stores: tuple) -> dict:
+    """The product path's front door: generate_net.py's net and a copy of
+    the repo's solver prototxt (net, max_iter CLI_STEPS, test_interval
+    CLI_INTERVAL, snapshot CLI_SNAPSHOT and snapshot_prefix changed) through
+    `tools.cli.main` in-process: train (the native sampler through the
+    prefetcher, every K1 launch on the f32 core route), a resume from the
+    iteration-CLI_SNAPSHOT snapshot, test on the final weights, time
+    (segmented, then with --backward) and device_query; then the fused
+    and unfused TRAIN Net against each other on the card. Returns the K1
+    launches of the CLI commands."""
+    import tempfile
+
+    from videovector_tpu_torch.data.native import NativeSampledShotsSource
+    from videovector_tpu_torch.solver import driver as drv
+    from videovector_tpu_torch.tools import cli
+
+    card = gpu_name_and_power_limit()
+    launches = {}
+    built = []
+    orig_build, orig_train = drv.SolverDriver.build, drv.train
+    timer = _HostFedTimer(CLI_TIMED, CLI_PROFILED)
+
+    def build(self, **kw):
+        built.append(orig_build(self, **kw))
+        return built[-1]
+
+    def timed_train(*args, **kw):
+        # the marks of _HostFedTimer: one at the top of each iteration and
+        # one where each test batch is asked for
+        if not timer.marks:
+            kw["hooks"] = list(kw.get("hooks") or []) + [(1, timer.hook)]
+            kw["test_data"] = [timer.marked(t) for t in kw["test_data"]]
+        return orig_train(*args, **kw)
+
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = Path(tmp_name)
+        net_path = tmp / "net.prototxt"
+        net_path.write_text(_emit()(*stores, buffer_size=5000))
+        prefix = tmp / "cli"
+        solver = _cli_solver(tmp / "solver.prototxt", net_path, prefix,
+                             max_iter=CLI_STEPS, test_interval=CLI_INTERVAL,
+                             snapshot=CLI_SNAPSHOT)
+        resume = _cli_solver(tmp / "resume.prototxt", net_path, prefix,
+                             max_iter=CLI_SNAPSHOT + CLI_RESUMED,
+                             test_interval=CLI_INTERVAL, snapshot=CLI_SNAPSHOT)
+        log(f"  cli_training: {solver.name}: " + "; ".join(
+            l for l in solver.read_text().splitlines()
+            if l and not l.startswith("#")))
+        drv.SolverDriver.build, drv.train = build, timed_train
+        try:
+            t0 = time.perf_counter()
+            with _CliCapture() as out:
+                _, launches["train"] = _counted(lambda: cli.main(
+                    ["train", "--solver", str(solver)]))
+            train_s = time.perf_counter() - t0
+        finally:
+            drv.SolverDriver.build, drv.train = orig_build, orig_train
+        driver = built[0]
+        sampler = driver.train_source.sources[0].source
+        if not isinstance(sampler, NativeSampledShotsSource):
+            raise AssertionError(f"cli train: the TRAIN source is "
+                                 f"{type(sampler).__name__}, not native")
+        steps, n_tests = CLI_STEPS + 1, len(range(0, CLI_STEPS + 1,
+                                                  CLI_INTERVAL))
+        losses = [float(r.args[1]) for r in out.records
+                  if r.msg == "Iteration %d, loss = %g"]
+        tests = out.lines("    Test net output")
+        log(f"  cli train: {train_s:.1f} s in-process (build included); the "
+            f"TRAIN source {type(sampler).__name__}; K1 launches "
+            f"{launches['train'][0]} ({launches['train'][1]} sm90) for "
+            f"{CLI_STEPS} steps + the final display forward + {n_tests} test "
+            f"batches; losses {losses}; the last test lines {tests[-3:]}; "
+            f"{out.lines('Optimization Done.')}")
+        if launches["train"] != (steps + n_tests, 0):
+            raise AssertionError(f"cli train K1 launches {launches['train']}:"
+                                 f" expected {steps} + {n_tests}, all core")
+        if not (losses and all(math.isfinite(v) for v in losses)) or \
+                len(tests) != 3 * n_tests:
+            raise AssertionError(f"cli train: losses {losses}, tests {tests}")
+        for name in (f"cli_iter_{CLI_SNAPSHOT}.vvstate",
+                     f"cli_iter_{CLI_STEPS}.vvmodel"):
+            if not (tmp / name).is_file():
+                raise AssertionError(f"cli train wrote no {name}")
+        step_ms, wall_ms = timer.per_step()
+        log(f"  cli train step at B={TRAIN_BATCH} (f32, native sampler "
+            f"through the prefetcher, fused scoring): {step_ms:.4f} ms (CUDA "
+            f"events over {len(CLI_TIMED)} steps, tests excluded) = "
+            f"{TRAIN_BATCH * TRAIN_NEG / step_ms * 1e3:,.0f} triplets/s; host "
+            f"wall {wall_ms:.4f} ms a step [{card}]")
+        cli_prof = training_profile(timer.prof, len(CLI_PROFILED), wall_ms)
+        feed_breakdown(sampler, card)
+
+        with _CliCapture() as out:
+            _, launches["resume"] = _counted(lambda: cli.main(
+                ["train", "--solver", str(resume), "--snapshot",
+                 str(prefix) + f"_iter_{CLI_SNAPSHOT}.vvstate"]))
+        its = [r.args[0] for r in out.records
+               if r.msg == "Iteration %d, loss = %g"]
+        log(f"  cli train --snapshot: {out.lines('Restoring')}; displayed "
+            f"iterations {its}; K1 launches {launches['resume']}")
+        # the resumed steps, and the test at the resumed iteration
+        # (test_initialization, the proto default, as in JAX's loop)
+        if not (out.lines("Restoring previous solver status")
+                and f"(iter {CLI_SNAPSHOT})" in out.lines("Restoring")[0]
+                and its and its[0] == CLI_SNAPSHOT
+                and launches["resume"] == (CLI_RESUMED + 1, 0)):
+            raise AssertionError("cli resume did not start at iteration "
+                                 f"{CLI_SNAPSHOT}: {its}, {launches['resume']}")
+
+        with _CliCapture() as out:
+            _, launches["test"] = _counted(lambda: cli.main(
+                ["test", "--model", str(net_path), "--weights",
+                 str(prefix) + f"_iter_{CLI_STEPS}.vvmodel", "--iterations",
+                 str(CLI_TEST_ITERS)]))
+        for line in out.lines("Batch", "Loss", "test_"):
+            log(f"    cli test: {line}")
+        means = {r.args[0]: float(r.args[1]) for r in out.records
+                 if r.msg == "%s = %g%s"}
+        if sorted(means) != ["test_hit1", "test_hit5", "test_map"] or \
+                not all(0.0 <= v <= 1.0 for v in means.values()) or \
+                launches["test"] != (CLI_TEST_ITERS, 0):
+            raise AssertionError(f"cli test: {means}, K1 {launches['test']}")
+
+        for extra in ([], ["--backward"]):
+            with _CliCapture() as out:
+                _, launches["time" + "".join(extra)] = _counted(
+                    lambda: cli.main(["time", "--model", str(net_path),
+                                      "--iterations", str(CLI_TIME_ITERS)]
+                                     + extra))
+            marg = out.lines()
+            for line in marg:
+                if "(marginal)" in line or line.startswith(
+                        ("Total", "Fused")):
+                    log(f"    cli time{' '.join([''] + extra)}: {line} "
+                        f"[{card}]")
+            n_marg = sum("(marginal)" in l for l in marg)
+            if n_marg != len(driver.train_net.layers) - 1:
+                raise AssertionError(f"cli time: {n_marg} layer lines")
+
+        with _CliCapture() as out:
+            cli.main(["device_query"])
+        for line in out.lines():
+            log(f"    cli device_query: {line}")
+    log(f"  cli_training K1 launches by command: {launches}")
+
+    fused_vs_unfused(dev, stores, driver, card)
+    return {"launches": sum(v[0] for v in launches.values()),
+            "sm90": sum(v[1] for v in launches.values()),
+            "step_ms": step_ms, "profile": cli_prof}
+
+
+def feed_breakdown(sampler, card) -> None:
+    """The CLI's feed taken apart, host clock over 20 each: the native
+    sampler's next_batch (into fresh numpy arrays, as the data factory
+    calls it, and into a reused pinned buffer), the prefetcher's copy into
+    pinned memory, and the prefetcher alone over the sampler with an idle
+    consumer (a batch waited for on the card each time)."""
+    import ctypes
+
+    from videovector_tpu_torch.data.prefetch import DevicePrefetcher
+
+    def clock(fn, n=20):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return (time.perf_counter() - t0) / n * 1e3
+    batch = sampler.next_batch()
+    data = torch.empty(batch["data"].shape, pin_memory=True)
+    vids = torch.empty(batch["video_id"].shape, pin_memory=True)
+    f32p = ctypes.POINTER(ctypes.c_float)
+
+    def into_pinned():
+        if sampler._lib.vv_sampler_next(
+                sampler._h, ctypes.cast(data.data_ptr(), f32p),
+                ctypes.cast(vids.data_ptr(), f32p)) != 0:
+            raise AssertionError("native sampler stopped")
+    fresh = clock(sampler.next_batch)
+    pinned = clock(into_pinned)
+    copy = clock(lambda: data.copy_(torch.from_numpy(batch["data"])))
+    pf = DevicePrefetcher(iter(sampler), device="cuda")
+
+    def consume():
+        next(pf)
+        torch.cuda.current_stream().synchronize()
+    try:
+        consume()
+        alone = clock(consume)
+    finally:
+        pf.close()
+    log(f"  the CLI's feed, host clock over 20 [{card}]: native next_batch "
+        f"{fresh:.3f} ms a batch into fresh arrays, {pinned:.3f} ms into a "
+        f"reused pinned buffer; the prefetcher's pinned copy of "
+        f"{batch['data'].nbytes / 1e6:.1f} MB {copy:.3f} ms; the prefetcher "
+        f"over the sampler with an idle consumer {alone:.3f} ms a batch")
+
+
+def fused_vs_unfused(dev, stores, driver, card) -> None:
+    """The TRAIN Net with the scoring fusion and without it on the card, the
+    same params and one batch of the native sampler: the loss within 1e-5
+    relative and the params' gradients within 1e-4 of their largest
+    magnitude; then each one's device-resident step (CUDA events over 20,
+    the host's enqueue, device busy, idle share, device operations over 5
+    profiled), and the fused Net fed through the prefetcher from host
+    memory (pinned copies on a side stream)."""
+    import dataclasses
+
+    from videovector_tpu_torch.data.prefetch import DevicePrefetcher
+    from videovector_tpu_torch.graph import Net
+    from videovector_tpu_torch.solver.train import train
+    msg = _net_message(*stores)
+    host = driver._first_batch
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in host.items()}
+    params = {k: {n: v.detach().clone() for n, v in d.items()}
+              for k, d in driver.params.items()}
+    nets = {}
+    for fuse in (True, False):
+        net = nets[fuse] = Net(msg, "TRAIN", fuse_scoring=fuse)
+        net.init(torch.Generator(device=dev).manual_seed(0), batch)
+    res = {}
+    for fuse, net in nets.items():
+        p = {k: {n: v.clone().requires_grad_() for n, v in d.items()}
+             for k, d in params.items()}
+        with torch.enable_grad():
+            loss = net.loss_fn(p, batch, torch.Generator(device=dev)
+                               .manual_seed(1))
+            loss.backward()
+        res[fuse] = (loss.item(), {k: {n: v.grad for n, v in d.items()}
+                                   for k, d in p.items()})
+    (lf, gf), (lu, gu) = res[True], res[False]
+    loss_err = abs(lf - lu) / abs(lu)
+    grad_err = max((gf[k][n] - gu[k][n]).abs().max().item()
+                   / gu[k][n].abs().max().item() for k in gu for n in gu[k])
+    log(f"  fused vs unfused Net on the card (f32, dropout 0.9, the same "
+        f"masks): loss {lf:.7f} vs {lu:.7f} (rel err {loss_err:.2e}, tol "
+        f"1e-5); params' gradients max|diff| / max|g| {grad_err:.2e} (tol "
+        f"1e-4); absorbed layers {nets[True]._last_absorbed} / "
+        f"{nets[False]._last_absorbed}")
+    if not (loss_err <= 1e-5 and grad_err <= 1e-4):
+        raise AssertionError(f"fused vs unfused: {loss_err}, {grad_err}")
+
+    lr, decay = nets[True].param_multipliers()
+    quiet = dataclasses.replace(driver.cfg, test_interval=0, snapshot=0,
+                                snapshot_prefix="", display=0,
+                                max_iter=TRAIN_MAIN_STEPS)
+    rows = {}
+    for name, net, data in (
+            ("fused, resident", nets[True], lambda: itertools.repeat(batch)),
+            ("unfused, resident", nets[False],
+             lambda: itertools.repeat(batch)),
+            ("fused, prefetcher-fed", nets[True],
+             lambda: DevicePrefetcher(itertools.repeat(host), device=dev))):
+        timer = _StepTimer(5, 25, profiled=5)
+        it = data()
+        try:
+            train(_net_loss_fn(net), params, it, quiet, lr_mults=lr,
+                  decay_mults=decay, device="cuda", batch_axes={"data": 0},
+                  hooks=[(1, timer.hook)])
+        finally:
+            if isinstance(it, DevicePrefetcher):
+                it.close()
+        n = timer.stop - timer.start
+        ms, wall = timer.ms_per_step(), timer.wall_s / n * 1e3
+        enqueue = timer.enqueue_s / n * 1e3
+        log(f"  Net step at B={TRAIN_BATCH}, {name}: {ms:.4f} ms (CUDA "
+            f"events over {n} steps) = "
+            f"{TRAIN_BATCH * TRAIN_NEG / ms * 1e3:,.0f} triplets/s; host "
+            f"wall {wall:.4f} ms, enqueue {enqueue:.4f} ms a step [{card}]")
+        prof = training_profile(timer.prof, timer.profiled, wall)
+        rows[name] = (ms, enqueue, prof)
+    log("  fused / unfused / prefetcher-fed step summary [" + card + "]: "
+        + "; ".join(f"{k}: {ms:.4f} ms, enqueue {e:.4f} ms, busy "
+                    f"{p.get('busy_ms', float('nan')):.4f} ms, idle "
+                    f"{1 - p.get('busy_ms', float('nan')) / ms:.3f}, "
+                    f"{p.get('ops', float('nan')):.1f} device operations"
+                    for k, (ms, e, p) in rows.items()))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1821,6 +2175,8 @@ def main() -> int:
         eval_launches += host_launches["test"]
         torch.cuda.empty_cache()
         net = net_training(dev, resident_ms, stores)
+        torch.cuda.empty_cache()
+        cli = cli_training(dev, stores)
     torch.cuda.empty_cache()
     with torch.no_grad():
         gallery_eval(dev)
@@ -1854,7 +2210,7 @@ def main() -> int:
                  "route)", "route": "cuda",
          "source": "videovector_tpu_torch/csrc/matmul.cu",
          "replaces": "videovector_tpu/ops/pallas/matmul.py:50",
-         "launches": net["launches"],
+         "launches": net["launches"] + cli["launches"],
          **{k: net["k1"][NET_ROWS][k] for k in ("ms", "plain_ms", "bound_ms",
                                                 "bound_by", "library_ms")},
          "max_abs_err": max(v["err"] for v in net["k1"].values())},
@@ -1888,7 +2244,9 @@ def main() -> int:
         "4096) . (4096 x 4096) call, f32 in and out, bias, on the core route "
         "(bound: operations at the f32 FMA peak; library cuBLAS f32, TF32 "
         f"off), its launches the Net's, {NET_STEPS} + {NET_RESUMED} steps and "
-        "their test batches; its max_abs_err over that shape and 673 rows)")
+        "their test batches, and the CLI's (cli_training: train, resume, "
+        f"test and time, {cli['launches']} launches); its max_abs_err over "
+        "that shape and 673 rows)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

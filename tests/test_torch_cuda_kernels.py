@@ -506,3 +506,69 @@ def test_net_on_k1_matches_the_net_on_plain(dev, dtype):
             1e-3 * ref.abs().max().item()
     assert 0.0 <= tk["test_map"].item() <= 1.0
     assert (tk["ctxn"] - tp["ctxn"]).abs().max().item() <= 1e-3
+
+
+def test_fused_net_matches_unfused_on_the_card(dev):
+    """The scoring fusion on the card at the flagship's 15 roles: the loss
+    within 1e-5 relative, fc7's gradients within 1e-4 of their largest
+    magnitude (the same K1 launches both ways; only the scoring head's
+    reduction order differs), and fewer device operations."""
+    import importlib.util
+    from pathlib import Path
+
+    from videovector_tpu_torch.config import parse
+    from videovector_tpu_torch.graph import Net
+    spec = importlib.util.spec_from_file_location(
+        "generate_net", Path(__file__).resolve().parent.parent
+        / "projects/videovec_embedding/generate_net.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    msg = parse(mod.emit("train.vvr", "test.vvr", batch=32, embed=256,
+                         weight_std=0.05))
+    gen = torch.Generator(device=dev).manual_seed(5)
+    batch = {"data": torch.randn((32, 15, 512), generator=gen, device=dev)}
+    res = []
+    for fuse in (False, True):
+        net = Net(msg, "TRAIN", fuse_scoring=fuse)
+        params, _ = net.init(torch.Generator(device=dev).manual_seed(0), batch)
+        p = {k: {n: v.requires_grad_() for n, v in d.items()}
+             for k, d in params.items()}
+        before = k1.matmul.launches
+        loss = net.loss_fn(p, batch, torch.Generator(device=dev).manual_seed(1))
+        loss.backward()
+        torch.cuda.synchronize()
+        assert k1.matmul.launches == before + 1
+        res.append((loss.item(), p["fc7"]["w"].grad, p["fc7"]["b"].grad,
+                    net._last_absorbed))
+    (l0, w0, b0, a0), (l1, w1, b1, a1) = res
+    assert a0 == 0 and a1 == 37
+    assert abs(l1 - l0) <= 1e-5 * abs(l0)
+    for got, ref in ((w1, w0), (b1, b0)):
+        assert (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+def test_prefetcher_pinned_copies_equal_the_source(dev):
+    """The prefetcher's path on the card (pinned staging buffers reused in
+    a ring, the copy on a side stream, the consumer's stream waiting on its
+    event, record_stream): 40 batches, each consumed by a kernel queued
+    behind a slow one on the consumer's stream, equal the source's bytes."""
+    from videovector_tpu_torch.data.prefetch import DevicePrefetcher
+    rng = np.random.RandomState(3)
+    host = [{"data": rng.randn(64, 15, 1024).astype(np.float32),
+             "video_id": rng.randint(0, 1000, 64).astype(np.float32)}
+            for _ in range(40)]
+    pf = DevicePrefetcher(iter(host), depth=2, device="cuda")
+    slow = torch.randn((2048, 2048), device=dev)
+    sums = []
+    for b in pf:
+        assert b["data"].device.type == "cuda"
+        for _ in range(4):          # keep the consumer's stream busy
+            slow = torch.tanh(slow @ slow * 1e-3)
+        sums.append((b["data"].double().sum(), b["video_id"].clone()))
+    torch.cuda.synchronize()
+    assert len(sums) == 40
+    for (s, vid), h in zip(sums, host):
+        assert s.item() == pytest.approx(h["data"].astype(np.float64).sum(),
+                                         rel=1e-12, abs=1e-6)
+        assert np.array_equal(vid.cpu().numpy(), h["video_id"])
+    pf.close()

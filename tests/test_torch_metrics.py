@@ -296,13 +296,21 @@ def test_drivers_are_equal_and_validated():
 
 
 def test_auto_method_rule():
-    """JAX's rule: sort on the CPU; count on the card unless the largest
-    class exceeds max(256, N/8) rows."""
+    """Sort on the CPU and on the card at every size: the JAX rule's count
+    picks (a card, the largest class within max(256, N/8) rows) included."""
     cpu, cuda = torch.device("cpu"), torch.device("cuda")
     assert not tr._auto_uses_count(cpu, 10, 20_000)
-    assert tr._auto_uses_count(cuda, 2_500, 20_000)
+    assert not tr._auto_uses_count(cuda, 2_500, 20_000)
     assert not tr._auto_uses_count(cuda, 2_501, 20_000)
-    assert tr._auto_uses_count(cuda, 256, 100)
+    assert not tr._auto_uses_count(cuda, 256, 100)
+
+
+@pytest.mark.parametrize("members,n", [(1, 673), (400, 20_000),
+                                       (2_000, 100_000)])
+def test_auto_method_picks_sort_on_cuda_without_a_card(members, n):
+    """The pure rule on torch.device("cuda"), with no card: the flagship's
+    test batch, the 20k and the 100k galleries all take sort."""
+    assert tr._auto_uses_count(torch.device("cuda"), members, n) is False
 
 
 # -- the csv report -------------------------------------------------------

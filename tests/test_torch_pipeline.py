@@ -167,6 +167,7 @@ def test_port_imports_without_jax():
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
+        sys.modules["videovector_tpu"] = None
         import videovector_tpu_torch
         import videovector_tpu_torch._build
         import videovector_tpu_torch.config
@@ -175,6 +176,7 @@ def test_port_imports_without_jax():
         import videovector_tpu_torch.convert
         import videovector_tpu_torch.core.fillers
         import videovector_tpu_torch.data.native
+        import videovector_tpu_torch.data.prefetch
         import videovector_tpu_torch.data.records
         import videovector_tpu_torch.data.shots
         import videovector_tpu_torch.data.transformer
@@ -185,6 +187,7 @@ def test_port_imports_without_jax():
         import videovector_tpu_torch.device
         import videovector_tpu_torch.graph
         import videovector_tpu_torch.graph.data_factory
+        import videovector_tpu_torch.graph.fuse
         import videovector_tpu_torch.graph.layers
         import videovector_tpu_torch.graph.net
         import videovector_tpu_torch.metrics
@@ -202,12 +205,16 @@ def test_port_imports_without_jax():
         import videovector_tpu_torch.ops.reductions
         import videovector_tpu_torch.solver
         import videovector_tpu_torch.solver.checkpoint
+        import videovector_tpu_torch.solver.driver
         import videovector_tpu_torch.solver.solvers
         import videovector_tpu_torch.solver.train
+        import videovector_tpu_torch.tools
+        import videovector_tpu_torch.tools.cli
         import videovector_tpu_torch.utils.logging
-        bad = [m for m in sys.modules if m == "jax" and sys.modules[m]
-               or m.startswith(("jax.", "videovector_tpu.", "jaxlib"))
-               or m == "videovector_tpu"]
+        import videovector_tpu_torch.utils.timer
+        bad = [m for m in sys.modules
+               if m in ("jax", "videovector_tpu") and sys.modules[m]
+               or m.startswith(("jax.", "videovector_tpu.", "jaxlib"))]
         assert not bad, bad
         print("ok")
     """)

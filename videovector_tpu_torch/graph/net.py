@@ -13,9 +13,10 @@ Differences by design, as in the JAX package:
   (graph/data_factory.py).
 
 Phase filtering (`include`/`exclude` NetStateRule, ref:src/caffe/net.cpp:226-329,
-rules caffe.proto:193-209) is applied at construction. The Net runs the
-per-layer graph: the JAX package's scoring-head fusion (graph/fuse.py) and
-role-major inputs are not ported (ROADMAP items 6b and 7). Tensors decide
+rules caffe.proto:193-209) is applied at construction. By default the
+scoring head runs fused (graph/fuse.py: the per-role NORMALIZATION / ELTWISE
+PROD / SUM chains as batched role-major ops), off for layer-prefix runs;
+inputs named in `role_major_inputs` are fed (R, B, feat...). Tensors decide
 where the work runs: params on the device of the generator given to
 `init`, batches wherever the caller puts them.
 """
@@ -31,6 +32,7 @@ import torch
 
 from videovector_tpu_torch.config.textformat import Message
 from videovector_tpu_torch.config.upgrade import net_needs_upgrade, upgrade_net
+from videovector_tpu_torch.graph.fuse import ScoringFusion, fusion_enabled
 from videovector_tpu_torch.graph.layers import (
     DATA_LAYER_TYPES, LAYERS, PENDING_TYPES, SINK_LAYER_TYPES, ApplyContext,
 )
@@ -108,14 +110,27 @@ class Net:
 
     compute_dtype: None (f32, the reference's numerics), "float32" or
     "bfloat16" (the INNER_PRODUCT operands; sums stay f32). plain: run K1's
-    plain version in place of the kernel on CUDA tensors."""
+    plain version in place of the kernel on CUDA tensors. fuse_scoring: the
+    scoring-head fusion (graph/fuse.py; also off under
+    VVTPU_DISABLE_FUSION=1)."""
 
     def __init__(self, net_msg: Message, phase: str = "TRAIN", *,
                  level: int = 0, stages: tuple = (), side: dict | None = None,
-                 compute_dtype=None, plain: bool = False):
+                 compute_dtype=None, plain: bool = False,
+                 fuse_scoring: bool = True):
         self.compute_dtype = (torch_dtype(compute_dtype)
                               if compute_dtype is not None else None)
         self.plain = plain
+        self.fuse_scoring = bool(fuse_scoring) and fusion_enabled()
+        # input blobs the caller feeds role-major: the batch carries
+        # (R, B, feat...) for a blob whose logical shape is (B, R, feat...).
+        # apply() binds the logical view (movedim, right for any consumer)
+        # and hands the raw tensor to the scoring fusion, which absorbs the
+        # leading SLICE(dim1)/CONCAT(dim0) into a free reshape. Set by
+        # SolverDriver (role_major_data) or directly by benchmarks.
+        self.role_major_inputs: tuple = ()
+        # layers the last apply() ran symbolically (tests, logs)
+        self._last_absorbed = 0
         # int8 PTQ side table: not ported (ROADMAP item 10); INNER_PRODUCT
         # raises on a layer named in it
         self.quant = None
@@ -501,19 +516,32 @@ class Net:
         (required at TRAIN when a DROPOUT layer's ratio is > 0).
 
         `max_layers` stops after the first N compute layers (the engine
-        analogue of Net::ForwardFromTo, ref:src/caffe/net.cpp:502-514).
+        analogue of Net::ForwardFromTo, ref:src/caffe/net.cpp:502-514),
+        with the scoring fusion off, so that `vvtpu time`'s prefix
+        marginals see the per-layer graph.
 
         `return_sink_blobs` appends one more element: the host-sink
         bottom blobs ({name: tensor}), for feeding process_host_sinks."""
         blobs: dict[str, Any] = {}
+        rm_raw: dict[str, torch.Tensor] = {}
         for name in self.input_names:
             if name not in batch:
                 raise ValueError(f"batch missing graph input {name!r}")
-            blobs[name] = batch[name]
+            arr = batch[name]
+            if name in self.role_major_inputs and arr.dim() >= 2:
+                # fed (R, B, feat...): bind the logical (B, R, feat...)
+                # view; the fusion gets the raw tensor
+                rm_raw[name] = arr
+                arr = torch.movedim(arr, 0, 1)
+            blobs[name] = arr
 
         ctx = self._context(generator)
         loss = None
         consumed: set[str] = set()
+        # absorbable motif layers run symbolically; their blobs materialize
+        # batched at their first real use
+        fz = (ScoringFusion(role_major=rm_raw)
+              if self.fuse_scoring and max_layers is None else None)
         applied = 0
         for layer in self.layers:
             ltype = layer.get("type")
@@ -531,17 +559,35 @@ class Net:
             # ENDING in an in-place layer still reports that blob as a
             # net output (net.cpp:206-212)
             consumed.difference_update(str(t) for t in layer.get_list("top"))
+            weights = self.loss_weights.get(lname, [])
+            if fz is not None:
+                if fz.try_absorb(layer, blobs, weights) is not None:
+                    continue
+                for b in bottoms:
+                    if b not in blobs and b in fz.syms:
+                        blobs[b] = fz.materialize(b)
             outs = LAYERS[ltype].apply(
                 self._resolve_params(params, self.param_meta, lname),
                 [blobs[b] for b in bottoms], layer, ctx)
-            weights = self.loss_weights.get(lname, [])
             for i, (t, o) in enumerate(zip(
                     (str(t) for t in layer.get_list("top")), outs)):
                 blobs[t] = o
+                if fz is not None:
+                    # a real rebinding kills the symbol, retires a raw
+                    # role-major input of the same name, and bumps the root
+                    # version so a later SLICE(dim0) captures the new value
+                    fz.note_rebind(t)
                 w = weights[i] if i < len(weights) else 0.0
                 if w != 0.0:
                     term = w * torch.sum(o)
                     loss = term if loss is None else loss + term
+        if fz is not None:
+            # a live symbol that nothing consumed is a net output (or, with
+            # return_blobs, part of the full blob map)
+            for name in list(fz.syms):
+                if name not in blobs and (return_blobs or name not in consumed):
+                    blobs[name] = fz.materialize(name)
+        self._last_absorbed = fz.absorbed_layers if fz is not None else 0
         if loss is None:
             dev = next((v.device for v in blobs.values()
                         if isinstance(v, torch.Tensor)), None)
@@ -555,6 +601,34 @@ class Net:
             return (loss, blobs) + tail
         outputs = {k: v for k, v in blobs.items() if k not in consumed}
         return (loss, outputs) + tail
+
+    def role_major_candidates(self, batch) -> list[str]:
+        """Input blobs eligible for the role-major feed: consumed by a
+        SLICE(dim1) into all-width-1 slices that the scoring fusion can
+        absorb (graph/fuse.py drole symbols). SolverDriver's
+        `role_major_data` option picks the batch keys to transpose with it.
+        """
+        if not self.fuse_scoring:
+            return []
+        out = []
+        for layer in self.layers:
+            if layer.get("type") != "SLICE":
+                continue
+            p = layer.get_msg("slice_param")
+            if int(p.get("slice_dim", 1)) != 1:
+                continue
+            src = str(layer.get_list("bottom")[0])
+            tops = [str(t) for t in layer.get_list("top")]
+            arr = batch.get(src)
+            if src not in self.input_names or arr is None \
+                    or getattr(arr, "ndim", 0) < 2 \
+                    or arr.shape[1] != len(tops):
+                continue
+            points = [int(v) for v in p.get_list("slice_point")]
+            if points and points != list(range(1, len(tops))):
+                continue
+            out.append(src)
+        return out
 
     def loss_fn(self, params, batch, generator=None):
         loss, _ = self.apply(params, batch, generator=generator)

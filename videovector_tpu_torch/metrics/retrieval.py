@@ -368,9 +368,13 @@ def _check_driver(chunk_driver: str, mesh, shard_gallery: bool) -> None:
 
 
 def _auto_uses_count(dev: torch.device, members: int, n: int) -> bool:
-    """method="auto": the JAX package's rule, the count engine off the CPU
-    unless the largest class (`members` rows) is degenerate, else sort."""
-    return dev.type != "cpu" and members <= max(256, n // 8)
+    """method="auto": the sort engine on both of the port's devices. The
+    JAX package's TPU rule (count unless the largest class, `members` of
+    the `n` rows, is degenerate) would take count on a CUDA card, where it
+    measured 8-17x slower than sort at 20k rows (PERF.md). Both engines give
+    the same hit@k and mAP, so the rule moves only time; method="count"
+    still runs count."""
+    return False
 
 
 def _chunk_inputs(features, vids_np, cls_np, method: str, device,
@@ -416,8 +420,8 @@ def retrieval_stats_chunked(features, video_ids, class_ids, *,
       compare cube for the valid rank and O(Q·M·M) for the match rank, M the
       largest class;
     - "sort": the (Q, N) stable argsort and cumsums;
-    - "auto": the JAX package's rule, count off the CPU unless the largest
-      class is degenerate (M > max(256, N/8)), else sort.
+    - "auto": sort (`_auto_uses_count`; the JAX package's TPU rule takes
+      count, which is the slower engine on a CUDA card).
     "search", `mesh=` and `shard_gallery=True` raise NotImplementedError.
 
     features: (N, D) host array or tensor; `gallery_dtype` "bfloat16"

@@ -11,7 +11,7 @@ resumes from the other's:
                            "__model__" (the .vvmodel's file name)
 
 Loading gives f32 CPU tensors. The reference's .caffemodel/.solverstate
-pair comes with the product-path slice.
+pair is not ported yet (ROADMAP queue 1, item 1b).
 """
 
 from __future__ import annotations
@@ -96,14 +96,18 @@ class AsyncSnapshotter:
         self._thread = None
         self._exc: BaseException | None = None
 
-    def submit(self, prefix: str, it: int, params, state=None, diffs=None):
+    def submit(self, prefix: str, it: int, params, state=None, diffs=None,
+               extra=None):
         """params, state and diffs should be host copies: the writer reads
-        them after submit returns."""
+        them after submit returns. `extra()`, if given, runs after the
+        files are written (e.g. another snapshot format's writer)."""
         self.wait()
 
         def _run():
             try:
                 snapshot(prefix, it, params, state, diffs)
+                if extra is not None:
+                    extra()
             except BaseException as e:  # noqa: BLE001 - re-raised by wait()
                 self._exc = e
 

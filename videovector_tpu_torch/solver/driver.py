@@ -1,0 +1,410 @@
+"""SolverDriver: end-to-end orchestration from prototxt files; counterpart of
+videovector_tpu/solver/driver.py.
+
+The `caffe train --solver=...` path (ref:tools/caffe.cpp:80-123 ->
+Solver::Init, src/caffe/solver.cpp:33-157): parse the solver prototxt, build
+the TRAIN net and the TEST nets from the net prototxt it names, build the
+host data sources from their data-layer configs, and run the training loop
+with test-interval evaluation, snapshots and resume or finetune. Batches
+reach the card through data/prefetch.py (pinned buffers, the copy on a side
+stream, overlapping the step).
+
+An entry point: it runs on the card unless asked for the CPU
+(`device="cpu"`), and raises without a card. What later slices bring
+raises NotImplementedError naming its ROADMAP item: the mesh (11),
+device_negatives (7, raised by the data factory), snapshot_vis and
+debug_info (10), the reference's .caffemodel/.solverstate (1b); orbax stays
+with the JAX package.
+"""
+
+from __future__ import annotations
+
+import itertools
+import os
+from dataclasses import replace
+
+import numpy as np
+import torch
+
+from videovector_tpu_torch.config.textformat import Message, parse_file
+from videovector_tpu_torch.data.prefetch import DevicePrefetcher
+from videovector_tpu_torch.device import DEFAULT, resolve
+from videovector_tpu_torch.graph.data_factory import MergedSource, make_data_source
+from videovector_tpu_torch.graph.layers import DATA_LAYER_TYPES
+from videovector_tpu_torch.graph.net import Net
+from videovector_tpu_torch.solver.checkpoint import load_model
+from videovector_tpu_torch.solver.solvers import SolverConfig
+from videovector_tpu_torch.solver.train import TrainResult, train
+from videovector_tpu_torch.utils.logging import get_logger
+
+log = get_logger(__name__)
+
+
+def _spec_from_batch(batch) -> dict:
+    """f32 "meta" tensors of the batch's shapes (the JAX driver's f32
+    ShapeDtypeStructs): shape inference without data."""
+    return {k: torch.empty(tuple(np.shape(v)), dtype=torch.float32,
+                           device="meta") for k, v in batch.items()}
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported to videovector_tpu_torch "
+                               f"yet (ROADMAP queue 1, item {item})")
+
+
+_PHASE_NAMES = {"0": "TRAIN", "1": "TEST"}
+
+
+def _merge_net_state(default_phase: str, *states):
+    """(phase, level, stages) under proto MergeFrom semantics: each present
+    scalar overwrites, repeated `stage` concatenates: the reference's
+    NetState assembly (ref:src/caffe/solver.cpp:72-81, :141-152)."""
+    phase, level, stages = default_phase, 0, []
+    for st in states:
+        if st is None:
+            continue
+        if st.has("phase"):
+            p = str(st.get("phase"))
+            phase = _PHASE_NAMES.get(p, p)
+        if st.has("level"):
+            level = int(st.get("level"))
+        stages.extend(str(s) for s in st.get_list("stage"))
+    return phase, level, tuple(stages)
+
+
+class SolverDriver:
+    def __init__(self, solver_msg: Message, *, net_dir: str = ".",
+                 device=DEFAULT):
+        self._solver_msg = solver_msg
+        self._net_dir = net_dir
+        self.device = resolve(device)
+        self._prefetchers: list = []  # live DevicePrefetchers (closed per train())
+        self.cfg = SolverConfig.from_message(solver_msg)
+        # the reference's visualization and debug knobs (ref
+        # solver.cpp:183-193): the port has no vis_snapshot or
+        # Net.debug_info yet
+        if int(solver_msg.get("snapshot_vis", 0) or 0):
+            raise _not_ported("snapshot_vis (tools/vis_snapshot.py)", "10")
+        if solver_msg.get("debug_info"):
+            raise _not_ported("debug_info (Net.debug_info)", "10")
+
+        def resolve_path(p):
+            if p and not os.path.isabs(p):
+                cand = os.path.join(net_dir, p)
+                return cand if os.path.exists(cand) else p
+            return p
+
+        # exactly ONE of the four train-net fields (ref InitTrainNet
+        # CHECK_GE/CHECK_LE, solver.cpp:47-55)
+        fields = "net, net_param, train_net, train_net_param"
+        n_train = sum(solver_msg.get(f) is not None
+                      for f in ("net", "net_param", "train_net",
+                                "train_net_param"))
+        if n_train < 1:
+            raise ValueError("SolverParameter must specify a train net "
+                             f"using one of these fields: {fields}")
+        if n_train > 1:
+            raise ValueError("SolverParameter must not contain more than "
+                             "one of these fields specifying a train_net: "
+                             f"{fields}")
+        inline = (solver_msg.get("net_param")
+                  or solver_msg.get("train_net_param"))
+        if inline is not None:
+            self.net_msg = inline
+        else:
+            self.net_msg = parse_file(resolve_path(
+                solver_msg.get("net") or solver_msg.get("train_net")))
+        has_generic = (solver_msg.get("net") is not None
+                       or solver_msg.get("net_param") is not None)
+        # the train net's NetState: TRAIN, then the net's own `state`, then
+        # the solver's `train_state` (highest precedence), merged as protos
+        # merge (ref InitTrainNet, solver.cpp:72-81)
+        self.train_state = _merge_net_state(
+            "TRAIN", self.net_msg.get("state"),
+            solver_msg.get("train_state"))
+
+        # test-net instances (ref InitTestNets, solver.cpp:85-157):
+        # dedicated test_net_param entries, then test_net files, then
+        # (test_iter count - dedicated) instances of the GENERIC net; the
+        # test_iter list must cover every instance
+        inline_tests = list(solver_msg.get_list("test_net_param"))
+        test_paths = [resolve_path(str(p))
+                      for p in solver_msg.get_list("test_net")]
+        n_dedicated = len(inline_tests) + len(test_paths)
+        n_test_iter = len(solver_msg.get_list("test_iter"))
+        if has_generic:
+            if n_test_iter < n_dedicated:
+                raise ValueError(
+                    "test_iter must be specified for each test network.")
+            n_instances = n_test_iter
+        else:
+            if n_test_iter != n_dedicated:
+                raise ValueError(
+                    "test_iter must be specified for each test network.")
+            n_instances = n_dedicated
+        self.test_net_msgs = (inline_tests
+                              + [parse_file(p) for p in test_paths]
+                              + [self.net_msg] * (n_instances - n_dedicated))
+        test_states = list(solver_msg.get_list("test_state"))
+        if test_states and len(test_states) != n_instances:
+            raise ValueError("test_state must be unspecified or specified "
+                             "once per test net.")
+        self.test_net_states = [
+            _merge_net_state("TEST", msg.get("state"),
+                             test_states[i] if test_states else None)
+            for i, msg in enumerate(self.test_net_msgs)]
+        if n_instances and not solver_msg.get("test_interval"):
+            # ref CHECK_GT(test_interval, 0) when test nets exist
+            raise ValueError("test_interval must be > 0 when test nets "
+                             "are specified")
+        self.has_test = n_instances > 0
+
+    @classmethod
+    def from_prototxt(cls, solver_path: str, *,
+                      device=DEFAULT) -> "SolverDriver":
+        return cls(parse_file(solver_path), net_dir=os.getcwd(), device=device)
+
+    def rebuild(self) -> "SolverDriver":
+        """A fresh driver over the same solver config: fresh nets, data
+        sources and params. Crash-restart recovery (`train
+        --max_restarts`) uses it: the restored snapshot supplies iter,
+        params and momentum, everything else starts as a process would."""
+        return type(self)(self._solver_msg, net_dir=self._net_dir,
+                          device=self.device).build()
+
+    # ------------------------------------------------------------------
+    def build(self, *, seed: int | None = None):
+        if seed is None:
+            # SolverParameter.random_seed >= 0 seeds everything: fillers
+            # and data-layer sampling, not just the train loop's dropout
+            # (ref:src/caffe/solver.cpp:37-39 Caffe::set_random_seed)
+            rs = int(self.cfg.random_seed)
+            seed = rs if rs >= 0 else 1234
+        # extension: solver `compute_dtype: "bfloat16"` runs the TRAIN net's
+        # INNER_PRODUCT on bf16 operands (f32 sums; K1's sm90 route). TEST
+        # nets stay f32 so that eval metrics keep the reference's numerics.
+        cd = self._solver_msg.get("compute_dtype") or None
+        tr_phase, tr_level, tr_stages = self.train_state
+        self.train_net = Net(self.net_msg, phase=tr_phase, level=tr_level,
+                             stages=tr_stages, compute_dtype=cd)
+        self.train_source = self._build_sources(self.train_net, tr_phase,
+                                                seed)
+        batch0 = self.train_source.next_batch()
+        # the batch consumed here for shapes is RE-FED as training iteration
+        # 0 (_data_iter first=). _first_batch_raw is not redundant: under
+        # role_major_data, _first_batch is the transposed view while the
+        # re-fed copy stays raw, and the data iterator's transform
+        # transposes it like any other batch
+        self._first_batch = batch0
+        self._first_batch_raw = batch0
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        params, _ = self.train_net.init(gen, _spec_from_batch(batch0))
+        self.params = params
+
+        # extension: solver `role_major_data: true` feeds eligible data
+        # blobs role-major ((R, B, feat...) for (B, R, feat...)), so that the
+        # leading SLICE/CONCAT absorb into a reshape instead of a copy a
+        # step (graph/fuse.py drole symbols). The transpose runs in the
+        # prefetch thread; loss and grads are bit-equal.
+        self.role_major_keys: tuple = ()
+        if self._solver_msg.get("role_major_data"):
+            cands = self.train_net.role_major_candidates(batch0)
+            if cands:
+                self.train_net.role_major_inputs = tuple(cands)
+                self.role_major_keys = tuple(cands)
+                self._first_batch = self._transpose_role_major(batch0)
+            else:
+                log.warning("role_major_data: no eligible SLICE(dim1) "
+                            "data blob in the TRAIN net; feeding normally")
+
+        self.test_nets = []
+        self.test_sources = []
+        self._test_first_batches: list = []
+        if self.has_test:
+            for i, msg in enumerate(self.test_net_msgs):
+                te_phase, te_level, te_stages = self.test_net_states[i]
+                test_net = Net(msg, phase=te_phase, level=te_level,
+                               stages=te_stages)
+                source = self._build_sources(test_net, te_phase,
+                                             seed + 1 + i)
+                # the test net reuses the train net's params (shared by
+                # layer name, ref ShareTrainedLayersWith, net.cpp); its init
+                # only sets its shapes and sharing
+                tb = source.next_batch()
+                test_net.init(torch.Generator(device=self.device).manual_seed(0),
+                              _spec_from_batch(tb))
+                self.test_nets.append(test_net)
+                self.test_sources.append(source)
+                self._test_first_batches.append(tb)
+
+        self.lr_mults, self.decay_mults = self.train_net.param_multipliers()
+        return self
+
+    def _build_sources(self, net: Net, phase: str, seed: int):
+        sources = [make_data_source(layer, phase=phase, seed=seed)
+                   for layer in net.layers
+                   if layer.get("type") in DATA_LAYER_TYPES]
+        if not sources:
+            raise ValueError(f"no data layers in {phase} net")
+        return MergedSource(sources)
+
+    # ------------------------------------------------------------------
+    def _transpose_role_major(self, batch):
+        return {k: (np.ascontiguousarray(np.moveaxis(v, 1, 0))
+                    if k in self.role_major_keys else v)
+                for k, v in batch.items()}
+
+    def _data_iter(self, source, validators=None, transform=None, first=None):
+        """Background host batching and the copy to the device, double
+        buffered: the reference's prefetch-thread overlap. `first` (the
+        batch build() consumed for shapes) is re-fed ahead of the source;
+        `validators` (Net.batch_validators) check each host batch before
+        it is used, and `transform` runs after them, in the prefetch
+        thread."""
+        it = iter(source)
+        if first is not None:
+            it = itertools.chain([first], it)
+        if validators:
+            def _checked(inner):
+                for b in inner:
+                    for v in validators:
+                        v(b)
+                    yield b
+            it = _checked(it)
+        pf = DevicePrefetcher(it, depth=2, device=self.device,
+                              transform=transform)
+        self._prefetchers.append(pf)
+        return iter(pf)
+
+    def _finetune_params(self, weights_path: str):
+        """The build's params with a .vvmodel's layers copied in (ref
+        tools/caffe.cpp:110-117 CopyTrainedLayersFrom): a copy (a second
+        train() on this driver starts from the original init), each blob
+        shape-checked, a param the net lacks refused."""
+        if not weights_path.endswith(".vvmodel"):
+            raise _not_ported(
+                f"finetuning from {weights_path!r} (the reference's "
+                ".caffemodel weights; the port reads .vvmodel)", "1b")
+        params = {ln: dict(lp) for ln, lp in self.params.items()}
+        for lname, lp in load_model(weights_path).items():
+            if lname not in params:
+                continue
+            for pname, arr in lp.items():
+                tgt = params[lname].get(pname)
+                if tgt is None:
+                    # a param init never produced would desync the tree
+                    # from lr_mults/decay_mults
+                    raise ValueError(
+                        f"finetune weights {weights_path!r}: layer "
+                        f"{lname!r} has param {pname!r} the net does not "
+                        f"(e.g. a bias for a bias_term:false layer)")
+                if tuple(arr.shape) != tuple(tgt.shape):
+                    raise ValueError(
+                        f"finetune weights {weights_path!r}: layer "
+                        f"{lname!r} param {pname!r} has shape "
+                        f"{tuple(arr.shape)}, net expects {tuple(tgt.shape)}")
+                params[lname][pname] = arr.to(tgt.device, tgt.dtype)
+        return params
+
+    def train(self, *, resume_state_path: str | None = None,
+              weights_path: str | None = None, max_iter: int | None = None,
+              mesh=None, shard_gallery: bool = False) -> TrainResult:
+        """Train from the build's params (or a .vvmodel's, `weights_path`,
+        or a .vvstate's, `resume_state_path`) up to the solver's max_iter
+        (or `max_iter`). `mesh` and `shard_gallery` wait for the port's
+        parallelism."""
+        if mesh is not None or shard_gallery:
+            raise _not_ported("training over a mesh (mesh=, shard_gallery=)",
+                              "11")
+        params = (self._finetune_params(weights_path) if weights_path
+                  else self.params)
+        cfg = self.cfg if max_iter is None else replace(self.cfg,
+                                                        max_iter=max_iter)
+        fmt = str(cfg.snapshot_format).lower()
+        if fmt == "caffe":
+            raise _not_ported('snapshot_format: "caffe" (the reference\'s '
+                              ".caffemodel/.solverstate pair)", "1b")
+        if fmt == "orbax":
+            raise NotImplementedError(
+                'snapshot_format: "orbax" stays with the JAX package '
+                "(ROADMAP, do not port)")
+        if fmt not in ("vv", ""):
+            raise ValueError(f"unknown snapshot_format {cfg.snapshot_format!r} "
+                             "(expected vv, caffe, or orbax)")
+
+        net = self.train_net
+        # sink layers in a TRAIN net write their files on every training
+        # Forward in the reference (write_to_file_layer.cpp:36-64)
+        train_sinks = bool(net.host_sinks)
+
+        def loss_fn(p, batch, generator):
+            loss, outputs, *tail = net.apply(p, batch, generator=generator,
+                                             return_sink_blobs=train_sinks)
+            # ref solver.cpp:195-217: every element of every output blob
+            aux = {k: v.reshape(-1) for k, v in outputs.items()}
+            if train_sinks:
+                aux["__sinks__"] = tail[0]
+            return loss, aux
+
+        eval_fns, test_iters = [], []
+        if self.test_nets:
+            include_loss = self.cfg.test_compute_loss
+
+            def make_eval(test_net):
+                sinks = bool(test_net.host_sinks)
+
+                def eval_fn(p, batch):
+                    loss, outputs, *tail = test_net.apply(
+                        p, batch, return_sink_blobs=sinks)
+                    # every element of every output blob accumulates into
+                    # the test report (ref Solver::Test solver.cpp:280-315)
+                    out = {k: v.reshape(-1) for k, v in outputs.items()}
+                    if include_loss:  # ref test_compute_loss, caffe.proto:116
+                        out["loss"] = loss
+                    if sinks:  # sink-layer bottoms for process_host_sinks
+                        out["__sinks__"] = tail[0]
+                    return out
+                return eval_fn
+
+            eval_fns = [make_eval(n) for n in self.test_nets]
+            test_iters = [self._data_iter(s, validators=n.batch_validators(),
+                                          first=fb)
+                          for n, s, fb in zip(self.test_nets,
+                                              self.test_sources,
+                                              self._test_first_batches)]
+
+        # the batch-axis map for microbatch splits; the role-major feed
+        # moves those keys' batch axis from 0 to 1
+        src_axes = dict(self.train_source.batch_axes())
+        for k in self.role_major_keys:
+            src_axes[k] = 1
+        rm_transform = (self._transpose_role_major
+                        if self.role_major_keys else None)
+        data_iter = self._data_iter(self.train_source, transform=rm_transform,
+                                    validators=net.batch_validators(),
+                                    first=self._first_batch_raw)
+        # param-carrying layers in NET order: the .solverstate history order
+        # (ref net_->params(); src/caffe/solver.cpp:578-596)
+        layer_order = [l.get("name") for l in net.layers
+                       if l.get("name") in self.params]
+        try:
+            return train(
+                loss_fn, params, data_iter, cfg,
+                lr_mults=self.lr_mults, decay_mults=self.decay_mults,
+                device=self.device, eval_fn=eval_fns, test_data=test_iters,
+                sink_fn=[n.process_host_sinks if n.host_sinks else None
+                         for n in self.test_nets],
+                train_sink_fn=net.process_host_sinks if train_sinks else None,
+                resume_state_path=resume_state_path,
+                param_layer_order=layer_order,
+                batch_axes=src_axes,
+                train_output_weights=net.output_loss_weights(),
+                test_output_weights=[n.output_loss_weights()
+                                     for n in self.test_nets])
+        finally:
+            # stop the prefetch threads and drop their queued device
+            # batches: over infinite sources they would otherwise live until
+            # the process exits, one more per restart
+            for pf in self._prefetchers:
+                pf.close()
+            self._prefetchers.clear()

@@ -10,9 +10,11 @@ log; every `test_interval` iterations it averages an eval function over
 .vvstate pair, which either package resumes from.
 
 `train` is an entry point: it runs on the card unless the caller passes
-device="cpu", and raises without a card. Cross-batch carry (LSTM state),
-the host sinks and the reference's .solverstate resume come with later
-slices.
+device="cpu", and raises without a card. It evaluates one or several test
+nets and feeds the host sinks of the TRAIN and TEST nets
+(solver/driver.py builds both from a prototxt). Cross-batch carry (LSTM
+state, ROADMAP item 9) and the reference's .solverstate resume (item 1b)
+come with later slices.
 """
 
 from __future__ import annotations
@@ -54,6 +56,14 @@ def _add(a, b):
     return {k: _add(a[k], b[k]) for k in a} if isinstance(a, dict) else a + b
 
 
+def _detached(v):
+    if isinstance(v, torch.Tensor):
+        return v.detach()
+    if isinstance(v, dict):   # the "__sinks__" blobs
+        return {k: _detached(x) for k, x in v.items()}
+    return v
+
+
 def value_and_grad(loss_fn: Callable):
     """loss_fn(params, batch, generator) -> (loss, aux) becomes
     vg(params, batch, generator) -> ((loss, aux), grads), with the grads a
@@ -68,8 +78,7 @@ def value_and_grad(loss_fn: Callable):
         grads = tree_from_paths(
             (path, torch.zeros_like(leaf) if g is None else g)
             for path, leaf, g in zip(paths, leaves, gs))
-        aux = {k: v.detach() if isinstance(v, torch.Tensor) else v
-               for k, v in aux.items()}
+        aux = {k: _detached(v) for k, v in aux.items()}
         return (loss.detach(), aux), grads
     return vg
 
@@ -137,7 +146,9 @@ def build_fused_step(grad_fn, cfg: SolverConfig, n_accum: int, gm: int, *,
                                decay_mults=decay_mults)
         # the displayed loss is the microbatch mean (the big-batch mean for
         # equal microbatches); other outputs are the last microbatch's
-        # (counts such as `violations` must not average)
+        # (counts such as `violations` must not average; the sinks' files
+        # hold the last forward's rows, as the reference's
+        # truncate-per-Forward writes leave them)
         metrics = {"loss": loss_sum / n_total, **aux_all[-1]}
         if cfg.snapshot_diff:
             metrics["__diff__"] = grads
@@ -183,14 +194,26 @@ def auto_grad_microbatch(batch, batch_axes: dict | None = None) -> int:
     return gm
 
 
+def _as_list(x) -> list:
+    if isinstance(x, (list, tuple)):
+        return list(x)
+    return [x] if x is not None else []
+
+
 def train(loss_fn: Callable, params, data: Iterator[dict], cfg: SolverConfig,
           *, lr_mults=None, decay_mults=None, device=DEFAULT,
-          eval_fn: Callable | None = None,
-          test_data: Iterator[dict] | None = None,
+          eval_fn: Callable | list | None = None,
+          test_data: Iterator[dict] | list | None = None,
+          sink_fn: Callable | list | None = None,
+          train_sink_fn: Callable | None = None,
           resume_state_path: str | None = None,
           hooks: list | None = None,
+          param_layer_order: list | None = None,
+          caffe_export: Callable | None = None,
           batch_axes: dict | None = None,
-          fused_accum: bool = True) -> TrainResult:
+          fused_accum: bool = True,
+          train_output_weights: dict | None = None,
+          test_output_weights: list | None = None) -> TrainResult:
     """loss_fn(params, batch, generator) -> (loss, aux dict): the loss of
     one batch, with dropout masks drawn from `generator`, one
     torch.Generator on the device. At the top of each iteration it is
@@ -202,28 +225,48 @@ def train(loss_fn: Callable, params, data: Iterator[dict], cfg: SolverConfig,
     lr_mults / decay_mults: trees shaped like params of per-blob learning
     rate and weight decay multipliers (Caffe's blobs_lr / weight_decay;
     Net.param_multipliers builds them from a prototxt), 1.0 where absent.
-    eval_fn(params, batch) -> dict of scalars: averaged over cfg.test_iter
-    batches of test_data every cfg.test_interval iterations.
+    eval_fn(params, batch) -> dict of tensors, or a list of them, one per
+    test net, with test_data an iterator or a list of them: every
+    cfg.test_interval iterations each net's outputs are averaged, element
+    by element, over cfg.test_iter[i] batches; with several nets the
+    history keys are "net{i}/name".
+    sink_fn (or a list, one per test net): called with the "__sinks__"
+    entry an eval_fn returns (the host sinks' bottom blobs) after every
+    test batch. train_sink_fn: the same for the "__sinks__" aux entry of
+    loss_fn, after every step (the reference writes sink files on every
+    Forward, training ones included).
     device: where the params, the batches and the work go; the card unless
     "cpu" is asked for.
     resume_state_path: a .vvstate (from either package) to resume from.
     hooks: [(interval, fn(params, it))], called every `interval` iterations.
+    param_layer_order: the param layers in net order, which a reference
+    .solverstate resume needs (not ported yet, ROADMAP item 1b).
+    caffe_export: fn(it, params_np, state_np), run after each snapshot's
+    files are written, in the writer thread.
     batch_axes: {batch key: batch axis} for the grad_microbatch split; None
     means undeclared, which keeps the auto schedule off and makes an
     explicit grad_microbatch > 1 raise.
     fused_accum: iter_size accumulation through build_fused_step (True), or
-    a host loop of separate gradient calls."""
+    a host loop of separate gradient calls.
+    train_output_weights / test_output_weights: {output blob: loss weight}
+    (Net.output_loss_weights), one map per test net: loss-weighted output
+    lines carry the reference's " (* w = x loss)" suffix
+    (ref:src/caffe/solver.cpp:204-214, :306-314)."""
     dev = resolve(device)
     params = map_params(lambda t: torch.as_tensor(t, device=dev), params)
     state = init_solver_state(cfg, params)
     start_iter = 0
     if resume_state_path:
-        if resume_state_path.endswith(".solverstate") or \
-                resume_state_path.rstrip("/").endswith(".orbax"):
+        if resume_state_path.endswith(".solverstate"):
             raise NotImplementedError(
-                f"resuming from {resume_state_path!r}: the port resumes "
-                "from .vvstate snapshots (the reference's .solverstate "
-                "comes with the product-path slice; orbax is not ported)")
+                f"resuming from {resume_state_path!r}: the reference's "
+                ".solverstate is not ported to videovector_tpu_torch yet "
+                "(ROADMAP queue 1, item 1b); resume from a .vvstate")
+        if resume_state_path.rstrip("/").endswith(".orbax"):
+            raise NotImplementedError(
+                f"resuming from {resume_state_path!r}: orbax snapshots stay "
+                "with the JAX package (ROADMAP, do not port); resume from a "
+                ".vvstate")
         params, state = restore(resume_state_path)
         params = map_params(lambda t: t.to(dev), params)
         state["history"] = map_params(lambda t: t.to(dev), state["history"])
@@ -257,33 +300,53 @@ def train(loss_fn: Callable, params, data: Iterator[dict], cfg: SolverConfig,
         return grads_acc, {"loss": loss, **aux}
 
     result = TrainResult(params, state)
+    # parallel lists, one entry per test net (ref repeated test_net and
+    # per-net test_iter, caffe.proto:86-112)
+    eval_fns, test_datas = _as_list(eval_fn), _as_list(test_data)
+    sink_fns = (list(sink_fn) if isinstance(sink_fn, (list, tuple))
+                else [sink_fn] * len(eval_fns))
+    weight_maps = list(test_output_weights or [])
+
+    def suffix(w, x) -> str:
+        return f" (* {w:g} = {w * x:g} loss)" if w else ""
 
     @torch.no_grad()
     def run_test(p, it):
-        if eval_fn is None or test_data is None:
+        if not eval_fns or not test_datas:
             return
-        n = cfg.test_iter[0] if cfg.test_iter else 1
-        sums: dict[str, np.ndarray] = {}
-        for _ in range(n):
-            for k, v in eval_fn(p, on_device(next(test_data))).items():
-                # every element of every output accumulates (the
-                # reference's test_score loop)
-                arr = _host(v).astype(np.float64).reshape(-1)
-                sums[k] = sums[k] + arr if k in sums else arr
-        avg = {k: v / n for k, v in sums.items()}
-        log.info("Iteration %d, Testing net (#%d)", it, 0)
         merged: dict[str, float] = {}
-        # test_compute_loss prints its own line, not an output row
-        tl = avg.pop("loss", None)
-        if tl is not None:
-            log.info("Test loss: %g", tl[0])
-            merged["loss"] = float(tl[0])
-        i = 0
-        for k in sorted(avg):
-            for j, x in enumerate(avg[k]):
-                log.info("    Test net output #%d: %s = %g", i, k, x)
-                merged[k if avg[k].size == 1 else f"{k}[{j}]"] = float(x)
-                i += 1
+        for net_id, (efn, tdata) in enumerate(zip(eval_fns, test_datas)):
+            n = cfg.test_iter[net_id] if net_id < len(cfg.test_iter) else 1
+            sums: dict[str, np.ndarray] = {}
+            for _ in range(n):
+                out = dict(efn(p, on_device(next(tdata))))
+                sblobs = out.pop("__sinks__", None)
+                if sblobs is not None and sink_fns[net_id] is not None:
+                    sink_fns[net_id](sblobs)
+                for k, v in out.items():
+                    # every element of every output accumulates (the
+                    # reference's test_score loop, solver.cpp:280-293)
+                    arr = _host(v).astype(np.float64).reshape(-1)
+                    sums[k] = sums[k] + arr if k in sums else arr
+            avg = {k: v / n for k, v in sums.items()}
+            log.info("Iteration %d, Testing net (#%d)", it, net_id)
+            prefix = "" if len(eval_fns) == 1 else f"net{net_id}/"
+            # test_compute_loss prints its own line, not an output row
+            tl = avg.pop("loss", None)
+            if tl is not None:
+                log.info("Test loss: %g", tl[0])
+                merged[prefix + "loss"] = float(tl[0])
+            wmap = (weight_maps[net_id] if net_id < len(weight_maps)
+                    else None) or {}
+            i = 0
+            for k in sorted(avg):
+                w = wmap.get(k, 0.0)
+                for j, x in enumerate(avg[k]):
+                    log.info("    Test net output #%d: %s = %g%s", i, k, x,
+                             suffix(w, x))
+                    key = k if avg[k].size == 1 else f"{k}[{j}]"
+                    merged[prefix + key] = float(x)
+                    i += 1
         result.test_history.append((it, merged))
 
     it = start_iter
@@ -297,13 +360,20 @@ def train(loss_fn: Callable, params, data: Iterator[dict], cfg: SolverConfig,
 
     def _snap(at_iter):
         # host copies now: the writer thread reads them later
+        p_np = params_to_numpy(params)
+        s_np = {"iter": state["iter"],
+                "history": params_to_numpy(state["history"])}
         snapshotter.submit(
-            cfg.snapshot_prefix or "snapshot", at_iter,
-            params_to_numpy(params),
-            {"iter": state["iter"],
-             "history": params_to_numpy(state["history"])},
+            cfg.snapshot_prefix or "snapshot", at_iter, p_np, s_np,
             diffs=params_to_numpy(last_grads) if last_grads is not None
-            else None)
+            else None,
+            extra=((lambda: caffe_export(at_iter, p_np, s_np))
+                   if caffe_export is not None else None))
+
+    def sink(metrics):
+        sblobs = metrics.pop("__sinks__", None)
+        if sblobs is not None and train_sink_fn is not None:
+            train_sink_fn(sblobs)
 
     try:
         while it < cfg.max_iter:
@@ -322,6 +392,7 @@ def train(loss_fn: Callable, params, data: Iterator[dict], cfg: SolverConfig,
                 for _ in range(cfg.iter_size):
                     grads_acc, metrics = accum(params, grads_acc,
                                                on_device(next(data)))
+                    sink(metrics)   # every sub-batch's Forward
                 if cfg.snapshot_diff:
                     last_grads = grads_acc
                 params, state = solver_update(cfg, params, grads_acc, state,
@@ -350,6 +421,7 @@ def train(loss_fn: Callable, params, data: Iterator[dict], cfg: SolverConfig,
                 else:
                     params, state, metrics = step(params, state, batch)
                 last_grads = metrics.pop("__diff__", last_grads)
+                sink(metrics)
 
             if cfg.display and it % cfg.display == 0:
                 loss = float(_host(metrics["loss"]).reshape(-1)[0])
@@ -360,10 +432,12 @@ def train(loss_fn: Callable, params, data: Iterator[dict], cfg: SolverConfig,
                     if k == "loss":
                         continue
                     # one line per element of each output (the reference's
-                    # score_index loop)
+                    # score_index loop, solver.cpp:195-217)
+                    w = (train_output_weights or {}).get(k, 0.0)
                     vec = _host(metrics[k]).astype(np.float64).reshape(-1)
                     for j, x in enumerate(vec):
-                        log.info("    Train net output #%d: %s = %g", i, k, x)
+                        log.info("    Train net output #%d: %s = %g%s", i, k,
+                                 x, suffix(w, x))
                         entry[k if vec.size == 1 else f"{k}[{j}]"] = float(x)
                         i += 1
                 # the reference prints the lr after the outputs (from
