@@ -55,17 +55,18 @@ Run from the root of a checkout. It
    the port's Net for TRAIN and TEST, the sources from its data factory (the
    C++ sampler it builds from native/vvdata.cpp), train with the Net's
    lr/decay multipliers, 31 steps (test every 10), a snapshot and 5 resumed
-   steps, every INNER_PRODUCT one K1 launch on the f32 core route; then the
+   steps, every INNER_PRODUCT one K1 launch on the f32 route; then the
    Net with K1 against its plain version (3 steps each), the bf16 Net
    against the hand-written model's loss and gradients, one step's bias
    update against solver_update with the multipliers, the device-resident
    step in f32 and bf16 and the native-fed one, each profiled, and K1's
-   core route at f32 on the Net's two shapes beside its plain version,
-   torch.matmul and its bound;
+   f32 route and its core route on the Net's two shapes, in turns with the
+   plain version and torch.matmul, beside the bound, the SM clock sampled
+   around each timing;
 9. drives the product path's front door (cli_training): generate_net.py's
    net and a copy of the repo's solver prototxt (max_iter 60, a test every
    10, a snapshot at 30) through tools.cli.main: train (the native sampler
-   through the prefetcher's pinned copies, every K1 launch on the f32 core
+   through the prefetcher's pinned copies, every K1 launch on the f32
    route, the step timed and profiled), train --snapshot from iteration 30,
    test on the final weights, time (segmented, then --backward) and
    device_query; then the TRAIN Net with and without the scoring fusion on
@@ -175,8 +176,8 @@ CLI_TIMED = range(1, 21)
 CLI_PROFILED = range(21, 26)
 CLI_TEST_ITERS = 4
 CLI_TIME_ITERS = 10
-# the H100 SXM's published f32 peak outside the tensor cores (K1's core
-# route at f32 runs on FMA tiles)
+# the H100 SXM's published f32 peak outside the tensor cores (K1's f32
+# route and its core route at f32 run on FFMA)
 PEAK_FLOPS_F32 = 67e12
 # the TRAIN net's INNER_PRODUCT rows: B x (1 target + 4 context + 10 negatives)
 NET_ROWS = TRAIN_BATCH * (1 + 4 + TRAIN_NEG)
@@ -592,8 +593,10 @@ def device_breakdown(pipe, params, pix, hwm, calls: int = 5) -> None:
 
     def share(*keys):
         return sum(v for n, v in by_name.items() if any(s in n for s in keys))
-    # K1: the sm90 route's GEMM and split-K reduction, or the core (MatGeom)
-    k1_gemm, k1_reduce = share("gemm_tma_wgmma", "vv::MatGeom"), share("splitk_reduce")
+    # K1: the sm90 or f32 route's GEMM and split-K reduction, or the core
+    # (MatGeom)
+    k1_gemm = share("gemm_tma_wgmma", "f32sm90::gemm_f32", "vv::MatGeom")
+    k1_reduce = share("splitk_reduce")
     # K2: the sm90 route's conv, or the core (ConvGeom)
     k1, k2 = k1_gemm + k1_reduce, share("conv_wgmma", "vv::ConvGeom",
                                         "space_to_depth")
@@ -793,8 +796,8 @@ def training_profile(prof, steps: int, wall_ms: float) -> dict:
     # a host-fed step's batch copy runs on a copy engine: busy, but no kernel
     h2d = sum(v for n, v in by_name.items() if n.startswith("Memcpy HtoD")) / 1e3
     k1 = sum(v for n, v in by_name.items()
-             if any(s in n for s in ("gemm_tma_wgmma", "splitk_reduce",
-                                     "vv::MatGeom"))) / 1e3
+             if any(s in n for s in ("gemm_tma_wgmma", "f32sm90::gemm_f32",
+                                     "splitk_reduce", "vv::MatGeom"))) / 1e3
     library = sum(v for n, v in by_name.items()
                   if any(s in n.lower() for s in ("cublas", "xmma", "cutlass",
                                                   "gemm", "sm90_"))
@@ -1462,45 +1465,81 @@ def _net_loss_fn(net):
     return loss_fn
 
 
-def _k1_core_times(dev) -> dict:
-    """K1's core route with f32 operands at the Net's two INNER_PRODUCT
-    shapes, (1920 x 4096) . (4096 x 4096) for TRAIN and (673 x 4096) .
-    (4096 x 4096) for TEST, bias epilogue, f32 out: held against the plain
-    version, then timed by CUDA-graph replay over copies of w beyond L2 in
-    turns with the plain version and torch.matmul (cuBLAS f32, TF32 off, a
-    yardstick only), beside the bound (operations at the f32 FMA peak)."""
+def _smi_clocks() -> str:
+    """nvidia-smi's reading of the SM clock, its maximum, the temperature
+    and the power draw."""
+    proc = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,temperature.gpu,"
+         "power.draw", "--format=csv,noheader"], capture_output=True,
+        text=True, timeout=60)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {proc.stderr}")
+    return proc.stdout.strip().splitlines()[0]
+
+
+def _k1_f32_times(dev) -> dict:
+    """K1 with f32 operands at the Net's two INNER_PRODUCT shapes, (1920 x
+    4096) . (4096 x 4096) for TRAIN and (673 x 4096) . (4096 x 4096) for
+    TEST, bias epilogue, f32 out: the f32 route and the core route (the
+    same x copied 4 bytes past 16-byte alignment, which TMA cannot
+    address) held against the plain version, then timed by CUDA-graph
+    replay over copies of w beyond L2, in turns with the plain version and
+    torch.matmul (cuBLAS f32, TF32 off, a yardstick only), beside the bound
+    (operations at the f32 FMA peak); nvidia-smi's SM clock, temperature
+    and power draw read before and after each timing."""
     from videovector_tpu_torch.ops.hopper import matmul as k1
+    card = gpu_name_and_power_limit()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     gen = torch.Generator(device=dev).manual_seed(13)
     out = {}
     for rows in (NET_ROWS, TEST_BATCH):
         k = n = 4096
         x = torch.randn((rows, k), generator=gen, device=dev)
+        x_core = torch.empty(x.numel() + 4, device=dev)[1:1 + x.numel()] \
+            .view(rows, k).copy_(x)
         b = torch.randn(n, generator=gen, device=dev)
         ws = [torch.randn((k, n), generator=gen, device=dev) * 0.02
               for _ in range(max(2, math.ceil(L2_EXCESS * L2_BYTES / (k * n * 4))))]
-        if k1.k1_route(x, ws[0], torch.float32) != "core":
-            raise AssertionError(f"K1 {rows}x{k}x{n} f32: not on the core route")
-        err = compare(f"K1 core f32 {rows}x{k}x{n}", k1.matmul(x, ws[0], b),
-                      k1.matmul_plain(x, ws[0], b))
-        run = lambda w: k1.matmul(x, w, b)
-        plain = lambda w: k1.matmul_plain(x, w, b)
-        cublas = lambda w: torch.matmul(x, w)
-        t = [time_graph_ms(fn, ws) for fn in (plain, run, cublas, cublas, run,
-                                              plain)]
-        ms, ms_plain, ms_lib = (t[1] + t[4]) / 2, (t[0] + t[5]) / 2, (t[2] + t[3]) / 2
+        routes = (k1.k1_route(x, ws[0], torch.float32),
+                  k1.k1_route(x_core, ws[0], torch.float32))
+        if routes != ("f32", "core"):
+            raise AssertionError(f"K1 {rows}x{k}x{n} f32: routes {routes}")
+        ref = k1.matmul_plain(x, ws[0], b)
+        err = compare(f"K1 f32 route {rows}x{k}x{n}", k1.matmul(x, ws[0], b), ref)
+        core_err = compare(f"K1 core route f32 {rows}x{k}x{n}",
+                           k1.matmul(x_core, ws[0], b), ref)
+        fns = {"f32": lambda w: k1.matmul(x, w, b),
+               "core": lambda w: k1.matmul(x_core, w, b),
+               "plain": lambda w: k1.matmul_plain(x, w, b),
+               "cublas": lambda w: torch.matmul(x, w)}
+        times = {name: [] for name in fns}
+        clocks = []
+        for name in ("plain", "f32", "core", "cublas", "cublas", "core",
+                     "f32", "plain"):
+            before = _smi_clocks()
+            times[name].append(time_graph_ms(fns[name], ws))
+            clocks.append(f"{name} {times[name][-1]:.4f} ms: {before} -> "
+                          f"{_smi_clocks()}")
+        ms = {name: sum(t) / len(t) for name, t in times.items()}
         flops = 2 * rows * k * n
         nbytes = (rows * k + k * n + n + rows * n) * 4
         t_ops, t_bytes = flops / PEAK_FLOPS_F32, nbytes / PEAK_BYTES
-        out[rows] = {"err": err, "ms": ms, "plain_ms": ms_plain,
-                     "library_ms": ms_lib, "bound_ms": max(t_ops, t_bytes) * 1e3,
+        bound = max(t_ops, t_bytes) * 1e3
+        out[rows] = {"err": err, "core_err": core_err, "ms": ms["f32"],
+                     "core_ms": ms["core"], "plain_ms": ms["plain"],
+                     "library_ms": ms["cublas"], "bound_ms": bound,
                      "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
-        log(f"  K1 core route f32 {rows}x{k}x{n}: kernel {ms:.4f} ms "
-            f"({flops / ms / 1e9:.1f} TFLOP/s), plain {ms_plain:.4f} ms, "
-            f"cuBLAS f32 (TF32 off) {ms_lib:.4f} ms, bound "
-            f"{out[rows]['bound_ms']:.4f} ms ({out[rows]['bound_by']}, "
-            f"{PEAK_FLOPS_F32 / 1e12:.0f} TFLOP/s f32; "
-            f"{out[rows]['bound_ms'] / ms:.3f} of it) (turns: "
-            f"{', '.join(f'{v:.4f}' for v in t)})")
+        log(f"  K1 f32 {rows}x{k}x{n} [{card}]: f32 route {ms['f32']:.4f} ms "
+            f"({flops / ms['f32'] / 1e9:.1f} TFLOP/s, {bound / ms['f32']:.3f} "
+            f"of the bound; plan {k1.k1_f32_plan(rows, n, k, sms)}), core "
+            f"route {ms['core']:.4f} ms ({bound / ms['core']:.3f}), plain "
+            f"{ms['plain']:.4f} ms, cuBLAS f32 (TF32 off) {ms['cublas']:.4f} "
+            f"ms, bound {bound:.4f} ms ({out[rows]['bound_by']}, "
+            f"{PEAK_FLOPS_F32 / 1e12:.0f} TFLOP/s f32); in turns, with "
+            "nvidia-smi's clocks.sm, clocks.max.sm, temperature.gpu, "
+            "power.draw before -> after each:")
+        for line in clocks:
+            log(f"    {line}")
     return out
 
 
@@ -1509,9 +1548,9 @@ def net_training(dev, resident_ms: float, stores: tuple) -> dict:
     for TRAIN and TEST, the sources from the port's data factory (the C++
     sampler for the VVR WINDOW store), train with the Net's lr/decay
     multipliers (a snapshot and a resume), every INNER_PRODUCT one K1
-    launch on the core route. Then the checks against the plain version,
+    launch on the f32 route. Then the checks against the plain version,
     the hand-written model and solver_update, and the timings. Returns the
-    main path's K1 launches and K1's core-route stats."""
+    main path's K1 launches and K1's f32 and core-route stats."""
     import dataclasses
 
     from videovector_tpu_torch.config import parse_file
@@ -1615,23 +1654,24 @@ def net_training(dev, resident_ms: float, stores: tuple) -> dict:
             net.init(torch.Generator(device=dev).manual_seed(seed), batch0)
         timer = _StepTimer(5, 25, profiled=5)
         torch.cuda.synchronize()
-        matmul.launches = matmul.launches_sm90 = 0
+        matmul.launches = matmul.launches_sm90 = matmul.launches_f32 = 0
         res = train(_net_loss_fn(net), params, itertools.repeat(batch),
                     dataclasses.replace(quiet, max_iter=TRAIN_MAIN_STEPS),
                     lr_mults=lr, decay_mults=decay, device="cuda",
                     batch_axes={"data": 0}, hooks=[(1, timer.hook)])
         torch.cuda.synchronize()
         sm90 = TRAIN_MAIN_STEPS if dtype == "bfloat16" else 0
-        if (matmul.launches, matmul.launches_sm90) != (TRAIN_MAIN_STEPS, sm90):
-            raise AssertionError(f"resident Net {dtype}: K1 launches "
-                                 f"{matmul.launches} ({matmul.launches_sm90} sm90)")
+        counts = (matmul.launches, matmul.launches_sm90, matmul.launches_f32)
+        if counts != (TRAIN_MAIN_STEPS, sm90, TRAIN_MAIN_STEPS - sm90):
+            raise AssertionError(f"resident Net {dtype}: K1 launches (all, "
+                                 f"sm90, f32) {counts}")
         if not torch.isfinite(res.params["fc7"]["w"]).all():
             raise AssertionError(f"resident Net {dtype}: params not finite")
         ms = timer.ms_per_step()
         wall = timer.wall_s / (timer.stop - timer.start) * 1e3
         enqueue = timer.enqueue_s / (timer.stop - timer.start) * 1e3
         log(f"  Net device-resident step at B={TRAIN_BATCH}, {dtype} "
-            f"operands (K1 {'sm90' if sm90 else 'core'} route): {ms:.4f} ms "
+            f"operands (K1 {'sm90' if sm90 else 'f32'} route): {ms:.4f} ms "
             f"(CUDA events over {timer.stop - timer.start} steps) = "
             f"{TRAIN_BATCH * TRAIN_NEG / ms * 1e3:,.0f} triplets/s; host wall "
             f"{wall:.4f} ms a step, {enqueue:.4f} ms to enqueue it [{card}]")
@@ -1640,7 +1680,7 @@ def net_training(dev, resident_ms: float, stores: tuple) -> dict:
         f"(bf16, training main path, this run): {resident_ms:.4f} ms = "
         f"{TRAIN_BATCH * TRAIN_NEG / resident_ms * 1e3:,.0f} triplets/s "
         f"[{card}]")
-    out["k1"] = _k1_core_times(dev)
+    out["k1"] = _k1_f32_times(dev)
     return out
 
 
@@ -1656,10 +1696,11 @@ def _net_main_path(dev, train_net, test_net, params, lr, decay, solver, data,
     per_eval = []
 
     def eval_fn(p, b):
-        before = (matmul.launches, matmul.launches_sm90)
+        before = (matmul.launches, matmul.launches_sm90, matmul.launches_f32)
         _, outs = test_net.apply(p, b)
         per_eval.append((matmul.launches - before[0],
-                         matmul.launches_sm90 - before[1]))
+                         matmul.launches_sm90 - before[1],
+                         matmul.launches_f32 - before[2]))
         return outs
     loss_fn = _net_loss_fn(train_net)
     timer = _HostFedTimer(HOST_TIMED, HOST_PROFILED)
@@ -1671,14 +1712,14 @@ def _net_main_path(dev, train_net, test_net, params, lr, decay, solver, data,
         kw = dict(lr_mults=lr, decay_mults=decay, device="cuda",
                   batch_axes={"data": 0}, eval_fn=eval_fn, test_data=tests)
         torch.cuda.synchronize()
-        matmul.launches = matmul.launches_sm90 = 0
+        matmul.launches = matmul.launches_sm90 = matmul.launches_f32 = 0
         first = train(loss_fn, params, data, cfg, hooks=[(1, timer.hook)], **kw)
         state = Path(tmp_name) / f"net_iter_{NET_STEPS}.vvstate"
         resumed = train(loss_fn, params, data, dataclasses.replace(
             cfg, max_iter=NET_STEPS + NET_RESUMED),
             resume_state_path=str(state), **kw)
         torch.cuda.synchronize()
-        launches = (matmul.launches, matmul.launches_sm90)
+        launches = (matmul.launches, matmul.launches_sm90, matmul.launches_f32)
 
     steps = NET_STEPS + NET_RESUMED
     n_tests = len(range(0, NET_STEPS, NET_INTERVAL))
@@ -1688,16 +1729,18 @@ def _net_main_path(dev, train_net, test_net, params, lr, decay, solver, data,
     log(f"  Net training: {NET_STEPS} steps, snapshot {state.name}, resumed "
         f"for {NET_RESUMED}; iter {first.state['iter']} then "
         f"{resumed.state['iter']}; K1 launches {launches[0]} ({launches[1]} "
-        f"sm90) for {steps} steps + {n_tests} test batches; per test batch "
-        f"{per_eval}; losses {losses}; test history "
+        f"sm90, {launches[2]} f32) for {steps} steps + {n_tests} test "
+        f"batches; per test batch (all, sm90, f32) {per_eval}; losses "
+        f"{losses}; test history "
         f"{first.test_history + resumed.test_history}")
     if (first.state["iter"], resumed.state["iter"]) != (NET_STEPS, steps):
         raise AssertionError("Net training: iterations "
                              f"{first.state['iter']}, {resumed.state['iter']}")
-    if launches != (steps + n_tests, 0) or per_eval != [(1, 0)] * n_tests:
+    if launches != (steps + n_tests, 0, steps + n_tests) or \
+            per_eval != [(1, 0, 1)] * n_tests:
         raise AssertionError(f"Net K1 launches {launches}, per eval "
                              f"{per_eval}: expected {steps} + {n_tests}, all "
-                             "on the core route")
+                             "on the f32 route")
     w = resumed.params["fc7"]["w"]
     if not (losses and all(math.isfinite(v) for v in losses)
             and torch.isfinite(w).all()):
@@ -1706,12 +1749,13 @@ def _net_main_path(dev, train_net, test_net, params, lr, decay, solver, data,
     if len(values) != 3 * n_tests or not all(0.0 <= v <= 1.0 for v in values):
         raise AssertionError(f"Net test outputs {values}")
     step_ms, wall_ms = timer.per_step()
-    log(f"  Net native-fed step at B={TRAIN_BATCH} (f32, K1 core route): "
+    log(f"  Net native-fed step at B={TRAIN_BATCH} (f32, K1 f32 route): "
         f"{step_ms:.4f} ms (CUDA events over {len(HOST_TIMED)} steps, tests "
         f"excluded) = {TRAIN_BATCH * TRAIN_NEG / step_ms * 1e3:,.0f} "
         f"triplets/s; host wall {wall_ms:.4f} ms a step [{card}]")
     training_profile(timer.prof, len(HOST_PROFILED), wall_ms)
-    return {"launches": launches[0], "params": resumed.params}
+    return {"launches": launches[0], "f32": launches[2],
+            "params": resumed.params}
 
 
 def net_parity(dev, msg, params, batch, quiet) -> None:
@@ -1843,13 +1887,13 @@ def _cli_solver(path: Path, net_path: Path, prefix: Path, **fields) -> Path:
 
 def _counted(fn):
     """fn() with K1's counts set to 0 just before and read just after:
-    (fn's value, (launches, sm90 launches))."""
+    (fn's value, (launches, sm90 launches, f32 launches))."""
     from videovector_tpu_torch.ops.hopper.matmul import matmul
     torch.cuda.synchronize()
-    matmul.launches = matmul.launches_sm90 = 0
+    matmul.launches = matmul.launches_sm90 = matmul.launches_f32 = 0
     out = fn()
     torch.cuda.synchronize()
-    return out, (matmul.launches, matmul.launches_sm90)
+    return out, (matmul.launches, matmul.launches_sm90, matmul.launches_f32)
 
 
 def cli_training(dev, stores: tuple) -> dict:
@@ -1857,7 +1901,7 @@ def cli_training(dev, stores: tuple) -> dict:
     the repo's solver prototxt (net, max_iter CLI_STEPS, test_interval
     CLI_INTERVAL, snapshot CLI_SNAPSHOT and snapshot_prefix changed) through
     `tools.cli.main` in-process: train (the native sampler through the
-    prefetcher, every K1 launch on the f32 core route), a resume from the
+    prefetcher, every K1 launch on the f32 route), a resume from the
     iteration-CLI_SNAPSHOT snapshot, test on the final weights, time
     (segmented, then with --backward) and device_query; then the fused
     and unfused TRAIN Net against each other on the card. Returns the K1
@@ -1921,13 +1965,14 @@ def cli_training(dev, stores: tuple) -> dict:
         tests = out.lines("    Test net output")
         log(f"  cli train: {train_s:.1f} s in-process (build included); the "
             f"TRAIN source {type(sampler).__name__}; K1 launches "
-            f"{launches['train'][0]} ({launches['train'][1]} sm90) for "
+            f"{launches['train'][0]} ({launches['train'][1]} sm90, "
+            f"{launches['train'][2]} f32) for "
             f"{CLI_STEPS} steps + the final display forward + {n_tests} test "
             f"batches; losses {losses}; the last test lines {tests[-3:]}; "
             f"{out.lines('Optimization Done.')}")
-        if launches["train"] != (steps + n_tests, 0):
+        if launches["train"] != (steps + n_tests, 0, steps + n_tests):
             raise AssertionError(f"cli train K1 launches {launches['train']}:"
-                                 f" expected {steps} + {n_tests}, all core")
+                                 f" expected {steps} + {n_tests}, all f32")
         if not (losses and all(math.isfinite(v) for v in losses)) or \
                 len(tests) != 3 * n_tests:
             raise AssertionError(f"cli train: losses {losses}, tests {tests}")
@@ -1957,7 +2002,7 @@ def cli_training(dev, stores: tuple) -> dict:
         if not (out.lines("Restoring previous solver status")
                 and f"(iter {CLI_SNAPSHOT})" in out.lines("Restoring")[0]
                 and its and its[0] == CLI_SNAPSHOT
-                and launches["resume"] == (CLI_RESUMED + 1, 0)):
+                and launches["resume"] == (CLI_RESUMED + 1, 0, CLI_RESUMED + 1)):
             raise AssertionError("cli resume did not start at iteration "
                                  f"{CLI_SNAPSHOT}: {its}, {launches['resume']}")
 
@@ -1972,7 +2017,7 @@ def cli_training(dev, stores: tuple) -> dict:
                  if r.msg == "%s = %g%s"}
         if sorted(means) != ["test_hit1", "test_hit5", "test_map"] or \
                 not all(0.0 <= v <= 1.0 for v in means.values()) or \
-                launches["test"] != (CLI_TEST_ITERS, 0):
+                launches["test"] != (CLI_TEST_ITERS, 0, CLI_TEST_ITERS):
             raise AssertionError(f"cli test: {means}, K1 {launches['test']}")
 
         for extra in ([], ["--backward"]):
@@ -1995,11 +2040,14 @@ def cli_training(dev, stores: tuple) -> dict:
             cli.main(["device_query"])
         for line in out.lines():
             log(f"    cli device_query: {line}")
-    log(f"  cli_training K1 launches by command: {launches}")
+    log(f"  cli_training K1 launches by command (all, sm90, f32): {launches}")
+    if any(v[0] < 1 or v[1:] != (0, v[0]) for v in launches.values()):
+        raise AssertionError(f"cli K1 launches off the f32 route: {launches}")
 
     fused_vs_unfused(dev, stores, driver, card)
     return {"launches": sum(v[0] for v in launches.values()),
             "sm90": sum(v[1] for v in launches.values()),
+            "f32": sum(v[2] for v in launches.values()),
             "step_ms": step_ms, "profile": cli_prof}
 
 
@@ -2206,14 +2254,24 @@ def main() -> int:
          **{k: stats["K1 test"][k] for k in ("ms", "plain_ms", "bound_ms",
                                             "bound_by", "library_ms")},
          "max_abs_err": stats["K1 test"]["err"]},
-        {"name": "K1 matmul, the Net's INNER_PRODUCT (f32 operands, core "
-                 "route)", "route": "cuda",
-         "source": "videovector_tpu_torch/csrc/matmul.cu",
+        {"name": "K1 matmul, the Net's INNER_PRODUCT (f32 operands: TMA-fed "
+                 "FFMA GEMM, split-K, bias epilogue)", "route": "cuda",
+         "source": "videovector_tpu_torch/csrc/matmul_f32_sm90.cu",
          "replaces": "videovector_tpu/ops/pallas/matmul.py:50",
-         "launches": net["launches"] + cli["launches"],
+         "launches": net["f32"] + cli["f32"],
          **{k: net["k1"][NET_ROWS][k] for k in ("ms", "plain_ms", "bound_ms",
                                                 "bound_by", "library_ms")},
          "max_abs_err": max(v["err"] for v in net["k1"].values())},
+        {"name": "K1 matmul, core route at f32 (FMA tiles; the Net's f32 "
+                 "operands take the f32 route, so only operands TMA cannot "
+                 "address reach it)", "route": "cuda",
+         "source": "videovector_tpu_torch/csrc/matmul.cu",
+         "replaces": "videovector_tpu/ops/pallas/matmul.py:50",
+         "launches": net["launches"] + cli["launches"] - net["f32"] - cli["f32"],
+         "ms": net["k1"][NET_ROWS]["core_ms"],
+         **{k: net["k1"][NET_ROWS][k] for k in ("plain_ms", "bound_ms",
+                                                "bound_by", "library_ms")},
+         "max_abs_err": max(v["core_err"] for v in net["k1"].values())},
         {"name": "K2 conv2d_im2col_gemm (implicit-GEMM conv: cp.async "
                  "gathers + TMA + wgmma, one launch per conv)", "route": "cuda",
          "source": "videovector_tpu_torch/csrc/conv_gemm_sm90.cu",
@@ -2240,13 +2298,14 @@ def main() -> int:
         f"the host-fed run, {HOST_STEPS} + {HOST_RESUMED} steps. K1's "
         f"test-eval entry: one ({TEST_BATCH} x 4096) . (4096 x 4096) call "
         "with bias + ReLU, its launches the test evals' in train, drawn on "
-        "the card and read from the test store. K1's Net entry: one (1920 x "
-        "4096) . (4096 x 4096) call, f32 in and out, bias, on the core route "
-        "(bound: operations at the f32 FMA peak; library cuBLAS f32, TF32 "
-        f"off), its launches the Net's, {NET_STEPS} + {NET_RESUMED} steps and "
-        "their test batches, and the CLI's (cli_training: train, resume, "
-        f"test and time, {cli['launches']} launches); its max_abs_err over "
-        "that shape and 673 rows)")
+        "the card and read from the test store. K1's Net entries: one (1920 x "
+        "4096) . (4096 x 4096) call, f32 in and out, bias, on the f32 route "
+        "and on the core route (bound: operations at the f32 FMA peak; "
+        "library cuBLAS f32, TF32 off), their launches those of the Net, "
+        f"{NET_STEPS} + {NET_RESUMED} steps and their test batches, and of "
+        f"the CLI (cli_training: train, resume, test and time, "
+        f"{cli['launches']} launches), by route; max_abs_err over that shape "
+        "and 673 rows)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,4 @@
-"""The port's Hopper kernels (K1's and K2's two routes each) against their
+"""The port's Hopper kernels (K1's three routes, K2's two) against their
 plain versions on a CUDA card: ragged shapes, strided operands, groups, both
 dtypes, split-K, tile shapes, and the launch preconditions. Skipped without
 a card.
@@ -129,6 +129,80 @@ def test_k1_sm90_split_counts_agree_and_repeat_bitwise(dev, mkn, monkeypatch):
                 for _ in range(2)]
         _close(runs[0], ref)
         assert torch.equal(runs[0], runs[1]), splits
+
+
+def _k1_core_copy(x):
+    """A contiguous copy of x whose data starts 4 bytes past 16: the same
+    strides, on K1's core route."""
+    buf = torch.empty(x.numel() + 4, dtype=x.dtype, device=x.device)
+    return buf[1:1 + x.numel()].view(x.shape).copy_(x)
+
+
+def _f32_splits(monkeypatch, m, k, n, dev, split):
+    """Pins the f32 route's splits: the plan's ("planned") or one ("one")."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tile, planned = k1.k1_f32_plan(m, n, k, sms)
+    splits = planned if split == "planned" else 1
+    monkeypatch.setattr(k1, "k1_f32_plan", lambda *_: (tile, splits))
+    return splits
+
+
+@pytest.mark.parametrize("split", ["planned", "one"])
+@pytest.mark.parametrize("mkn", [(1920, 4096, 4096), (673, 4096, 4096),
+                                 (1, 4, 8), (673, 1000, 4100), (129, 36, 260)])
+def test_k1_f32_matches_plain_and_core(dev, mkn, split, monkeypatch):
+    """The f32 route against the plain version and the core route on the
+    same operands, both output types, with and without bias and ReLU, with
+    the plan's splits and with one; two runs give the same bits, and with
+    one split the sum is the core's term by term (ascending k, fmaf), so
+    the output is the core's bit for bit."""
+    m, k, n = mkn
+    gen = torch.Generator(device=dev).manual_seed(m * 7 + k * 3 + n)
+    x = torch.randn((m, k), generator=gen, device=dev)
+    w = torch.randn((k, n), generator=gen, device=dev)
+    b = torch.randn(n, generator=gen, device=dev)
+    x_core = _k1_core_copy(x)
+    assert k1.k1_route(x, w, torch.float32) == "f32"
+    assert k1.k1_route(x_core, w, torch.float32) == "core"
+    splits = _f32_splits(monkeypatch, m, k, n, dev, split)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        for bias, relu in ((None, False), (b, True)):
+            kw = dict(fuse_relu=relu, out_dtype=out_dtype)
+            before = (k1.matmul.launches, k1.matmul.launches_f32,
+                      k1.matmul.launches_sm90)
+            runs = [k1.matmul(x, w, bias, **kw) for _ in range(2)]
+            assert (k1.matmul.launches, k1.matmul.launches_f32,
+                    k1.matmul.launches_sm90) == \
+                (before[0] + 2, before[1] + 2, before[2])
+            _close(runs[0], k1.matmul_plain(x, w, bias, **kw))
+            core = k1.matmul(x_core, w, bias, **kw)
+            _close(runs[0], core)
+            assert torch.equal(runs[0], runs[1])
+            if splits == 1:
+                assert torch.equal(runs[0], core)
+
+
+@pytest.mark.parametrize("split", ["planned", "one"])
+@pytest.mark.parametrize("mkn", [(673, 4096, 4096), (129, 36, 260)])
+def test_k1_f32_bit_for_bit_on_integers(dev, mkn, split, monkeypatch):
+    """Integer operands in [-2, 2] keep every f32 sum exact, whatever the
+    order and the splits, so the f32 route's output equals the plain
+    version's bit for bit; a bias of odd eighths makes the bf16 output
+    round."""
+    m, k, n = mkn
+    rs = np.random.RandomState(8)
+    x = torch.as_tensor(rs.randint(-2, 3, (m, k)).astype(np.float32), device=dev)
+    w = torch.as_tensor(rs.randint(-2, 3, (k, n)).astype(np.float32), device=dev)
+    b = torch.as_tensor((2 * rs.randint(-64, 64, n) + 1) / 8,
+                        dtype=torch.float32, device=dev)
+    _f32_splits(monkeypatch, m, k, n, dev, split)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        before = k1.matmul.launches_f32
+        got = k1.matmul(x, w, b, fuse_relu=True, out_dtype=out_dtype)
+        assert k1.matmul.launches_f32 == before + 1
+        ref = k1.matmul_plain(x, w, b, fuse_relu=True, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -457,7 +531,7 @@ def test_net_on_k1_matches_the_net_on_plain(dev, dtype):
     """generate_net.py's TRAIN and TEST nets at small widths (D = 256, E =
     128, B = 16) through the port's Net with K1 and with its plain version
     (Net(plain=True)), on the same params and batch: one K1 launch per
-    forward, on the core route for f32 operands and the sm90 route for
+    forward, on the f32 route for f32 operands and the sm90 route for
     bf16; loss within 1e-4 relative, fc7's gradients and the TEST net's
     normalized embeddings within 1e-3 of their largest magnitude."""
     import importlib.util
@@ -478,14 +552,14 @@ def test_net_on_k1_matches_the_net_on_plain(dev, dtype):
     test = {"data": torch.randn((40, 4, 256), generator=gen, device=dev),
             "video_ids": torch.randint(0, 8, (40,), generator=gen,
                                        device=dev).float()}
-    route = "launches_sm90" if dtype == "bfloat16" else "launches"
     outs = []
     for plain in (False, True):
         net = Net(msg, "TRAIN", compute_dtype=cd, plain=plain)
         params, _ = net.init(torch.Generator(device=dev).manual_seed(0), batch)
         p = {k: {n: v.requires_grad_() for n, v in d.items()}
              for k, d in params.items()}
-        before = (k1.matmul.launches, k1.matmul.launches_sm90)
+        before = (k1.matmul.launches, k1.matmul.launches_sm90,
+                  k1.matmul.launches_f32)
         loss = net.loss_fn(p, batch, torch.Generator(device=dev).manual_seed(1))
         loss.backward()
         test_net = Net(msg, "TEST", compute_dtype=cd, plain=plain)
@@ -494,9 +568,10 @@ def test_net_on_k1_matches_the_net_on_plain(dev, dtype):
             _, tout = test_net.apply(p, test, return_blobs=True)
         torch.cuda.synchronize()
         launched = (k1.matmul.launches - before[0],
-                    k1.matmul.launches_sm90 - before[1])
-        assert launched == ((0, 0) if plain else
-                            (2, 2 if dtype == "bfloat16" else 0)), route
+                    k1.matmul.launches_sm90 - before[1],
+                    k1.matmul.launches_f32 - before[2])
+        assert launched == ((0, 0, 0) if plain else
+                            (2, 2, 0) if dtype == "bfloat16" else (2, 0, 2))
         outs.append((loss.item(), p["fc7"]["w"].grad, p["fc7"]["b"].grad,
                      tout))
     (lk, wk, bk, tk), (lp, wp, bp, tp) = outs

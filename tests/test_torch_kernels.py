@@ -122,12 +122,19 @@ def _misaligned(x):
 @pytest.mark.parametrize("case,route", [
     ("contiguous_bf16", "sm90"),
     ("bf16_out", "sm90"),
-    ("f32", "core"),
+    ("f32", "f32"),
     ("transposed_w", "core"),
     ("odd_row_stride", "core"),
     ("misaligned_offset", "core"),
     ("broadcast_rows", "core"),
     ("empty_k", "core"),
+    ("f32_bf16_out", "f32"),
+    ("f32_row_stride_of_4", "f32"),
+    ("f32_transposed_w", "core"),
+    ("f32_odd_row_stride", "core"),
+    ("f32_misaligned_offset", "core"),
+    ("f32_broadcast_rows", "core"),
+    ("f32_empty_k", "core"),
 ])
 def test_k1_route(case, route):
     x, w, out = _bf16(50, 256), _bf16(256, 520), torch.float32
@@ -145,16 +152,32 @@ def test_k1_route(case, route):
         x = _bf16(1, 256).expand(50, 256)          # row stride 0
     elif case == "empty_k":
         x, w = _bf16(50, 0), _bf16(0, 520)
+    elif case.startswith("f32_"):
+        x, w = x.float(), w.float()
+        if case == "f32_bf16_out":
+            out = torch.bfloat16
+        elif case == "f32_row_stride_of_4":
+            x = torch.zeros(50, 260)[:, :256]       # 1040 bytes
+        elif case == "f32_transposed_w":
+            w = torch.zeros(520, 256).T
+        elif case == "f32_odd_row_stride":
+            x = torch.zeros(50, 258)[:, :256]       # 1032 bytes
+        elif case == "f32_misaligned_offset":
+            x = torch.zeros(50, 264)[:, 1:257]      # data 4 bytes past 16
+        elif case == "f32_broadcast_rows":
+            x = torch.zeros(1, 256).expand(50, 256)
+        elif case == "f32_empty_k":
+            x, w = torch.zeros(50, 0), torch.zeros(0, 520)
     assert k1.k1_route(x, w, out) == route
 
 
-def _split_k_ranges(k, splits):
-    """The [k0, k1) range of each split as csrc/matmul_sm90.cu computes it:
-    split s takes BK tiles [s * T // splits, (s + 1) * T // splits) of the
-    T = ceil(k / BK) tiles."""
-    k_tiles = -(-k // k1.SM90_BK)
-    return [(s * k_tiles // splits * k1.SM90_BK,
-             min(k, (s + 1) * k_tiles // splits * k1.SM90_BK))
+def _split_k_ranges(k, splits, bk=k1.SM90_BK):
+    """The [k0, k1) range of each split as csrc/matmul_sm90.cu and
+    csrc/matmul_f32_sm90.cu compute it: split s takes BK tiles
+    [s * T // splits, (s + 1) * T // splits) of the T = ceil(k / BK) tiles."""
+    k_tiles = -(-k // bk)
+    return [(s * k_tiles // splits * bk,
+             min(k, (s + 1) * k_tiles // splits * bk))
             for s in range(splits)]
 
 
@@ -192,6 +215,55 @@ def test_k1_split_plan_serving_and_training_shapes():
     assert k1.k1_split_plan(256, 4096, 9216, 132) == (128, 2)
     assert k1.k1_split_plan(256, 4096, 4096, 132) == (128, 2)
     assert k1.k1_split_plan(1920, 4096, 4096, 132) == (128, 1)
+
+
+def _f32_fill(tiles, splits, sms):
+    """The share of its waves of one block per SM that tiles x splits
+    blocks fill."""
+    blocks = tiles * splits
+    return blocks / (-(-blocks // sms) * sms)
+
+
+@pytest.mark.parametrize("m,n,k", [(1, 8, 4), (129, 260, 36), (673, 4100, 1000),
+                                   (673, 4096, 4096), (1920, 4096, 4096),
+                                   (50, 4096, 9216), (300, 260, 64),
+                                   (4096, 4096, 4096), (200, 128, 100000)])
+def test_k1_f32_plan(m, n, k):
+    """The f32 route's tiles cover the output; splits are between 1 and
+    the BK tiles of K and their K ranges partition K; splits is the fewest
+    whose blocks fill their waves of one block per SM to F32_FILL, or one
+    per BK tile when no count does."""
+    sms = 132
+    (block_m, block_n), splits = k1.k1_f32_plan(m, n, k, sms)
+    assert (block_m, block_n) == (k1.F32_BM, k1.F32_BN)
+    tiles_m, tiles_n = -(-m // block_m), -(-n // block_n)
+    assert (tiles_m - 1) * block_m < m <= tiles_m * block_m
+    assert (tiles_n - 1) * block_n < n <= tiles_n * block_n
+    k_tiles = -(-k // k1.F32_BK)
+    assert 1 <= splits <= k_tiles
+    ranges = _split_k_ranges(k, splits, k1.F32_BK)
+    assert ranges[0][0] == 0 and ranges[-1][1] == k
+    for (a0, a1), (b0, _) in zip(ranges, ranges[1:]):
+        assert a1 == b0 and (a1 - a0) % k1.F32_BK == 0
+    assert all(k1_ > k0 for k0, k1_ in ranges)
+    tiles = tiles_m * tiles_n
+    fills = [_f32_fill(tiles, s, sms) for s in range(1, splits + 1)]
+    if fills[-1] >= k1.F32_FILL:
+        assert all(f < k1.F32_FILL for f in fills[:-1])
+    else:
+        assert splits == k_tiles and all(f < k1.F32_FILL for f in fills)
+
+
+def test_k1_f32_plan_net_shapes():
+    """The f32 Net's INNER_PRODUCT on an H100 (132 SMs): TRAIN's 1920 rows
+    give 480 tiles, 91% of 4 waves, so 3 splits fill 11 waves to 99%;
+    TEST's 673 rows give 192 tiles, 73% of 2 waves, so 2 splits fill 3
+    waves to 97%."""
+    assert k1.k1_f32_plan(1920, 4096, 4096, 132) == ((128, 128), 3)
+    assert k1.k1_f32_plan(673, 4096, 4096, 132) == ((128, 128), 2)
+    assert _f32_fill(480, 1, 132) < k1.F32_FILL <= _f32_fill(480, 3, 132)
+    assert round(_f32_fill(480, 3, 132), 2) == 0.99
+    assert round(_f32_fill(192, 2, 132), 2) == 0.97
 
 
 def test_k1_validates_before_dispatch():

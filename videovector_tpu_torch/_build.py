@@ -35,6 +35,7 @@ SIGNATURES = {
     "vv_matmul": [_P, _P, _P, _P, _I, _I, _I] + [_L] * 6 + [_I] * 4 + [_P],
     "vv_conv_gemm": [_P, _P, _P, _P] + [_I] * 13 + [_L] * 12 + [_I] * 4 + [_P],
     "vv_matmul_sm90": [_P] * 5 + [_I] * 3 + [_L] * 4 + [_I] * 5 + [_P],
+    "vv_matmul_f32_sm90": [_P] * 5 + [_I] * 3 + [_L] * 4 + [_I] * 4 + [_P],
     "vv_conv_gemm_sm90": [_P] * 4 + [_I] * 14 + [_L] * 3 + [_I] * 5 + [_P],
     "vv_space_to_depth": [_P] * 4 + [_I] * 8 + [_P],
 }

@@ -5,9 +5,10 @@
 // `_matmul_kernel` :26) for bf16 operands that TMA can address: x (M, K)
 // K-contiguous and w (K, N) N-contiguous, row strides a multiple of 16 bytes,
 // 16-byte aligned. out = round(act(x.w + b)) with an f32 sum and one rounding
-// at the end, as the Pallas kernel computes it. Every other K1 call (f32
-// operands, other strides) stays on the core of gemm_core.cuh (matmul.cu);
-// the wrapper ops/hopper/matmul.py picks the route from the operands.
+// at the end, as the Pallas kernel computes it. f32 operands that TMA can
+// address take matmul_f32_sm90.cu; every other K1 call (other strides)
+// stays on the core of gemm_core.cuh (matmul.cu). The wrapper
+// ops/hopper/matmul.py picks the route from the operands.
 //
 // What bounds it on the H100. At the serving path's M = 50 each weight is
 // used by 50 rows only, so the GEMM streams w: fc6's 75.5 MB of bf16 take
@@ -28,16 +29,15 @@
 //   tiles x splits come as close to one block per SM as whole splits allow
 //   (4 splits at M = 50, 2 at M = 256): on the H100 more blocks streamed no
 //   faster, and each split adds M x N f32 partial sums to the traffic. Each
-//   split writes its partial sums to a workspace, and `splitk_reduce` sums
-//   them in a fixed order, adds the bias, applies ReLU and rounds once. No
-//   atomics: two runs give the same bits. With one split (the output tiles
-//   already fill the card, e.g. M = 1920) the epilogue runs in the GEMM
-//   kernel.
+//   split writes its partial sums to a workspace, and `splitk_reduce`
+//   (sm90.cuh) sums them in a fixed order, adds the bias, applies ReLU and
+//   rounds once. No atomics: two runs give the same bits. With one split
+//   (the output tiles already fill the card, e.g. M = 1920) the epilogue
+//   runs in the GEMM kernel.
 // - Tensor cores. Consumer warpgroups (one for BM = 64, two for BM = 128)
 //   issue wgmma m64n128k16 with both operands in shared memory, A K-major and
 //   B (w's N-contiguous rows) MN-major through the transpose bit, both in
 //   the 128-byte swizzle that TMA writes. Sums stay in registers.
-#include <algorithm>
 #include <cstdint>
 
 #include "gemm_core.cuh"
@@ -161,23 +161,6 @@ __global__ void __launch_bounds__(Tile<NC>::THREADS)
   }
 }
 
-// out = K1 epilogue of the sum over splits of ws (splits, M, N), taken in
-// split order.
-template <typename TO>
-__global__ void splitk_reduce(const float* __restrict__ ws,
-                              const float* __restrict__ bias,
-                              TO* __restrict__ out, int M, int N, int splits,
-                              long long som, long long son, int relu) {
-  const long long total = static_cast<long long>(M) * N;
-  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-       i < total; i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    float acc = ws[i];
-    for (int s = 1; s < splits; ++s) acc += ws[s * total + i];
-    const int m = static_cast<int>(i / N), n = static_cast<int>(i % N);
-    out[m * som + n * son] = epilogue<kEpiK1, TO>(acc, bias, n, relu);
-  }
-}
-
 template <int NC, typename TO, bool PARTIAL>
 int launch_gemm(const CUtensorMap& tx, const CUtensorMap& tw, const float* bias,
                 TO* out, float* ws, int M, int N, int k_tiles, int splits,
@@ -208,11 +191,7 @@ int run(const void* x, const void* w, const float* bias, TO* out, float* ws,
   rc = launch_gemm<NC, TO, true>(tx, tw, bias, out, ws, M, N, k_tiles, splits,
                                  som, son, relu, s);
   if (rc != 0) return rc;
-  const long long total = static_cast<long long>(M) * N;
-  const int blocks = static_cast<int>(std::min((total + 255) / 256, 8LL * sms));
-  splitk_reduce<TO><<<blocks, 256, 0, s>>>(ws, bias, out, M, N, splits, som, son,
-                                           relu);
-  return static_cast<int>(cudaGetLastError());
+  return launch_splitk_reduce<TO>(ws, bias, out, M, N, splits, som, son, relu, sms, s);
 }
 
 }  // namespace sm90

@@ -1,6 +1,7 @@
-// Hopper building blocks shared by the sm_90a kernels (K1's matmul_sm90.cu,
-// K2's conv_gemm_sm90.cu): mbarriers, TMA loads and tensor maps, wgmma with
-// both operands in 128-byte-swizzled shared memory.
+// Hopper building blocks shared by the sm_90a kernels (K1's matmul_sm90.cu
+// and matmul_f32_sm90.cu, K2's conv_gemm_sm90.cu): mbarriers, TMA loads and
+// tensor maps, wgmma with both operands in 128-byte-swizzled shared memory,
+// and K1's deterministic split-K reduction.
 //
 // Operand layouts, as TMA's 128-byte swizzle writes them (and as K2's
 // cp.async gathers write A by hand):
@@ -15,7 +16,10 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
+
+#include "gemm_core.cuh"
 
 namespace vv {
 namespace sm90 {
@@ -194,23 +198,54 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A row-major bf16 matrix (rows x cols, row stride in elements) as a TMA map
-// of (box_cols x box_rows) boxes, 128-byte swizzle, zero fill outside.
+// A row-major matrix (rows x cols, row stride in elements) of `type`, whose
+// elements are elem_bytes wide, as a TMA map of (box_cols x box_rows) boxes,
+// 128-byte swizzle, zero fill outside.
 inline int encode(CUtensorMap* map, const void* ptr, int rows, int cols,
-                  long long row_stride, int box_rows, int box_cols) {
+                  long long row_stride, int box_rows, int box_cols,
+                  CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                  int elem_bytes = 2) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
                               static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(row_stride) * 2};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(row_stride) * elem_bytes};
   const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
                              static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem_strides[2] = {1, 1};
   return static_cast<int>(
-      fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
-         strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
+      fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem_strides,
+         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
+}
+
+// out = K1 epilogue of the sum over splits of ws (splits, M, N), taken in
+// split order: no atomics, so two runs give the same bits.
+template <typename TO>
+__global__ void splitk_reduce(const float* __restrict__ ws,
+                              const float* __restrict__ bias,
+                              TO* __restrict__ out, int M, int N, int splits,
+                              long long som, long long son, int relu) {
+  const long long total = static_cast<long long>(M) * N;
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+       i < total; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    float acc = ws[i];
+    for (int s = 1; s < splits; ++s) acc += ws[s * total + i];
+    const int m = static_cast<int>(i / N), n = static_cast<int>(i % N);
+    out[m * som + n * son] = epilogue<kEpiK1, TO>(acc, bias, n, relu);
+  }
+}
+
+// Launches splitk_reduce on stream s; returns cudaGetLastError() as an int.
+template <typename TO>
+int launch_splitk_reduce(const float* ws, const float* bias, TO* out, int M,
+                         int N, int splits, long long som, long long son,
+                         int relu, int sms, cudaStream_t s) {
+  const long long total = static_cast<long long>(M) * N;
+  const int blocks = static_cast<int>(std::min((total + 255) / 256, 8LL * sms));
+  splitk_reduce<TO><<<blocks, 256, 0, s>>>(ws, bias, out, M, N, splits, som, son,
+                                           relu);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace sm90

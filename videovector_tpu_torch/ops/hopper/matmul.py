@@ -2,20 +2,24 @@
 
 Counterpart of videovector_tpu/ops/pallas/matmul.py: out = round(act(x.w +
 b)), an f32 sum with the bias and ReLU applied in f32 and one rounding to
-the output type at the end, as the Pallas kernel does. Two hand-written
+the output type at the end, as the Pallas kernel does. Three hand-written
 routes, picked from the operands alone by `k1_route`:
 - "sm90": csrc/matmul_sm90.cu, a TMA + wgmma GEMM with split-K
   (`k1_split_plan`), for bf16 operands that TMA can address;
+- "f32": csrc/matmul_f32_sm90.cu, a TMA-fed FFMA GEMM with split-K
+  (`k1_f32_plan`), for f32 operands that TMA can address (exact f32
+  products, no TF32): the f32 Net's INNER_PRODUCT;
 - "core": csrc/matmul.cu on the core in csrc/gemm_core.cuh, for everything
-  else (f32 operands on f32 FMA tiles, transposed or odd-strided views).
+  else (transposed or odd-strided views, on f32 FMA or bf16 WMMA tiles).
 Each source note says what bounds its kernel on the H100.
 
 `matmul` launches a kernel for CUDA tensors and runs `matmul_plain`, the
 plain PyTorch version, for CPU tensors; on any other device it raises.
-`matmul.launches` counts every launch, `matmul.launches_sm90` those of the
-sm90 route. The kernels are forward only, as the Pallas kernel is: the
-training tower reaches K1 through ops.linear.tower_matmul, an autograd
-Function whose backward is torch.matmul.
+`matmul.launches` counts every launch, `matmul.launches_sm90` and
+`matmul.launches_f32` those of the sm90 and f32 routes. The kernels are
+forward only, as the Pallas kernel is: the training tower reaches K1
+through ops.linear.tower_matmul, an autograd Function whose backward is
+torch.matmul.
 """
 
 from __future__ import annotations
@@ -29,6 +33,11 @@ INT_MAX = 2**31 - 1
 # the sm90 route's tile: output columns per block, K per pipeline stage
 SM90_BN = 128
 SM90_BK = 64
+# the f32 route's tile (output rows and columns per block) and K per stage
+F32_BM = F32_BN = 128
+F32_BK = 32
+# the share of its waves of one block per SM that the f32 route's plan fills
+F32_FILL = 0.95
 
 
 def dtype_code(dtype: torch.dtype, what: str) -> int:
@@ -89,19 +98,28 @@ def matmul_plain(x, w, b=None, *, fuse_relu: bool = False,
     return epilogue_plain(x.float() @ w.float(), b, fuse_relu, out_dtype)
 
 
+def _tma_ok(t: torch.Tensor, dtype: torch.dtype) -> bool:
+    """TMA can address t as a row-major matrix of dtype: unit inner stride,
+    a row stride that is a multiple of 16 bytes and no shorter than a row,
+    16-byte aligned data."""
+    align = 16 // t.element_size()
+    return (t.dtype == dtype and t.stride(1) == 1 and t.stride(0) % align == 0
+            and t.stride(0) >= t.shape[1] and t.data_ptr() % 16 == 0)
+
+
 def k1_route(x: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype) -> str:
-    """The route a CUDA call with these operands takes: "sm90" when TMA can
-    address both bf16 operands (unit inner stride, row strides a multiple of
-    16 bytes and no shorter than a row, 16-byte aligned data, no empty
-    dimension) and the output is f32 or bf16; "core" otherwise."""
+    """The route a CUDA call with these operands takes, when no dimension
+    is empty and the output is f32 or bf16: "sm90" when TMA can address
+    both operands as bf16, "f32" when it can address both as f32; "core"
+    otherwise."""
     m, k = x.shape
     n = w.shape[1]
-    tma_ok = all(t.dtype == torch.bfloat16 and t.stride(1) == 1
-                 and t.stride(0) % 8 == 0 and t.stride(0) >= t.shape[1]
-                 and t.data_ptr() % 16 == 0 for t in (x, w))
-    ok = (tma_ok and min(m, k, n) >= 1
-          and out_dtype in (torch.float32, torch.bfloat16))
-    return "sm90" if ok else "core"
+    if min(m, k, n) < 1 or out_dtype not in (torch.float32, torch.bfloat16):
+        return "core"
+    for dtype, route in ((torch.bfloat16, "sm90"), (torch.float32, "f32")):
+        if _tma_ok(x, dtype) and _tma_ok(w, dtype):
+            return route
+    return "core"
 
 
 def k1_split_plan(m: int, n: int, k: int, sms: int) -> tuple[int, int]:
@@ -119,11 +137,27 @@ def k1_split_plan(m: int, n: int, k: int, sms: int) -> tuple[int, int]:
     return block_m, splits
 
 
+def k1_f32_plan(m: int, n: int, k: int, sms: int) -> tuple[tuple[int, int], int]:
+    """((block_m, block_n), splits) of the f32 route for an (m, k) x (k, n)
+    product on a card with `sms` SMs, which runs one block per SM. With T
+    output tiles and KT tiles of F32_BK along K, splits is the fewest s in
+    1..KT whose T s blocks fill their ceil(T s / sms) waves to F32_FILL or
+    more, and KT when none does. (The time is about the waves times the K
+    tiles a block walks, and each split adds m x n x 4 bytes of partial
+    sums to write and read back.)"""
+    tiles = -(-m // F32_BM) * -(-n // F32_BN)
+    k_tiles = max(1, -(-k // F32_BK))
+    splits = next((s for s in range(1, k_tiles + 1)
+                   if tiles * s >= F32_FILL * -(-tiles * s // sms) * sms),
+                  k_tiles)
+    return (F32_BM, F32_BN), splits
+
+
 def matmul(x, w, b=None, *, fuse_relu: bool = False, out_dtype=torch.float32):
     """x: (M, K), w: (K, N), b: (N,) optional -> act(x.w + b): (M, N).
 
     x and w share a dtype, float32 or bfloat16 (bfloat16 runs on the tensor
-    cores, float32 on f32 FMA tiles); the sum is f32; any strides."""
+    cores, float32 on FFMA); the sum is f32; any strides."""
     if x.device.type == "cpu":
         return matmul_plain(x, w, b, fuse_relu=fuse_relu, out_dtype=out_dtype)
     if x.device.type != "cuda":
@@ -142,18 +176,27 @@ def matmul(x, w, b=None, *, fuse_relu: bool = False, out_dtype=torch.float32):
     lib = _build.load_library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     device = x.device.index or 0
-    if k1_route(x, w, out_dtype) == "sm90":
+    route = k1_route(x, w, out_dtype)
+    if route in ("sm90", "f32"):
         sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-        block_m, splits = k1_split_plan(m, n, k, sms)
+        if route == "sm90":
+            block_m, splits = k1_split_plan(m, n, k, sms)
+        else:
+            _, splits = k1_f32_plan(m, n, k, sms)
         ws = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
               if splits > 1 else None)
-        rc = lib.vv_matmul_sm90(
-            x.data_ptr(), w.data_ptr(), bias_ptr, out.data_ptr(),
-            ws.data_ptr() if ws is not None else None, m, n, k, x.stride(0),
-            w.stride(0), out.stride(0), out.stride(1), block_m, splits,
-            DTYPE_CODES[out_dtype], int(fuse_relu), device, stream)
-        _build.check(rc, "K1 matmul (sm90 route)")
-        matmul.launches_sm90 += 1
+        args = (x.data_ptr(), w.data_ptr(), bias_ptr, out.data_ptr(),
+                ws.data_ptr() if ws is not None else None, m, n, k, x.stride(0),
+                w.stride(0), out.stride(0), out.stride(1))
+        tail = (splits, DTYPE_CODES[out_dtype], int(fuse_relu), device, stream)
+        if route == "sm90":
+            rc = lib.vv_matmul_sm90(*args, block_m, *tail)
+            _build.check(rc, "K1 matmul (sm90 route)")
+            matmul.launches_sm90 += 1
+        else:
+            rc = lib.vv_matmul_f32_sm90(*args, *tail)
+            _build.check(rc, "K1 matmul (f32 route)")
+            matmul.launches_f32 += 1
     else:
         rc = lib.vv_matmul(
             x.data_ptr(), w.data_ptr(), bias_ptr, out.data_ptr(), m, n, k,
@@ -167,6 +210,7 @@ def matmul(x, w, b=None, *, fuse_relu: bool = False, out_dtype=torch.float32):
 
 matmul.launches = 0
 matmul.launches_sm90 = 0
+matmul.launches_f32 = 0
 
 # The Pallas module zero-pads to block multiples here; this kernel masks the
 # ragged edges itself, so the name stays for readers and the function is one.
