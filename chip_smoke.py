@@ -71,7 +71,21 @@ Run from the root of a checkout. It
    test on the final weights, time (segmented, then --backward) and
    device_query; then the TRAIN Net with and without the scoring fusion on
    one batch (loss and gradients compared, each device-resident step timed
-   and profiled) and the fused Net fed through the prefetcher.
+   and profiled) and the fused Net fed through the prefetcher;
+10. extracts features (extraction): generate_extraction_net.py's CaffeNet
+   extraction net at batch 50 and a 227 crop (conv1..pool5, fc6 9216 ->
+   4096, fc7 4096 -> 4096; f32, as the prototxt states), its IMAGE_DATA
+   layer swapped for a DATA layer over a store of 200 seeded 3 x 256 x 256
+   frames with a mean file, weights from a .caffemodel of seeded params, all
+   written by the port, through tools/extract_features.main (blobs ip2 and
+   pool5, 12 batches, vvr): 8 K2 launches a batch on the core route and 2 K1
+   launches on the f32 route, the stores and text files read back, the
+   features against the same Net on the plain versions on the card, the
+   bf16 Net (K2 sm90 5 + repack, K1 sm90 2) against them, images/s, the
+   forward's time, the host's batch, one profiled window of 2 batches (no
+   library GEMM or conv); then K2's f32 core route at conv1..conv5 and K1's
+   f32 route at fc6 + fc7, at batch 50, in turns with their plain versions
+   and cuDNN / cuBLAS f32 beside their bounds.
 
 Exits non-zero, with no result line, without a CUDA card or outside a
 checkout. The last line of stdout is {"ok": true, "device": {...}}; the line
@@ -181,6 +195,27 @@ CLI_TIME_ITERS = 10
 PEAK_FLOPS_F32 = 67e12
 # the TRAIN net's INNER_PRODUCT rows: B x (1 target + 4 context + 10 negatives)
 NET_ROWS = TRAIN_BATCH * (1 + 4 + TRAIN_NEG)
+# the extraction cell (extraction): generate_extraction_net.py's CaffeNet
+# extraction net at batch BATCH and a 227 crop, its IMAGE_DATA layer swapped
+# for a DATA layer over a store of EXTRACT_ITEMS seeded 3 x 256 x 256 uint8
+# frames, f32 as the prototxt states, EXTRACT_BATCHES batches of the blobs
+# EXTRACT_BLOBS through tools/extract_features.main
+GENERATE_EXTRACTION_NET = (ROOT / "projects/videovec_embedding/"
+                           "generate_extraction_net.py")
+EXTRACT_ITEMS = 200
+EXTRACT_SIDE = 256
+EXTRACT_CROP = 227
+EXTRACT_BATCHES = 12
+EXTRACT_BLOBS = ("ip2", "pool5")
+# launches per f32 batch: K2 on its core route, one per group (conv1 and
+# conv3 one each, conv2, conv4 and conv5 two each), K1 on its f32 route
+# (fc6, fc7); per bf16 batch, (all, sm90, repack) of K2 and (all, sm90,
+# f32) of K1: K2 sm90 5 + conv1's repack, K1 sm90 2
+K2_CORE_PER_BATCH = 8
+K1_PER_EXTRACT_BATCH = 2
+EXTRACT_BF16_K2 = (5, 5, 1)
+EXTRACT_BF16_K1 = (2, 2, 0)
+EXTRACT_FC = ((9216, 4096), (4096, 4096))     # fc6, fc7: (K, N)
 # K1's timings cycle through copies of w that together exceed the H100's
 # 50 MB L2 by this factor, so that each call reads its weights from HBM as
 # it does on the path (fc6, fc7 and the tower evict each other there)
@@ -243,8 +278,10 @@ def conv_bound_ms(n, hw, c, o, k, s, p, g) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def compare(name: str, got: torch.Tensor, ref: torch.Tensor) -> float:
-    """Max abs error of got vs ref; raises past the dtype's tolerance."""
+def compare(name: str, got: torch.Tensor, ref: torch.Tensor,
+            rel: float | None = None) -> float:
+    """Max abs error of got vs ref; raises past `rel` x max|ref| (by default
+    the dtype's tolerance)."""
     torch.cuda.synchronize()
     if got.shape != ref.shape or got.dtype != ref.dtype:
         raise AssertionError(f"{name}: {tuple(got.shape)} {got.dtype} vs "
@@ -254,7 +291,7 @@ def compare(name: str, got: torch.Tensor, ref: torch.Tensor) -> float:
         raise AssertionError(f"{name}: non-finite kernel output")
     err = (g - r).abs().max().item()
     scale = r.abs().max().item()
-    tol = REL_TOL[ref.dtype] * scale
+    tol = (REL_TOL[ref.dtype] if rel is None else rel) * scale
     log(f"  {name}: max_abs_err {err:.3e} (tol {tol:.3e}, max|ref| {scale:.3e})")
     if not err <= tol:
         raise AssertionError(f"{name}: max_abs_err {err} > tol {tol}")
@@ -585,10 +622,7 @@ def device_breakdown(pipe, params, pix, hwm, calls: int = 5) -> None:
         log("profiler: no device events (breakdown and library-kernel check "
             "not measured)")
         return
-    library = sorted(n for n in by_name
-                     if any(s in n.lower() for s in ("cudnn", "cublas", "xmma",
-                                                     "cutlass", "gemv", "sm90_"))
-                     or ("gemm" in n.lower() and "vv::" not in n))
+    library = sorted(n for n in by_name if _is_library_kernel(n))
     busy = sum(by_name.values())
 
     def share(*keys):
@@ -2177,6 +2211,452 @@ def fused_vs_unfused(dev, stores, driver, card) -> None:
                     for k, (ms, e, p) in rows.items()))
 
 
+def _is_library_kernel(name: str) -> bool:
+    """A cuBLAS, cuDNN or CUTLASS kernel (none of the port's is one)."""
+    low = name.lower()
+    return (any(s in low for s in ("cudnn", "cublas", "xmma", "cutlass",
+                                   "gemv", "sm90_"))
+            or ("gemm" in low and "vv::" not in name))
+
+
+def _k2_counts() -> tuple:
+    from videovector_tpu_torch.ops.hopper import conv_gemm as k2
+    return (k2.conv2d_im2col_gemm.launches,
+            k2.conv2d_im2col_gemm.launches_sm90, k2.space_to_depth.launches)
+
+
+def _k1_counts() -> tuple:
+    from videovector_tpu_torch.ops.hopper.matmul import matmul
+    return matmul.launches, matmul.launches_sm90, matmul.launches_f32
+
+
+def _zero_counts() -> None:
+    from videovector_tpu_torch.ops.hopper import conv_gemm as k2
+    from videovector_tpu_torch.ops.hopper.matmul import matmul
+    torch.cuda.synchronize()
+    matmul.launches = matmul.launches_sm90 = matmul.launches_f32 = 0
+    k2.conv2d_im2col_gemm.launches = 0
+    k2.conv2d_im2col_gemm.launches_sm90 = k2.space_to_depth.launches = 0
+
+
+def _extraction_net(store: str, mean_file: str) -> str:
+    """generate_extraction_net.py's emit at batch BATCH (227 crop, the mean
+    file, no mirror, CaffeNet's widths), its IMAGE_DATA layer swapped for a
+    DATA layer over `store` with the same transform_param: the card's
+    machine is not known to have an image decoder, and DATA needs none."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("generate_extraction_net",
+                                                  GENERATE_EXTRACTION_NET)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    txt = mod.emit("unused_list.txt", mean_file, batch=BATCH,
+                   crop_size=EXTRACT_CROP, new_dim=EXTRACT_SIDE)
+    head, rest = txt.split("  image_data_param {\n", 1)
+    _, rest = rest.split("  }\n", 1)
+    return (head.replace("type: IMAGE_DATA", "type: DATA")
+            + f'  data_param {{\n    source: "{store}"\n'
+            f"    batch_size: {BATCH}\n  }}\n" + rest)
+
+
+def _write_extraction_inputs(tmp: Path, dev) -> dict:
+    """The store, the mean BlobProto, the prototxt and a .caffemodel of
+    seeded params (randn scaled by fan-in^-1/2, biases 0.1 randn), each
+    written by the port."""
+    from videovector_tpu_torch.config import parse
+    from videovector_tpu_torch.data.records import RecordWriter
+    from videovector_tpu_torch.data.weights import params_to_weights
+    from videovector_tpu_torch.data.wire import BlobProto, Datum
+    from videovector_tpu_torch.graph import Net
+    rng = np.random.RandomState(7)
+    t0 = time.perf_counter()
+    store = tmp / "frames.vvr"
+    with RecordWriter(str(store)) as w:
+        for i in range(EXTRACT_ITEMS):
+            pix = rng.randint(0, 256, (3, EXTRACT_SIDE, EXTRACT_SIDE),
+                              dtype=np.uint8)
+            w.append(f"{i:08d}", Datum(channels=3, height=EXTRACT_SIDE,
+                                       width=EXTRACT_SIDE, data=pix.tobytes(),
+                                       label=i).encode())
+    mean = tmp / "mean.binaryproto"
+    mean.write_bytes(BlobProto.from_array(
+        (rng.rand(1, 3, EXTRACT_SIDE, EXTRACT_SIDE) * 40 + 100)
+        .astype(np.float32)).encode())
+    net = tmp / "extraction.prototxt"
+    net.write_text(_extraction_net(str(store), str(mean)))
+    gen = torch.Generator(device=dev).manual_seed(11)
+    params, _ = Net(parse(net.read_text()), "TEST").init(gen, {
+        "data": torch.empty((BATCH, 3, EXTRACT_CROP, EXTRACT_CROP),
+                            device="meta"),
+        "label": torch.empty((BATCH,), device="meta")})
+    for lp in params.values():
+        for name, t in lp.items():
+            fan_in = t.shape[0] if t.dim() == 2 else t[0].numel()
+            t.copy_(torch.randn(t.shape, generator=gen, device=dev)
+                    * (fan_in ** -0.5 if name == "w" else 0.1))
+    weights = tmp / "extraction.caffemodel"
+    params_to_weights(params, name="med_c5_euclid_d4096").save(str(weights))
+    log(f"extraction inputs written by the port in "
+        f"{time.perf_counter() - t0:.3f} s: {store.name} {EXTRACT_ITEMS} x 3 x "
+        f"{EXTRACT_SIDE} x {EXTRACT_SIDE} uint8 ({store.stat().st_size / 1e6:.1f}"
+        f" MB), {mean.name}, {weights.name} "
+        f"({weights.stat().st_size / 1e6:.1f} MB: "
+        + ", ".join(f"{ln} {tuple(lp['w'].shape)}" for ln, lp in params.items())
+        + ")")
+    return {"net": str(net), "weights": str(weights), "store": str(store),
+            "params": params}
+
+
+class _BatchMarks(logging.Handler):
+    """Host-clock marks at each of extract_features' per-batch log lines;
+    with `prof`, starts the profiler at mark `start` and stops it at mark
+    `stop` (each after a device fence), so that it sees batches
+    start + 1 .. stop of the loop; `window` is then the host clock from
+    just after the start to just before the stop."""
+
+    def __init__(self, prof=None, start: int = 1, stop: int = 3):
+        super().__init__()
+        self.marks: list[float] = []
+        self.window = (0.0, 0.0)
+        self.prof, self.start, self.stop = prof, start, stop
+
+    def __enter__(self):
+        logging.getLogger("videovector_tpu_torch").addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        logging.getLogger("videovector_tpu_torch").removeHandler(self)
+
+    def emit(self, record):
+        if not str(record.msg).startswith("Extracted features"):
+            return
+        mark = len(self.marks) + 1
+        if self.prof is not None and mark == self.start:
+            torch.cuda.synchronize()
+            self.prof.start()
+            self.window = (time.perf_counter(), 0.0)
+        elif self.prof is not None and mark == self.stop:
+            torch.cuda.synchronize()
+            self.window = (self.window[0], time.perf_counter())
+            self.prof.stop()
+        self.marks.append(time.perf_counter())
+
+
+def _read_features(prefix: str, name: str) -> np.ndarray:
+    """The rows extract wrote for blob `name`, after checking the keys, the
+    Datums' shapes (one width, the first row's) and the text file against
+    them."""
+    from videovector_tpu_torch.data.records import RecordReader
+    from videovector_tpu_torch.data.wire import Datum
+    n = EXTRACT_BATCHES * BATCH
+    r = RecordReader(f"{prefix}_{name}.vvr")
+    if len(r) != n or [r.key(i).decode() for i in range(n)] != \
+            [f"{i:010d}" for i in range(n)]:
+        raise AssertionError(f"{name}: {len(r)} records or keys not "
+                             f"0..{n - 1} zero-padded")
+    rows = []
+    dim = Datum.decode(bytes(r.value(0))).channels
+    for i in range(n):
+        d = Datum.decode(bytes(r.value(i)))
+        if (d.channels, d.height, d.width, len(d.float_data)) != (dim, 1, 1, dim):
+            raise AssertionError(f"{name} row {i}: Datum {d.channels} x "
+                                 f"{d.height} x {d.width}, "
+                                 f"{len(d.float_data)} floats")
+        rows.append(d.float_data)
+    r.close()
+    feats = np.stack(rows)
+    text = Path(f"{prefix}_{name}.txt").read_text().splitlines()
+    if len(text) != n or any(len(t.split(",")) != dim for t in text):
+        raise AssertionError(f"{name}: text file rows or columns wrong")
+    first = np.array([float(v) for v in text[0].split(",")], np.float32)
+    if np.abs(first - feats[0]).max() > 5e-7 + 1e-6 * np.abs(feats[0]).max():
+        raise AssertionError(f"{name}: text row 0 disagrees with its Datum")
+    return feats
+
+
+def _k2_f32_core_times(dev, gen) -> dict:
+    """K2's f32 core route, the Net's CONVOLUTION entry (conv2d_nchw, one
+    launch per group), at CaffeNet's conv1..conv5 at batch BATCH: each held
+    against its plain version, then timed by CUDA-graph replay in turns with
+    the plain version and cuDNN F.conv2d f32 (TF32 off), beside the bound
+    (operations at the f32 FMA peak, or bytes)."""
+    from videovector_tpu_torch.ops.hopper import conv_gemm as k2
+    card = gpu_name_and_power_limit()
+    out = {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+           "bound_ms": 0.0, "flops": 0.0, "bytes": 0.0}
+    log(f"K2 f32 core route (the Net's CONVOLUTION) at batch {BATCH} "
+        f"[{card}]: CUDA-graph replay, in turns with plain and cuDNN f32 "
+        "(TF32 off):")
+    for name, hw, c, o, k, s, p, g in CAFFENET_CONVS:
+        x = torch.randn((BATCH, c, hw, hw), generator=gen, device=dev)
+        w = torch.randn((o, c // g, k, k), generator=gen, device=dev) \
+            * (c // g * k * k) ** -0.5
+        b = torch.randn(o, generator=gen, device=dev) * 0.1
+        kw = dict(stride=(s, s), pad=(p, p), groups=g)
+        before = _k2_counts()
+        got = k2.conv2d_nchw(x, w, b, **kw)
+        after = _k2_counts()
+        if (after[0] - before[0], after[1] - before[1]) != (g, 0):
+            raise AssertionError(f"K2 f32 {name}: not {g} core launches")
+        ref = k2.conv2d_nchw(x, w, b, plain=True, **kw)
+        out["err"] = max(out["err"], compare(f"K2 f32 core {name} b{BATCH}",
+                                             got, ref))
+        fns = {"core": lambda _: k2.conv2d_nchw(x, w, b, **kw),
+               "plain": lambda _: k2.conv2d_nchw(x, w, b, plain=True, **kw),
+               "cudnn": lambda _: torch.nn.functional.conv2d(
+                   x, w, b, stride=s, padding=p, groups=g)}
+        compare(f"  cuDNN f32 {name} (a yardstick)", fns["cudnn"](0), ref)
+        times = {n: [] for n in fns}
+        for n in ("core", "plain", "cudnn", "cudnn", "plain", "core"):
+            times[n].append(time_graph_ms(fns[n], [0, 1]))
+        ms = {n: sum(t) / len(t) for n, t in times.items()}
+        ohw = (hw + 2 * p - k) // s + 1
+        flops = 2 * BATCH * ohw * ohw * o * (c // g) * k * k
+        nbytes = 4 * (x.numel() + w.numel() + o + BATCH * o * ohw * ohw)
+        bound = max(flops / PEAK_FLOPS_F32, nbytes / PEAK_BYTES) * 1e3
+        for key, v in (("ms", ms["core"]), ("plain_ms", ms["plain"]),
+                       ("library_ms", ms["cudnn"]), ("bound_ms", bound),
+                       ("flops", flops), ("bytes", nbytes)):
+            out[key] += v
+        log(f"  K2 f32 core {name}: {ms['core']:.4f} ms ({g} launch"
+            f"{'es' if g > 1 else ''}; {flops / ms['core'] / 1e9:.1f} TFLOP/s, "
+            f"{bound / ms['core']:.3f} of the {bound:.4f} ms bound), plain "
+            f"{ms['plain']:.4f} ms, cuDNN f32 {ms['cudnn']:.4f} ms (turns: "
+            + ", ".join(f"{n} {v:.4f}" for n, t in times.items() for v in t)
+            + ")")
+    t_ops, t_bytes = out["flops"] / PEAK_FLOPS_F32, out["bytes"] / PEAK_BYTES
+    out["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+    log(f"  K2 f32 core conv1..conv5 at batch {BATCH} [{card}]: "
+        f"{out['ms']:.4f} ms ({out['flops'] / 1e9:.1f} GFLOP, "
+        f"{out['flops'] / out['ms'] / 1e9:.1f} TFLOP/s; the bound "
+        f"{out['bound_ms']:.4f} ms, {out['bound_by']}, "
+        f"{PEAK_FLOPS_F32 / 1e12:.0f} TFLOP/s f32: {out['bound_ms'] / out['ms']:.3f}"
+        f" of it), plain {out['plain_ms']:.4f} ms, cuDNN f32 "
+        f"{out['library_ms']:.4f} ms ({out['ms'] / out['library_ms']:.2f}x)")
+    return out
+
+
+def _k1_fc_f32_times(dev, gen) -> dict:
+    """K1's f32 route at the extraction net's fc6 + fc7 at BATCH rows (50 x
+    9216 x 4096, 50 x 4096 x 4096; bias, f32 out), against the plain
+    version and cuBLAS f32 (TF32 off), in turns, beside the bound. fc6's
+    and fc7's weights (218 MB) exceed L2 together, as on the path."""
+    from videovector_tpu_torch.ops.hopper import matmul as k1
+    card = gpu_name_and_power_limit()
+    ops = []
+    for k, n in EXTRACT_FC:
+        x = torch.randn((BATCH, k), generator=gen, device=dev)
+        w = torch.randn((k, n), generator=gen, device=dev) * k ** -0.5
+        b = torch.randn(n, generator=gen, device=dev) * 0.1
+        if k1.k1_route(x, w, torch.float32) != "f32":
+            raise AssertionError(f"K1 {BATCH}x{k}x{n}: not the f32 route")
+        ops.append((x, w, b))
+    err = max(compare(f"K1 f32 route {BATCH}x{x.shape[1]}x{w.shape[1]}",
+                      k1.matmul(x, w, b), k1.matmul_plain(x, w, b))
+              for x, w, b in ops)
+    fns = {"f32": lambda _: [k1.matmul(*o) for o in ops],
+           "plain": lambda _: [k1.matmul_plain(*o) for o in ops],
+           "cublas": lambda _: [torch.addmm(b, x, w) for x, w, b in ops]}
+    times = {n: [] for n in fns}
+    for n in ("f32", "plain", "cublas", "cublas", "plain", "f32"):
+        times[n].append(time_graph_ms(fns[n], [0]))
+    ms = {n: sum(t) / len(t) for n, t in times.items()}
+    flops = sum(2 * BATCH * x.shape[1] * w.shape[1] for x, w, _ in ops)
+    nbytes = sum(4 * (x.numel() + w.numel() + b.numel() + BATCH * w.shape[1])
+                 for x, w, b in ops)
+    t_ops, t_bytes = flops / PEAK_FLOPS_F32, nbytes / PEAK_BYTES
+    bound = max(t_ops, t_bytes) * 1e3
+    log(f"K1 f32 route, fc6 + fc7 at {BATCH} rows [{card}]: {ms['f32']:.4f} ms "
+        f"({bound / ms['f32']:.3f} of the {bound:.4f} ms bound, "
+        f"{'operations' if t_ops >= t_bytes else 'bytes'}: {flops / 1e9:.2f} "
+        f"GFLOP, {nbytes / 1e6:.0f} MB), plain {ms['plain']:.4f} ms, cuBLAS "
+        f"f32 (TF32 off) {ms['cublas']:.4f} ms (turns: "
+        + ", ".join(f"{n} {v:.4f}" for n, t in times.items() for v in t) + ")")
+    return {"err": err, **ms, "bound_ms": bound}
+
+
+def extraction(dev) -> dict:
+    """Feature extraction on the card: tools/extract_features.main over the
+    CaffeNet extraction net at batch BATCH (f32), EXTRACT_BATCHES batches of
+    EXTRACT_BLOBS from a DATA store, weights from a .caffemodel; the launch
+    counts of that run; the stores read back; the features against the
+    same Net on the plain versions on the card; the bf16 Net against the
+    f32 one; images/s, the forward's time, the host's batch, a profiled
+    window of 2 batches; then K2's f32 core route and K1's f32 route at the
+    Net's shapes in turns with their plain versions and library calls."""
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    from videovector_tpu_torch.config import parse_file
+    from videovector_tpu_torch.data.records import RecordWriter
+    from videovector_tpu_torch.data.weights import NetWeights, load_into_params
+    from videovector_tpu_torch.data.wire import Datum
+    from videovector_tpu_torch.graph import Net
+    from videovector_tpu_torch.graph.data_factory import make_data_source
+    from videovector_tpu_torch.tools import extract_features
+    import importlib
+    from videovector_tpu_torch.data import native
+    card = gpu_name_and_power_limit()
+    log(f"extraction [{card}]:")
+    decoders = [f"native libjpeg {'built' if native.jpeg_available() else 'absent'}"]
+    for mod in ("cv2", "PIL"):
+        try:
+            decoders.append(f"{mod} {importlib.import_module(mod).__version__}")
+        except ImportError:
+            decoders.append(f"{mod} absent")
+    log("  IMAGE_DATA's decoders on this machine, in its order: "
+        + ", ".join(decoders))
+    with tempfile.TemporaryDirectory() as tmpdir:
+        tmp = Path(tmpdir)
+        inp = _write_extraction_inputs(tmp, dev)
+        argv = [f"--model={inp['net']}", f"--weights={inp['weights']}",
+                f"--blobs={','.join(EXTRACT_BLOBS)}", "--backend=vvr"]
+        out = str(tmp / "features")
+        # the main path, counted
+        _zero_counts()
+        with _BatchMarks() as marks:
+            t0 = time.perf_counter()
+            rc = extract_features.main(
+                argv + [f"--out={out}", f"--num_batches={EXTRACT_BATCHES}"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        k2c, k1c = _k2_counts(), _k1_counts()
+        want_k2 = (K2_CORE_PER_BATCH * EXTRACT_BATCHES, 0, 0)
+        want_k1 = (K1_PER_EXTRACT_BATCH * EXTRACT_BATCHES, 0,
+                   K1_PER_EXTRACT_BATCH * EXTRACT_BATCHES)
+        log(f"  extract_features.main: rc {rc}; K2 launches (all, sm90, "
+            f"repack) {k2c}, want {want_k2}; K1 (all, sm90, f32) {k1c}, want "
+            f"{want_k1}")
+        if rc != 0 or k2c != want_k2 or k1c != want_k1 \
+                or len(marks.marks) != EXTRACT_BATCHES:
+            raise AssertionError("extraction: wrong exit code, launch counts "
+                                 "or batch count")
+        n = EXTRACT_BATCHES * BATCH
+        steady = BATCH * (EXTRACT_BATCHES - 1) / (marks.marks[-1]
+                                                  - marks.marks[0])
+        log(f"  {n} images in {wall:.3f} s end to end ({n / wall:.1f} "
+            f"images/s, with set-up: parse, init, {Path(inp['weights']).name} "
+            f"read); batches 2..{EXTRACT_BATCHES} {steady:.1f} images/s "
+            f"(read, transform, H2D, forward, store and text writes; host "
+            f"clock between the per-batch log lines, "
+            + ", ".join(f"{b - a:.3f}" for a, b in zip(marks.marks,
+                                                          marks.marks[1:]))
+            + " s)")
+        feats = {name: _read_features(out, name) for name in EXTRACT_BLOBS}
+        log(f"  stores read back: {n} rows each, "
+            + ", ".join(f"{k} x {v.shape[1]}" for k, v in feats.items())
+            + f", keys 0..{n - 1}, text files {n} rows")
+
+        # the same Net on the plain versions, on the card, the same batches
+        msg = parse_file(inp["net"])
+        source_layer = next(l for l in Net(msg, "TEST").layers
+                            if l.get("type") == "DATA")
+        params = load_into_params(NetWeights.load(inp["weights"]),
+                                  inp["params"])
+        plain = Net(msg, "TEST", plain=True)
+        src = make_data_source(source_layer, phase="TEST")
+        _zero_counts()
+        with torch.inference_mode():
+            for i in range(EXTRACT_BATCHES):
+                batch = {k: torch.as_tensor(v, device=dev)
+                         for k, v in src.next_batch().items()}
+                _, blobs = plain.apply(params, batch, return_blobs=True)
+                for name in EXTRACT_BLOBS:
+                    got = torch.as_tensor(feats[name][i * BATCH:(i + 1) * BATCH],
+                                          device=dev)
+                    ref = blobs[name].reshape(BATCH, -1)
+                    compare(f"extracted {name} batch {i} vs "
+                            "Net(plain=True)", got, ref)
+        if _k2_counts() != (0, 0, 0) or _k1_counts() != (0, 0, 0):
+            raise AssertionError("Net(plain=True) launched a kernel")
+
+        # the bf16 Net against the f32 one, batch 0, counted apart
+        batch0 = {k: torch.as_tensor(v, device=dev) for k, v in
+                  make_data_source(source_layer, phase="TEST")
+                  .next_batch().items()}
+        net16 = Net(msg, "TEST", compute_dtype="bfloat16")
+        _zero_counts()
+        with torch.inference_mode():
+            _, b16 = net16.apply(params, batch0, return_blobs=True)
+        k2c16, k1c16 = _k2_counts(), _k1_counts()
+        log(f"  bf16 Net, batch 0: K2 launches (all, sm90, repack) {k2c16}, "
+            f"want {EXTRACT_BF16_K2}; K1 (all, sm90, f32) {k1c16}, want "
+            f"{EXTRACT_BF16_K1}")
+        if k2c16 != EXTRACT_BF16_K2 or k1c16 != EXTRACT_BF16_K1:
+            raise AssertionError("bf16 Net: wrong launch counts")
+        for name in EXTRACT_BLOBS:
+            compare(f"bf16 Net {name} vs the f32 kernels' rows",
+                    b16[name].reshape(BATCH, -1).float(),
+                    torch.as_tensor(feats[name][:BATCH], device=dev),
+                    rel=REL_TOL[torch.bfloat16])
+
+        # the forward alone, resident batch, CUDA events
+        net32 = Net(msg, "TEST")
+        fwd = {}
+        with torch.inference_mode():
+            for label, net in (("f32", net32), ("bf16", net16)):
+                fwd[label] = time_ms(lambda: net.apply(params, batch0),
+                                     iters=10, warmup=2)
+        host = make_data_source(source_layer, phase="TEST")
+        t0 = time.perf_counter()
+        for _ in range(3):
+            host.next_batch()
+        host_ms = (time.perf_counter() - t0) / 3 * 1e3
+        # extract's per-row output work for one batch of both blobs: the
+        # Datum's encoding and store append, the "%.6f" text row
+        t0 = time.perf_counter()
+        with RecordWriter(str(tmp / "w.vvr")) as w, \
+                open(tmp / "w.txt", "w") as text:
+            for name in EXTRACT_BLOBS:
+                for i, row in enumerate(feats[name][:BATCH]):
+                    w.put(f"{i:010d}", Datum(channels=len(row), height=1,
+                                             width=1, float_data=row).encode())
+                    text.write(",".join(f"{v:.6f}" for v in row) + "\n")
+        write_ms = (time.perf_counter() - t0) * 1e3
+        log(f"  Net forward at batch {BATCH}, resident (CUDA events, 10 "
+            f"calls) [{card}]: f32 {fwd['f32']:.3f} ms, bf16 "
+            f"{fwd['bf16']:.3f} ms; host clock: the DATA source's batch "
+            f"(read + transform, 3 batches) {host_ms:.3f} ms, one batch's "
+            f"store and text writes ({' + '.join(EXTRACT_BLOBS)}) "
+            f"{write_ms:.3f} ms")
+
+        # one profiled window of 2 batches of the loop
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        with _BatchMarks(prof, start=1, stop=3) as pmarks:
+            extract_features.main(argv + [f"--out={tmp / 'profiled'}",
+                                          "--num_batches=3"])
+        by_name: dict[str, list] = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                t = by_name.setdefault(e.name, [0.0, 0])
+                t[0] += e.time_range.elapsed_us() / 1e3
+                t[1] += 1
+        window_ms = (pmarks.window[1] - pmarks.window[0]) * 1e3
+        if not by_name:
+            log("  profile: no device events (busy time not measured)")
+        else:
+            busy = sum(t for t, _ in by_name.values())
+            library = [n for n in by_name if _is_library_kernel(n)]
+            top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+            log(f"  profiled window of 2 batches [{card}]: device busy "
+                f"{busy:.3f} ms against {window_ms:.3f} ms host wall of the "
+                f"same window (batches 2-3 of the profiled run; the counted "
+                f"run's batches 2-3 took "
+                f"{(marks.marks[2] - marks.marks[0]) * 1e3:.3f} ms), idle "
+                f"share {max(0.0, 1 - busy / window_ms):.3f}; top: "
+                + "; ".join(f"{t:.3f} ms x{c} {nm[:60]}"
+                            for nm, (t, c) in top))
+            if library:
+                raise AssertionError(f"library kernels on the extraction "
+                                     f"forward: {library}")
+            log("  no cuBLAS/cuDNN/CUTLASS kernel in the window")
+        del params, plain, net16, net32, batch0
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(17)
+    k2_stats = _k2_f32_core_times(dev, gen)
+    k1_stats = _k1_fc_f32_times(dev, gen)
+    return {"k2_core": k2c[0], "k1_f32": k1c[2], "k2": k2_stats,
+            "k1": k1_stats, "images_s": steady, "fwd": fwd}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2228,6 +2708,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     with torch.no_grad():
         gallery_eval(dev)
+    torch.cuda.empty_cache()
+    ext = extraction(dev)
 
     kernels = [
         {"name": "K1 matmul (TMA + wgmma GEMM, split-K, bias + ReLU "
@@ -2258,7 +2740,7 @@ def main() -> int:
                  "FFMA GEMM, split-K, bias epilogue)", "route": "cuda",
          "source": "videovector_tpu_torch/csrc/matmul_f32_sm90.cu",
          "replaces": "videovector_tpu/ops/pallas/matmul.py:50",
-         "launches": net["f32"] + cli["f32"],
+         "launches": net["f32"] + cli["f32"] + ext["k1_f32"],
          **{k: net["k1"][NET_ROWS][k] for k in ("ms", "plain_ms", "bound_ms",
                                                 "bound_by", "library_ms")},
          "max_abs_err": max(v["err"] for v in net["k1"].values())},
@@ -2288,6 +2770,13 @@ def main() -> int:
          "ms": stats["repack"]["ms"], "plain_ms": stats["repack"]["plain_ms"],
          "bound_ms": stats["repack"]["bound_ms"], "bound_by": "bytes",
          "library_ms": None},
+        {"name": "K2, the Net's CONVOLUTION at f32 (core route: implicit-GEMM "
+                 "conv on FMA tiles, one launch per group)", "route": "cuda",
+         "source": "videovector_tpu_torch/csrc/conv_gemm.cu",
+         "replaces": "videovector_tpu/ops/pallas/conv_gemm.py:18",
+         "launches": ext["k2_core"], "max_abs_err": ext["k2"]["err"],
+         **{k: ext["k2"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")}},
     ]
     log("(ms, plain_ms, bound_ms, library_ms: summed over the serving "
         f"path's shapes at batch {BATCH}: K1 fc6 + fc7 + tower with w cycled "
@@ -2304,8 +2793,12 @@ def main() -> int:
         "library cuBLAS f32, TF32 off), their launches those of the Net, "
         f"{NET_STEPS} + {NET_RESUMED} steps and their test batches, and of "
         f"the CLI (cli_training: train, resume, test and time, "
-        f"{cli['launches']} launches), by route; max_abs_err over that shape "
-        "and 673 rows)")
+        f"{cli['launches']} launches) and of extraction "
+        f"({ext['k1_f32']}), by route; max_abs_err over that shape and 673 "
+        f"rows. K2's Net entry at f32: conv1..conv5 at batch {BATCH} on the "
+        "core route, bound at the f32 FMA peak, library cuDNN F.conv2d f32 "
+        f"(TF32 off), its launches those of extraction, {EXTRACT_BATCHES} "
+        f"batches of {BATCH})")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

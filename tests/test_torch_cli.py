@@ -230,8 +230,6 @@ def test_refusals(mini, tmp_path):
     (["train", "--mesh", "4x1"], "item 11"),
     (["train", "--shard_gallery"], "item 11"),
     (["test", "--mesh", "2", "--allow_random_weights"], "item 11"),
-    (["test", "--weights", "w.caffemodel"], "item 1b"),
-    (["train", "--weights", "w.caffemodel"], "item 1b"),
     (["train", "--snapshot", "s.solverstate"], "item 1b"),
 ])
 def test_later_slices_raise_not_implemented(mini, argv, item):

@@ -36,11 +36,13 @@ def _t(rng, *shape, dev, dtype=torch.float32):
                            device=dev).to(dtype)
 
 
-def _close(got, ref):
+def _close(got, ref, rel=None):
+    """got within `rel` (by default the dtype's tolerance) x max|ref|."""
     torch.cuda.synchronize()
     assert got.shape == ref.shape and got.dtype == ref.dtype
     err = (got.float() - ref.float()).abs().max().item()
-    assert err <= REL_TOL[ref.dtype] * ref.float().abs().max().item(), err
+    rel = REL_TOL[ref.dtype] if rel is None else rel
+    assert err <= rel * ref.float().abs().max().item(), err
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -647,3 +649,152 @@ def test_prefetcher_pinned_copies_equal_the_source(dev):
                                          rel=1e-12, abs=1e-6)
         assert np.array_equal(vid.cpu().numpy(), h["video_id"])
     pf.close()
+
+
+# -- the graph engine's CONVOLUTION on K2 (conv2d_nchw) ------------------------
+
+# CaffeNet's convs as NCHW at batch 2: name -> (C, hw, O, k, stride, pad, groups)
+CAFFENET_NCHW = {
+    "conv1": (3, 227, 96, 11, 4, 0, 1),
+    "conv2": (96, 27, 256, 5, 1, 2, 2),
+    "conv3": (256, 13, 384, 3, 1, 1, 1),
+    "conv4": (384, 13, 384, 3, 1, 1, 2),
+    "conv5": (384, 13, 256, 3, 1, 1, 2),
+}
+
+
+def _k2_counts():
+    return (k2.conv2d_im2col_gemm.launches,
+            k2.conv2d_im2col_gemm.launches_sm90, k2.space_to_depth.launches)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(CAFFENET_NCHW))
+def test_k2_net_entry_matches_plain(dev, name, dtype):
+    """conv2d_nchw at CaffeNet's convs: f32 on the core route (one launch
+    per group), bf16 on the sm90 route (one launch, conv1 repacked), its
+    output channels_last; forward and the plain backward against the plain
+    version on the same operands."""
+    c, hw, o, k, s, p, g = CAFFENET_NCHW[name]
+    gen = torch.Generator(device=dev).manual_seed(len(name))
+    x0 = torch.randn((2, c, hw, hw), generator=gen, device=dev)
+    w0 = torch.randn((o, c // g, k, k), generator=gen, device=dev) \
+        * (k * k * c // g) ** -0.5
+    b0 = torch.randn(o, generator=gen, device=dev) * 0.1
+    kw = dict(stride=(s, s), pad=(p, p), groups=g, compute_dtype=dtype)
+    cot = torch.randn((2, o, (hw + 2 * p - k) // s + 1,
+                       (hw + 2 * p - k) // s + 1), generator=gen,
+                      device=dev).to(dtype)
+    out = {}
+    for plain in (False, True):
+        x, w, b = (t.clone().requires_grad_() for t in (x0, w0, b0))
+        before = _k2_counts()
+        y = k2.conv2d_nchw(x, w, b, plain=plain, **kw)
+        after = _k2_counts()
+        if plain:
+            assert after == before
+        elif dtype == torch.float32:
+            assert after == (before[0] + g, before[1], before[2])
+        else:
+            assert after == (before[0] + 1, before[1] + 1,
+                             before[2] + (name == "conv1"))
+            assert y.is_contiguous(memory_format=torch.channels_last)
+        y.backward(cot)
+        out[plain] = (y.detach(), x.grad, w.grad, b.grad)
+    (y, dx, dw, db), (y_ref, dx_ref, dw_ref, db_ref) = out[False], out[True]
+    assert y.dtype == dtype
+    _close(y, y_ref)
+    # dx and dw are rounded to the compute dtype: cuDNN's sums, in an order
+    # that may change from run to run, can round a bf16 step apart
+    for got, ref in ((dx, dx_ref), (dw, dw_ref)):
+        assert got.dtype == torch.float32
+        _close(got, ref, REL_TOL[dtype])
+    _close(db, db_ref)
+
+
+def _card_extraction(dev, compute_dtype, plain, params, batch):
+    from torch_extraction_net import extraction_net
+    from videovector_tpu_torch.config import parse
+    from videovector_tpu_torch.graph import Net
+    net = Net(parse(extraction_net(widths=WIDE8)), "TEST",
+              compute_dtype=compute_dtype, plain=plain)
+    k1_before = (k1.matmul.launches, k1.matmul.launches_sm90,
+                 k1.matmul.launches_f32)
+    k2_before = _k2_counts()
+    with torch.inference_mode():
+        _, blobs = net.apply(params, batch, return_blobs=True)
+    torch.cuda.synchronize()
+    k1_delta = tuple(a - b for a, b in zip(
+        (k1.matmul.launches, k1.matmul.launches_sm90, k1.matmul.launches_f32),
+        k1_before))
+    k2_delta = tuple(a - b for a, b in zip(_k2_counts(), k2_before))
+    return blobs, k1_delta, k2_delta
+
+
+# the narrowed extraction net at widths the sm90 route takes (every channel
+# count per group a multiple of 8)
+WIDE8 = {"96": "16", "256": "32", "384": "48", "4096": "64"}
+
+
+def _extraction_params(dev, seed=3):
+    from torch_extraction_net import BATCH, CROP, extraction_net
+    from videovector_tpu_torch.config import parse
+    from videovector_tpu_torch.graph import Net
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    batch = {"data": torch.randn((BATCH, 3, CROP, CROP), generator=gen,
+                                 device=dev) * 40,
+             "label": torch.zeros(BATCH, device=dev)}
+    net = Net(parse(extraction_net(widths=WIDE8)), "TEST")
+    params, _ = net.init(gen, batch)
+    for lp in params.values():
+        for name, t in lp.items():
+            # conv OIHW: fan-in C*kh*kw; fc (K, N): K
+            fan_in = t.shape[0] if t.dim() == 2 else t[0].numel()
+            t.copy_(torch.randn(t.shape, generator=gen, device=dev)
+                    * (fan_in ** -0.5 if name == "w" else 0.1))
+    return params, batch
+
+
+@pytest.mark.parametrize("compute_dtype", [None, "bfloat16"])
+def test_extraction_net_on_the_kernels_matches_plain(dev, compute_dtype):
+    """The narrowed extraction Net (CaffeNet's layers and geometry) on K1
+    and K2 against Net(plain=True) on the card. f32: 8 K2 launches on the
+    core route (conv2, conv4, conv5 one per group) and fc6, fc7 on K1's f32
+    route; bf16: 5 sm90 K2 launches + conv1's repack, fc6, fc7 on sm90."""
+    params, batch = _extraction_params(dev)
+    blobs, k1d, k2d = _card_extraction(dev, compute_dtype, False, params,
+                                       batch)
+    ref, k1p, k2p = _card_extraction(dev, compute_dtype, True, params, batch)
+    assert k1p == (0, 0, 0) and k2p == (0, 0, 0)
+    if compute_dtype is None:
+        assert k2d == (8, 0, 0) and k1d == (2, 0, 2)
+    else:
+        assert k2d == (5, 5, 1) and k1d == (2, 2, 0)
+    # a bf16 chain: a rounding step flipped early moves the later blobs
+    rel = REL_TOL[torch.bfloat16] if compute_dtype else None
+    for name in ("conv1", "norm2", "pool5", "ip1_nonorm", "ip2"):
+        _close(blobs[name], ref[name], rel)
+
+
+def test_caffemodel_fc_weights_take_k1s_f32_route(dev, tmp_path):
+    """fc6 and fc7 loaded from a .caffemodel (Caffe's (N, K) blobs,
+    transposed and made contiguous on load) take K1's f32 route."""
+    from videovector_tpu_torch.data.weights import (
+        NetWeights, load_into_params, params_to_weights,
+    )
+    params, batch = _extraction_params(dev, seed=4)
+    path = str(tmp_path / "w.caffemodel")
+    params_to_weights(params).save(path)
+    loaded = load_into_params(NetWeights.load(path), {
+        ln: {k: torch.zeros_like(v) for k, v in lp.items()}
+        for ln, lp in params.items()})
+    for ln in ("fc6", "fc7"):
+        assert loaded[ln]["w"].device == params[ln]["w"].device
+        assert torch.equal(loaded[ln]["w"], params[ln]["w"])
+        assert k1.k1_route(torch.zeros((2, loaded[ln]["w"].shape[0]),
+                                       device=dev), loaded[ln]["w"],
+                           torch.float32) == "f32"
+    blobs, k1d, _ = _card_extraction(dev, None, False, loaded, batch)
+    assert k1d == (2, 0, 2)
+    ref, _, _ = _card_extraction(dev, None, True, params, batch)
+    _close(blobs["ip2"], ref["ip2"])

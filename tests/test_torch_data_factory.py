@@ -4,9 +4,11 @@ native) against the JAX package's, on the CPU: the factory picks the source
 JAX's picks, and the same stores and seed give the same batches bit for bit,
 through the Python samplers and through the native one."""
 
+import ctypes
 import importlib.util
 import logging
 import shutil
+import subprocess
 from pathlib import Path
 
 import numpy as np
@@ -168,8 +170,8 @@ def test_factory_errors_name_their_roadmap_items(stores):
     layer = _data_layers(txt, tparse)["VIDEO_SAMPLED_SHOTS_DATA", "TRAIN"]
     with pytest.raises(NotImplementedError, match="item 7"):
         tfac.make_data_source(layer)
-    for ltype, item in (("VIDEO_SHOTS_DATA", "6c"), ("DATA", "1b"),
-                        ("IMAGE_DATA", "1b"), ("HDF5_DATA", "1b"),
+    for ltype, item in (("VIDEO_SHOTS_DATA", "6c"), ("WINDOW_DATA", "1b"),
+                        ("FLEXIBLE_DATA", "1b"), ("HDF5_DATA", "1b"),
                         ("TRACKING_WINDOWS_DATA", "1b")):
         layer = tparse(f'layers {{ name: "d" type: {ltype} top: "x" }}'
                        ).get_list("layers")[0]
@@ -225,3 +227,50 @@ def test_merged_source_joins_its_sources(stores, monkeypatch):
     batch = next(iter(merged))
     assert sorted(batch) == ["data", "video_ids"]
     assert merged.batch_axes() == {"data": 0, "video_ids": 0}
+
+
+def test_library_name_says_whether_the_decoder_is_in(tmp_path):
+    """Builds with and without libjpeg get different names, so that neither
+    stands in for the other; the one without reports no decoder."""
+    _needs_gxx()
+    assert tnative.library_path(tmp_path, True) != \
+        tnative.library_path(tmp_path, False)
+    lib = tnative.build_library(tmp_path, jpeg=False)
+    assert lib == tnative.library_path(tmp_path, False)
+    assert lib.name.endswith("_nojpeg.so")
+    assert not ctypes.CDLL(str(lib)).vv_jpeg_available()
+
+
+def test_jpeg_build_that_does_not_load_gives_way_to_one_without(
+        tmp_path, monkeypatch):
+    """A cached `_jpeg` library whose dependency is missing here (built
+    where libjpeg was, loaded where it is not): _library() logs why it does
+    not load and builds and loads the library without the decoder, so that
+    available() holds and the training path keeps its native sampler."""
+    _needs_gxx()
+    (tmp_path / "gone.cpp").write_text("int vv_gone() { return 1; }\n")
+    (tmp_path / "user.cpp").write_text(
+        "extern int vv_gone();\nint vv_user() { return vv_gone(); }\n")
+    dep = tmp_path / "libvvgone.so"
+    broken = tnative.library_path(tmp_path, True)
+    for cmd in (["g++", "-shared", "-fPIC", "-o", str(dep),
+                 str(tmp_path / "gone.cpp")],
+                ["g++", "-shared", "-fPIC", "-o", str(broken),
+                 str(tmp_path / "user.cpp"), f"-L{tmp_path}", "-lvvgone"]):
+        subprocess.run(cmd, check=True, capture_output=True)
+    dep.unlink()
+    with pytest.raises(OSError, match="libvvgone"):
+        ctypes.CDLL(str(broken))
+    monkeypatch.setattr(tnative, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(tnative, "_has_libjpeg", lambda cxx: True)
+    warnings = _Warnings()
+    tnative.log.addHandler(warnings)
+    tnative._library.cache_clear()
+    try:
+        assert tnative.available()
+        assert not tnative.jpeg_available()
+        assert tnative.library_path(tmp_path, False).is_file()
+        assert "does not load" in warnings.text and "libvvgone" in warnings.text
+    finally:
+        tnative.log.removeHandler(warnings)
+        tnative._library.cache_clear()

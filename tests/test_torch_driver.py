@@ -544,7 +544,7 @@ layers { name: "rnn" type: LSTM bottom: "x" top: "h"
 @pytest.mark.parametrize("case,item", [
     ("snapshot_vis", "item 10"), ("debug_info", "item 10"),
     ("device_negatives", "item 7"), ("caffe_format", "item 1b"),
-    ("orbax_format", "do not port"), ("caffemodel", "item 1b"),
+    ("orbax_format", "do not port"),
     ("solverstate", "item 1b"), ("mesh", "item 11"),
     ("shard_gallery", "item 11"), ("stateful", "item 9")])
 def test_later_slices_raise_not_implemented(mini, tmp_path, case, item):
@@ -568,9 +568,7 @@ def test_later_slices_raise_not_implemented(mini, tmp_path, case, item):
     (_, tmsg) = _solver(mini, **fields)
     with pytest.raises(NotImplementedError, match=item):
         d = tdriver.SolverDriver(tmsg, device="cpu").build()
-        if case == "caffemodel":
-            d.train(weights_path=str(tmp_path / "w.caffemodel"))
-        elif case == "solverstate":
+        if case == "solverstate":
             d.train(resume_state_path=str(tmp_path / "s.solverstate"))
         elif case == "mesh":
             d.train(mesh=object())

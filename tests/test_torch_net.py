@@ -622,7 +622,7 @@ def test_stats_output_file_report_matches_jax(rng, tmp_path):
 # -- errors ----------------------------------------------------------------
 
 @pytest.mark.parametrize("ltype,match", [
-    ("ABSVAL", "item 6c"), ("CONVOLUTION", "item 6c"), ("SOFTMAX_LOSS", "item 6c"),
+    ("ARGMAX", "item 6c"), ("MVN", "item 6c"), ("SOFTMAX_LOSS", "item 6c"),
     ("WRITE_TO_FILE", "item 6c"), ("LSTM", "item 9"),
     ("SOCIAL_POOLING", "item 9"), ("NO_SUCH_LAYER", "not registered"),
 ])
@@ -639,7 +639,7 @@ def test_every_jax_type_is_ported_or_pending():
     from videovector_tpu.graph import layers as jlayers
     assert set(jlayers.LAYERS) == set(tlayers.LAYERS) | set(tlayers.PENDING_TYPES)
     assert not set(tlayers.LAYERS) & set(tlayers.PENDING_TYPES)
-    assert len(tlayers.LAYERS) == 10
+    assert len(tlayers.LAYERS) == 25
     assert tlayers.DATA_LAYER_TYPES == jlayers.DATA_LAYER_TYPES
     assert tlayers.SINK_LAYER_TYPES == jlayers.SINK_LAYER_TYPES
     assert tlayers.STATEFUL_LAYER_TYPES == jlayers.STATEFUL_LAYER_TYPES

@@ -175,11 +175,13 @@ def test_port_imports_without_jax():
         import videovector_tpu_torch.config.upgrade
         import videovector_tpu_torch.convert
         import videovector_tpu_torch.core.fillers
+        import videovector_tpu_torch.data.generic
         import videovector_tpu_torch.data.native
         import videovector_tpu_torch.data.prefetch
         import videovector_tpu_torch.data.records
         import videovector_tpu_torch.data.shots
         import videovector_tpu_torch.data.transformer
+        import videovector_tpu_torch.data.weights
         import videovector_tpu_torch.data.wire
         import videovector_tpu_torch.models.embedding
         import videovector_tpu_torch.models.mednet
@@ -210,6 +212,7 @@ def test_port_imports_without_jax():
         import videovector_tpu_torch.solver.train
         import videovector_tpu_torch.tools
         import videovector_tpu_torch.tools.cli
+        import videovector_tpu_torch.tools.extract_features
         import videovector_tpu_torch.utils.logging
         import videovector_tpu_torch.utils.timer
         bad = [m for m in sys.modules

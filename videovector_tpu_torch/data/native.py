@@ -1,16 +1,23 @@
-"""ctypes binding of the C++ flagship sampler (native/vvdata.cpp); counterpart
-of the sampler part of videovector_tpu/data/native.py.
+"""ctypes binding of the C++ data plane (native/vvdata.cpp); counterpart of
+the sampler and JPEG parts of videovector_tpu/data/native.py.
 
 `NativeSampledShotsSource` is the flagship WINDOW sampler with its negative
 reservoir, running in a C++ prefetch thread: the same source as the JAX
 package's, so the same store and seed give the same batches bit for bit.
+`decode_jpeg_bgr` is the IMAGE_DATA source's libjpeg decoder (with cv2's
+bilinear resize), `jpeg_available()` whether the library has it.
 
 The port builds its own library from the repo's native/vvdata.cpp at first
-use: g++ with native/Makefile's flags, without the JPEG decoder (ROADMAP
-item 1b), into `_build/` beside the package, named after a hash of the
-source and the flags, built under a temporary name and renamed into place
-so that concurrent builders never load a half-written file. It never loads
-or writes anything under native/. A failed build is logged with the
+use, as native/Makefile does: g++ with its flags and `-DVV_WITH_JPEG
+-ljpeg`, and without those where libjpeg's headers or library are missing
+(found by compiling and linking a probe; the decoder then reports itself
+unavailable). The library goes into `_build/` beside the package, named
+after a hash of the source and the flags and after whether the decoder is
+in (`libvvdata_<hash>_jpeg.so` or `_nojpeg.so`), built under a temporary
+name and renamed into place so that concurrent builders never load a
+half-written file. A `_jpeg` build that does not load (made where libjpeg
+was, loaded where it is not) gives way to a `_nojpeg` build. It never
+loads or writes anything under native/. A failed build is logged with the
 compiler's output, and `available()` is then false: the data factory takes
 the Python sampler, as the JAX package's does when its library is missing.
 """
@@ -36,31 +43,72 @@ PKG_DIR = Path(__file__).resolve().parents[1]
 SOURCE = PKG_DIR.parent / "native" / "vvdata.cpp"
 BUILD_DIR = PKG_DIR / "_build"
 CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-Wall", "-pthread", "-shared")
+# the JPEG decoder's flags, native/Makefile's; left out where libjpeg does
+# not link
+JPEG_FLAGS = ("-DVV_WITH_JPEG",)
+JPEG_LIBS = ("-ljpeg",)
 
 
-def build_library(build_dir: Path = BUILD_DIR) -> Path | None:
-    """Compiles native/vvdata.cpp into `build_dir` unless a build of the same
-    source and flags is there already; returns the library's path, or None
-    (with a warning carrying the compiler's output) if it cannot be built."""
+# a program that compiles and links only where libjpeg's headers and library
+# are both present
+_JPEG_PROBE = ("#include <cstdio>\n#include <jpeglib.h>\n"
+               "int main() { jpeg_decompress_struct c; "
+               "jpeg_create_decompress(&c); return 0; }\n")
+
+
+def _has_libjpeg(cxx: str) -> bool:
+    """Whether `cxx` can build and link against libjpeg here."""
+    with tempfile.TemporaryDirectory() as tmp:
+        src = Path(tmp) / "probe.cpp"
+        src.write_text(_JPEG_PROBE)
+        proc = subprocess.run([cxx, str(src), "-o", str(Path(tmp) / "probe"),
+                               *JPEG_LIBS], capture_output=True, timeout=120)
+    return proc.returncode == 0
+
+
+def library_path(build_dir: Path, jpeg: bool) -> Path:
+    """The library's name: a hash of the source and the flags, and whether
+    the JPEG decoder is in, so that builds with and without libjpeg never
+    stand in for each other."""
+    digest = hashlib.sha256(
+        " ".join(CXX_FLAGS + JPEG_FLAGS + JPEG_LIBS).encode()
+        + SOURCE.read_bytes()).hexdigest()[:16]
+    kind = "jpeg" if jpeg else "nojpeg"
+    return Path(build_dir) / f"libvvdata_{digest}_{kind}.so"
+
+
+def build_library(build_dir: Path | None = None,
+                  jpeg: bool | None = None) -> Path | None:
+    """Compiles native/vvdata.cpp into `build_dir` (default BUILD_DIR)
+    unless a build of the same source and flags is there already; returns
+    the library's path, or None (with a warning carrying the compiler's
+    output) if it cannot be built. `jpeg` None builds with the JPEG decoder
+    where libjpeg links here, False without it."""
+    build_dir = BUILD_DIR if build_dir is None else build_dir
     if not SOURCE.is_file():
         log.warning("native sampler: %s not found; using the Python sampler",
                     SOURCE)
         return None
-    digest = hashlib.sha256(
-        " ".join(CXX_FLAGS).encode() + SOURCE.read_bytes()).hexdigest()[:16]
-    lib = Path(build_dir) / f"libvvdata_{digest}.so"
-    if lib.is_file():
-        return lib
     cxx = shutil.which("g++")
     if cxx is None:
         log.warning("native sampler: g++ not found; using the Python sampler")
         return None
+    if jpeg is None:
+        jpeg = _has_libjpeg(cxx)
+        if not jpeg:
+            log.info("native library: libjpeg does not link here; building "
+                     "without the JPEG decoder")
+    lib = library_path(build_dir, jpeg)
+    if lib.is_file():
+        return lib
     lib.parent.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=lib.parent, prefix=lib.name, suffix=".tmp")
     os.close(fd)
+    extra = (JPEG_FLAGS, JPEG_LIBS) if jpeg else ((), ())
     try:
-        proc = subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, str(SOURCE)],
-                              capture_output=True, text=True, timeout=600)
+        proc = subprocess.run(
+            [cxx, *CXX_FLAGS, *extra[0], "-o", tmp, str(SOURCE), *extra[1]],
+            capture_output=True, text=True, timeout=600)
         if proc.returncode != 0:
             log.warning("native sampler: g++ failed (%d); using the Python "
                         "sampler:\n%s%s", proc.returncode, proc.stderr,
@@ -73,12 +121,27 @@ def build_library(build_dir: Path = BUILD_DIR) -> Path | None:
     return lib
 
 
+def _load(path: Path) -> ctypes.CDLL | None:
+    try:
+        return ctypes.CDLL(str(path))
+    except OSError as e:
+        log.warning("native library %s does not load: %s", path, e)
+        return None
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL | None:
     path = build_library()
     if path is None:
         return None
-    lib = ctypes.CDLL(str(path))
+    lib = _load(path)
+    if lib is None and path.name.endswith("_jpeg.so"):
+        # built where libjpeg was and loaded where it is not
+        log.warning("native library: building it without the JPEG decoder")
+        path = build_library(jpeg=False)
+        lib = None if path is None else _load(path)
+    if lib is None:
+        return None
     f32p = ctypes.POINTER(ctypes.c_float)
     lib.vv_sampler_create.restype = ctypes.c_void_p
     lib.vv_sampler_create.argtypes = [
@@ -93,6 +156,15 @@ def _library() -> ctypes.CDLL | None:
     lib.vv_sampler_next.argtypes = [ctypes.c_void_p, f32p, f32p]
     lib.vv_sampler_destroy.restype = None
     lib.vv_sampler_destroy.argtypes = [ctypes.c_void_p]
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    lib.vv_jpeg_available.restype = ctypes.c_int
+    lib.vv_jpeg_available.argtypes = []
+    lib.vv_jpeg_dims.restype = ctypes.c_int
+    lib.vv_jpeg_dims.argtypes = [u8p, ctypes.c_int64, i32p, i32p]
+    lib.vv_decode_jpeg_bgr.restype = ctypes.c_int
+    lib.vv_decode_jpeg_bgr.argtypes = [u8p, ctypes.c_int64, ctypes.c_int,
+                                       ctypes.c_int, u8p]
     return lib
 
 
@@ -100,6 +172,37 @@ def available() -> bool:
     """True when the port's native library is built (building it if
     needed)."""
     return _library() is not None
+
+
+def jpeg_available() -> bool:
+    """True when the port's native library was built against libjpeg."""
+    lib = _library()
+    return lib is not None and bool(lib.vv_jpeg_available())
+
+
+def decode_jpeg_bgr(payload: bytes, out_w: int = 0,
+                    out_h: int = 0) -> np.ndarray | None:
+    """A JPEG decoded to (out_h, out_w, 3) uint8 BGR HWC, cv::imread's layout
+    (ref:src/caffe/util/io.cpp:69-88), with libjpeg's DCT prescaling and
+    cv2's bilinear convention (native/vvdata.cpp). out_w/out_h 0 decodes at
+    the natural size. None when the decoder is unavailable or the stream is
+    corrupt (the caller goes on to cv2, then PIL)."""
+    if not jpeg_available():
+        return None
+    lib = _library()
+    buf = np.frombuffer(payload, np.uint8)
+    bp = buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+    if out_w <= 0 or out_h <= 0:
+        w, h = ctypes.c_int32(0), ctypes.c_int32(0)
+        if lib.vv_jpeg_dims(bp, len(payload), ctypes.byref(w),
+                            ctypes.byref(h)) != 0:
+            return None
+        out_w, out_h = int(w.value), int(h.value)
+    out = np.empty((out_h, out_w, 3), np.uint8)
+    rc = lib.vv_decode_jpeg_bgr(
+        bp, len(payload), out_w, out_h,
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
+    return out if rc == 0 else None
 
 
 class NativeSampledShotsSource:

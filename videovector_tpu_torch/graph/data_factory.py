@@ -10,7 +10,9 @@ names so that batches slot straight into `Net.apply`.
 
 Ported: the flagship's two data layers, VIDEO_SAMPLED_SHOTS_DATA (the C++
 sampler for a VVR WINDOW source, as the JAX package chooses, else the
-Python one) and VIDEO_SHOT_WINDOW_TEST_DATA. The others raise
+Python one) and VIDEO_SHOT_WINDOW_TEST_DATA, and the extraction net's
+image sources, DATA (Datum records) and IMAGE_DATA (a file list, decoded),
+with their transform_param and mean file. The others raise
 NotImplementedError naming the ROADMAP item that ports them.
 """
 
@@ -18,18 +20,25 @@ from __future__ import annotations
 
 import os
 
+import numpy as np
+
 from videovector_tpu_torch.config.textformat import Message
 from videovector_tpu_torch.data import native
+from videovector_tpu_torch.data.generic import (
+    DatumRecordSource, ImageDataConfig, ImageDataSource,
+)
 from videovector_tpu_torch.data.records import convert_dir_or_file, is_vvr
 from videovector_tpu_torch.data.shots import (
     SampledShotsConfig, ShotDataset, TestWindowDataset,
     VideoSampledShotsSource, VideoShotWindowTestSource,
 )
+from videovector_tpu_torch.data.transformer import TransformConfig
+from videovector_tpu_torch.data.wire import BlobProto
 
 # data-layer types whose sources come with a later item of ROADMAP queue 1
 _PENDING = {
-    "VIDEO_SHOTS_DATA": "6c", "FIXED_VIDEO_SHOT_TEST_DATA": "6c",
-    "DATA": "1b", "IMAGE_DATA": "1b", "WINDOW_DATA": "1b", "HDF5_DATA": "1b",
+    "VIDEO_SHOTS_DATA": "6c-ii", "FIXED_VIDEO_SHOT_TEST_DATA": "6c-ii",
+    "WINDOW_DATA": "1b", "HDF5_DATA": "1b",
     "VIDEO_SHOT_WINDOW_DATA": "1b", "FLEXIBLE_DATA": "1b",
     "TRACKING_WINDOWS_DATA": "1b", "TRACKING_WINDOWS_SOCIAL_DATA": "1b",
 }
@@ -60,6 +69,19 @@ class _RenamingSource:
             yield self.next_batch()
 
 
+def _transform_cfg(layer: Message) -> TransformConfig:
+    return TransformConfig.from_message(layer.get_msg("transform_param"))
+
+
+def _load_mean(layer: Message) -> np.ndarray | None:
+    """transform_param's mean_file, a BlobProto (1, C, H, W), as (C, H, W)."""
+    path = layer.get_msg("transform_param").get("mean_file")
+    if not path:
+        return None
+    with open(path, "rb") as f:
+        return BlobProto.decode(f.read()).to_array()[0]
+
+
 def make_data_source(layer: Message, *, phase: str = "TRAIN", seed: int = 1234):
     """layer: a data-layer LayerParameter Message. Returns an iterator of
     batches (numpy arrays) keyed by the layer's top names. `seed`: the
@@ -67,6 +89,7 @@ def make_data_source(layer: Message, *, phase: str = "TRAIN", seed: int = 1234):
     -1."""
     ltype = layer.get("type")
     tops = [str(t) for t in layer.get_list("top")]
+    train = phase == "TRAIN"
 
     if ltype == "VIDEO_SAMPLED_SHOTS_DATA":
         p = layer.get_msg("video_sampled_shots_data_param")
@@ -109,6 +132,26 @@ def make_data_source(layer: Message, *, phase: str = "TRAIN", seed: int = 1234):
             include_negatives=bool(p.get("include_negatives", True)),
             display_all_ids=bool(p.get("display_all_ids", False)))
         return _RenamingSource(src, ["data", "video_ids"], tops)
+
+    if ltype == "DATA":
+        p = layer.get_msg("data_param")
+        src = DatumRecordSource(
+            convert_dir_or_file(p.get("source")), int(p.get("batch_size", 1)),
+            transform=_transform_cfg(layer), mean=_load_mean(layer),
+            train=train, rand_skip=int(p.get("rand_skip", 0)), seed=seed)
+        return _RenamingSource(src, ["data", "label"], tops)
+
+    if ltype == "IMAGE_DATA":
+        p = layer.get_msg("image_data_param")
+        cfg = ImageDataConfig(
+            source=p.get("source"), batch_size=int(p.get("batch_size", 1)),
+            new_height=int(p.get("new_height", 0)),
+            new_width=int(p.get("new_width", 0)),
+            shuffle=bool(p.get("shuffle", False)),
+            rand_skip=int(p.get("rand_skip", 0)))
+        src = ImageDataSource(cfg, transform=_transform_cfg(layer),
+                              mean=_load_mean(layer), train=train, seed=seed)
+        return _RenamingSource(src, ["data", "label"], tops)
 
     if ltype in _PENDING:
         raise NotImplementedError(

@@ -7,14 +7,17 @@ A layer is a pair of functions:
   apply(params, inputs, cfg, ctx) -> outputs    (list of tensors)
 
 `cfg` is the LayerParameter `Message`; `ctx` carries the phase, the dropout
-generator, the host-loaded side tables, the GEMM operand dtype and the
-switch to K1's plain version. Autograd replaces every Backward. Data-layer
+generator, the host-loaded side tables, the GEMM and conv operand dtype
+and the switch to K1's and K2's plain versions. Autograd replaces every Backward. Data-layer
 types are not here: the Net treats their tops as graph inputs fed by the
 data pipeline (see graph/net.py, graph/data_factory.py).
 
-The flagship's compute types are registered (generate_net.py's nets);
-the JAX package's other registered types raise NotImplementedError in the
-Net, naming the ROADMAP item that ports them (`PENDING_TYPES`).
+Registered: the flagship's compute types (generate_net.py's nets) and the
+vision, neuron and glue types of the extraction net and its kin
+(CONVOLUTION on K2, POOLING, LRN, IM2COL, the neuron types, SOFTMAX, SPLIT,
+FLATTEN, FLATTEN_BATCH, SILENCE). The JAX package's other registered types
+raise NotImplementedError in the Net, naming the ROADMAP item that ports
+them (`PENDING_TYPES`).
 """
 
 from __future__ import annotations
@@ -26,7 +29,8 @@ import torch
 
 from videovector_tpu_torch.core import fillers
 from videovector_tpu_torch.metrics import retrieval as retrieval_metrics
-from videovector_tpu_torch.ops import activations, reductions
+from videovector_tpu_torch.ops import activations, conv, lrn, pooling, reductions
+from videovector_tpu_torch.ops.hopper.conv_gemm import conv2d_nchw
 from videovector_tpu_torch.ops.linear import inner_product, tower_matmul
 from videovector_tpu_torch.ops.losses import max_margin_loss
 from videovector_tpu_torch.ops.normalization import l2_normalize_rows
@@ -38,13 +42,14 @@ class ApplyContext:
     # dropout's masks: drawn from this generator, in layer order
     generator: torch.Generator | None = None
     side: dict = field(default_factory=dict)   # layer_name -> host-loaded tables
-    # GEMM operand dtype (f32 sums either way). None = f32, the reference's
-    # numerics; torch.bfloat16 is the throughput extension (solver
-    # prototxt `compute_dtype` -> Net(compute_dtype=...)), the cast
-    # discipline of models/embedding.py's compute_dtype
+    # GEMM and conv operand dtype (f32 sums either way). None = f32, the
+    # reference's numerics; torch.bfloat16 is the throughput extension
+    # (solver prototxt `compute_dtype` -> Net(compute_dtype=...)), the
+    # cast discipline of models/embedding.py's compute_dtype
     compute_dtype: torch.dtype | None = None
-    # run K1's plain PyTorch version in place of the kernel (to compare the
-    # two on one device, and for the shape pass on "meta" tensors)
+    # run K1's and K2's plain PyTorch versions in place of the kernels (to
+    # compare the two on one device, and for the shape pass on "meta"
+    # tensors)
     plain: bool = False
     # int8 PTQ side table {layer_name: ...} of the JAX package's serving
     # exporter; not ported yet (ROADMAP item 10)
@@ -89,12 +94,9 @@ PENDING_TYPES = {
     **{t: "9" for t in STATEFUL_LAYER_TYPES | {
         "LSTM_ENC_DEC", "LSTM_CONDITIONAL", "LSTM_SINGLE_STEP",
         "SOCIAL_POOLING"}},
-    **{t: "6c" for t in SINK_LAYER_TYPES | {
-        "ID_TO_WEIGHT_MAPPING", "CONVOLUTION", "POOLING", "LRN", "IM2COL",
-        "SIGMOID", "TANH", "BNLL", "ABSVAL", "POWER", "THRESHOLD", "SOFTMAX",
-        "SPLIT", "FLATTEN", "FLATTEN_BATCH", "SILENCE", "ARGMAX", "MVN",
-        "EUCLIDEAN_LOSS", "HINGE_LOSS", "SOFTMAX_LOSS",
-        "MULTINOMIAL_LOGISTIC_LOSS", "SIGMOID_CROSS_ENTROPY_LOSS",
+    **{t: "6c-ii" for t in SINK_LAYER_TYPES | {
+        "ID_TO_WEIGHT_MAPPING", "ARGMAX", "MVN", "EUCLIDEAN_LOSS",
+        "HINGE_LOSS", "SOFTMAX_LOSS", "MULTINOMIAL_LOGISTIC_LOSS", "SIGMOID_CROSS_ENTROPY_LOSS",
         "INFOGAIN_LOSS", "CONTRASTIVE_LOSS", "ACCURACY",
         "RETRIEVAL_RANK_STATS", "RETRIEVAL_RANK_STATS_FIXED_REF",
         "CLASSIFICATION_STATS", "DUMMY_DATA"}},
@@ -169,6 +171,119 @@ def _inner_product():
 
 
 # ---------------------------------------------------------------------------
+# Vision layers (conv stack)
+# ---------------------------------------------------------------------------
+
+def _kernel_geometry(p):
+    """kernel_size/kernel_h/kernel_w (+ the stride/pad twins) by Caffe's
+    ConvolutionParameter/PoolingParameter conventions."""
+    def pair(base, default):
+        square_key = base if base != "kernel" else "kernel_size"
+        if p.has(f"{base}_h") or p.has(f"{base}_w"):
+            if not (p.has(f"{base}_h") and p.has(f"{base}_w")):
+                # ref conv_layer.cpp:14-29: "X is X OR X_h and X_w are
+                # required": the missing one would silently take the
+                # square default (0-width kernel, wrong stride)
+                raise ValueError(f"non-square geometry needs BOTH {base}_h "
+                                 f"and {base}_w (the reference CHECKs, "
+                                 f"conv_layer.cpp:14-29)")
+            if p.has(square_key):
+                # ref CHECKs the square and rectangular forms exclusive
+                raise ValueError(f"{square_key} cannot be combined with "
+                                 f"{base}_h/{base}_w (ref conv_layer.cpp:"
+                                 f"14-29 CHECKs them exclusive)")
+            return (int(p.get(f"{base}_h", default)),
+                    int(p.get(f"{base}_w", default)))
+        v = int(p.get(square_key, default))
+        return (v, v)
+    kernel = pair("kernel", 0)
+    if kernel[0] <= 0 or kernel[1] <= 0:
+        raise ValueError(f"kernel size {kernel} must be positive "
+                         f"(ref CHECK_GT(kernel_h_/kernel_w_, 0))")
+    return kernel, pair("stride", 1), pair("pad", 0)
+
+
+@register("CONVOLUTION")
+def _convolution():
+    def init(generator, cfg, in_shapes):
+        p = cfg.get_msg("convolution_param")
+        num_output = int(p.get("num_output"))
+        groups = int(p.get("group", 1))
+        (kh, kw), _, _ = _kernel_geometry(p)
+        c_in = int(in_shapes[0][1])
+        params = {"w": _filler(p, "weight_filler")(
+            generator, (num_output, c_in // groups, kh, kw))}
+        if p.get("bias_term", True):
+            params["b"] = _filler(p, "bias_filler")(generator, (num_output,))
+        return params
+
+    def apply(params, inputs, cfg, ctx):
+        """One K2 launch on a CUDA tensor (the core route, one launch per
+        group, for f32 operands; the sm90 route for bf16), in the Net's
+        compute dtype; ops.hopper.conv_gemm.conv2d_nchw. The ReLU after it
+        stays its own layer, for JAX's tie gradient."""
+        if (ctx.quant or {}).get(cfg.get("name")) is not None:
+            raise NotImplementedError(
+                "int8 CONVOLUTION (Net.quant) is not ported to "
+                "videovector_tpu_torch yet (ROADMAP queue 1, item 10)")
+        p = cfg.get_msg("convolution_param")
+        _, stride, pad = _kernel_geometry(p)
+        return [conv2d_nchw(inputs[0], params["w"], params.get("b"),
+                            stride=stride, pad=pad,
+                            groups=int(p.get("group", 1)),
+                            compute_dtype=ctx.compute_dtype, plain=ctx.plain)]
+
+    return init, apply
+
+
+@register("POOLING")
+def _pooling():
+    def apply(params, inputs, cfg, ctx):
+        p = cfg.get_msg("pooling_param")
+        kernel, stride, pad = _kernel_geometry(p)
+        method = p.get("pool", "MAX")
+        if method == "MAX":
+            return [pooling.max_pool(inputs[0], kernel=kernel, stride=stride,
+                                     pad=pad)]
+        if method == "AVE":
+            return [pooling.avg_pool(inputs[0], kernel=kernel, stride=stride,
+                                     pad=pad)]
+        if method == "STOCHASTIC":
+            # the race draws from ctx.generator (JAX's rng; none = TEST)
+            return [pooling.stochastic_pool(
+                inputs[0], kernel=kernel, stride=stride, pad=pad,
+                generator=ctx.generator,
+                deterministic=ctx.phase != "TRAIN")]
+        raise ValueError(f"Unknown pool method {method!r}")
+
+    return _no_params, apply
+
+
+@register("LRN")
+def _lrn():
+    def apply(params, inputs, cfg, ctx):
+        p = cfg.get_msg("lrn_param")
+        kw = dict(local_size=int(p.get("local_size", 5)),
+                  alpha=float(p.get("alpha", 1.0)),
+                  beta=float(p.get("beta", 0.75)))
+        if p.get("norm_region", "ACROSS_CHANNELS") == "WITHIN_CHANNEL":
+            return [lrn.lrn_within_channel(inputs[0], **kw)]
+        return [lrn.lrn_cross_channel(inputs[0], **kw)]
+
+    return _no_params, apply
+
+
+@register("IM2COL")
+def _im2col():
+    def apply(params, inputs, cfg, ctx):
+        kernel, stride, pad = _kernel_geometry(
+            cfg.get_msg("convolution_param"))
+        return [conv.im2col(inputs[0], kernel=kernel, stride=stride, pad=pad)]
+
+    return _no_params, apply
+
+
+# ---------------------------------------------------------------------------
 # Neuron layers
 # ---------------------------------------------------------------------------
 
@@ -182,6 +297,47 @@ def _simple(fn):
 def _relu():
     return _simple(lambda x, cfg, ctx: activations.relu(
         x, float(cfg.get_msg("relu_param").get("negative_slope", 0.0))))
+
+
+@register("SIGMOID")
+def _sigmoid():
+    return _simple(lambda x, cfg, ctx: activations.sigmoid(x))
+
+
+@register("TANH")
+def _tanh():
+    return _simple(lambda x, cfg, ctx: activations.tanh(x))
+
+
+@register("BNLL")
+def _bnll():
+    return _simple(lambda x, cfg, ctx: activations.bnll(x))
+
+
+@register("ABSVAL")
+def _absval():
+    return _simple(lambda x, cfg, ctx: activations.absval(x))
+
+
+@register("POWER")
+def _power():
+    def f(x, cfg, ctx):
+        p = cfg.get_msg("power_param")
+        return activations.power(x, power=float(p.get("power", 1.0)),
+                                 scale=float(p.get("scale", 1.0)),
+                                 shift=float(p.get("shift", 0.0)))
+    return _simple(f)
+
+
+@register("THRESHOLD")
+def _threshold():
+    return _simple(lambda x, cfg, ctx: activations.threshold(
+        x, float(cfg.get_msg("threshold_param").get("threshold", 0.0))))
+
+
+@register("SOFTMAX")
+def _softmax():
+    return _simple(lambda x, cfg, ctx: activations.softmax(x))
 
 
 @register("DROPOUT")
@@ -261,6 +417,43 @@ def _slice():
         # of x's shape, and autograd sums the n_out of them)
         return list(torch.split(
             x, [bounds[i + 1] - bounds[i] for i in range(n_out)], dim=dim))
+    return _no_params, apply
+
+
+@register("SPLIT")
+def _split():
+    def apply(params, inputs, cfg, ctx):
+        return [inputs[0]] * len(cfg.get_list("top"))
+    return _no_params, apply
+
+
+@register("FLATTEN")
+def _flatten():
+    def apply(params, inputs, cfg, ctx):
+        # reshape, not view: a channels_last conv output is copied into
+        # Caffe's c*h*w order, the order the next INNER_PRODUCT expects
+        return [inputs[0].reshape(inputs[0].shape[0], -1)]
+    return _no_params, apply
+
+
+@register("FLATTEN_BATCH")
+def _flatten_batch():
+    def apply(params, inputs, cfg, ctx):
+        # ref flatten_batch_layer.cpp:10-28: the channel axis moves into the
+        # batch, (N, C, H, W) -> (N*C, H*W); with batch_size, regrouped to
+        # (batch_size, N*C*H*W / batch_size)
+        x = inputs[0]
+        bs = cfg.get_msg("flatten_batch_param").get("batch_size")
+        if bs:
+            return [x.reshape(int(bs), -1)]
+        return [x.reshape(x.shape[0] * x.shape[1], -1)]
+    return _no_params, apply
+
+
+@register("SILENCE")
+def _silence():
+    def apply(params, inputs, cfg, ctx):
+        return []
     return _no_params, apply
 
 

@@ -109,8 +109,9 @@ class Net:
     """A compiled view of a NetParameter for one phase.
 
     compute_dtype: None (f32, the reference's numerics), "float32" or
-    "bfloat16" (the INNER_PRODUCT operands; sums stay f32). plain: run K1's
-    plain version in place of the kernel on CUDA tensors. fuse_scoring: the
+    "bfloat16" (the INNER_PRODUCT and CONVOLUTION operands; sums stay f32).
+    plain: run K1's and K2's plain versions in place of the kernels on CUDA
+    tensors. fuse_scoring: the
     scoring-head fusion (graph/fuse.py; also off under
     VVTPU_DISABLE_FUSION=1)."""
 
@@ -306,7 +307,7 @@ class Net:
                 raise NotImplementedError(
                     f"layer {name!r}: the infogain matrix (and INFOGAIN_LOSS) "
                     "is not ported to videovector_tpu_torch yet (ROADMAP "
-                    "queue 1, item 6c)")
+                    "queue 1, item 6c-ii)")
             path = layer.get_msg("max_margin_loss_param").get("id_to_weight_file")
             if path:
                 _require(path, name, "id_to_weight_file")
@@ -640,12 +641,12 @@ class Net:
         becomes the per-query report csv, truncated on every call as the
         reference truncates it on every Forward
         (retrieval_stats_layer.cpp:150). WRITE_TO_FILE and HDF5_OUTPUT are
-        not ported yet (ROADMAP item 6c)."""
+        not ported yet (ROADMAP item 6c-ii)."""
         for sink in self.host_sinks:
             if sink["type"] != "RETRIEVAL_STATS":
                 raise NotImplementedError(
                     f"{sink['type']} ({sink['name']!r}) is not ported to "
-                    "videovector_tpu_torch yet (ROADMAP queue 1, item 6c)")
+                    "videovector_tpu_torch yet (ROADMAP queue 1, item 6c-ii)")
             p = sink["cfg"].get_msg("retrieval_stats_param")
             feats = blobs[sink["bottoms"][0]]
             feats = feats.reshape(feats.shape[0], -1)

@@ -1,5 +1,9 @@
-"""Elementwise ("neuron") ops; counterpart of videovector_tpu/ops/activations.py
-(what the serving and training slices run: relu and dropout)."""
+"""Elementwise ("neuron") ops; counterpart of videovector_tpu/ops/activations.py,
+plus the channel softmax of the JAX package's SOFTMAX layer.
+
+Each op's gradient is JAX's at ties and zeros: relu's at 0 is 0.5, absval's
+at 0 is +1 (JAX's abs rule), bnll's at 0 is 0.5, power's at a zero base
+with a fractional exponent is inf as in lax.pow."""
 
 from __future__ import annotations
 
@@ -17,6 +21,60 @@ def relu(x, negative_slope: float = 0.0):
     if negative_slope == 0.0:
         return torch.maximum(x, zero)
     return torch.maximum(x, zero) + negative_slope * torch.minimum(x, zero)
+
+
+def sigmoid(x):
+    return torch.sigmoid(x)
+
+
+def tanh(x):
+    return torch.tanh(x)
+
+
+def bnll(x):
+    """Binomial normal log likelihood log(1 + exp(x)), overflow-safe: JAX's
+    softplus, logaddexp(x, 0) (Caffe's bnll_layer.cpp branches at 0 for
+    the same function)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def power(x, power: float = 1.0, scale: float = 1.0, shift: float = 0.0):
+    """(shift + scale * x) ** power (Caffe power_layer.cpp)."""
+    base = shift + scale * x
+    if power == 1.0:
+        return base
+    return torch.pow(base, power)
+
+
+class _AbsVal(torch.autograd.Function):
+    """|x| with JAX's gradient: +1 where x >= 0 (0 included), else -1
+    (torch.abs's is 0 at 0)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.abs(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return torch.where(x >= 0, g, -g)
+
+
+def absval(x):
+    return _AbsVal.apply(x)
+
+
+def threshold(x, threshold: float = 0.0):
+    """1 where x > t, else 0, in x's dtype (Caffe threshold_layer.cpp); no
+    gradient, as a cast from bool has none in JAX."""
+    return (x > threshold).to(x.dtype)
+
+
+def softmax(x):
+    """The SOFTMAX layer's: over channels (axis 1) per position, over axis
+    0 for a 1-D x (Caffe softmax_layer.cpp:24-60)."""
+    return torch.softmax(x, dim=1 if x.dim() > 1 else 0)
 
 
 def dropout_mask(shape, keep: float, generator: torch.Generator,

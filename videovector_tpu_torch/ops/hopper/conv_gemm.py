@@ -14,9 +14,12 @@ their tiles. Two hand-written routes, picked from the operands alone by
   operands, odd strides or channel counts).
 Each source note says what bounds its kernel on the H100.
 
-Two entry points: `conv2d_im2col_gemm`, the JAX signature (NCHW/OIHW, f32
-out, no groups, always the core), and `conv2d_gemm_nhwc`, MedNet's conv
-(NHWC/HWIO, groups, bias + ReLU epilogue, chosen out dtype).
+Three entry points: `conv2d_im2col_gemm`, the JAX signature (NCHW/OIHW,
+f32 out, no groups, always the core); `conv2d_gemm_nhwc`, MedNet's conv
+(NHWC/HWIO, groups, bias + ReLU epilogue, chosen out dtype); and
+`conv2d_nchw`, the graph engine's CONVOLUTION (NCHW/OIHW, groups,
+differentiable, JAX's Net numerics: one rounding of the f32 sum plus the
+f32 bias).
 `conv2d_im2col_gemm.launches` counts every K2 launch of either,
 `conv2d_im2col_gemm.launches_sm90` those of the sm90 route.
 The epilogue is MedNet's (`conv_epilogue_plain`), not K1's: a bf16 output
@@ -35,6 +38,7 @@ from videovector_tpu_torch.ops.conv import im2col
 from videovector_tpu_torch.ops.hopper.matmul import (
     DTYPE_CODES, INT_MAX, bias_f32, check_cuda_operands, dtype_code,
 )
+from videovector_tpu_torch.ops.linear import no_tf32
 
 # the sm90 route's tiles (csrc/conv_gemm_sm90.cu): output columns per block
 # (wgmma widths), and rows per block (64 per consumer warpgroup)
@@ -328,3 +332,76 @@ def conv2d_gemm_nhwc(x, w, b=None, *, stride=(1, 1), pad=(0, 0),
     _conv_kernel(xv, wv, b, out.permute(0, 3, 1, 2), stride, pad, groups,
                  fuse_relu)
     return out
+
+
+def _conv_nchw_f32(x, w, b, stride, pad, groups, plain):
+    """conv(x, w) + b with an f32 sum and the f32 bias added in f32, as an
+    (N, O, oh, ow) f32 tensor: K2 for CUDA tensors (the core route, one
+    launch per group, for f32 operands; the sm90 route for bf16 ones, which
+    it reads through channels_last views, so its output has NHWC strides),
+    the plain version for CPU or "meta" tensors, or when `plain`."""
+    if plain or x.device.type == "meta" or _device_kind(x) == "cpu":
+        return _conv_plain(x, w, b, stride, pad, groups, False, torch.float32)
+    _check(x, w, groups, torch.float32)
+    if x.dtype == torch.bfloat16:
+        y = conv2d_gemm_nhwc(
+            x.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1),
+            w.permute(2, 3, 1, 0).contiguous(), b, stride=stride, pad=pad,
+            groups=groups, out_dtype=torch.float32)
+        return y.permute(0, 3, 1, 2)
+    oh, ow = _out_hw(x.shape[2], x.shape[3], w.shape[2], w.shape[3], stride, pad)
+    out = torch.empty((x.shape[0], w.shape[0], oh, ow), dtype=torch.float32,
+                      device=x.device)
+    return _conv_kernel(x, w, b, out, stride, pad, groups, False)
+
+
+class _ConvNCHW(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, b, stride, pad, groups, cdt, plain):
+        xc, wc = x.to(cdt), w.to(cdt)
+        with no_tf32():
+            y = _conv_nchw_f32(xc, wc, b, stride, pad, groups, plain)
+        ctx.save_for_backward(xc, wc)
+        ctx.geometry = (stride, pad, groups)
+        ctx.dtypes = (x.dtype, w.dtype)
+        return y.to(cdt)
+
+    @staticmethod
+    def backward(ctx, dy):
+        xc, wc = ctx.saved_tensors
+        stride, pad, groups = ctx.geometry
+        dy = dy.float()
+        dx = dw = db = None
+        with no_tf32():
+            if ctx.needs_input_grad[0]:
+                dx = torch.nn.grad.conv2d_input(
+                    xc.shape, wc.float(), dy, stride, pad, groups=groups)
+                dx = dx.to(xc.dtype).to(ctx.dtypes[0])
+            if ctx.needs_input_grad[1]:
+                dw = torch.nn.grad.conv2d_weight(
+                    xc.float(), wc.shape, dy, stride, pad, groups=groups)
+                dw = dw.to(wc.dtype).to(ctx.dtypes[1])
+        if ctx.needs_input_grad[2]:
+            db = dy.sum((0, 2, 3))
+        return dx, dw, db, None, None, None, None, None
+
+
+def conv2d_nchw(x, w, b=None, *, stride=(1, 1), pad=(0, 0), groups: int = 1,
+                compute_dtype: torch.dtype | None = None, plain: bool = False):
+    """The graph engine's convolution: x (N, C, H, W), w (O, C/groups, kh,
+    kw) OIHW, b (O,) f32 -> (N, O, oh, ow) in the compute dtype (x's dtype
+    when None), differentiable in all three.
+
+    x and w are cast to the compute dtype, the sum and the bias stay f32,
+    and the result is rounded once, as the JAX Net's CONVOLUTION
+    (ops/conv.py::conv2d with preferred_element_type f32). So a bf16 conv
+    takes K2's f32 output and casts it, rather than K2's bf16 epilogue
+    (MedNet's: round, add the rounded bias, round again). On a CUDA tensor
+    the forward is K2 (`_conv_nchw_f32`; a bf16 output keeps K2's NHWC
+    strides, as a channels_last tensor); `plain` runs its plain version.
+    The backward is plain PyTorch with TF32 off (the JAX package has no
+    backward kernel): dx and dw in f32, each rounded to its operand's
+    compute dtype, as the cotangents of JAX's casts are."""
+    cdt = compute_dtype if compute_dtype is not None else x.dtype
+    return _ConvNCHW.apply(x, w, b, tuple(stride), tuple(pad), int(groups),
+                           cdt, plain)

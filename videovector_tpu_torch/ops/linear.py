@@ -29,15 +29,19 @@ from videovector_tpu_torch.ops.hopper.matmul import matmul, matmul_plain
 
 @contextlib.contextmanager
 def no_tf32():
-    """f32 products on the card in full f32 (TF32 off) inside the block,
-    whatever the process's setting, which is restored after it: the JAX
-    package's f32 dots are full f32."""
-    prev = torch.backends.cuda.matmul.allow_tf32
+    """f32 products and convolutions on the card in full f32 (TF32 off in
+    cuBLAS and cuDNN) inside the block, whatever the process's settings,
+    which are restored after it: the JAX package's f32 dots and convs are
+    full f32."""
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev
 
 
 def _matmul(x, w):

@@ -1,9 +1,17 @@
-"""Local Response Normalization helpers; counterpart of
-videovector_tpu/ops/lrn.py (the cross-channel window sum MedNet uses)."""
+"""Local Response Normalization; counterpart of videovector_tpu/ops/lrn.py.
+
+Caffe lrn_layer.cpp: across channels, scale = 1 + (alpha/size) * the sum
+of x^2 over the channels [c - size/2, c + size/2] (clipped), y = x *
+scale^-beta (:105-160). Within a channel, the mean of x^2 over a size x
+size window, as AVE pooling with pad size/2 (the reference composes pool
+and power layers, :40-70)."""
 
 from __future__ import annotations
 
+import torch
 import torch.nn.functional as F
+
+from videovector_tpu_torch.ops.pooling import avg_pool
 
 
 def channel_window_sum(sq, axis: int, local_size: int):
@@ -22,3 +30,31 @@ def channel_window_sum(sq, axis: int, local_size: int):
         part = sqp.narrow(axis, o, c)
         summed = part if summed is None else summed + part
     return summed
+
+
+def _check_odd(local_size: int) -> None:
+    # ref lrn_layer.cpp LayerSetUp: CHECK_EQ(size_ % 2, 1); an even size
+    # would silently use a window shifted one channel against Caffe's
+    if local_size % 2 != 1:
+        raise ValueError(f"LRN local_size must be odd (got {local_size}); "
+                         f"the reference CHECKs this at setup")
+
+
+def lrn_cross_channel(x, *, local_size: int = 5, alpha: float = 1.0,
+                      beta: float = 0.75):
+    """x: (N, C, H, W)."""
+    _check_odd(local_size)
+    summed = channel_window_sum(x * x, 1, local_size)
+    scale = 1.0 + (alpha / local_size) * summed
+    return x * torch.pow(scale, -beta)
+
+
+def lrn_within_channel(x, *, local_size: int = 5, alpha: float = 1.0,
+                       beta: float = 0.75):
+    """x: (N, C, H, W)."""
+    _check_odd(local_size)
+    half = local_size // 2
+    mean_sq = avg_pool(x * x, kernel=(local_size, local_size), stride=(1, 1),
+                       pad=(half, half))
+    scale = 1.0 + alpha * mean_sq
+    return x * torch.pow(scale, -beta)

@@ -13,8 +13,9 @@ An entry point: it runs on the card unless asked for the CPU
 (`device="cpu"`), and raises without a card. What later slices bring
 raises NotImplementedError naming its ROADMAP item: the mesh (11),
 device_negatives (7, raised by the data factory), snapshot_vis and
-debug_info (10), the reference's .caffemodel/.solverstate (1b); orbax stays
-with the JAX package.
+debug_info (10), the reference's .solverstate (1b); orbax stays with the
+JAX package. Finetune weights are a .vvmodel or the reference's
+.caffemodel.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import torch
 
 from videovector_tpu_torch.config.textformat import Message, parse_file
 from videovector_tpu_torch.data.prefetch import DevicePrefetcher
+from videovector_tpu_torch.data.weights import NetWeights, load_into_params
 from videovector_tpu_torch.device import DEFAULT, resolve
 from videovector_tpu_torch.graph.data_factory import MergedSource, make_data_source
 from videovector_tpu_torch.graph.layers import DATA_LAYER_TYPES
@@ -280,11 +282,11 @@ class SolverDriver:
         """The build's params with a .vvmodel's layers copied in (ref
         tools/caffe.cpp:110-117 CopyTrainedLayersFrom): a copy (a second
         train() on this driver starts from the original init), each blob
-        shape-checked, a param the net lacks refused."""
+        shape-checked, a param the net lacks refused. Any other file is read
+        as the reference's .caffemodel (data/weights.py), as JAX's driver
+        reads it."""
         if not weights_path.endswith(".vvmodel"):
-            raise _not_ported(
-                f"finetuning from {weights_path!r} (the reference's "
-                ".caffemodel weights; the port reads .vvmodel)", "1b")
+            return load_into_params(NetWeights.load(weights_path), self.params)
         params = {ln: dict(lp) for ln, lp in self.params.items()}
         for lname, lp in load_model(weights_path).items():
             if lname not in params:

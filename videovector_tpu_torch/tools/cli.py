@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from videovector_tpu_torch.config.textformat import parse_file
+from videovector_tpu_torch.data.weights import NetWeights, load_into_params
 from videovector_tpu_torch.device import resolve
 from videovector_tpu_torch.graph.data_factory import MergedSource, make_data_source
 from videovector_tpu_torch.graph.layers import DATA_LAYER_TYPES, LAYERS
@@ -141,11 +142,11 @@ def _latest_snapshot(prefix: str):
 
 
 def _load_weights(path: str, params, dev):
+    """A .vvmodel's layers copied into params; any other file is read as the
+    reference's .caffemodel (data/weights.py, name-matched, shape-checked,
+    INNER_PRODUCT blobs transposed)."""
     if not path.endswith(".vvmodel"):
-        raise NotImplementedError(
-            f"weights {path!r}: the reference's .caffemodel is not ported to "
-            "videovector_tpu_torch yet (ROADMAP queue 1, item 1b); the port "
-            "reads .vvmodel")
+        return load_into_params(NetWeights.load(path), params)
     for lname, lp in load_model(path).items():
         if lname in params:
             params[lname].update({k: v.to(dev) for k, v in lp.items()})
