@@ -85,7 +85,29 @@ Run from the root of a checkout. It
    forward's time, the host's batch, one profiled window of 2 batches (no
    library GEMM or conv); then K2's f32 core route at conv1..conv5 and K1's
    f32 route at fc6 + fc7, at batch 50, in turns with their plain versions
-   and cuDNN / cuBLAS f32 beside their bounds.
+   and cuDNN / cuBLAS f32 beside their bounds;
+11. trains the paper's exhaustive-shots configuration and runs its
+   fixed-gallery rank eval (exhaustive_rank_eval) through tools.cli.main:
+   generate_net.py's net at B = 128 with its TRAIN data layer swapped for
+   VIDEO_SHOTS_DATA (WINDOW, 4 context shots beside the target, 10
+   negatives: the same 15 x 4096 roles) and a RETRIEVAL_RANK_STATS added,
+   its TEST phase given a FIXED_VIDEO_SHOT_TEST_DATA gallery of 20,000 x
+   4096 (written by the port from the host training store), queries and
+   gallery through one fc7 (one K1 f32-route launch at 20,673 rows),
+   RETRIEVAL_RANK_STATS_FIXED_REF with its csv, an HDF5_OUTPUT and a
+   WRITE_TO_FILE; train (40 steps, a test every 20, a snapshot), then test
+   on the snapshot: the sinks' files and the rank scalars checked, the
+   step, the eval (fc7, the distance product, the argsort) and the host
+   feed timed, the card's TRAIN and TEST Nets against the same Nets on the
+   CPU on one batch each;
+12. puts the rest of the slice's layer types on the card at a classifier's
+   width (layer_zoo): fc8 4096 -> 1000 over 256 fc7 rows into the Caffe
+   loss zoo, ACCURACY, ARGMAX, CLASSIFICATION_STATS, CONTRASTIVE_LOSS, MVN
+   on a 256 x 96 x 27 x 27 blob, ID_TO_WEIGHT_MAPPING and DUMMY_DATA,
+   forward and backward on the card and on the CPU (values and gradients
+   compared); then, with TF32 on in the process, the regularized
+   INNER_PRODUCT, RetrievalPipeline.query and the rank stats' distances
+   against their TF32-off runs (tf32_checks).
 
 Exits non-zero, with no result line, without a CUDA card or outside a
 checkout. The last line of stdout is {"ok": true, "device": {...}}; the line
@@ -94,10 +116,12 @@ before it is the per-kernel JSON summary.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import logging
 import math
+import re
 import subprocess
 import sys
 import time
@@ -216,6 +240,27 @@ K1_PER_EXTRACT_BATCH = 2
 EXTRACT_BF16_K2 = (5, 5, 1)
 EXTRACT_BF16_K1 = (2, 2, 0)
 EXTRACT_FC = ((9216, 4096), (4096, 4096))     # fc6, fc7: (K, N)
+# the exhaustive-shots cell (exhaustive_rank_eval): _exhaustive_net's
+# prototxt (VIDEO_SHOTS_DATA over the host training store, the fixed
+# gallery beside the test windows) through the CLI, EXH_STEPS steps with a
+# test every EXH_INTERVAL, timed over EXH_TIMED and profiled over
+# EXH_PROFILED; the gallery holds EXH_GALLERY_PER_VIDEO rows for each of
+# the TEST_VIDEOS videos of the test windows
+EXH_STEPS = 40
+EXH_INTERVAL = 20
+EXH_TIMED = range(1, 16)
+EXH_PROFILED = range(16, 19)
+EXH_GALLERY_PER_VIDEO = 200
+EXH_GALLERY_ROWS = TEST_VIDEOS * EXH_GALLERY_PER_VIDEO
+# the layer-zoo cell (layer_zoo): CaffeNet's classifier width, fc8 over
+# ZOO_BATCH fc7 rows into ZOO_CLASSES, MVN on CaffeNet's pool1 at ZOO_BATCH
+ZOO_BATCH = 256
+ZOO_CLASSES = 1000
+ZOO_POOL1 = (ZOO_BATCH, 96, 27, 27)
+# card vs CPU, relative to the largest magnitude, for the zoo's values and
+# gradients: the H100 run reads at most 1.8e-7 and 1.5e-6 (PERF.md), and
+# TF32 rounding (~5e-4) lies far past it
+ZOO_TOL = 1e-5
 # K1's timings cycle through copies of w that together exceed the H100's
 # 50 MB L2 by this factor, so that each call reads its weights from HBM as
 # it does on the path (fc6, fc7 and the tower evict each other there)
@@ -1919,6 +1964,33 @@ def _cli_solver(path: Path, net_path: Path, prefix: Path, **fields) -> Path:
     return path
 
 
+@contextlib.contextmanager
+def _driver_marks(timer):
+    """SolverDriver.build and the driver's train wrapped while the CLI runs
+    (the CLI has no hook of its own): every built driver is kept in the
+    list yielded, and the first train gets `timer`'s marks, one at the top
+    of each iteration and one where each test batch is asked for."""
+    from videovector_tpu_torch.solver import driver as drv
+    built = []
+    orig_build, orig_train = drv.SolverDriver.build, drv.train
+
+    def build(self, **kw):
+        built.append(orig_build(self, **kw))
+        return built[-1]
+
+    def timed_train(*args, **kw):
+        if not timer.marks:
+            kw["hooks"] = list(kw.get("hooks") or []) + [(1, timer.hook)]
+            kw["test_data"] = [timer.marked(t) for t in kw["test_data"]]
+        return orig_train(*args, **kw)
+
+    drv.SolverDriver.build, drv.train = build, timed_train
+    try:
+        yield built
+    finally:
+        drv.SolverDriver.build, drv.train = orig_build, orig_train
+
+
 def _counted(fn):
     """fn() with K1's counts set to 0 just before and read just after:
     (fn's value, (launches, sm90 launches, f32 launches))."""
@@ -1943,27 +2015,11 @@ def cli_training(dev, stores: tuple) -> dict:
     import tempfile
 
     from videovector_tpu_torch.data.native import NativeSampledShotsSource
-    from videovector_tpu_torch.solver import driver as drv
     from videovector_tpu_torch.tools import cli
 
     card = gpu_name_and_power_limit()
     launches = {}
-    built = []
-    orig_build, orig_train = drv.SolverDriver.build, drv.train
     timer = _HostFedTimer(CLI_TIMED, CLI_PROFILED)
-
-    def build(self, **kw):
-        built.append(orig_build(self, **kw))
-        return built[-1]
-
-    def timed_train(*args, **kw):
-        # the marks of _HostFedTimer: one at the top of each iteration and
-        # one where each test batch is asked for
-        if not timer.marks:
-            kw["hooks"] = list(kw.get("hooks") or []) + [(1, timer.hook)]
-            kw["test_data"] = [timer.marked(t) for t in kw["test_data"]]
-        return orig_train(*args, **kw)
-
     with tempfile.TemporaryDirectory() as tmp_name:
         tmp = Path(tmp_name)
         net_path = tmp / "net.prototxt"
@@ -1978,15 +2034,11 @@ def cli_training(dev, stores: tuple) -> dict:
         log(f"  cli_training: {solver.name}: " + "; ".join(
             l for l in solver.read_text().splitlines()
             if l and not l.startswith("#")))
-        drv.SolverDriver.build, drv.train = build, timed_train
-        try:
-            t0 = time.perf_counter()
-            with _CliCapture() as out:
-                _, launches["train"] = _counted(lambda: cli.main(
-                    ["train", "--solver", str(solver)]))
-            train_s = time.perf_counter() - t0
-        finally:
-            drv.SolverDriver.build, drv.train = orig_build, orig_train
+        t0 = time.perf_counter()
+        with _driver_marks(timer) as built, _CliCapture() as out:
+            _, launches["train"] = _counted(lambda: cli.main(
+                ["train", "--solver", str(solver)]))
+        train_s = time.perf_counter() - t0
         driver = built[0]
         sampler = driver.train_source.sources[0].source
         if not isinstance(sampler, NativeSampledShotsSource):
@@ -2657,6 +2709,791 @@ def extraction(dev) -> dict:
             "k1": k1_stats, "images_s": steady, "fwd": fwd}
 
 
+# ---------------------------------------------------------------------------
+# The exhaustive-shots training and the fixed-gallery rank eval
+# ---------------------------------------------------------------------------
+
+def _write_gallery(tmp: Path, train_path: str) -> str:
+    """The fixed gallery, EXH_GALLERY_ROWS rows of HOST_DIM f32, as
+    TestVideoShotWindows records written by the port: one record for each
+    of the TEST_VIDEOS videos the test windows come from, its HOST_SHOTS
+    shots as positives (labelled by its video id) and the rest of its
+    EXH_GALLERY_PER_VIDEO rows drawn from the other training videos' shots
+    as negatives (labelled -1)."""
+    from videovector_tpu_torch.data.records import RecordWriter
+    from videovector_tpu_torch.data.shots import ShotDataset
+    from videovector_tpu_torch.data.wire import Datum, TestVideoShotWindows
+    rng = np.random.RandomState(2)
+    ds = ShotDataset.from_records(train_path)
+    pool = np.concatenate([ds[i].features for i in range(TEST_VIDEOS, len(ds))])
+    path = tmp / "gallery.vvr"
+    with RecordWriter(str(path)) as w:
+        for v in range(TEST_VIDEOS):
+            video = ds[v]
+            negs = pool[rng.choice(len(pool), EXH_GALLERY_PER_VIDEO
+                                   - video.num_shots, replace=False)]
+            w.append(str(v), TestVideoShotWindows(
+                video_id=int(video.video_id),
+                positive_shot_words=[Datum(float_data=f)
+                                     for f in video.features],
+                negative_shot_words=[Datum(float_data=f) for f in negs])
+                .encode())
+    return str(path)
+
+
+def _replace_once(text: str, old: str, new: str) -> str:
+    if text.count(old) != 1:
+        raise AssertionError(f"{old!r} is not in the net exactly once")
+    return text.replace(old, new)
+
+
+def _exhaustive_net(train: str, test: str, gallery: str, out: Path) -> str:
+    """generate_net.py's emit(batch=TRAIN_BATCH) text, with:
+    - TRAIN: the data layer swapped for VIDEO_SHOTS_DATA (WINDOW, 4 context
+      shots beside the target, 10 negatives: [target | 4 context | 10
+      negatives], the flagship's 15 roles, so its SLICE, fc7, context mean
+      and MAX_MARGIN_LOSS stand unchanged), and a RETRIEVAL_RANK_STATS of
+      the normalized context mean (B rows) against the CONCAT of the
+      normalized target and negative embeddings (11 B rows, role-major:
+      bucket 0 holds the positives);
+    - TEST: the FIXED_VIDEO_SHOT_TEST_DATA gallery beside the test windows,
+      queries (the context mean, flattened) and gallery through one fc7
+      (CONCAT, INNER_PRODUCT, SLICE),
+      RETRIEVAL_RANK_STATS_FIXED_REF with its csv, an HDF5_OUTPUT of the
+      query embeddings and ids and a WRITE_TO_FILE of the embeddings."""
+    txt = _emit()(train, test, buffer_size=5000)
+    txt, n = re.subn(
+        r'type: VIDEO_SAMPLED_SHOTS_DATA\n  top: "data"\n'
+        r'  video_sampled_shots_data_param \{.*?\n  \}',
+        'type: VIDEO_SHOTS_DATA\n  top: "data"\n'
+        f'  video_shots_data_param {{ source: "{train}"\n'
+        f'    batch_size: {TRAIN_BATCH} context_type: WINDOW context_size: 4\n'
+        f'    num_negative_samples: {TRAIN_NEG} max_buffer_size: 5000\n'
+        '    negative_swap_percentage: 50 max_same_video_negs: 6 }',
+        txt, flags=re.S)
+    if n != 1:
+        raise AssertionError("no VIDEO_SAMPLED_SHOTS_DATA layer to swap")
+    txt = _replace_once(txt, '  top: "tower_in"\n  eltwise_param',
+                        '  top: "query_in"\n  eltwise_param')
+    txt = _replace_once(txt, 'layers {\n  name: "fc7"', f"""layers {{
+  name: "gallery" type: FIXED_VIDEO_SHOT_TEST_DATA
+  top: "ref_feats" top: "ref_vids"
+  fixed_video_shot_test_data_param {{ source: "{gallery}" }}
+  include: {{ phase: TEST }}
+}}
+layers {{
+  name: "query_flat" type: FLATTEN bottom: "query_in" top: "query_flat"
+  include: {{ phase: TEST }}
+}}
+layers {{
+  name: "eval_concat" type: CONCAT bottom: "query_flat" bottom: "ref_feats"
+  top: "tower_in" concat_param {{ concat_dim: 0 }} include: {{ phase: TEST }}
+}}
+layers {{
+  name: "fc7\"""")
+    relu7 = 'layers { name: "relu7" type: RELU bottom: "emb" top: "emb" }\n'
+    txt = _replace_once(txt, relu7, relu7 + f"""layers {{
+  name: "eval_split" type: SLICE bottom: "emb" top: "q_emb" top: "g_emb"
+  slice_param {{ slice_dim: 0 slice_point: {TEST_BATCH} }}
+  include: {{ phase: TEST }}
+}}
+""")
+    txt = _replace_once(txt, 'bottom: "emb" top: "ctxn"',
+                        'bottom: "q_emb" top: "ctxn"')
+    cands = " ".join(f'bottom: "en{i}x"' for i in range(1, TRAIN_NEG + 1))
+    return txt + f"""
+layers {{ name: "cand_concat" type: CONCAT bottom: "etn" {cands}
+  top: "cands" concat_param {{ concat_dim: 0 }} include: {{ phase: TRAIN }} }}
+layers {{ name: "train_rank" type: RETRIEVAL_RANK_STATS bottom: "ctxn"
+  bottom: "cands" top: "train_median_rank" top: "train_r1" top: "train_r5"
+  top: "train_r10" top: "train_map"
+  retrieval_rank_stats_param {{ compute_ap: true positive_size: 1
+    negative_size: {TRAIN_NEG} }} include: {{ phase: TRAIN }} }}
+layers {{ name: "gallery_norm" type: NORMALIZATION bottom: "g_emb" top: "gn"
+  include: {{ phase: TEST }} }}
+layers {{ name: "fixed_rank" type: RETRIEVAL_RANK_STATS_FIXED_REF
+  bottom: "ctxn" bottom: "video_ids" bottom: "gn" bottom: "ref_vids"
+  top: "fixed_median_rank" top: "fixed_r1" top: "fixed_r5" top: "fixed_r10"
+  top: "fixed_map"
+  retrieval_rank_stats_fixed_ref_param {{
+    stats_output_file: "{out / 'fixed_rank.csv'}" }}
+  include: {{ phase: TEST }} }}
+layers {{ name: "dump_h5" type: HDF5_OUTPUT bottom: "ctxn" bottom: "video_ids"
+  hdf5_output_param {{ file_name: "{out / 'queries.h5'}" }}
+  include: {{ phase: TEST }} }}
+layers {{ name: "dump_ctx" type: WRITE_TO_FILE bottom: "ctxn"
+  write_to_file_param {{ output_file: "{out / 'queries.csv'}" }}
+  include: {{ phase: TEST }} }}
+"""
+
+
+RANK_TOPS = ("median_rank", "r1", "r5", "r10", "map")
+SINK_HEADS = {"fixed_rank.csv": "#item_id,rank,rec@1,rec@5,ret_id_1,ret_id_2,"
+                                "ret_id_3,ret_id_4,ret_id_5",
+              "queries.csv": "#batch_id,channel_id,features(1..1)"}
+
+
+def _check_sinks(out: Path, vids: np.ndarray, when: str) -> None:
+    """Each sink's file exists with the reference's header: the csvs' first
+    lines, and the .h5 file's signature with the ids' bytes in it (the card's
+    machine has no h5py; the CPU tests read the port's files with it)."""
+    for name, head in SINK_HEADS.items():
+        with open(out / name) as f:
+            first = f.readline().rstrip("\n")
+        if first != head:
+            raise AssertionError(f"{when}: {name} starts {first!r}")
+    h5 = (out / "queries.h5").read_bytes()
+    if not (h5.startswith(b"\x89HDF\r\n\x1a\n")
+            and vids.astype(np.float32).tobytes() in h5
+            and len(h5) > TEST_BATCH * HOST_DIM * 4):
+        raise AssertionError(f"{when}: queries.h5 is not the ids' HDF5 file")
+    def rows(name):
+        with open(out / name) as f:
+            return sum(1 for _ in f) - 1
+    n = rows("queries.csv")
+    log(f"    {when}: sinks written: fixed_rank.csv "
+        f"({rows('fixed_rank.csv')} rows), queries.csv ({n:,} rows), "
+        f"queries.h5 ({len(h5):,} bytes)")
+    if n != TEST_BATCH * HOST_DIM:
+        raise AssertionError(f"{when}: queries.csv has {n} rows")
+    for name in (*SINK_HEADS, "queries.h5"):
+        (out / name).unlink()
+
+
+def _rank_values(values: dict, prefix: str, when: str) -> dict:
+    """The five rank scalars under `prefix`, checked finite and in range."""
+    got = {k: values[prefix + k] for k in RANK_TOPS}
+    ok = all(math.isfinite(v) for v in got.values()) and \
+        1.0 <= got["median_rank"] <= 1e4 and \
+        all(0.0 <= got[k] <= 1.0 for k in RANK_TOPS[1:])
+    if not ok:
+        raise AssertionError(f"{when}: rank scalars {got}")
+    return got
+
+
+def exhaustive_rank_eval(dev, stores: tuple) -> dict:
+    """The paper's exhaustive-shots training and fixed-gallery rank eval
+    through `vvtpu-torch` (tools.cli.main in-process) on _exhaustive_net's
+    prototxt and a copy of the repo's solver (max_iter EXH_STEPS,
+    test_interval EXH_INTERVAL, one snapshot): train, with the
+    VIDEO_SHOTS_DATA source through the prefetcher and every fc7 on K1's
+    f32 route (the TEST one at TEST_BATCH + EXH_GALLERY_ROWS rows), then
+    test on the snapshot; the sinks' files and the rank scalars checked;
+    the step, the eval (fc7, the distance product, the argsort) and the
+    host feed timed; the card's Nets held against the same Nets on the
+    CPU. Returns the K1 launches."""
+    import tempfile
+
+    from videovector_tpu_torch.config import parse
+    from videovector_tpu_torch.data.shots import FixedVideoShotGallery
+    from videovector_tpu_torch.solver.checkpoint import load_model
+    from videovector_tpu_torch.tools import cli
+
+    card = gpu_name_and_power_limit()
+    timer = _HostFedTimer(EXH_TIMED, EXH_PROFILED)
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = Path(tmp_name)
+        t0 = time.perf_counter()
+        gallery = _write_gallery(tmp, stores[0])
+        t1 = time.perf_counter()
+        FixedVideoShotGallery.from_records(gallery)
+        t2 = time.perf_counter()
+        log(f"  exhaustive_rank_eval: the gallery written by the port in "
+            f"{t1 - t0:.3f} s ({Path(gallery).stat().st_size / 1e6:.1f} MB, "
+            f"{EXH_GALLERY_ROWS:,} rows x {HOST_DIM}); its host read "
+            f"(FixedVideoShotGallery.from_records) {t2 - t1:.3f} s")
+        text = _exhaustive_net(*stores, gallery, tmp)
+        net_path = tmp / "exhaustive.prototxt"
+        net_path.write_text(text)
+        prefix = tmp / "exh"
+        solver = _cli_solver(tmp / "solver.prototxt", net_path, prefix,
+                             max_iter=EXH_STEPS, test_interval=EXH_INTERVAL,
+                             snapshot=EXH_STEPS)
+        t0 = time.perf_counter()
+        with _driver_marks(timer) as built, _CliCapture() as out:
+            _, k1_train = _counted(lambda: cli.main(
+                ["train", "--solver", str(solver)]))
+        train_s = time.perf_counter() - t0
+        driver = built[0]
+        source = driver.train_source.sources[0].source
+        n_tests = len(range(0, EXH_STEPS + 1, EXH_INTERVAL))
+        losses = [float(r.args[1]) for r in out.records
+                  if r.msg == "Iteration %d, loss = %g"]
+        tests = {r.args[1]: float(r.args[2]) for r in out.records
+                 if r.msg == "    Test net output #%d: %s = %g%s"}
+        trains = {r.args[1]: float(r.args[2]) for r in out.records
+                  if r.msg == "    Train net output #%d: %s = %g%s"}
+        log(f"  exhaustive train: {train_s:.1f} s in-process (build "
+            f"included); the TRAIN source {type(source).__name__}; K1 "
+            f"launches (all, sm90, f32) {k1_train} for {EXH_STEPS} steps + "
+            f"the final display forward + {n_tests} tests; losses {losses}; "
+            f"the last Train net outputs {trains}; the last Test net outputs "
+            f"{tests}")
+        if type(source).__name__ != "VideoShotsSource":
+            raise AssertionError(f"exhaustive train: the TRAIN source is "
+                                 f"{type(source).__name__}")
+        want = EXH_STEPS + 1 + n_tests
+        if k1_train != (want, 0, want):
+            raise AssertionError(f"exhaustive train: K1 launches {k1_train}, "
+                                 f"expected {want}, all f32")
+        if not (losses and all(math.isfinite(v) for v in losses)):
+            raise AssertionError(f"exhaustive train: losses {losses}")
+        test_vids = driver.test_sources[0].next_batch()["video_ids"]
+        _check_sinks(tmp, test_vids, "train's last test")
+        fixed = _rank_values(tests, "fixed_", "train's last test")
+        _rank_values(trains, "train_", "train's last display")
+        step_ms, wall_ms = timer.per_step()
+        log(f"  exhaustive train step at B={TRAIN_BATCH} (15 x {HOST_DIM}, "
+            f"f32, VIDEO_SHOTS_DATA through the prefetcher, "
+            f"RETRIEVAL_RANK_STATS on {TRAIN_BATCH} x {TRAIN_BATCH * 11}): "
+            f"{step_ms:.4f} ms (CUDA events over {len(EXH_TIMED)} steps, "
+            f"tests excluded) = {TRAIN_BATCH * TRAIN_NEG / step_ms * 1e3:,.0f} "
+            f"triplets/s; host wall {wall_ms:.4f} ms a step [{card}]")
+        training_profile(timer.prof, len(EXH_PROFILED), wall_ms)
+
+        model = str(prefix) + f"_iter_{EXH_STEPS}.vvmodel"
+        with _CliCapture() as out:
+            _, k1_test = _counted(lambda: cli.main(
+                ["test", "--model", str(net_path), "--weights", model,
+                 "--iterations", "1"]))
+        means = {r.args[0]: float(r.args[1]) for r in out.records
+                 if r.msg == "%s = %g%s"}
+        log(f"  exhaustive test (1 iteration, the snapshot): {means}; K1 "
+            f"launches {k1_test}")
+        if k1_test != (1, 0, 1):
+            raise AssertionError(f"exhaustive test: K1 launches {k1_test}")
+        _check_sinks(tmp, test_vids, "test")
+        fixed_test = _rank_values(means, "fixed_", "test")
+        if fixed_test != fixed:
+            raise AssertionError(f"test {fixed_test} vs train's last test "
+                                 f"{fixed}: the same weights and batch")
+
+        msg = parse(text)
+        params = load_model(model)
+        feed_ms = _exhaustive_feed_ms(source, driver.test_sources[0], card)
+        test_batch = driver.test_sources[0].next_batch()
+        eval_parts = _eval_split(dev, msg, params, test_batch, card)
+        witness = _card_vs_cpu(dev, msg, params, {
+            "TRAIN (the store's)": {"data": source.next_batch()["data"]},
+            "TRAIN (separated)": _separated_windows(13),
+            "TEST": test_batch})
+    return {"launches": k1_train[0] + k1_test[0],
+            "f32": k1_train[2] + k1_test[2], "step_ms": step_ms,
+            "eval": eval_parts, "feed_ms": feed_ms, "witness": witness}
+
+
+def _exhaustive_feed_ms(source, test_source, card) -> dict:
+    """The host feed, host clock: VIDEO_SHOTS_DATA's next_batch (the Python
+    source; the C++ sampler serves VIDEO_SAMPLED_SHOTS_DATA only) over 20,
+    and the TEST batch (the 673 windows and the constant gallery) over 5."""
+    t0 = time.perf_counter()
+    for _ in range(20):
+        source.next_batch()
+    t1 = time.perf_counter()
+    for _ in range(5):
+        test_source.next_batch()
+    t2 = time.perf_counter()
+    out = {"train_ms": (t1 - t0) / 20 * 1e3, "test_ms": (t2 - t1) / 5 * 1e3}
+    log(f"  exhaustive host feed: VIDEO_SHOTS_DATA next_batch "
+        f"{out['train_ms']:.3f} ms a batch of {TRAIN_BATCH} x 15 x {HOST_DIM} "
+        f"(host clock over 20); the TEST batch (windows + gallery) "
+        f"{out['test_ms']:.3f} ms (over 5) [{card}]")
+    return out
+
+
+def _to(tree, dev):
+    return {k: _to(v, dev) if isinstance(v, dict) else
+            torch.as_tensor(v, device=dev) for k, v in tree.items()}
+
+
+def _eval_split(dev, msg, params, test_batch, card) -> dict:
+    """One fixed-gallery eval on the card, CUDA events: the TEST Net's
+    forward, and apart its fc7 (one K1 f32-route call at TEST_BATCH +
+    EXH_GALLERY_ROWS rows, held first against its plain version on the same
+    operands), the distance product (-2 q.g^T, TEST_BATCH x
+    EXH_GALLERY_ROWS x HOST_DIM, f32 with TF32 off) and the stable argsort
+    of its rows."""
+    from videovector_tpu_torch.graph import Net
+    from videovector_tpu_torch.metrics.retrieval import _neg2_dot
+    from videovector_tpu_torch.ops.linear import no_tf32, tower_matmul
+    net = Net(msg, "TEST")
+    p, b = _to(params, dev), _to(test_batch, dev)
+    w, bias = p["fc7"]["w"], p["fc7"]["b"]
+    with torch.no_grad(), no_tf32():
+        _, blobs = net.apply(p, b, return_blobs=True)
+        x = blobs["tower_in"]
+        q, g = blobs["ctxn"], blobs["gn"]
+        dist = _neg2_dot(q, g)
+        m, k = x.shape
+        err = compare(f"K1 f32 route {m}x{k}x{w.shape[1]} (the TEST fc7)",
+                      tower_matmul(x, w, bias, compute_dtype=torch.float32),
+                      tower_matmul(x, w, bias, compute_dtype=torch.float32,
+                                   plain=True))
+        ms = {"forward": time_ms(lambda: net.apply(p, b), iters=5, warmup=1),
+              "fc7": time_ms(lambda: tower_matmul(
+                  x, w, bias, compute_dtype=torch.float32), iters=5,
+                  warmup=1),
+              "fc7_cublas": time_ms(lambda: torch.addmm(bias, x, w), iters=5,
+                                    warmup=1),
+              "distance": time_ms(lambda: _neg2_dot(q, g), iters=5, warmup=1),
+              "argsort": time_ms(lambda: torch.argsort(dist, dim=1,
+                                                       stable=True),
+                                 iters=5, warmup=1)}
+    ms["fc7_err"] = err
+    ms["fc7_bound"] = 2 * m * k * w.shape[1] / PEAK_FLOPS_F32 * 1e3
+    log(f"  fixed-gallery eval on the card ({TEST_BATCH} queries, "
+        f"{EXH_GALLERY_ROWS:,} gallery rows, {HOST_DIM} dims): the TEST "
+        f"Net's forward {ms['forward']:.4f} ms; fc7 at {tuple(x.shape)} on "
+        f"K1's f32 route {ms['fc7']:.4f} ms (cuBLAS f32, TF32 off, "
+        f"{ms['fc7_cublas']:.4f}; bound {ms['fc7_bound']:.4f} at the f32 "
+        f"FMA peak), the distance product {ms['distance']:.4f} ms, the "
+        f"stable argsort of {tuple(dist.shape)} {ms['argsort']:.4f} ms "
+        f"(CUDA events over 5) [{card}]")
+    return ms
+
+
+F32_UNIT = 2.0 ** -24     # f32's unit roundoff
+
+
+def _dist_bound(cpu_q, cpu_g, card_q, card_g):
+    """dist = -2 q.g^T in f64 from the CPU's embeddings, and per row the
+    most that either device's f32 dist can lie from it: a K-long f32 dot of
+    a and b rounds by at most ~K u |a||b| whatever the order of its sum,
+    and the card's a and b are the CPU's plus their measured difference,
+    which is held within 1e-4 of the largest magnitude first."""
+    q, g = cpu_q.double(), cpu_g.double()
+    for name, c, h in (("queries", card_q, q), ("gallery", card_g, g)):
+        gap = (c.cpu().double() - h).abs().max() / h.abs().max()
+        if not gap <= 1e-4:
+            raise AssertionError(f"the card's {name} embeddings lie "
+                                 f"{gap.item():.3e} from the CPU's")
+    dq = (card_q.cpu().double() - q).norm(dim=1)
+    dg = (card_g.cpu().double() - g).norm(dim=1).max()
+    qn, gn = q.norm(dim=1), g.norm(dim=1).max()
+    k = q.shape[1]
+    err = 2.0 * (1.01 * k * F32_UNIT * (qn + dq) * (gn + dg)
+                 + dq * gn + qn * dg + dq * dg)
+    return (-2.0 * (q @ g.T)).numpy(), err.numpy()
+
+
+def _rank_witness(name, d64, err, orders, ranks, relevant) -> dict:
+    """Both devices' stable orders and first-match ranks held against the
+    f64 dist: no pair of items in an order is inverted by more than the
+    two-sided bound 2 err, and each rank lies where some f32 rounding
+    within err can put it: behind every irrelevant item that is closer by
+    more than 2 err than the nearest relevant one, and ahead of every one
+    that is farther by more. Ranks may differ between the devices only in
+    rows where that range holds more than one rank (near ties). Raises
+    otherwise; returns the counts."""
+    e = err[:, None]
+    worst = 0.0
+    for dev_name, o in orders.items():
+        s = np.take_along_axis(d64, o, 1)
+        inv = np.maximum.accumulate(s, 1)[:, :-1] - s[:, 1:]
+        ratio = (inv / (2 * e)).max()
+        worst = max(worst, float(ratio))
+        if ratio > 1.0:
+            rows = np.flatnonzero((inv > 2 * e).any(1))
+            raise AssertionError(f"{name}: the {dev_name}'s order inverts "
+                                 f"items past the f32 bound in rows "
+                                 f"{rows[:10]}")
+    has = relevant.any(1)
+    d_rel = np.where(relevant, d64, np.inf).min(1)[:, None]
+    other = ~relevant
+    lo = 1 + (other & (d64 + e < d_rel - e)).sum(1)
+    hi = 1 + (other & (d64 - e <= d_rel + e)).sum(1)
+    for dev_name, r in ranks.items():
+        bad = has & ((r < lo) | (r > hi)) | ~has & (r != 1e4)
+        if bad.any():
+            i = np.flatnonzero(bad)[:10]
+            raise AssertionError(f"{name}: {dev_name} ranks {r[i]} outside "
+                                 f"[{lo[i]}, {hi[i]}] in rows {i}")
+    near = has & (hi > lo)
+    diff = ranks["card"] != ranks["cpu"]
+    out = {"rows": len(diff), "differ": int(diff.sum()),
+           "near_ties": int(near.sum()),
+           "exact": int((has & (hi == lo)).sum()),
+           "median_bound": float(np.median(err)),
+           "worst_inversion": worst}
+    log(f"    {name}: per-item ranks differ in {out['differ']} of "
+        f"{out['rows']} rows; the f64 dist with the f32 bound (median "
+        f"{out['median_bound']:.3e}) fixes the rank in {out['exact']} rows "
+        f"and leaves a near tie in {out['near_ties']}; the worst inversion "
+        f"in either order is {worst:.3f} of the bound")
+    if (diff & ~near).any():
+        raise AssertionError(f"{name}: ranks differ outside near ties in "
+                             f"rows {np.flatnonzero(diff & ~near)[:10]}")
+    return out
+
+
+def _separated_windows(seed: int) -> dict:
+    """A fixed TRAIN batch from `seed`: TRAIN_BATCH windows of 15 roles,
+    the target and the 4 context shots of each near one center of their
+    own (0.3 randn apart), the 10 negatives drawn apart."""
+    rs = np.random.RandomState(seed)
+    data = rs.randn(TRAIN_BATCH, 1 + 4 + TRAIN_NEG, HOST_DIM)
+    data[:, :5] = rs.randn(TRAIN_BATCH, 1, HOST_DIM) \
+        + 0.3 * rs.randn(TRAIN_BATCH, 5, HOST_DIM)
+    return {"data": data.astype(np.float32)}
+
+
+def _rank_check(phase, runs) -> tuple[dict, dict]:
+    """The per-item rank stats of both runs of one phase, recomputed on
+    each device from the Net's blobs: the f64 witness over both orders,
+    and on the host, from each device's own order, the five rank scalars
+    its Net must give. Returns the witness's counts and the scalars by
+    device."""
+    from videovector_tpu_torch.metrics import retrieval as tr
+    if phase == "TRAIN":
+        q_key, g_key, prefix = "ctxn", "cands", "train_"
+        per = [tr._rank_stats_peritem(b["ctxn"], b["cands"], True, 1,
+                                      TRAIN_NEG) for _, b in runs]
+        videos = runs[1][1]["cands"].shape[0] // (1 + TRAIN_NEG)
+
+        def match(order):
+            rows = torch.arange(order.shape[0])[:, None]
+            return tr._bucket_video_id(order, videos, 1) == rows
+    else:
+        q_key, g_key, prefix = "ctxn", "gn", "fixed_"
+        per = [tr._fixed_ref_peritem(
+            b["ctxn"], b["video_ids"].reshape(-1).to(torch.int32), b["gn"],
+            b["ref_vids"].reshape(-1).to(torch.int32)) for _, b in runs]
+        vids = runs[1][1]["video_ids"].reshape(-1).to(torch.int32)
+        ref_vids = runs[1][1]["ref_vids"].reshape(-1).to(torch.int32)
+
+        def match(order):
+            return ref_vids[order] == vids[:, None]
+    (_, bc), (_, bh) = runs
+    d64, err = _dist_bound(bh[q_key], bh[g_key], bc[q_key], bc[g_key])
+    orders = {d: p[1].cpu() for d, p in zip(("card", "cpu"), per)}
+    f = d64.shape[1]
+    witness = _rank_witness(
+        f"{phase} rank stats", d64, err,
+        {d: o.numpy() for d, o in orders.items()},
+        {d: p[2].cpu().numpy() for d, p in zip(("card", "cpu"), per)},
+        match(torch.arange(f).expand(d64.shape[0], f)).numpy())
+    scalars = {}
+    for d, o in orders.items():
+        first, rec1, rec5, rec10, ap = tr._ranked_stats(match(o).float())
+        got = tr._rank_means(first, rec1, rec5, rec10, torch.mean(ap))
+        scalars[d] = {prefix + t: float(got[k]) for t, k in zip(
+            RANK_TOPS, ("median_rank", "recall_at_1", "recall_at_5",
+                        "recall_at_10", "mean_ap"))}
+    return witness, scalars
+
+
+def _card_vs_cpu(dev, msg, params, batches) -> dict:
+    """The exhaustive TRAIN Net (dropout rewritten to 0, so that both
+    devices draw nothing) and the TEST Net on the card and on the CPU, on
+    fixed batches: the store's TRAIN batch, _separated_windows' TRAIN
+    batch and the TEST batch. Every output but the rank scalars within
+    1e-4 relative. The rank scalars: each device's within 1e-6 relative
+    of those the host computes from that device's own order, both orders
+    and ranks held by _rank_witness against the f64 dist, and the card's
+    within 1e-4 relative of the CPU's where the two orders rank the
+    matches alike in every row. (After EXH_STEPS steps the store's windows
+    rank near randomly, every embedding of their |center + noise| shots
+    points nearly one way, and their distances crowd within the f32
+    rounding; _separated_windows' ranks separate.) Returns the witness's
+    counts by batch."""
+    from videovector_tpu_torch.graph import Net
+    for layer in msg.get_list("layers"):
+        if layer.get("type") == "DROPOUT":
+            layer.get_msg("dropout_param").fields["dropout_ratio"] = [0.0]
+    counts = {}
+    for label, b in batches.items():
+        phase = label.split()[0]
+        runs = []
+        for d in (dev, torch.device("cpu")):
+            with torch.no_grad():
+                runs.append(Net(msg, phase).apply(_to(params, d), _to(b, d),
+                                                  return_blobs=True))
+        witness, scalars = _rank_check(phase, runs)
+        (lc, bc), (lh, bh) = runs
+        outs = ["loss"] + [k for k in bh if bh[k].dim() == 0
+                           or k in ("train_violations",)]
+        worst = {}
+        for k in outs:
+            c = (lc if k == "loss" else bc[k]).float().cpu()
+            h = (lh if k == "loss" else bh[k]).float()
+            err = ((c - h).abs().max() / h.abs().max().clamp(min=1e-30)).item()
+            worst[k] = err
+            if k in scalars["cpu"]:
+                for d, v in (("card", c), ("cpu", h)):
+                    own = scalars[d][k]
+                    if not abs(v.item() - own) <= 1e-6 * max(abs(own), 1e-30):
+                        raise AssertionError(
+                            f"{label} {k}: the {d}'s Net gives {v.item()}, "
+                            f"its own order {own}")
+                if witness["differ"]:
+                    continue
+            if not err <= 1e-4:
+                raise AssertionError(f"{label} {k}: card {c} vs CPU {h}")
+        log(f"  exhaustive {label} batch, card vs CPU: relative error by "
+            f"output {worst}")
+        counts[label] = witness
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# The layer zoo at a classifier's width
+# ---------------------------------------------------------------------------
+
+def _zoo_net(infogain: str) -> str:
+    """Every other type of this slice at CaffeNet's classifier width: fc7
+    features (ZOO_BATCH x 4096) through fc8 (INNER_PRODUCT 4096 -> 1000)
+    into the loss zoo, ACCURACY (top 5), ARGMAX (top 5, out_max_val) and
+    CLASSIFICATION_STATS, CONTRASTIVE_LOSS on ZOO_BATCH / 2 pairs of fc8
+    rows, MVN on a pool1 blob, ID_TO_WEIGHT_MAPPING and DUMMY_DATA."""
+    half = ZOO_BATCH // 2
+    return f"""
+name: "layer_zoo"
+layers {{ name: "d" type: MEMORY_DATA top: "fc7" top: "label" top: "t"
+  top: "sim" top: "ids" top: "emb_t" top: "pool1" top: "pool1_t" }}
+layers {{ name: "fc8" type: INNER_PRODUCT bottom: "fc7" top: "fc8"
+  inner_product_param {{ num_output: {ZOO_CLASSES}
+    weight_filler {{ type: "gaussian" std: 0.01 }}
+    bias_filler {{ type: "constant" value: 0.1 }} }} }}
+layers {{ name: "sm_loss" type: SOFTMAX_LOSS bottom: "fc8" bottom: "label"
+  top: "softmax_loss" }}
+layers {{ name: "acc" type: ACCURACY bottom: "fc8" bottom: "label"
+  top: "accuracy" accuracy_param {{ top_k: 5 }} }}
+layers {{ name: "hinge" type: HINGE_LOSS bottom: "fc8" bottom: "label"
+  top: "hinge_loss" hinge_loss_param {{ norm: L2 }} loss_weight: 0.01 }}
+layers {{ name: "prob" type: SOFTMAX bottom: "fc8" top: "prob" }}
+layers {{ name: "mll" type: MULTINOMIAL_LOGISTIC_LOSS bottom: "prob"
+  bottom: "label" top: "multinomial_loss" }}
+layers {{ name: "ig" type: INFOGAIN_LOSS bottom: "prob" bottom: "label"
+  top: "infogain_loss" infogain_loss_param {{ source: "{infogain}" }} }}
+layers {{ name: "sce" type: SIGMOID_CROSS_ENTROPY_LOSS bottom: "fc8"
+  bottom: "t" top: "sigmoid_loss" }}
+layers {{ name: "euc" type: EUCLIDEAN_LOSS bottom: "fc8" bottom: "t"
+  top: "euclidean_loss" }}
+layers {{ name: "pairs" type: SLICE bottom: "fc8" top: "a" top: "b"
+  slice_param {{ slice_dim: 0 slice_point: {half} }} }}
+layers {{ name: "con" type: CONTRASTIVE_LOSS bottom: "a" bottom: "b"
+  bottom: "sim" top: "contrastive_loss"
+  contrastive_loss_param {{ margin: 50.0 }} }}
+layers {{ name: "am" type: ARGMAX bottom: "fc8" top: "argmax"
+  argmax_param {{ top_k: 5 out_max_val: true }} }}
+layers {{ name: "cs" type: CLASSIFICATION_STATS bottom: "fc8"
+  bottom: "label" top: "per_class_accuracy" top: "per_class_ap"
+  top: "class_accuracy"
+  classification_stats_param {{ num_classes: {ZOO_CLASSES} }} }}
+layers {{ name: "mvn" type: MVN bottom: "pool1" top: "mvn" }}
+layers {{ name: "dummy" type: DUMMY_DATA top: "constant" top: "noise"
+  dummy_data_param {{ num: {ZOO_POOL1[0]} channels: {ZOO_POOL1[1]}
+    height: {ZOO_POOL1[2]} width: {ZOO_POOL1[3]}
+    num: {ZOO_BATCH} channels: 64 height: 1 width: 1
+    data_filler {{ type: "constant" value: 0.25 }}
+    data_filler {{ type: "gaussian" std: 1.0 }} }} }}
+layers {{ name: "mvn_loss" type: EUCLIDEAN_LOSS bottom: "mvn"
+  bottom: "pool1_t" top: "mvn_loss" }}
+layers {{ name: "emb" type: ID_TO_WEIGHT_MAPPING bottom: "ids" top: "w"
+  id_to_weight_mapping_param {{ max_ids: {ZOO_CLASSES} num_output: 64
+    weight_filler {{ type: "gaussian" std: 1.0 }} }} }}
+layers {{ name: "emb_loss" type: EUCLIDEAN_LOSS bottom: "w" bottom: "emb_t"
+  top: "embedding_loss" loss_weight: 0.1 }}
+"""
+
+
+ZOO_TYPES = {   # output or param -> the type it checks
+    "softmax_loss": "SOFTMAX_LOSS", "accuracy": "ACCURACY",
+    "hinge_loss": "HINGE_LOSS", "multinomial_loss": "MULTINOMIAL_LOGISTIC_LOSS",
+    "infogain_loss": "INFOGAIN_LOSS", "sigmoid_loss": "SIGMOID_CROSS_ENTROPY_LOSS",
+    "euclidean_loss": "EUCLIDEAN_LOSS", "contrastive_loss": "CONTRASTIVE_LOSS",
+    "argmax": "ARGMAX", "per_class_accuracy": "CLASSIFICATION_STATS",
+    "per_class_ap": "CLASSIFICATION_STATS",
+    "class_accuracy": "CLASSIFICATION_STATS", "mvn": "MVN",
+    "constant": "DUMMY_DATA (constant)", "w": "ID_TO_WEIGHT_MAPPING",
+    "embedding_loss": "EUCLIDEAN_LOSS", "mvn_loss": "EUCLIDEAN_LOSS",
+    "loss": "all losses, weighted"}
+# tops that rank fc8's exact values: equal on both devices, ties included
+ZOO_EXACT = ("accuracy", "argmax", "per_class_accuracy", "class_accuracy")
+
+
+def layer_zoo(dev) -> dict:
+    """_zoo_net's TRAIN Net forward and backward on the card and on the CPU
+    with the same params and inputs. The fc7 features are integers 0..3 and
+    fc8's weights and bias integers over 1024, so that fc8's sums are exact
+    on both devices and its rows hold exact ties: ARGMAX, ACCURACY and
+    CLASSIFICATION_STATS then rank the same values, and must break their
+    ties alike (their tops equal). Every other output is held within
+    ZOO_TOL of its largest magnitude, and so is every gradient (fc8's, the
+    table's, the fc7 features' and pool1's); the gaussian DUMMY_DATA top, drawn
+    from each device's own generator, by its shape and moments. fc8 is one
+    K1 launch on the f32 route. Returns the counted K1 launches and the
+    worst errors."""
+    import tempfile
+
+    from videovector_tpu_torch.config import parse
+    from videovector_tpu_torch.data.wire import BlobProto
+    from videovector_tpu_torch.graph import Net
+    card = gpu_name_and_power_limit()
+    rs = np.random.RandomState(7)
+    inputs = {
+        "fc7": rs.randint(0, 4, (ZOO_BATCH, 4096)).astype(np.float32),
+        "label": rs.randint(0, ZOO_CLASSES, ZOO_BATCH).astype(np.float32),
+        "t": rs.rand(ZOO_BATCH, ZOO_CLASSES).astype(np.float32),
+        "sim": rs.randint(0, 2, ZOO_BATCH // 2).astype(np.float32),
+        "ids": rs.randint(0, ZOO_CLASSES, ZOO_BATCH).astype(np.float32),
+        "emb_t": rs.randn(ZOO_BATCH, 64).astype(np.float32),
+        "pool1": rs.randn(*ZOO_POOL1).astype(np.float32),
+        "pool1_t": rs.randn(*ZOO_POOL1).astype(np.float32)}
+    weights = {"fc8": {"w": rs.randint(-2, 3, (4096, ZOO_CLASSES)) / 1024,
+                       "b": rs.randint(-8, 9, ZOO_CLASSES) / 1024},
+               "emb": {"table": rs.randn(ZOO_CLASSES, 64)}}
+    with tempfile.TemporaryDirectory() as tmp_name:
+        infogain = Path(tmp_name) / "infogain.binaryproto"
+        h = rs.rand(1, 1, ZOO_CLASSES, ZOO_CLASSES).astype(np.float32)
+        infogain.write_bytes(BlobProto.from_array(h).encode())
+        msg = parse(_zoo_net(str(infogain)))
+        runs, launches = [], None
+        for d in (dev, torch.device("cpu")):
+            net = Net(msg, "TRAIN")
+            shapes, _ = net.init(torch.Generator(device=d).manual_seed(3),
+                                 inputs)
+            p = {k: {n: torch.as_tensor(v, dtype=torch.float32, device=d)
+                     .requires_grad_() for n, v in lp.items()}
+                 for k, lp in weights.items()}
+            if {k: {n: v.shape for n, v in lp.items()} for k, lp in p.items()
+                } != {k: {n: v.shape for n, v in lp.items()}
+                      for k, lp in shapes.items()}:
+                raise AssertionError(f"layer zoo params {shapes}")
+            b = _to(inputs, d)
+            for k in ("fc7", "pool1"):
+                b[k].requires_grad_()
+            gen = torch.Generator(device=d).manual_seed(11)
+
+            def step():
+                loss, blobs = net.apply(p, b, generator=gen,
+                                        return_blobs=True)
+                loss.backward()
+                return loss, blobs
+            if d == dev:
+                (loss, blobs), launches = _counted(step)
+            else:
+                loss, blobs = step()
+            grads = {f"d{k}/{n}": v.grad for k, lp in p.items()
+                     for n, v in lp.items()}
+            grads.update({f"d{k}": b[k].grad for k in ("fc7", "pool1")})
+            runs.append(({"loss": loss.detach(), **{
+                k: v.detach() for k, v in blobs.items()}}, grads))
+    if launches != (1, 0, 1):
+        raise AssertionError(f"layer zoo: K1 launches {launches}, expected "
+                             "fc8 once on the f32 route")
+    (oc, gc), (oh, gh) = runs
+    if not torch.equal(oc["fc8"].cpu(), oh["fc8"]):
+        raise AssertionError("layer zoo: fc8's exact sums differ")
+    worst = {}
+    for k, name in ZOO_TYPES.items():
+        c, h = oc[k].float().cpu(), oh[k].float()
+        err = ((c - h).abs().max() / h.abs().max().clamp(min=1e-30)).item()
+        worst[f"{name}: {k}"] = err
+        if not (torch.equal(c, h) if k in ZOO_EXACT else err <= ZOO_TOL):
+            raise AssertionError(f"layer zoo {name} ({k}): card vs CPU "
+                                 f"relative error {err}")
+    for k in gh:
+        c, h = gc[k].float().cpu(), gh[k].float()
+        err = ((c - h).abs().max() / h.abs().max().clamp(min=1e-30)).item()
+        worst[f"gradient {k}"] = err
+        if not err <= ZOO_TOL:
+            raise AssertionError(f"layer zoo gradient {k}: card vs CPU "
+                                 f"relative error {err}")
+    ties = sum(int((row[:-1] == row[1:]).sum()) for row in
+               torch.sort(oh["fc8"], dim=1).values[:, -6:])
+    for d, (o, _) in zip(("card", "cpu"), runs):
+        noise = o["noise"]
+        if noise.shape != (ZOO_BATCH, 64, 1, 1) or \
+                abs(noise.mean().item()) > 0.05 or \
+                abs(noise.std().item() - 1.0) > 0.05:
+            raise AssertionError(f"DUMMY_DATA gaussian on {d}: "
+                                 f"{tuple(noise.shape)}, mean "
+                                 f"{noise.mean().item()}, std "
+                                 f"{noise.std().item()}")
+    log(f"  layer_zoo (TRAIN Net at B={ZOO_BATCH}, fc8 4096 -> "
+        f"{ZOO_CLASSES}, pool1 {ZOO_POOL1}; {ties} exact ties among the "
+        f"rows' top 6 fc8 values), card vs CPU, the worst error relative to "
+        f"the largest magnitude, by type and output: "
+        + "; ".join(f"{k} {v:.3e}" for k, v in worst.items())
+        + f"; the losses on the card "
+        f"{ {k: round(oc[k].item(), 6) for k in ZOO_TYPES if k.endswith('loss')} } "
+        f"[{card}]")
+    return {"launches": launches[0], "f32": launches[2], "worst": worst}
+
+
+def tf32_checks(dev) -> None:
+    """With torch's global TF32 flag on, the three f32 products that the
+    port keeps in full f32 give what they give with it off, bit for bit:
+    the Net's INNER_PRODUCT with regularization > 0 (forward and both
+    gradients), RetrievalPipeline.query's scores and top-k ids, and the
+    rank stats' -2 q.g^T; the flag itself does change an unscoped
+    product."""
+    from videovector_tpu_torch.config import parse
+    from videovector_tpu_torch.graph import Net
+    from videovector_tpu_torch.metrics import retrieval as tr
+    from videovector_tpu_torch.models.retrieval_pipeline import (
+        RetrievalPipeline,
+    )
+
+    def both(fn):
+        outs = []
+        for flag in (True, False):
+            torch.backends.cuda.matmul.allow_tf32 = flag
+            try:
+                outs.append(fn())
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+        torch.cuda.synchronize()
+        return outs
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    x = torch.randn((TRAIN_BATCH, 4096), generator=gen, device=dev)
+    on, off = both(lambda: x @ x.T)
+    if torch.equal(on, off):
+        raise AssertionError("the TF32 flag changed nothing: no check")
+    net = Net(parse("""
+    layers { name: "d" type: MEMORY_DATA top: "x" }
+    layers { name: "ip" type: INNER_PRODUCT bottom: "x" top: "y"
+      inner_product_param { num_output: 4096 regularization: 0.5
+        weight_filler { type: "gaussian" std: 0.01 } } }
+    """), "TRAIN")
+    params, _ = net.init(gen, {"x": x})
+
+    def reg_ip():
+        p = {"ip": {k: v.clone().requires_grad_()
+                    for k, v in params["ip"].items()}}
+        xi = x.clone().requires_grad_()
+        y = net.apply(p, {"x": xi})[1]["y"]
+        y.backward(torch.ones_like(y))
+        return [y.detach(), xi.grad, p["ip"]["w"].grad, p["ip"]["b"].grad]
+
+    pipe = RetrievalPipeline(device=dev)
+    pp = pipe.init(gen)
+    pix = torch.randint(0, 256, (8, 256, 256, 3), generator=gen, device=dev,
+                        dtype=torch.uint8)
+    off14 = torch.full((8,), 14, dtype=torch.int32, device=dev)
+    gallery = torch.nn.functional.normalize(
+        torch.randn((GALLERY_ROWS, 4096), generator=gen, device=dev), dim=1)
+    gids = torch.arange(GALLERY_ROWS, dtype=torch.int32, device=dev)
+    q = torch.randn((TEST_BATCH, 4096), generator=gen, device=dev)
+    qv = torch.randint(0, 100, (TEST_BATCH,), generator=gen, device=dev)
+    gv = torch.randint(-1, 100, (GALLERY_ROWS,), generator=gen, device=dev)
+    checks = {
+        "INNER_PRODUCT regularization 0.5 (y, dx, dw, db)": reg_ip,
+        "RetrievalPipeline.query (ids, scores)": lambda: list(pipe.query(
+            pp, pix, off14, off14, off14.bool(), gallery, gids)),
+        "retrieval_rank_stats_fixed_ref (dist, order, ranks)": lambda: list(
+            tr._fixed_ref_peritem(q, qv, gallery, gv)[:3])}
+    for name, fn in checks.items():
+        on, off = both(fn)
+        if not all(torch.equal(a, b) for a, b in zip(on, off)):
+            raise AssertionError(f"{name}: TF32 on differs from off")
+    log(f"  tf32_checks: with allow_tf32 = True in the process, "
+        f"{', '.join(checks)} equal their TF32-off runs bit for bit (an "
+        f"unscoped f32 product differs)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2705,6 +3542,11 @@ def main() -> int:
         net = net_training(dev, resident_ms, stores)
         torch.cuda.empty_cache()
         cli = cli_training(dev, stores)
+        torch.cuda.empty_cache()
+        exh = exhaustive_rank_eval(dev, stores)
+    torch.cuda.empty_cache()
+    zoo = layer_zoo(dev)
+    tf32_checks(dev)
     torch.cuda.empty_cache()
     with torch.no_grad():
         gallery_eval(dev)
@@ -2740,10 +3582,12 @@ def main() -> int:
                  "FFMA GEMM, split-K, bias epilogue)", "route": "cuda",
          "source": "videovector_tpu_torch/csrc/matmul_f32_sm90.cu",
          "replaces": "videovector_tpu/ops/pallas/matmul.py:50",
-         "launches": net["f32"] + cli["f32"] + ext["k1_f32"],
+         "launches": (net["f32"] + cli["f32"] + ext["k1_f32"] + exh["f32"]
+                      + zoo["f32"]),
          **{k: net["k1"][NET_ROWS][k] for k in ("ms", "plain_ms", "bound_ms",
                                                 "bound_by", "library_ms")},
-         "max_abs_err": max(v["err"] for v in net["k1"].values())},
+         "max_abs_err": max([v["err"] for v in net["k1"].values()]
+                            + [exh["eval"]["fc7_err"]])},
         {"name": "K1 matmul, core route at f32 (FMA tiles; the Net's f32 "
                  "operands take the f32 route, so only operands TMA cannot "
                  "address reach it)", "route": "cuda",
@@ -2794,8 +3638,12 @@ def main() -> int:
         f"{NET_STEPS} + {NET_RESUMED} steps and their test batches, and of "
         f"the CLI (cli_training: train, resume, test and time, "
         f"{cli['launches']} launches) and of extraction "
-        f"({ext['k1_f32']}), by route; max_abs_err over that shape and 673 "
-        f"rows. K2's Net entry at f32: conv1..conv5 at batch {BATCH} on the "
+        f"({ext['k1_f32']}), of the exhaustive-shots train and test "
+        f"({exh['f32']}: {EXH_STEPS} steps, the final display forward and "
+        f"the tests at {TEST_BATCH} + {EXH_GALLERY_ROWS} rows) and of the "
+        f"layer zoo's fc8 ({zoo['f32']}), by route; max_abs_err over that "
+        f"shape, 673 rows and the exhaustive TEST fc7's {TEST_BATCH} + "
+        f"{EXH_GALLERY_ROWS} rows. K2's Net entry at f32: conv1..conv5 at batch {BATCH} on the "
         "core route, bound at the f32 FMA peak, library cuDNN F.conv2d f32 "
         f"(TF32 off), its launches those of extraction, {EXTRACT_BATCHES} "
         f"batches of {BATCH})")

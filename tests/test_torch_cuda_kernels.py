@@ -798,3 +798,111 @@ def test_caffemodel_fc_weights_take_k1s_f32_route(dev, tmp_path):
     assert k1d == (2, 0, 2)
     ref, _, _ = _card_extraction(dev, None, True, params, batch)
     _close(blobs["ip2"], ref["ip2"])
+
+
+def _with_tf32(flag: bool, fn):
+    """fn() with torch's global TF32 flag for matmuls set to `flag`; the
+    flag must come back as fn found it, and is reset to off after."""
+    torch.backends.cuda.matmul.allow_tf32 = flag
+    try:
+        out = fn()
+        assert torch.backends.cuda.matmul.allow_tf32 is flag
+        return out
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _tf32_reaches(dev, x):
+    """The flag does change an unscoped f32 product of these operands."""
+    a, b = (_with_tf32(f, lambda: x @ x.T) for f in (True, False))
+    torch.cuda.synchronize()
+    assert not torch.equal(a, b)
+
+
+def test_regularized_inner_product_ignores_the_process_tf32_setting(dev):
+    """The Net's INNER_PRODUCT with regularization > 0 (ops.linear's
+    _InnerProductReg): the forward and both gradients with TF32 on in the
+    process equal the run with it off, bit for bit."""
+    from videovector_tpu_torch.config import parse
+    from videovector_tpu_torch.graph import Net
+    net = Net(parse("""
+    layers { name: "d" type: MEMORY_DATA top: "x" }
+    layers { name: "ip" type: INNER_PRODUCT bottom: "x" top: "y"
+      inner_product_param { num_output: 384 regularization: 0.5
+        weight_filler { type: "gaussian" std: 0.1 } } }
+    """), "TRAIN")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn((256, 512), generator=gen, device=dev)
+    params, _ = net.init(gen, {"x": x})
+    _tf32_reaches(dev, x)
+
+    def run():
+        p = {"ip": {k: v.clone().requires_grad_() for k, v in
+                    params["ip"].items()}}
+        xi = x.clone().requires_grad_()
+        y = net.apply(p, {"x": xi})[1]["y"]
+        y.backward(torch.ones_like(y))
+        return [y.detach(), xi.grad, p["ip"]["w"].grad, p["ip"]["b"].grad]
+    on, off = (_with_tf32(f, run) for f in (True, False))
+    torch.cuda.synchronize()
+    for a, b in zip(on, off):
+        assert torch.equal(a, b)
+
+
+def test_pipeline_query_ignores_the_process_tf32_setting(dev):
+    """RetrievalPipeline.query's scores against the gallery, and so its
+    top-k ids, are the same with TF32 on in the process as with it off."""
+    from videovector_tpu_torch.models.retrieval_pipeline import (
+        RetrievalPipeline,
+    )
+    pipe = RetrievalPipeline(device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    params = pipe.init(gen)
+    pix = torch.randint(0, 256, (4, 256, 256, 3), generator=gen, device=dev,
+                        dtype=torch.uint8)
+    zeros = torch.zeros(4, dtype=torch.int32, device=dev)
+    gallery = torch.nn.functional.normalize(
+        torch.randn((2048, 4096), generator=gen, device=dev), dim=1)
+    ids = torch.arange(2048, dtype=torch.int32, device=dev)
+    _tf32_reaches(dev, gallery[:256])
+    on, off = (_with_tf32(f, lambda: pipe.query(
+        params, pix, zeros + 14, zeros + 14, zeros.bool(), gallery, ids))
+        for f in (True, False))
+    torch.cuda.synchronize()
+    assert torch.equal(on[0], off[0]) and torch.equal(on[1], off[1])
+
+
+def test_rank_stats_dist_ignores_the_process_tf32_setting(dev):
+    """retrieval_rank_stats_fixed_ref's -2 x.y^T, and so its order and
+    ranks, are the same with TF32 on in the process as with it off."""
+    from videovector_tpu_torch.metrics import retrieval as tr
+    gen = torch.Generator(device=dev).manual_seed(6)
+    q = torch.randn((673, 1024), generator=gen, device=dev)
+    g = torch.randn((4096, 1024), generator=gen, device=dev)
+    qv = torch.randint(0, 50, (673,), generator=gen, device=dev)
+    gv = torch.randint(-1, 50, (4096,), generator=gen, device=dev)
+    _tf32_reaches(dev, q)
+    on, off = (_with_tf32(f, lambda: tr._fixed_ref_peritem(q, qv, g, gv))
+               for f in (True, False))
+    torch.cuda.synchronize()
+    for a, b in zip(on, off):
+        assert torch.equal(a, b)
+
+
+def test_golden_fixtures_through_the_f32_routes(dev):
+    """tests/golden/ (1e-5 per blob) and the full-width extraction tower of
+    tests/golden_fullscale.npz (nrm_err 2e-5, rel_big 1e-3 per blob) on the
+    card: every CONVOLUTION on K2's f32 core route and every INNER_PRODUCT
+    on K1's f32 route, as the CPU test holds the plain versions."""
+    import torch_golden as tg
+    c1 = k1.matmul.launches_f32, k2.conv2d_im2col_gemm.launches
+    blobs, golden = tg.mini_golden(dev)
+    for name, want in golden.items():
+        np.testing.assert_allclose(blobs[name], want, rtol=1e-5, atol=1e-5,
+                                   err_msg=name)
+    tg.assert_fullscale_within_bounds(tg.fullscale_errors(
+        tg.fullscale_blobs(dev)))
+    # two nets: 2 fc each on K1's f32 route; 2 + 5 convs, 1 + 3 of them in
+    # 2 groups, on K2's core route, one launch per group
+    assert k1.matmul.launches_f32 - c1[0] == 4
+    assert k2.conv2d_im2col_gemm.launches - c1[1] == 3 + 8

@@ -170,7 +170,7 @@ def test_factory_errors_name_their_roadmap_items(stores):
     layer = _data_layers(txt, tparse)["VIDEO_SAMPLED_SHOTS_DATA", "TRAIN"]
     with pytest.raises(NotImplementedError, match="item 7"):
         tfac.make_data_source(layer)
-    for ltype, item in (("VIDEO_SHOTS_DATA", "6c"), ("WINDOW_DATA", "1b"),
+    for ltype, item in (("VIDEO_SHOT_WINDOW_DATA", "1b"), ("WINDOW_DATA", "1b"),
                         ("FLEXIBLE_DATA", "1b"), ("HDF5_DATA", "1b"),
                         ("TRACKING_WINDOWS_DATA", "1b")):
         layer = tparse(f'layers {{ name: "d" type: {ltype} top: "x" }}'

@@ -622,8 +622,8 @@ def test_stats_output_file_report_matches_jax(rng, tmp_path):
 # -- errors ----------------------------------------------------------------
 
 @pytest.mark.parametrize("ltype,match", [
-    ("ARGMAX", "item 6c"), ("MVN", "item 6c"), ("SOFTMAX_LOSS", "item 6c"),
-    ("WRITE_TO_FILE", "item 6c"), ("LSTM", "item 9"),
+    ("LSTM_ENC_DEC", "item 9"), ("LSTM_CONDITIONAL", "item 9"),
+    ("LSTM_SINGLE_STEP", "item 9"), ("LSTM_LINEAR", "item 9"), ("LSTM", "item 9"),
     ("SOCIAL_POOLING", "item 9"), ("NO_SUCH_LAYER", "not registered"),
 ])
 def test_unported_layer_types_raise(ltype, match):
@@ -639,7 +639,7 @@ def test_every_jax_type_is_ported_or_pending():
     from videovector_tpu.graph import layers as jlayers
     assert set(jlayers.LAYERS) == set(tlayers.LAYERS) | set(tlayers.PENDING_TYPES)
     assert not set(tlayers.LAYERS) & set(tlayers.PENDING_TYPES)
-    assert len(tlayers.LAYERS) == 25
+    assert len(tlayers.LAYERS) == 42
     assert tlayers.DATA_LAYER_TYPES == jlayers.DATA_LAYER_TYPES
     assert tlayers.SINK_LAYER_TYPES == jlayers.SINK_LAYER_TYPES
     assert tlayers.STATEFUL_LAYER_TYPES == jlayers.STATEFUL_LAYER_TYPES
@@ -673,7 +673,9 @@ def test_quant_and_infogain_raise_not_ported():
     net.quant = {"ip": {}}
     with pytest.raises(NotImplementedError, match="item 10"):
         net.apply(params, {"x": torch.zeros(1, 3)})
-    with pytest.raises(NotImplementedError, match="item 6c"):
+    # the infogain matrix is read since item 6c-ii: a missing source is the
+    # reference's CHECK failure, as in JAX's Net
+    with pytest.raises(ValueError, match="infogain source 'h.binaryproto'"):
         TNet(tparse("""
         layers { name: "l" type: RELU bottom: "x" top: "x"
           infogain_loss_param { source: "h.binaryproto" } }

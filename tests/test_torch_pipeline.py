@@ -175,7 +175,9 @@ def test_port_imports_without_jax():
         import videovector_tpu_torch.config.upgrade
         import videovector_tpu_torch.convert
         import videovector_tpu_torch.core.fillers
+        import videovector_tpu_torch.core.seeds
         import videovector_tpu_torch.data.generic
+        import videovector_tpu_torch.data.hdf5
         import videovector_tpu_torch.data.native
         import videovector_tpu_torch.data.prefetch
         import videovector_tpu_torch.data.records
@@ -197,6 +199,7 @@ def test_port_imports_without_jax():
         import videovector_tpu_torch.metrics.retrieval
         import videovector_tpu_torch.ops.activations
         import videovector_tpu_torch.ops.conv
+        import videovector_tpu_torch.ops.embedding
         import videovector_tpu_torch.ops.hopper.conv_gemm
         import videovector_tpu_torch.ops.hopper.matmul
         import videovector_tpu_torch.ops.linear

@@ -10,7 +10,9 @@ names so that batches slot straight into `Net.apply`.
 
 Ported: the flagship's two data layers, VIDEO_SAMPLED_SHOTS_DATA (the C++
 sampler for a VVR WINDOW source, as the JAX package chooses, else the
-Python one) and VIDEO_SHOT_WINDOW_TEST_DATA, and the extraction net's
+Python one) and VIDEO_SHOT_WINDOW_TEST_DATA; the exhaustive TRAIN source
+VIDEO_SHOTS_DATA (Python: the C++ sampler serves the sampled layer only)
+and the fixed gallery FIXED_VIDEO_SHOT_TEST_DATA; and the extraction net's
 image sources, DATA (Datum records) and IMAGE_DATA (a file list, decoded),
 with their transform_param and mean file. The others raise
 NotImplementedError naming the ROADMAP item that ports them.
@@ -29,15 +31,15 @@ from videovector_tpu_torch.data.generic import (
 )
 from videovector_tpu_torch.data.records import convert_dir_or_file, is_vvr
 from videovector_tpu_torch.data.shots import (
-    SampledShotsConfig, ShotDataset, TestWindowDataset,
-    VideoSampledShotsSource, VideoShotWindowTestSource,
+    ExhaustiveShotsConfig, FixedVideoShotGallery, SampledShotsConfig,
+    ShotDataset, TestWindowDataset, VideoSampledShotsSource, VideoShotsSource,
+    VideoShotWindowTestSource,
 )
 from videovector_tpu_torch.data.transformer import TransformConfig
 from videovector_tpu_torch.data.wire import BlobProto
 
 # data-layer types whose sources come with a later item of ROADMAP queue 1
 _PENDING = {
-    "VIDEO_SHOTS_DATA": "6c-ii", "FIXED_VIDEO_SHOT_TEST_DATA": "6c-ii",
     "WINDOW_DATA": "1b", "HDF5_DATA": "1b",
     "VIDEO_SHOT_WINDOW_DATA": "1b", "FLEXIBLE_DATA": "1b",
     "TRACKING_WINDOWS_DATA": "1b", "TRACKING_WINDOWS_SOCIAL_DATA": "1b",
@@ -123,6 +125,19 @@ def make_data_source(layer: Message, *, phase: str = "TRAIN", seed: int = 1234):
         src = VideoSampledShotsSource(ds, cfg, neg_ds)
         return _RenamingSource(src, ["data", "video_id"], tops)
 
+    if ltype == "VIDEO_SHOTS_DATA":
+        p = layer.get_msg("video_shots_data_param")
+        kw = {f: p.get(f) for f in (
+            "batch_size", "num_negative_samples", "max_buffer_size",
+            "negative_swap_percentage", "max_same_video_negs", "context_type",
+            "context_size", "output_shot_distance", "max_shot_distance")
+            if p.has(f)}
+        cfg = ExhaustiveShotsConfig(seed=seed, output_video_ids=len(tops) > 1,
+                                    **kw)
+        ds = ShotDataset.from_records(convert_dir_or_file(p.get("source")))
+        return _RenamingSource(VideoShotsSource(ds, cfg), ["data", "video_id"],
+                               tops)
+
     if ltype == "VIDEO_SHOT_WINDOW_TEST_DATA":
         p = layer.get_msg("video_shot_window_test_data_param")
         ds = TestWindowDataset.from_records(convert_dir_or_file(p.get("source")))
@@ -132,6 +147,13 @@ def make_data_source(layer: Message, *, phase: str = "TRAIN", seed: int = 1234):
             include_negatives=bool(p.get("include_negatives", True)),
             display_all_ids=bool(p.get("display_all_ids", False)))
         return _RenamingSource(src, ["data", "video_ids"], tops)
+
+    if ltype == "FIXED_VIDEO_SHOT_TEST_DATA":
+        p = layer.get_msg("fixed_video_shot_test_data_param")
+        gallery = FixedVideoShotGallery.from_records(
+            convert_dir_or_file(p.get("source")))
+        return _RenamingSource(_ConstantSource(gallery.batch()),
+                               ["data", "video_ids"], tops)
 
     if ltype == "DATA":
         p = layer.get_msg("data_param")
@@ -158,6 +180,21 @@ def make_data_source(layer: Message, *, phase: str = "TRAIN", seed: int = 1234):
             f"the {ltype} data source is not ported to videovector_tpu_torch "
             f"yet (ROADMAP queue 1, item {_PENDING[ltype]})")
     raise NotImplementedError(f"no data-source factory for {ltype!r}")
+
+
+class _ConstantSource:
+    """The same batch on every call (a fixed gallery's Forward is a
+    constant)."""
+
+    def __init__(self, batch: dict):
+        self.batch = batch
+
+    def next_batch(self) -> dict:
+        return self.batch
+
+    def __iter__(self):
+        while True:
+            yield self.next_batch()
 
 
 class MergedSource:

@@ -12,28 +12,34 @@ and the switch to K1's and K2's plain versions. Autograd replaces every Backward
 types are not here: the Net treats their tops as graph inputs fed by the
 data pipeline (see graph/net.py, graph/data_factory.py).
 
-Registered: the flagship's compute types (generate_net.py's nets) and the
-vision, neuron and glue types of the extraction net and its kin
-(CONVOLUTION on K2, POOLING, LRN, IM2COL, the neuron types, SOFTMAX, SPLIT,
-FLATTEN, FLATTEN_BATCH, SILENCE). The JAX package's other registered types
-raise NotImplementedError in the Net, naming the ROADMAP item that ports
-them (`PENDING_TYPES`).
+Registered: every compute type of the JAX package but the recurrent
+ones: the flagship's (generate_net.py's nets), the vision, neuron and glue
+types (CONVOLUTION on K2, POOLING, LRN, IM2COL, the neuron types, SOFTMAX,
+SPLIT, FLATTEN, FLATTEN_BATCH, SILENCE), ID_TO_WEIGHT_MAPPING, ARGMAX, MVN,
+Caffe's loss zoo, ACCURACY, the retrieval and classification stats, the
+sinks and DUMMY_DATA. The LSTM workload's types raise NotImplementedError
+in the Net, naming the ROADMAP item that ports them (`PENDING_TYPES`).
 """
 
 from __future__ import annotations
 
+import zlib
 from dataclasses import dataclass, field
 from typing import Any, Callable
 
 import torch
 
 from videovector_tpu_torch.core import fillers
+from videovector_tpu_torch.core.seeds import iteration_seed
 from videovector_tpu_torch.metrics import retrieval as retrieval_metrics
-from videovector_tpu_torch.ops import activations, conv, lrn, pooling, reductions
+from videovector_tpu_torch.metrics.classification import classification_stats
+from videovector_tpu_torch.ops import (
+    activations, conv, losses, lrn, pooling, reductions,
+)
+from videovector_tpu_torch.ops.embedding import id_to_weight_lookup
 from videovector_tpu_torch.ops.hopper.conv_gemm import conv2d_nchw
 from videovector_tpu_torch.ops.linear import inner_product, tower_matmul
-from videovector_tpu_torch.ops.losses import max_margin_loss
-from videovector_tpu_torch.ops.normalization import l2_normalize_rows
+from videovector_tpu_torch.ops.normalization import l2_normalize_rows, mvn
 
 
 @dataclass
@@ -54,6 +60,9 @@ class ApplyContext:
     # int8 PTQ side table {layer_name: ...} of the JAX package's serving
     # exporter; not ported yet (ROADMAP item 10)
     quant: Any = None
+    # where a layer without bottoms (DUMMY_DATA) puts its tops: the batch's
+    # device ("meta" in Net.init's shape pass)
+    device: Any = None
 
 
 @dataclass(frozen=True)
@@ -90,17 +99,8 @@ STATEFUL_LAYER_TYPES = {"LSTM", "LSTM_LINEAR"}
 
 # The JAX package's other registered compute types, by the ROADMAP queue-1
 # item that ports them.
-PENDING_TYPES = {
-    **{t: "9" for t in STATEFUL_LAYER_TYPES | {
-        "LSTM_ENC_DEC", "LSTM_CONDITIONAL", "LSTM_SINGLE_STEP",
-        "SOCIAL_POOLING"}},
-    **{t: "6c-ii" for t in SINK_LAYER_TYPES | {
-        "ID_TO_WEIGHT_MAPPING", "ARGMAX", "MVN", "EUCLIDEAN_LOSS",
-        "HINGE_LOSS", "SOFTMAX_LOSS", "MULTINOMIAL_LOGISTIC_LOSS", "SIGMOID_CROSS_ENTROPY_LOSS",
-        "INFOGAIN_LOSS", "CONTRASTIVE_LOSS", "ACCURACY",
-        "RETRIEVAL_RANK_STATS", "RETRIEVAL_RANK_STATS_FIXED_REF",
-        "CLASSIFICATION_STATS", "DUMMY_DATA"}},
-}
+PENDING_TYPES = {t: "9" for t in STATEFUL_LAYER_TYPES | {
+    "LSTM_ENC_DEC", "LSTM_CONDITIONAL", "LSTM_SINGLE_STEP", "SOCIAL_POOLING"}}
 
 
 def register(name: str, *, loss_weights=None):
@@ -166,6 +166,21 @@ def _inner_product():
         cdt = ctx.compute_dtype if reg == 0.0 and ctx.compute_dtype \
             is not None else torch.float32
         return [tower_matmul(x, w, b, compute_dtype=cdt, plain=ctx.plain)]
+
+    return init, apply
+
+
+@register("ID_TO_WEIGHT_MAPPING")
+def _id_to_weight():
+    def init(generator, cfg, in_shapes):
+        # the table is (max_ids, num_output)
+        # (Caffe id_to_weight_mapping_layer.cpp:16-29)
+        p = cfg.get_msg("id_to_weight_mapping_param")
+        return {"table": _filler(p, "weight_filler")(
+            generator, (int(p.get("max_ids")), int(p.get("num_output"))))}
+
+    def apply(params, inputs, cfg, ctx):
+        return [id_to_weight_lookup(inputs[0], params["table"])]
 
     return init, apply
 
@@ -473,6 +488,44 @@ def _eltwise():
     return _no_params, apply
 
 
+@register("ARGMAX")
+def _argmax():
+    def apply(params, inputs, cfg, ctx):
+        """Caffe argmax_layer.cpp: a top (N, 1, top_k, 1) of indices, or
+        (N, 2, top_k, 1) with the values on channel 1 when out_max_val;
+        1 <= top_k <= dim is checked. Caffe's partial_sort compares
+        (value, index) pairs with std::greater, so equal values rank the
+        LARGER index first: a stable descending sort of the flipped row."""
+        p = cfg.get_msg("argmax_param")
+        x = inputs[0]
+        n = x.shape[0]
+        flat = x.reshape(n, -1)
+        dim = flat.shape[1]
+        k = int(p.get("top_k", 1))
+        if not 1 <= k <= dim:
+            raise ValueError(
+                f"ARGMAX {cfg.get('name')!r}: top_k={k} outside [1, {dim}] "
+                f"(ref argmax_layer.cpp:16-18 CHECKs)")
+        order_f = torch.argsort(-flat.flip(1), dim=1, stable=True)[:, :k]
+        idx = dim - 1 - order_f
+        idx_f = idx.to(torch.float32)
+        if p.get("out_max_val", False):
+            vals = torch.gather(flat, 1, idx)
+            return [torch.stack([idx_f, vals], dim=1).reshape(n, 2, k, 1)]
+        return [idx_f.reshape(n, 1, k, 1)]
+    return _no_params, apply
+
+
+@register("MVN")
+def _mvn():
+    def apply(params, inputs, cfg, ctx):
+        p = cfg.get_msg("mvn_param")
+        return [mvn(inputs[0],
+                    normalize_variance=bool(p.get("normalize_variance", True)),
+                    across_channels=bool(p.get("across_channels", False)))]
+    return _no_params, apply
+
+
 @register("NORMALIZATION")
 def _normalization():
     return _simple(lambda x, cfg, ctx: l2_normalize_rows(x))
@@ -483,6 +536,24 @@ def _sum():
     def apply(params, inputs, cfg, ctx):
         num_output = int(cfg.get_msg("sum_param").get("num_output", 1))
         return [reductions.sum_reduce(inputs[0], num_output)]
+    return _no_params, apply
+
+
+@register("WRITE_TO_FILE")
+def _write_to_file():
+    # Caffe write_to_file_layer.cpp: a csv per forward, written by
+    # Net.process_host_sinks
+    def apply(params, inputs, cfg, ctx):
+        return []
+    return _no_params, apply
+
+
+@register("HDF5_OUTPUT")
+def _hdf5_output():
+    # Caffe hdf5_output_layer.cpp: an .h5 file per forward, written by
+    # Net.process_host_sinks
+    def apply(params, inputs, cfg, ctx):
+        return []
     return _no_params, apply
 
 
@@ -511,7 +582,7 @@ def _max_margin():
                         0, ids_sorted.shape[0] - 1)
                     w = torch.where(ids_sorted[pos] == q, w_sorted[pos], 0.0)
                     weights = w.reshape(third.shape)
-        loss, violations = max_margin_loss(
+        loss, violations = losses.max_margin_loss(
             inputs[0], inputs[1], margin=margin, norm=norm, weights=weights)
         return [loss, violations]
     return _no_params, apply
@@ -545,4 +616,150 @@ def _retrieval_stats():
             exclude_same_video_shots=bool(p.get("exclude_same_video_shots",
                                                 True)))
         return [out["mean_ap"], out["hit_at_1"], out["hit_at_5"]]
+    return _no_params, apply
+
+
+@register("EUCLIDEAN_LOSS", loss_weights=(1.0,))
+def _euclidean():
+    def apply(params, inputs, cfg, ctx):
+        l1 = bool(cfg.get_msg("euclidean_loss_param").get("l1", False))
+        return [losses.euclidean_loss(inputs[0], inputs[1], l1=l1)]
+    return _no_params, apply
+
+
+def _rows(x):
+    return x.reshape(x.shape[0], -1)
+
+
+@register("HINGE_LOSS", loss_weights=(1.0,))
+def _hinge():
+    def apply(params, inputs, cfg, ctx):
+        norm = cfg.get_msg("hinge_loss_param").get("norm", "L1")
+        return [losses.hinge_loss(_rows(inputs[0]), inputs[1], norm=norm)]
+    return _no_params, apply
+
+
+@register("SOFTMAX_LOSS", loss_weights=(1.0,))
+def _softmax_loss():
+    def apply(params, inputs, cfg, ctx):
+        return [losses.softmax_loss(_rows(inputs[0]), inputs[1])]
+    return _no_params, apply
+
+
+@register("MULTINOMIAL_LOGISTIC_LOSS", loss_weights=(1.0,))
+def _multinomial_logistic():
+    def apply(params, inputs, cfg, ctx):
+        return [losses.multinomial_logistic_loss(_rows(inputs[0]), inputs[1])]
+    return _no_params, apply
+
+
+@register("SIGMOID_CROSS_ENTROPY_LOSS", loss_weights=(1.0,))
+def _sigmoid_cross_entropy():
+    def apply(params, inputs, cfg, ctx):
+        return [losses.sigmoid_cross_entropy_loss(inputs[0], inputs[1])]
+    return _no_params, apply
+
+
+@register("INFOGAIN_LOSS", loss_weights=(1.0,))
+def _infogain():
+    def apply(params, inputs, cfg, ctx):
+        # the matrix: infogain_loss_param.source, read into ctx.side by
+        # the Net
+        h = ctx.side.get(cfg.get("name"))
+        if h is None:
+            raise ValueError("INFOGAIN_LOSS needs its infogain matrix in "
+                             "ctx.side")
+        return [losses.infogain_loss(_rows(inputs[0]), inputs[1], h)]
+    return _no_params, apply
+
+
+@register("CONTRASTIVE_LOSS", loss_weights=(1.0,))
+def _contrastive():
+    def apply(params, inputs, cfg, ctx):
+        margin = float(cfg.get_msg("contrastive_loss_param").get("margin", 1.0))
+        return [losses.contrastive_loss(inputs[0], inputs[1], inputs[2],
+                                        margin=margin)]
+    return _no_params, apply
+
+
+@register("ACCURACY", loss_weights=(0.0,))
+def _accuracy():
+    def apply(params, inputs, cfg, ctx):
+        top_k = int(cfg.get_msg("accuracy_param").get("top_k", 1))
+        return [losses.accuracy(_rows(inputs[0]), inputs[1], top_k=top_k)]
+    return _no_params, apply
+
+
+def _rank_tops(out: dict) -> list:
+    return [out["median_rank"], out["recall_at_1"], out["recall_at_5"],
+            out["recall_at_10"], out["mean_ap"]]
+
+
+@register("RETRIEVAL_RANK_STATS", loss_weights=(0.0,) * 5)
+def _retrieval_rank_stats():
+    def apply(params, inputs, cfg, ctx):
+        p = cfg.get_msg("retrieval_rank_stats_param")
+        return _rank_tops(retrieval_metrics.retrieval_rank_stats(
+            _rows(inputs[0]), _rows(inputs[1]),
+            compute_ap=bool(p.get("compute_ap", False)),
+            positive_size=int(p.get("positive_size", 0)),
+            negative_size=int(p.get("negative_size", 0))))
+    return _no_params, apply
+
+
+@register("RETRIEVAL_RANK_STATS_FIXED_REF", loss_weights=(0.0,) * 5)
+def _retrieval_rank_stats_fixed_ref():
+    def apply(params, inputs, cfg, ctx):
+        return _rank_tops(retrieval_metrics.retrieval_rank_stats_fixed_ref(
+            _rows(inputs[0]), inputs[1].reshape(-1).to(torch.int32),
+            _rows(inputs[2]), inputs[3].reshape(-1).to(torch.int32)))
+    return _no_params, apply
+
+
+@register("CLASSIFICATION_STATS", loss_weights=(0.0, 0.0, 0.0))
+def _classification_stats():
+    def apply(params, inputs, cfg, ctx):
+        num_classes = int(cfg.get_msg("classification_stats_param")
+                          .get("num_classes", inputs[0].shape[1]))
+        out = classification_stats(_rows(inputs[0]), inputs[1],
+                                   num_classes=num_classes)
+        return [out["per_class_accuracy"], out["per_class_ap"],
+                out["accuracy"]]
+    return _no_params, apply
+
+
+# ---------------------------------------------------------------------------
+# DUMMY_DATA
+# ---------------------------------------------------------------------------
+
+@register("DUMMY_DATA")
+def _dummy_data():
+    def apply(params, inputs, cfg, ctx):
+        """A filler-driven layer, not a pipeline input (Caffe
+        dummy_data_layer.cpp:31-55): a constant filler fills once (the same
+        values every forward); any other refills on every forward. Top i is
+        drawn from a generator seeded by the layer's salt crc32(name) and i
+        (iteration_seed), XORed with the seed of the step's generator, which
+        train reseeds every iteration: JAX folds the same salt into the
+        step's key. Without a generator the fill depends on the layer and
+        the top alone. The streams are torch's, not threefry's."""
+        p = cfg.get_msg("dummy_data_param")
+        dims = [[int(v) for v in p.get_list(k)]
+                for k in ("num", "channels", "height", "width")]
+        fill_cfgs = p.get_list("data_filler")
+        salt = zlib.crc32(str(cfg.get("name")).encode())
+        step = ctx.generator.initial_seed() if ctx.generator is not None else 0
+        dev = torch.device(ctx.device if ctx.device is not None else "cpu")
+        outs = []
+        for i in range(len(cfg.get_list("top"))):
+            shape = tuple(d[i] if i < len(d) else d[0] for d in dims)
+            if dev.type == "meta":
+                outs.append(torch.empty(shape, device=dev))
+                continue
+            fcfg = fill_cfgs[i] if i < len(fill_cfgs) else (
+                fill_cfgs[0] if fill_cfgs else None)
+            gen = torch.Generator(device=dev).manual_seed(
+                iteration_seed(salt, i) ^ step)
+            outs.append(fillers.get_filler(fcfg)(gen, shape))
+        return outs
     return _no_params, apply

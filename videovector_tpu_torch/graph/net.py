@@ -32,18 +32,28 @@ import torch
 
 from videovector_tpu_torch.config.textformat import Message
 from videovector_tpu_torch.config.upgrade import net_needs_upgrade, upgrade_net
+from videovector_tpu_torch.data.hdf5 import write_hdf5
+from videovector_tpu_torch.data.wire import BlobProto
 from videovector_tpu_torch.graph.fuse import ScoringFusion, fusion_enabled
 from videovector_tpu_torch.graph.layers import (
     DATA_LAYER_TYPES, LAYERS, PENDING_TYPES, SINK_LAYER_TYPES, ApplyContext,
 )
 from videovector_tpu_torch.metrics.retrieval import (
-    IdToClassMap, check_num_videos, retrieval_stats_report,
-    video_level_average,
+    IdToClassMap, check_num_videos, retrieval_rank_stats_fixed_ref_report,
+    retrieval_rank_stats_report, retrieval_stats_report, video_level_average,
 )
 from videovector_tpu_torch.models.mednet import torch_dtype
 from videovector_tpu_torch.utils.logging import get_logger
 
 log = get_logger(__name__)
+
+# the stats layers whose `stats_output_file` makes them host sinks, and the
+# parameter message that names it
+_STATS_PARAM = {
+    "RETRIEVAL_STATS": "retrieval_stats_param",
+    "RETRIEVAL_RANK_STATS": "retrieval_rank_stats_param",
+    "RETRIEVAL_RANK_STATS_FIXED_REF": "retrieval_rank_stats_fixed_ref_param",
+}
 
 
 def _state_meets_rule(rule: Message, phase: str, level: int, stages: set) -> bool:
@@ -191,14 +201,16 @@ class Net:
                     f"layer {s['name']!r} ({s['type']}): expected exactly "
                     f"{want} bottom blob(s), got {len(s['bottoms'])} "
                     f"(the reference CHECKs ExactNumBottomBlobs)")
-        # RETRIEVAL_STATS with stats_output_file also dumps a per-item csv
-        # (ref:src/caffe/layers/retrieval_stats_layer.cpp:148-155,310-340)
+        # stats layers with stats_output_file also dump a per-item csv
+        # (ref:src/caffe/layers/retrieval_stats_layer.cpp:148-155,310-340,
+        # retrieval_rank_stats_layer.cpp:188-268,
+        # retrieval_rank_stats_fixed_ref_layer.cpp:120-221)
         self.host_sinks += [
             {"name": l.get("name"), "type": l.get("type"),
              "bottoms": [str(b) for b in l.get_list("bottom")], "cfg": l}
             for l in self.layers
-            if l.get("type") == "RETRIEVAL_STATS"
-            and l.get_msg("retrieval_stats_param").get("stats_output_file")
+            if l.get("type") in _STATS_PARAM
+            and l.get_msg(_STATS_PARAM[l.get("type")]).get("stats_output_file")
         ]
 
         # AutoTopBlobs (ref:include/caffe/layer.hpp:258 + net.cpp AppendTop):
@@ -303,11 +315,22 @@ class Net:
                         f" retrieval_stats_layer.cpp:48)")
                 self.side[name] = id_map
                 continue
-            if layer.get_msg("infogain_loss_param").get("source"):
-                raise NotImplementedError(
-                    f"layer {name!r}: the infogain matrix (and INFOGAIN_LOSS) "
-                    "is not ported to videovector_tpu_torch yet (ROADMAP "
-                    "queue 1, item 6c-ii)")
+            path = layer.get_msg("infogain_loss_param").get("source")
+            if path:
+                _require(path, name, "infogain source")
+                # the H matrix from a BlobProto binary
+                # (ref:src/caffe/layers/infogain_loss_layer.cpp:18-24)
+                with open(path, "rb") as f:
+                    arr = BlobProto.decode(f.read()).to_array()
+                self.side[name] = torch.as_tensor(
+                    arr.reshape(arr.shape[-2], arr.shape[-1]))
+                continue
+            if (layer.get("type") == "INFOGAIN_LOSS"
+                    and len(layer.get_list("bottom")) < 3):
+                raise ValueError(
+                    f"layer {name!r}: INFOGAIN_LOSS with 2 bottoms needs "
+                    f"infogain_loss_param.source (ref CHECK(has_source()), "
+                    f"infogain_loss_layer.cpp:17-19)")
             path = layer.get_msg("max_margin_loss_param").get("id_to_weight_file")
             if path:
                 _require(path, name, "id_to_weight_file")
@@ -362,11 +385,12 @@ class Net:
         return validators
 
     # ------------------------------------------------------------------
-    def _context(self, generator=None, *, plain=None) -> ApplyContext:
+    def _context(self, generator=None, *, plain=None,
+                 device=None) -> ApplyContext:
         return ApplyContext(phase=self.phase, generator=generator,
                             side=self.side, compute_dtype=self.compute_dtype,
                             plain=self.plain if plain is None else plain,
-                            quant=self.quant)
+                            quant=self.quant, device=device)
 
     def init(self, generator: torch.Generator, batch_spec: dict[str, Any]):
         """Create params on the generator's device, drawing every filler from
@@ -390,7 +414,7 @@ class Net:
         meta: dict[str, dict[str, ParamMeta]] = {}
         shared_owner_by_name: dict[str, tuple[str, str]] = {}
         # dropout draws on "meta" tensors consume nothing from this one
-        ctx = self._context(torch.Generator(), plain=True)
+        ctx = self._context(torch.Generator(), plain=True, device="meta")
         compute = [l for l in self.layers
                    if l.get("type") not in DATA_LAYER_TYPES]
         last = max((i for i, l in enumerate(compute)
@@ -536,7 +560,11 @@ class Net:
                 arr = torch.movedim(arr, 0, 1)
             blobs[name] = arr
 
-        ctx = self._context(generator)
+        # the batch's device, else the params' (DUMMY_DATA's tops go there)
+        dev = next((v.device for v in (*blobs.values(), *(
+            t for lp in params.values() for t in lp.values()))
+            if isinstance(v, torch.Tensor)), None)
+        ctx = self._context(generator, device=dev)
         loss = None
         consumed: set[str] = set()
         # absorbable motif layers run symbolically; their blobs materialize
@@ -590,8 +618,6 @@ class Net:
                     blobs[name] = fz.materialize(name)
         self._last_absorbed = fz.absorbed_layers if fz is not None else 0
         if loss is None:
-            dev = next((v.device for v in blobs.values()
-                        if isinstance(v, torch.Tensor)), None)
             loss = torch.zeros((), dtype=torch.float32, device=dev)
 
         tail = ()
@@ -635,40 +661,82 @@ class Net:
         loss, _ = self.apply(params, batch, generator=generator)
         return loss
 
-    def process_host_sinks(self, blobs: dict):
-        """Dump sink-layer bottoms (call with `return_blobs=True` outputs, or
-        the `return_sink_blobs` map): RETRIEVAL_STATS's stats_output_file
-        becomes the per-query report csv, truncated on every call as the
-        reference truncates it on every Forward
-        (retrieval_stats_layer.cpp:150). WRITE_TO_FILE and HDF5_OUTPUT are
-        not ported yet (ROADMAP item 6c-ii)."""
+    def process_host_sinks(self, blobs: dict, *, append: bool = False):
+        """Dump the sink layers' bottoms (call with `return_blobs=True`
+        outputs, or the `return_sink_blobs` map): WRITE_TO_FILE writes a csv
+        (ref write_to_file_layer.cpp:36-64), HDF5_OUTPUT an .h5 file (ref
+        hdf5_output_layer.cpp), and RETRIEVAL_STATS and
+        RETRIEVAL_RANK_STATS(_FIXED_REF) with a stats_output_file their
+        per-item report csv. The reference truncates each file on every Forward
+        (write_to_file_layer.cpp:42, retrieval_stats_layer.cpp:150), and so
+        does append=False, the default; append=True accumulates
+        WRITE_TO_FILE's rows across calls instead (the JAX package's
+        extension for multi-batch eval loops)."""
         for sink in self.host_sinks:
-            if sink["type"] != "RETRIEVAL_STATS":
-                raise NotImplementedError(
-                    f"{sink['type']} ({sink['name']!r}) is not ported to "
-                    "videovector_tpu_torch yet (ROADMAP queue 1, item 6c-ii)")
-            p = sink["cfg"].get_msg("retrieval_stats_param")
-            feats = blobs[sink["bottoms"][0]]
-            feats = feats.reshape(feats.shape[0], -1)
-            vids = blobs[sink["bottoms"][1]].reshape(-1).to(torch.int32)
-            if bool(p.get("video_level_retrieval", False)):
-                nv = int(p.get("max_num_videos", 0))
-                # host-side twin of the reference's CHECK_EQ
-                # (retrieval_stats_layer.cpp:188)
-                check_num_videos(vids, nv)
-                feats, vids = video_level_average(feats, vids, nv)
-            id_map = self.side.get(sink["name"])
-            classes = id_map.lookup(vids) if id_map is not None else vids
-            retrieval_stats_report(
-                feats.detach().cpu().numpy(), vids.cpu().numpy(),
-                classes.cpu().numpy(), p.get("stats_output_file"),
-                exclude_same_video_shots=bool(
-                    p.get("exclude_same_video_shots", True)),
-                # extension: `gallery_dtype: "bfloat16"` stores the gallery
-                # compact; ranks exact w.r.t. the quantized distances
-                gallery_dtype=str(p.get("gallery_dtype", "float32")
-                                  or "float32"),
-                device=feats.device)
+            cfg = sink["cfg"]
+            bottoms = [blobs[b] for b in sink["bottoms"]]
+            if sink["type"] == "WRITE_TO_FILE":
+                wp = cfg.get_msg("write_to_file_param")
+                _write_to_file(wp.get("output_file", f"{sink['name']}.csv"),
+                               _host(bottoms[0]),
+                               int(wp.get("feat_size", -1)), append)
+            elif sink["type"] == "HDF5_OUTPUT":
+                path = cfg.get_msg("hdf5_output_param").get(
+                    "file_name", f"{sink['name']}.h5")
+                # the dataset names are fixed, "data" from bottom[0] and
+                # "label" from bottom[1], of one batch size
+                # (ref:src/caffe/layers/hdf5_output_layer.cpp:31-60), so
+                # that an HDF5_DATA layer can read the file back
+                data, label = _host(bottoms[0]), _host(bottoms[1])
+                if data.shape[0] != label.shape[0]:
+                    raise ValueError(
+                        f"HDF5_OUTPUT {sink['name']!r}: data and label "
+                        f"batch sizes differ ({data.shape[0]} vs "
+                        f"{label.shape[0]}; the reference CHECK_EQs them)")
+                write_hdf5(path, {"data": data, "label": label})
+            elif sink["type"] == "RETRIEVAL_STATS":
+                self._retrieval_stats_sink(sink, bottoms)
+            elif sink["type"] == "RETRIEVAL_RANK_STATS":
+                p = cfg.get_msg("retrieval_rank_stats_param")
+                ctxf, tgtf = bottoms
+                retrieval_rank_stats_report(
+                    ctxf.reshape(ctxf.shape[0], -1),
+                    tgtf.reshape(tgtf.shape[0], -1),
+                    p.get("stats_output_file"),
+                    compute_ap=bool(p.get("compute_ap", False)),
+                    positive_size=int(p.get("positive_size", 0)),
+                    negative_size=int(p.get("negative_size", 0)),
+                    device=ctxf.device)
+            else:   # RETRIEVAL_RANK_STATS_FIXED_REF
+                p = cfg.get_msg("retrieval_rank_stats_fixed_ref_param")
+                feats, vids, reff, ref_vids = bottoms
+                retrieval_rank_stats_fixed_ref_report(
+                    feats.reshape(feats.shape[0], -1), vids.reshape(-1),
+                    reff.reshape(reff.shape[0], -1), ref_vids.reshape(-1),
+                    p.get("stats_output_file"), device=feats.device)
+
+    def _retrieval_stats_sink(self, sink, bottoms):
+        p = sink["cfg"].get_msg("retrieval_stats_param")
+        feats = bottoms[0].reshape(bottoms[0].shape[0], -1)
+        vids = bottoms[1].reshape(-1).to(torch.int32)
+        if bool(p.get("video_level_retrieval", False)):
+            nv = int(p.get("max_num_videos", 0))
+            # host-side twin of the reference's CHECK_EQ
+            # (retrieval_stats_layer.cpp:188)
+            check_num_videos(vids, nv)
+            feats, vids = video_level_average(feats, vids, nv)
+        id_map = self.side.get(sink["name"])
+        classes = id_map.lookup(vids) if id_map is not None else vids
+        retrieval_stats_report(
+            feats.detach().cpu().numpy(), vids.cpu().numpy(),
+            classes.cpu().numpy(), p.get("stats_output_file"),
+            exclude_same_video_shots=bool(
+                p.get("exclude_same_video_shots", True)),
+            # extension: `gallery_dtype: "bfloat16"` stores the gallery
+            # compact; ranks exact w.r.t. the quantized distances
+            gallery_dtype=str(p.get("gallery_dtype", "float32")
+                              or "float32"),
+            device=feats.device)
 
     # ------------------------------------------------------------------
     def flat_param_list(self, params):
@@ -680,3 +748,35 @@ class Net:
                 m = self.param_meta.get(lname, {}).get(pname, ParamMeta())
                 out.append((lname, pname, m.lr_mult, m.decay_mult))
         return out
+
+
+def _host(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def _write_to_file(path: str, arr: np.ndarray, feat_size: int,
+                   append: bool) -> None:
+    """WRITE_TO_FILE's csv, byte for byte the JAX package's. The blob is
+    viewed as Caffe's (N, C, H, W): a 2-D (N, F) blob is (N, F, 1, 1), so
+    each row holds H.W values (feat_size caps it, write_to_file_layer.cpp:
+    21-25). The rows run channel-major and start "c,b", though the header
+    names batch_id first: the reference's loop writes the channel first
+    (:49-52)."""
+    header = (not append or not os.path.exists(path)
+              or os.path.getsize(path) == 0)
+    n = arr.shape[0]
+    c = arr.shape[1] if arr.ndim > 1 else 1
+    flat = arr.reshape(n, c, -1)
+    feat = feat_size if feat_size > 0 else flat.shape[2]
+    # every value formatted once, in the rows' (channel, batch) order
+    vals = [format(v, "g") for v in
+            flat[:, :, :feat].transpose(1, 0, 2).ravel().tolist()]
+    k = min(feat, flat.shape[2])
+    with open(path, "a" if append else "w") as f:
+        if header:
+            f.write(f"#batch_id,channel_id,features(1..{feat})\n")
+        f.write("".join(
+            f"{ci},{b}," + ",".join(vals[(ci * n + b) * k:(ci * n + b + 1) * k])
+            + "\n" for ci in range(c) for b in range(n)))

@@ -27,6 +27,7 @@ from videovector_tpu_torch.models.embedding import (
     VideoEmbeddingConfig, VideoEmbeddingModel,
 )
 from videovector_tpu_torch.models.mednet import MedNet, MedNetConfig
+from videovector_tpu_torch.ops.linear import no_tf32
 from videovector_tpu_torch.ops.normalization import l2_normalize_rows
 
 
@@ -93,7 +94,8 @@ class RetrievalPipeline:
         """Frames -> embeddings -> scores vs the gallery -> (top-k ids,
         top-k scores). gallery: (G, E) unit rows on the device."""
         emb = self.embed_frames(params, pixels_u8, h_off, w_off, mirror)
-        scores = torch.matmul(emb, gallery.T)
+        with no_tf32():     # f32 scores, as JAX's; they decide the top-k
+            scores = torch.matmul(emb, gallery.T)
         top_scores, top_idx = top_k_stable(scores, self.cfg.top_k)
         return gallery_ids[top_idx], top_scores
 

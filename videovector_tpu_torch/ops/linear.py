@@ -45,8 +45,10 @@ def no_tf32():
 
 
 def _matmul(x, w):
-    """x @ w with an f32 sum and f32 result (JAX's preferred_element_type)."""
-    return torch.matmul(x.float(), w.float())
+    """x @ w with an f32 sum and f32 result (JAX's preferred_element_type),
+    with TF32 off whatever the process sets."""
+    with no_tf32():
+        return torch.matmul(x.float(), w.float())
 
 
 class _InnerProductReg(torch.autograd.Function):

@@ -28,6 +28,7 @@ import torch
 from videovector_tpu_torch.convert import (
     leaves_with_paths, map_params, params_to_numpy, tree_from_paths,
 )
+from videovector_tpu_torch.core.seeds import iteration_seed
 from videovector_tpu_torch.device import DEFAULT, resolve
 from videovector_tpu_torch.solver.checkpoint import AsyncSnapshotter, restore
 from videovector_tpu_torch.solver.solvers import (
@@ -155,21 +156,6 @@ def build_fused_step(grad_fn, cfg: SolverConfig, n_accum: int, gm: int, *,
         return p2, s2, metrics
 
     return fstep
-
-
-_MASK64 = (1 << 64) - 1
-
-
-def iteration_seed(seed: int, it: int) -> int:
-    """The dropout generator's seed for iteration `it`: SplitMix64 of
-    seed << 32 | it (both as 32-bit words). Each iteration's masks then
-    depend on (seed, it) alone, as JAX's fold_in(PRNGKey(seed), it) does,
-    so a run resumed at iteration N draws iteration N's masks."""
-    z = (((seed & 0xFFFFFFFF) << 32) | (it & 0xFFFFFFFF))
-    z = (z + 0x9E3779B97F4A7C15) & _MASK64
-    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
-    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
-    return z ^ (z >> 31)
 
 
 def auto_grad_microbatch(batch, batch_axes: dict | None = None) -> int:
