@@ -107,7 +107,24 @@ Run from the root of a checkout. It
    forward and backward on the card and on the CPU (values and gradients
    compared); then, with TF32 on in the process, the regularized
    INNER_PRODUCT, RetrievalPipeline.query and the rank stats' distances
-   against their TF32-off runs (tf32_checks).
+   against their TF32-off runs (tf32_checks), with the LSTM's and the
+   trajectory model's products among them;
+13. trains ROADMAP item 9's workloads (trajectory): projects/trajectory_forecast
+   through tools.cli.main (stores of 400 + 40 windows of 4 tracks written
+   by the port's tools/make_tracking_data, generate_net.py's net at its
+   defaults: LSTM_ENC_DEC at hidden 32, batch 16, T 8 + 4, the readout on
+   K1's core route; a copy of trajectory_solver.prototxt with max_iter 200,
+   a test and a snapshot every 100): train (the displayed loss must fall,
+   the step timed and profiled), test on the snapshot (equal to train's
+   last test) and time; the card against the CPU on the project's Net, on
+   a net of the six item-9 types over a TRACKING_WINDOWS_SOCIAL_DATA batch
+   and on train over 4 carried batches (values and losses within 1e-4,
+   gradients and params within 1e-3 of their largest magnitude); then the
+   LSTM enc-dec training step at scripts/bench_lstm_train.py's widths (I =
+   H = 512, T = 20 + 10, a 512 -> 512 readout on K1's f32 route, that
+   script's solver) at B = 64, 256 and 1024: ms a step, tokens/s, the
+   bound, busy and idle share and device operations a step, and the
+   readout held against K1's plain version.
 
 Exits non-zero, with no result line, without a CUDA card or outside a
 checkout. The last line of stdout is {"ok": true, "device": {...}}; the line
@@ -261,6 +278,27 @@ ZOO_POOL1 = (ZOO_BATCH, 96, 27, 27)
 # gradients: the H100 run reads at most 1.8e-7 and 1.5e-6 (PERF.md), and
 # TF32 rounding (~5e-4) lies far past it
 ZOO_TOL = 1e-5
+# the trajectory cells (trajectory): projects/trajectory_forecast through
+# the CLI at generate_net.emit's defaults (hidden 32, batch 16, T 8 + 4)
+# over 400 + 40 windows of 4 tracks, and the LSTM enc-dec step at
+# scripts/bench_lstm_train.py's widths (I = H = 512, T = 20 + 10)
+TRAJ_PROJECT = ROOT / "projects/trajectory_forecast"
+TRAJ_WINDOWS = (400, 40)
+TRAJ_STEPS = 200
+TRAJ_INTERVAL = 100
+TRAJ_TEST_ITERS = 5        # the project's solver's test_iter
+TRAJ_TIMED = range(1, 81)
+TRAJ_PROFILED = range(81, 91)
+ENCDEC_WIDTH = 512
+ENCDEC_T = (20, 10)
+ENCDEC_BATCHES = (64, 256, 1024)
+ENCDEC_WARMUP, ENCDEC_TIMED, ENCDEC_PROFILED = 5, 20, 3
+ENCDEC_SOLVER = dict(base_lr=0.001, momentum=0.9, weight_decay=5e-4,
+                     lr_policy="fixed")
+# card vs CPU for item 9's nets: values and losses relative to their
+# largest magnitude, gradients and trained params too
+TRAJ_VALUE_TOL = 1e-4
+TRAJ_GRAD_TOL = 1e-3
 # K1's timings cycle through copies of w that together exceed the H100's
 # 50 MB L2 by this factor, so that each call reads its weights from HBM as
 # it does on the path (fc6, fc7 and the tower evict each other there)
@@ -843,7 +881,8 @@ def training_main_path(dev) -> tuple[int, float]:
     return launches["K1"] + 4, ms
 
 
-def training_profile(prof, steps: int, wall_ms: float) -> dict:
+def training_profile(prof, steps: int, wall_ms: float,
+                     label: str = f"B={TRAIN_BATCH}") -> dict:
     """Device time by kernel per step over the profiled steps, the idle
     share against the unprofiled host wall, and the check that the tower
     forward's (1920 x 4096) . (4096 x 4096) product never went to a library
@@ -881,7 +920,7 @@ def training_profile(prof, steps: int, wall_ms: float) -> dict:
                   if any(s in n.lower() for s in ("cublas", "xmma", "cutlass",
                                                   "gemm", "sm90_"))
                   and "vv::" not in n and "gemm_tma_wgmma" not in n) / 1e3
-    log(f"training profile over {steps} steps at B={TRAIN_BATCH}, per step: "
+    log(f"training profile over {steps} steps at {label}, per step: "
         f"device busy {busy:.4f} ms against {wall_ms:.4f} ms host wall "
         f"(unprofiled), idle share {1 - busy / wall_ms:.3f} ({h2d:.4f} ms "
         f"of the busy time H2D copies; without them "
@@ -1247,11 +1286,12 @@ def gallery_eval(dev) -> None:
     torch.cuda.empty_cache()
 
 
-def _emit():
-    """generate_net.py's emit, loaded from its file (the module imports
-    argparse only; its main, which imports the JAX package, is not run)."""
+def _emit(path: Path = GENERATE_NET):
+    """A project's generate_net.py's emit (by default the embedding
+    project's), loaded from its file (the module imports argparse only; the
+    embedding one's main, which imports the JAX package, is not run)."""
     import importlib.util
-    spec = importlib.util.spec_from_file_location("generate_net", GENERATE_NET)
+    spec = importlib.util.spec_from_file_location("generate_net", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod.emit
@@ -1949,14 +1989,15 @@ class _CliCapture(logging.Handler):
         return [l for l in out if l.startswith(prefixes)] if prefixes else out
 
 
-def _cli_solver(path: Path, net_path: Path, prefix: Path, **fields) -> Path:
-    """A copy of the repo's solver prototxt with `net` pointed at net_path,
-    `snapshot_prefix` at prefix and `fields` set; every other line as it
-    is."""
+def _cli_solver(path: Path, net_path: Path, prefix: Path, *,
+                template: Path = SOLVER_PROTOTXT, **fields) -> Path:
+    """A copy of a solver prototxt of the repo (by default the embedding
+    project's) with `net` pointed at net_path, `snapshot_prefix` at prefix
+    and `fields` set; every other line as it is."""
     fields = {"net": f'"{net_path}"', "snapshot_prefix": f'"{prefix}"',
               **{k: str(v) for k, v in fields.items()}}
     lines = []
-    for line in SOLVER_PROTOTXT.read_text().splitlines():
+    for line in template.read_text().splitlines():
         key = line.split(":")[0].strip()
         lines.append(f"{key}: {fields.pop(key)}" if key in fields else line)
     lines += [f"{k}: {v}" for k, v in fields.items()]
@@ -3182,6 +3223,24 @@ def _rank_check(phase, runs) -> tuple[dict, dict]:
     return witness, scalars
 
 
+def _rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """max |got - ref| over max |ref| (ref on the CPU)."""
+    got, ref = got.detach().float().cpu(), ref.detach().float().cpu()
+    if got.shape != ref.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"{tuple(got.shape)} vs {tuple(ref.shape)}, or "
+                             "non-finite values on the card")
+    return ((got - ref).abs().max() / ref.abs().max().clamp(min=1e-30)).item()
+
+
+def _held(what: str, errs: dict, tol: float) -> float:
+    worst = max(errs.values())
+    log(f"    {what}: worst relative error {worst:.3e} (tol {tol:g}); "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    if not worst <= tol:
+        raise AssertionError(f"{what}: {worst} > {tol}")
+    return worst
+
+
 def _card_vs_cpu(dev, msg, params, batches) -> dict:
     """The exhaustive TRAIN Net (dropout rewritten to 0, so that both
     devices draw nothing) and the TEST Net on the card and on the CPU, on
@@ -3216,7 +3275,7 @@ def _card_vs_cpu(dev, msg, params, batches) -> dict:
         for k in outs:
             c = (lc if k == "loss" else bc[k]).float().cpu()
             h = (lh if k == "loss" else bh[k]).float()
-            err = ((c - h).abs().max() / h.abs().max().clamp(min=1e-30)).item()
+            err = _rel_err(c, h)
             worst[k] = err
             if k in scalars["cpu"]:
                 for d, v in (("card", c), ("cpu", h)):
@@ -3385,21 +3444,16 @@ def layer_zoo(dev) -> dict:
     (oc, gc), (oh, gh) = runs
     if not torch.equal(oc["fc8"].cpu(), oh["fc8"]):
         raise AssertionError("layer zoo: fc8's exact sums differ")
-    worst = {}
-    for k, name in ZOO_TYPES.items():
-        c, h = oc[k].float().cpu(), oh[k].float()
-        err = ((c - h).abs().max() / h.abs().max().clamp(min=1e-30)).item()
-        worst[f"{name}: {k}"] = err
-        if not (torch.equal(c, h) if k in ZOO_EXACT else err <= ZOO_TOL):
-            raise AssertionError(f"layer zoo {name} ({k}): card vs CPU "
-                                 f"relative error {err}")
-    for k in gh:
-        c, h = gc[k].float().cpu(), gh[k].float()
-        err = ((c - h).abs().max() / h.abs().max().clamp(min=1e-30)).item()
-        worst[f"gradient {k}"] = err
-        if not err <= ZOO_TOL:
-            raise AssertionError(f"layer zoo gradient {k}: card vs CPU "
-                                 f"relative error {err}")
+    for k in ZOO_EXACT:
+        if not torch.equal(oc[k].cpu(), oh[k]):
+            raise AssertionError(f"layer zoo {ZOO_TYPES[k]} ({k}): the card's "
+                                 "top differs from the CPU's")
+    worst = {f"{name}: {k}": _rel_err(oc[k], oh[k])
+             for k, name in ZOO_TYPES.items() if k not in ZOO_EXACT}
+    _held("layer zoo, card vs CPU, the other tops", worst, ZOO_TOL)
+    grads = {f"gradient {k}": _rel_err(gc[k], gh[k]) for k in gh}
+    _held("layer zoo, card vs CPU, gradients", grads, ZOO_TOL)
+    worst.update(grads)
     ties = sum(int((row[:-1] == row[1:]).sum()) for row in
                torch.sort(oh["fc8"], dim=1).values[:, -6:])
     for d, (o, _) in zip(("card", "cpu"), runs):
@@ -3413,28 +3467,477 @@ def layer_zoo(dev) -> dict:
                                  f"{noise.std().item()}")
     log(f"  layer_zoo (TRAIN Net at B={ZOO_BATCH}, fc8 4096 -> "
         f"{ZOO_CLASSES}, pool1 {ZOO_POOL1}; {ties} exact ties among the "
-        f"rows' top 6 fc8 values), card vs CPU, the worst error relative to "
-        f"the largest magnitude, by type and output: "
-        + "; ".join(f"{k} {v:.3e}" for k, v in worst.items())
-        + f"; the losses on the card "
+        f"rows' top 6 fc8 values), card vs CPU: {', '.join(ZOO_EXACT)} "
+        f"equal, the other tops and the gradients as held above; the losses "
+        f"on the card "
         f"{ {k: round(oc[k].item(), 6) for k in ZOO_TYPES if k.endswith('loss')} } "
         f"[{card}]")
     return {"launches": launches[0], "f32": launches[2], "worst": worst}
 
 
+# ---------------------------------------------------------------------------
+# Item 9: the trajectory project and the LSTM enc-dec step
+# ---------------------------------------------------------------------------
+
+ENCDEC_NET = """
+name: "lstm_encdec"
+layers {{ name: "d" type: MEMORY_DATA top: "observed" top: "cont_obs"
+  top: "predicted" top: "cont_pred" top: "gt" }}
+layers {{ name: "encdec" type: LSTM_ENC_DEC
+  bottom: "observed" bottom: "cont_obs" bottom: "predicted" bottom: "cont_pred"
+  top: "enc_h" top: "dec_h"
+  inner_product_param {{ num_output: {w}
+    weight_filler {{ type: "gaussian" std: 0.1 }} }}
+  lstm_param {{ clipping_threshold: 5.0 }} }}
+layers {{ name: "silence_enc" type: SILENCE bottom: "enc_h" }}
+layers {{ name: "fb" type: FLATTEN_BATCH bottom: "dec_h" top: "dec_flat" }}
+layers {{ name: "readout" type: INNER_PRODUCT bottom: "dec_flat" top: "pred"
+  inner_product_param {{ num_output: {w}
+    weight_filler {{ type: "gaussian" std: 0.01 }} }} }}
+layers {{ name: "gt_fb" type: FLATTEN_BATCH bottom: "gt" top: "gt_flat" }}
+layers {{ name: "loss" type: EUCLIDEAN_LOSS bottom: "pred" bottom: "gt_flat"
+  top: "displacement_loss" }}
+"""
+
+# the six item-9 types on one TRACKING_WINDOWS_SOCIAL_DATA batch (16 agents,
+# T 8 + 4): LSTM and LSTM_LINEAR carried from a first forward
+SIX_TYPES_NET = """
+name: "item9_types"
+layers { name: "d" type: MEMORY_DATA top: "observed" top: "cont_observed"
+  top: "predicted" top: "cont_predicted" top: "first" top: "last"
+  top: "c0" top: "h0" top: "feats" top: "relations" top: "mean_pos" }
+layers { name: "rnn" type: LSTM bottom: "observed" bottom: "cont_observed"
+  top: "h_lstm" inner_product_param { num_output: 64
+    weight_filler { type: "gaussian" std: 0.2 } } }
+layers { name: "rnn_lin" type: LSTM_LINEAR bottom: "observed"
+  bottom: "cont_observed" top: "h_lin"
+  inner_product_param { num_output: 32 } lstm_param { clipping_threshold: 0.05 } }
+layers { name: "encdec" type: LSTM_ENC_DEC bottom: "observed"
+  bottom: "cont_observed" bottom: "predicted" bottom: "cont_predicted"
+  top: "enc_h" top: "dec_h" inner_product_param { num_output: 64
+    weight_filler { type: "gaussian" std: 0.15 } } }
+layers { name: "cond" type: LSTM_CONDITIONAL bottom: "predicted"
+  bottom: "cont_predicted" bottom: "first" top: "cond_out"
+  inner_product_param { num_output: 64
+    weight_filler { type: "gaussian" std: 0.2 } }
+  lstm_param { final_output_size: 2 } }
+layers { name: "single" type: LSTM_SINGLE_STEP bottom: "last" bottom: "c0"
+  bottom: "h0" top: "h_one" top: "c_one"
+  inner_product_param { num_output: 64
+    weight_filler { type: "gaussian" std: 0.2 } } }
+layers { name: "social" type: SOCIAL_POOLING bottom: "feats"
+  bottom: "relations" bottom: "mean_pos" top: "pooled"
+  social_pooling_param { pool_feat_size: 32 } }
+"""
+SIX_TYPES_TOPS = ("h_lstm", "h_lin", "enc_h", "dec_h", "cond_out", "h_one",
+                  "c_one", "pooled")
+
+
+def _values_and_grads(net, params, batch, dev, tops=None, state=None):
+    """One forward and backward of `net` on `dev`: (values, grads, carry),
+    the scalar being the loss, or with `tops` the sum of each top times a
+    seeded cotangent (made on the host, the same on both devices)."""
+    p = {ln: {pn: t.detach().to(dev).requires_grad_() for pn, t in lp.items()}
+         for ln, lp in params.items()}
+    feed = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+    st = None if state is None else {
+        k: type(v)(*(t.to(dev) for t in v)) for k, v in state.items()}
+    loss, blobs, carry = net.apply(p, feed, state=st, return_blobs=True,
+                                   return_state=True)
+    values = {"loss": loss}
+    if tops:
+        cr = np.random.RandomState(17)
+        loss = sum((blobs[k] * torch.as_tensor(cr.randn(*blobs[k].shape)
+                                               .astype(np.float32)).to(dev))
+                   .sum() for k in tops)
+        values = {k: blobs[k] for k in tops}
+    loss.backward()
+    grads = {f"{ln}/{pn}": t.grad for ln, lp in p.items()
+             for pn, t in lp.items() if t.grad is not None}
+    return values, grads, carry
+
+
+def _card_vs_cpu_nets(dev, cases: dict) -> dict:
+    """Each (net, params, batch, tops, state) on the card and on the CPU:
+    values within TRAJ_VALUE_TOL and gradients within TRAJ_GRAD_TOL of
+    their largest magnitude. Returns the worst errors by case."""
+    out = {}
+    for name, (net, params, batch, tops, state) in cases.items():
+        card = _values_and_grads(net, params, batch, dev, tops, state)
+        cpu = _values_and_grads(net, params, batch, "cpu", tops, state)
+        if sorted(card[1]) != sorted(cpu[1]):
+            raise AssertionError(f"{name}: gradients of {sorted(card[1])} "
+                                 f"vs {sorted(cpu[1])}")
+        out[name] = (
+            _held(f"{name}, card vs CPU, values", {
+                k: _rel_err(card[0][k], cpu[0][k]) for k in cpu[0]},
+                TRAJ_VALUE_TOL),
+            _held(f"{name}, card vs CPU, gradients", {
+                k: _rel_err(card[1][k], cpu[1][k]) for k in cpu[1]},
+                TRAJ_GRAD_TOL))
+    return out
+
+
+def _carried_train(dev, net, params, batches) -> dict:
+    """train over the batches on `dev`, the LSTM carry threaded (detached)
+    from batch to batch, a display every step."""
+    from videovector_tpu_torch.solver import SolverConfig
+    from videovector_tpu_torch.solver.train import train
+
+    def loss_fn(p, batch, generator):
+        feed = {k: v for k, v in batch.items() if k != "__carry__"}
+        loss, _, carry = net.apply(p, feed, state=batch.get("__carry__"),
+                                   return_state=True)
+        return loss, {"__carry__": carry}
+    res = train(loss_fn, params, iter(batches), SolverConfig(
+        base_lr=0.05, momentum=0.9, max_iter=len(batches), display=1),
+        device=dev, fused_accum=False)
+    return {"loss": torch.tensor([m["loss"] for _, m in res.metrics_history]),
+            **{f"param {ln}/{pn}": t for ln, lp in res.params.items()
+               for pn, t in lp.items()},
+            **{f"carry {k}.{f}": getattr(v, f)
+               for k, v in res.final_carry.items() for f in ("c", "h")}}
+
+
+def _trajectory_card_vs_cpu(dev, project_text: str, train_store: str) -> dict:
+    """The card against the CPU, on the same params (drawn on the CPU) and
+    the same batches: the project's TRAIN Net (the loss and every
+    gradient), SIX_TYPES_NET on a TRACKING_WINDOWS_SOCIAL_DATA batch of the
+    project's store (every top and gradient, LSTM and LSTM_LINEAR from a
+    carried state), and train over 4 carried batches of a stateful net (the
+    displayed losses, the params, the final carry)."""
+    from videovector_tpu_torch.config import parse
+    from videovector_tpu_torch.data.tracking import (
+        TrackingConfig, TrackingWindowDataset, TrackingWindowsSocialSource,
+    )
+    from videovector_tpu_torch.graph import Net
+    from videovector_tpu_torch.graph.data_factory import make_data_source
+
+    gen = torch.Generator().manual_seed(21)
+    proj = Net(parse(project_text), "TRAIN")
+    layer = next(l for l in proj.layers
+                 if l.get("type") == "TRACKING_WINDOWS_DATA")
+    proj_batch = make_data_source(layer).next_batch()
+    proj_params, _ = proj.init(gen, _to(proj_batch, "cpu"))
+
+    social = TrackingWindowsSocialSource(
+        TrackingWindowDataset.from_records(train_store),
+        TrackingConfig(batch_size=16, temporal_observed_size=8,
+                       temporal_predicted_size=4)).next_batch()
+    rng = np.random.RandomState(5)
+    six_batch = {k: social[k] for k in ("observed", "cont_observed",
+                                        "predicted", "cont_predicted",
+                                        "relations", "mean_pos")}
+    six_batch.update(
+        first=np.zeros((16, 2), np.float32), last=social["observed"][-1],
+        c0=rng.randn(16, 64).astype(np.float32),
+        h0=rng.randn(16, 64).astype(np.float32),
+        feats=social["observed"][-1][None], relations=social["relations"][None],
+        mean_pos=social["mean_pos"][None])
+    six = Net(parse(SIX_TYPES_NET), "TRAIN")
+    six_params, _ = six.init(gen, _to(six_batch, "cpu"))
+    with torch.no_grad():
+        _, _, carry = six.apply(six_params, _to(six_batch, "cpu"),
+                                return_state=True)
+    if sorted(carry) != ["rnn", "rnn_lin"]:
+        raise AssertionError(f"SIX_TYPES_NET's carry: {sorted(carry)}")
+    errs = _card_vs_cpu_nets(dev, {
+        "the project's TRAIN Net": (proj, proj_params, proj_batch, None, None),
+        "the six item-9 types": (six, six_params, six_batch, SIX_TYPES_TOPS,
+                                 carry)})
+
+    carry_net = Net(parse("""
+    layers { name: "d" type: MEMORY_DATA top: "x" top: "cont" top: "y" }
+    layers { name: "rnn" type: LSTM bottom: "x" bottom: "cont" top: "h"
+      inner_product_param { num_output: 64
+        weight_filler { type: "gaussian" std: 0.2 } } }
+    layers { name: "fb" type: FLATTEN_BATCH bottom: "h" top: "hf" }
+    layers { name: "yf" type: FLATTEN_BATCH bottom: "y" top: "yf" }
+    layers { name: "loss" type: EUCLIDEAN_LOSS bottom: "hf" bottom: "yf"
+      top: "l" }
+    """), "TRAIN")
+    batches = []
+    for j in range(4):
+        cont = np.ones((10, 32), np.float32)
+        cont[0, :16 if j else 32] = 0   # half the sequences run on
+        batches.append({"x": rng.randn(10, 32, 16).astype(np.float32),
+                        "cont": cont,
+                        "y": rng.randn(10, 32, 64).astype(np.float32) * 0.5})
+    c_params, _ = carry_net.init(gen, _to(batches[0], "cpu"))
+    card = _carried_train(dev, carry_net, c_params,
+                          [_to(b, dev) for b in batches])
+    cpu = _carried_train("cpu", carry_net, c_params, batches)
+    errs["train over 4 carried batches"] = (
+        _held("train over 4 carried batches, card vs CPU, losses",
+              {"loss": _rel_err(card["loss"], cpu["loss"])}, TRAJ_VALUE_TOL),
+        _held("train over 4 carried batches, card vs CPU, params and carry",
+              {k: _rel_err(card[k], cpu[k]) for k in cpu if k != "loss"},
+              TRAJ_GRAD_TOL))
+    return errs
+
+
+def _trajectory_cli(dev, tmp: Path, card: str) -> dict:
+    """projects/trajectory_forecast through `vvtpu-torch` (tools.cli.main
+    in-process): its stores written by the port (tools/make_tracking_data,
+    the project's make_synthetic_data draws), generate_net.emit's net at its
+    defaults, a copy of trajectory_solver.prototxt (net, max_iter
+    TRAJ_STEPS, test_interval and snapshot TRAJ_INTERVAL changed); train,
+    then test and time on the snapshot. The step timed between iteration
+    marks and profiled. Returns K1's launches by route and the numbers."""
+    from videovector_tpu_torch.ops.hopper.matmul import matmul, matmul_plain
+    from videovector_tpu_torch.solver.checkpoint import load_model
+    from videovector_tpu_torch.tools import cli
+    from videovector_tpu_torch.tools.make_tracking_data import write_windows
+
+    rng = np.random.RandomState(0)
+    t0 = time.perf_counter()
+    stores = [write_windows(str(tmp / f"tracks_{n}.vvr"), rng, w)
+              for n, w in zip(("train", "test"), TRAJ_WINDOWS)]
+    write_s = time.perf_counter() - t0
+    text = _emit(TRAJ_PROJECT / "generate_net.py")(*stores)
+    net_path = tmp / "trajectory_train.prototxt"
+    net_path.write_text(text)
+    prefix = tmp / "trajectory"
+    solver = _cli_solver(tmp / "trajectory_solver.prototxt", net_path, prefix,
+                         template=TRAJ_PROJECT / "trajectory_solver.prototxt",
+                         max_iter=TRAJ_STEPS, test_interval=TRAJ_INTERVAL,
+                         snapshot=TRAJ_INTERVAL)
+    log(f"  trajectory: stores of {TRAJ_WINDOWS[0]} + {TRAJ_WINDOWS[1]} "
+        f"windows of 4 tracks written by the port in {write_s:.3f} s; "
+        f"{solver.name}: " + "; ".join(
+            l for l in solver.read_text().splitlines()
+            if l and not l.startswith("#")))
+    timer = _HostFedTimer(TRAJ_TIMED, TRAJ_PROFILED)
+    launches = {}
+    t0 = time.perf_counter()
+    with _driver_marks(timer) as built, _CliCapture() as out:
+        _, launches["train"] = _counted(lambda: cli.main(
+            ["train", "--solver", str(solver)]))
+    train_s = time.perf_counter() - t0
+    driver = built[0]
+    displays = [(r.args[0], float(r.args[1])) for r in out.records
+                if r.msg == "Iteration %d, loss = %g"]
+    tests = [(r.args[1], float(r.args[2])) for r in out.records
+             if r.msg == "    Test net output #%d: %s = %g%s"]
+    n_tests = len(range(0, TRAJ_STEPS + 1, TRAJ_INTERVAL))
+    want = TRAJ_STEPS + 1 + n_tests * TRAJ_TEST_ITERS
+    log(f"  trajectory train: {train_s:.1f} s in-process (build included); "
+        f"the TRAIN source {type(driver.train_source.sources[0].source).__name__}"
+        f", batch axes {driver.train_source.batch_axes()}; K1 launches (all, "
+        f"sm90, f32) {launches['train']} for {TRAJ_STEPS} steps + the final "
+        f"display forward + {n_tests} tests of {TRAJ_TEST_ITERS} batches; "
+        f"displayed losses {displays}; test outputs {tests}")
+    if launches["train"][0] != want:
+        raise AssertionError(f"trajectory train: K1 launches "
+                             f"{launches['train']}, expected {want}")
+    if not (len(displays) == TRAJ_STEPS // 20 + 1
+            and all(math.isfinite(v) for _, v in displays)
+            and displays[-1][1] < displays[0][1]):
+        raise AssertionError(f"trajectory train: the displayed loss did not "
+                             f"fall: {displays}")
+    if [k for k, _ in tests] != ["displacement_loss"] * n_tests:
+        raise AssertionError(f"trajectory train: test lines {tests}")
+    for name in (f"trajectory_iter_{TRAJ_INTERVAL}.vvstate",
+                 f"trajectory_iter_{TRAJ_STEPS}.vvmodel"):
+        if not (tmp / name).is_file():
+            raise AssertionError(f"trajectory train wrote no {name}")
+    step_ms, wall_ms = timer.per_step()
+    log(f"  trajectory train step (hidden 32, batch 16, T 8 + 4, "
+        f"TRACKING_WINDOWS_DATA through the prefetcher): {step_ms:.4f} ms "
+        f"(CUDA events over {len(TRAJ_TIMED)} steps, tests excluded), host "
+        f"wall {wall_ms:.4f} ms a step = {16 * 12 / step_ms * 1e3:,.0f} "
+        f"tokens/s (B x (T_obs + T_pred)) [{card}]")
+    prof = training_profile(timer.prof, len(TRAJ_PROFILED), wall_ms,
+                            label="the trajectory project's CLI step")
+
+    model = str(prefix) + f"_iter_{TRAJ_STEPS}.vvmodel"
+    # the readout's K1 launch (core route) against its plain version, at
+    # the shape train gives it, on the trained weights
+    with torch.no_grad():
+        blobs = driver.train_net.apply(
+            _to(load_model(model), dev),
+            _to(driver.train_source.next_batch(), dev), return_blobs=True)[1]
+        x, p = blobs["dec_flat"], _to(load_model(model), dev)["readout"]
+        readout_err = compare(
+            f"K1 readout ({x.shape[0]} x {x.shape[1]}) . ({p['w'].shape[0]} "
+            f"x {p['w'].shape[1]}) core route", matmul(x, p["w"], p["b"]),
+            matmul_plain(x, p["w"], p["b"]), rel=1e-3)
+    with _CliCapture() as out:
+        _, launches["test"] = _counted(lambda: cli.main(
+            ["test", "--model", str(net_path), "--weights", model,
+             "--iterations", str(TRAJ_TEST_ITERS)]))
+    means = {r.args[0]: float(r.args[1]) for r in out.records
+             if r.msg == "%s = %g%s"}
+    log(f"  trajectory test ({TRAJ_TEST_ITERS} iterations, the snapshot): "
+        f"{means}; train's last test {tests[-1]}; K1 launches "
+        f"{launches['test']}")
+    # the test store's 160 tracks are 10 batches of 16: the tests at 0 and
+    # TRAJ_INTERVAL read batches 0-4 and 5-9, the last one 0-4 again, as a
+    # fresh `test` does
+    if sorted(means) != ["displacement_loss"] or not (
+            abs(means["displacement_loss"] - tests[-1][1])
+            <= 1e-5 * abs(tests[-1][1])) or launches["test"][0] != TRAJ_TEST_ITERS:
+        raise AssertionError(f"trajectory test: {means} vs train's last test "
+                             f"{tests[-1]}, K1 {launches['test']}")
+    with _CliCapture() as out:
+        _, launches["time"] = _counted(lambda: cli.main(
+            ["time", "--model", str(net_path), "--iterations", "10"]))
+    for line in out.lines():
+        if "(marginal)" in line or line.startswith(("Total", "Fused")):
+            log(f"    trajectory time: {line} [{card}]")
+    if not out.lines("Fused forward-backward"):
+        raise AssertionError("trajectory time printed no fused line")
+    log(f"  trajectory K1 launches by command (all, sm90, f32): {launches}")
+    # the readout's (32, 2) f32 weight has 8-byte rows, which TMA cannot
+    # address: every launch of the project takes K1's core route
+    if any(v[1:] != (0, 0) for v in launches.values()):
+        raise AssertionError(f"trajectory K1 launches off the core route: "
+                             f"{launches}")
+    return {"launches": launches, "step_ms": step_ms, "wall_ms": wall_ms,
+            "readout_err": readout_err,
+            "profile": prof, "displays": displays, "text": text,
+            "train_store": stores[0]}
+
+
+def _encdec_bound(b: int, chain_ms: float) -> tuple[float, str, float]:
+    """The least time of one enc-dec training step at batch b: the larger
+    of its FLOPs at the f32 FFMA peak, 3 (forward + backward) x
+    (2 B T (I + H) 4H, the gate products, + 2 B T_dec H I, the readout),
+    and the recurrent chain's floor `chain_ms`."""
+    i = h = ENCDEC_WIDTH
+    te, td = ENCDEC_T
+    flops = (3 * (2 * b * (te + td) * (i + h) * 4 * h)
+             + 3 * (2 * b * td * h * i))
+    ops_ms = flops / PEAK_FLOPS_F32 * 1e3
+    if ops_ms >= chain_ms:
+        return ops_ms, "operations", flops
+    return chain_ms, "the recurrent chain", flops
+
+
+def _encdec_cells(dev, card: str) -> dict:
+    """The LSTM enc-dec training step at scripts/bench_lstm_train.py's
+    widths (I = H = ENCDEC_WIDTH, T = 20 + 10, a 512 -> 512 readout) as a
+    prototxt of the trajectory project's structure (ENCDEC_NET: the
+    decoder seeded with the encoder's cell, its hidden state zero), through
+    solver.train.train with that script's solver (lr 0.001 fixed, momentum
+    0.9, weight decay 5e-4), on a seeded batch held on the card, at each of
+    ENCDEC_BATCHES: ENCDEC_TIMED steps timed by CUDA events after
+    ENCDEC_WARMUP, ENCDEC_PROFILED profiled; the readout's K1 launch (f32
+    route) held against its plain version. Returns K1's launches and the
+    numbers by batch."""
+    from videovector_tpu_torch.config import parse
+    from videovector_tpu_torch.graph import Net
+    from videovector_tpu_torch.ops.hopper.matmul import matmul, matmul_plain
+    from videovector_tpu_torch.solver import SolverConfig
+    from videovector_tpu_torch.solver.train import train
+
+    w, (te, td) = ENCDEC_WIDTH, ENCDEC_T
+    net = Net(parse(ENCDEC_NET.format(w=w)), "TRAIN")
+    one = torch.zeros(1, device=dev)
+    kernel_ms = time_graph_ms(lambda a: a.add_(1.0), [one] * 200)
+    # forward and backward each walk the T steps in order, and each step
+    # needs at least one kernel of its own
+    chain_ms = 2 * (te + td) * kernel_ms
+    steps = ENCDEC_WARMUP + ENCDEC_TIMED + ENCDEC_PROFILED + 1
+    out = {"launches": (0, 0, 0), "err": 0.0, "cells": {}}
+    for b in ENCDEC_BATCHES:
+        gen = torch.Generator(device=dev).manual_seed(b)
+        cont_obs = torch.ones((te, b), device=dev)
+        cont_obs[0] = 0.0
+        batch = {"observed": torch.randn((te, b, w), generator=gen, device=dev),
+                 "cont_obs": cont_obs,
+                 "predicted": torch.randn((td, b, w), generator=gen,
+                                          device=dev),
+                 "cont_pred": torch.ones((td, b), device=dev),
+                 "gt": torch.randn((td, b, w), generator=gen, device=dev)}
+        params, _ = net.init(gen, batch)
+        timer = _StepTimer(ENCDEC_WARMUP, ENCDEC_WARMUP + ENCDEC_TIMED,
+                           ENCDEC_PROFILED)
+        res, k1 = _counted(lambda: train(
+            _net_loss_fn(net), params, itertools.repeat(batch),
+            SolverConfig(**ENCDEC_SOLVER, max_iter=steps), device=dev,
+            hooks=[(1, timer.hook)]))
+        if k1 != (steps, 0, steps):
+            raise AssertionError(f"enc-dec B={b}: K1 launches {k1}, expected "
+                                 f"{steps} on the f32 route")
+        out["launches"] = tuple(a + c for a, c in zip(out["launches"], k1))
+        ms = timer.ms_per_step()
+        wall_ms = timer.wall_s * 1e3 / ENCDEC_TIMED
+        enqueue_ms = timer.enqueue_s * 1e3 / ENCDEC_TIMED
+        bound_ms, bound_by, flops = _encdec_bound(b, chain_ms)
+        log(f"  enc-dec step at B={b} (I = H = {w}, T = {te} + {td}, f32): "
+            f"{ms:.4f} ms (CUDA events over {ENCDEC_TIMED} steps after "
+            f"{ENCDEC_WARMUP}) = {b * (te + td) / ms * 1e3:,.0f} tokens/s "
+            f"(B x {te + td} / step); host wall {wall_ms:.4f} ms, enqueue "
+            f"{enqueue_ms:.4f} ms a step; bound {bound_ms:.4f} ms by "
+            f"{bound_by} ({flops / 1e9:.2f} GFLOP at "
+            f"{PEAK_FLOPS_F32 / 1e12:.0f} TFLOP/s: "
+            f"{flops / PEAK_FLOPS_F32 * 1e3:.4f} ms; the chain {chain_ms:.4f} "
+            f"ms = 2 x {te + td} steps x {kernel_ms * 1e3:.2f} us, one "
+            f"kernel's least time by CUDA-graph replay), {bound_ms / ms:.1%} "
+            f"of it [{card}]")
+        prof = training_profile(timer.prof, ENCDEC_PROFILED, wall_ms,
+                                label=f"the enc-dec step at B={b}")
+        with torch.no_grad():
+            blobs = net.apply(res.params, batch, return_blobs=True)[1]
+            x, p = blobs["dec_flat"], res.params["readout"]
+            err = compare(f"K1 readout ({td * b} x {w}) . ({w} x {w}) f32 "
+                          f"route at B={b}", matmul(x, p["w"], p["b"]),
+                          matmul_plain(x, p["w"], p["b"]), rel=1e-3)
+        out["err"] = max(out["err"], err)
+        out["cells"][b] = {"ms": ms, "wall_ms": wall_ms,
+                           "tokens_s": b * (te + td) / ms * 1e3,
+                           "bound_ms": bound_ms, "profile": prof}
+        del res, batch, params, timer
+        torch.cuda.empty_cache()
+    return out
+
+
+def trajectory(dev) -> dict:
+    """Item 9 on the card: projects/trajectory_forecast through the CLI
+    (_trajectory_cli), the card against the CPU on its net, the six types
+    and a carried train (_trajectory_card_vs_cpu), and the enc-dec step at
+    full width (_encdec_cells). Returns K1's launches by route and the
+    readout's error against its plain version."""
+    import tempfile
+    card = gpu_name_and_power_limit()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp_name:
+        cli_run = _trajectory_cli(dev, Path(tmp_name), card)
+        errs = _trajectory_card_vs_cpu(dev, cli_run["text"],
+                                       cli_run["train_store"])
+    encdec = _encdec_cells(dev, card)
+    by_route = [sum(v[i] for v in cli_run["launches"].values())
+                + encdec["launches"][i] for i in range(3)]
+    log(f"  trajectory phase: {time.perf_counter() - t0:.1f} s; card vs CPU "
+        f"worst (values, gradients) by case {errs}; K1 launches (all, sm90, "
+        f"f32) {tuple(by_route)}")
+    return {"launches": by_route[0], "sm90": by_route[1], "f32": by_route[2],
+            "core": by_route[0] - by_route[1] - by_route[2],
+            "readout_err": encdec["err"], "core_err": cli_run["readout_err"],
+            "cli": cli_run, "encdec": encdec}
+
+
 def tf32_checks(dev) -> None:
-    """With torch's global TF32 flag on, the three f32 products that the
-    port keeps in full f32 give what they give with it off, bit for bit:
-    the Net's INNER_PRODUCT with regularization > 0 (forward and both
-    gradients), RetrievalPipeline.query's scores and top-k ids, and the
-    rank stats' -2 q.g^T; the flag itself does change an unscoped
-    product."""
+    """With torch's global TF32 flag on, the f32 products that the port
+    keeps in full f32 give what they give with it off, bit for bit: the
+    Net's INNER_PRODUCT with regularization > 0 (forward and both
+    gradients), RetrievalPipeline.query's scores and top-k ids, the rank
+    stats' -2 q.g^T, and (item 9) the LSTM's input projection and
+    recurrent products with the conditional decoder's h2o/o2h products
+    (values and every gradient, at the enc-dec cell's widths) and the
+    trajectory model's social projection; the flag itself does change an
+    unscoped product."""
     from videovector_tpu_torch.config import parse
     from videovector_tpu_torch.graph import Net
     from videovector_tpu_torch.metrics import retrieval as tr
     from videovector_tpu_torch.models.retrieval_pipeline import (
         RetrievalPipeline,
     )
+    from videovector_tpu_torch.models.trajectory import (
+        TrajectoryConfig, TrajectoryModel,
+    )
+    from videovector_tpu_torch.ops import recurrent
 
     def both(fn):
         outs = []
@@ -3479,8 +3982,45 @@ def tf32_checks(dev) -> None:
     q = torch.randn((TEST_BATCH, 4096), generator=gen, device=dev)
     qv = torch.randint(0, 100, (TEST_BATCH,), generator=gen, device=dev)
     gv = torch.randint(-1, 100, (GALLERY_ROWS,), generator=gen, device=dev)
+    w, t = ENCDEC_WIDTH, sum(ENCDEC_T)
+    lstm_p = recurrent.init_lstm_params(gen, w, w, conditional=True,
+                                        output_dim=2)
+    xs = torch.randn((t, TRAIN_BATCH, w), generator=gen, device=dev)
+    conts = torch.ones((t, TRAIN_BATCH), device=dev)
+    first = torch.zeros((TRAIN_BATCH, 2), device=dev)
+
+    def lstm_products():
+        p = {k: v.clone().requires_grad_() for k, v in lstm_p.items()}
+        h, fin = recurrent.lstm(p, xs, conts, clip_threshold=1.0)
+        out, _ = recurrent.lstm_conditional(p, xs, first, conts)
+        (h.sum() + fin.c.sum() + out.sum()).backward()
+        return [h.detach(), out.detach()] + [p[k].grad for k in sorted(p)]
+
+    traj = TrajectoryModel(TrajectoryConfig(hidden=w, pool_feat_size=256))
+    traj_p = traj.init(gen)
+    agents = 64
+    traj_batch = {
+        "observed": torch.randn((8, agents, 3), generator=gen, device=dev),
+        "cont_observed": torch.ones((8, agents), device=dev),
+        "predicted": torch.randn((4, agents, 3), generator=gen, device=dev),
+        "cont_predicted": torch.ones((4, agents), device=dev),
+        "mean_pos": torch.randn((agents, 2), generator=gen, device=dev),
+        "relations": 1 - torch.eye(agents, device=dev),
+        "is_valid": torch.ones((agents,), device=dev),
+        "labels": torch.randn((4, agents, 2), generator=gen, device=dev)}
+
+    def social_projection():
+        sp = traj_p["social_proj"]["w"].clone().requires_grad_()
+        loss, _ = traj.loss({**traj_p, "social_proj": {"w": sp}}, traj_batch)
+        loss.backward()
+        return [loss.detach(), sp.grad]
+
     checks = {
         "INNER_PRODUCT regularization 0.5 (y, dx, dw, db)": reg_ip,
+        f"lstm and lstm_conditional at I = H = {w}, T = {t} (h, outputs, "
+        "every gradient)": lstm_products,
+        "TrajectoryModel's social projection (loss, gradient)":
+            social_projection,
         "RetrievalPipeline.query (ids, scores)": lambda: list(pipe.query(
             pp, pix, off14, off14, off14.bool(), gallery, gids)),
         "retrieval_rank_stats_fixed_ref (dist, order, ranks)": lambda: list(
@@ -3548,6 +4088,8 @@ def main() -> int:
     zoo = layer_zoo(dev)
     tf32_checks(dev)
     torch.cuda.empty_cache()
+    traj = trajectory(dev)
+    torch.cuda.empty_cache()
     with torch.no_grad():
         gallery_eval(dev)
     torch.cuda.empty_cache()
@@ -3583,21 +4125,23 @@ def main() -> int:
          "source": "videovector_tpu_torch/csrc/matmul_f32_sm90.cu",
          "replaces": "videovector_tpu/ops/pallas/matmul.py:50",
          "launches": (net["f32"] + cli["f32"] + ext["k1_f32"] + exh["f32"]
-                      + zoo["f32"]),
+                      + zoo["f32"] + traj["f32"]),
          **{k: net["k1"][NET_ROWS][k] for k in ("ms", "plain_ms", "bound_ms",
                                                 "bound_by", "library_ms")},
          "max_abs_err": max([v["err"] for v in net["k1"].values()]
-                            + [exh["eval"]["fc7_err"]])},
+                            + [exh["eval"]["fc7_err"], traj["readout_err"]])},
         {"name": "K1 matmul, core route at f32 (FMA tiles; the Net's f32 "
                  "operands take the f32 route, so only operands TMA cannot "
                  "address reach it)", "route": "cuda",
          "source": "videovector_tpu_torch/csrc/matmul.cu",
          "replaces": "videovector_tpu/ops/pallas/matmul.py:50",
-         "launches": net["launches"] + cli["launches"] - net["f32"] - cli["f32"],
+         "launches": (net["launches"] + cli["launches"] - net["f32"]
+                      - cli["f32"] + traj["core"]),
          "ms": net["k1"][NET_ROWS]["core_ms"],
          **{k: net["k1"][NET_ROWS][k] for k in ("plain_ms", "bound_ms",
                                                 "bound_by", "library_ms")},
-         "max_abs_err": max(v["core_err"] for v in net["k1"].values())},
+         "max_abs_err": max([v["core_err"] for v in net["k1"].values()]
+                            + [traj["core_err"]])},
         {"name": "K2 conv2d_im2col_gemm (implicit-GEMM conv: cp.async "
                  "gathers + TMA + wgmma, one launch per conv)", "route": "cuda",
          "source": "videovector_tpu_torch/csrc/conv_gemm_sm90.cu",
@@ -3640,10 +4184,16 @@ def main() -> int:
         f"{cli['launches']} launches) and of extraction "
         f"({ext['k1_f32']}), of the exhaustive-shots train and test "
         f"({exh['f32']}: {EXH_STEPS} steps, the final display forward and "
-        f"the tests at {TEST_BATCH} + {EXH_GALLERY_ROWS} rows) and of the "
-        f"layer zoo's fc8 ({zoo['f32']}), by route; max_abs_err over that "
-        f"shape, 673 rows and the exhaustive TEST fc7's {TEST_BATCH} + "
-        f"{EXH_GALLERY_ROWS} rows. K2's Net entry at f32: conv1..conv5 at batch {BATCH} on the "
+        f"the tests at {TEST_BATCH} + {EXH_GALLERY_ROWS} rows), of the "
+        f"layer zoo's fc8 ({zoo['f32']}) and of the trajectory phase "
+        f"({traj['launches']}: the project's readout, hidden 32 -> 2, "
+        f"{traj['core']} on the core route in train, test and time; the "
+        f"enc-dec cells' {ENCDEC_WIDTH} -> {ENCDEC_WIDTH} readout, "
+        f"{traj['f32']} on the f32 route), by route; max_abs_err over that "
+        f"shape, 673 rows, the exhaustive TEST fc7's {TEST_BATCH} + "
+        f"{EXH_GALLERY_ROWS} rows and the enc-dec readout at each batch; "
+        "the core route's over that shape and the trajectory readout's. "
+        f"K2's Net entry at f32: conv1..conv5 at batch {BATCH} on the "
         "core route, bound at the f32 FMA peak, library cuDNN F.conv2d f32 "
         f"(TF32 off), its launches those of extraction, {EXTRACT_BATCHES} "
         f"batches of {BATCH})")

@@ -821,7 +821,7 @@ def _tf32_reaches(dev, x):
 
 def test_regularized_inner_product_ignores_the_process_tf32_setting(dev):
     """The Net's INNER_PRODUCT with regularization > 0 (ops.linear's
-    _InnerProductReg): the forward and both gradients with TF32 on in the
+    _Dot): the forward and both gradients with TF32 on in the
     process equal the run with it off, bit for bit."""
     from videovector_tpu_torch.config import parse
     from videovector_tpu_torch.graph import Net
@@ -906,3 +906,152 @@ def test_golden_fixtures_through_the_f32_routes(dev):
     # 2 groups, on K2's core route, one launch per group
     assert k1.matmul.launches_f32 - c1[0] == 4
     assert k2.conv2d_im2col_gemm.launches - c1[1] == 3 + 8
+
+
+# -- item 9: the LSTM family, social pooling, the trajectory project ----------
+
+def _trajectory_net(tmp_path, rng, **kw):
+    """projects/trajectory_forecast's prototxt (generate_net.emit, loaded by
+    path) over stores the port writes."""
+    import importlib.util
+    from pathlib import Path
+
+    from videovector_tpu_torch.tools.make_tracking_data import write_windows
+    proj = Path(__file__).resolve().parent.parent / "projects/trajectory_forecast"
+    spec = importlib.util.spec_from_file_location(
+        "trajproj_generate_net", proj / "generate_net.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    train = write_windows(str(tmp_path / "train.vvr"), rng, 12)
+    test = write_windows(str(tmp_path / "test.vvr"), rng, 4)
+    return mod.emit(train, test, **kw)
+
+
+def test_trajectory_net_on_the_card_matches_the_cpu(dev, tmp_path):
+    """The project's TRAIN Net (LSTM_ENC_DEC, the readout on K1) on the card
+    against the CPU on the same params and batch: the loss within 1e-4
+    relative, every gradient within 1e-3 of its largest magnitude; the
+    readout is one K1 launch."""
+    from videovector_tpu_torch.config import parse
+    from videovector_tpu_torch.graph import Net
+    from videovector_tpu_torch.graph.data_factory import make_data_source
+    rng = np.random.RandomState(11)
+    msg = parse(_trajectory_net(tmp_path, rng))
+    net = Net(msg, "TRAIN")
+    layer = next(l for l in net.layers if l.get("type") == "TRACKING_WINDOWS_DATA")
+    batch = make_data_source(layer).next_batch()
+    params, _ = net.init(torch.Generator().manual_seed(0),
+                         {k: torch.as_tensor(v) for k, v in batch.items()})
+    out = {}
+    for d in ("cpu", dev):
+        p = {ln: {pn: t.detach().to(d).requires_grad_()
+                  for pn, t in lp.items()} for ln, lp in params.items()}
+        before = k1.matmul.launches
+        loss = net.loss_fn(p, {k: torch.as_tensor(v, device=d)
+                               for k, v in batch.items()})
+        if d == dev:
+            assert k1.matmul.launches == before + 1
+        loss.backward()
+        out[str(d)] = (loss.item(), {f"{ln}/{pn}": t.grad.cpu() for ln, lp
+                                     in p.items() for pn, t in lp.items()})
+    (lc, gc), (lg, gg) = out["cpu"], out[str(dev)]
+    assert abs(lg - lc) <= 1e-4 * abs(lc)
+    for k in gc:
+        assert (gg[k] - gc[k]).abs().max() <= 1e-3 * gc[k].abs().max(), k
+
+
+def test_lstm_carry_is_detached_and_memory_stays_flat(dev):
+    """train over a stateful Net on the card: the carry enters each step
+    detached (truncated BPTT), so the memory in use is the same at the top
+    of every step after the first two (an attached carry would keep each
+    earlier step's graph alive)."""
+    from videovector_tpu_torch.config import parse
+    from videovector_tpu_torch.graph import Net
+    from videovector_tpu_torch.solver import SolverConfig
+    from videovector_tpu_torch.solver.train import train
+    net = Net(parse("""
+    layers { name: "d" type: MEMORY_DATA top: "x" top: "cont" top: "y" }
+    layers { name: "rnn" type: LSTM bottom: "x" bottom: "cont" top: "h"
+      inner_product_param { num_output: 256
+        weight_filler { type: "gaussian" std: 0.05 } } }
+    layers { name: "fb" type: FLATTEN_BATCH bottom: "h" top: "hf" }
+    layers { name: "yf" type: FLATTEN_BATCH bottom: "y" top: "yf" }
+    layers { name: "loss" type: EUCLIDEAN_LOSS bottom: "hf" bottom: "yf"
+      top: "l" }
+    """), "TRAIN")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    batches = [{"x": torch.randn((10, 64, 128), generator=gen, device=dev),
+                "cont": torch.ones((10, 64), device=dev),
+                "y": torch.randn((10, 64, 256), generator=gen, device=dev)}
+               for _ in range(7)]
+    params, _ = net.init(gen, batches[0])
+
+    def loss_fn(p, batch, generator):
+        feed = {k: v for k, v in batch.items() if k != "__carry__"}
+        loss, _, carry = net.apply(p, feed, state=batch.get("__carry__"),
+                                   return_state=True)
+        return loss, {"__carry__": carry}
+    used = []
+
+    def hook(p, it):
+        torch.cuda.synchronize()
+        used.append(torch.cuda.memory_allocated(dev))
+    res = train(loss_fn, params, iter(batches), SolverConfig(
+        base_lr=0.01, momentum=0.9, max_iter=6), device=dev,
+        hooks=[(1, hook)], fused_accum=False)
+    assert len(used) == 6
+    assert used[2:] == [used[2]] * 4, used
+    assert not res.final_carry["rnn"].h.requires_grad
+
+
+def test_lstm_products_ignore_the_process_tf32_setting(dev):
+    """The LSTM's input projection and recurrent products, the conditional
+    decoder's h2o/o2h products and the social projection (ops.linear.dot),
+    forward and backward: with TF32 on in the process, bit for bit the run
+    with it off."""
+    from videovector_tpu_torch.models.trajectory import (
+        TrajectoryConfig, TrajectoryModel,
+    )
+    from videovector_tpu_torch.ops import recurrent
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn((12, 256, 512), generator=gen, device=dev)
+    _tf32_reaches(dev, x[0])
+    cont = torch.ones((12, 256), device=dev)
+    params = recurrent.init_lstm_params(gen, 512, 512, conditional=True,
+                                        output_dim=16)
+    first = torch.randn((256, 16), generator=gen, device=dev)
+    b = 64
+    social = {"observed": torch.randn((8, b, 3), generator=gen, device=dev),
+              "cont_observed": torch.ones((8, b), device=dev),
+              "predicted": torch.randn((4, b, 3), generator=gen, device=dev),
+              "cont_predicted": torch.ones((4, b), device=dev),
+              "mean_pos": torch.randn((b, 2), generator=gen, device=dev),
+              "relations": 1 - torch.eye(b, device=dev),
+              "is_valid": torch.ones((b,), device=dev),
+              "labels": torch.randn((4, b, 2), generator=gen, device=dev)}
+    model = TrajectoryModel(TrajectoryConfig(hidden=512, pool_feat_size=256))
+    mparams = model.init(gen)
+
+    def grads_of(fn, tree):
+        leaves = {k: v.clone().requires_grad_() for k, v in tree.items()}
+        outs = fn(leaves)
+        sum(o.float().sum() for o in outs).backward()
+        return [o.detach() for o in outs] + [v.grad for v in leaves.values()]
+
+    def lstm(p):
+        h, fin = recurrent.lstm(p, x, cont, clip_threshold=1.0)
+        return [h, fin.c]
+    base = {k: params[k] for k in ("w_i", "w_h", "b")}
+
+    def run():
+        return (grads_of(lstm, base)
+                + grads_of(lambda p: [recurrent.lstm_conditional(
+                    p, x, first, cont)[0]], params)
+                + grads_of(lambda sp: [model.loss(
+                    {**mparams, "social_proj": sp}, social)[0]],
+                    mparams["social_proj"]))
+    on, off = (_with_tf32(f, run) for f in (True, False))
+    torch.cuda.synchronize()
+    assert len(on) == len(off)
+    for a, b in zip(on, off):
+        assert torch.equal(a, b)

@@ -171,8 +171,7 @@ def test_factory_errors_name_their_roadmap_items(stores):
     with pytest.raises(NotImplementedError, match="item 7"):
         tfac.make_data_source(layer)
     for ltype, item in (("VIDEO_SHOT_WINDOW_DATA", "1b"), ("WINDOW_DATA", "1b"),
-                        ("FLEXIBLE_DATA", "1b"), ("HDF5_DATA", "1b"),
-                        ("TRACKING_WINDOWS_DATA", "1b")):
+                        ("FLEXIBLE_DATA", "1b"), ("HDF5_DATA", "1b")):
         layer = tparse(f'layers {{ name: "d" type: {ltype} top: "x" }}'
                        ).get_list("layers")[0]
         with pytest.raises(NotImplementedError, match=f"item {item}"):
@@ -181,6 +180,50 @@ def test_factory_errors_name_their_roadmap_items(stores):
                    ).get_list("layers")[0]
     with pytest.raises(NotImplementedError, match="no data-source factory"):
         tfac.make_data_source(layer)
+
+
+TRACKING_LAYERS = """
+layers {{ name: "tracks" type: TRACKING_WINDOWS_DATA
+  top: "observed" top: "cont_obs" top: "predicted" top: "cont_pred" top: "gt"
+  tracking_windows_data_param {{ source: "{src}" batch_size: 6
+    temporal_observed_size: 5 temporal_predicted_size: 3
+    track_scale: 0.5 max_number_positions: 2 }} }}
+layers {{ name: "social" type: TRACKING_WINDOWS_SOCIAL_DATA
+  top: "obs" top: "mean" top: "pred" top: "rel" top: "valid" top: "labels"
+  tracking_windows_data_param {{ source: "{src}" batch_size: 8
+    temporal_observed_size: 5 temporal_predicted_size: 3
+    encoder_bit: false }} }}
+"""
+
+
+def test_factory_builds_both_tracking_sources(tmp_path, rng):
+    """TRACKING_WINDOWS_DATA and TRACKING_WINDOWS_SOCIAL_DATA from their
+    layer messages: the tops named as the layer names them, the batch axes
+    declared (time-major tops on 1), and the batches bit for bit those of
+    JAX's factory on the same store, written by the port."""
+    src = str(tmp_path / "tracks.vvr")
+    with trec.RecordWriter(src) as w:
+        for i in range(7):
+            tracks = [twire.TrackPositions(
+                id=10 * i + k, x=list(rng.randn(9)), y=list(rng.randn(9)))
+                for k in range(1 + i % 4)]
+            w.append(f"{i:08d}", twire.TrackingWindow(
+                scene_id=i, track_positions=tracks).encode())
+    txt = TRACKING_LAYERS.format(src=src)
+    tops = {"TRACKING_WINDOWS_DATA": ["observed", "cont_obs", "predicted",
+                                      "cont_pred", "gt"],
+            "TRACKING_WINDOWS_SOCIAL_DATA": ["obs", "mean", "pred", "rel",
+                                             "valid", "labels"]}
+    for tl, jl in zip(tparse(txt).get_list("layers"),
+                      jparse(txt).get_list("layers")):
+        got, want = tfac.make_data_source(tl), jfac.make_data_source(jl)
+        assert got.batch_axes() == want.batch_axes()
+        assert got.batch_axes()[tops[tl.get("type")][0]] == 1
+        for _ in range(3):
+            gb, wb = got.next_batch(), want.next_batch()
+            assert sorted(gb) == sorted(wb) == sorted(tops[tl.get("type")])
+            for k in wb:
+                np.testing.assert_array_equal(gb[k], wb[k], err_msg=k)
 
 
 class _Warnings(logging.Handler):

@@ -26,7 +26,9 @@ from videovector_tpu_torch.config.textformat import Message
 from videovector_tpu_torch.config.textformat import parse_file as tparse_file
 from videovector_tpu_torch.data.records import RecordWriter
 from videovector_tpu_torch.data.shots import ShotDataset, ShotVideo
-from videovector_tpu_torch.data.wire import Datum, TestVideoShotWindows
+from videovector_tpu_torch.data.wire import (
+    Datum, TestVideoShotWindows, TrackingWindow, TrackPositions,
+)
 from videovector_tpu_torch.solver import driver as tdriver
 from videovector_tpu_torch.solver.checkpoint import snapshot
 
@@ -535,10 +537,53 @@ def test_loss_weighted_outputs_carry_the_suffix(mini):
 
 STATEFUL_NET = """
 name: "lstm"
-input: "x" input_dim: 4 input_dim: 3 input_dim: 5 input_dim: 1
-layers { name: "rnn" type: LSTM bottom: "x" top: "h"
-  inner_product_param { num_output: 8 } }
+layers {{ name: "d" type: TRACKING_WINDOWS_DATA
+  top: "x" top: "cont" top: "pred_in" top: "cont_pred" top: "y"
+  tracking_windows_data_param {{ source: "{src}" batch_size: 3
+    temporal_observed_size: 4 temporal_predicted_size: 4 }} }}
+layers {{ name: "rnn" type: LSTM bottom: "x" bottom: "cont" top: "h"
+  inner_product_param {{ num_output: 8 }} }}
+layers {{ name: "fb" type: FLATTEN_BATCH bottom: "h" top: "hf" }}
+layers {{ name: "ip" type: INNER_PRODUCT bottom: "hf" top: "p"
+  inner_product_param {{ num_output: 2 weight_filler {{ type: "xavier" }} }} }}
+layers {{ name: "yf" type: FLATTEN_BATCH bottom: "y" top: "yf" }}
+layers {{ name: "loss" type: EUCLIDEAN_LOSS bottom: "p" bottom: "yf"
+  top: "l" }}
+layers {{ name: "s" type: SILENCE bottom: "pred_in" bottom: "cont_pred" }}
 """
+
+
+def test_stateful_net_trains_with_its_carry(mini, tmp_path):
+    """A net with an LSTM (a cross-batch carry) trains 2 iterations through
+    the driver on the CPU: the carry threads from step to step, detached,
+    in the host-loop schedule that stateful nets take, and equals JAX's
+    driver's run on the same params and store."""
+    from videovector_tpu.solver import driver as jdrv
+    src = str(tmp_path / "tracks.vvr")
+    rng = np.random.RandomState(4)
+    with RecordWriter(src) as w:
+        for i in range(5):
+            w.append(f"{i:08d}", TrackingWindow(scene_id=i, track_positions=[
+                TrackPositions(id=2 * i + k, x=list(rng.randn(8)),
+                               y=list(rng.randn(8))) for k in range(2)]
+            ).encode())
+    (tmp_path / "lstm.prototxt").write_text(STATEFUL_NET.format(src=src))
+    (jmsg, tmsg) = _solver(mini, max_iter=2, test_interval=0, test_iter=None,
+                           display=1, net=str(tmp_path / "lstm.prototxt"))
+    jd = jdrv.SolverDriver(jmsg).build()
+    td = tdriver.SolverDriver(tmsg, device="cpu").build()
+    assert td.train_net.stateful_layer_names == ["rnn"]
+    td.params = convert.params_from_jax(jax.tree.map(np.asarray, jd.params))
+    tres, jres = td.train(), jd.train()
+    np.testing.assert_allclose(
+        [m["loss"] for _, m in tres.metrics_history],
+        [m["loss"] for _, m in jres.metrics_history], rtol=1e-5)
+    assert len(tres.metrics_history) == 2
+    carry = tres.final_carry["rnn"]
+    assert carry.h.shape == (3, 8) and not carry.h.requires_grad
+    for got, want in zip(carry, jres.final_carry["rnn"]):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                                   atol=1e-6)
 
 
 @pytest.mark.parametrize("case,item", [
@@ -546,7 +591,7 @@ layers { name: "rnn" type: LSTM bottom: "x" top: "h"
     ("device_negatives", "item 7"), ("caffe_format", "item 1b"),
     ("orbax_format", "do not port"),
     ("solverstate", "item 1b"), ("mesh", "item 11"),
-    ("shard_gallery", "item 11"), ("stateful", "item 9")])
+    ("shard_gallery", "item 11")])
 def test_later_slices_raise_not_implemented(mini, tmp_path, case, item):
     """Whatever later slices bring raises NotImplementedError naming its
     ROADMAP item; nothing quietly does something else."""
@@ -562,9 +607,6 @@ def test_later_slices_raise_not_implemented(mini, tmp_path, case, item):
     elif case == "device_negatives":
         Path(mini["net"]).write_text(Path(mini["net"]).read_text().replace(
             "context_size: 5", "context_size: 5\n    device_negatives: true"))
-    elif case == "stateful":
-        (tmp_path / "lstm.prototxt").write_text(STATEFUL_NET)
-        fields["net"] = str(tmp_path / "lstm.prototxt")
     (_, tmsg) = _solver(mini, **fields)
     with pytest.raises(NotImplementedError, match=item):
         d = tdriver.SolverDriver(tmsg, device="cpu").build()

@@ -182,12 +182,14 @@ def test_port_imports_without_jax():
         import videovector_tpu_torch.data.prefetch
         import videovector_tpu_torch.data.records
         import videovector_tpu_torch.data.shots
+        import videovector_tpu_torch.data.tracking
         import videovector_tpu_torch.data.transformer
         import videovector_tpu_torch.data.weights
         import videovector_tpu_torch.data.wire
         import videovector_tpu_torch.models.embedding
         import videovector_tpu_torch.models.mednet
         import videovector_tpu_torch.models.retrieval_pipeline
+        import videovector_tpu_torch.models.trajectory
         import videovector_tpu_torch.device
         import videovector_tpu_torch.graph
         import videovector_tpu_torch.graph.data_factory
@@ -207,7 +209,9 @@ def test_port_imports_without_jax():
         import videovector_tpu_torch.ops.lrn
         import videovector_tpu_torch.ops.normalization
         import videovector_tpu_torch.ops.pooling
+        import videovector_tpu_torch.ops.recurrent
         import videovector_tpu_torch.ops.reductions
+        import videovector_tpu_torch.ops.social
         import videovector_tpu_torch.solver
         import videovector_tpu_torch.solver.checkpoint
         import videovector_tpu_torch.solver.driver
@@ -216,6 +220,7 @@ def test_port_imports_without_jax():
         import videovector_tpu_torch.tools
         import videovector_tpu_torch.tools.cli
         import videovector_tpu_torch.tools.extract_features
+        import videovector_tpu_torch.tools.make_tracking_data
         import videovector_tpu_torch.utils.logging
         import videovector_tpu_torch.utils.timer
         bad = [m for m in sys.modules

@@ -10,6 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from videovector_tpu_torch.ops.recurrent import LstmState
+
 
 def map_params(fn, tree):
     """Apply `fn` to every leaf of a nested dict of parameters."""
@@ -69,3 +71,23 @@ def state_to_numpy(state):
     state)."""
     return {"iter": np.int32(state["iter"]),
             "history": params_to_numpy(state["history"])}
+
+
+def lstm_state_from_jax(carry, *, device="cpu"):
+    """A JAX LSTM carry ({layer name: LstmState(c, h)}, e.g. through
+    `jax.device_get`, or one LstmState) -> the port's, f32 tensors."""
+    if isinstance(carry, dict):
+        return {k: lstm_state_from_jax(v, device=device)
+                for k, v in carry.items()}
+    c, h = carry
+    return LstmState(*(torch.as_tensor(np.array(a, np.float32), device=device)
+                       for a in (c, h)))
+
+
+def lstm_state_to_numpy(carry):
+    """The port's LSTM carry ({layer name: LstmState}, or one LstmState) ->
+    the same structure of (c, h) numpy pairs; the JAX package's LstmState
+    takes them (`LstmState(*pair)`)."""
+    if isinstance(carry, dict):
+        return {k: lstm_state_to_numpy(v) for k, v in carry.items()}
+    return tuple(t.detach().cpu().numpy() for t in carry)

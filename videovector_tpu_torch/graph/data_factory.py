@@ -14,7 +14,9 @@ Python one) and VIDEO_SHOT_WINDOW_TEST_DATA; the exhaustive TRAIN source
 VIDEO_SHOTS_DATA (Python: the C++ sampler serves the sampled layer only)
 and the fixed gallery FIXED_VIDEO_SHOT_TEST_DATA; and the extraction net's
 image sources, DATA (Datum records) and IMAGE_DATA (a file list, decoded),
-with their transform_param and mean file. The others raise
+with their transform_param and mean file; the trajectory workload's
+TRACKING_WINDOWS_DATA and TRACKING_WINDOWS_SOCIAL_DATA (time-major
+batches, their `batch_axes` declared). The others raise
 NotImplementedError naming the ROADMAP item that ports them.
 """
 
@@ -35,6 +37,10 @@ from videovector_tpu_torch.data.shots import (
     ShotDataset, TestWindowDataset, VideoSampledShotsSource, VideoShotsSource,
     VideoShotWindowTestSource,
 )
+from videovector_tpu_torch.data.tracking import (
+    TrackingConfig, TrackingWindowDataset, TrackingWindowsSocialSource,
+    TrackingWindowsSource,
+)
 from videovector_tpu_torch.data.transformer import TransformConfig
 from videovector_tpu_torch.data.wire import BlobProto
 
@@ -42,7 +48,6 @@ from videovector_tpu_torch.data.wire import BlobProto
 _PENDING = {
     "WINDOW_DATA": "1b", "HDF5_DATA": "1b",
     "VIDEO_SHOT_WINDOW_DATA": "1b", "FLEXIBLE_DATA": "1b",
-    "TRACKING_WINDOWS_DATA": "1b", "TRACKING_WINDOWS_SOCIAL_DATA": "1b",
 }
 
 
@@ -174,6 +179,27 @@ def make_data_source(layer: Message, *, phase: str = "TRAIN", seed: int = 1234):
         src = ImageDataSource(cfg, transform=_transform_cfg(layer),
                               mean=_load_mean(layer), train=train, seed=seed)
         return _RenamingSource(src, ["data", "label"], tops)
+
+    if ltype in ("TRACKING_WINDOWS_DATA", "TRACKING_WINDOWS_SOCIAL_DATA"):
+        p = layer.get_msg("tracking_windows_data_param")
+        cfg = TrackingConfig(
+            batch_size=int(p.get("batch_size", 32)),
+            temporal_observed_size=int(p.get("temporal_observed_size", 10)),
+            temporal_predicted_size=int(p.get("temporal_predicted_size", 20)),
+            encoder_bit=bool(p.get("encoder_bit", True)),
+            use_static_scene=bool(p.get("use_static_scene", False)),
+            track_scale=float(p.get("track_scale", 1.0)),
+            max_number_positions=int(p.get("max_number_positions", -1)),
+            output_labels=len(tops) >= 5)
+        ds = TrackingWindowDataset.from_records(
+            convert_dir_or_file(p.get("source")))
+        if ltype == "TRACKING_WINDOWS_DATA":
+            return _RenamingSource(TrackingWindowsSource(ds, cfg), [
+                "observed", "cont_observed", "predicted", "cont_predicted",
+                "labels", "scene_ids"], tops)
+        return _RenamingSource(TrackingWindowsSocialSource(ds, cfg), [
+            "observed", "mean_pos", "predicted", "relations", "is_valid",
+            "labels", "scene_ids"], tops)
 
     if ltype in _PENDING:
         raise NotImplementedError(

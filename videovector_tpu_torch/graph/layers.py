@@ -12,13 +12,14 @@ and the switch to K1's and K2's plain versions. Autograd replaces every Backward
 types are not here: the Net treats their tops as graph inputs fed by the
 data pipeline (see graph/net.py, graph/data_factory.py).
 
-Registered: every compute type of the JAX package but the recurrent
-ones: the flagship's (generate_net.py's nets), the vision, neuron and glue
-types (CONVOLUTION on K2, POOLING, LRN, IM2COL, the neuron types, SOFTMAX,
-SPLIT, FLATTEN, FLATTEN_BATCH, SILENCE), ID_TO_WEIGHT_MAPPING, ARGMAX, MVN,
-Caffe's loss zoo, ACCURACY, the retrieval and classification stats, the
-sinks and DUMMY_DATA. The LSTM workload's types raise NotImplementedError
-in the Net, naming the ROADMAP item that ports them (`PENDING_TYPES`).
+Registered: every compute type of the JAX package: the flagship's
+(generate_net.py's nets), the vision, neuron and glue types (CONVOLUTION on
+K2, POOLING, LRN, IM2COL, the neuron types, SOFTMAX, SPLIT, FLATTEN,
+FLATTEN_BATCH, SILENCE), ID_TO_WEIGHT_MAPPING, ARGMAX, MVN, Caffe's loss
+zoo, ACCURACY, the retrieval and classification stats, the sinks,
+DUMMY_DATA, and the LSTM workload's (LSTM, LSTM_LINEAR, LSTM_ENC_DEC,
+LSTM_CONDITIONAL, LSTM_SINGLE_STEP, SOCIAL_POOLING). `PENDING_TYPES`, the
+types a later ROADMAP item would port, is empty.
 """
 
 from __future__ import annotations
@@ -34,12 +35,13 @@ from videovector_tpu_torch.core.seeds import iteration_seed
 from videovector_tpu_torch.metrics import retrieval as retrieval_metrics
 from videovector_tpu_torch.metrics.classification import classification_stats
 from videovector_tpu_torch.ops import (
-    activations, conv, losses, lrn, pooling, reductions,
+    activations, conv, losses, lrn, pooling, recurrent, reductions,
 )
 from videovector_tpu_torch.ops.embedding import id_to_weight_lookup
 from videovector_tpu_torch.ops.hopper.conv_gemm import conv2d_nchw
 from videovector_tpu_torch.ops.linear import inner_product, tower_matmul
 from videovector_tpu_torch.ops.normalization import l2_normalize_rows, mvn
+from videovector_tpu_torch.ops.social import social_pooling
 
 
 @dataclass
@@ -63,6 +65,12 @@ class ApplyContext:
     # where a layer without bottoms (DUMMY_DATA) puts its tops: the batch's
     # device ("meta" in Net.init's shape pass)
     device: Any = None
+    # cross-batch recurrent state (the reference's next_cell_/next_out_
+    # carry, lstm_layer.cpp:171-173,261-264): layer name -> LstmState.
+    # Stateful layers read state_in and write state_out;
+    # Net.apply(state=..., return_state=True) exposes both ends
+    state_in: Any = None
+    state_out: dict = field(default_factory=dict)
 
 
 @dataclass(frozen=True)
@@ -98,9 +106,8 @@ SINK_LAYER_TYPES = {"WRITE_TO_FILE", "HDF5_OUTPUT"}
 STATEFUL_LAYER_TYPES = {"LSTM", "LSTM_LINEAR"}
 
 # The JAX package's other registered compute types, by the ROADMAP queue-1
-# item that ports them.
-PENDING_TYPES = {t: "9" for t in STATEFUL_LAYER_TYPES | {
-    "LSTM_ENC_DEC", "LSTM_CONDITIONAL", "LSTM_SINGLE_STEP", "SOCIAL_POOLING"}}
+# item that ports them: none is left.
+PENDING_TYPES: dict[str, str] = {}
 
 
 def register(name: str, *, loss_weights=None):
@@ -726,6 +733,158 @@ def _classification_stats():
         return [out["per_class_accuracy"], out["per_class_ap"],
                 out["accuracy"]]
     return _no_params, apply
+
+
+@register("SOCIAL_POOLING")
+def _social_pooling():
+    def init(generator, cfg, in_shapes):
+        f = int(cfg.get_msg("social_pooling_param").get("pool_feat_size", 32))
+        # the reference fills w and b with the inner_product fillers when
+        # given; without a weight filler, a gaussian of std 0.1
+        ip = cfg.get_msg("inner_product_param")
+        wfill = fillers.get_filler(ip.get_msg("weight_filler")
+                                   if ip.has("weight_filler") else
+                                   {"type": "gaussian", "std": 0.1})
+        return {"w": wfill(generator, (2, f)),
+                "b": _filler(ip, "bias_filler")(generator, (f,))}
+
+    def apply(params, inputs, cfg, ctx):
+        # bottoms: features (1, B, D[, 1]), relations (1, B, B)[, mean
+        # (1, B, 2)]
+        x = inputs[0]
+        feats = x if x.dim() == 2 else x.reshape(x.shape[1], -1)
+        b = feats.shape[0]
+        rel = inputs[1].reshape(b, b)
+        mean_pos = inputs[2].reshape(b, 2) if len(inputs) > 2 else None
+        out = social_pooling(feats, rel, params["w"], params["b"], mean_pos)
+        return [out.reshape(1, b, -1, 1)]
+
+    return init, apply
+
+
+# ---------------------------------------------------------------------------
+# LSTM family
+# ---------------------------------------------------------------------------
+# The reference layers carry (cell, hidden) state across forward calls
+# (next_cell_/next_out_, ref lstm_layer.cpp:171-173,261-264). The Net keeps
+# it as an explicit carry: LSTM and LSTM_LINEAR read ctx.state_in[name]
+# (the zero state when absent, the reference's initial zero buffers) and
+# write their final LstmState into ctx.state_out[name]. train threads the
+# dict across batches, detached; cont bits still decide whether a carried
+# state is used at a sequence start. No Pallas kernel is on this path in
+# the JAX package: the products are ops.linear.dot's (TF32 off).
+
+def _lstm_init(generator, cfg, in_shapes, *, conditional=False):
+    ip = cfg.get_msg("inner_product_param")
+    lstm_p = cfg.get_msg("lstm_param")
+    hidden = int(ip.get("num_output"))
+    input_dim = 1
+    for d in in_shapes[0][2:]:
+        input_dim *= int(d)
+    # FillerParameter's std defaults to 1 (ref caffe.proto) when a
+    # weight_filler is given without one; with no filler at all the
+    # reference would zero-init (constant filler), so, as in JAX, a
+    # gaussian of std 0.1. The filler's type is not read: always gaussian
+    std = (float(ip.get_msg("weight_filler").get("std", 1.0))
+           if ip.has("weight_filler") else 0.1)
+    return recurrent.init_lstm_params(
+        generator, input_dim, hidden, weight_std=std,
+        output_dim=int(lstm_p.get("final_output_size", 1)),  # ref default 1
+        conditional=conditional)
+
+
+def _lstm_args(cfg) -> dict:
+    # the proto default is 1 (ref caffe.proto LstmParameter
+    # clipping_threshold [default = 1]): the reference clips by default
+    return {"clip_threshold": float(
+        cfg.get_msg("lstm_param").get("clipping_threshold", 1.0))}
+
+
+def _as_tbi(x):
+    return x.reshape(x.shape[0], x.shape[1], -1)
+
+
+def _as_tb(c):
+    return c.reshape(c.shape[0], c.shape[1])
+
+
+def _stateful_lstm(linear: bool):
+    def init(generator, cfg, in_shapes):
+        return _lstm_init(generator, cfg, in_shapes)
+
+    def apply(params, inputs, cfg, ctx):
+        name = cfg.get("name")
+        h, fin = recurrent.lstm(params, _as_tbi(inputs[0]), _as_tb(inputs[1]),
+                                state=(ctx.state_in or {}).get(name),
+                                linear=linear, **_lstm_args(cfg))
+        ctx.state_out[name] = fin
+        return [h]
+
+    return init, apply
+
+
+@register("LSTM")
+def _lstm():
+    return _stateful_lstm(linear=False)
+
+
+@register("LSTM_LINEAR")
+def _lstm_linear():
+    return _stateful_lstm(linear=True)
+
+
+@register("LSTM_ENC_DEC")
+def _lstm_enc_dec():
+    def init(generator, cfg, in_shapes):
+        enc = _lstm_init(generator, cfg, [in_shapes[0]])
+        dec = _lstm_init(generator, cfg, [in_shapes[2]])
+        return {**{f"enc_{k}": v for k, v in enc.items()},
+                **{f"dec_{k}": v for k, v in dec.items()}}
+
+    def apply(params, inputs, cfg, ctx):
+        enc = {k[4:]: v for k, v in params.items() if k.startswith("enc_")}
+        dec = {k[4:]: v for k, v in params.items() if k.startswith("dec_")}
+        enc_h, dec_h = recurrent.lstm_enc_dec(
+            enc, dec, _as_tbi(inputs[0]), _as_tb(inputs[1]),
+            _as_tbi(inputs[2]), _as_tb(inputs[3]), **_lstm_args(cfg))
+        return [enc_h, dec_h]
+
+    return init, apply
+
+
+@register("LSTM_CONDITIONAL")
+def _lstm_conditional():
+    def init(generator, cfg, in_shapes):
+        return _lstm_init(generator, cfg, in_shapes, conditional=True)
+
+    def apply(params, inputs, cfg, ctx):
+        # bottoms: data (T, B, I), cont (T, B), first_input (B, O)
+        first = inputs[2].reshape(inputs[2].shape[0], -1)
+        out, _ = recurrent.lstm_conditional(
+            params, _as_tbi(inputs[0]), first, _as_tb(inputs[1]),
+            **_lstm_args(cfg))
+        return [out]
+
+    return init, apply
+
+
+@register("LSTM_SINGLE_STEP")
+def _lstm_single_step():
+    def init(generator, cfg, in_shapes):
+        # bottom[0] is (B, I)
+        return _lstm_init(generator, cfg, [(1,) + tuple(in_shapes[0])])
+
+    def apply(params, inputs, cfg, ctx):
+        x = inputs[0].reshape(inputs[0].shape[0], -1)
+        state = None
+        if len(inputs) >= 3:
+            state = recurrent.LstmState(
+                inputs[1].reshape(inputs[1].shape[0], -1),
+                inputs[2].reshape(inputs[2].shape[0], -1))
+        h, c = recurrent.lstm_single_step(params, x, state, **_lstm_args(cfg))
+        return [h, c]
+
+    return init, apply
 
 
 # ---------------------------------------------------------------------------

@@ -36,7 +36,8 @@ from videovector_tpu_torch.data.hdf5 import write_hdf5
 from videovector_tpu_torch.data.wire import BlobProto
 from videovector_tpu_torch.graph.fuse import ScoringFusion, fusion_enabled
 from videovector_tpu_torch.graph.layers import (
-    DATA_LAYER_TYPES, LAYERS, PENDING_TYPES, SINK_LAYER_TYPES, ApplyContext,
+    DATA_LAYER_TYPES, LAYERS, PENDING_TYPES, SINK_LAYER_TYPES,
+    STATEFUL_LAYER_TYPES, ApplyContext,
 )
 from videovector_tpu_torch.metrics.retrieval import (
     IdToClassMap, check_num_videos, retrieval_rank_stats_fixed_ref_report,
@@ -530,7 +531,8 @@ class Net:
     # ------------------------------------------------------------------
     def apply(self, params, batch: dict[str, Any], *,
               generator: torch.Generator | None = None,
-              return_blobs: bool = False, max_layers: int | None = None,
+              return_blobs: bool = False, state=None,
+              return_state: bool = False, max_layers: int | None = None,
               return_sink_blobs: bool = False):
         """Forward pass. Returns (loss, outputs) where outputs maps every
         blob name that is not consumed downstream (net outputs,
@@ -539,6 +541,13 @@ class Net:
 
         `generator`: the torch.Generator that DROPOUT draws its masks from
         (required at TRAIN when a DROPOUT layer's ratio is > 0).
+
+        `state` is the cross-batch recurrent carry (layer name ->
+        LstmState, the reference's next_cell_/next_out_ buffers,
+        ref:src/caffe/layers/lstm_layer.cpp:171-173,261-264); with
+        `return_state=True` the result gains a third element, the updated
+        carry to feed into the next forward (still attached to this
+        forward's graph: the caller detaches it between batches).
 
         `max_layers` stops after the first N compute layers (the engine
         analogue of Net::ForwardFromTo, ref:src/caffe/net.cpp:502-514),
@@ -565,6 +574,7 @@ class Net:
             t for lp in params.values() for t in lp.values()))
             if isinstance(v, torch.Tensor)), None)
         ctx = self._context(generator, device=dev)
+        ctx.state_in = state
         loss = None
         consumed: set[str] = set()
         # absorbable motif layers run symbolically; their blobs materialize
@@ -621,9 +631,11 @@ class Net:
             loss = torch.zeros((), dtype=torch.float32, device=dev)
 
         tail = ()
+        if return_state:
+            tail = (dict(ctx.state_out),)
         if return_sink_blobs:
-            tail = ({b: blobs[b] for s in self.host_sinks
-                     for b in s["bottoms"]},)
+            tail += ({b: blobs[b] for s in self.host_sinks
+                      for b in s["bottoms"]},)
         if return_blobs:
             return (loss, blobs) + tail
         outputs = {k: v for k, v in blobs.items() if k not in consumed}
@@ -656,6 +668,12 @@ class Net:
                 continue
             out.append(src)
         return out
+
+    @property
+    def stateful_layer_names(self) -> list:
+        """Names of the layers that carry recurrent state across batches."""
+        return [str(l.get("name")) for l in self.layers
+                if l.get("type") in STATEFUL_LAYER_TYPES]
 
     def loss_fn(self, params, batch, generator=None):
         loss, _ = self.apply(params, batch, generator=generator)

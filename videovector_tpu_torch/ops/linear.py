@@ -51,22 +51,36 @@ def _matmul(x, w):
         return torch.matmul(x.float(), w.float())
 
 
-class _InnerProductReg(torch.autograd.Function):
+class _Dot(torch.autograd.Function):
+    """a @ b by `_matmul` in forward and in both gradients, so TF32 stays
+    off in backward too; the gradient of b is multiplied by `scale`."""
+
     @staticmethod
-    def forward(ctx, x, w, regularization):
-        ctx.save_for_backward(x, w)
-        ctx.regularization = regularization
-        return _matmul(x, w)
+    def forward(ctx, a, b, scale):
+        ctx.save_for_backward(a, b)
+        ctx.scale = scale
+        return _matmul(a, b)
 
     @staticmethod
     def backward(ctx, g):
-        x, w = ctx.saved_tensors
-        dx = dw = None
+        a, b = ctx.saved_tensors
+        da = db = None
         if ctx.needs_input_grad[0]:
-            dx = _matmul(g, w.T).to(x.dtype)
+            da = _matmul(g, b.T).to(a.dtype)
         if ctx.needs_input_grad[1]:
-            dw = (_matmul(x.T, g) * (1.0 + ctx.regularization / 2.0)).to(w.dtype)
-        return dx, dw, None
+            db = _matmul(a.T, g)
+            if ctx.scale != 1.0:
+                db = db * ctx.scale
+            db = db.to(b.dtype)
+        return da, db, None
+
+
+def dot(a, b):
+    """a (M, K) @ b (K, N) -> (M, N) f32, differentiable, with TF32 off in
+    the forward and in both gradients whatever the process sets (the
+    recurrent ops' products: the JAX package leaves them to XLA's f32
+    dot, outside any Pallas kernel)."""
+    return _Dot.apply(a, b, 1.0)
 
 
 def inner_product(x, w, b=None, *, regularization: float = 0.0):
@@ -75,7 +89,7 @@ def inner_product(x, w, b=None, *, regularization: float = 0.0):
     if x.dim() > 2:
         x = x.reshape(x.shape[0], -1)
     if regularization > 0.0:
-        y = _InnerProductReg.apply(x, w, regularization)
+        y = _Dot.apply(x, w, 1.0 + regularization / 2.0)
     else:
         y = _matmul(x, w)
     if b is not None:

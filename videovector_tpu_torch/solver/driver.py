@@ -339,11 +339,21 @@ class SolverDriver:
         # Forward in the reference (write_to_file_layer.cpp:36-64)
         train_sinks = bool(net.host_sinks)
 
+        stateful = bool(net.stateful_layer_names)
+
         def loss_fn(p, batch, generator):
-            loss, outputs, *tail = net.apply(p, batch, generator=generator,
-                                             return_sink_blobs=train_sinks)
+            # a stateful net's cross-batch LSTM carry (ref
+            # lstm_layer.cpp:171-173) rides the aux channel under a
+            # reserved key; train moves it, detached, from one step's
+            # output into the next step's batch
+            feed = {k: v for k, v in batch.items() if k != "__carry__"}
+            loss, outputs, *tail = net.apply(
+                p, feed, generator=generator, state=batch.get("__carry__"),
+                return_state=stateful, return_sink_blobs=train_sinks)
             # ref solver.cpp:195-217: every element of every output blob
             aux = {k: v.reshape(-1) for k, v in outputs.items()}
+            if stateful:
+                aux["__carry__"] = tail.pop(0)
             if train_sinks:
                 aux["__sinks__"] = tail[0]
             return loss, aux
@@ -354,15 +364,21 @@ class SolverDriver:
 
             def make_eval(test_net):
                 sinks = bool(test_net.host_sinks)
+                t_stateful = bool(test_net.stateful_layer_names)
 
                 def eval_fn(p, batch):
+                    feed = {k: v for k, v in batch.items()
+                            if k != "__carry__"}
                     loss, outputs, *tail = test_net.apply(
-                        p, batch, return_sink_blobs=sinks)
+                        p, feed, state=batch.get("__carry__"),
+                        return_state=t_stateful, return_sink_blobs=sinks)
                     # every element of every output blob accumulates into
                     # the test report (ref Solver::Test solver.cpp:280-315)
                     out = {k: v.reshape(-1) for k, v in outputs.items()}
                     if include_loss:  # ref test_compute_loss, caffe.proto:116
                         out["loss"] = loss
+                    if t_stateful:  # carried across the test batches
+                        out["__carry__"] = tail.pop(0)
                     if sinks:  # sink-layer bottoms for process_host_sinks
                         out["__sinks__"] = tail[0]
                     return out
@@ -402,7 +418,10 @@ class SolverDriver:
                 batch_axes=src_axes,
                 train_output_weights=net.output_loss_weights(),
                 test_output_weights=[n.output_loss_weights()
-                                     for n in self.test_nets])
+                                     for n in self.test_nets],
+                # the carry threads between sub-batches on the host: the
+                # fused step cannot carry it (build_fused_step refuses)
+                fused_accum=not stateful)
         finally:
             # stop the prefetch threads and drop their queued device
             # batches: over infinite sources they would otherwise live until

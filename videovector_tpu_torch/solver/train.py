@@ -12,9 +12,13 @@ log; every `test_interval` iterations it averages an eval function over
 `train` is an entry point: it runs on the card unless the caller passes
 device="cpu", and raises without a card. It evaluates one or several test
 nets and feeds the host sinks of the TRAIN and TEST nets
-(solver/driver.py builds both from a prototxt). Cross-batch carry (LSTM
-state, ROADMAP item 9) and the reference's .solverstate resume (item 1b)
-come with later slices.
+(solver/driver.py builds both from a prototxt), and threads a
+cross-batch carry (the LSTM state of a stateful Net) through a reserved
+"__carry__" key: the loss function returns it in its aux dict, and the
+loop hands it, detached, to the next step's batch (truncated BPTT, as the
+reference's backward never crosses a batch), to each iter_size sub-batch,
+to the display forward, and from test batch to test batch. The reference's
+.solverstate resume (ROADMAP item 1b) comes with a later slice.
 """
 
 from __future__ import annotations
@@ -45,6 +49,9 @@ class TrainResult:
     state: Any
     metrics_history: list = field(default_factory=list)
     test_history: list = field(default_factory=list)
+    # the cross-batch carry (LSTM state) after the last step: hand it back
+    # through train(initial_carry=...) to continue
+    final_carry: Any = None
 
 
 def _host(v) -> np.ndarray:
@@ -60,8 +67,10 @@ def _add(a, b):
 def _detached(v):
     if isinstance(v, torch.Tensor):
         return v.detach()
-    if isinstance(v, dict):   # the "__sinks__" blobs
+    if isinstance(v, dict):   # the "__sinks__" blobs, the "__carry__" dict
         return {k: _detached(x) for k, x in v.items()}
+    if isinstance(v, tuple):  # an LstmState of the carry
+        return type(v)(*(_detached(x) for x in v))
     return v
 
 
@@ -69,7 +78,8 @@ def value_and_grad(loss_fn: Callable):
     """loss_fn(params, batch, generator) -> (loss, aux) becomes
     vg(params, batch, generator) -> ((loss, aux), grads), with the grads a
     tree shaped like params (zeros for a param the loss does not use), all
-    detached."""
+    detached, aux too (so a "__carry__" enters the next step as a constant
+    and its graph is freed)."""
     def vg(params, batch, generator):
         p = map_params(lambda t: t.detach().requires_grad_(True), params)
         with torch.enable_grad():
@@ -134,6 +144,14 @@ def build_fused_step(grad_fn, cfg: SolverConfig, n_accum: int, gm: int, *,
             "the split axis must be declared, not guessed")
     axes = batch_axes or {}
 
+    def vg_checked(p, mb, generator):
+        (loss, aux), g = grad_fn(p, mb, generator)
+        if "__carry__" in aux:
+            raise ValueError(
+                "fused accumulation cannot thread cross-batch LSTM "
+                "state — pass fused_accum=False for stateful nets")
+        return (loss, aux), g
+
     def fstep(p, s, batches, generator):
         # the step batches concatenate along each key's batch axis, then
         # split into n_total microbatches: [step0 micro0..gm-1, step1 ...]
@@ -141,7 +159,7 @@ def build_fused_step(grad_fn, cfg: SolverConfig, n_accum: int, gm: int, *,
                     if n_accum > 1 else batches[0][k])
                 for k in batches[0]}
         grads, loss_sum, aux_all = accumulate_microbatches(
-            grad_fn, p, full, axes, n_total, generator)
+            vg_checked, p, full, axes, n_total, generator)
         grads = map_params(lambda g: g / n_total, grads)
         p2, s2 = solver_update(cfg, p, grads, s, lr_mults=lr_mults,
                                decay_mults=decay_mults)
@@ -199,7 +217,8 @@ def train(loss_fn: Callable, params, data: Iterator[dict], cfg: SolverConfig,
           batch_axes: dict | None = None,
           fused_accum: bool = True,
           train_output_weights: dict | None = None,
-          test_output_weights: list | None = None) -> TrainResult:
+          test_output_weights: list | None = None,
+          initial_carry=None) -> TrainResult:
     """loss_fn(params, batch, generator) -> (loss, aux dict): the loss of
     one batch, with dropout masks drawn from `generator`, one
     torch.Generator on the device. At the top of each iteration it is
@@ -233,11 +252,15 @@ def train(loss_fn: Callable, params, data: Iterator[dict], cfg: SolverConfig,
     means undeclared, which keeps the auto schedule off and makes an
     explicit grad_microbatch > 1 raise.
     fused_accum: iter_size accumulation through build_fused_step (True), or
-    a host loop of separate gradient calls.
+    a host loop of separate gradient calls. False for a stateful net: the
+    carry threads from sub-batch to sub-batch, which the fused step
+    refuses (the driver passes it).
     train_output_weights / test_output_weights: {output blob: loss weight}
     (Net.output_loss_weights), one map per test net: loss-weighted output
     lines carry the reference's " (* w = x loss)" suffix
-    (ref:src/caffe/solver.cpp:204-214, :306-314)."""
+    (ref:src/caffe/solver.cpp:204-214, :306-314).
+    initial_carry: the "__carry__" the first step's batch gets (e.g. a
+    TrainResult.final_carry); None starts from the layers' zero state."""
     dev = resolve(device)
     params = map_params(lambda t: torch.as_tensor(t, device=dev), params)
     state = init_solver_state(cfg, params)
@@ -264,8 +287,11 @@ def train(loss_fn: Callable, params, data: Iterator[dict], cfg: SolverConfig,
     # per step)
     generator = torch.Generator(device=dev)
 
-    def on_device(batch):
-        return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    def on_device(batch, carry=None):
+        out = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        if carry is not None:
+            out["__carry__"] = carry
+        return out
 
     grad_fn = value_and_grad(loss_fn)
     mults = {"lr_mults": lr_mults, "decay_mults": decay_mults}
@@ -304,8 +330,10 @@ def train(loss_fn: Callable, params, data: Iterator[dict], cfg: SolverConfig,
         for net_id, (efn, tdata) in enumerate(zip(eval_fns, test_datas)):
             n = cfg.test_iter[net_id] if net_id < len(cfg.test_iter) else 1
             sums: dict[str, np.ndarray] = {}
+            t_carry = None  # the recurrent state carries across test batches
             for _ in range(n):
-                out = dict(efn(p, on_device(next(tdata))))
+                out = dict(efn(p, on_device(next(tdata), t_carry)))
+                t_carry = out.pop("__carry__", None)
                 sblobs = out.pop("__sinks__", None)
                 if sblobs is not None and sink_fns[net_id] is not None:
                     sink_fns[net_id](sblobs)
@@ -336,6 +364,8 @@ def train(loss_fn: Callable, params, data: Iterator[dict], cfg: SolverConfig,
         result.test_history.append((it, merged))
 
     it = start_iter
+    # the cross-batch state the loss function threads through "__carry__"
+    carry = initial_carry
     last_grads = None   # the newest gradients (kept when snapshot_diff)
     fused_plan = None   # (iter_size, grad_microbatch) once shapes are known
     fused_step = None
@@ -377,7 +407,8 @@ def train(loss_fn: Callable, params, data: Iterator[dict], cfg: SolverConfig,
                 grads_acc = None
                 for _ in range(cfg.iter_size):
                     grads_acc, metrics = accum(params, grads_acc,
-                                               on_device(next(data)))
+                                               on_device(next(data), carry))
+                    carry = metrics.pop("__carry__", None)
                     sink(metrics)   # every sub-batch's Forward
                 if cfg.snapshot_diff:
                     last_grads = grads_acc
@@ -405,7 +436,12 @@ def train(loss_fn: Callable, params, data: Iterator[dict], cfg: SolverConfig,
                     params, state, metrics = fused_step(params, state, batches,
                                                         generator)
                 else:
+                    if carry is not None:
+                        batch["__carry__"] = carry
                     params, state, metrics = step(params, state, batch)
+                # the recurrent cross-batch state (ref lstm_layer.cpp:171-173)
+                # comes back through aux, detached
+                carry = metrics.pop("__carry__", None)
                 last_grads = metrics.pop("__diff__", last_grads)
                 sink(metrics)
 
@@ -455,7 +491,8 @@ def train(loss_fn: Callable, params, data: Iterator[dict], cfg: SolverConfig,
         if batch is not None:
             generator.manual_seed(iteration_seed(seed, it))
             with torch.no_grad():
-                final_loss = loss_fn(params, on_device(batch), generator)[0]
+                final_loss = loss_fn(params, on_device(batch, carry),
+                                     generator)[0]
             log.info("Iteration %d, loss = %g", it,
                      float(_host(final_loss).reshape(-1)[0]))
     if cfg.test_interval and it % cfg.test_interval == 0:
@@ -463,4 +500,5 @@ def train(loss_fn: Callable, params, data: Iterator[dict], cfg: SolverConfig,
     snapshotter.wait()  # every write is on disk before train returns
     result.params = params
     result.state = state
+    result.final_carry = carry
     return result

@@ -175,17 +175,25 @@ def cmd_test(args) -> int:
         params = _load_weights(args.weights, params, dev)
 
     sinks = bool(net.host_sinks)
+    stateful = bool(net.stateful_layer_names)
     validators = net.batch_validators()
     sums: dict[str, np.ndarray] = {}
     loss_sum = 0.0
+    # the LSTM cross-batch state carries across the test forwards, as in
+    # the reference (`caffe test` reuses one net, so prev_cell_ persists
+    # between batches, ref lstm_layer.cpp:171-173,261-264)
+    carry = None
     for i in range(args.iterations):
         raw = batch0_raw if i == 0 else source.next_batch()
         for v in validators:  # on the host batch, before it is used
             v(raw)
         batch = {k: torch.as_tensor(x, device=dev) for k, x in raw.items()}
         with torch.no_grad():
-            loss, outputs, *rest = net.apply(params, batch,
-                                             return_sink_blobs=sinks)
+            loss, outputs, *rest = net.apply(
+                params, batch, state=carry, return_state=stateful,
+                return_sink_blobs=sinks)
+        if stateful:
+            carry = rest.pop(0)
         if sinks:
             # the reference's sink layers truncate and rewrite their files
             # on every TEST forward (retrieval_stats_layer.cpp:150)
