@@ -78,14 +78,18 @@ Run from the root of a checkout. It
    layer swapped for a DATA layer over a store of 200 seeded 3 x 256 x 256
    frames with a mean file, weights from a .caffemodel of seeded params, all
    written by the port, through tools/extract_features.main (blobs ip2 and
-   pool5, 12 batches, vvr): 8 K2 launches a batch on the core route and 2 K1
-   launches on the f32 route, the stores and text files read back, the
+   pool5, 12 batches, vvr): 5 K2 launches a batch on the f32 route with
+   conv1's repack and 2 K1 launches on the f32 route, the channels_last
+   copies the convs' inputs cost, the stores and text files read back, the
    features against the same Net on the plain versions on the card, the
    bf16 Net (K2 sm90 5 + repack, K1 sm90 2) against them, images/s, the
    forward's time, the host's batch, one profiled window of 2 batches (no
-   library GEMM or conv); then K2's f32 core route at conv1..conv5 and K1's
-   f32 route at fc6 + fc7, at batch 50, in turns with their plain versions
-   and cuDNN / cuBLAS f32 beside their bounds;
+   library GEMM or conv); then K2 at conv1..conv5 at batch 50 on the Net's
+   entry, each held against its plain version and run twice for equal
+   bits, timed in turns on the f32 route (from NCHW, the channels_last copy
+   inside), the core route the Net ran on before the f32 route, the plain
+   version and cuDNN f32, beside the bound; and K1's f32 route at fc6 +
+   fc7, in turns with its plain version and cuBLAS f32;
 11. trains the paper's exhaustive-shots configuration and runs its
    fixed-gallery rank eval (exhaustive_rank_eval) through tools.cli.main:
    generate_net.py's net at B = 128 with its TRAIN data layer swapped for
@@ -248,13 +252,14 @@ EXTRACT_SIDE = 256
 EXTRACT_CROP = 227
 EXTRACT_BATCHES = 12
 EXTRACT_BLOBS = ("ip2", "pool5")
-# launches per f32 batch: K2 on its core route, one per group (conv1 and
-# conv3 one each, conv2, conv4 and conv5 two each), K1 on its f32 route
-# (fc6, fc7); per bf16 batch, (all, sm90, repack) of K2 and (all, sm90,
-# f32) of K1: K2 sm90 5 + conv1's repack, K1 sm90 2
-K2_CORE_PER_BATCH = 8
+# launches per f32 batch: K2 on its f32 route, one per conv, and conv1's
+# space-to-depth repack, K1 on its f32 route (fc6, fc7); per bf16 batch,
+# (all, sm90, repack, f32) of K2 and (all, sm90, f32) of K1: K2 sm90 5 +
+# conv1's repack, K1 sm90 2
+K2_F32_PER_BATCH = 5
+K2_REPACK_PER_BATCH = 1
 K1_PER_EXTRACT_BATCH = 2
-EXTRACT_BF16_K2 = (5, 5, 1)
+EXTRACT_BF16_K2 = (5, 5, 1, 0)
 EXTRACT_BF16_K1 = (2, 2, 0)
 EXTRACT_FC = ((9216, 4096), (4096, 4096))     # fc6, fc7: (K, N)
 # the exhaustive-shots cell (exhaustive_rank_eval): _exhaustive_net's
@@ -2315,7 +2320,8 @@ def _is_library_kernel(name: str) -> bool:
 def _k2_counts() -> tuple:
     from videovector_tpu_torch.ops.hopper import conv_gemm as k2
     return (k2.conv2d_im2col_gemm.launches,
-            k2.conv2d_im2col_gemm.launches_sm90, k2.space_to_depth.launches)
+            k2.conv2d_im2col_gemm.launches_sm90, k2.space_to_depth.launches,
+            k2.conv2d_im2col_gemm.launches_f32)
 
 
 def _k1_counts() -> tuple:
@@ -2328,8 +2334,9 @@ def _zero_counts() -> None:
     from videovector_tpu_torch.ops.hopper.matmul import matmul
     torch.cuda.synchronize()
     matmul.launches = matmul.launches_sm90 = matmul.launches_f32 = 0
-    k2.conv2d_im2col_gemm.launches = 0
+    k2.conv2d_im2col_gemm.launches = k2.conv2d_im2col_gemm.launches_f32 = 0
     k2.conv2d_im2col_gemm.launches_sm90 = k2.space_to_depth.launches = 0
+    k2.conv2d_nchw.layout_copies = 0
 
 
 def _extraction_net(store: str, mean_file: str) -> str:
@@ -2466,65 +2473,111 @@ def _read_features(prefix: str, name: str) -> np.ndarray:
     return feats
 
 
-def _k2_f32_core_times(dev, gen) -> dict:
-    """K2's f32 core route, the Net's CONVOLUTION entry (conv2d_nchw, one
-    launch per group), at CaffeNet's conv1..conv5 at batch BATCH: each held
-    against its plain version, then timed by CUDA-graph replay in turns with
-    the plain version and cuDNN F.conv2d f32 (TF32 off), beside the bound
-    (operations at the f32 FMA peak, or bytes)."""
+def _k2_f32_times(dev, gen) -> dict:
+    """K2 at the Net's CONVOLUTION entry (conv2d_nchw) at CaffeNet's
+    conv1..conv5 at batch BATCH, on NCHW inputs as the DATA layer gives
+    conv1 and as cuDNN takes them: the f32 route (one launch, conv1's
+    repack, the channels_last copy of x inside its time) held against the
+    plain version and run twice for equal bits; then, by CUDA-graph replay
+    in turns, the f32 route, the core route the Net ran on before the f32
+    route (one launch per group, NCHW views), the plain version and cuDNN
+    F.conv2d f32 (TF32 off), beside the bound (operations at the f32 FMA
+    peak, or bytes); the copy alone, and the f32 route on a channels_last x
+    (as the Net feeds conv2..conv5), apart."""
     from videovector_tpu_torch.ops.hopper import conv_gemm as k2
     card = gpu_name_and_power_limit()
-    out = {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-           "bound_ms": 0.0, "flops": 0.0, "bytes": 0.0}
-    log(f"K2 f32 core route (the Net's CONVOLUTION) at batch {BATCH} "
-        f"[{card}]: CUDA-graph replay, in turns with plain and cuDNN f32 "
-        "(TF32 off):")
+    out = {k: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+               "bound_ms": 0.0} for k in ("f32", "core")}
+    flops_all = bytes_all = copy_all = direct_all = 0.0
+    log(f"K2 at the Net's CONVOLUTION entry at batch {BATCH} [{card}]: "
+        "CUDA-graph replay, in turns: the f32 route, the core route, plain, "
+        "cuDNN f32 (TF32 off):")
+    cl = torch.channels_last
     for name, hw, c, o, k, s, p, g in CAFFENET_CONVS:
         x = torch.randn((BATCH, c, hw, hw), generator=gen, device=dev)
         w = torch.randn((o, c // g, k, k), generator=gen, device=dev) \
             * (c // g * k * k) ** -0.5
         b = torch.randn(o, generator=gen, device=dev) * 0.1
         kw = dict(stride=(s, s), pad=(p, p), groups=g)
+        ohw = (hw + 2 * p - k) // s + 1
         before = _k2_counts()
         got = k2.conv2d_nchw(x, w, b, **kw)
         after = _k2_counts()
-        if (after[0] - before[0], after[1] - before[1]) != (g, 0):
-            raise AssertionError(f"K2 f32 {name}: not {g} core launches")
+        want = (1, 0, int(name == "conv1"), 1)
+        if tuple(a - z for a, z in zip(after, before)) != want:
+            raise AssertionError(f"K2 f32 {name}: launches (all, sm90, "
+                                 f"repack, f32) {after} from {before}, not "
+                                 f"{want} more")
         ref = k2.conv2d_nchw(x, w, b, plain=True, **kw)
-        out["err"] = max(out["err"], compare(f"K2 f32 core {name} b{BATCH}",
-                                             got, ref))
-        fns = {"core": lambda _: k2.conv2d_nchw(x, w, b, **kw),
+        out["f32"]["err"] = max(out["f32"]["err"], compare(
+            f"K2 f32 route {name} b{BATCH}", got, ref))
+        if not torch.equal(got, k2.conv2d_nchw(x, w, b, **kw)):
+            raise AssertionError(f"K2 f32 route {name}: two runs differ")
+
+        def core(_):
+            y = torch.empty((BATCH, o, ohw, ohw), device=dev)
+            return k2._conv_kernel(x, w, b, y, (s, s), (p, p), g, False)
+        out["core"]["err"] = max(out["core"]["err"], compare(
+            f"K2 core route {name} b{BATCH}", core(0), ref))
+        fns = {"f32": lambda _: k2.conv2d_nchw(x, w, b, **kw), "core": core,
                "plain": lambda _: k2.conv2d_nchw(x, w, b, plain=True, **kw),
                "cudnn": lambda _: torch.nn.functional.conv2d(
                    x, w, b, stride=s, padding=p, groups=g)}
         compare(f"  cuDNN f32 {name} (a yardstick)", fns["cudnn"](0), ref)
         times = {n: [] for n in fns}
-        for n in ("core", "plain", "cudnn", "cudnn", "plain", "core"):
+        for n in ("f32", "core", "plain", "cudnn", "cudnn", "plain", "core",
+                  "f32"):
             times[n].append(time_graph_ms(fns[n], [0, 1]))
         ms = {n: sum(t) / len(t) for n, t in times.items()}
-        ohw = (hw + 2 * p - k) // s + 1
+        x_cl = x.contiguous(memory_format=cl)
+        copy_ms = time_graph_ms(lambda _: x.contiguous(memory_format=cl), [0, 1])
+        direct_ms = time_graph_ms(lambda _: k2.conv2d_nchw(x_cl, w, b, **kw),
+                                  [0, 1])
+        repack = ""
+        if name == "conv1":
+            xh, wh = x_cl.permute(0, 2, 3, 1), w.permute(2, 3, 1, 0).contiguous()
+            repack = (f", the f32 space-to-depth repack "
+                      f"{time_graph_ms(lambda _: k2.space_to_depth(xh, wh, s), [0, 1]):.4f}"
+                      " ms")
         flops = 2 * BATCH * ohw * ohw * o * (c // g) * k * k
         nbytes = 4 * (x.numel() + w.numel() + o + BATCH * o * ohw * ohw)
         bound = max(flops / PEAK_FLOPS_F32, nbytes / PEAK_BYTES) * 1e3
-        for key, v in (("ms", ms["core"]), ("plain_ms", ms["plain"]),
-                       ("library_ms", ms["cudnn"]), ("bound_ms", bound),
-                       ("flops", flops), ("bytes", nbytes)):
-            out[key] += v
-        log(f"  K2 f32 core {name}: {ms['core']:.4f} ms ({g} launch"
-            f"{'es' if g > 1 else ''}; {flops / ms['core'] / 1e9:.1f} TFLOP/s, "
-            f"{bound / ms['core']:.3f} of the {bound:.4f} ms bound), plain "
-            f"{ms['plain']:.4f} ms, cuDNN f32 {ms['cudnn']:.4f} ms (turns: "
+        for route in ("f32", "core"):
+            for key, v in (("ms", ms[route]), ("plain_ms", ms["plain"]),
+                           ("library_ms", ms["cudnn"]), ("bound_ms", bound)):
+                out[route][key] += v
+        flops_all += flops
+        bytes_all += nbytes
+        copy_all += copy_ms
+        direct_all += direct_ms
+        log(f"  K2 {name}: f32 route {ms['f32']:.4f} ms ({bound / ms['f32']:.3f}"
+            f" of the {bound:.4f} ms bound, {flops / ms['f32'] / 1e9:.1f} "
+            f"TFLOP/s; {ms['cudnn'] / ms['f32']:.2f}x cuDNN's speed), of it "
+            f"the channels_last copy of x {copy_ms:.4f} ms (the route on a "
+            f"channels_last x {direct_ms:.4f} ms{repack}); core "
+            f"{ms['core']:.4f} ms "
+            f"({g} launch{'es' if g > 1 else ''}), plain {ms['plain']:.4f} ms,"
+            f" cuDNN f32 {ms['cudnn']:.4f} ms (turns: "
             + ", ".join(f"{n} {v:.4f}" for n, t in times.items() for v in t)
             + ")")
-    t_ops, t_bytes = out["flops"] / PEAK_FLOPS_F32, out["bytes"] / PEAK_BYTES
-    out["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
-    log(f"  K2 f32 core conv1..conv5 at batch {BATCH} [{card}]: "
-        f"{out['ms']:.4f} ms ({out['flops'] / 1e9:.1f} GFLOP, "
-        f"{out['flops'] / out['ms'] / 1e9:.1f} TFLOP/s; the bound "
-        f"{out['bound_ms']:.4f} ms, {out['bound_by']}, "
-        f"{PEAK_FLOPS_F32 / 1e12:.0f} TFLOP/s f32: {out['bound_ms'] / out['ms']:.3f}"
-        f" of it), plain {out['plain_ms']:.4f} ms, cuDNN f32 "
-        f"{out['library_ms']:.4f} ms ({out['ms'] / out['library_ms']:.2f}x)")
+    t_ops, t_bytes = flops_all / PEAK_FLOPS_F32, bytes_all / PEAK_BYTES
+    for route in ("f32", "core"):
+        out[route]["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+    f, c_ = out["f32"], out["core"]
+    log(f"  K2 conv1..conv5 at batch {BATCH} [{card}]: f32 route "
+        f"{f['ms']:.4f} ms ({flops_all / 1e9:.1f} GFLOP, "
+        f"{flops_all / f['ms'] / 1e9:.1f} TFLOP/s; the bound "
+        f"{f['bound_ms']:.4f} ms, {f['bound_by']}, "
+        f"{PEAK_FLOPS_F32 / 1e12:.0f} TFLOP/s f32: {f['bound_ms'] / f['ms']:.3f}"
+        f" of it; five channels_last copies {copy_all:.4f} ms inside it, the "
+        f"route on channels_last inputs {direct_all:.4f} ms), core "
+        f"{c_['ms']:.4f} ms, plain {f['plain_ms']:.4f} ms, cuDNN f32 "
+        f"{f['library_ms']:.4f} ms (the f32 route at "
+        f"{f['ms'] / f['library_ms']:.2f}x cuDNN's time, the core at "
+        f"{c_['ms'] / c_['library_ms']:.2f}x)")
+    if not f["ms"] < f["library_ms"]:
+        log("  the f32 route's sum is not below cuDNN f32's (PERF.md says "
+            "what holds it back)")
     return out
 
 
@@ -2574,11 +2627,13 @@ def extraction(dev) -> dict:
     counts of that run; the stores read back; the features against the
     same Net on the plain versions on the card; the bf16 Net against the
     f32 one; images/s, the forward's time, the host's batch, a profiled
-    window of 2 batches; then K2's f32 core route and K1's f32 route at the
-    Net's shapes in turns with their plain versions and library calls."""
+    window of 2 batches; then K2 (the f32 route beside the core) and K1's
+    f32 route at the Net's shapes in turns with their plain versions and
+    library calls."""
     import tempfile
     from torch.profiler import ProfilerActivity, profile
     from videovector_tpu_torch.config import parse_file
+    from videovector_tpu_torch.ops.hopper import conv_gemm as k2
     from videovector_tpu_torch.data.records import RecordWriter
     from videovector_tpu_torch.data.weights import NetWeights, load_into_params
     from videovector_tpu_torch.data.wire import Datum
@@ -2612,12 +2667,16 @@ def extraction(dev) -> dict:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         k2c, k1c = _k2_counts(), _k1_counts()
-        want_k2 = (K2_CORE_PER_BATCH * EXTRACT_BATCHES, 0, 0)
+        copies = k2.conv2d_nchw.layout_copies
+        want_k2 = (K2_F32_PER_BATCH * EXTRACT_BATCHES, 0,
+                   K2_REPACK_PER_BATCH * EXTRACT_BATCHES,
+                   K2_F32_PER_BATCH * EXTRACT_BATCHES)
         want_k1 = (K1_PER_EXTRACT_BATCH * EXTRACT_BATCHES, 0,
                    K1_PER_EXTRACT_BATCH * EXTRACT_BATCHES)
         log(f"  extract_features.main: rc {rc}; K2 launches (all, sm90, "
-            f"repack) {k2c}, want {want_k2}; K1 (all, sm90, f32) {k1c}, want "
-            f"{want_k1}")
+            f"repack, f32) {k2c}, want {want_k2}; K1 (all, sm90, f32) {k1c}, "
+            f"want {want_k1}; channels_last copies of conv inputs "
+            f"{copies} ({copies / EXTRACT_BATCHES:g} a batch)")
         if rc != 0 or k2c != want_k2 or k1c != want_k1 \
                 or len(marks.marks) != EXTRACT_BATCHES:
             raise AssertionError("extraction: wrong exit code, launch counts "
@@ -2658,7 +2717,7 @@ def extraction(dev) -> dict:
                     ref = blobs[name].reshape(BATCH, -1)
                     compare(f"extracted {name} batch {i} vs "
                             "Net(plain=True)", got, ref)
-        if _k2_counts() != (0, 0, 0) or _k1_counts() != (0, 0, 0):
+        if _k2_counts() != (0, 0, 0, 0) or _k1_counts() != (0, 0, 0):
             raise AssertionError("Net(plain=True) launched a kernel")
 
         # the bf16 Net against the f32 one, batch 0, counted apart
@@ -2670,7 +2729,8 @@ def extraction(dev) -> dict:
         with torch.inference_mode():
             _, b16 = net16.apply(params, batch0, return_blobs=True)
         k2c16, k1c16 = _k2_counts(), _k1_counts()
-        log(f"  bf16 Net, batch 0: K2 launches (all, sm90, repack) {k2c16}, "
+        log(f"  bf16 Net, batch 0: K2 launches (all, sm90, repack, f32) "
+            f"{k2c16}, "
             f"want {EXTRACT_BF16_K2}; K1 (all, sm90, f32) {k1c16}, want "
             f"{EXTRACT_BF16_K1}")
         if k2c16 != EXTRACT_BF16_K2 or k1c16 != EXTRACT_BF16_K1:
@@ -2744,10 +2804,12 @@ def extraction(dev) -> dict:
         del params, plain, net16, net32, batch0
     torch.cuda.empty_cache()
     gen = torch.Generator(device=dev).manual_seed(17)
-    k2_stats = _k2_f32_core_times(dev, gen)
+    k2_stats = _k2_f32_times(dev, gen)
     k1_stats = _k1_fc_f32_times(dev, gen)
-    return {"k2_core": k2c[0], "k1_f32": k1c[2], "k2": k2_stats,
-            "k1": k1_stats, "images_s": steady, "fwd": fwd}
+    return {"k2_f32": k2c[3], "k2_core": k2c[0] - k2c[1] - k2c[3],
+            "repack": k2c[2], "k1_f32": k1c[2], "k2": k2_stats,
+            "k1": k1_stats, "images_s": steady, "fwd": fwd,
+            "copies": copies}
 
 
 # ---------------------------------------------------------------------------
@@ -3762,6 +3824,7 @@ def _trajectory_cli(dev, tmp: Path, card: str) -> dict:
             f"K1 readout ({x.shape[0]} x {x.shape[1]}) . ({p['w'].shape[0]} "
             f"x {p['w'].shape[1]}) core route", matmul(x, p["w"], p["b"]),
             matmul_plain(x, p["w"], p["b"]), rel=1e-3)
+        readout = _k1_readout_times(x, p["w"], p["b"], card)
     with _CliCapture() as out:
         _, launches["test"] = _counted(lambda: cli.main(
             ["test", "--model", str(net_path), "--weights", model,
@@ -3794,7 +3857,7 @@ def _trajectory_cli(dev, tmp: Path, card: str) -> dict:
         raise AssertionError(f"trajectory K1 launches off the core route: "
                              f"{launches}")
     return {"launches": launches, "step_ms": step_ms, "wall_ms": wall_ms,
-            "readout_err": readout_err,
+            "readout_err": readout_err, "readout": readout,
             "profile": prof, "displays": displays, "text": text,
             "train_store": stores[0]}
 
@@ -3893,6 +3956,38 @@ def _encdec_cells(dev, card: str) -> dict:
     return out
 
 
+def _k1_readout_times(x, w, b, card: str) -> dict:
+    """K1's core route at the trajectory readout's shape (x . w + b, f32;
+    the (32, 2) weight's 8-byte rows are not TMA-addressable), by CUDA-graph
+    replay in turns with its plain version and cuBLAS f32 (torch.addmm, TF32
+    off), beside the bound (the larger of its bytes over HBM's rate and its
+    operations over the f32 FMA peak)."""
+    from videovector_tpu_torch.ops.hopper.matmul import (k1_route, matmul,
+                                                         matmul_plain)
+    if k1_route(x, w, torch.float32) != "core":
+        raise AssertionError("trajectory readout: not K1's core route")
+    fns = {"core": lambda _: matmul(x, w, b),
+           "plain": lambda _: matmul_plain(x, w, b),
+           "cublas": lambda _: torch.addmm(b, x, w)}
+    times = {n: [] for n in fns}
+    for n in ("core", "plain", "cublas", "cublas", "plain", "core"):
+        times[n].append(time_graph_ms(fns[n], [0, 1, 2, 3]))
+    ms = {n: sum(t) / len(t) for n, t in times.items()}
+    (m, k), n_ = x.shape, w.shape[1]
+    t_ops = 2 * m * k * n_ / PEAK_FLOPS_F32
+    t_bytes = 4 * (m * k + k * n_ + n_ + m * n_) / PEAK_BYTES
+    out = {"ms": ms["core"], "plain_ms": ms["plain"],
+           "library_ms": ms["cublas"], "bound_ms": max(t_ops, t_bytes) * 1e3,
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    log(f"  K1 core route, the trajectory readout ({m} x {k}) . ({k} x {n_}) "
+        f"+ b [{card}]: {out['ms']:.4f} ms (the bound {out['bound_ms']:.6f} "
+        f"ms, {out['bound_by']}: {out['bound_ms'] / out['ms']:.4f} of it), "
+        f"plain {out['plain_ms']:.4f} ms, cuBLAS f32 (TF32 off) "
+        f"{out['library_ms']:.4f} ms (turns: "
+        + ", ".join(f"{n} {v:.4f}" for n, t in times.items() for v in t) + ")")
+    return out
+
+
 def trajectory(dev) -> dict:
     """Item 9 on the card: projects/trajectory_forecast through the CLI
     (_trajectory_cli), the card against the CPU on its net, the six types
@@ -3915,7 +4010,7 @@ def trajectory(dev) -> dict:
     return {"launches": by_route[0], "sm90": by_route[1], "f32": by_route[2],
             "core": by_route[0] - by_route[1] - by_route[2],
             "readout_err": encdec["err"], "core_err": cli_run["readout_err"],
-            "cli": cli_run, "encdec": encdec}
+            "core_times": cli_run["readout"], "cli": cli_run, "encdec": encdec}
 
 
 def tf32_checks(dev) -> None:
@@ -4132,14 +4227,14 @@ def main() -> int:
                             + [exh["eval"]["fc7_err"], traj["readout_err"]])},
         {"name": "K1 matmul, core route at f32 (FMA tiles; the Net's f32 "
                  "operands take the f32 route, so only operands TMA cannot "
-                 "address reach it)", "route": "cuda",
+                 "address reach it: the trajectory readout, timed at its "
+                 "shape)", "route": "cuda",
          "source": "videovector_tpu_torch/csrc/matmul.cu",
          "replaces": "videovector_tpu/ops/pallas/matmul.py:50",
          "launches": (net["launches"] + cli["launches"] - net["f32"]
                       - cli["f32"] + traj["core"]),
-         "ms": net["k1"][NET_ROWS]["core_ms"],
-         **{k: net["k1"][NET_ROWS][k] for k in ("plain_ms", "bound_ms",
-                                                "bound_by", "library_ms")},
+         **{k: traj["core_times"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                              "bound_by", "library_ms")},
          "max_abs_err": max([v["core_err"] for v in net["k1"].values()]
                             + [traj["core_err"]])},
         {"name": "K2 conv2d_im2col_gemm (implicit-GEMM conv: cp.async "
@@ -4151,20 +4246,32 @@ def main() -> int:
          "bound_ms": stats["K2"]["bound_ms"], "bound_by": "operations",
          "library_ms": stats["K2"]["library_ms"]},
         {"name": "K2 space_to_depth (conv1's operands repacked for the sm90 "
-                 "route; its time is inside K2's conv1)", "route": "cuda",
+                 "and f32 routes; timed at bf16, its time is inside K2's "
+                 "conv1)", "route": "cuda",
          "source": "videovector_tpu_torch/csrc/conv_gemm_sm90.cu",
          "replaces": "videovector_tpu/ops/pallas/conv_gemm.py:18",
-         "launches": launches["repack"], "max_abs_err": stats["repack"]["err"],
+         "launches": launches["repack"] + ext["repack"],
+         "max_abs_err": stats["repack"]["err"],
          "ms": stats["repack"]["ms"], "plain_ms": stats["repack"]["plain_ms"],
          "bound_ms": stats["repack"]["bound_ms"], "bound_by": "bytes",
          "library_ms": None},
-        {"name": "K2, the Net's CONVOLUTION at f32 (core route: implicit-GEMM "
-                 "conv on FMA tiles, one launch per group)", "route": "cuda",
+        {"name": "K2, the Net's CONVOLUTION at f32 (f32 route: cp.async "
+                 "gathers + TMA weights + FFMA, split-K, one launch per conv)",
+         "route": "cuda",
+         "source": "videovector_tpu_torch/csrc/conv_gemm_f32_sm90.cu",
+         "replaces": "videovector_tpu/ops/pallas/conv_gemm.py:18",
+         "launches": ext["k2_f32"], "max_abs_err": ext["k2"]["f32"]["err"],
+         **{k: ext["k2"]["f32"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                            "bound_by", "library_ms")}},
+        {"name": "K2, core route at f32 (implicit-GEMM conv on FMA tiles, one "
+                 "launch per group; the Net's f32 convs take the f32 route, so "
+                 "only operands its gathers cannot address reach it)",
+         "route": "cuda",
          "source": "videovector_tpu_torch/csrc/conv_gemm.cu",
          "replaces": "videovector_tpu/ops/pallas/conv_gemm.py:18",
-         "launches": ext["k2_core"], "max_abs_err": ext["k2"]["err"],
-         **{k: ext["k2"][k] for k in ("ms", "plain_ms", "bound_ms",
-                                     "bound_by", "library_ms")}},
+         "launches": ext["k2_core"], "max_abs_err": ext["k2"]["core"]["err"],
+         **{k: ext["k2"]["core"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                             "bound_by", "library_ms")}},
     ]
     log("(ms, plain_ms, bound_ms, library_ms: summed over the serving "
         f"path's shapes at batch {BATCH}: K1 fc6 + fc7 + tower with w cycled "
@@ -4192,11 +4299,14 @@ def main() -> int:
         f"{traj['f32']} on the f32 route), by route; max_abs_err over that "
         f"shape, 673 rows, the exhaustive TEST fc7's {TEST_BATCH} + "
         f"{EXH_GALLERY_ROWS} rows and the enc-dec readout at each batch; "
-        "the core route's over that shape and the trajectory readout's. "
-        f"K2's Net entry at f32: conv1..conv5 at batch {BATCH} on the "
-        "core route, bound at the f32 FMA peak, library cuDNN F.conv2d f32 "
-        f"(TF32 off), its launches those of extraction, {EXTRACT_BATCHES} "
-        f"batches of {BATCH})")
+        "the core route's over that shape and the trajectory readout's; "
+        "its times at the trajectory readout's shape, library cuBLAS f32 "
+        f"torch.addmm. K2's Net entry at f32: conv1..conv5 at batch {BATCH} "
+        "from NCHW inputs, on the f32 route (the channels_last copies "
+        "inside its time) and on the core route, bound at the f32 FMA peak, "
+        "library cuDNN F.conv2d f32 (TF32 off), their launches those of "
+        f"extraction, {EXTRACT_BATCHES} batches of {BATCH}; the repack's "
+        "launches those of serving and extraction)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

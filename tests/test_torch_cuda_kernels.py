@@ -1,4 +1,4 @@
-"""The port's Hopper kernels (K1's three routes, K2's two) against their
+"""The port's Hopper kernels (K1's three routes, K2's three) against their
 plain versions on a CUDA card: ragged shapes, strided operands, groups, both
 dtypes, split-K, tile shapes, and the launch preconditions. Skipped without
 a card.
@@ -357,8 +357,189 @@ def test_space_to_depth_kernel_equals_plain(dev, shape, k, stride):
     ref_x, ref_w = k2.space_to_depth_plain(x, w, stride)
     torch.cuda.synchronize()
     assert torch.equal(xs, ref_x) and torch.equal(ws, ref_w)
-    with pytest.raises(ValueError, match="contiguous bf16"):
-        k2.space_to_depth(x.float(), w.float(), stride)
+    # f32 operands are the f32 route's; a strided x is neither route's
+    with pytest.raises(ValueError, match="contiguous"):
+        k2.space_to_depth(x.transpose(1, 2), w, stride)
+    with pytest.raises(ValueError, match="both bf16 or both f32"):
+        k2.space_to_depth(x.float(), w, stride)
+
+
+@pytest.mark.parametrize("shape,k,stride", [((2, 227, 227, 3), 11, 4),
+                                            ((3, 23, 19, 3), 11, 4),
+                                            ((2, 9, 9, 4), 3, 2)])
+def test_space_to_depth_f32_kernel_equals_plain(dev, shape, k, stride):
+    """The repack kernel at f32 (the f32 route's conv1) moves bits too."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    x = torch.randn(shape, generator=gen, device=dev)
+    w = torch.randn((k, k, shape[3], 16), generator=gen, device=dev)
+    before = k2.space_to_depth.launches
+    xs, ws = k2.space_to_depth(x, w, stride)
+    assert k2.space_to_depth.launches == before + 1
+    ref_x, ref_w = k2.space_to_depth_plain(x, w, stride)
+    torch.cuda.synchronize()
+    assert xs.dtype == torch.float32
+    assert torch.equal(xs, ref_x) and torch.equal(ws, ref_w)
+
+
+# -- K2's f32 route (csrc/conv_gemm_f32_sm90.cu) --------------------------------
+
+# (x NHWC, w HWIO, stride, pad): CaffeNet's five convs, then ragged ones: M
+# not a tile multiple, Cg = 4 and 12 (taps change inside a 32-k stage),
+# groups 1/2/3, stride 1/2/4, pad 0/1/2, Og masked in a tile, a 1x1 conv,
+# a space-to-depth repack at f32
+K2_F32_GEOMS = {
+    **{name: ((2, *xs[1:]), ws, s, p)
+       for name, (xs, ws, s, p) in K2_SM90_GEOMS.items()
+       if name.startswith("conv")},
+    "g2_cg4_m243": ((3, 9, 9, 8), (3, 3, 4, 8), 1, 1),
+    "cg12_og20_p2": ((3, 11, 7, 12), (5, 5, 12, 20), 1, 2),
+    "g3_s2": ((2, 13, 13, 72), (3, 3, 24, 48), 2, 1),
+    "s4_p2_direct": ((2, 35, 35, 16), (7, 7, 16, 32), 4, 2),
+    "1x1_og200": ((2, 31, 31, 64), (1, 1, 64, 200), 1, 0),
+    "s2d_small": ((3, 23, 23, 3), (11, 11, 3, 16), 4, 0),
+}
+
+
+def _k2_f32_operands(gen, geom, dev, batch=None):
+    xs, ws, s, p = geom
+    if batch is not None:
+        xs = (batch, *xs[1:])
+    x = torch.randn(xs, generator=gen, device=dev)
+    w = torch.randn(ws, generator=gen, device=dev) * (ws[0] * ws[1] * ws[2]) ** -0.5
+    b = torch.randn(ws[3], generator=gen, device=dev) * 0.1
+    return x, w, b, dict(stride=(s, s), pad=(p, p), groups=xs[3] // ws[2])
+
+
+def _f32_launches():
+    return (k2.conv2d_im2col_gemm.launches, k2.conv2d_im2col_gemm.launches_f32,
+            k2.space_to_depth.launches)
+
+
+@pytest.mark.parametrize("name", list(K2_F32_GEOMS))
+def test_k2_f32_matches_plain_and_core(dev, name):
+    """One launch per conv on the f32 route (plus conv1's repack), against
+    the plain version and the core route on the same f32 operands, with and
+    without bias and ReLU; a second run gives the same bits."""
+    gen = torch.Generator(device=dev).manual_seed(len(name))
+    x, w, b, geo = _k2_f32_operands(gen, K2_F32_GEOMS[name], dev)
+    w_core = _core_view(w)
+    route_kw = dict(stride=geo["stride"], pad=geo["pad"])
+    assert k2.k2_route(x, w, torch.float32, **route_kw) == "f32"
+    assert k2.k2_route(x, w_core, torch.float32, **route_kw) == "core"
+    repack = int(w.shape[2] % 4 != 0)
+    for bias, relu in ((None, False), (b, True)):
+        kw = dict(geo, fuse_relu=relu)
+        before = _f32_launches()
+        got = k2.conv2d_gemm_nhwc(x, w, bias, **kw)
+        assert _f32_launches() == (before[0] + 1, before[1] + 1,
+                                   before[2] + repack)
+        _close(got, k2.conv2d_gemm_nhwc_plain(x, w, bias, **kw))
+        _close(got, k2.conv2d_gemm_nhwc(x, w_core, bias, **kw))
+        assert torch.equal(got, k2.conv2d_gemm_nhwc(x, w, bias, **kw))
+
+
+@pytest.mark.parametrize("batch", [2, 50])
+@pytest.mark.parametrize("name", ["conv1", "conv2", "conv3", "conv4", "conv5"])
+def test_k2_f32_caffenet_convs_match_plain_and_core(dev, name, batch):
+    """CaffeNet's convs at batch 2 and 50 under the plan's tiles and splits:
+    against the plain version and the core, within 1e-3 max|ref|, with and
+    without bias and ReLU, one launch each; two runs give the same bits."""
+    gen = torch.Generator(device=dev).manual_seed(batch + len(name))
+    x, w, b, geo = _k2_f32_operands(gen, K2_F32_GEOMS[name], dev, batch)
+    for bias, relu in ((None, False), (b, True)):
+        kw = dict(geo, fuse_relu=relu)
+        before = _f32_launches()[1]
+        got = k2.conv2d_gemm_nhwc(x, w, bias, **kw)
+        assert _f32_launches()[1] == before + 1
+        _close(got, k2.conv2d_gemm_nhwc_plain(x, w, bias, **kw))
+        _close(got, k2.conv2d_gemm_nhwc(x, _core_view(w), bias, **kw))
+        assert torch.equal(got, k2.conv2d_gemm_nhwc(x, w, bias, **kw))
+
+
+@pytest.mark.parametrize("tile", list(k2.F32_TILES))
+@pytest.mark.parametrize("splits", [1, 2, 3, 5])
+def test_k2_f32_every_tile_and_split(dev, tile, splits, monkeypatch):
+    """Each tile shape at 1 to 5 splits on a grouped conv whose group width
+    (96) every tile masks in its last column tile: within the tolerance of
+    the plain version, and two runs give the same bits under split-K."""
+    gen = torch.Generator(device=dev).manual_seed(sum(tile) + splits)
+    x, w, b, geo = _k2_f32_operands(
+        gen, ((3, 10, 10, 32), (3, 3, 16, 192), 1, 1), dev)
+    monkeypatch.setattr(k2, "k2_f32_plan", lambda *a: (*tile, splits))
+    kw = dict(geo, fuse_relu=True)
+    before = _f32_launches()[1]
+    got = k2.conv2d_gemm_nhwc(x, w, b, **kw)
+    assert _f32_launches()[1] == before + 1
+    _close(got, k2.conv2d_gemm_nhwc_plain(x, w, b, **kw))
+    assert torch.equal(got, k2.conv2d_gemm_nhwc(x, w, b, **kw))
+
+
+@pytest.mark.parametrize("splits", [1, 4])
+@pytest.mark.parametrize("name", ["conv1", "conv2", "conv4", "g3_s2",
+                                  "cg12_og20_p2"])
+def test_k2_f32_bit_for_bit_on_integers(dev, name, splits, monkeypatch):
+    """Integer operands in [-2, 2] keep every f32 sum exact in any order, so
+    the route's output equals the plain version's bit for bit, split or
+    not; a bias of odd eighths and ReLU on top."""
+    xs, ws, s, p = K2_F32_GEOMS[name]
+    rs = np.random.RandomState(7)
+    x = torch.as_tensor(rs.randint(-2, 3, xs).astype(np.float32), device=dev)
+    w = torch.as_tensor(rs.randint(-2, 3, ws).astype(np.float32), device=dev)
+    b = torch.as_tensor((2 * rs.randint(-64, 64, ws[3]) + 1) / 8,
+                        dtype=torch.float32, device=dev)
+    plan = k2.k2_f32_plan
+    monkeypatch.setattr(k2, "k2_f32_plan",
+                        lambda *a: (*plan(*a)[:2], min(splits, -(-a[3] // 32))))
+    kw = dict(stride=(s, s), pad=(p, p), groups=xs[3] // ws[2], fuse_relu=True)
+    before = _f32_launches()[1]
+    got = k2.conv2d_gemm_nhwc(x, w, b, **kw)
+    assert _f32_launches()[1] == before + 1
+    ref = k2.conv2d_gemm_nhwc_plain(x, w, b, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+def test_k2_f32_misaligned_view_takes_the_core(dev):
+    """x one element (4 bytes) past an aligned address: the core, one launch
+    per group, and the f32 route's count stays."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x, w, b, geo = _k2_f32_operands(gen, K2_F32_GEOMS["conv4"], dev)
+    x_off = torch.empty(x.numel() + 4, device=dev)[1:1 + x.numel()] \
+        .view(x.shape).copy_(x)
+    assert k2.k2_route(x_off, w, torch.float32, stride=geo["stride"],
+                       pad=geo["pad"]) == "core"
+    before = _f32_launches()
+    got = k2.conv2d_gemm_nhwc(x_off, w, b, fuse_relu=True, **geo)
+    assert _f32_launches()[:2] == (before[0] + geo["groups"], before[1])
+    _close(got, k2.conv2d_gemm_nhwc_plain(x, w, b, fuse_relu=True, **geo))
+
+
+@pytest.mark.parametrize("name", ["conv1", "conv3", "conv4"])
+def test_conv2d_nchw_f32_ignores_the_process_tf32_setting(dev, name):
+    """The Net's f32 CONVOLUTION on the f32 route gives the same bits with
+    TF32 allowed in the process and without: the route's products are
+    exact f32 FFMAs."""
+    c, hw, o, k, s, p, g = CAFFENET_NCHW[name]
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn((2, c, hw, hw), generator=gen, device=dev)
+    w = torch.randn((o, c // g, k, k), generator=gen, device=dev) * 0.05
+    b = torch.randn(o, generator=gen, device=dev) * 0.1
+    kw = dict(stride=(s, s), pad=(p, p), groups=g)
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    ys = []
+    try:
+        for tf32 in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            torch.backends.cudnn.allow_tf32 = tf32
+            before = _f32_launches()[1]
+            ys.append(k2.conv2d_nchw(x, w, b, **kw))
+            assert _f32_launches()[1] == before + 1
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+    torch.cuda.synchronize()
+    assert torch.equal(ys[0], ys[1])
 
 
 def _mm_calls(fn) -> int:
@@ -665,16 +846,17 @@ CAFFENET_NCHW = {
 
 def _k2_counts():
     return (k2.conv2d_im2col_gemm.launches,
-            k2.conv2d_im2col_gemm.launches_sm90, k2.space_to_depth.launches)
+            k2.conv2d_im2col_gemm.launches_sm90, k2.space_to_depth.launches,
+            k2.conv2d_im2col_gemm.launches_f32)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("name", list(CAFFENET_NCHW))
 def test_k2_net_entry_matches_plain(dev, name, dtype):
-    """conv2d_nchw at CaffeNet's convs: f32 on the core route (one launch
-    per group), bf16 on the sm90 route (one launch, conv1 repacked), its
-    output channels_last; forward and the plain backward against the plain
-    version on the same operands."""
+    """conv2d_nchw at CaffeNet's convs: f32 on the f32 route, bf16 on the
+    sm90 route (one launch each, conv1 repacked), its output channels_last;
+    forward and the plain backward against the plain version on the same
+    operands."""
     c, hw, o, k, s, p, g = CAFFENET_NCHW[name]
     gen = torch.Generator(device=dev).manual_seed(len(name))
     x0 = torch.randn((2, c, hw, hw), generator=gen, device=dev)
@@ -693,11 +875,10 @@ def test_k2_net_entry_matches_plain(dev, name, dtype):
         after = _k2_counts()
         if plain:
             assert after == before
-        elif dtype == torch.float32:
-            assert after == (before[0] + g, before[1], before[2])
         else:
-            assert after == (before[0] + 1, before[1] + 1,
-                             before[2] + (name == "conv1"))
+            f32 = dtype == torch.float32
+            assert after == (before[0] + 1, before[1] + (not f32),
+                             before[2] + (name == "conv1"), before[3] + f32)
             assert y.is_contiguous(memory_format=torch.channels_last)
         y.backward(cot)
         out[plain] = (y.detach(), x.grad, w.grad, b.grad)
@@ -758,18 +939,18 @@ def _extraction_params(dev, seed=3):
 @pytest.mark.parametrize("compute_dtype", [None, "bfloat16"])
 def test_extraction_net_on_the_kernels_matches_plain(dev, compute_dtype):
     """The narrowed extraction Net (CaffeNet's layers and geometry) on K1
-    and K2 against Net(plain=True) on the card. f32: 8 K2 launches on the
-    core route (conv2, conv4, conv5 one per group) and fc6, fc7 on K1's f32
-    route; bf16: 5 sm90 K2 launches + conv1's repack, fc6, fc7 on sm90."""
+    and K2 against Net(plain=True) on the card. f32: 5 K2 launches on the
+    f32 route + conv1's repack, fc6, fc7 on K1's f32 route; bf16: 5 sm90
+    K2 launches + conv1's repack, fc6, fc7 on sm90."""
     params, batch = _extraction_params(dev)
     blobs, k1d, k2d = _card_extraction(dev, compute_dtype, False, params,
                                        batch)
     ref, k1p, k2p = _card_extraction(dev, compute_dtype, True, params, batch)
-    assert k1p == (0, 0, 0) and k2p == (0, 0, 0)
+    assert k1p == (0, 0, 0) and k2p == (0, 0, 0, 0)
     if compute_dtype is None:
-        assert k2d == (8, 0, 0) and k1d == (2, 0, 2)
+        assert k2d == (5, 0, 1, 5) and k1d == (2, 0, 2)
     else:
-        assert k2d == (5, 5, 1) and k1d == (2, 2, 0)
+        assert k2d == (5, 5, 1, 0) and k1d == (2, 2, 0)
     # a bf16 chain: a rounding step flipped early moves the later blobs
     rel = REL_TOL[torch.bfloat16] if compute_dtype else None
     for name in ("conv1", "norm2", "pool5", "ip1_nonorm", "ip2"):
@@ -892,20 +1073,24 @@ def test_rank_stats_dist_ignores_the_process_tf32_setting(dev):
 def test_golden_fixtures_through_the_f32_routes(dev):
     """tests/golden/ (1e-5 per blob) and the full-width extraction tower of
     tests/golden_fullscale.npz (nrm_err 2e-5, rel_big 1e-3 per blob) on the
-    card: every CONVOLUTION on K2's f32 core route and every INNER_PRODUCT
-    on K1's f32 route, as the CPU test holds the plain versions."""
+    card: every CONVOLUTION on K2 (the f32 route where it addresses the
+    operands, else the core) and every INNER_PRODUCT on K1's f32 route, as
+    the CPU test holds the plain versions."""
     import torch_golden as tg
-    c1 = k1.matmul.launches_f32, k2.conv2d_im2col_gemm.launches
+    c1 = k1.matmul.launches_f32, k2.conv2d_im2col_gemm.launches, \
+        k2.conv2d_im2col_gemm.launches_f32
     blobs, golden = tg.mini_golden(dev)
     for name, want in golden.items():
         np.testing.assert_allclose(blobs[name], want, rtol=1e-5, atol=1e-5,
                                    err_msg=name)
     tg.assert_fullscale_within_bounds(tg.fullscale_errors(
         tg.fullscale_blobs(dev)))
-    # two nets: 2 fc each on K1's f32 route; 2 + 5 convs, 1 + 3 of them in
-    # 2 groups, on K2's core route, one launch per group
+    # two nets: 2 fc each on K1's f32 route; the mini net's 2 convs on K2's
+    # core (3 channels with padding; 6 outputs a group), one launch per
+    # group, the full tower's 5 on the f32 route, one launch each
     assert k1.matmul.launches_f32 - c1[0] == 4
-    assert k2.conv2d_im2col_gemm.launches - c1[1] == 3 + 8
+    assert k2.conv2d_im2col_gemm.launches - c1[1] == 3 + 5
+    assert k2.conv2d_im2col_gemm.launches_f32 - c1[2] == 5
 
 
 # -- item 9: the LSTM family, social pooling, the trajectory project ----------

@@ -13,6 +13,8 @@ import torch
 
 import jax
 import jax.numpy as jnp
+from hypothesis import given, settings
+from hypothesis import strategies as st
 from jax import lax
 
 from videovector_tpu.models.mednet import MedNet as JaxMedNet
@@ -325,7 +327,13 @@ CAFFENET_K2 = {
     *((name, "sm90") for name in CAFFENET_K2),
     ("conv3_f32_out", "sm90"),
     ("f32", "core"),
-    ("f32_out_f32_in", "core"),
+    ("f32_out_f32_in", "f32"),
+    *((f"f32_{name}", "f32") for name in CAFFENET_K2),
+    ("f32_odd_channel_stride", "core"),
+    ("f32_misaligned_data", "core"),
+    ("f32_cg3_padded", "core"),
+    ("f32_og_not_multiple_of_4", "core"),
+    ("f32_w_not_contiguous", "core"),
     ("odd_channel_stride", "core"),
     ("misaligned_data", "core"),
     ("cg_12_stride_1", "core"),
@@ -337,10 +345,26 @@ CAFFENET_K2 = {
     ("conv1_misaligned_data", "core"),
 ])
 def test_k2_route(case, route):
-    name = case if case in CAFFENET_K2 else "conv3"
+    name = case if case in CAFFENET_K2 else case[4:] if case[4:] in \
+        CAFFENET_K2 else "conv3"
     xs, ws, s, p = CAFFENET_K2[name]
     x, w, out = _bf16(*xs), _bf16(*ws), torch.bfloat16
-    if case == "conv3_f32_out":
+    if case.startswith("f32_"):
+        # f32 operands and output: the f32 route, unless the gathers cannot
+        # address them
+        x, w, out = x.float(), w.float(), torch.float32
+    if case == "f32_odd_channel_stride":
+        x = torch.zeros(2, 13, 13, 512)[..., ::2]     # channel stride 2
+    elif case == "f32_misaligned_data":
+        x = torch.zeros(2, 13, 13, 260)[..., 1:257]   # data 4 bytes past 16
+    elif case == "f32_cg3_padded":
+        x, w = torch.zeros(2, 227, 227, 3), torch.zeros(11, 11, 3, 96)
+        s, p = 4, 2                                   # no repack: padded
+    elif case == "f32_og_not_multiple_of_4":
+        w = torch.zeros(3, 3, 256, 6)                 # 6 outputs
+    elif case == "f32_w_not_contiguous":
+        w = torch.zeros(384, 3, 3, 256).permute(1, 2, 3, 0)
+    elif case == "conv3_f32_out":
         out = torch.float32
     elif case == "f32":
         x, w = x.float(), w.float()
@@ -407,6 +431,84 @@ def test_k2_sm90_plan_caffenet():
     # batch 256: every conv has enough 128-row blocks
     assert k2.k2_sm90_plan(43_264, 384, 1, 132)[:2] == (128, 192)
     assert k2.k2_sm90_plan(43_264, 128, 2, 132)[:2] == (128, 128)
+
+
+@settings(max_examples=200, deadline=None)
+@given(m=st.integers(1, 200_000), og=st.integers(1, 130).map(lambda v: 4 * v),
+       groups=st.integers(1, 4), k=st.integers(1, 1200).map(lambda v: 4 * v),
+       sms=st.sampled_from([132, 114, 1]))
+def test_k2_f32_plan_covers_every_tile_once_and_no_tile_crosses_a_group(
+        m, og, groups, k, sms):
+    """The f32 route's grid, as the kernel reads its block indices: every
+    (row, group column, K tile) once, no tile reaching into another group,
+    every split a non-empty run of K tiles."""
+    block_m, block_n, splits = k2.k2_f32_plan(m, og, groups, k, sms)
+    assert (block_m, block_n) in k2.F32_TILES
+    k_tiles = -(-k // k2.F32_BK)
+    assert 1 <= splits <= min(k_tiles, k2.F32_MAX_SPLITS)
+    grid = (-(-m // block_m), -(-og // block_n), groups * splits)
+    assert (grid[0] - 1) * block_m < m <= grid[0] * block_m
+    ranges = [range(s * k_tiles // splits, (s + 1) * k_tiles // splits)
+              for s in range(splits)]
+    assert all(ranges) and [t for r in ranges for t in r] == list(range(k_tiles))
+    for z in range(grid[2]):
+        g, split = divmod(z, splits)
+        assert g < groups and split < splits
+    for g in range(groups):
+        cols = []
+        for j in range(grid[1]):
+            lo = g * og + j * block_n
+            hi = g * og + min((j + 1) * block_n, og)
+            assert g * og <= lo < hi <= (g + 1) * og      # inside group g
+            cols.extend(range(lo, hi))
+        assert cols == list(range(g * og, (g + 1) * og))  # each column once
+
+
+def test_k2_f32_plan_caffenet():
+    """The f32 route's plans at CaffeNet's convs, batch 50 (conv1 after the
+    space-to-depth repack: 3x3 over 48 channels): 64 x 128 tiles, two blocks
+    an SM, but for conv4, whose 192 columns a group take three 64-wide
+    tiles with no waste, and K split where the tiles leave much of a wave
+    empty (conv3: 399 blocks on 264 places, conv4: 402, conv5: 266); at
+    batch 256 every conv fills its waves unsplit but conv5. On the H100 the
+    picks summed within 2.3% of the fastest tile and split of each conv in
+    scripts/torch_k2_f32_tiles.py at either batch (PERF.md)."""
+    convs = {"conv1": (151_250, 96, 1, 432), "conv2": (36_450, 128, 2, 1200),
+             "conv3": (8_450, 384, 1, 2304), "conv4": (8_450, 192, 2, 1728),
+             "conv5": (8_450, 128, 2, 1728)}
+    plans = {name: k2.k2_f32_plan(*geo, 132) for name, geo in convs.items()}
+    assert plans == {"conv1": (64, 128, 1), "conv2": (64, 128, 1),
+                     "conv3": (64, 128, 3), "conv4": (128, 64, 3),
+                     "conv5": (64, 128, 6)}
+    b256 = {name: k2.k2_f32_plan(m * 256 // 50, og, g, k, 132)
+            for name, (m, og, g, k) in convs.items()}
+    assert b256 == {"conv1": (64, 128, 1), "conv2": (64, 128, 1),
+                    "conv3": (64, 128, 1), "conv4": (128, 64, 1),
+                    "conv5": (64, 128, 3)}
+
+
+@pytest.mark.parametrize("shape", [(2, 227, 227, 3), (2, 31, 23, 3)])
+def test_f32_space_to_depth_conv_matches_jax_conv2d(shape):
+    """The f32 route's conv1: `space_to_depth_plain` at f32, then the plain
+    stride-1 conv over the repacked operands, against JAX's ops.conv.conv2d
+    (the Net's CONVOLUTION) on the original 11x11/4 conv, within 1e-5 of
+    the largest magnitude: conv1's geometry narrowed to batch 2 and 16
+    outputs, and a ragged edge (the repack pads one row and column past
+    the image, which meet only the kernel's zero taps)."""
+    rs = np.random.RandomState(6)
+    x = rs.randn(*shape).astype(np.float32)
+    w = (rs.randn(11, 11, 3, 16) * 0.1).astype(np.float32)
+    b = rs.randn(16).astype(np.float32)
+    xs, ws = k2.space_to_depth_plain(torch.as_tensor(x), torch.as_tensor(w), 4)
+    assert xs.dtype == ws.dtype == torch.float32
+    assert xs.shape == (2, (shape[1] + 1) // 4, (shape[2] + 1) // 4, 48)
+    got = k2.conv2d_gemm_nhwc_plain(xs, ws, torch.as_tensor(b)).numpy()
+    ref = np.asarray(jax_conv2d(jnp.asarray(x.transpose(0, 3, 1, 2)),
+                                jnp.asarray(w.transpose(3, 2, 0, 1)),
+                                jnp.asarray(b), stride=(4, 4)))
+    ref = ref.transpose(0, 2, 3, 1)
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got, ref, atol=1e-5 * np.abs(ref).max())
 
 
 @pytest.mark.parametrize("shape", [(2, 23, 23, 3), (1, 227, 227, 3),
@@ -501,6 +603,101 @@ def test_sm90_gather_index_math_is_im2col(geom):
         k_total = kh * kw * cg
         np.testing.assert_array_equal(a[:, :, :k_total], patches.numpy())
         assert not a[:, :, k_total:].any()
+
+
+def _f32_gathered_a(x, w_shape, stride, pad, groups, block_m, splits,
+                    producers):
+    """The implicit A matrix as csrc/conv_gemm_f32_sm90.cu's `producers`
+    threads write it, stage by stage, for every M tile, group and split:
+    thread p copies chunk p % 8 of rows p // 8 + (producers // 8) r, the row
+    origins computed once, its tap set from its first K tile by one
+    division and then stepped forward 32 k a stage, the 128-byte swizzle
+    and the zero fill, read back through the swizzle. Returns (groups, M,
+    k_tiles * 32)."""
+    n, h, wd, c = x.shape
+    kh, kw, cg, _ = w_shape
+    oh, ow = k2._out_hw(h, wd, kh, kw, stride, pad)
+    m_total, k_total = n * oh * ow, kh * kw * cg
+    k_tiles = -(-k_total // 32)
+    flat = x.reshape(-1)
+    sxn, sxh, sxw = h * wd * c, wd * c, c
+    a = np.zeros((groups, -(-m_total // block_m) * block_m, k_tiles * 32),
+                 np.float32)
+    for grp in range(groups):
+        for m0 in range(0, m_total, block_m):
+            rows = []
+            for r in range(block_m):
+                m = m0 + r
+                ox, rest = m % ow, m // ow
+                oy, nn = rest % oh, rest // oh
+                y0, x0 = oy * stride[0] - pad[0], ox * stride[1] - pad[1]
+                rows.append((nn * sxn + y0 * sxh + x0 * sxw + grp * cg,
+                             y0 if m < m_total else -2**30, x0))
+            for split in range(splits):
+                t_begin = split * k_tiles // splits
+                nt = (split + 1) * k_tiles // splits - t_begin
+                state = {}
+                for p in range(producers):
+                    k = t_begin * 32 + 4 * (p % 8)
+                    tap, ch = divmod(k, cg)
+                    state[p] = [k, *divmod(tap, kw), ch]
+                for t in range(nt):
+                    smem = np.full(block_m * 32, np.nan, np.float32)
+                    for p in range(producers):
+                        q = p % 8
+                        k, i, j, ch = state[p]
+                        for r in range(block_m * 8 // producers):
+                            row = p // 8 + producers // 8 * r
+                            off, y0, x0 = rows[row]
+                            ok = (k < k_total and 0 <= y0 + i < h
+                                  and 0 <= x0 + j < wd)
+                            dst = row * 32 + (q ^ (row & 7)) * 4
+                            src = off + i * sxh + j * sxw + ch
+                            smem[dst:dst + 4] = flat[src:src + 4] if ok else 0
+                        k, ch = k + 32, ch + 32
+                        while ch >= cg:
+                            ch -= cg
+                            j += 1
+                            if j == kw:
+                                j, i = 0, i + 1
+                        state[p] = [k, i, j, ch]
+                    tile = smem.reshape(block_m, 8, 4)
+                    unswizzled = np.stack([tile[r, [q ^ (r & 7) for q in range(8)]]
+                                           for r in range(block_m)])
+                    kt = t_begin + t
+                    a[grp, m0:m0 + block_m, kt * 32:(kt + 1) * 32] = \
+                        unswizzled.reshape(block_m, 32)
+    return a[:, :m_total]
+
+
+@pytest.mark.parametrize("geom", [
+    # (n, h, w, c), (kh, kw, cg, o), stride, pad, groups
+    ((2, 9, 9, 8), (3, 3, 4, 8), (1, 1), (1, 1), 2),       # Cg 4: 8 taps a stage
+    ((1, 11, 7, 12), (5, 5, 12, 8), (1, 1), (2, 2), 1),    # taps mid-chunk row
+    ((1, 13, 13, 48), (3, 3, 16, 24), (2, 2), (1, 1), 3),
+    ((1, 11, 11, 48), (3, 3, 48, 96), (1, 1), (0, 0), 1),  # conv1 after s2d
+])
+@pytest.mark.parametrize("splits", [1, 3])
+def test_f32_gather_index_math_is_im2col(geom, splits):
+    """The f32 route's A tiles, written and read as the kernel does, are the
+    plain im2col patches in (i, j, c) order, zeros past K and in the
+    padding, for both tile heights and producer counts (two and four
+    warps), split or not."""
+    xs, ws, stride, pad, groups = geom
+    x = np.random.RandomState(5).randn(*xs).astype(np.float32)
+    kh, kw, cg, _ = ws
+    cols = tconv.im2col(torch.as_tensor(x).permute(0, 3, 1, 2), kernel=(kh, kw),
+                        stride=stride, pad=pad)          # (n, c kh kw, oh, ow)
+    n, _, oh, ow = cols.shape
+    patches = cols.reshape(n, groups, cg, kh, kw, oh, ow) \
+        .permute(1, 0, 5, 6, 3, 4, 2).reshape(groups, n * oh * ow, kh * kw * cg)
+    for block_m in sorted({bm for bm, _ in k2.F32_TILES}):
+        for producers in (64, 128):
+            a = _f32_gathered_a(x, ws, stride, pad, groups, block_m, splits,
+                                producers)
+            k_total = kh * kw * cg
+            np.testing.assert_array_equal(a[:, :, :k_total], patches.numpy())
+            assert not a[:, :, k_total:].any()
 
 
 def test_plain_conv_and_im2col_match_jax(rng):

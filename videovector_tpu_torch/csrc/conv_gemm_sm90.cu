@@ -10,8 +10,9 @@
 //   out[m, g Og + o] = conv_epilogue(sum_{i,j,c} x[n, oy s - p + i,
 //                                   ox s - p + j, g Cg + c] w[i, j, c, g Og + o])
 // with an f32 sum, padding read as zero, and K2's epilogue (gemm_core.cuh
-// kEpiConv: round, add the rounded bias, round, ReLU). Every other K2 call
-// (f32 operands, odd strides) stays on the core (conv_gemm.cu); the wrapper
+// kEpiConv: round, add the rounded bias, round, ReLU). f32 operands with an
+// f32 output take conv_gemm_f32_sm90.cu, every other K2 call (odd strides,
+// f32 in with bf16 out) the core (conv_gemm.cu); the wrapper
 // ops/hopper/conv_gemm.py picks the route from the operands, and repacks
 // CaffeNet's conv1 (3 channels: 6 bytes a pixel, which neither a 16-byte
 // copy nor TMA can address) by space-to-depth into a 3x3 conv over 48.
@@ -280,27 +281,30 @@ int run(const CUtensorMap& tw, const bf16* x, const float* bias, void* out,
 // launch: threads [0, x_chunks) write one 16-byte chunk of xs each, the rest
 // one element of ws. xs[n, bi, bj, (a s + b) C + c] = x[n, bi s + a,
 // bj s + b, c] and ws[bi, bj, (a s + b) C + c, o] = w[bi s + a, bj s + b, c,
-// o], zero past the image or the kernel. All four tensors contiguous bf16.
-__global__ void space_to_depth(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                               bf16* __restrict__ xs, bf16* __restrict__ ws, int H,
-                               int W, int C, int O, int k, int s, int HB, int WB,
-                               int KB, long long x_chunks, long long total) {
-  const int E = s * s * C;  // channels of a repacked pixel, a multiple of 8
+// o], zero past the image or the kernel. All four tensors contiguous, of
+// type T: bf16 for this route, f32 for conv_gemm_f32_sm90.cu's.
+template <typename T>
+__global__ void space_to_depth(const T* __restrict__ x, const T* __restrict__ w,
+                               T* __restrict__ xs, T* __restrict__ ws, int H, int W,
+                               int C, int O, int k, int s, int HB, int WB, int KB,
+                               long long x_chunks, long long total) {
+  constexpr int V = 16 / sizeof(T);  // elements in a 16-byte chunk
+  const int E = s * s * C;           // channels of a repacked pixel, a multiple of V
   for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
        i < total; i += static_cast<long long>(gridDim.x) * blockDim.x) {
     if (i < x_chunks) {
-      const long long p = i / (E / 8);  // repacked pixel (n, bi, bj)
-      const int e0 = static_cast<int>(i - p * (E / 8)) * 8;
+      const long long p = i / (E / V);  // repacked pixel (n, bi, bj)
+      const int e0 = static_cast<int>(i - p * (E / V)) * V;
       const int bj = static_cast<int>(p % WB);
       const long long t = p / WB;
       const int bi = static_cast<int>(t % HB);
       const long long n = t / HB;
-      alignas(16) bf16 v[8];
+      alignas(16) T v[V];
 #pragma unroll
-      for (int u = 0; u < 8; ++u) {
+      for (int u = 0; u < V; ++u) {
         const int c = (e0 + u) % C, ab = (e0 + u) / C;
         const int y = bi * s + ab / s, xx = bj * s + ab % s;
-        v[u] = y < H && xx < W ? x[((n * H + y) * W + xx) * C + c] : zero<bf16>();
+        v[u] = y < H && xx < W ? x[((n * H + y) * W + xx) * C + c] : zero<T>();
       }
       *reinterpret_cast<uint4*>(xs + p * E + e0) = *reinterpret_cast<const uint4*>(v);
     } else {
@@ -311,7 +315,7 @@ __global__ void space_to_depth(const bf16* __restrict__ x, const bf16* __restric
       const int bj = static_cast<int>(t / E % KB), bi = static_cast<int>(t / E / KB);
       const int c = e % C, ab = e / C;
       const int y = bi * s + ab / s, xx = bj * s + ab % s;
-      ws[j] = y < k && xx < k ? w[((y * k + xx) * C + c) * O + o] : zero<bf16>();
+      ws[j] = y < k && xx < k ? w[((y * k + xx) * C + c) * O + o] : zero<T>();
     }
   }
 }
@@ -375,15 +379,18 @@ extern "C" int vv_conv_gemm_sm90(const void* x, const void* w, const void* bias,
              : run<float>(tw, xb, b, out, g, groups, block_m, block_n, relu, s);
 }
 
-// x (N, H, W, C) and w (k, k, C, O) contiguous bf16 -> xs (N, HB, WB, s s C)
-// and ws (KB, KB, s s C, O), KB = ceil(k / s), HB = (H + KB s - k) / s (WB
-// likewise); needs (H - k) % s == (W - k) % s == 0 and s s C % 8 == 0.
-// Returns a CUDA error code as an int.
+// x (N, H, W, C) and w (k, k, C, O) contiguous, both bf16 (dtype 1) or both
+// f32 (dtype 0) -> xs (N, HB, WB, s s C) and ws (KB, KB, s s C, O) of the
+// same type, KB = ceil(k / s), HB = (H + KB s - k) / s (WB likewise); needs
+// (H - k) % s == (W - k) % s == 0 and s s C a multiple of a 16-byte chunk (8
+// bf16, 4 f32). Returns a CUDA error code as an int.
 extern "C" int vv_space_to_depth(const void* x, const void* w, void* xs, void* ws,
                                  int N, int H, int W, int C, int O, int k, int s,
-                                 int device, void* stream) {
+                                 int dtype, int device, void* stream) {
+  const int vec = dtype == vv::kBF16 ? 8 : 4;
   if (N <= 0 || C <= 0 || O <= 0 || k <= 0 || s <= 0 || H < k || W < k ||
-      (H - k) % s != 0 || (W - k) % s != 0 || (s * s * C) % 8 != 0 ||
+      (H - k) % s != 0 || (W - k) % s != 0 || (s * s * C) % vec != 0 ||
+      (dtype != vv::kBF16 && dtype != vv::kF32) ||
       reinterpret_cast<uintptr_t>(xs) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
@@ -392,12 +399,19 @@ extern "C" int vv_space_to_depth(const void* x, const void* w, void* xs, void* w
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   const int kb = (k + s - 1) / s, pad = kb * s - k;
   const int hb = (H + pad) / s, wb = (W + pad) / s;
-  const long long x_chunks = static_cast<long long>(N) * hb * wb * (s * s * C / 8);
+  const long long x_chunks = static_cast<long long>(N) * hb * wb * (s * s * C / vec);
   const long long total = x_chunks + static_cast<long long>(kb) * kb * s * s * C * O;
   const int blocks = static_cast<int>(std::min((total + 255) / 256, 16LL * sms));
-  vv::conv90::space_to_depth<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const vv::bf16*>(x), static_cast<const vv::bf16*>(w),
-      static_cast<vv::bf16*>(xs), static_cast<vv::bf16*>(ws), H, W, C, O, k, s, hb, wb,
-      kb, x_chunks, total);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == vv::kBF16)
+    vv::conv90::space_to_depth<vv::bf16><<<blocks, 256, 0, st>>>(
+        static_cast<const vv::bf16*>(x), static_cast<const vv::bf16*>(w),
+        static_cast<vv::bf16*>(xs), static_cast<vv::bf16*>(ws), H, W, C, O, k, s, hb,
+        wb, kb, x_chunks, total);
+  else
+    vv::conv90::space_to_depth<float><<<blocks, 256, 0, st>>>(
+        static_cast<const float*>(x), static_cast<const float*>(w),
+        static_cast<float*>(xs), static_cast<float*>(ws), H, W, C, O, k, s, hb, wb,
+        kb, x_chunks, total);
   return static_cast<int>(cudaGetLastError());
 }
