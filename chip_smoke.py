@@ -128,7 +128,25 @@ Run from the root of a checkout. It
    H = 512, T = 20 + 10, a 512 -> 512 readout on K1's f32 route, that
    script's solver) at B = 64, 256 and 1024: ms a step, tokens/s, the
    bound, busy and idle share and device operations a step, and the
-   readout held against K1's plain version.
+   readout held against K1's plain version;
+14. runs ROADMAP item 1b's stores and Caffe interop (caffe_interop): the
+   host stores of step 7 written again by the port's LMDB and LevelDB
+   writers and read back bit for bit (seconds and MB/s of each); the
+   flagship sampler built by the data factory with one seed over the
+   training store in each backend (the VVR one on the Python sampler), its
+   first 5 batches bit-equal; generate_net.py's net through tools.cli.main
+   with its TRAIN source on the LMDB store and its TEST source on the
+   LevelDB store, a copy of the repo's solver with snapshot_format "caffe"
+   (40 steps, a test and a snapshot every 20; every INNER_PRODUCT one K1
+   launch on the f32 route, the step timed and profiled), then train
+   --snapshot from the iteration-20 .solverstate and from the .vvstate
+   (equal losses), the .caffemodel's blobs against the .vvmodel's, and test
+   on the .caffemodel; VIDEO_SHOT_WINDOW_DATA, the reference's window
+   trainer, 10 steps over a LevelDB window store; extraction (as step 10)
+   from an LMDB copy of the frame store into vvr, lmdb and leveldb stores
+   (the launch counts of each run, the features of the databases bit-equal
+   to the vvr run's, images/s); one batch each of HDF5_DATA, FLEXIBLE_DATA
+   over LMDB and MEMORY_DATA.
 
 Exits non-zero, with no result line, without a CUDA card or outside a
 checkout. The last line of stdout is {"ok": true, "device": {...}}; the line
@@ -304,6 +322,24 @@ ENCDEC_SOLVER = dict(base_lr=0.001, momentum=0.9, weight_decay=5e-4,
 # largest magnitude, gradients and trained params too
 TRAJ_VALUE_TOL = 1e-4
 TRAJ_GRAD_TOL = 1e-3
+# the Caffe-interop cell (caffe_interop): the host stores written again as
+# LMDB and LevelDB; INTEROP_SAMPLER_BATCHES batches of the flagship sampler
+# from each backend; generate_net.py's net trained through the CLI from the
+# LMDB store, INTEROP_STEPS steps, a test every INTEROP_INTERVAL and a
+# snapshot_format "caffe" snapshot every INTEROP_SNAPSHOT, timed over
+# INTEROP_TIMED and profiled over INTEROP_PROFILED, then resumed from the
+# .solverstate and from the .vvstate; the window trainer
+# (VIDEO_SHOT_WINDOW_DATA) WINDOW_STEPS steps over a LevelDB window store of
+# TEST_BATCH windows with a reservoir of WINDOW_RESERVOIR shots; extraction
+# from an LMDB copy of the frame store into each backend
+INTEROP_SAMPLER_BATCHES = 5
+INTEROP_STEPS = 40
+INTEROP_INTERVAL = 20
+INTEROP_SNAPSHOT = 20
+INTEROP_TIMED = range(1, 16)
+INTEROP_PROFILED = range(16, 19)
+WINDOW_STEPS = 10
+WINDOW_RESERVOIR = 500
 # K1's timings cycle through copies of w that together exceed the H100's
 # 50 MB L2 by this factor, so that each call reads its weights from HBM as
 # it does on the path (fc6, fc7 and the tower evict each other there)
@@ -1360,6 +1396,8 @@ class _HostFedTimer:
 
     def hook(self, params, it):
         self._mark(it)
+        if not self.profiled:
+            return
         if it == self.profiled.start:
             torch.cuda.synchronize()
             self.prof.start()
@@ -4129,6 +4167,552 @@ def tf32_checks(dev) -> None:
         f"unscoped f32 product differs)")
 
 
+# ---------------------------------------------------------------------------
+# Caffe interop: LMDB and LevelDB stores, the .caffemodel/.solverstate pair
+# ---------------------------------------------------------------------------
+
+def _copy_store(src: str, dst: str, backend: str) -> tuple[float, int]:
+    """Every record of the store at `src` written by the port's `backend`
+    writer to `dst`: (seconds, value bytes)."""
+    from videovector_tpu_torch.data.records import open_store, open_store_writer
+    reader = open_store(src)
+    t0 = time.perf_counter()
+    nbytes = 0
+    with open_store_writer(dst, backend) as w:
+        for key, value in reader:
+            w.put(key, bytes(value))
+            nbytes += len(value)
+    seconds = time.perf_counter() - t0
+    reader.close()
+    return seconds, nbytes
+
+
+def _read_back(src: str, copy: str) -> float:
+    """Every record of `copy` read through open_store and held bit for bit
+    against the VVR store `src` (LMDB and LevelDB iterate in key order, VVR
+    in insertion order); the read's seconds."""
+    from videovector_tpu_torch.data.records import open_store
+    t0 = time.perf_counter()
+    reader = open_store(copy)
+    got = [(bytes(k), bytes(v)) for k, v in reader]
+    seconds = time.perf_counter() - t0
+    kind = type(reader).__name__
+    reader.close()
+    ref = open_store(src)
+    want = sorted((bytes(k), bytes(v)) for k, v in ref)
+    ref.close()
+    if (got if kind != "RecordReader" else sorted(got)) != want:
+        raise AssertionError(f"{copy} ({kind}) does not read back the "
+                             f"records of {src}")
+    return seconds
+
+
+def _interop_stores(tmp: Path, stores: tuple) -> dict:
+    """The host stores written again by the port's LMDB and LevelDB
+    writers, every record read back bit for bit; each writer's and
+    reader's seconds and MB/s (host clock)."""
+    out = {"vvr": stores}
+    rates = {}
+    for backend in ("lmdb", "leveldb"):
+        paths = []
+        for src in stores:
+            dst = str(tmp / f"{Path(src).stem}_{backend}")
+            w_s, nbytes = _copy_store(src, dst, backend)
+            r_s = _read_back(src, dst)
+            rates[(backend, Path(src).stem)] = (w_s, r_s, nbytes)
+            paths.append(dst)
+        out[backend] = tuple(paths)
+    for src in stores:
+        nbytes = rates[("lmdb", Path(src).stem)][2]
+        rates[("vvr", Path(src).stem)] = (None, _read_back(src, src), nbytes)
+    card = gpu_name_and_power_limit()
+    for (backend, name), (w_s, r_s, nbytes) in rates.items():
+        wrote = ("" if w_s is None else f"written in {w_s:.3f} s "
+                 f"({nbytes / 1e6 / w_s:.1f} MB/s), ")
+        same = ("" if w_s is None else
+                ", every record bit-equal to the VVR store's")
+        log(f"  {backend} {name}: {nbytes / 1e6:.1f} MB of values; {wrote}"
+            f"read through open_store in {r_s:.3f} s "
+            f"({nbytes / 1e6 / r_s:.1f} MB/s){same} [host clock; {card}]")
+    return out
+
+
+def _sampler_layer(path: str, backend: str | None) -> str:
+    """generate_net.py's TRAIN data layer over `path`."""
+    field = f" backend: {backend}" if backend else ""
+    return (f'layers {{ name: "shot_windows" type: VIDEO_SAMPLED_SHOTS_DATA '
+            f'top: "data" video_sampled_shots_data_param {{ source: "{path}" '
+            f"batch_size: {TRAIN_BATCH}{field} num_negative_samples: "
+            f"{TRAIN_NEG} max_buffer_size: 5000 negative_swap_percentage: 50 "
+            "max_same_video_negs: 6 context_type: WINDOW context_size: 5 } }")
+
+
+def _sampler_batches(paths: dict) -> None:
+    """VIDEO_SAMPLED_SHOTS_DATA built by make_data_source with one seed over
+    the training store in each backend (the VVR one with the native
+    sampler turned off): the Python sampler each time, and the same first
+    INTEROP_SAMPLER_BATCHES batches bit for bit."""
+    import os
+    from videovector_tpu_torch.config import parse
+    from videovector_tpu_torch.data.shots import VideoSampledShotsSource
+    from videovector_tpu_torch.graph.data_factory import make_data_source
+    card = gpu_name_and_power_limit()
+    batches = {}
+    for backend, enum in (("vvr", None), ("lmdb", "LMDB"),
+                          ("leveldb", "LEVELDB")):
+        layer = parse(_sampler_layer(paths[backend][0], enum)) \
+            .get_list("layers")[0]
+        old = os.environ.get("VVTPU_NATIVE_DATA")
+        os.environ["VVTPU_NATIVE_DATA"] = "0"
+        try:
+            t0 = time.perf_counter()
+            src = make_data_source(layer, seed=1234)
+            setup = time.perf_counter() - t0
+        finally:
+            if old is None:
+                del os.environ["VVTPU_NATIVE_DATA"]
+            else:
+                os.environ["VVTPU_NATIVE_DATA"] = old
+        if not isinstance(src.source, VideoSampledShotsSource):
+            raise AssertionError(f"{backend}: the sampler is "
+                                 f"{type(src.source).__name__}")
+        t0 = time.perf_counter()
+        batches[backend] = [src.next_batch()["data"]
+                            for _ in range(INTEROP_SAMPLER_BATCHES)]
+        ms = (time.perf_counter() - t0) / INTEROP_SAMPLER_BATCHES * 1e3
+        log(f"  sampler from {backend}: set-up (store read, reservoir fill) "
+            f"{setup:.3f} s, {ms:.3f} ms a batch of {TRAIN_BATCH} x "
+            f"{1 + 4 + TRAIN_NEG} x {HOST_DIM} (host clock, "
+            f"{INTEROP_SAMPLER_BATCHES} batches) [{card}]")
+    for backend in ("lmdb", "leveldb"):
+        for i, (a, b) in enumerate(zip(batches[backend], batches["vvr"])):
+            if a.tobytes() != b.tobytes():
+                raise AssertionError(f"sampler batch {i} from {backend} "
+                                     "differs from the VVR store's")
+    log(f"  the first {INTEROP_SAMPLER_BATCHES} sampler batches are bit-equal "
+        "from LMDB, LevelDB and VVR")
+
+
+def _interop_net(paths: dict) -> str:
+    """generate_net.py's net, its TRAIN source on the LMDB training store
+    and its TEST source on the LevelDB test store, each naming its
+    backend."""
+    text = _emit()(paths["lmdb"][0], paths["leveldb"][1], buffer_size=5000)
+    text = _replace_once(text, "    context_size: 5\n",
+                         "    context_size: 5\n    backend: LMDB\n")
+    return _replace_once(text, f"    batch_size: {TEST_BATCH}\n",
+                         f"    batch_size: {TEST_BATCH}\n    backend: LEVELDB\n")
+
+
+def _iteration_losses(out) -> list:
+    return [(r.args[0], float(r.args[1])) for r in out.records
+            if r.msg == "Iteration %d, loss = %g"]
+
+
+def _interop_training(tmp: Path, paths: dict) -> dict:
+    """`vvtpu-torch train` from the LMDB store with snapshot_format "caffe",
+    the two resumes, the .caffemodel against the .vvmodel, and `test` on
+    the .caffemodel over the LevelDB test store."""
+    from videovector_tpu_torch.data.netproto import load_net
+    from videovector_tpu_torch.data.records import open_store
+    from videovector_tpu_torch.data.shots import VideoSampledShotsSource
+    from videovector_tpu_torch.data.weights import params_to_weights
+    from videovector_tpu_torch.solver.checkpoint import load_model
+    from videovector_tpu_torch.tools import cli
+    card = gpu_name_and_power_limit()
+    if type(open_store(paths["leveldb"][1])).__name__ != "LevelDbReader":
+        raise AssertionError("the test store is not read as LevelDB")
+    net_path = tmp / "interop_net.prototxt"
+    net_path.write_text(_interop_net(paths))
+    prefix = tmp / "interop"
+    solver = _cli_solver(tmp / "interop_solver.prototxt", net_path, prefix,
+                         max_iter=INTEROP_STEPS, test_interval=INTEROP_INTERVAL,
+                         snapshot=INTEROP_SNAPSHOT, display=1,
+                         snapshot_format='"caffe"')
+    launches = {}
+    timer = _HostFedTimer(INTEROP_TIMED, INTEROP_PROFILED)
+    t0 = time.perf_counter()
+    with _driver_marks(timer) as built, _CliCapture() as out:
+        _, launches["train"] = _counted(lambda: cli.main(
+            ["train", "--solver", str(solver)]))
+    train_s = time.perf_counter() - t0
+    sampler = built[0].train_source.sources[0].source
+    if not isinstance(sampler, VideoSampledShotsSource):
+        raise AssertionError(f"interop train: the TRAIN source is "
+                             f"{type(sampler).__name__}, not the Python one")
+    n_tests = len(range(0, INTEROP_STEPS + 1, INTEROP_INTERVAL))
+    want = INTEROP_STEPS + 1 + n_tests
+    losses = _iteration_losses(out)
+    log(f"  interop train (LMDB TRAIN store, LevelDB TEST store, "
+        f"snapshot_format caffe): {train_s:.1f} s in-process; K1 launches "
+        f"(all, sm90, f32) {launches['train']}, want ({want}, 0, {want}) for "
+        f"{INTEROP_STEPS} steps + the final display forward + {n_tests} "
+        f"tests; last loss {losses[-1] if losses else None}; the last test "
+        f"lines {out.lines('    Test net output')[-3:]}")
+    if launches["train"] != (want, 0, want) or \
+            not all(math.isfinite(v) for _, v in losses):
+        raise AssertionError("interop train: K1 launches or losses off")
+    for it in (INTEROP_SNAPSHOT, INTEROP_STEPS):
+        for ext in ("vvmodel", "vvstate", "caffemodel", "solverstate"):
+            if not Path(f"{prefix}_iter_{it}.{ext}").is_file():
+                raise AssertionError(f"no {prefix.name}_iter_{it}.{ext}")
+    step_ms, wall_ms = timer.per_step()
+    log(f"  interop CLI step at B={TRAIN_BATCH} (f32 Net, Python sampler "
+        f"over LMDB through the prefetcher): {step_ms:.4f} ms (CUDA events "
+        f"over {len(INTEROP_TIMED)} steps, tests excluded), host wall "
+        f"{wall_ms:.4f} ms a step [{card}]")
+    prof = training_profile(timer.prof, len(INTEROP_PROFILED), wall_ms,
+                            label=f"B={TRAIN_BATCH}, LMDB-fed CLI")
+    t0 = time.perf_counter()
+    for _ in range(10):
+        sampler.next_batch()
+    sampler_ms = (time.perf_counter() - t0) / 10 * 1e3
+    log(f"  the Python sampler over the LMDB store: {sampler_ms:.3f} ms a "
+        f"batch (host clock, 10 batches) [{card}]")
+
+    # the two resumes from iteration INTEROP_SNAPSHOT
+    resumed = {}
+    for ext in ("solverstate", "vvstate"):
+        rsolver = _cli_solver(tmp / f"resume_{ext}.prototxt", net_path,
+                              tmp / f"resumed_{ext}", max_iter=INTEROP_STEPS,
+                              test_interval=INTEROP_INTERVAL, snapshot=0,
+                              display=1)
+        with _CliCapture() as out:
+            _, launches[ext] = _counted(lambda: cli.main(
+                ["train", "--solver", str(rsolver), "--snapshot",
+                 f"{prefix}_iter_{INTEROP_SNAPSHOT}.{ext}"]))
+        resumed[ext] = _iteration_losses(out)
+        log(f"  train --snapshot {prefix.name}_iter_{INTEROP_SNAPSHOT}.{ext}:"
+            f" {out.lines('Restoring')}; K1 launches {launches[ext]}")
+    n_resumed = INTEROP_STEPS - INTEROP_SNAPSHOT + 1
+    want_r = n_resumed + len(range(INTEROP_SNAPSHOT, INTEROP_STEPS + 1,
+                                   INTEROP_INTERVAL))
+    its = [i for i, _ in resumed["solverstate"]]
+    if its != list(range(INTEROP_SNAPSHOT, INTEROP_STEPS + 1)) or \
+            [i for i, _ in resumed["vvstate"]] != its or \
+            any(launches[e] != (want_r, 0, want_r) for e in resumed):
+        raise AssertionError(f"resumes: iterations {its}, K1 "
+                             f"{launches['solverstate']} / "
+                             f"{launches['vvstate']}, want {want_r}")
+    a = np.array([v for _, v in resumed["solverstate"]])
+    b = np.array([v for _, v in resumed["vvstate"]])
+    if a.tobytes() == b.tobytes():
+        log(f"  the .solverstate and .vvstate resumes: losses of iterations "
+            f"{its[0]}..{its[-1]} bit-equal")
+    else:
+        rel = np.abs(a - b) / np.maximum(np.abs(b), 1e-30)
+        log(f"  the .solverstate and .vvstate resumes differ at iterations "
+            f"{[i for i, r in zip(its, rel) if r > 0]}: largest relative "
+            f"difference {rel.max():.3e}")
+        if rel.max() > 1e-6:
+            raise AssertionError("the resumes disagree beyond 1e-6 relative")
+
+    # the .caffemodel's blobs against the .vvmodel's
+    _, weights = load_net(f"{prefix}_iter_{INTEROP_STEPS}.caffemodel")
+    ref = params_to_weights(load_model(
+        f"{prefix}_iter_{INTEROP_STEPS}.vvmodel")).by_name()
+    n_blobs = 0
+    for layer in weights.layers:
+        if not layer.blobs:
+            continue
+        mine = ref[layer.name].blobs
+        if len(mine) != len(layer.blobs) or any(
+                (x.num, x.channels, x.height, x.width) !=
+                (y.num, y.channels, y.height, y.width)
+                or np.asarray(x.data, np.float32).tobytes()
+                != np.asarray(y.data, np.float32).tobytes()
+                for x, y in zip(layer.blobs, mine)):
+            raise AssertionError(f"{layer.name}: the .caffemodel's blobs are "
+                                 "not the .vvmodel's")
+        n_blobs += len(mine)
+    if n_blobs != 2 * len(ref):
+        raise AssertionError(f"the .caffemodel holds {n_blobs} blobs")
+    log(f"  {prefix.name}_iter_{INTEROP_STEPS}.caffemodel: {n_blobs} blobs "
+        f"(layers {sorted(ref)}) bit-equal to the .vvmodel's")
+
+    with _CliCapture() as out:
+        _, launches["test"] = _counted(lambda: cli.main(
+            ["test", "--model", str(net_path), "--weights",
+             f"{prefix}_iter_{INTEROP_STEPS}.caffemodel", "--iterations",
+             "1"]))
+    means = {r.args[0]: float(r.args[1]) for r in out.records
+             if r.msg == "%s = %g%s"}
+    log(f"  test --weights {prefix.name}_iter_{INTEROP_STEPS}.caffemodel on "
+        f"the LevelDB test store: {means}; K1 launches {launches['test']}")
+    if sorted(means) != ["test_hit1", "test_hit5", "test_map"] or \
+            not all(0.0 <= v <= 1.0 for v in means.values()) or \
+            launches["test"] != (1, 0, 1):
+        raise AssertionError("interop test: outputs or launches off")
+    return {"k1_f32": sum(v[2] for v in launches.values()),
+            "step_ms": step_ms, "wall_ms": wall_ms, "profile": prof,
+            "sampler_ms": sampler_ms}
+
+
+def _window_trainer(tmp: Path, paths: dict) -> int:
+    """VIDEO_SHOT_WINDOW_DATA, the reference's window trainer, through
+    `vvtpu-torch train` for WINDOW_STEPS steps over a LevelDB store of
+    TEST_BATCH VideoShotWindow records (a target and 4 context shots of
+    one video of the training store each), negatives from a reservoir of
+    WINDOW_RESERVOIR shots; the K1 f32 launches."""
+    import re
+    from videovector_tpu_torch.data.generic import VideoShotWindowSource
+    from videovector_tpu_torch.data.records import open_store_writer
+    from videovector_tpu_torch.data.shots import ShotDataset
+    from videovector_tpu_torch.data.wire import Datum, VideoShotWindow
+    from videovector_tpu_torch.tools import cli
+    videos = ShotDataset.from_records(paths["lmdb"][0]).videos
+    store = tmp / "shot_windows_leveldb"
+    t0 = time.perf_counter()
+    with open_store_writer(str(store), "leveldb") as w:
+        for i in range(TEST_BATCH):
+            v = videos[i % len(videos)]
+            ids = [(i + j) % len(v.features) for j in range(5)]
+            w.put(f"{i:08d}", VideoShotWindow(
+                video_id=int(v.video_id), shot_id=i,
+                target_shot_word=Datum(float_data=v.features[ids[0]]),
+                context_shot_words=[Datum(float_data=v.features[j])
+                                    for j in ids[1:]]).encode())
+    write_s = time.perf_counter() - t0
+    text, n = re.subn(
+        r'  type: VIDEO_SAMPLED_SHOTS_DATA\n  top: "data"\n'
+        r"  video_sampled_shots_data_param \{.*?\n  \}\n",
+        '  type: VIDEO_SHOT_WINDOW_DATA\n  top: "data"\n'
+        f'  video_shot_window_data_param {{\n    source: "{store}"\n'
+        f"    batch_size: {TRAIN_BATCH}\n    backend: LEVELDB\n"
+        f"    num_negative_samples: {TRAIN_NEG}\n"
+        f"    max_buffer_size: {WINDOW_RESERVOIR}\n"
+        "    negative_swap_percentage: 50\n  }\n",
+        _interop_net(paths), flags=re.S)
+    if n != 1:
+        raise AssertionError("the TRAIN data layer was not replaced once")
+    net_path = tmp / "window_net.prototxt"
+    net_path.write_text(text)
+    solver = _cli_solver(tmp / "window_solver.prototxt", net_path,
+                         tmp / "window", max_iter=WINDOW_STEPS,
+                         test_interval=WINDOW_STEPS, snapshot=0, display=1)
+    timer = _HostFedTimer(range(1, WINDOW_STEPS), range(0))
+    t0 = time.perf_counter()
+    with _driver_marks(timer) as built, _CliCapture() as out:
+        _, k1 = _counted(lambda: cli.main(["train", "--solver", str(solver)]))
+    train_s = time.perf_counter() - t0
+    src = built[0].train_source.sources[0].source
+    want = WINDOW_STEPS + 1 + 2
+    losses = _iteration_losses(out)
+    step_ms, wall_ms = timer.per_step()
+    log(f"  window trainer (VIDEO_SHOT_WINDOW_DATA over {store.name}, "
+        f"{TEST_BATCH} windows written in {write_s:.3f} s): source "
+        f"{type(src).__name__}, {src.channels} channels; {WINDOW_STEPS} "
+        f"steps in {train_s:.1f} s in-process (build included), "
+        f"{step_ms:.4f} ms a step (CUDA events over steps 1..{WINDOW_STEPS - 1}"
+        f"; host wall {wall_ms:.4f}) [{gpu_name_and_power_limit()}]; losses "
+        f"{[round(v, 4) for _, v in losses]}; K1 launches {k1}, want "
+        f"({want}, 0, {want})")
+    if not isinstance(src, VideoShotWindowSource) or \
+            src.channels != 1 + 4 + TRAIN_NEG or k1 != (want, 0, want) or \
+            len(losses) != WINDOW_STEPS + 1 or \
+            not all(math.isfinite(v) for _, v in losses):
+        raise AssertionError("window trainer: source, losses or launches off")
+    return k1[2]
+
+
+def _db_features(out: str, name: str, backend: str) -> np.ndarray:
+    """The rows extract wrote into the `backend` store of blob `name`, in
+    extraction order, after checking the keys, the Datum shapes and the
+    text file (the reference's %g rows for leveldb)."""
+    from videovector_tpu_torch.data.records import open_store
+    from videovector_tpu_torch.data.wire import Datum
+    n = EXTRACT_BATCHES * BATCH
+    reader = open_store(f"{out}_{name}_{backend}")
+    keys = [reader.key(i).decode() for i in range(len(reader))]
+    datums = [Datum.decode(bytes(reader.value(i))) for i in range(len(reader))]
+    reader.close()
+    if backend == "leveldb":
+        want_keys = sorted(str(i) for i in range(n))
+        dim = datums[0].height
+        shape = (1, dim, 1)
+    else:
+        want_keys = [f"{i:010d}" for i in range(n)]
+        dim = datums[0].channels
+        shape = (dim, 1, 1)
+    if keys != want_keys or any((d.channels, d.height, d.width) != shape
+                                for d in datums):
+        raise AssertionError(f"{backend} {name}: keys or Datum shapes off")
+    rows = np.zeros((n, dim), np.float32)
+    for k, d in zip(keys, datums):
+        rows[int(k)] = d.float_data
+    if backend == "leveldb":
+        text = Path(f"{out}_{name}_leveldb/text_output.txt").read_text() \
+            .splitlines()
+        if len(text) != n + 1 or text[0] != "#features":
+            raise AssertionError(f"leveldb {name}: text_output.txt rows")
+        for i in (0, n - 1):
+            if text[1 + i] != "".join(f"{float(v):g}," for v in rows[i]):
+                raise AssertionError(f"leveldb {name}: text row {i} is not "
+                                     "the reference's %g row")
+    else:
+        text = Path(f"{out}_{name}.txt").read_text().splitlines()
+        if len(text) != n or text[0] != ",".join(f"{v:.6f}" for v in rows[0]):
+            raise AssertionError(f"lmdb {name}: text file rows")
+    return rows
+
+
+def _interop_extraction(tmp: Path, dev) -> dict:
+    """extract_features.main over an LMDB copy of the extraction frame
+    store, at batch BATCH for EXTRACT_BATCHES batches, with --backend=vvr,
+    lmdb and leveldb: the launch counts of each run, the features of both
+    databases bit-equal to the VVR run's, images/s per backend."""
+    from videovector_tpu_torch.tools import extract_features
+    card = gpu_name_and_power_limit()
+    inp = _write_extraction_inputs(tmp, dev)
+    frames = str(tmp / "frames_lmdb")
+    copy_s, nbytes = _copy_store(inp["store"], frames, "lmdb")
+    _read_back(inp["store"], frames)
+    net = tmp / "extraction_lmdb.prototxt"
+    net.write_text(_replace_once(
+        Path(inp["net"]).read_text(), f'    source: "{inp["store"]}"\n',
+        f'    source: "{frames}"\n    backend: LMDB\n'))
+    log(f"  extraction frames copied to LMDB: {nbytes / 1e6:.1f} MB in "
+        f"{copy_s:.3f} s; the DATA layer reads {Path(frames).name}")
+    argv = [f"--model={net}", f"--weights={inp['weights']}",
+            f"--blobs={','.join(EXTRACT_BLOBS)}",
+            f"--num_batches={EXTRACT_BATCHES}"]
+    out = str(tmp / "features")
+    counts = {"k2_f32": 0, "repack": 0, "k1_f32": 0}
+    want_k2 = (K2_F32_PER_BATCH * EXTRACT_BATCHES, 0,
+               K2_REPACK_PER_BATCH * EXTRACT_BATCHES,
+               K2_F32_PER_BATCH * EXTRACT_BATCHES)
+    want_k1 = (K1_PER_EXTRACT_BATCH * EXTRACT_BATCHES, 0,
+               K1_PER_EXTRACT_BATCH * EXTRACT_BATCHES)
+    feats, images_s = {}, {}
+    for backend in ("vvr", "lmdb", "leveldb"):
+        _zero_counts()
+        with _BatchMarks() as marks:
+            rc = extract_features.main(argv + [f"--out={out}",
+                                               f"--backend={backend}"])
+            torch.cuda.synchronize()
+        k2c, k1c = _k2_counts(), _k1_counts()
+        images_s[backend] = BATCH * (EXTRACT_BATCHES - 1) / (
+            marks.marks[-1] - marks.marks[0])
+        log(f"  extract --backend={backend}: rc {rc}; K2 (all, sm90, repack, "
+            f"f32) {k2c}, want {want_k2}; K1 (all, sm90, f32) {k1c}, want "
+            f"{want_k1}; batches 2..{EXTRACT_BATCHES} "
+            f"{images_s[backend]:.1f} images/s (host clock) [{card}]")
+        if rc != 0 or k2c != want_k2 or k1c != want_k1:
+            raise AssertionError(f"extract --backend={backend}: exit code or "
+                                 "launch counts off")
+        counts["k2_f32"] += k2c[3]
+        counts["repack"] += k2c[2]
+        counts["k1_f32"] += k1c[2]
+        feats[backend] = {
+            name: (_read_features(out, name) if backend == "vvr"
+                   else _db_features(out, name, backend))
+            for name in EXTRACT_BLOBS}
+    for backend in ("lmdb", "leveldb"):
+        for name in EXTRACT_BLOBS:
+            if feats[backend][name].tobytes() != feats["vvr"][name].tobytes():
+                raise AssertionError(f"{backend} {name}: features differ from "
+                                     "the vvr run's")
+    log("  the features read back from the LMDB and LevelDB stores are "
+        "bit-equal to the --backend=vvr run's; the LevelDB text file has "
+        "the reference's #features header and %g rows")
+    return {**counts, "images_s": images_s}
+
+
+def _host_only_sources(tmp: Path) -> None:
+    """HDF5_DATA (files of the port's HDF5 writer: the card's machine has no
+    h5py), FLEXIBLE_DATA over LMDB stores and MEMORY_DATA (fed by its
+    caller, so no factory in either package): one batch each."""
+    from videovector_tpu_torch.config import parse
+    from videovector_tpu_torch.data.generic import MemoryDataSource
+    from videovector_tpu_torch.data.hdf5 import write_hdf5
+    from videovector_tpu_torch.data.records import open_store_writer
+    from videovector_tpu_torch.data.wire import Datum
+    from videovector_tpu_torch.graph.data_factory import make_data_source
+    import importlib
+    data = np.arange(10 * 8 * 6 * 5, dtype=np.float32).reshape(10, 8, 6, 5)
+    label = (1 + np.arange(10, dtype=np.float32))[:, None]
+    write_hdf5(str(tmp / "sample.h5"), {"data": data, "label": label})
+    (tmp / "h5.txt").write_text(f"{tmp / 'sample.h5'}\n")
+    rng = np.random.RandomState(3)
+    with open_store_writer(str(tmp / "flex_frames"), "lmdb") as w:
+        for i in range(12):
+            w.put(f"f{i:03d}", Datum(channels=3, height=32, width=32,
+                                     data=rng.randint(0, 256, 3 * 32 * 32,
+                                                      dtype=np.uint8)
+                                     .tobytes()).encode())
+    with open_store_writer(str(tmp / "flex_index"), "lmdb") as w:
+        for j, center in enumerate((2, 5, 7, 9)):
+            w.put(f"{j:09d}f{center:03d}", f"{j + 1:04d}".encode())
+    layers = {
+        "HDF5_DATA": f'layers {{ name: "h" type: HDF5_DATA top: "data" '
+                     f'top: "label" hdf5_data_param {{ source: '
+                     f'"{tmp / "h5.txt"}" batch_size: 5 }} }}',
+        "FLEXIBLE_DATA": f'layers {{ name: "f" type: FLEXIBLE_DATA '
+                         f'top: "stack" top: "label" data_param {{ source: '
+                         f'"{tmp / "flex_index"}" batch_size: 4 backend: LMDB }}'
+                         f' flexible_data_param {{ flexible_source: '
+                         f'"{tmp / "flex_frames"}" forward_len: 1 '
+                         f'backward_len: 2 }} transform_param {{ crop_size: 28'
+                         f' mirror: true }} }}'}
+    shapes = {}
+    for ltype, text in layers.items():
+        batch = make_data_source(parse(text).get_list("layers")[0],
+                                 phase="TRAIN").next_batch()
+        shapes[ltype] = {k: v.shape for k, v in batch.items()}
+        if not all(np.isfinite(v).all() for v in batch.values()):
+            raise AssertionError(f"{ltype}: non-finite batch")
+    hb = make_data_source(parse(layers["HDF5_DATA"]).get_list("layers")[0]) \
+        .next_batch()
+    if hb["data"].tobytes() != data[:5].tobytes() or \
+            hb["label"].reshape(-1).tolist() != [1, 2, 3, 4, 5]:
+        raise AssertionError("HDF5_DATA: rows are not the file's")
+    mem = MemoryDataSource({"x": data.reshape(10, -1), "y": label}, 4)
+    shapes["MEMORY_DATA"] = {k: v.shape for k, v in mem.next_batch().items()}
+    decoders = []
+    for mod in ("cv2", "PIL"):
+        try:
+            importlib.import_module(mod)
+            decoders.append(f"{mod} present")
+        except ImportError:
+            decoders.append(f"{mod} absent")
+    log(f"  host-only sources, one batch each: {shapes} (HDF5_DATA's rows "
+        "are the file's); WINDOW_DATA is not driven on the card: it decodes "
+        f"images through cv2 or PIL ({', '.join(decoders)} here) and the "
+        "CPU tests hold it against JAX's")
+
+
+def caffe_interop(dev, stores: tuple) -> dict:
+    """ROADMAP item 1b on the card: the host stores as LMDB and LevelDB
+    (_interop_stores), the sampler from the three backends
+    (_sampler_batches), the LMDB-fed CLI training with its Caffe snapshot
+    pair and both resumes (_interop_training), the window trainer over
+    LevelDB (_window_trainer), extraction from LMDB into each backend
+    (_interop_extraction) and the host-only sources. Returns the phase's
+    K1 and K2 launches."""
+    import tempfile
+    card = gpu_name_and_power_limit()
+    log(f"caffe_interop [{card}]:")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = Path(tmp_name)
+        paths = _interop_stores(tmp, stores)
+        _sampler_batches(paths)
+        torch.cuda.empty_cache()
+        train = _interop_training(tmp, paths)
+        torch.cuda.empty_cache()
+        window_k1 = _window_trainer(tmp, paths)
+        torch.cuda.empty_cache()
+        ext = _interop_extraction(tmp, dev)
+        _host_only_sources(tmp)
+    log(f"  caffe_interop phase: {time.perf_counter() - t0:.1f} s; K1 f32 "
+        f"launches {train['k1_f32'] + window_k1 + ext['k1_f32']}, K2 f32 "
+        f"{ext['k2_f32']}, repacks {ext['repack']}")
+    return {"k1_f32": train["k1_f32"] + window_k1 + ext["k1_f32"],
+            "k2_f32": ext["k2_f32"], "repack": ext["repack"],
+            "train": train, "images_s": ext["images_s"]}
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4179,6 +4763,8 @@ def main() -> int:
         cli = cli_training(dev, stores)
         torch.cuda.empty_cache()
         exh = exhaustive_rank_eval(dev, stores)
+        torch.cuda.empty_cache()
+        interop = caffe_interop(dev, stores)
     torch.cuda.empty_cache()
     zoo = layer_zoo(dev)
     tf32_checks(dev)
@@ -4220,7 +4806,7 @@ def main() -> int:
          "source": "videovector_tpu_torch/csrc/matmul_f32_sm90.cu",
          "replaces": "videovector_tpu/ops/pallas/matmul.py:50",
          "launches": (net["f32"] + cli["f32"] + ext["k1_f32"] + exh["f32"]
-                      + zoo["f32"] + traj["f32"]),
+                      + zoo["f32"] + traj["f32"] + interop["k1_f32"]),
          **{k: net["k1"][NET_ROWS][k] for k in ("ms", "plain_ms", "bound_ms",
                                                 "bound_by", "library_ms")},
          "max_abs_err": max([v["err"] for v in net["k1"].values()]
@@ -4250,7 +4836,7 @@ def main() -> int:
                  "conv1)", "route": "cuda",
          "source": "videovector_tpu_torch/csrc/conv_gemm_sm90.cu",
          "replaces": "videovector_tpu/ops/pallas/conv_gemm.py:18",
-         "launches": launches["repack"] + ext["repack"],
+         "launches": launches["repack"] + ext["repack"] + interop["repack"],
          "max_abs_err": stats["repack"]["err"],
          "ms": stats["repack"]["ms"], "plain_ms": stats["repack"]["plain_ms"],
          "bound_ms": stats["repack"]["bound_ms"], "bound_by": "bytes",
@@ -4260,7 +4846,8 @@ def main() -> int:
          "route": "cuda",
          "source": "videovector_tpu_torch/csrc/conv_gemm_f32_sm90.cu",
          "replaces": "videovector_tpu/ops/pallas/conv_gemm.py:18",
-         "launches": ext["k2_f32"], "max_abs_err": ext["k2"]["f32"]["err"],
+         "launches": ext["k2_f32"] + interop["k2_f32"],
+         "max_abs_err": ext["k2"]["f32"]["err"],
          **{k: ext["k2"]["f32"][k] for k in ("ms", "plain_ms", "bound_ms",
                                             "bound_by", "library_ms")}},
         {"name": "K2, core route at f32 (implicit-GEMM conv on FMA tiles, one "
@@ -4296,7 +4883,10 @@ def main() -> int:
         f"({traj['launches']}: the project's readout, hidden 32 -> 2, "
         f"{traj['core']} on the core route in train, test and time; the "
         f"enc-dec cells' {ENCDEC_WIDTH} -> {ENCDEC_WIDTH} readout, "
-        f"{traj['f32']} on the f32 route), by route; max_abs_err over that "
+        f"{traj['f32']} on the f32 route) and of caffe_interop "
+        f"({interop['k1_f32']}: the LMDB-fed train, its two resumes and "
+        "test, the window trainer and the three extraction runs), by "
+        "route; max_abs_err over that "
         f"shape, 673 rows, the exhaustive TEST fc7's {TEST_BATCH} + "
         f"{EXH_GALLERY_ROWS} rows and the enc-dec readout at each batch; "
         "the core route's over that shape and the trajectory readout's; "
@@ -4305,8 +4895,9 @@ def main() -> int:
         "from NCHW inputs, on the f32 route (the channels_last copies "
         "inside its time) and on the core route, bound at the f32 FMA peak, "
         "library cuDNN F.conv2d f32 (TF32 off), their launches those of "
-        f"extraction, {EXTRACT_BATCHES} batches of {BATCH}; the repack's "
-        "launches those of serving and extraction)")
+        f"extraction, {EXTRACT_BATCHES} batches of {BATCH}, and of "
+        f"caffe_interop's three extraction runs ({interop['k2_f32']}); the "
+        "repack's launches those of serving, extraction and caffe_interop)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

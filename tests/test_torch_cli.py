@@ -230,13 +230,44 @@ def test_refusals(mini, tmp_path):
     (["train", "--mesh", "4x1"], "item 11"),
     (["train", "--shard_gallery"], "item 11"),
     (["test", "--mesh", "2", "--allow_random_weights"], "item 11"),
-    (["train", "--snapshot", "s.solverstate"], "item 1b"),
 ])
 def test_later_slices_raise_not_implemented(mini, argv, item):
     extra = (["--solver", mini["solver"]] if argv[0] == "train"
              else ["--model", mini["net"]])
     with pytest.raises(NotImplementedError, match=item):
         main(argv[:1] + extra + argv[1:] + ["--cpu"])
+
+
+def _losses_from(out) -> list:
+    return [(r.args[0], float(r.args[1])) for r in out.records
+            if r.msg == "Iteration %d, loss = %g"]
+
+
+@pytest.mark.parametrize("resume", ["solverstate"])
+def test_train_resumes_from_a_solverstate(mini, resume):
+    """`train --snapshot=<...>.solverstate` (once refused): a run with
+    snapshot_format: "caffe" writes both pairs at iteration 4, and resuming
+    from the .solverstate gives the .vvstate resume's losses bit for bit;
+    the .caffemodel also serves `test --weights`."""
+    solver = _solver_file(mini, max_iter=8, snapshot=4, test_interval=4,
+                          display=1, snapshot_format='"caffe"')
+    assert main(["train", "--solver", solver, "--cpu"]) == 0
+    prefix = mini["tmp"] / "snap_iter_4"
+    for ext in ("vvmodel", "vvstate", "caffemodel", resume):
+        assert Path(f"{prefix}.{ext}").exists(), ext
+    runs = {}
+    for ext in ("vvstate", resume):
+        with Lines() as out:
+            assert main(["train", "--solver", solver, "--cpu",
+                         "--snapshot", f"{prefix}.{ext}"]) == 0
+        runs[ext] = _losses_from(out)
+    assert [i for i, _ in runs[resume]] == [4, 5, 6, 7, 8]
+    assert runs[resume] == runs["vvstate"]
+    with Lines() as out:
+        assert main(["test", "--model", mini["net"], "--weights",
+                     f"{prefix}.caffemodel", "--iterations", "1",
+                     "--cpu"]) == 0
+    assert any(l.startswith("Batch 0, map = ") for l in out.lines)
 
 
 def test_max_restarts_resumes_from_the_newest_snapshot(mini):

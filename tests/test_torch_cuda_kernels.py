@@ -1240,3 +1240,147 @@ def test_lstm_products_ignore_the_process_tf32_setting(dev):
     assert len(on) == len(off)
     for a, b in zip(on, off):
         assert torch.equal(a, b)
+
+
+def _python_sampler(path: str, seed: int = 5):
+    """VIDEO_SAMPLED_SHOTS_DATA over `path` from the port's factory with the
+    native sampler off (it reads VVR only), as an LMDB store feeds it."""
+    import os
+    from videovector_tpu_torch.config import parse
+    from videovector_tpu_torch.data.shots import VideoSampledShotsSource
+    from videovector_tpu_torch.graph.data_factory import make_data_source
+    layer = parse(
+        'layers { name: "d" type: VIDEO_SAMPLED_SHOTS_DATA top: "data" '
+        f'video_sampled_shots_data_param {{ source: "{path}" batch_size: 16 '
+        "num_negative_samples: 10 max_buffer_size: 60 "
+        "negative_swap_percentage: 50 max_same_video_negs: 2 "
+        "context_type: WINDOW context_size: 5 } }").get_list("layers")[0]
+    old = os.environ.get("VVTPU_NATIVE_DATA")
+    os.environ["VVTPU_NATIVE_DATA"] = "0"
+    try:
+        src = make_data_source(layer, seed=seed)
+    finally:
+        if old is None:
+            os.environ.pop("VVTPU_NATIVE_DATA")
+        else:
+            os.environ["VVTPU_NATIVE_DATA"] = old
+    assert isinstance(src.source, VideoSampledShotsSource)
+    return src
+
+
+def test_lmdb_fed_net_step_equals_the_vvr_fed_one(dev, tmp_path):
+    """generate_net.py's TRAIN Net (D = 256, E = 128, B = 16) on the card,
+    one step from an LMDB copy of a shot store and one from the VVR store:
+    the same batch, then the same loss and fc7 gradients, bit for bit, one
+    K1 launch on the f32 route each."""
+    import importlib.util
+    from pathlib import Path
+
+    from videovector_tpu_torch.config import parse
+    from videovector_tpu_torch.data.records import open_store, open_store_writer
+    from videovector_tpu_torch.data.shots import ShotDataset, ShotVideo
+    from videovector_tpu_torch.graph import Net
+    rs = np.random.RandomState(2)
+    vvr = str(tmp_path / "shots.vvr")
+    ShotDataset([ShotVideo(v + 1, np.arange(9, dtype=np.int32),
+                           np.abs(rs.randn(9, 256)).astype(np.float32))
+                 for v in range(12)]).to_records(vvr)
+    lmdb = str(tmp_path / "shots_lmdb")
+    with open_store_writer(lmdb, "lmdb") as w:
+        for key, value in open_store(vvr):
+            w.put(key, bytes(value))
+    spec = importlib.util.spec_from_file_location(
+        "generate_net", Path(__file__).resolve().parent.parent
+        / "projects/videovec_embedding/generate_net.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    msg = parse(mod.emit(vvr, "test.vvr", batch=16, test_batch=40, embed=128,
+                         weight_std=0.05))
+    runs = []
+    for path in (vvr, lmdb):
+        batch = {"data": torch.as_tensor(
+            _python_sampler(path).next_batch()["data"], device=dev)}
+        net = Net(msg, "TRAIN")
+        params, _ = net.init(torch.Generator(device=dev).manual_seed(0), batch)
+        p = {k: {n: v.requires_grad_() for n, v in d.items()}
+             for k, d in params.items()}
+        before = (k1.matmul.launches, k1.matmul.launches_f32)
+        loss = net.loss_fn(p, batch, torch.Generator(device=dev).manual_seed(1))
+        loss.backward()
+        torch.cuda.synchronize()
+        assert (k1.matmul.launches - before[0],
+                k1.matmul.launches_f32 - before[1]) == (1, 1)
+        runs.append((batch["data"], loss.detach(), p["fc7"]["w"].grad,
+                     p["fc7"]["b"].grad))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_extraction_into_lmdb_and_leveldb_equals_vvr_on_the_card(dev,
+                                                                  tmp_path):
+    """extract on the card over an LMDB frame store with the narrowed
+    extraction net (widths the f32 routes take): --backend=vvr, lmdb and
+    leveldb each launch 5 K2 f32-route convs + conv1's repack and 2 K1
+    f32-route products a batch, and the features in the LMDB and LevelDB
+    stores are the vvr store's bit for bit."""
+    from torch_extraction_net import BATCH, data_layer_net
+    from videovector_tpu_torch.data.records import open_store, open_store_writer
+    from videovector_tpu_torch.data.wire import BlobProto, Datum
+    from videovector_tpu_torch.tools import extract_features
+    rs = np.random.RandomState(6)
+    store = str(tmp_path / "frames_lmdb")
+    with open_store_writer(store, "lmdb") as w:
+        for i in range(6):
+            pix = rs.randint(0, 256, (3, 112, 112)).astype(np.uint8)
+            w.put(f"{i:08d}", Datum(channels=3, height=112, width=112,
+                                    data=pix.tobytes(), label=i).encode())
+    mean = tmp_path / "mean.blob"
+    mean.write_bytes(BlobProto.from_array(
+        np.full((1, 3, 112, 112), 120.0, np.float32)).encode())
+    net = tmp_path / "net.prototxt"
+    net.write_text(data_layer_net(store, str(mean), widths=WIDE8))
+    batches, n = 3, 3 * BATCH
+    feats = {}
+    for backend in ("vvr", "lmdb", "leveldb"):
+        k1_before = (k1.matmul.launches, k1.matmul.launches_sm90,
+                     k1.matmul.launches_f32)
+        k2_before = _k2_counts()
+        counts = extract_features.extract(
+            str(net), [], ["ip2"], str(tmp_path / "out"), batches,
+            backend=backend, device="cuda")
+        torch.cuda.synchronize()
+        assert counts == {"ip2": n}
+        assert tuple(a - b for a, b in zip(
+            (k1.matmul.launches, k1.matmul.launches_sm90,
+             k1.matmul.launches_f32), k1_before)) == (2 * batches, 0,
+                                                      2 * batches)
+        assert tuple(a - b for a, b in zip(_k2_counts(), k2_before)) == \
+            (5 * batches, 0, batches, 5 * batches)
+        path = str(tmp_path / {"vvr": "out_ip2.vvr", "lmdb": "out_ip2_lmdb",
+                               "leveldb": "out_ip2_leveldb"}[backend])
+        r = open_store(path)
+        rows = {int(r.key(i)): Datum.decode(bytes(r.value(i))).float_data
+                for i in range(len(r))}
+        r.close()
+        feats[backend] = np.stack([rows[i] for i in range(n)])
+    assert feats["lmdb"].tobytes() == feats["vvr"].tobytes()
+    assert feats["leveldb"].tobytes() == feats["vvr"].tobytes()
+
+
+def test_crc32c_takes_the_native_twin_on_the_card_machine(dev, monkeypatch):
+    """The card's machine builds the port's native library, and LevelDB's
+    CRC32C and snappy run there in C, never in the Python twins."""
+    from videovector_tpu_torch.data import leveldbio, native
+    assert native.available()
+    data = bytes(range(256)) * 40
+    comp = leveldbio.snappy_compress(data * 2)
+    want = leveldbio._crc32c_py(data, 7)
+
+    def forbidden(*a, **kw):
+        raise AssertionError("the Python twin ran")
+    monkeypatch.setattr(leveldbio, "_crc32c_py", forbidden)
+    monkeypatch.setattr(leveldbio, "_snappy_decompress_py", forbidden)
+    assert leveldbio.crc32c(data, 7) == want
+    assert leveldbio.crc32c(b"123456789" * 40) == native.crc32c(
+        b"123456789" * 40)
+    assert leveldbio.snappy_decompress(comp) == data * 2

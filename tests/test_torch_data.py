@@ -268,21 +268,35 @@ def test_vvr_files_are_byte_identical_and_cross_read(tmp_path):
 
 
 def test_lmdb_and_leveldb_stores_raise_not_ported(tmp_path):
-    """The port reads VVR only until ROADMAP item 1b: an LMDB database or a
-    LevelDB directory is recognised and refused by name."""
-    mdb = tmp_path / "lmdb"
+    """open_store and open_store_writer on LMDB and LevelDB (once refused,
+    now ported): each package's writer's store opens in the port by
+    content, from the directory or the data file, with the JAX reader's
+    keys and values; an LMDB meta page with no database behind it and an
+    unknown backend raise as JAX's do."""
+    items = [(k.decode() if isinstance(k, bytes) else k, v)
+             for k, v in _items(9)]
+    for backend in ("lmdb", "leveldb"):
+        for tag, mod in (("j", jrec), ("t", trec)):
+            path = str(tmp_path / f"{backend}_{tag}")
+            with mod.open_store_writer(path, backend) as w:
+                for k, v in items:
+                    w.put(k, v)
+            paths = [path] + ([os.path.join(path, "data.mdb")]
+                              if backend == "lmdb" else [])
+            for where in paths:
+                got, want = trec.open_store(where), jrec.open_store(where)
+                assert type(got).__name__ == type(want).__name__
+                assert [(k, bytes(v)) for k, v in got] == \
+                    [(k, bytes(v)) for k, v in want] == \
+                    sorted((k.encode(), v) for k, v in items)
+                got.close()
+                want.close()
+    mdb = tmp_path / "lmdb_meta_only"
     mdb.mkdir()
     (mdb / "data.mdb").write_bytes(bytes(16) + struct.pack("<I", 0xBEEFC0DE)
                                    + bytes(100))
-    ldb = tmp_path / "ldb"
-    ldb.mkdir()
-    (ldb / "CURRENT").write_text("MANIFEST-000001\n")
-    for path in (mdb, mdb / "data.mdb", ldb):
-        with pytest.raises(NotImplementedError, match="item 1b"):
-            trec.open_store(str(path))
-    for backend in ("lmdb", "leveldb"):
-        with pytest.raises(NotImplementedError, match="item 1b"):
-            trec.open_store_writer(str(tmp_path / "x"), backend)
+    jo = _outcome(jrec.open_store, str(mdb))
+    assert _outcome(trec.open_store, str(mdb)) == jo and jo[0] != "ok"
     with pytest.raises(ValueError, match="unknown store backend"):
         trec.open_store_writer(str(tmp_path / "x"), "rocks")
     (tmp_path / "junk").write_bytes(b"not a store at all")

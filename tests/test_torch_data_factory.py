@@ -170,16 +170,35 @@ def test_factory_errors_name_their_roadmap_items(stores):
     layer = _data_layers(txt, tparse)["VIDEO_SAMPLED_SHOTS_DATA", "TRAIN"]
     with pytest.raises(NotImplementedError, match="item 7"):
         tfac.make_data_source(layer)
-    for ltype, item in (("VIDEO_SHOT_WINDOW_DATA", "1b"), ("WINDOW_DATA", "1b"),
-                        ("FLEXIBLE_DATA", "1b"), ("HDF5_DATA", "1b")):
-        layer = tparse(f'layers {{ name: "d" type: {ltype} top: "x" }}'
-                       ).get_list("layers")[0]
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            tfac.make_data_source(layer)
     layer = tparse('layers { name: "d" type: MEMORY_DATA top: "x" }'
                    ).get_list("layers")[0]
     with pytest.raises(NotImplementedError, match="no data-source factory"):
         tfac.make_data_source(layer)
+
+
+@pytest.mark.parametrize("case", ["VIDEO_SHOT_WINDOW_DATA", "VIDEO_ID_TEXT",
+                                  "WINDOW_DATA", "FLEXIBLE_DATA",
+                                  "HDF5_DATA"])
+def test_factory_builds_the_stores_and_caffe_interop_sources(tmp_path, case):
+    """The four data layers the factory once refused, and VIDEO_SHOT_WINDOW
+    _DATA's VIDEO_ID_TEXT backend, built from their layer messages over
+    tests/test_torch_generic_sources.py's fixtures (a LevelDB window store,
+    an LMDB index and frame store, h5py files, PNG windows): the tops
+    named as the layer names them, the batch axes and 4 batches bit for
+    bit those of JAX's factory."""
+    pytest.importorskip("h5py")
+    pytest.importorskip("cv2")
+    from test_torch_generic_sources import _bits_equal, factory_layers
+    text = factory_layers(tmp_path)[case]
+    layer = tparse(text).get_list("layers")[0]
+    tsrc = tfac.make_data_source(layer, phase="TRAIN", seed=21)
+    jsrc = jfac.make_data_source(jparse(text).get_list("layers")[0],
+                                 phase="TRAIN", seed=21)
+    assert tsrc.batch_axes() == jsrc.batch_axes()
+    for _ in range(4):
+        batch = tsrc.next_batch()
+        assert sorted(batch) == sorted(str(t) for t in layer.get_list("top"))
+        _bits_equal(batch, jsrc.next_batch())
 
 
 TRACKING_LAYERS = """

@@ -588,9 +588,8 @@ def test_stateful_net_trains_with_its_carry(mini, tmp_path):
 
 @pytest.mark.parametrize("case,item", [
     ("snapshot_vis", "item 10"), ("debug_info", "item 10"),
-    ("device_negatives", "item 7"), ("caffe_format", "item 1b"),
-    ("orbax_format", "do not port"),
-    ("solverstate", "item 1b"), ("mesh", "item 11"),
+    ("device_negatives", "item 7"),
+    ("orbax_format", "do not port"), ("mesh", "item 11"),
     ("shard_gallery", "item 11")])
 def test_later_slices_raise_not_implemented(mini, tmp_path, case, item):
     """Whatever later slices bring raises NotImplementedError naming its
@@ -600,8 +599,6 @@ def test_later_slices_raise_not_implemented(mini, tmp_path, case, item):
         fields["snapshot_vis"] = 5
     elif case == "debug_info":
         fields["debug_info"] = True
-    elif case == "caffe_format":
-        fields["snapshot_format"] = "caffe"
     elif case == "orbax_format":
         fields["snapshot_format"] = "orbax"
     elif case == "device_negatives":
@@ -610,14 +607,69 @@ def test_later_slices_raise_not_implemented(mini, tmp_path, case, item):
     (_, tmsg) = _solver(mini, **fields)
     with pytest.raises(NotImplementedError, match=item):
         d = tdriver.SolverDriver(tmsg, device="cpu").build()
-        if case == "solverstate":
-            d.train(resume_state_path=str(tmp_path / "s.solverstate"))
-        elif case == "mesh":
+        if case == "mesh":
             d.train(mesh=object())
         elif case == "shard_gallery":
             d.train(shard_gallery=True)
         else:
             d.train()
+
+
+@pytest.mark.parametrize("case", ["caffe_format", "solverstate"])
+def test_caffe_snapshot_pair_and_solverstate_resume(mini, case):
+    """snapshot_format: "caffe" and the .solverstate resume (once refused).
+    caffe_format: the driver writes the npz pair and the reference's pair,
+    the latter byte-equal to JAX's export_caffe_snapshot of the same arrays,
+    and JAX's restore_solverstate reads back the port's arrays bit for bit.
+    solverstate: resuming from the .solverstate gives the .vvstate resume's
+    losses bit for bit, and JAX's driver resumed from the same file follows
+    the same trajectory within 1e-5."""
+    from videovector_tpu.solver import checkpoint as jckpt
+    fields = dict(max_iter=4, snapshot=2, test_interval=0, test_iter=None,
+                  snapshot_format="caffe")
+    jd, td = _pair(mini, **fields)
+    res = td.train()
+    prefix = str(mini["tmp"] / "snap")
+    layer_order = [l.get("name") for l in td.train_net.layers
+                   if l.get("name") in td.params]
+    assert layer_order == [l.get("name") for l in jd.train_net.layers
+                           if l.get("name") in jd.params]
+    if case == "caffe_format":
+        for it in (2, 4):
+            for ext in ("vvmodel", "vvstate", "caffemodel", "solverstate"):
+                assert os.path.exists(f"{prefix}_iter_{it}.{ext}"), (it, ext)
+        p_np = convert.params_to_numpy(res.params)
+        s_np = {"iter": 4, "history": convert.params_to_numpy(
+            res.state["history"])}
+        ours = {ext: Path(f"{prefix}_iter_4.{ext}").read_bytes()
+                for ext in ("caffemodel", "solverstate")}
+        # JAX's export to the same prefix (the solverstate names its
+        # .caffemodel's path)
+        jpaths = jckpt.export_caffe_snapshot(prefix, 4, p_np, s_np,
+                                             jd.net_msg, layer_order)
+        for jpath, ext in zip(jpaths, ("caffemodel", "solverstate")):
+            assert Path(jpath).read_bytes() == ours[ext], ext
+        jp, js = jckpt.restore_solverstate(
+            f"{prefix}_iter_4.solverstate",
+            jax.tree.map(np.zeros_like, p_np), layer_order)
+        assert int(js["iter"]) == 4
+        for tree, ref in ((jp, p_np), (js["history"], s_np["history"])):
+            for ln, lp in ref.items():
+                for pn, a in lp.items():
+                    assert np.asarray(tree[ln][pn]).tobytes() == a.tobytes()
+        return
+    runs = {}
+    for ext in ("vvstate", "solverstate"):
+        (_, tmsg) = _solver(mini, **dict(fields, max_iter=6, snapshot=0))
+        d = tdriver.SolverDriver(tmsg, device="cpu").build()
+        runs[ext] = d.train(resume_state_path=f"{prefix}_iter_2.{ext}")
+    assert [i for i, _ in runs["solverstate"].metrics_history] == [2, 3, 4, 5]
+    assert _losses(runs["solverstate"]) == _losses(runs["vvstate"])
+    (jmsg, _) = _solver(mini, **dict(fields, max_iter=6, snapshot=0))
+    jres = jdriver.SolverDriver(jmsg).build().train(
+        resume_state_path=f"{prefix}_iter_2.solverstate")
+    np.testing.assert_allclose(_losses(runs["solverstate"]), _losses(jres),
+                               rtol=1e-5)
 
 
 def test_driver_without_a_card_raises(mini, monkeypatch):

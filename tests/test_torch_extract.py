@@ -141,16 +141,68 @@ def test_unknown_blob_raises_before_any_file(project, tmp_path):
     assert _outputs(tmp_path) == []
 
 
+def _read_db(path: str, backend: str):
+    """(keys in store order, Datums, text rows) of a leveldb or lmdb
+    extraction output."""
+    r = trec.open_store(path)
+    keys = [r.key(i).decode() for i in range(len(r))]
+    datums = [twire.Datum.decode(bytes(r.value(i))) for i in range(len(r))]
+    r.close()
+    text_path = (Path(path) / "text_output.txt" if backend == "leveldb"
+                 else Path(path[:-len("_lmdb")] + ".txt"))
+    return keys, datums, text_path.read_text().splitlines()
+
+
 @pytest.mark.parametrize("backend", ["leveldb", "lmdb"])
 def test_db_backends_raise_before_any_file(project, tmp_path, backend):
-    with pytest.raises(NotImplementedError, match="item 1b"):
-        text.extract(project["net"], [], ["ip2"], str(tmp_path / "out"), 1,
-                     backend=backend, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 1b"):
-        text.main([f"--model={project['net']}", "--blobs=ip2",
-                   f"--out={tmp_path / 'out'}", f"--backend={backend}",
-                   "--cpu"])
-    assert _outputs(tmp_path) == []
+    """--backend=leveldb|lmdb (once refused, now ported) writes what JAX's
+    tool writes: the same store names, keys (decimal "%d" for leveldb, in
+    the store's bytewise order, so "10" before "9"; "%010d" for lmdb),
+    Datum shapes and text layout ("#features" and "%g," rows inside the
+    LevelDB; JAX's "%.6f" csv beside the LMDB), values within 1e-5 of
+    max|ref|, through extract and through main."""
+    n = 12                                          # 6 batches of 2
+    jext.extract(project["net"], [project["weights"]], BLOBS,
+                 str(tmp_path / "jax"), n // BATCH, backend=backend)
+    assert text.main([f"--model={project['net']}",
+                      f"--weights={project['weights']}",
+                      f"--blobs={','.join(BLOBS)}",
+                      f"--out={tmp_path / 'port'}",
+                      f"--num_batches={n // BATCH}", f"--backend={backend}",
+                      "--cpu"]) == 0
+    assert sorted(p.name for p in tmp_path.iterdir()
+                  if p.name.startswith("port")) == sorted(
+        p.name.replace("jax", "port", 1) for p in tmp_path.iterdir()
+        if p.name.startswith("jax"))
+    for name, dim in (("ip2", 32), ("pool5", 16 * 2 * 2)):
+        jk, jd, jr = _read_db(str(tmp_path / f"jax_{name}_{backend}"), backend)
+        tk, td, tr = _read_db(str(tmp_path / f"port_{name}_{backend}"),
+                              backend)
+        order = (sorted(str(i) for i in range(n)) if backend == "leveldb"
+                 else [f"{i:010d}" for i in range(n)])
+        assert tk == jk == order
+        shape = (1, dim, 1) if backend == "leveldb" else (dim, 1, 1)
+        assert all((d.channels, d.height, d.width) == shape for d in td + jd)
+        ref = np.stack([d.float_data for d in jd])
+        got = np.stack([d.float_data for d in td])
+        tol = 1e-5 * np.abs(ref).max()
+        np.testing.assert_allclose(got, ref, rtol=0, atol=tol)
+        assert len(tr) == len(jr) == n + (backend == "leveldb")
+        if backend == "leveldb":
+            assert tr[0] == jr[0] == "#features"
+            assert all(r.endswith(",") for r in tr[1:])
+            # the rows are in extraction order: row i is key str(i)
+            row0 = td[tk.index("0")].float_data
+            assert tr[1] == "".join(f"{float(v):g}," for v in row0)
+            parse = lambda rows: np.array(
+                [[float(v) for v in r[:-1].split(",")] for r in rows[1:]])
+        else:
+            assert tr[0] == ",".join(f"{v:.6f}" for v in td[0].float_data)
+            parse = lambda rows: np.array(
+                [[float(v) for v in r.split(",")] for r in rows])
+        # %g keeps 6 significant digits: a relative error of 5e-6
+        np.testing.assert_allclose(parse(tr), parse(jr), rtol=1e-5,
+                                   atol=tol + 1e-6)
 
 
 def test_main_picks_the_device_and_refuses_the_mesh(project, tmp_path,

@@ -171,6 +171,8 @@ def test_port_imports_without_jax():
         import videovector_tpu_torch
         import videovector_tpu_torch._build
         import videovector_tpu_torch.config
+        import videovector_tpu_torch.config.binproto
+        import videovector_tpu_torch.config.proto_schema
         import videovector_tpu_torch.config.textformat
         import videovector_tpu_torch.config.upgrade
         import videovector_tpu_torch.convert
@@ -178,7 +180,10 @@ def test_port_imports_without_jax():
         import videovector_tpu_torch.core.seeds
         import videovector_tpu_torch.data.generic
         import videovector_tpu_torch.data.hdf5
+        import videovector_tpu_torch.data.leveldbio
+        import videovector_tpu_torch.data.lmdbio
         import videovector_tpu_torch.data.native
+        import videovector_tpu_torch.data.netproto
         import videovector_tpu_torch.data.prefetch
         import videovector_tpu_torch.data.records
         import videovector_tpu_torch.data.shots

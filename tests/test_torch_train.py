@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from videovector_tpu import ops as jops
+from videovector_tpu.config import parse as jparse
 from videovector_tpu.models import embedding as jemb
 from videovector_tpu.solver import checkpoint as jckpt
 from videovector_tpu.solver import solvers as jsol
@@ -564,9 +565,24 @@ def test_resume_from_a_jax_vvstate_continues_jax_trajectory(tmp_path):
     jw = np.asarray(rj.params["tower"]["w"])
     _tree_close(rt.params, jax.tree.map(np.asarray, rj.params), 1e-5,
                 1e-5 * np.abs(jw).max())
-    with pytest.raises(NotImplementedError, match="solverstate"):
+    # the reference's .solverstate (once refused): without the param
+    # layers' order it raises as JAX's train does; with it, the same
+    # snapshot exported as a .caffemodel/.solverstate pair by JAX resumes
+    # to the .vvstate resume's losses and params, bit for bit
+    with pytest.raises(ValueError, match="param_layer_order"):
         ttrain.train(_port_loss(tm), tp, iter(batches), tsol.SolverConfig(
             max_iter=1), device="cpu", resume_state_path="x.solverstate")
+    jp3, js3 = jckpt.restore(state)
+    order = sorted(jp3)
+    net_msg = jparse("".join(f'layers {{ name: "{n}" type: INNER_PRODUCT }}\n'
+                             for n in order))
+    _, pair = jckpt.export_caffe_snapshot(str(tmp_path / "c"), 3, jp3, js3,
+                                          net_msg, order)
+    rc = ttrain.train(_port_loss(tm), tp, iter(batches[3:]),
+                      tsol.SolverConfig(**more), device="cpu",
+                      resume_state_path=pair, param_layer_order=order)
+    assert _losses(rc) == _losses(rt)
+    _tree_close(rc.params, convert.params_to_numpy(rt.params), 0)
 
 
 def test_port_snapshot_loads_in_jax_restore(tmp_path):

@@ -1,8 +1,9 @@
-"""A minimal HDF5 writer: named n-d numeric arrays as contiguous datasets in
-the root group of a new file, in pure Python and numpy.
+"""A minimal HDF5 writer and reader: named n-d numeric arrays in the root
+group of a file, in pure Python, numpy and zlib.
 
-The port writes HDF5_OUTPUT's files with it, so that it needs no h5py. The
-file is what libhdf5 writes with libver="latest" for the same datasets,
+The port writes HDF5_OUTPUT's files and reads HDF5_DATA's with it, so that
+it needs no h5py (the card's machine has none). The writer's file is what
+libhdf5 writes with libver="latest" for the same datasets,
 less the optional messages (times, attributes, filters): a version-2
 superblock, a root group of compact links (version-2 object headers, a
 Link Info, a Group Info and one Link message per dataset), and one object
@@ -10,11 +11,23 @@ header per dataset (Dataspace, Datatype, Fill Value and a contiguous Data
 Layout) followed by its raw little-endian data. The structures and the
 Jenkins lookup3 checksum are those of the HDF5 File Format Specification,
 version 3.0 (superblock II.A, object header IV.A.1.b, messages IV.A.2).
+
+`read_hdf5` reads the root group's datasets of the files h5py writes with
+its defaults (superblock version 0 or 1, a symbol-table root group: a
+version-1 B-tree of SNOD nodes over a local heap, version-1 object headers)
+and of the writer's files (superblock version 2 or 3, compact links in a
+version-2 object header): fixed-point and IEEE float datatypes of either
+byte order, contiguous or compact layout, and chunked layout (layout
+message version 1-3) indexed by a version-1 B-tree, with the deflate and
+shuffle filters. Anything else (dense link storage, nested groups,
+variable-length or compound types, other filters, the version-4 chunk
+indexes) raises ValueError naming the structure.
 """
 
 from __future__ import annotations
 
 import struct
+import zlib
 
 import numpy as np
 
@@ -157,3 +170,338 @@ def write_hdf5(path: str, datasets: dict[str, np.ndarray]) -> None:
             f.write(b"\0" * (at - f.tell()))
             f.write(a.tobytes())
         f.write(b"\0" * (eof - f.tell()))
+
+
+
+# -- reader -------------------------------------------------------------
+
+_SYMBOL_TABLE, _CONTINUATION, _FILTERS = 0x11, 0x10, 0x0B
+_DEFLATE, _SHUFFLE = 1, 2
+
+
+class _File:
+    """Byte-level access to one HDF5 file with 8-byte offsets and lengths."""
+
+    def __init__(self, path: str):
+        with open(path, "rb") as f:
+            self.buf = f.read()
+        self.path = path
+        self.base = self._superblock()
+
+    def fail(self, what: str):
+        return ValueError(f"{self.path}: unsupported HDF5 structure: {what}")
+
+    def u(self, fmt: str, pos: int):
+        return struct.unpack_from("<" + fmt, self.buf, pos)
+
+    def _superblock(self) -> int:
+        # the signature sits at 0, 512, 1024, ... (II.A)
+        at = 0
+        while self.buf[at:at + 8] != _SIGNATURE:
+            at = 512 if at == 0 else at * 2
+            if at + 8 > len(self.buf):
+                raise ValueError(f"{self.path}: not an HDF5 file")
+        version = self.buf[at + 8]
+        if version in (0, 1):
+            sizes = self.buf[at + 13], self.buf[at + 14]
+            if sizes != (8, 8):
+                raise self.fail(f"offset/length sizes {sizes}")
+            pos = at + 24 + (4 if version == 1 else 0)
+            base, = self.u("Q", pos)
+            # the root group's symbol table entry follows the four addresses
+            self.root = self.u("Q", pos + 32 + 8)[0] + base
+            return base
+        if version in (2, 3):
+            sizes = self.buf[at + 9], self.buf[at + 10]
+            if sizes != (8, 8):
+                raise self.fail(f"offset/length sizes {sizes}")
+            base, _ext, _eof, root = self.u("QQQQ", at + 12)
+            self.root = root + base
+            return base
+        raise self.fail(f"superblock version {version}")
+
+    def addr(self, a: int) -> int:
+        return a + self.base
+
+    # -- object headers (IV.A.1) --
+    def messages(self, at: int) -> list[tuple[int, bytes]]:
+        """(type, body) of each message of the object header at `at`,
+        continuation blocks followed."""
+        out: list[tuple[int, bytes]] = []
+        if self.buf[at:at + 4] == b"OHDR":
+            self._v2_messages(at, out)
+            return out
+        if self.buf[at] != 1:
+            raise self.fail(f"object header version {self.buf[at]}")
+        _v, _r, count, _refs, size = self.u("BBHII", at)
+        blocks = [(at + 16, size)]
+        while blocks and len(out) < count:
+            pos, size = blocks.pop(0)
+            end = pos + size
+            while pos + 8 <= end and len(out) < count:
+                mtype, msize, _flags = self.u("HHB", pos)
+                body = self.buf[pos + 8:pos + 8 + msize]
+                pos += 8 + msize
+                if mtype == _CONTINUATION:
+                    off, ln = struct.unpack_from("<QQ", body)
+                    blocks.append((self.addr(off), ln))
+                out.append((mtype, body))
+        return out
+
+    def _v2_messages(self, at: int, out: list) -> None:
+        flags = self.buf[at + 5]
+        pos = at + 6
+        if flags & 0x20:
+            pos += 16                       # times
+        if flags & 0x10:
+            pos += 4                        # attribute phase change values
+        width = 1 << (flags & 3)
+        size = int.from_bytes(self.buf[pos:pos + width], "little")
+        pos += width
+        blocks = [(pos, pos + size)]
+        while blocks:
+            pos, end = blocks.pop(0)
+            while pos + 4 <= end:
+                mtype, msize = self.u("BH", pos)
+                pos += 4 + (2 if flags & 0x04 else 0)
+                body = self.buf[pos:pos + msize]
+                pos += msize
+                if mtype == _CONTINUATION:
+                    off, ln = struct.unpack_from("<QQ", body)
+                    start = self.addr(off)
+                    if self.buf[start:start + 4] != b"OCHK":
+                        raise self.fail("continuation block without OCHK")
+                    blocks.append((start + 4, start + ln - 4))
+                out.append((mtype, body))
+
+    # -- groups --
+    def root_members(self) -> list[tuple[str, int]]:
+        """(name, object header address) of the root group's members, in
+        name order (h5py's default iteration order)."""
+        msgs = self.messages(self.root)
+        members: list[tuple[str, int]] = []
+        types = {t for t, _ in msgs}
+        if _SYMBOL_TABLE in types:
+            body = next(b for t, b in msgs if t == _SYMBOL_TABLE)
+            btree, heap = struct.unpack_from("<QQ", body)
+            heap_data = self._local_heap(self.addr(heap))
+            self._group_btree(self.addr(btree), heap_data, members)
+        elif _LINK in types:
+            for t, body in msgs:
+                if t == _LINK:
+                    members.append(self._link(body))
+        elif _LINK_INFO in types:
+            body = next(b for t, b in msgs if t == _LINK_INFO)
+            heap, = struct.unpack_from("<Q", body, 2 + (8 if body[1] & 1 else 0))
+            if heap != _UNDEF:
+                raise self.fail("dense link storage (fractal heap)")
+        else:
+            raise self.fail("root group without a symbol table or links")
+        return sorted(members, key=lambda m: m[0].encode("utf-8"))
+
+    def _local_heap(self, at: int) -> bytes:
+        if self.buf[at:at + 4] != b"HEAP":
+            raise self.fail("local heap signature")
+        size, _free, data = self.u("QQQ", at + 8)
+        data = self.addr(data)
+        return self.buf[data:data + size]
+
+    def _group_btree(self, at: int, heap: bytes, out: list) -> None:
+        if self.buf[at:at + 4] != b"TREE" or self.buf[at + 4] != 0:
+            raise self.fail("group B-tree node")
+        level, used = self.buf[at + 5], self.u("H", at + 6)[0]
+        pos = at + 24 + 8                   # past the header and key 0
+        for _ in range(used):
+            child = self.addr(self.u("Q", pos)[0])
+            pos += 16                       # the child and the next key
+            if level:
+                self._group_btree(child, heap, out)
+            else:
+                self._symbol_node(child, heap, out)
+
+    def _symbol_node(self, at: int, heap: bytes, out: list) -> None:
+        if self.buf[at:at + 4] != b"SNOD":
+            raise self.fail("symbol table node signature")
+        count, = self.u("H", at + 6)
+        for i in range(count):
+            name_off, header = self.u("QQ", at + 8 + 40 * i)
+            name = heap[name_off:heap.index(b"\0", name_off)].decode("utf-8")
+            out.append((name, self.addr(header)))
+
+    def _link(self, body: bytes) -> tuple[str, int]:
+        flags = body[1]
+        pos = 2
+        if flags & 0x08:
+            if body[pos] != 0:
+                raise self.fail("soft or external link")
+            pos += 1
+        if flags & 0x04:
+            pos += 8                        # creation order
+        if flags & 0x10:
+            pos += 1                        # character set
+        width = 1 << (flags & 3)
+        n = int.from_bytes(body[pos:pos + width], "little")
+        pos += width
+        name = body[pos:pos + n].decode("utf-8")
+        return name, self.addr(struct.unpack_from("<Q", body, pos + n)[0])
+
+    # -- datasets --
+    def dataset(self, name: str, at: int) -> np.ndarray:
+        msgs = {}
+        for t, body in self.messages(at):
+            msgs.setdefault(t, body)
+        if _DATASPACE not in msgs or _LAYOUT not in msgs:
+            raise self.fail(f"{name!r} is not a dataset (a nested group?)")
+        shape = self._dataspace(msgs[_DATASPACE])
+        dtype = self._datatype(msgs[_DATATYPE])
+        filters = self._filters(msgs[_FILTERS]) if _FILTERS in msgs else []
+        return self._layout(name, msgs[_LAYOUT], shape, dtype, filters)
+
+    def _dataspace(self, body: bytes) -> tuple:
+        version, rank, flags = body[0], body[1], body[2]
+        if version == 1:
+            pos = 8
+        elif version == 2:
+            if body[3] == 2:
+                raise self.fail("null dataspace")
+            pos = 4
+        else:
+            raise self.fail(f"dataspace version {version}")
+        return struct.unpack_from(f"<{rank}Q", body, pos)
+
+    def _datatype(self, body: bytes) -> np.dtype:
+        cls, bits0 = body[0] & 0x0F, body[1]
+        size, = struct.unpack_from("<I", body, 4)
+        order = ">" if bits0 & 1 else "<"
+        if cls == 0 and size in (1, 2, 4, 8):
+            kind = "i" if bits0 & 0x08 else "u"
+            return np.dtype(f"{order}{kind}{size}")
+        if cls == 1 and size in (2, 4, 8) and not bits0 & 0x40:
+            return np.dtype(f"{order}f{size}")
+        raise self.fail(f"datatype class {cls} of {size} bytes")
+
+    def _filters(self, body: bytes) -> list[int]:
+        version, count = body[0], body[1]
+        pos = 8 if version == 1 else 2
+        ids = []
+        for _ in range(count):
+            fid, = struct.unpack_from("<H", body, pos)
+            if version == 1:
+                name_len, _flags, nvals = struct.unpack_from("<HHH", body, pos + 2)
+                pos += 8 + ((name_len + 7) & ~7) + 4 * nvals + 4 * (nvals & 1)
+            else:
+                name_len = 0
+                pos += 2
+                if fid >= 256:
+                    name_len, = struct.unpack_from("<H", body, pos)
+                    pos += 2
+                _flags, nvals = struct.unpack_from("<HH", body, pos)
+                pos += 4 + name_len + 4 * nvals
+            if fid not in (_DEFLATE, _SHUFFLE):
+                raise self.fail(f"filter {fid} (deflate and shuffle are read)")
+            ids.append(fid)
+        return ids
+
+    def _layout(self, name, body, shape, dtype, filters) -> np.ndarray:
+        version = body[0]
+        count = int(np.prod(shape, dtype=np.int64))
+        if version in (1, 2):
+            ndims, cls = body[1], body[2]
+            addr, = struct.unpack_from("<Q", body, 8)
+            dims = struct.unpack_from(f"<{ndims}I", body, 16)
+            if cls == 1:
+                return self._contiguous(addr, count * dtype.itemsize, shape,
+                                        dtype)
+            if cls == 2:
+                return self._chunked(addr, dims[:-1], shape, dtype, filters)
+            raise self.fail(f"layout class {cls} in layout version {version}")
+        if version in (3, 4):
+            cls = body[1]
+            if cls == 0:
+                size, = struct.unpack_from("<H", body, 2)
+                return np.frombuffer(body[4:4 + size], dtype,
+                                     count).reshape(shape).copy()
+            if cls == 1:
+                addr, size = struct.unpack_from("<QQ", body, 2)
+                return self._contiguous(addr, size, shape, dtype)
+            if cls == 2 and version == 3:
+                ndims = body[2]
+                addr, = struct.unpack_from("<Q", body, 3)
+                dims = struct.unpack_from(f"<{ndims}I", body, 11)
+                return self._chunked(addr, dims[:-1], shape, dtype, filters)
+        raise self.fail(f"layout class {body[1]} in layout version {version} "
+                        f"(dataset {name!r})")
+
+    def _contiguous(self, addr, size, shape, dtype) -> np.ndarray:
+        count = int(np.prod(shape, dtype=np.int64))
+        if addr == _UNDEF:                  # never written: the fill, 0
+            return np.zeros(shape, dtype)
+        start = self.addr(addr)
+        if size < count * dtype.itemsize or start + size > len(self.buf):
+            raise ValueError(f"{self.path}: contiguous data out of bounds")
+        return np.frombuffer(self.buf, dtype, count, start).reshape(shape).copy()
+
+    def _chunked(self, addr, chunk, shape, dtype, filters) -> np.ndarray:
+        out = np.zeros(shape, dtype)
+        if addr == _UNDEF:
+            return out
+        rank = len(shape)
+        if len(chunk) != rank:
+            raise ValueError(f"{self.path}: chunk rank {len(chunk)} for a "
+                             f"rank-{rank} dataset")
+        for size, mask, offsets, at in self._chunk_btree(self.addr(addr), rank):
+            raw = self.buf[at:at + size]
+            for i, fid in reversed(list(enumerate(filters))):
+                if mask & (1 << i):
+                    continue                # the filter was skipped
+                if fid == _DEFLATE:
+                    raw = zlib.decompress(raw)
+                else:
+                    raw = _unshuffle(raw, dtype.itemsize)
+            n = int(np.prod(chunk, dtype=np.int64))
+            if len(raw) < n * dtype.itemsize:
+                raise ValueError(f"{self.path}: short chunk at {offsets}")
+            block = np.frombuffer(raw, dtype, n).reshape(chunk)
+            dst = tuple(slice(o, min(o + c, s))
+                        for o, c, s in zip(offsets, chunk, shape))
+            out[dst] = block[tuple(slice(0, d.stop - d.start) for d in dst)]
+        return out
+
+    def _chunk_btree(self, at: int, rank: int):
+        if self.buf[at:at + 4] != b"TREE" or self.buf[at + 4] != 1:
+            raise self.fail("chunk B-tree node")
+        level, used = self.buf[at + 5], self.u("H", at + 6)[0]
+        key = 8 + 8 * (rank + 1)
+        pos = at + 24
+        for _ in range(used):
+            size, mask = self.u("II", pos)
+            offsets = self.u(f"{rank}Q", pos + 8)
+            child = self.addr(self.u("Q", pos + key)[0])
+            pos += key + 8
+            if level:
+                yield from self._chunk_btree(child, rank)
+            else:
+                yield size, mask, offsets, child
+
+
+def _unshuffle(raw: bytes, itemsize: int) -> bytes:
+    """The shuffle filter undone: byte k of every element was stored
+    together, for each k in turn; a tail shorter than an element stays."""
+    if itemsize == 1:
+        return raw
+    n = len(raw) // itemsize
+    arr = np.frombuffer(raw, np.uint8)
+    body = arr[:n * itemsize].reshape(itemsize, n).T.tobytes()
+    return body + bytes(arr[n * itemsize:])
+
+
+def read_hdf5(path: str) -> dict[str, np.ndarray]:
+    """{name: array} of the root group's datasets, in name order, in their
+    stored dtypes (native byte order). Raises ValueError for any structure
+    the module does not read (module docstring)."""
+    f = _File(path)
+    out = {}
+    for name, at in f.root_members():
+        arr = f.dataset(name, at)
+        out[name] = arr.astype(arr.dtype.newbyteorder("="), copy=False)
+    return out

@@ -1,11 +1,14 @@
 """ctypes binding of the C++ data plane (native/vvdata.cpp); counterpart of
-the sampler and JPEG parts of videovector_tpu/data/native.py.
+videovector_tpu/data/native.py.
 
 `NativeSampledShotsSource` is the flagship WINDOW sampler with its negative
 reservoir, running in a C++ prefetch thread: the same source as the JAX
 package's, so the same store and seed give the same batches bit for bit.
 `decode_jpeg_bgr` is the IMAGE_DATA source's libjpeg decoder (with cv2's
 bilinear resize), `jpeg_available()` whether the library has it.
+`crc32c` and `snappy_decompress` are the C twins of data/leveldbio.py's
+LevelDB primitives (vv_crc32c, vv_snappy_decompress), which that module
+takes whenever the library is built.
 
 The port builds its own library from the repo's native/vvdata.cpp at first
 use, as native/Makefile does: g++ with its flags and `-DVV_WITH_JPEG
@@ -165,6 +168,11 @@ def _library() -> ctypes.CDLL | None:
     lib.vv_decode_jpeg_bgr.restype = ctypes.c_int
     lib.vv_decode_jpeg_bgr.argtypes = [u8p, ctypes.c_int64, ctypes.c_int,
                                        ctypes.c_int, u8p]
+    lib.vv_crc32c.restype = ctypes.c_uint32
+    lib.vv_crc32c.argtypes = [u8p, ctypes.c_int64, ctypes.c_uint32]
+    lib.vv_snappy_decompress.restype = ctypes.c_int64
+    lib.vv_snappy_decompress.argtypes = [u8p, ctypes.c_int64, u8p,
+                                         ctypes.c_int64]
     return lib
 
 
@@ -203,6 +211,43 @@ def decode_jpeg_bgr(payload: bytes, out_w: int = 0,
         bp, len(payload), out_w, out_h,
         out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
     return out if rc == 0 else None
+
+
+def _u8(buf) -> tuple[np.ndarray, ctypes.c_void_p]:
+    """A bytes-like object as a uint8 array (no copy) and its pointer."""
+    arr = np.frombuffer(buf, np.uint8)
+    return arr, arr.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+
+
+def _require() -> ctypes.CDLL:
+    lib = _library()
+    if lib is None:
+        raise RuntimeError("the native library could not be built (see the "
+                           "logged compiler output)")
+    return lib
+
+
+def crc32c(data, crc: int = 0) -> int:
+    """CRC-32C (Castagnoli) of a bytes-like object, continuing from `crc`
+    (vv_crc32c). Raises RuntimeError when the library is not built."""
+    lib = _require()
+    arr, ptr = _u8(data)
+    return int(lib.vv_crc32c(ptr, len(arr), crc))
+
+
+def snappy_decompress(data, ulen: int) -> bytes:
+    """Raw snappy `data` whose preamble declares `ulen` bytes, decoded by
+    vv_snappy_decompress; ValueError on corrupt input. Raises RuntimeError
+    when the library is not built."""
+    lib = _require()
+    arr, ptr = _u8(data)
+    out = np.empty(max(ulen, 1), np.uint8)
+    got = lib.vv_snappy_decompress(
+        ptr, len(arr), out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        ulen)
+    if got < 0:
+        raise ValueError("corrupt snappy data (native decoder)")
+    return out[:got].tobytes()
 
 
 class NativeSampledShotsSource:

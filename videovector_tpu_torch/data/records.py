@@ -1,8 +1,8 @@
-"""VVR, the framework's indexed record-file format; counterpart of
-videovector_tpu/data/records.py, whose files it writes byte for byte and
-reads.
+"""VVR, the framework's indexed record-file format, and the store factories
+over VVR, LMDB and LevelDB; counterpart of videovector_tpu/data/records.py,
+whose files it writes byte for byte and reads.
 
-Replaces the reference's LMDB/LevelDB stores (which held serialized protos
+VVR stands beside the reference's LMDB/LevelDB stores (serialized protos
 keyed by string, read via forward cursors): one mmap-friendly file, records
 read by index or, through a lazily built dict, by key, in a layout the C++
 native reader (native/vvdata.cpp) and Python agree on byte for byte.
@@ -16,9 +16,9 @@ Layout (little-endian):
 Records are stored in append order; the index preserves that order (cursor
 iteration order == insertion order).
 
-The LMDB and LevelDB backends of the JAX package are not ported yet
-(ROADMAP item 1b): `open_store` and `open_store_writer` recognise them and
-raise NotImplementedError.
+`open_store` opens any of the three by content (data/lmdbio.py,
+data/leveldbio.py), as the reference and the JAX package do: a layer's
+`backend:` field is advisory. `open_store_writer` writes any of them.
 """
 
 from __future__ import annotations
@@ -26,6 +26,9 @@ from __future__ import annotations
 import mmap
 import os
 import struct
+
+from videovector_tpu_torch.data.leveldbio import LevelDbReader, LevelDbWriter
+from videovector_tpu_torch.data.lmdbio import MDB_MAGIC, LmdbReader, LmdbWriter
 
 MAGIC = b"VVREC001"
 _FOOTER = struct.Struct("<QQ8s")
@@ -156,38 +159,36 @@ def is_vvr(path: str) -> bool:
         return False
 
 
-_NOT_PORTED = ("the {} backend is not ported to videovector_tpu_torch yet "
-               "(ROADMAP queue 1, item 1b); convert the store to VVR")
-# LMDB's meta-page magic (u32 at byte 16 of data.mdb)
-_MDB_MAGIC = 0xBEEFC0DE
-
-
 def open_store_writer(path: str, backend: str = "vvr"):
     """Uniform writer factory: `put(key, value)` + close/context-manager.
-    backend: "vvr" (native records); "lmdb" and "leveldb" raise until
-    ROADMAP item 1b."""
+    backend: "vvr" (native records), "lmdb" or "leveldb" (databases the
+    reference binaries open directly)."""
     if backend == "vvr":
         return RecordWriter(path)
-    if backend in ("lmdb", "leveldb"):
-        raise NotImplementedError(_NOT_PORTED.format(backend))
+    if backend == "lmdb":
+        return LmdbWriter(path)
+    if backend == "leveldb":
+        return LevelDbWriter(path)
     raise ValueError(f"unknown store backend {backend!r}")
 
 
 def open_store(path: str):
     """Open a key->value store by content sniffing: VVR magic ->
-    RecordReader. An LMDB database (meta magic) or a LevelDB directory
-    (CURRENT file) raises NotImplementedError until ROADMAP item 1b.
-    RecordReader exposes len/key/value/__getitem__/__iter__/index_of/get."""
+    RecordReader, LMDB meta magic -> LmdbReader, a LevelDB directory (a
+    CURRENT file) -> LevelDbReader (the reference reads either db backend,
+    ref:src/caffe/layers/video_sampled_shots_data_layer.cpp:122-135,
+    ref:src/caffe/layers/data_layer.cpp:35-75). All expose
+    len/key/value/__getitem__/__iter__/index_of/get."""
     path = convert_dir_or_file(path)
     if os.path.isdir(path):
         if os.path.exists(os.path.join(path, "CURRENT")):
-            raise NotImplementedError(_NOT_PORTED.format("leveldb"))
+            return LevelDbReader(path)
         raise ValueError(f"{path}: directory is not a LevelDB environment "
                          "and holds no data.vvr / data.mdb")
     with open(path, "rb") as f:
         head = f.read(24)
     if head[:8] == MAGIC:
         return RecordReader(path)
-    if len(head) >= 20 and struct.unpack_from("<I", head, 16)[0] == _MDB_MAGIC:
-        raise NotImplementedError(_NOT_PORTED.format("lmdb"))
+    if len(head) >= 20 and struct.unpack_from("<I", head, 16)[0] == MDB_MAGIC:
+        return LmdbReader(path)
     raise ValueError(f"{path}: neither a VVR file nor an LMDB database")

@@ -8,16 +8,19 @@ tops as inputs and this factory builds the matching host-side source from
 the same LayerParameter message, renaming source fields to the layer's top
 names so that batches slot straight into `Net.apply`.
 
-Ported: the flagship's two data layers, VIDEO_SAMPLED_SHOTS_DATA (the C++
-sampler for a VVR WINDOW source, as the JAX package chooses, else the
-Python one) and VIDEO_SHOT_WINDOW_TEST_DATA; the exhaustive TRAIN source
-VIDEO_SHOTS_DATA (Python: the C++ sampler serves the sampled layer only)
-and the fixed gallery FIXED_VIDEO_SHOT_TEST_DATA; and the extraction net's
-image sources, DATA (Datum records) and IMAGE_DATA (a file list, decoded),
-with their transform_param and mean file; the trajectory workload's
+Every data layer of the JAX package's factory is built here: the
+flagship's VIDEO_SAMPLED_SHOTS_DATA (the C++ sampler for a VVR WINDOW
+source, as the JAX package chooses, else the Python one: an LMDB or
+LevelDB store feeds the Python sampler) and VIDEO_SHOT_WINDOW_TEST_DATA;
+the exhaustive TRAIN source VIDEO_SHOTS_DATA and the fixed gallery
+FIXED_VIDEO_SHOT_TEST_DATA; the reference's window trainer
+VIDEO_SHOT_WINDOW_DATA (and its VIDEO_ID_TEXT backend); the image sources
+DATA, IMAGE_DATA, WINDOW_DATA and FLEXIBLE_DATA, with their
+transform_param and mean file; HDF5_DATA; the trajectory workload's
 TRACKING_WINDOWS_DATA and TRACKING_WINDOWS_SOCIAL_DATA (time-major
-batches, their `batch_axes` declared). The others raise
-NotImplementedError naming the ROADMAP item that ports them.
+batches, their `batch_axes` declared). Stores open by content (VVR, LMDB
+or LevelDB). MEMORY_DATA is fed by its caller, as in the JAX package, and
+has no factory.
 """
 
 from __future__ import annotations
@@ -29,7 +32,9 @@ import numpy as np
 from videovector_tpu_torch.config.textformat import Message
 from videovector_tpu_torch.data import native
 from videovector_tpu_torch.data.generic import (
-    DatumRecordSource, ImageDataConfig, ImageDataSource,
+    DatumRecordSource, FlexibleDataConfig, FlexibleDataSource, HDF5Source,
+    ImageDataConfig, ImageDataSource, VideoIdTextSource, VideoShotWindowSource,
+    WindowDataConfig, WindowDataSource,
 )
 from videovector_tpu_torch.data.records import convert_dir_or_file, is_vvr
 from videovector_tpu_torch.data.shots import (
@@ -43,13 +48,6 @@ from videovector_tpu_torch.data.tracking import (
 )
 from videovector_tpu_torch.data.transformer import TransformConfig
 from videovector_tpu_torch.data.wire import BlobProto
-
-# data-layer types whose sources come with a later item of ROADMAP queue 1
-_PENDING = {
-    "WINDOW_DATA": "1b", "HDF5_DATA": "1b",
-    "VIDEO_SHOT_WINDOW_DATA": "1b", "FLEXIBLE_DATA": "1b",
-}
-
 
 class _RenamingSource:
     """Wrap a source whose dict keys are positional; rename to top names."""
@@ -143,6 +141,22 @@ def make_data_source(layer: Message, *, phase: str = "TRAIN", seed: int = 1234):
         return _RenamingSource(VideoShotsSource(ds, cfg), ["data", "video_id"],
                                tops)
 
+    if ltype == "VIDEO_SHOT_WINDOW_DATA":
+        p = layer.get_msg("video_shot_window_data_param")
+        if p.get("backend") == "VIDEO_ID_TEXT":
+            src = VideoIdTextSource(p.get("source"),
+                                    int(p.get("batch_size", 1)))
+            return _RenamingSource(src, ["data"], tops)
+        src = VideoShotWindowSource(
+            convert_dir_or_file(p.get("source")),
+            int(p.get("batch_size", 1)),
+            num_negative_samples=int(p.get("num_negative_samples", 0)),
+            max_buffer_size=int(p.get("max_buffer_size", 0)),
+            negative_swap_percentage=int(p.get("negative_swap_percentage", 0)),
+            negative_path=p.get("negative_dataset") or None, seed=seed,
+            display_all_ids=bool(p.get("display_all_ids", False)))
+        return _RenamingSource(src, ["data", "video_id"], tops)
+
     if ltype == "VIDEO_SHOT_WINDOW_TEST_DATA":
         p = layer.get_msg("video_shot_window_test_data_param")
         ds = TestWindowDataset.from_records(convert_dir_or_file(p.get("source")))
@@ -180,6 +194,45 @@ def make_data_source(layer: Message, *, phase: str = "TRAIN", seed: int = 1234):
                               mean=_load_mean(layer), train=train, seed=seed)
         return _RenamingSource(src, ["data", "label"], tops)
 
+    if ltype == "WINDOW_DATA":
+        p = layer.get_msg("window_data_param")
+        t = layer.get_msg("transform_param")
+        cfg = WindowDataConfig(
+            source=p.get("source"), batch_size=int(p.get("batch_size", 32)),
+            fg_threshold=float(p.get("fg_threshold", 0.5)),
+            bg_threshold=float(p.get("bg_threshold", 0.5)),
+            fg_fraction=float(p.get("fg_fraction", 0.25)),
+            context_pad=int(p.get("context_pad", 0)),
+            crop_mode=str(p.get("crop_mode", "warp")),
+            crop_size=int(t.get("crop_size", 0)),
+            mirror=bool(t.get("mirror", False)))  # the proto's default
+        if cfg.crop_size <= 0:
+            # ref window_data_layer.cpp:153 CHECK_GT(crop_size, 0)
+            raise ValueError("WINDOW_DATA requires transform_param "
+                             "crop_size > 0")
+        src = WindowDataSource(cfg, mean=_load_mean(layer), seed=seed)
+        return _RenamingSource(src, ["data", "label"], tops)
+
+    if ltype == "HDF5_DATA":
+        p = layer.get_msg("hdf5_data_param")
+        src = HDF5Source(p.get("source"), int(p.get("batch_size", 1)))
+        return _RenamingSource(src, ["data", "label"], tops)
+
+    if ltype == "FLEXIBLE_DATA":
+        p = layer.get_msg("flexible_data_param")
+        dp = layer.get_msg("data_param")
+        cfg = FlexibleDataConfig(
+            source=convert_dir_or_file(dp.get("source")),
+            flexible_source=convert_dir_or_file(p.get("flexible_source")),
+            flexible_key_suffix=p.get("flexible_key_suffix", ""),
+            forward_len=int(p.get("forward_len", 0)),
+            backward_len=int(p.get("backward_len", 0)),
+            use_center_datum=bool(p.get("use_center_datum", True)),
+            batch_size=int(dp.get("batch_size", 8)))
+        src = FlexibleDataSource(cfg, transform=_transform_cfg(layer),
+                                 mean=_load_mean(layer), train=train, seed=seed)
+        return _RenamingSource(src, ["data", "label"], tops)
+
     if ltype in ("TRACKING_WINDOWS_DATA", "TRACKING_WINDOWS_SOCIAL_DATA"):
         p = layer.get_msg("tracking_windows_data_param")
         cfg = TrackingConfig(
@@ -201,10 +254,6 @@ def make_data_source(layer: Message, *, phase: str = "TRAIN", seed: int = 1234):
             "observed", "mean_pos", "predicted", "relations", "is_valid",
             "labels", "scene_ids"], tops)
 
-    if ltype in _PENDING:
-        raise NotImplementedError(
-            f"the {ltype} data source is not ported to videovector_tpu_torch "
-            f"yet (ROADMAP queue 1, item {_PENDING[ltype]})")
     raise NotImplementedError(f"no data-source factory for {ltype!r}")
 
 

@@ -1,5 +1,5 @@
 """Snapshot and restore; counterpart of videovector_tpu/solver/checkpoint.py
-(the native npz pair).
+(the native npz pair and the reference's .caffemodel/.solverstate pair).
 
 Two files per snapshot, in the JAX package's layout, so that each package
 resumes from the other's:
@@ -10,8 +10,10 @@ resumes from the other's:
   <prefix>_iter_N.vvstate  npz of the history tree, "__iter__" and
                            "__model__" (the .vvmodel's file name)
 
-Loading gives f32 CPU tensors. The reference's .caffemodel/.solverstate
-pair is not ported yet (ROADMAP queue 1, item 1b).
+Loading gives f32 CPU tensors. `export_caffe_snapshot` writes the
+reference's pair beside it (snapshot_format: "caffe"), and
+`restore_solverstate` resumes from such a pair, the port's, JAX's or the
+reference's (data/netproto.py). Orbax snapshots stay with the JAX package.
 """
 
 from __future__ import annotations
@@ -23,6 +25,10 @@ import numpy as np
 import torch
 
 from videovector_tpu_torch.convert import params_to_numpy
+from videovector_tpu_torch.data.netproto import (
+    history_from_blobs, load_solverstate, save_net, save_solverstate,
+)
+from videovector_tpu_torch.data.weights import NetWeights, load_into_params
 
 
 def _esc(part: str) -> str:
@@ -148,3 +154,52 @@ def restore(state_path: str):
     model_path = os.path.join(os.path.dirname(state_path), model_name)
     params = load_model(model_path)
     return params, {"iter": it, "history": _unflatten(flat)["history"]}
+
+
+def restore_solverstate(state_path: str, params_template: dict,
+                        layer_order: list):
+    """Resume from the reference's `.solverstate` binary: the momentum
+    history, the iteration and the `.caffemodel` weights it points at,
+    mapped onto the template's param tree (ref:src/caffe/solver.cpp:419-429
+    Solver::Restore -> RestoreSolverState :578-596). Returns (params,
+    state), tensors on the template's devices.
+
+    `layer_order`: the param-carrying layers' names in net order; the
+    history blobs are nameless and ordered like net_->params(). The
+    learned_net path is tried as written, then beside the solverstate (the
+    reference stores whatever snapshot_prefix produced)."""
+    it, learned_net, blobs = load_solverstate(state_path)
+    model_path = learned_net
+    if model_path and not os.path.exists(model_path):
+        cand = os.path.join(os.path.dirname(os.path.abspath(state_path)),
+                            os.path.basename(model_path))
+        if os.path.exists(cand):
+            model_path = cand
+    if not model_path or not os.path.exists(model_path):
+        raise FileNotFoundError(
+            f"solverstate {state_path!r} points at learned_net "
+            f"{learned_net!r}, which does not exist (also tried next to the "
+            f"solverstate)")
+    params = load_into_params(NetWeights.load(model_path), params_template)
+    history = history_from_blobs(blobs, params_template, layer_order)
+    return params, {"iter": it, "history": history}
+
+
+def export_caffe_snapshot(prefix: str, it: int, params: dict, state: dict,
+                          net_msg, layer_order: list):
+    """Write the reference's snapshot pair: `<prefix>_iter_N.caffemodel`
+    (the full NetParameter, configs and blobs, as Net::ToProto) and
+    `<prefix>_iter_N.solverstate` (iter, learned_net and the momentum
+    history in net order), so that `caffe train --snapshot=<...>.solverstate`
+    resumes the run with its momentum (ref:src/caffe/solver.cpp:321-341).
+    Trees may hold tensors on any device or numpy arrays. Returns
+    (model_path, state_path)."""
+    os.makedirs(os.path.dirname(os.path.abspath(prefix)) or ".",
+                exist_ok=True)
+    model_path = f"{prefix}_iter_{it}.caffemodel"
+    save_net(model_path, net_msg, params_to_numpy(params))
+    state_path = f"{prefix}_iter_{it}.solverstate"
+    save_solverstate(state_path, int(state["iter"]),
+                     params_to_numpy(state["history"]), model_path,
+                     layer_order)
+    return model_path, state_path

@@ -13,9 +13,10 @@ An entry point: it runs on the card unless asked for the CPU
 (`device="cpu"`), and raises without a card. What later slices bring
 raises NotImplementedError naming its ROADMAP item: the mesh (11),
 device_negatives (7, raised by the data factory), snapshot_vis and
-debug_info (10), the reference's .solverstate (1b); orbax stays with the
-JAX package. Finetune weights are a .vvmodel or the reference's
-.caffemodel.
+debug_info (10); orbax stays with the JAX package. Finetune weights are a
+.vvmodel or the reference's .caffemodel; a run resumes from a .vvstate or
+the reference's .solverstate, and `snapshot_format: "caffe"` writes the
+reference's .caffemodel/.solverstate pair beside the npz pair.
 """
 
 from __future__ import annotations
@@ -34,7 +35,9 @@ from videovector_tpu_torch.device import DEFAULT, resolve
 from videovector_tpu_torch.graph.data_factory import MergedSource, make_data_source
 from videovector_tpu_torch.graph.layers import DATA_LAYER_TYPES
 from videovector_tpu_torch.graph.net import Net
-from videovector_tpu_torch.solver.checkpoint import load_model
+from videovector_tpu_torch.solver.checkpoint import (
+    export_caffe_snapshot, load_model,
+)
 from videovector_tpu_torch.solver.solvers import SolverConfig
 from videovector_tpu_torch.solver.train import TrainResult, train
 from videovector_tpu_torch.utils.logging import get_logger
@@ -322,15 +325,25 @@ class SolverDriver:
                   else self.params)
         cfg = self.cfg if max_iter is None else replace(self.cfg,
                                                         max_iter=max_iter)
+        # param-carrying layers in NET order: the .solverstate history order
+        # (ref net_->params(); src/caffe/solver.cpp:578-596)
+        layer_order = [l.get("name") for l in self.train_net.layers
+                       if l.get("name") in self.params]
+        caffe_export = None
         fmt = str(cfg.snapshot_format).lower()
         if fmt == "caffe":
-            raise _not_ported('snapshot_format: "caffe" (the reference\'s '
-                              ".caffemodel/.solverstate pair)", "1b")
-        if fmt == "orbax":
+            # the reference's pair, written after the npz pair in the
+            # snapshot thread
+            net_msg = self.net_msg
+
+            def caffe_export(it, p_np, s_np):
+                export_caffe_snapshot(cfg.snapshot_prefix or "snapshot", it,
+                                      p_np, s_np, net_msg, layer_order)
+        elif fmt == "orbax":
             raise NotImplementedError(
                 'snapshot_format: "orbax" stays with the JAX package '
                 "(ROADMAP, do not port)")
-        if fmt not in ("vv", ""):
+        elif fmt not in ("vv", ""):
             raise ValueError(f"unknown snapshot_format {cfg.snapshot_format!r} "
                              "(expected vv, caffe, or orbax)")
 
@@ -401,10 +414,6 @@ class SolverDriver:
         data_iter = self._data_iter(self.train_source, transform=rm_transform,
                                     validators=net.batch_validators(),
                                     first=self._first_batch_raw)
-        # param-carrying layers in NET order: the .solverstate history order
-        # (ref net_->params(); src/caffe/solver.cpp:578-596)
-        layer_order = [l.get("name") for l in net.layers
-                       if l.get("name") in self.params]
         try:
             return train(
                 loss_fn, params, data_iter, cfg,
@@ -415,6 +424,7 @@ class SolverDriver:
                 train_sink_fn=net.process_host_sinks if train_sinks else None,
                 resume_state_path=resume_state_path,
                 param_layer_order=layer_order,
+                caffe_export=caffe_export,
                 batch_axes=src_axes,
                 train_output_weights=net.output_loss_weights(),
                 test_output_weights=[n.output_loss_weights()

@@ -17,8 +17,8 @@ cross-batch carry (the LSTM state of a stateful Net) through a reserved
 "__carry__" key: the loss function returns it in its aux dict, and the
 loop hands it, detached, to the next step's batch (truncated BPTT, as the
 reference's backward never crosses a batch), to each iter_size sub-batch,
-to the display forward, and from test batch to test batch. The reference's
-.solverstate resume (ROADMAP item 1b) comes with a later slice.
+to the display forward, and from test batch to test batch. It resumes
+from a .vvstate or from the reference's .solverstate.
 """
 
 from __future__ import annotations
@@ -34,7 +34,9 @@ from videovector_tpu_torch.convert import (
 )
 from videovector_tpu_torch.core.seeds import iteration_seed
 from videovector_tpu_torch.device import DEFAULT, resolve
-from videovector_tpu_torch.solver.checkpoint import AsyncSnapshotter, restore
+from videovector_tpu_torch.solver.checkpoint import (
+    AsyncSnapshotter, restore, restore_solverstate,
+)
 from videovector_tpu_torch.solver.solvers import (
     SolverConfig, init_solver_state, learning_rate, solver_update,
 )
@@ -242,10 +244,12 @@ def train(loss_fn: Callable, params, data: Iterator[dict], cfg: SolverConfig,
     Forward, training ones included).
     device: where the params, the batches and the work go; the card unless
     "cpu" is asked for.
-    resume_state_path: a .vvstate (from either package) to resume from.
+    resume_state_path: a .vvstate (from either package) or a .solverstate
+    (the reference's, or either package's snapshot_format: "caffe") to
+    resume from.
     hooks: [(interval, fn(params, it))], called every `interval` iterations.
-    param_layer_order: the param layers in net order, which a reference
-    .solverstate resume needs (not ported yet, ROADMAP item 1b).
+    param_layer_order: the param layers in net order, which a .solverstate
+    resume needs (its history blobs are nameless, in net_->params() order).
     caffe_export: fn(it, params_np, state_np), run after each snapshot's
     files are written, in the writer thread.
     batch_axes: {batch key: batch axis} for the grad_microbatch split; None
@@ -266,17 +270,23 @@ def train(loss_fn: Callable, params, data: Iterator[dict], cfg: SolverConfig,
     state = init_solver_state(cfg, params)
     start_iter = 0
     if resume_state_path:
-        if resume_state_path.endswith(".solverstate"):
-            raise NotImplementedError(
-                f"resuming from {resume_state_path!r}: the reference's "
-                ".solverstate is not ported to videovector_tpu_torch yet "
-                "(ROADMAP queue 1, item 1b); resume from a .vvstate")
         if resume_state_path.rstrip("/").endswith(".orbax"):
             raise NotImplementedError(
                 f"resuming from {resume_state_path!r}: orbax snapshots stay "
                 "with the JAX package (ROADMAP, do not port); resume from a "
-                ".vvstate")
-        params, state = restore(resume_state_path)
+                ".vvstate or a .solverstate")
+        if resume_state_path.endswith(".solverstate"):
+            # the reference's snapshot, momentum intact
+            # (ref:src/caffe/solver.cpp:419-429)
+            if param_layer_order is None:
+                raise ValueError(
+                    "resuming from a .solverstate needs param_layer_order "
+                    "(history blobs are nameless; train through SolverDriver "
+                    "or pass the net's param-layer order)")
+            params, state = restore_solverstate(resume_state_path, params,
+                                                param_layer_order)
+        else:
+            params, state = restore(resume_state_path)
         params = map_params(lambda t: t.to(dev), params)
         state["history"] = map_params(lambda t: t.to(dev), state["history"])
         start_iter = state["iter"]

@@ -536,8 +536,9 @@ def main(argv=None) -> int:
     p = sub.add_parser("train", help="train a model from a solver prototxt")
     p.add_argument("--solver", required=True)
     p.add_argument("--snapshot", default="",
-                   help="resume from a .vvstate snapshot (momentum history "
-                        "restored; ref solver.cpp:419-429)")
+                   help="resume from a .vvstate snapshot, or a reference "
+                        ".solverstate (momentum history restored; "
+                        "ref solver.cpp:419-429)")
     p.add_argument("--weights", default="",
                    help="finetune from .vvmodel weights")
     p.add_argument("--max_restarts", type=int, default=0,

@@ -12,19 +12,27 @@ a K1 launch there.
 Usage:
   python -m videovector_tpu_torch.tools.extract_features \\
       --model=net.prototxt [--weights=a.caffemodel --weights=b.vvmodel] \\
-      --blobs=ip2 --out=features --num_batches=10 [--cpu]
+      --blobs=ip2 --out=features --num_batches=10 [--backend=leveldb] [--cpu]
 
-Writes <out>_<blob>.vvr (keys "%010d", Datum(channels=dim, height=1,
-width=1, float_data=row)) and <out>_<blob>.txt (one "%.6f" csv row per
-item), as the JAX package's vvr backend does. `--backend=leveldb|lmdb`
-waits for ROADMAP item 1b and `--mesh` for item 11: both raise
-NotImplementedError before anything is written.
+The three backends write the JAX tool's bytes:
+  vvr      <out>_<blob>.vvr (keys "%010d", Datum(channels=dim, height=1,
+           width=1, float_data=row)) and <out>_<blob>.txt (one "%.6f" csv
+           row per item);
+  lmdb     the same keys and Datums in the LMDB <out>_<blob>_lmdb, and the
+           same text file;
+  leveldb  the reference's format (ref:tools/extract_features.cpp:125-188):
+           the LevelDB <out>_<blob>_leveldb with decimal "%d" keys and
+           Datum(channels=1, height=dim, width=1), and text_output.txt
+           inside it, a "#features" header, then rows of "%g," values.
+`--mesh` waits for ROADMAP item 11 and raises NotImplementedError before
+anything is written.
 """
 
 from __future__ import annotations
 
 import argparse
 import itertools
+import os
 import sys
 
 import torch
@@ -53,12 +61,6 @@ def extract(model_path: str, weight_paths: list[str], blob_names: list[str],
     card when None; raises without one)."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown feature store backend {backend!r}")
-    if backend != "vvr":
-        # refused before any store or text file exists
-        raise NotImplementedError(
-            f"the {backend} feature store is not ported to "
-            "videovector_tpu_torch yet (ROADMAP queue 1, item 1b); use "
-            "--backend=vvr")
     dev = resolve(DEFAULT if device is None else device)
     net = Net(parse_file(model_path), phase="TEST")
     source = MergedSource([make_data_source(l, phase="TEST")
@@ -87,10 +89,25 @@ def extract(model_path: str, weight_paths: list[str], blob_names: list[str],
     stream = itertools.islice(itertools.chain([batch0_raw], source),
                               num_batches)
     prefetcher = DevicePrefetcher(stream, depth=2, device=dev)
-    writers = {name: open_store_writer(f"{out_prefix}_{name}.vvr", backend)
+    # "leveldb" is the reference's output format; "vvr" and "lmdb" keep
+    # zero-padded keys, so that key order is insertion order
+    ref_format = backend == "leveldb"
+    suffix = {"vvr": "_{}.vvr", "leveldb": "_{}_leveldb",
+              "lmdb": "_{}_lmdb"}[backend]
+    writers = {name: open_store_writer(out_prefix + suffix.format(name),
+                                       backend)
                for name in blob_names}
-    texts = {name: open(f"{out_prefix}_{name}.txt", "w")
-             for name in blob_names}
+    if ref_format:
+        # the reference writes the csv inside the db directory (:141-142)
+        texts = {}
+        for name in blob_names:
+            db_dir = out_prefix + suffix.format(name)
+            os.makedirs(db_dir, exist_ok=True)
+            texts[name] = open(os.path.join(db_dir, "text_output.txt"), "w")
+            texts[name].write("#features\n")
+    else:
+        texts = {name: open(f"{out_prefix}_{name}.txt", "w")
+                 for name in blob_names}
     counts = {name: 0 for name in blob_names}
     try:
         for batch in prefetcher:
@@ -99,11 +116,22 @@ def extract(model_path: str, weight_paths: list[str], blob_names: list[str],
             for name in blob_names:
                 feats = blobs[name].float().cpu().numpy()
                 for row in feats.reshape(feats.shape[0], -1):
-                    datum = Datum(channels=len(row), height=1, width=1,
-                                  float_data=row)
-                    writers[name].put(f"{counts[name]:010d}", datum.encode())
-                    texts[name].write(",".join(f"{v:.6f}" for v in row)
-                                      + "\n")
+                    if ref_format:
+                        key = str(counts[name])
+                        datum = Datum(channels=1, height=len(row), width=1,
+                                      float_data=row)
+                        # C++ `stream << float` default formatting is %g
+                        # (6 significant digits, scientific outside
+                        # [1e-4, 1e6))
+                        texts[name].write(
+                            "".join(f"{float(v):g}," for v in row) + "\n")
+                    else:
+                        key = f"{counts[name]:010d}"
+                        datum = Datum(channels=len(row), height=1, width=1,
+                                      float_data=row)
+                        texts[name].write(
+                            ",".join(f"{v:.6f}" for v in row) + "\n")
+                    writers[name].put(key, datum.encode())
                     counts[name] += 1
             log.info("Extracted features of %d query images for blobs %s",
                      counts[blob_names[0]], ",".join(blob_names))
@@ -126,8 +154,8 @@ def main(argv=None) -> int:
     parser.add_argument("--out", required=True, help="output path prefix")
     parser.add_argument("--num_batches", type=int, default=10)
     parser.add_argument("--backend", default="vvr", choices=BACKENDS,
-                        help="feature store format (leveldb and lmdb: "
-                             "ROADMAP item 1b)")
+                        help="feature store format (leveldb = the "
+                             "reference extract_features output format)")
     parser.add_argument("--mesh", default="",
                         help="data-parallel extraction (ROADMAP item 11)")
     parser.add_argument("--cpu", action="store_true",
