@@ -148,6 +148,31 @@ Run from the root of a checkout. It
    to the vvr run's, images/s); one batch each of HDF5_DATA, FLEXIBLE_DATA
    over LMDB and MEMORY_DATA.
 
+15. runs ROADMAP item 7 (device_negatives): generate_net.py's net with
+   `device_negatives: true` (B = 128, 10 negatives from a 5,000 x 4096 f32
+   reservoir on the card, swap 50%) over the host training store through
+   tools.cli.main (40 steps, a test every 20): the seed buffer bit-equal to
+   a host NegativeReservoir fill from the same seed, the host batch (128,
+   5, 4096), the first step's negatives distinct reservoir rows per item,
+   the accepted offers and the share of rows replaced over 40 steps within
+   4 sigma of the swap rate's binomial, one K1 f32-route launch per
+   INNER_PRODUCT call; the step (CUDA events) and its profile, the host
+   source, the H2D bytes and the sampler's own time, beside the
+   Python-sampler-fed step it replaces; then 10 native-fed steps with
+   debug_info, display and snapshot_vis every 5 (the [debug_info] lines and
+   the vis_iter_*.json files checked);
+16. runs ROADMAP item 10's serving path (serving_artifact): the extraction
+   net of step 10 frozen by `vvtpu-torch-serve export` as f32, bf16
+   (--compute bfloat16), int8 (--quantize int8 --calib_batches 4) and
+   symbolic-batch artifacts, `info` on each, each loaded and run: f32
+   against the live Net (within 1e-5), bf16 within 2e-2, the int8 fc6 and
+   fc7 int32 accumulators against an int64 CPU product (exact), int8
+   retrieval mAP / hit@1 / hit@5 within 0.02 of f32's on a class-structured
+   batch, the symbolic artifact at 50 and 256 rows; the launches in one call
+   of each (f32: K2 f32 5, repack 1, K1 f32 2; bf16: K2 sm90 5, repack 1, K1
+   sm90 2; int8: K2 sm90 5, repack 1, no K1), frames/s, bytes and load
+   time, and the int8 fc6 + fc7 on torch._int_mm against K1's sm90 route.
+
 Exits non-zero, with no result line, without a CUDA card or outside a
 checkout. The last line of stdout is {"ok": true, "device": {...}}; the line
 before it is the per-kernel JSON summary.
@@ -345,6 +370,31 @@ WINDOW_RESERVOIR = 500
 # it does on the path (fc6, fc7 and the tower evict each other there)
 L2_BYTES = 50 * 2**20
 L2_EXCESS = 2.5
+
+
+# the on-device negative sampler through the CLI (device_negatives)
+DN_STEPS = 40
+DN_INTERVAL = 20
+DN_TIMED = range(1, 16)
+DN_PROFILED = range(16, 19)
+DN_PY_STEPS = 12           # the Python-sampler-fed run it replaces
+DN_PY_TIMED = range(2, 10)
+DN_SWAP = 50.0
+DN_BUFFER = 5000
+DN_CONTEXT = 5             # target + 4 context shots, the host's channels
+DEBUG_STEPS = 10
+DEBUG_EVERY = 5
+# the serving artifacts (serving_artifact)
+SERVE_VARIANTS = (("f32", []), ("bf16", ["--compute", "bfloat16"]),
+                  ("int8", ["--quantize", "int8", "--calib_batches", "4"]),
+                  ("symbolic", ["--symbolic_batch"]))
+SERVE_SYMBOLIC_BATCHES = (BATCH, 256)
+SERVE_CLASSES = 10
+SERVE_TIMED = 10
+QUANT_METRIC_TOL = 0.02    # JAX's contract, tests/test_quantize.py
+PEAK_OPS_INT8 = 1979e12
+
+
 
 
 def log(*args) -> None:
@@ -4713,6 +4763,480 @@ def caffe_interop(dev, stores: tuple) -> dict:
 
 
 
+@contextlib.contextmanager
+def _train_results():
+    """The TrainResults of the driver's train calls while the CLI runs."""
+    from videovector_tpu_torch.solver import driver as drv
+    results, orig = [], drv.train
+
+    def kept(*args, **kw):
+        results.append(orig(*args, **kw))
+        return results[-1]
+
+    drv.train = kept
+    try:
+        yield results
+    finally:
+        drv.train = orig
+
+
+@contextlib.contextmanager
+def _first_sampler_draws():
+    """The driver's on-device sampler with the draws of its first call
+    kept: that call runs draw_step and apply_step (the body of
+    train_batch_with_device_negatives) with the draws recorded, every later
+    call the function itself."""
+    from videovector_tpu_torch.data import device_sampler as ds
+    from videovector_tpu_torch.solver import driver as drv
+    kept, orig = {}, drv.train_batch_with_device_negatives
+
+    def first(reservoir, generator, host_part, num_negatives):
+        if kept:
+            return orig(reservoir, generator, host_part, num_negatives)
+        b, c = host_part.shape[:2]
+        draws = ds.draw_step(reservoir, generator, b, num_negatives, b * c)
+        out = ds.apply_step(reservoir, host_part, draws)
+        kept.update(draws=draws, buffer=reservoir.buffer, host=host_part,
+                    batch=out[0])
+        return out
+
+    drv.train_batch_with_device_negatives = first
+    try:
+        yield kept
+    finally:
+        drv.train_batch_with_device_negatives = orig
+
+
+def _check_first_draws(kept: dict) -> None:
+    """The first step's batch: the host rows, then each item's
+    TRAIN_NEG negatives, distinct reservoir rows, gathered; its accepted
+    offers within 4 sigma of the swap rate."""
+    d, host, batch = kept["draws"], kept["host"], kept["batch"]
+    b, c = host.shape[:2]
+    if tuple(batch.shape) != (b, c + TRAIN_NEG, HOST_DIM):
+        raise AssertionError(f"device_negatives batch {tuple(batch.shape)}")
+    distinct = int((d.ids.sort(dim=1).values.diff(dim=1) > 0).all(dim=1).sum())
+    if distinct != b or not (torch.equal(batch[:, :c], host) and torch.equal(
+            batch[:, c:], kept["buffer"][d.ids])):
+        raise AssertionError(f"device_negatives: {distinct} of {b} items with "
+                             "distinct negatives, or a batch not gathered")
+    m, p = b * c, DN_SWAP / 100
+    acc = int(d.accept.sum())
+    sigma = math.sqrt(m * p * (1 - p))
+    log(f"  the first step's draws: {b} items x {TRAIN_NEG} negatives, each "
+        f"item's distinct; {acc} of {m} offers accepted (expected "
+        f"{m * p:.0f} +- {4 * sigma:.1f} at 4 sigma)")
+    if abs(acc - m * p) > 4 * sigma:
+        raise AssertionError(f"accepted offers {acc} of {m}")
+
+
+def _replaced_share(seed_buf, final, steps: int) -> None:
+    """The share of reservoir rows that differ from the seed after `steps`
+    steps, against 1 - (1 - p/N)^(M steps), the chance that at least one
+    accepted offer of M a step landed on a row, within 4 sigma of a
+    binomial over the N rows."""
+    n = DN_BUFFER
+    share = float((final.cpu() != torch.as_tensor(seed_buf)).any(dim=1)
+                  .double().mean())
+    offers = TRAIN_BATCH * DN_CONTEXT * steps
+    want = 1 - (1 - DN_SWAP / 100 / n) ** offers
+    sigma = math.sqrt(want * (1 - want) / n)
+    log(f"  reservoir rows replaced over {steps} steps: {share:.4f} (expected "
+        f"{want:.4f} +- {4 * sigma:.4f} at 4 sigma, swap {DN_SWAP:g}%, "
+        f"{offers} offers into {n} rows)")
+    if abs(share - want) > 4 * sigma:
+        raise AssertionError(f"replaced share {share} vs {want}")
+
+
+def _dn_feed_times(driver, dev, card) -> None:
+    """The host source's ms a batch (host clock over 20), the bytes it
+    ships against the full batch's, and the sampler's own sample + update
+    on the card (CUDA events over 20) at the flagship's shapes."""
+    from videovector_tpu_torch.data.device_sampler import (
+        DeviceReservoir, train_batch_with_device_negatives,
+    )
+    src = driver.train_source
+    t0 = time.perf_counter()
+    for _ in range(20):
+        batch = src.next_batch()
+    host_ms = (time.perf_counter() - t0) / 20 * 1e3
+    nbytes = sum(np.asarray(v).nbytes for v in batch.values())
+    full = TRAIN_BATCH * (DN_CONTEXT + TRAIN_NEG) * HOST_DIM * 4
+    host = torch.as_tensor(batch["data"], device=dev)
+    res = DeviceReservoir(torch.as_tensor(driver.device_negatives["buffer"],
+                                          device=dev), DN_SWAP)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    sampler_ms = time_ms(lambda: train_batch_with_device_negatives(
+        res, gen, host, TRAIN_NEG))
+    log(f"  device_negatives feed [{card}]: the host source (Python sampler, "
+        f"no negatives) {host_ms:.3f} ms a batch (host clock over 20); H2D "
+        f"{nbytes / 1e6:.2f} MB a step (data {tuple(batch['data'].shape)} + "
+        f"video ids) against {full / 1e6:.2f} MB for (B, "
+        f"{DN_CONTEXT + TRAIN_NEG}, {HOST_DIM}); the sampler's sample + "
+        f"update on the card {sampler_ms:.4f} ms (CUDA events over 20: the "
+        f"topk draw over ({TRAIN_BATCH}, {DN_BUFFER}), the gather, the "
+        "concat, the winners' scatter-max and the "
+        f"{DN_BUFFER * HOST_DIM * 4 / 1e6:.0f} MB reservoir copy)")
+
+
+def _python_fed_step(tmp: Path, stores: tuple, card) -> float:
+    """The step this path replaces: the same net without device_negatives,
+    fed by the Python sampler (VVTPU_NATIVE_DATA=0, as an LMDB store is),
+    host and reservoir both on the host, through the CLI."""
+    import os
+    from videovector_tpu_torch.tools import cli
+    net_path = tmp / "py_net.prototxt"
+    net_path.write_text(_emit()(*stores, buffer_size=DN_BUFFER))
+    solver = _cli_solver(tmp / "py_solver.prototxt", net_path, tmp / "py",
+                         max_iter=DN_PY_STEPS, test_interval=DN_INTERVAL,
+                         snapshot=0)
+    timer = _HostFedTimer(DN_PY_TIMED, range(0))
+    os.environ["VVTPU_NATIVE_DATA"] = "0"
+    try:
+        with _driver_marks(timer):
+            cli.main(["train", "--solver", str(solver)])
+    finally:
+        del os.environ["VVTPU_NATIVE_DATA"]
+    step_ms, wall_ms = timer.per_step()
+    log(f"  the step it replaces, the Python-sampler-fed CLI step at "
+        f"B={TRAIN_BATCH} (host reservoir, (B, {DN_CONTEXT + TRAIN_NEG}, "
+        f"{HOST_DIM}) shipped): "
+        f"{step_ms:.4f} ms (CUDA events over {len(DN_PY_TIMED)} steps), host "
+        f"wall {wall_ms:.4f} ms [{card}]")
+    return step_ms
+
+
+def _debug_and_vis(tmp: Path, stores: tuple, card) -> int:
+    """DEBUG_STEPS steps of the native-fed flagship through the CLI with
+    debug_info, display and snapshot_vis every DEBUG_EVERY: the
+    [debug_info] lines and the vis_iter_*.json files checked. Returns its
+    K1 launches."""
+    from videovector_tpu_torch.tools import cli
+    net_path = tmp / "debug_net.prototxt"
+    net_path.write_text(_emit()(*stores, buffer_size=DN_BUFFER))
+    vis_dir = tmp / "vis"
+    solver = _cli_solver(tmp / "debug_solver.prototxt", net_path,
+                         tmp / "debug", max_iter=DEBUG_STEPS,
+                         test_interval=DEBUG_STEPS, snapshot=0,
+                         display=DEBUG_EVERY, debug_info="true",
+                         snapshot_vis=DEBUG_EVERY,
+                         snapshot_vis_dir=f'"{vis_dir}"')
+    t0 = time.perf_counter()
+    with _CliCapture() as out:
+        _, k1 = _counted(lambda: cli.main(["train", "--solver", str(solver)]))
+    secs = time.perf_counter() - t0
+    lines = out.lines("    [debug_info]")
+    files = sorted(p.name for p in vis_dir.glob("vis_iter_*.json"))
+    want = [f"vis_iter_{i}.json" for i in range(0, DEBUG_STEPS, DEBUG_EVERY)]
+    doc = json.loads((vis_dir / want[0]).read_text()) if files else {}
+    log(f"  debug_info + snapshot_vis: {DEBUG_STEPS} native-fed steps in "
+        f"{secs:.1f} s (build included; K1 {k1}); {len(lines)} [debug_info] "
+        f"lines, e.g. {lines[:2]}; {files}: {len(doc.get('layers', []))} "
+        f"layers, blobs {sorted(doc.get('blobs', {}))[:6]} [{card}]")
+    if sorted(files) != sorted(want) or not lines or \
+            len(lines) % len(want) or not doc.get("blobs"):
+        raise AssertionError(f"debug_info/snapshot_vis: {files}, "
+                             f"{len(lines)} lines")
+    return k1[0]
+
+
+def device_negatives(dev, stores: tuple) -> dict:
+    """ROADMAP item 7 on the card: generate_net.py's net with
+    `device_negatives: true` (B = 128, 4096 wide, 10 negatives from a
+    5,000 x 4096 f32 reservoir on the card, swap 50%) over the host
+    training store, through `tools.cli.main` with a copy of the repo's
+    solver (max_iter DN_STEPS, test_interval DN_INTERVAL): the seed
+    buffer against a host NegativeReservoir fill from the same seed, the
+    host batch's shape, the first step's draws, the replaced share, one K1
+    f32-route launch per INNER_PRODUCT call; the step, its profile, the
+    feed and the sampler timed, beside the Python-sampler-fed step it
+    replaces; then debug_info and snapshot_vis on the native-fed net.
+    Returns the K1 launches."""
+    import tempfile
+
+    from videovector_tpu_torch.data.shots import NegativeReservoir, ShotDataset
+    from videovector_tpu_torch.tools import cli
+
+    card = gpu_name_and_power_limit()
+    log(f"device_negatives [{card}]:")
+    t_phase = time.perf_counter()
+    timer = _HostFedTimer(DN_TIMED, DN_PROFILED)
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = Path(tmp_name)
+        net_path = tmp / "dn_net.prototxt"
+        net_path.write_text(_emit()(*stores, buffer_size=DN_BUFFER,
+                                    swap=int(DN_SWAP), device_negatives=True))
+        solver = _cli_solver(tmp / "dn_solver.prototxt", net_path, tmp / "dn",
+                             max_iter=DN_STEPS, test_interval=DN_INTERVAL,
+                             snapshot=0)
+        t0 = time.perf_counter()
+        with _driver_marks(timer) as built, _train_results() as results, \
+                _first_sampler_draws() as kept, _CliCapture() as out:
+            _, k1 = _counted(lambda: cli.main(["train", "--solver",
+                                               str(solver)]))
+        train_s = time.perf_counter() - t0
+        driver = built[0]
+        dn = driver.device_negatives
+        rs = int(driver.cfg.random_seed)
+        want = NegativeReservoir(DN_BUFFER, HOST_DIM, int(DN_SWAP),
+                                 np.random.RandomState(rs if rs >= 0 else 1234))
+        want.fill(ShotDataset.from_records(stores[0]))
+        host_shape = tuple(driver._first_batch_raw["data"].shape)
+        losses = [float(r.args[1]) for r in out.records
+                  if r.msg == "Iteration %d, loss = %g"]
+        n_tests = len(range(0, DN_STEPS + 1, DN_INTERVAL))
+        calls = DN_STEPS + 1 + n_tests
+        log(f"  cli train with device_negatives: {train_s:.1f} s in-process "
+            f"(build included); the TRAIN source "
+            f"{type(driver.train_source.sources[0].source).__name__}; the "
+            f"reservoir {tuple(dn['buffer'].shape)} f32 "
+            f"({dn['buffer'].nbytes / 1e6:.1f} MB), swap "
+            f"{dn['swap_percentage']:g}%, {dn['num_negatives']} negatives; "
+            f"host batch {host_shape}; K1 launches {k1} for {DN_STEPS} steps "
+            f"+ the final display forward + {n_tests} tests; losses {losses}")
+        if not np.array_equal(dn["buffer"], want.buffer):
+            raise AssertionError("the seed buffer differs from the host "
+                                 "NegativeReservoir fill")
+        if host_shape[:3] != (TRAIN_BATCH, DN_CONTEXT, HOST_DIM):
+            raise AssertionError(f"device_negatives host batch {host_shape}")
+        if k1 != (calls, 0, calls):
+            raise AssertionError(f"device_negatives K1 launches {k1}: "
+                                 f"expected {calls}, all f32")
+        if not (losses and all(math.isfinite(v) for v in losses)):
+            raise AssertionError(f"device_negatives losses {losses}")
+        _check_first_draws(kept)
+        _replaced_share(dn["buffer"], results[0].final_carry, DN_STEPS)
+        step_ms, wall_ms = timer.per_step()
+        log(f"  cli train step with device_negatives at B={TRAIN_BATCH} "
+            f"(f32): {step_ms:.4f} ms (CUDA events over {len(DN_TIMED)} "
+            f"steps, tests excluded) = "
+            f"{TRAIN_BATCH * TRAIN_NEG / step_ms * 1e3:,.0f} triplets/s; host "
+            f"wall {wall_ms:.4f} ms a step [{card}]")
+        prof = training_profile(timer.prof, len(DN_PROFILED), wall_ms,
+                                label=f"B={TRAIN_BATCH}, device_negatives")
+        _dn_feed_times(driver, dev, card)
+        py_ms = _python_fed_step(tmp, stores, card)
+        log(f"  device_negatives step {step_ms:.4f} ms against the "
+            f"Python-sampler-fed step {py_ms:.4f} ms: "
+            f"{py_ms / step_ms:.2f}x [{card}]")
+        debug_k1 = _debug_and_vis(tmp, stores, card)
+    log(f"device_negatives phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"f32": k1[2] + debug_k1, "step_ms": step_ms, "py_ms": py_ms,
+            "profile": prof}
+
+
+def _class_frames(rng, n: int) -> tuple[np.ndarray, np.ndarray]:
+    """n transformed frames (n, 3, 227, 227) in SERVE_CLASSES classes: a
+    class's frames are its base image plus noise."""
+    bases = rng.randn(SERVE_CLASSES, 3, EXTRACT_CROP, EXTRACT_CROP) * 50
+    cls = np.arange(n) % SERVE_CLASSES
+    frames = bases[cls] + 20 * rng.randn(n, 3, EXTRACT_CROP, EXTRACT_CROP)
+    return frames.astype(np.float32), cls
+
+
+def _artifact_counts(call, batch) -> dict:
+    """The kernels' launches in one artifact call."""
+    _zero_counts()
+    call(batch)
+    torch.cuda.synchronize()
+    k2c, k1c = _k2_counts(), _k1_counts()
+    return {"k2": k2c[0], "k2_sm90": k2c[1], "repack": k2c[2],
+            "k2_f32": k2c[3], "k1": k1c[0], "k1_sm90": k1c[1],
+            "k1_f32": k1c[2]}
+
+
+def _int8_fc(net, params, quant, batch, card) -> None:
+    """fc6 and fc7 of the int8 Net on the card: the int32 accumulators of
+    torch._int_mm against an int64 product on the CPU (exact), then the
+    int8 fc6 + fc7 (quantize, _int_mm, dequantize) against K1's sm90 route
+    on the same rows in bf16, in turns, beside the int8 bound."""
+    from videovector_tpu_torch.ops import quant as q8
+    from videovector_tpu_torch.ops.hopper import matmul as k1
+    net.quant = quant
+    with torch.no_grad():
+        _, blobs = net.apply(params, batch, return_blobs=True)
+    fcs = []
+    bottoms = {l.get("name"): str(l.get_list("bottom")[0])
+               for l in net.layers if l.get_list("bottom")}
+    for name in ("fc6", "fc7"):
+        x = blobs[bottoms[name]].reshape(BATCH, -1)
+        qt = quant[name]
+        x_q = q8.quantize_input(x, qt["s_x"])
+        acc = q8.int8_matmul(x_q, qt["w_q"])
+        want = x_q.cpu().long() @ qt["w_q"].cpu().long()
+        if not torch.equal(acc.cpu().long(), want):
+            raise AssertionError(f"int8 {name}: _int_mm differs from int64")
+        fcs.append((x, qt, params[name]["b"],
+                    params[name]["w"].to(torch.bfloat16)))
+        log(f"  int8 {name}: ({BATCH} x {x.shape[1]}) . ({x.shape[1]} x "
+            f"{qt['w_q'].shape[1]}) int32 accumulators equal the int64 CPU "
+            f"product (max |acc| {int(acc.abs().max())})")
+    fns = {"int8": lambda: [q8.int8_inner_product(x, qt, b)
+                            for x, qt, b, _ in fcs],
+           "k1_sm90": lambda: [k1.matmul(x.to(torch.bfloat16), wb, b)
+                               for x, _, b, wb in fcs]}
+    times = {n: [] for n in fns}
+    for n in ("int8", "k1_sm90", "k1_sm90", "int8"):
+        times[n].append(time_ms(fns[n]))
+    ms = {n: sum(t) / len(t) for n, t in times.items()}
+    ops = sum(2 * BATCH * x.shape[1] * qt["w_q"].shape[1] for x, qt, _, _ in fcs)
+    nbytes = sum(x.numel() * 4 + qt["w_q"].numel() + BATCH * qt["w_q"].shape[1]
+                 * 4 for x, qt, _, _ in fcs)
+    bound = max(ops / PEAK_OPS_INT8, nbytes / PEAK_BYTES) * 1e3
+    log(f"  int8 fc6 + fc7 at {BATCH} rows (quantize, torch._int_mm, "
+        f"dequantize + bias) {ms['int8']:.4f} ms against K1's sm90 route on "
+        f"bf16 operands {ms['k1_sm90']:.4f} ms (CUDA events, turns: "
+        + ", ".join(f"{n} {v:.4f}" for n, t in times.items() for v in t)
+        + f"); the int8 bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB) [{card}]")
+
+
+def serving_artifact(dev) -> dict:
+    """ROADMAP item 10's serving path on the card: the CaffeNet extraction
+    net at batch BATCH (a .caffemodel of seeded weights, blob ip2) frozen
+    by `vvtpu-torch-serve export` four times (f32, --compute bfloat16,
+    --quantize int8 --calib_batches 4, f32 --symbolic_batch), `info` on
+    each; each artifact loaded and run: f32 against the live Net, bf16
+    within 2e-2, the int8 fc accumulators exact, int8 retrieval metrics
+    within 0.02 of f32's on a class-structured batch, the symbolic one at
+    BATCH and 256 rows; the kernels' launches in one call of each; frames/s,
+    bytes and load time of each. Returns the launches of the counted
+    calls."""
+    import io
+    import tempfile
+
+    from videovector_tpu_torch.config import parse_file
+    from videovector_tpu_torch.graph import Net
+    from videovector_tpu_torch.graph.data_factory import make_data_source
+    from videovector_tpu_torch.graph.layers import DATA_LAYER_TYPES
+    from videovector_tpu_torch.metrics.retrieval import retrieval_stats
+    from videovector_tpu_torch.ops.normalization import l2_normalize_rows
+    from videovector_tpu_torch.tools import serving
+    from videovector_tpu_torch.tools.cli import _load_weights
+    from videovector_tpu_torch.tools.quantize import calibrate, quantize_weights
+
+    card = gpu_name_and_power_limit()
+    log(f"serving_artifact [{card}]:")
+    t_phase = time.perf_counter()
+    counts, results = {}, {}
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = Path(tmp_name)
+        inp = _write_extraction_inputs(tmp, dev)
+        net = Net(parse_file(inp["net"]), "TEST")
+        layer = next(l for l in net.layers
+                     if l.get("type") in DATA_LAYER_TYPES)
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in
+                 make_data_source(layer, phase="TEST").next_batch().items()}
+        params, _ = net.init(torch.Generator(device=dev).manual_seed(0), {
+            k: torch.empty(tuple(v.shape), device="meta")
+            for k, v in batch.items()})
+        params = _load_weights(inp["weights"], params, dev)
+        with torch.no_grad():
+            live = net.apply(params, batch, return_blobs=True)[1]["ip2"]
+        calls = {}
+        for name, extra in SERVE_VARIANTS:
+            path = str(tmp / f"caffenet_{name}{serving.EXTENSION}")
+            t0 = time.perf_counter()
+            serving.main(["export", inp["net"], path, "--weights",
+                          inp["weights"], "--blobs", "ip2"] + extra)
+            export_s = time.perf_counter() - t0
+            info = io.StringIO()
+            with contextlib.redirect_stdout(info):
+                serving.main(["info", path])
+            meta = json.loads(info.getvalue())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call, _ = serving.load_serving(path)
+            load_s = time.perf_counter() - t0
+            calls[name] = call
+            counts[name] = _artifact_counts(call, batch)
+            fps = BATCH / time_ms(lambda: call(batch), iters=SERVE_TIMED) * 1e3
+            results[name] = {"bytes": meta["payload_bytes"], "fps": fps}
+            log(f"  {name}: export {export_s:.1f} s; info inputs "
+                f"{meta['inputs']} outputs {meta['outputs']} batch_axes "
+                f"{meta['batch_axes']} quantize {meta['quantize']} compute "
+                f"{meta['compute_dtype']} platforms {meta['platforms']}; "
+                f"{meta['payload_bytes'] / 1e6:.1f} MB payload, loaded in "
+                f"{load_s:.2f} s; launches in one call {counts[name]}; "
+                f"{fps:,.1f} frames/s at batch {BATCH} (CUDA events over "
+                f"{SERVE_TIMED} calls) [{card}]")
+
+        def feats(name, b=batch):
+            return calls[name](b)["ip2"].float()
+
+        f32 = feats("f32")
+        scale = live.abs().max().item()
+        f32_err = (f32 - live).abs().max().item()
+        log(f"  f32 artifact against the live Net's ip2: max abs diff "
+            f"{f32_err:.3e} (max |ip2| {scale:.3e}; bit-equal "
+            f"{torch.equal(f32, live)})")
+        if f32_err > 1e-5 * scale:
+            raise AssertionError(f"f32 artifact off the live Net: {f32_err}")
+        bf16_err = (feats("bf16") - live).abs().max().item()
+        log(f"  bf16 artifact against the f32 Net: {bf16_err:.3e} of max "
+            f"{scale:.3e}")
+        if bf16_err > 2e-2 * scale:
+            raise AssertionError(f"bf16 artifact off: {bf16_err}")
+        for n in SERVE_SYMBOLIC_BATCHES:
+            b = {k: (v if n == BATCH else torch.cat(
+                [v] * (-(-n // BATCH)))[:n]) for k, v in batch.items()}
+            out = feats("symbolic", b)
+            if tuple(out.shape) != (n, 4096) or not torch.isfinite(out).all():
+                raise AssertionError(f"symbolic artifact at {n}: {out.shape}")
+            if n == BATCH and (out - f32).abs().max().item() > 1e-5 * scale:
+                raise AssertionError("symbolic artifact off the f32 one")
+            log(f"  symbolic artifact at batch {n}: {tuple(out.shape)}, "
+                f"finite")
+        # int8: the fc accumulators, then the retrieval contract
+        # the export's calibration batches: the first batch of the source
+        # it took shapes from, then 3 of a fresh stream
+        calib_src = make_data_source(layer, phase="TEST")
+        calib = [{k: v.cpu().numpy() for k, v in batch.items()}] + [
+            calib_src.next_batch() for _ in range(3)]
+        qnet = Net(parse_file(inp["net"]), "TEST")
+        quant = quantize_weights(params, qnet, calibrate(qnet, params, calib))
+        qnet.quant = quant
+        with torch.no_grad():
+            q_live = qnet.apply(params, batch, return_blobs=True)[1]["ip2"]
+        q_err = (feats("int8") - q_live).abs().max().item()
+        log(f"  int8 artifact against the live int8 Net (the same "
+            f"calibration batches): {q_err:.3e}; modes "
+            f"{ {k: v['mode'] for k, v in quant.items()} }")
+        if q_err > 1e-5 * q_live.abs().max().item():
+            raise AssertionError(f"int8 artifact off the int8 Net: {q_err}")
+        _int8_fc(qnet, params, quant, batch, card)
+        frames, cls = _class_frames(np.random.RandomState(8), BATCH)
+        cb = {"data": torch.as_tensor(frames, device=dev),
+              "label": torch.zeros(BATCH, device=dev)}
+        vids = torch.arange(BATCH, device=dev)
+        clst = torch.as_tensor(cls, device=dev)
+        stats = {n: retrieval_stats(l2_normalize_rows(feats(n, cb)), vids, clst)
+                 for n in ("f32", "int8")}
+        deltas = {k: abs(float(stats["f32"][k]) - float(stats["int8"][k]))
+                  for k in ("mean_ap", "hit_at_1", "hit_at_5")}
+        log(f"  int8 against f32 on a {SERVE_CLASSES}-class batch of "
+            f"{BATCH}: " + ", ".join(
+                f"{k} {float(stats['f32'][k]):.4f} / "
+                f"{float(stats['int8'][k]):.4f}" for k in deltas)
+            + f"; deltas {deltas} (JAX's contract: <= {QUANT_METRIC_TOL})")
+        if max(deltas.values()) > QUANT_METRIC_TOL:
+            raise AssertionError(f"int8 retrieval metrics off: {deltas}")
+    want = {"f32": dict(k2_f32=5, k2_sm90=0, repack=1, k1_f32=2, k1_sm90=0,
+                        k1=2),
+            "symbolic": dict(k2_f32=5, k2_sm90=0, repack=1, k1_f32=2,
+                             k1_sm90=0, k1=2),
+            "bf16": dict(k2_sm90=5, k2_f32=0, repack=1, k1_sm90=2, k1_f32=0,
+                         k1=2),
+            "int8": dict(k2_sm90=5, k2_f32=0, repack=1, k1=0)}
+    for name, w in want.items():
+        got = {k: counts[name][k] for k in w}
+        if got != w or counts[name]["k2"] != 5:
+            raise AssertionError(f"{name} artifact launches {counts[name]}")
+    log(f"serving_artifact phase: {time.perf_counter() - t_phase:.1f} s")
+    total = {k: sum(c[k] for c in counts.values())
+             for k in counts["f32"]}
+    return {**total, "results": results}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4765,6 +5289,8 @@ def main() -> int:
         exh = exhaustive_rank_eval(dev, stores)
         torch.cuda.empty_cache()
         interop = caffe_interop(dev, stores)
+        torch.cuda.empty_cache()
+        dn = device_negatives(dev, stores)
     torch.cuda.empty_cache()
     zoo = layer_zoo(dev)
     tf32_checks(dev)
@@ -4775,13 +5301,16 @@ def main() -> int:
         gallery_eval(dev)
     torch.cuda.empty_cache()
     ext = extraction(dev)
+    torch.cuda.empty_cache()
+    serve = serving_artifact(dev)
 
     kernels = [
         {"name": "K1 matmul (TMA + wgmma GEMM, split-K, bias + ReLU "
                  "epilogue)", "route": "cuda",
          "source": "videovector_tpu_torch/csrc/matmul_sm90.cu",
          "replaces": "videovector_tpu/ops/pallas/matmul.py:50",
-         "launches": launches["K1"], "max_abs_err": stats["K1"]["err"],
+         "launches": launches["K1"] + serve["k1_sm90"],
+         "max_abs_err": stats["K1"]["err"],
          "ms": stats["K1"]["ms"], "plain_ms": stats["K1"]["plain_ms"],
          "bound_ms": stats["K1"]["bound_ms"], "bound_by": "bytes",
          "library_ms": stats["K1"]["library_ms"]},
@@ -4806,7 +5335,8 @@ def main() -> int:
          "source": "videovector_tpu_torch/csrc/matmul_f32_sm90.cu",
          "replaces": "videovector_tpu/ops/pallas/matmul.py:50",
          "launches": (net["f32"] + cli["f32"] + ext["k1_f32"] + exh["f32"]
-                      + zoo["f32"] + traj["f32"] + interop["k1_f32"]),
+                      + zoo["f32"] + traj["f32"] + interop["k1_f32"]
+                      + dn["f32"] + serve["k1_f32"]),
          **{k: net["k1"][NET_ROWS][k] for k in ("ms", "plain_ms", "bound_ms",
                                                 "bound_by", "library_ms")},
          "max_abs_err": max([v["err"] for v in net["k1"].values()]
@@ -4827,7 +5357,8 @@ def main() -> int:
                  "gathers + TMA + wgmma, one launch per conv)", "route": "cuda",
          "source": "videovector_tpu_torch/csrc/conv_gemm_sm90.cu",
          "replaces": "videovector_tpu/ops/pallas/conv_gemm.py:18",
-         "launches": launches["K2"], "max_abs_err": stats["K2"]["err"],
+         "launches": launches["K2"] + serve["k2_sm90"],
+         "max_abs_err": stats["K2"]["err"],
          "ms": stats["K2"]["ms"], "plain_ms": stats["K2"]["plain_ms"],
          "bound_ms": stats["K2"]["bound_ms"], "bound_by": "operations",
          "library_ms": stats["K2"]["library_ms"]},
@@ -4836,7 +5367,8 @@ def main() -> int:
                  "conv1)", "route": "cuda",
          "source": "videovector_tpu_torch/csrc/conv_gemm_sm90.cu",
          "replaces": "videovector_tpu/ops/pallas/conv_gemm.py:18",
-         "launches": launches["repack"] + ext["repack"] + interop["repack"],
+         "launches": (launches["repack"] + ext["repack"] + interop["repack"]
+                      + serve["repack"]),
          "max_abs_err": stats["repack"]["err"],
          "ms": stats["repack"]["ms"], "plain_ms": stats["repack"]["plain_ms"],
          "bound_ms": stats["repack"]["bound_ms"], "bound_by": "bytes",
@@ -4846,7 +5378,7 @@ def main() -> int:
          "route": "cuda",
          "source": "videovector_tpu_torch/csrc/conv_gemm_f32_sm90.cu",
          "replaces": "videovector_tpu/ops/pallas/conv_gemm.py:18",
-         "launches": ext["k2_f32"] + interop["k2_f32"],
+         "launches": ext["k2_f32"] + interop["k2_f32"] + serve["k2_f32"],
          "max_abs_err": ext["k2"]["f32"]["err"],
          **{k: ext["k2"]["f32"][k] for k in ("ms", "plain_ms", "bound_ms",
                                             "bound_by", "library_ms")}},
@@ -4897,7 +5429,12 @@ def main() -> int:
         "library cuDNN F.conv2d f32 (TF32 off), their launches those of "
         f"extraction, {EXTRACT_BATCHES} batches of {BATCH}, and of "
         f"caffe_interop's three extraction runs ({interop['k2_f32']}); the "
-        "repack's launches those of serving, extraction and caffe_interop)")
+        "repack's launches those of serving, extraction and caffe_interop. "
+        f"device_negatives adds {dn['f32']} K1 f32-route launches (its "
+        f"train, tests and the debug_info run); serving_artifact adds one "
+        f"counted call of each artifact: K1 sm90 {serve['k1_sm90']}, K1 f32 "
+        f"{serve['k1_f32']}, K2 sm90 {serve['k2_sm90']}, K2 f32 "
+        f"{serve['k2_f32']}, repack {serve['repack']})")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

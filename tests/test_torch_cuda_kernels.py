@@ -1384,3 +1384,75 @@ def test_crc32c_takes_the_native_twin_on_the_card_machine(dev, monkeypatch):
     assert leveldbio.crc32c(b"123456789" * 40) == native.crc32c(
         b"123456789" * 40)
     assert leveldbio.snappy_decompress(comp) == data * 2
+
+
+# -- item 10: the custom ops, the int8 product, the device sampler -------------
+
+def test_k1_and_k2_export_as_custom_ops_equal_to_eager(dev, tmp_path):
+    """K1 and K2 through torch.export as vvtpu:: custom ops: the program
+    holds both nodes, reloads, launches each once a call (counted) and
+    gives the eager launches' bits."""
+    from videovector_tpu_torch.tools.export_model import (
+        load_exported, save_exported,
+    )
+    g = torch.Generator(device=dev).manual_seed(0)
+    w1 = torch.randn(3, 3, 16, 64, generator=g, device=dev) * 0.1
+    b1 = torch.randn(64, generator=g, device=dev)
+    w2 = torch.randn(64 * 12 * 12, 96, generator=g, device=dev) * 0.01
+
+    def fn(x):
+        y = k2.conv2d_gemm_nhwc(x, w1, b1, pad=(1, 1), fuse_relu=True)
+        return k1.matmul(y.reshape(y.shape[0], -1), w2)
+
+    x = torch.randn(20, 12, 12, 16, generator=g, device=dev)
+    with torch.no_grad():
+        eager = fn(x)
+        path = str(tmp_path / "ops.pt2")
+        save_exported(path, fn, x)
+        ep = load_exported(path)
+        targets = {str(n.target) for n in ep.graph.nodes}
+        assert any("vvtpu.k1_matmul" in t for t in targets), targets
+        assert any("vvtpu.k2_conv2d_nhwc" in t for t in targets), targets
+        before = (k1.matmul.launches_f32, k2.conv2d_im2col_gemm.launches_f32)
+        got = ep.module()(x)
+        torch.cuda.synchronize()
+    assert (k1.matmul.launches_f32 - before[0],
+            k2.conv2d_im2col_gemm.launches_f32 - before[1]) == (1, 1)
+    assert torch.equal(got, eager)
+
+
+@pytest.mark.parametrize("m", [1, 16, 50])
+def test_int8_product_padding_is_exact(dev, m):
+    """torch._int_mm wants more than 16 rows and K, N multiples of 8 on the
+    card: the zero padding leaves the int32 product equal to int64's."""
+    from videovector_tpu_torch.ops import quant
+    g = torch.Generator(device=dev).manual_seed(m)
+    a = torch.randint(-127, 128, (m, 9215), generator=g, device=dev,
+                      dtype=torch.int8)
+    b = torch.randint(-127, 128, (9215, 1001), generator=g, device=dev,
+                      dtype=torch.int8)
+    got = quant.int8_matmul(a, b)
+    assert got.dtype == torch.int32 and got.shape == (m, 1001)
+    assert torch.equal(got.cpu().long(), a.cpu().long() @ b.cpu().long())
+
+
+def test_duplicate_slot_scatter_is_deterministic(dev):
+    """Accepted offers sharing a slot: the last offer wins on the card, the
+    same on every one of 20 repeats and as on the CPU."""
+    from videovector_tpu_torch.data import device_sampler as ds
+    g = torch.Generator(device=dev).manual_seed(0)
+    res = ds.DeviceReservoir(torch.randn(64, 256, generator=g, device=dev),
+                             90.0)
+    feats = torch.randn(4096, 256, generator=g, device=dev)
+    accept = torch.rand(4096, generator=g, device=dev) < 0.9
+    slots = torch.randint(0, 64, (4096,), generator=g, device=dev)
+    first = ds.apply_update(res, feats, accept, slots).buffer
+    for _ in range(20):
+        assert torch.equal(ds.apply_update(res, feats, accept, slots).buffer,
+                           first)
+    cpu = ds.apply_update(ds.DeviceReservoir(res.buffer.cpu(), 90.0),
+                          feats.cpu(), accept.cpu(), slots.cpu()).buffer
+    assert torch.equal(first.cpu(), cpu)
+    last = {int(s): i for i, s in enumerate(slots.tolist()) if accept[i]}
+    for s, i in last.items():
+        assert torch.equal(first[s], feats[i])

@@ -166,10 +166,19 @@ def test_factory_takes_the_python_sampler_where_jax_does(stores, monkeypatch,
 
 
 def test_factory_errors_name_their_roadmap_items(stores):
+    """MEMORY_DATA has no factory, as in JAX. device_negatives (item 7, once
+    refused) builds the Python sampler without negatives and the seed
+    buffer, both bit for bit JAX's factory's."""
     txt = _net(*stores, device_negatives=True)
     layer = _data_layers(txt, tparse)["VIDEO_SAMPLED_SHOTS_DATA", "TRAIN"]
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tfac.make_data_source(layer)
+    src = tfac.make_data_source(layer, seed=5)
+    jsrc = jfac.make_data_source(
+        _data_layers(txt, jparse)["VIDEO_SAMPLED_SHOTS_DATA", "TRAIN"], seed=5)
+    assert isinstance(src.source, tshots.VideoSampledShotsSource)
+    np.testing.assert_array_equal(src.device_negatives["buffer"],
+                                  jsrc.device_negatives["buffer"])
+    np.testing.assert_array_equal(src.next_batch()["data"],
+                                  jsrc.next_batch()["data"])
     layer = tparse('layers { name: "d" type: MEMORY_DATA top: "x" }'
                    ).get_list("layers")[0]
     with pytest.raises(NotImplementedError, match="no data-source factory"):

@@ -593,18 +593,40 @@ def test_stateful_net_trains_with_its_carry(mini, tmp_path):
     ("shard_gallery", "item 11")])
 def test_later_slices_raise_not_implemented(mini, tmp_path, case, item):
     """Whatever later slices bring raises NotImplementedError naming its
-    ROADMAP item; nothing quietly does something else."""
+    ROADMAP item; nothing quietly does something else. Items 7 and 10 have
+    come: snapshot_vis writes its JSON, debug_info logs its stats every
+    `display` iterations, and device_negatives trains with the reservoir
+    carried on the device."""
     fields = dict(max_iter=1, test_interval=0, test_iter=None)
     if case == "snapshot_vis":
         fields["snapshot_vis"] = 5
+        fields["snapshot_vis_dir"] = str(tmp_path / "vis")
     elif case == "debug_info":
         fields["debug_info"] = True
+        fields["display"] = 1
     elif case == "orbax_format":
         fields["snapshot_format"] = "orbax"
     elif case == "device_negatives":
         Path(mini["net"]).write_text(Path(mini["net"]).read_text().replace(
-            "context_size: 5", "context_size: 5\n    device_negatives: true"))
+            "context_size: 5", "context_size: 5\n    device_negatives: true")
+            .replace("max_same_video_negs: 1", "max_same_video_negs: 0"))
     (_, tmsg) = _solver(mini, **fields)
+    if item in ("item 7", "item 10"):
+        calls = []
+        real = tdriver.Net.debug_info
+        tdriver.Net.debug_info = lambda self, *a, **k: calls.append(
+            real(self, *a, **k))
+        try:
+            res = tdriver.SolverDriver(tmsg, device="cpu").build().train()
+        finally:
+            tdriver.Net.debug_info = real
+        if case == "snapshot_vis":
+            assert (tmp_path / "vis" / "vis_iter_0.json").is_file()
+        elif case == "debug_info":
+            assert len(calls) == 1 and calls[0]
+        else:
+            assert isinstance(res.final_carry, torch.Tensor)
+        return
     with pytest.raises(NotImplementedError, match=item):
         d = tdriver.SolverDriver(tmsg, device="cpu").build()
         if case == "mesh":

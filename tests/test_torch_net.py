@@ -661,16 +661,35 @@ def test_dropout_at_train_needs_a_generator(rng):
 
 
 def test_quant_and_infogain_raise_not_ported():
+    """Once refused, both now work: an INNER_PRODUCT in the int8 quant side
+    table gives JAX's int8 forward (an exact int32 sum, dequantized in
+    f32: equal here, the scales being powers of two), and the infogain
+    matrix is read."""
     txt = """
     layers { name: "d" type: MEMORY_DATA top: "x" }
     layers { name: "ip" type: INNER_PRODUCT bottom: "x" top: "y"
       inner_product_param { num_output: 2 } }
     """
+    x = np.array([[1.0, -2.0, 0.5]], np.float32)
+    w = np.array([[1.0, 0.5], [-1.0, 2.0], [0.25, -0.75]], np.float32)
+    b = np.array([0.5, -1.0], np.float32)
+    q = {"w_q": np.array([[64, 32], [-64, 127], [16, -48]], np.int8),
+         "s_w": np.array([2.0 ** -6, 2.0 ** -6], np.float32),
+         "s_x": np.float32(2.0 ** -6), "mode": "int8"}
+    jnet = JNet(jparse(txt), "TEST")
+    jnet.init(jax.random.PRNGKey(0), {"x": jax.ShapeDtypeStruct((1, 3),
+                                                                jnp.float32)})
+    jnet.quant = {"ip": q}
+    want = np.asarray(jnet.apply({"ip": {"w": jnp.asarray(w),
+                                         "b": jnp.asarray(b)}},
+                                 {"x": jnp.asarray(x)})[1]["y"])
     net = TNet(tparse(txt), "TEST")
-    params, _ = net.init(torch.Generator(), {"x": np.zeros((1, 3), np.float32)})
-    net.quant = {"ip": {}}
-    with pytest.raises(NotImplementedError, match="item 10"):
-        net.apply(params, {"x": torch.zeros(1, 3)})
+    net.init(torch.Generator(), {"x": x})
+    net.quant = {"ip": {k: (torch.as_tensor(v) if k != "mode" else v)
+                        for k, v in q.items()}}
+    got = net.apply({"ip": {"w": torch.as_tensor(w), "b": torch.as_tensor(b)}},
+                    {"x": torch.as_tensor(x)})[1]["y"]
+    np.testing.assert_array_equal(got.numpy(), want)
     # the infogain matrix is read since item 6c-ii: a missing source is the
     # reference's CHECK failure, as in JAX's Net
     with pytest.raises(ValueError, match="infogain source 'h.binaryproto'"):

@@ -179,6 +179,7 @@ def test_port_imports_without_jax():
         import videovector_tpu_torch.core.fillers
         import videovector_tpu_torch.core.seeds
         import videovector_tpu_torch.data.generic
+        import videovector_tpu_torch.data.device_sampler
         import videovector_tpu_torch.data.hdf5
         import videovector_tpu_torch.data.leveldbio
         import videovector_tpu_torch.data.lmdbio
@@ -214,6 +215,7 @@ def test_port_imports_without_jax():
         import videovector_tpu_torch.ops.lrn
         import videovector_tpu_torch.ops.normalization
         import videovector_tpu_torch.ops.pooling
+        import videovector_tpu_torch.ops.quant
         import videovector_tpu_torch.ops.recurrent
         import videovector_tpu_torch.ops.reductions
         import videovector_tpu_torch.ops.social
@@ -224,8 +226,17 @@ def test_port_imports_without_jax():
         import videovector_tpu_torch.solver.train
         import videovector_tpu_torch.tools
         import videovector_tpu_torch.tools.cli
+        import videovector_tpu_torch.tools.converters
+        import videovector_tpu_torch.tools.dump
+        import videovector_tpu_torch.tools.export_model
         import videovector_tpu_torch.tools.extract_features
         import videovector_tpu_torch.tools.make_tracking_data
+        import videovector_tpu_torch.tools.parity
+        import videovector_tpu_torch.tools.plot_training_stats
+        import videovector_tpu_torch.tools.quantize
+        import videovector_tpu_torch.tools.serving
+        import videovector_tpu_torch.tools.upgrade_net_proto
+        import videovector_tpu_torch.tools.vis_snapshot
         import videovector_tpu_torch.utils.logging
         import videovector_tpu_torch.utils.timer
         bad = [m for m in sys.modules

@@ -285,11 +285,34 @@ def test_kernel_geometry_errors_match_jax(geometry, match):
 
 
 def test_convolution_quant_is_not_ported():
-    net = TNet(tparse(_net(CONV % "kernel_size: 3")), "TEST")
-    params, _ = net.init(torch.Generator(), _x())
-    net.quant = {"c": {}}
-    with pytest.raises(NotImplementedError, match="item 10"):
-        net.apply(params, {"x": torch.as_tensor(_x()["x"])})
+    """Once refused, a CONVOLUTION in the quant side table now runs its
+    mode: weight_only gives JAX's bf16 conv over the dequantized weights
+    (within 2e-2 of max|ref|), int8 JAX's exact int32 conv (1e-6)."""
+    text = _net(CONV % "kernel_size: 3")
+    batch = _x()
+    jnet = JNet(jparse(text), "TEST")
+    jp, _ = jnet.init(jax.random.PRNGKey(0), {
+        "x": jax.ShapeDtypeStruct(batch["x"].shape, jnp.float32)})
+    net = TNet(tparse(text), "TEST")
+    net.init(torch.Generator(), batch)
+    w = np.random.RandomState(2).randn(*jp["c"]["w"].shape).astype(np.float32)
+    jp = {"c": {**jp["c"], "w": jnp.asarray(w)}}
+    params = convert.params_from_jax(jax.tree.map(np.asarray, jp))
+    s_w = (np.abs(w.reshape(w.shape[0], -1)).max(1) / 127.0).astype(np.float32)
+    w_q = np.clip(np.rint(w / s_w[:, None, None, None]), -127, 127) \
+        .astype(np.int8)
+    s_x = np.float32(np.abs(batch["x"]).max() / 127.0)
+    for mode, tol in (("weight_only", 2e-2), ("int8", 1e-6)):
+        q = {"w_q": w_q, "s_w": s_w, "s_x": s_x, "mode": mode}
+        jnet.quant = {"c": q}
+        want = np.asarray(jnet.apply(jp, {"x": jnp.asarray(batch["x"])})[1]
+                          ["y"], np.float32)
+        net.quant = {"c": {k: (torch.as_tensor(v) if k != "mode" else v)
+                           for k, v in q.items()}}
+        with torch.no_grad():
+            got = net.apply(params, {"x": torch.as_tensor(batch["x"])})[1]["y"]
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                                   atol=tol * np.abs(want).max(), err_msg=mode)
 
 
 def test_bf16_conv_rounds_once_as_jaxs_net():

@@ -11,7 +11,9 @@ names so that batches slot straight into `Net.apply`.
 Every data layer of the JAX package's factory is built here: the
 flagship's VIDEO_SAMPLED_SHOTS_DATA (the C++ sampler for a VVR WINDOW
 source, as the JAX package chooses, else the Python one: an LMDB or
-LevelDB store feeds the Python sampler) and VIDEO_SHOT_WINDOW_TEST_DATA;
+LevelDB store feeds the Python sampler; with `device_negatives: true`
+the Python one without negatives, the reservoir living on the card) and
+VIDEO_SHOT_WINDOW_TEST_DATA;
 the exhaustive TRAIN source VIDEO_SHOTS_DATA and the fixed gallery
 FIXED_VIDEO_SHOT_TEST_DATA; the reference's window trainer
 VIDEO_SHOT_WINDOW_DATA (and its VIDEO_ID_TEXT backend); the image sources
@@ -26,6 +28,7 @@ has no factory.
 from __future__ import annotations
 
 import os
+from dataclasses import replace
 
 import numpy as np
 
@@ -38,7 +41,8 @@ from videovector_tpu_torch.data.generic import (
 )
 from videovector_tpu_torch.data.records import convert_dir_or_file, is_vvr
 from videovector_tpu_torch.data.shots import (
-    ExhaustiveShotsConfig, FixedVideoShotGallery, SampledShotsConfig,
+    ExhaustiveShotsConfig, FixedVideoShotGallery, NegativeReservoir,
+    SampledShotsConfig,
     ShotDataset, TestWindowDataset, VideoSampledShotsSource, VideoShotsSource,
     VideoShotWindowTestSource,
 )
@@ -102,10 +106,7 @@ def make_data_source(layer: Message, *, phase: str = "TRAIN", seed: int = 1234):
         cfg.seed = seed
         cfg.output_video_ids = len(tops) > 1
         if p.get("device_negatives"):
-            raise NotImplementedError(
-                "device_negatives (the on-device negative sampler) is not "
-                "ported to videovector_tpu_torch yet (ROADMAP queue 1, "
-                "item 7)")
+            return _device_negatives_source(p, cfg, tops, seed)
         # the C++ sampler (WINDOW mode, no separate negative dataset, VVR
         # store) with its own prefetch thread, as the JAX package's factory
         # chooses it; VVTPU_NATIVE_DATA=0 disables
@@ -257,6 +258,43 @@ def make_data_source(layer: Message, *, phase: str = "TRAIN", seed: int = 1234):
     raise NotImplementedError(f"no data-source factory for {ltype!r}")
 
 
+def _device_negatives_source(p: Message, cfg: SampledShotsConfig,
+                              tops: list[str], seed: int):
+    """The on-device negative sampler's host half (data/device_sampler.py):
+    the Python sampler with no negatives, so the host ships only (B, C, D)
+    target+context rows, and the seed of the device reservoir, the
+    reference's initial fill (one random shot per video, key dedup;
+    NegativeReservoir), in `device_negatives["buffer"]`. The driver samples
+    and updates the reservoir inside the train step. The C++ sampler does
+    not take this path."""
+    if cfg.num_negative_samples <= 0 or cfg.max_buffer_size <= 0:
+        raise ValueError(
+            "device_negatives needs num_negative_samples > 0 and "
+            "max_buffer_size > 0")
+    if cfg.max_same_video_negs > 0:
+        raise ValueError(
+            "device_negatives samples ALL negatives from the device "
+            "reservoir; same-video hard negatives are a host-path feature: "
+            "set max_same_video_negs: 0 or drop device_negatives")
+    ds = ShotDataset.from_records(convert_dir_or_file(p.get("source")))
+    neg = p.get("negative_dataset")
+    neg_ds = ShotDataset.from_records(convert_dir_or_file(neg)) if neg else None
+    host_res = NegativeReservoir(cfg.max_buffer_size, ds.feature_dim,
+                                 cfg.negative_swap_percentage,
+                                 np.random.RandomState(seed))
+    host_res.fill(neg_ds or ds, all_shots=neg_ds is not None)
+    host_cfg = replace(cfg, num_negative_samples=0, max_same_video_negs=0)
+    wrapped = _RenamingSource(VideoSampledShotsSource(ds, host_cfg),
+                              ["data", "video_id"], tops)
+    wrapped.device_negatives = {
+        "top": tops[0],
+        "num_negatives": cfg.num_negative_samples,
+        "swap_percentage": float(cfg.negative_swap_percentage),
+        "buffer": host_res.buffer.copy(),
+    }
+    return wrapped
+
+
 class _ConstantSource:
     """The same batch on every call (a fixed gallery's Forward is a
     constant)."""
@@ -284,6 +322,18 @@ class MergedSource:
         for s in self.sources:
             out.update(s.next_batch())
         return out
+
+    @property
+    def device_negatives(self) -> dict | None:
+        """The one child source configured with `device_negatives: true`
+        (the on-device sampler's wiring), or None. Two such layers in one
+        net is a config error: the driver carries ONE device reservoir."""
+        found = [s.device_negatives for s in self.sources
+                 if getattr(s, "device_negatives", None)]
+        if len(found) > 1:
+            raise ValueError("at most one data layer may set "
+                             "device_negatives")
+        return found[0] if found else None
 
     def batch_axes(self) -> dict:
         out: dict = {}

@@ -41,6 +41,9 @@ from videovector_tpu_torch.ops.embedding import id_to_weight_lookup
 from videovector_tpu_torch.ops.hopper.conv_gemm import conv2d_nchw
 from videovector_tpu_torch.ops.linear import inner_product, tower_matmul
 from videovector_tpu_torch.ops.normalization import l2_normalize_rows, mvn
+from videovector_tpu_torch.ops.quant import (
+    dequantize_conv_weight, int8_conv2d, int8_inner_product,
+)
 from videovector_tpu_torch.ops.social import social_pooling
 
 
@@ -158,13 +161,15 @@ def _inner_product():
         torch.matmul), with the operands in the Net's compute dtype (f32
         when unset; a negative regularization is inert and keeps f32, as in
         JAX). A positive one keeps ops.linear.inner_product's (1 + r/2)
-        weight-gradient quirk, in f32."""
-        if (ctx.quant or {}).get(cfg.get("name")) is not None:
-            raise NotImplementedError(
-                "int8 INNER_PRODUCT (Net.quant) is not ported to "
-                "videovector_tpu_torch yet (ROADMAP queue 1, item 10)")
+        weight-gradient quirk, in f32. A layer in the Net's int8 `quant`
+        side table (tools/quantize.py) with regularization 0 runs
+        ops.quant.int8_inner_product instead: int8 x int8 -> int32 on
+        torch._int_mm, dequantized in f32, plus the bias."""
         p = cfg.get_msg("inner_product_param")
         reg = float(p.get("regularization", 0.0))
+        q = (ctx.quant or {}).get(cfg.get("name"))
+        if q is not None and reg == 0.0:
+            return [int8_inner_product(inputs[0], q, params.get("b"))]
         x, w, b = inputs[0], params["w"], params.get("b")
         if reg > 0.0:
             return [inner_product(x, w, b, regularization=reg)]
@@ -240,20 +245,31 @@ def _convolution():
         return params
 
     def apply(params, inputs, cfg, ctx):
-        """One K2 launch on a CUDA tensor (the core route, one launch per
-        group, for f32 operands; the sm90 route for bf16), in the Net's
-        compute dtype; ops.hopper.conv_gemm.conv2d_nchw. The ReLU after it
-        stays its own layer, for JAX's tie gradient."""
-        if (ctx.quant or {}).get(cfg.get("name")) is not None:
-            raise NotImplementedError(
-                "int8 CONVOLUTION (Net.quant) is not ported to "
-                "videovector_tpu_torch yet (ROADMAP queue 1, item 10)")
+        """One K2 launch on a CUDA tensor (the f32 route for f32 operands;
+        the sm90 route for bf16), in the Net's compute dtype;
+        ops.hopper.conv_gemm.conv2d_nchw. The ReLU after it stays its own
+        layer, for JAX's tie gradient. A layer in the Net's `quant` side
+        table runs its mode: "weight_only" (what tools/quantize.py gives a
+        conv) dequantizes the int8 weights and runs K2 on bf16 operands,
+        the f32 bias inside the f32 sum and one rounding to bf16, as JAX's
+        conv2d(preferred f32) then the cast; "int8" quantizes the input and
+        sums exactly in int32 (ops.quant.int8_conv2d)."""
         p = cfg.get_msg("convolution_param")
         _, stride, pad = _kernel_geometry(p)
-        return [conv2d_nchw(inputs[0], params["w"], params.get("b"),
-                            stride=stride, pad=pad,
-                            groups=int(p.get("group", 1)),
-                            compute_dtype=ctx.compute_dtype, plain=ctx.plain)]
+        groups = int(p.get("group", 1))
+        x, b = inputs[0], params.get("b")
+        q = (ctx.quant or {}).get(cfg.get("name"))
+        if q is not None and q.get("mode", "int8") == "weight_only":
+            return [conv2d_nchw(x, dequantize_conv_weight(q), b,
+                                stride=stride, pad=pad, groups=groups,
+                                compute_dtype=torch.bfloat16,
+                                plain=ctx.plain)]
+        if q is not None:
+            return [int8_conv2d(x, q, b, stride=stride, pad=pad,
+                                groups=groups)]
+        return [conv2d_nchw(x, params["w"], b, stride=stride, pad=pad,
+                            groups=groups, compute_dtype=ctx.compute_dtype,
+                            plain=ctx.plain)]
 
     return init, apply
 

@@ -143,8 +143,9 @@ class Net:
         self.role_major_inputs: tuple = ()
         # layers the last apply() ran symbolically (tests, logs)
         self._last_absorbed = 0
-        # int8 PTQ side table: not ported (ROADMAP item 10); INNER_PRODUCT
-        # raises on a layer named in it
+        # the int8 PTQ side table (tools/quantize.py): {layer name: {"w_q",
+        # "s_w", "s_x", "mode"}}; INNER_PRODUCT and CONVOLUTION layers named
+        # in it run their quantized branch
         self.quant = None
         # legacy V0 auto-upgrade on load (ref ReadNetParamsFromTextFileOrDie
         # -> UpgradeV0Net, util/upgrade_proto.cpp)
@@ -678,6 +679,28 @@ class Net:
     def loss_fn(self, params, batch, generator=None):
         loss, _ = self.apply(params, batch, generator=generator)
         return loss
+
+    def debug_info(self, params, batch, *, generator=None) -> dict:
+        """Per-blob mean-abs activation stats, the analogue of Caffe's
+        `debug_info` forward printing (ref:src/caffe/net.cpp:581-636):
+        {blob_name: mean_abs} plus {"param:layer/param": mean_abs}, each
+        also logged. At TRAIN with no generator, dropout draws from one
+        seeded 0 on the batch's device."""
+        if generator is None and self.phase == "TRAIN":
+            dev = next((v.device for v in batch.values()
+                        if isinstance(v, torch.Tensor)), torch.device("cpu"))
+            generator = torch.Generator(device=dev).manual_seed(0)
+        _, blobs = self.apply(params, batch, generator=generator,
+                              return_blobs=True)
+        stats = {name: float(v.detach().float().abs().mean())
+                 for name, v in blobs.items()}
+        for lname, lp in params.items():
+            for pname, arr in lp.items():
+                stats[f"param:{lname}/{pname}"] = float(
+                    arr.detach().float().abs().mean())
+        for name, value in sorted(stats.items()):
+            log.info("    [debug_info] %s: mean abs = %g", name, value)
+        return stats
 
     def process_host_sinks(self, blobs: dict, *, append: bool = False):
         """Dump the sink layers' bottoms (call with `return_blobs=True`

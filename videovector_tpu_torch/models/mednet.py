@@ -57,6 +57,11 @@ class MedNetConfig:
     fc7: int = 4096
     input_hw: tuple = (227, 227)
     compute_dtype: str = "bfloat16"
+    # the JAX model's option to run conv1 (11x11, stride 4, no padding) as a
+    # stride-1 conv over space-to-depth blocks. Exact math, so here it is
+    # accepted and changes nothing: K2 repacks conv1 that way on its own
+    # (ops/hopper/conv_gemm.py::space_to_depth), whatever this says.
+    conv1_space_to_depth: bool = False
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -129,3 +134,35 @@ class MedNet:
             if upto == name:
                 return x
         return x
+
+    @staticmethod
+    def params_from_graph_engine(net_params: dict, *,
+                                 fc6_chw: tuple = (256, 6, 6),
+                                 name_map: dict | None = None) -> dict:
+        """The graph engine's CaffeNet params (NCHW/OIHW, fc weights (K, N))
+        in this model's NHWC/HWIO layout. fc6's input is the CHW flatten in
+        the engine and the HWC flatten here, so its weight rows are permuted
+        to match. `name_map` maps graph layer names to this model's; a
+        layer without a bias (bias_term: false) gets zeros, the same sum."""
+        name_map = name_map or {}
+        out = {}
+        for name, lp in net_params.items():
+            if "w" not in lp:
+                continue
+            tgt = name_map.get(name, name)
+            w = lp["w"]
+
+            def bias(width):
+                b = lp.get("b")
+                return b if b is not None else torch.zeros(
+                    width, dtype=torch.float32, device=w.device)
+            if w.dim() == 4:  # conv: OIHW -> HWIO
+                out[tgt] = {"w": w.permute(2, 3, 1, 0).contiguous(),
+                            "b": bias(w.shape[0])}
+                continue
+            if tgt == "fc6":
+                c, h, wd = fc6_chw
+                w = w.reshape(c, h, wd, -1).permute(1, 2, 0, 3) \
+                    .reshape(c * h * wd, -1)
+            out[tgt] = {"w": w.contiguous(), "b": bias(w.shape[1])}
+        return out

@@ -32,9 +32,17 @@ The epilogue is MedNet's (`conv_epilogue_plain`), not K1's: a bf16 output
 rounds the sum, adds the rounded bias, rounds again, then applies ReLU.
 Each runs its plain version (`*_plain`: im2col + matmul) for CPU tensors and
 launches a kernel for CUDA tensors; on any other device it raises.
+`conv2d_gemm_nhwc` (and so `conv2d_nchw`) reaches the kernels through the
+custom op `vvtpu::k2_conv2d_nhwc`: its real implementation picks the route
+(reading the operands' addresses), repacks conv1 and launches, counting
+each launch; its fake implementation gives the output's shape and dtype
+alone, so `torch.export` traces K2 into a serving artifact
+(tools/serving.py) as one node, and the artifact's launches count too.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -408,6 +416,26 @@ def conv2d_gemm_nhwc(x, w, b=None, *, stride=(1, 1), pad=(0, 0),
         return conv2d_gemm_nhwc_plain(x, w, b, stride=stride, pad=pad,
                                       groups=groups, fuse_relu=fuse_relu,
                                       out_dtype=out_dtype)
+    _check(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), groups, out_dtype)
+    check_cuda_operands(x, w, b)
+    return torch.ops.vvtpu.k2_conv2d_nhwc(x, w, b, list(stride), list(pad),
+                                          int(groups), fuse_relu, out_dtype)
+
+
+@torch.library.custom_op(
+    "vvtpu::k2_conv2d_nhwc", mutates_args=(),
+    schema="(Tensor x, Tensor w, Tensor? b, int[] stride, int[] pad, "
+           "int groups, bool fuse_relu, ScalarType out_dtype) -> Tensor")
+def k2_conv2d_nhwc(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
+                   stride: list[int], pad: list[int], groups: int,
+                   fuse_relu: bool, out_dtype: torch.dtype) -> torch.Tensor:
+    """K2 as a custom op: `conv2d_gemm_nhwc`'s launch on CUDA tensors (the
+    route from `k2_route`, counted), its plain version on CPU tensors."""
+    stride, pad = tuple(stride), tuple(pad)
+    if x.device.type == "cpu":
+        return conv2d_gemm_nhwc_plain(x, w, b, stride=stride, pad=pad,
+                                      groups=groups, fuse_relu=fuse_relu,
+                                      out_dtype=out_dtype)
     xv, wv = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
     _check(xv, wv, groups, out_dtype)
     route = k2_route(x, w, out_dtype, stride=stride, pad=pad)
@@ -419,6 +447,13 @@ def conv2d_gemm_nhwc(x, w, b=None, *, stride=(1, 1), pad=(0, 0),
     _conv_kernel(xv, wv, b, out.permute(0, 3, 1, 2), stride, pad, groups,
                  fuse_relu)
     return out
+
+
+@k2_conv2d_nhwc.register_fake
+def _k2_conv2d_nhwc_fake(x, w, b, stride, pad, groups, fuse_relu, out_dtype):
+    oh, ow = _out_hw(x.shape[1], x.shape[2], w.shape[0], w.shape[1], stride,
+                     pad)
+    return x.new_empty((x.shape[0], oh, ow, w.shape[3]), dtype=out_dtype)
 
 
 def _conv_nchw_f32(x, w, b, stride, pad, groups, plain):

@@ -15,14 +15,22 @@ Each source note says what bounds its kernel on the H100.
 
 `matmul` launches a kernel for CUDA tensors and runs `matmul_plain`, the
 plain PyTorch version, for CPU tensors; on any other device it raises.
+It reaches the kernels through the custom op `vvtpu::k1_matmul`, whose
+real implementation picks the route (reading the operands' addresses) and
+launches, and whose fake implementation gives the output's shape and dtype
+alone: so `torch.export` traces K1 into a serving artifact
+(tools/serving.py) as one node, and the artifact launches it when it runs.
 `matmul.launches` counts every launch, `matmul.launches_sm90` and
-`matmul.launches_f32` those of the sm90 and f32 routes. The kernels are
-forward only, as the Pallas kernel is: the training tower reaches K1
-through ops.linear.tower_matmul, an autograd Function whose backward is
+`matmul.launches_f32` those of the sm90 and f32 routes, inside the op, so
+an artifact's launches count too. The kernels are forward only, as the
+Pallas kernel is: the training tower reaches K1 through
+ops.linear.tower_matmul, an autograd Function whose backward is
 torch.matmul.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -157,13 +165,28 @@ def matmul(x, w, b=None, *, fuse_relu: bool = False, out_dtype=torch.float32):
     """x: (M, K), w: (K, N), b: (N,) optional -> act(x.w + b): (M, N).
 
     x and w share a dtype, float32 or bfloat16 (bfloat16 runs on the tensor
-    cores, float32 on FFMA); the sum is f32; any strides."""
+    cores, float32 on FFMA); the sum is f32; any strides. CUDA tensors go
+    through `vvtpu::k1_matmul`; CPU tensors run `matmul_plain`."""
     if x.device.type == "cpu":
         return matmul_plain(x, w, b, fuse_relu=fuse_relu, out_dtype=out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"K1 runs on CUDA or (plain) CPU tensors, not {x.device}")
     _check(x, w, out_dtype)
     check_cuda_operands(x, w, b)
+    return torch.ops.vvtpu.k1_matmul(x, w, b, fuse_relu, out_dtype)
+
+
+@torch.library.custom_op(
+    "vvtpu::k1_matmul", mutates_args=(),
+    schema="(Tensor x, Tensor w, Tensor? b, bool fuse_relu, "
+           "ScalarType out_dtype) -> Tensor")
+def k1_matmul(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
+              fuse_relu: bool, out_dtype: torch.dtype) -> torch.Tensor:
+    """K1 as a custom op: `matmul`'s launch on CUDA tensors (the route
+    from `k1_route`, counted), `matmul_plain` on CPU tensors."""
+    if x.device.type == "cpu":
+        return matmul_plain(x, w, b, fuse_relu=fuse_relu, out_dtype=out_dtype)
+    _check(x, w, out_dtype)
     m, k = x.shape
     n = w.shape[1]
     if max(m, n, k) > INT_MAX:
@@ -206,6 +229,11 @@ def matmul(x, w, b=None, *, fuse_relu: bool = False, out_dtype=torch.float32):
         _build.check(rc, "K1 matmul")
     matmul.launches += 1
     return out
+
+
+@k1_matmul.register_fake
+def _k1_matmul_fake(x, w, b, fuse_relu, out_dtype):
+    return x.new_empty((x.shape[0], w.shape[1]), dtype=out_dtype)
 
 
 matmul.launches = 0

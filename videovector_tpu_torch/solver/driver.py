@@ -10,13 +10,16 @@ reach the card through data/prefetch.py (pinned buffers, the copy on a side
 stream, overlapping the step).
 
 An entry point: it runs on the card unless asked for the CPU
-(`device="cpu"`), and raises without a card. What later slices bring
-raises NotImplementedError naming its ROADMAP item: the mesh (11),
-device_negatives (7, raised by the data factory), snapshot_vis and
-debug_info (10); orbax stays with the JAX package. Finetune weights are a
-.vvmodel or the reference's .caffemodel; a run resumes from a .vvstate or
-the reference's .solverstate, and `snapshot_format: "caffe"` writes the
-reference's .caffemodel/.solverstate pair beside the npz pair.
+(`device="cpu"`), and raises without a card. The mesh raises
+NotImplementedError naming its ROADMAP item (11); orbax stays with the JAX
+package. A data layer with `device_negatives: true` keeps its reservoir on
+the card (data/device_sampler.py): the host ships (B, C, ...) rows, and the
+loss function draws the negatives and updates the reservoir, which rides
+the "__carry__" channel. `snapshot_vis` writes tools/vis_snapshot.py's JSON
+and `debug_info` logs Net.debug_info every `display` iterations. Finetune
+weights are a .vvmodel or the reference's .caffemodel; a run resumes from a
+.vvstate or the reference's .solverstate, and `snapshot_format: "caffe"`
+writes the reference's .caffemodel/.solverstate pair beside the npz pair.
 """
 
 from __future__ import annotations
@@ -29,6 +32,10 @@ import numpy as np
 import torch
 
 from videovector_tpu_torch.config.textformat import Message, parse_file
+from videovector_tpu_torch.core.seeds import SAMPLER_STREAM, derived_seed
+from videovector_tpu_torch.data.device_sampler import (
+    DeviceReservoir, train_batch_with_device_negatives,
+)
 from videovector_tpu_torch.data.prefetch import DevicePrefetcher
 from videovector_tpu_torch.data.weights import NetWeights, load_into_params
 from videovector_tpu_torch.device import DEFAULT, resolve
@@ -40,6 +47,7 @@ from videovector_tpu_torch.solver.checkpoint import (
 )
 from videovector_tpu_torch.solver.solvers import SolverConfig
 from videovector_tpu_torch.solver.train import TrainResult, train
+from videovector_tpu_torch.tools.vis_snapshot import vis_snapshot
 from videovector_tpu_torch.utils.logging import get_logger
 
 log = get_logger(__name__)
@@ -86,12 +94,17 @@ class SolverDriver:
         self._prefetchers: list = []  # live DevicePrefetchers (closed per train())
         self.cfg = SolverConfig.from_message(solver_msg)
         # the reference's visualization and debug knobs (ref
-        # solver.cpp:183-193): the port has no vis_snapshot or
-        # Net.debug_info yet
-        if int(solver_msg.get("snapshot_vis", 0) or 0):
-            raise _not_ported("snapshot_vis (tools/vis_snapshot.py)", "10")
-        if solver_msg.get("debug_info"):
-            raise _not_ported("debug_info (Net.debug_info)", "10")
+        # solver.cpp:183-193, :345-416)
+        self.snapshot_vis = int(solver_msg.get("snapshot_vis", 0) or 0)
+        self.snapshot_vis_dir = solver_msg.get("snapshot_vis_dir", ".")
+        # csv blob selection and sample truncation (ref solver.cpp:352-353,
+        # 401-405: an empty csv is every blob; truncate_len 0 the default)
+        vis_blobs = solver_msg.get("snapshot_vis_blobs", "") or ""
+        self.snapshot_vis_blobs = [b for b in vis_blobs.split(",") if b]
+        self.snapshot_vis_truncate = int(
+            solver_msg.get("snapshot_vis_truncate_len", 0) or 0)
+        self.debug_info_every = (int(solver_msg.get("display", 0) or 0)
+                                 if solver_msg.get("debug_info") else 0)
 
         def resolve_path(p):
             if p and not os.path.isabs(p):
@@ -202,8 +215,25 @@ class SolverDriver:
         # transposes it like any other batch
         self._first_batch = batch0
         self._first_batch_raw = batch0
+        # the on-device negative sampler (a data layer's `device_negatives:
+        # true`, graph/data_factory.py): the host batch carries (B, C, D)
+        # target+context rows; the net sees (B, C+N, D), assembled in the
+        # loss function from the device reservoir, so its spec widens
+        self.device_negatives = self.train_source.device_negatives
+        spec0 = _spec_from_batch(batch0)
+        if self.device_negatives:
+            dn = self.device_negatives
+            s = spec0[dn["top"]].shape
+            spec0[dn["top"]] = torch.empty(
+                (s[0], s[1] + dn["num_negatives"]) + tuple(s[2:]),
+                dtype=torch.float32, device="meta")
+            if self.snapshot_vis or self.debug_info_every:
+                raise ValueError(
+                    "device_negatives cannot combine with snapshot_vis/"
+                    "debug_info (their hooks forward the raw host batch, "
+                    "which has no negative channels)")
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        params, _ = self.train_net.init(gen, _spec_from_batch(batch0))
+        params, _ = self.train_net.init(gen, spec0)
         self.params = params
 
         # extension: solver `role_major_data: true` feeds eligible data
@@ -213,6 +243,12 @@ class SolverDriver:
         # prefetch thread; loss and grads are bit-equal.
         self.role_major_keys: tuple = ()
         if self._solver_msg.get("role_major_data"):
+            if self.device_negatives:
+                raise ValueError(
+                    "role_major_data cannot combine with device_negatives "
+                    "(the device sampler assembles batch-major (B, C+N, D) "
+                    "inside the step; role_major_data is a >=256-batch "
+                    "relayout knob: drop one of the two)")
             cands = self.train_net.role_major_candidates(batch0)
             if cands:
                 self.train_net.role_major_inputs = tuple(cands)
@@ -232,6 +268,12 @@ class SolverDriver:
                                stages=te_stages)
                 source = self._build_sources(test_net, te_phase,
                                              seed + 1 + i)
+                if source.device_negatives:
+                    raise ValueError(
+                        "device_negatives is a TRAIN-net feature (the "
+                        "reservoir rides the training carry channel); "
+                        f"test net #{i} declares it: gate the layer with "
+                        "include { phase: TRAIN } or drop the flag")
                 # the test net reuses the train net's params (shared by
                 # layer name, ref ShareTrainedLayersWith, net.cpp); its init
                 # only sets its shapes and sharing
@@ -353,8 +395,12 @@ class SolverDriver:
         train_sinks = bool(net.host_sinks)
 
         stateful = bool(net.stateful_layer_names)
+        if stateful and self.device_negatives:
+            raise ValueError(
+                "device_negatives cannot combine with stateful (cross-batch "
+                "LSTM carry) nets: both need the carry channel")
 
-        def loss_fn(p, batch, generator):
+        def net_loss(p, batch, generator):
             # a stateful net's cross-batch LSTM carry (ref
             # lstm_layer.cpp:171-173) rides the aux channel under a
             # reserved key; train moves it, detached, from one step's
@@ -370,6 +416,25 @@ class SolverDriver:
             if train_sinks:
                 aux["__sinks__"] = tail[0]
             return loss, aux
+
+        loss_fn, initial_carry = net_loss, None
+        if self.device_negatives:
+            loss_fn = self._device_negatives_loss(net_loss)
+            initial_carry = torch.as_tensor(self.device_negatives["buffer"],
+                                            device=self.device)
+            if resume_state_path:
+                # the reservoir is not in the snapshot: a resume restarts it
+                # from the initial fill, as the reference's host reservoir,
+                # which lives in data-layer memory, is rebuilt on every
+                # restart (ref:src/caffe/layers/video_sampled_shots_data_
+                # layer.cpp:268-361 refills at LayerSetUp; SolverState
+                # carries iter/weights/history only, caffe.proto:176-180)
+                log.warning(
+                    "resume with device_negatives: the device reservoir "
+                    "restarts from the initial fill (not snapshotted, as "
+                    "the reference's host reservoir is rebuilt on every "
+                    "restart); the negative distribution re-warms over the "
+                    "next ~buffer_size/batch steps")
 
         eval_fns, test_iters = [], []
         if self.test_nets:
@@ -404,6 +469,29 @@ class SolverDriver:
                                               self.test_sources,
                                               self._test_first_batches)]
 
+        hooks = []
+        if self.snapshot_vis:
+            def vis_hook(p, it):
+                os.makedirs(self.snapshot_vis_dir, exist_ok=True)
+                # a TRAIN-phase forward: dropout draws from a generator
+                # seeded by the iteration, so that a dump is reproducible
+                gen = torch.Generator(device=self.device).manual_seed(it)
+                with torch.no_grad():
+                    _, blobs = net.apply(p, self._first_batch_on_device(),
+                                         generator=gen, return_blobs=True)
+                vis_snapshot(net, p, blobs, os.path.join(
+                    self.snapshot_vis_dir, f"vis_iter_{it}.json"),
+                    vis_blobs=self.snapshot_vis_blobs,
+                    max_elements=self.snapshot_vis_truncate or 64)
+
+            hooks.append((self.snapshot_vis, vis_hook))
+        if self.debug_info_every:
+            def debug_hook(p, it):
+                with torch.no_grad():
+                    net.debug_info(p, self._first_batch_on_device())
+
+            hooks.append((self.debug_info_every, debug_hook))
+
         # the batch-axis map for microbatch splits; the role-major feed
         # moves those keys' batch axis from 0 to 1
         src_axes = dict(self.train_source.batch_axes())
@@ -422,6 +510,7 @@ class SolverDriver:
                 sink_fn=[n.process_host_sinks if n.host_sinks else None
                          for n in self.test_nets],
                 train_sink_fn=net.process_host_sinks if train_sinks else None,
+                hooks=hooks,
                 resume_state_path=resume_state_path,
                 param_layer_order=layer_order,
                 caffe_export=caffe_export,
@@ -429,9 +518,11 @@ class SolverDriver:
                 train_output_weights=net.output_loss_weights(),
                 test_output_weights=[n.output_loss_weights()
                                      for n in self.test_nets],
-                # the carry threads between sub-batches on the host: the
-                # fused step cannot carry it (build_fused_step refuses)
-                fused_accum=not stateful)
+                initial_carry=initial_carry,
+                # the carry (LSTM state, device reservoir) threads between
+                # sub-batches on the host: the fused step cannot carry it
+                # (build_fused_step refuses)
+                fused_accum=not (stateful or self.device_negatives))
         finally:
             # stop the prefetch threads and drop their queued device
             # batches: over infinite sources they would otherwise live until
@@ -439,3 +530,42 @@ class SolverDriver:
             for pf in self._prefetchers:
                 pf.close()
             self._prefetchers.clear()
+
+    def _first_batch_on_device(self) -> dict:
+        return {k: torch.as_tensor(v, device=self.device)
+                for k, v in self._first_batch.items()}
+
+    def _device_negatives_loss(self, net_loss):
+        """net_loss wrapped for the on-device sampler: the full (B, C+N, D)
+        batch (or (B, C+N, D, 1)) is assembled on the card from the host's
+        (B, C, D) rows and the reservoir in "__carry__", negatives gathered
+        and the reservoir updated with this batch's rows
+        (data/device_sampler.py); the updated reservoir goes out as the
+        aux's "__carry__". The draws come from a generator of their own,
+        reseeded whenever the dropout generator is (once an iteration, by
+        train), from that seed (`derived_seed`): dropout's stream is the
+        one it would be without the sampler, and each iteration's draws
+        depend on (solver seed, iteration) alone."""
+        dn = self.device_negatives
+        top, n_negs = dn["top"], int(dn["num_negatives"])
+        swap = float(dn["swap_percentage"])
+        sampler_gen = torch.Generator(device=self.device)
+        seeded = [None]
+
+        def loss_fn(p, batch, generator):
+            seed = generator.initial_seed()
+            if seed != seeded[0]:
+                sampler_gen.manual_seed(derived_seed(seed, SAMPLER_STREAM))
+                seeded[0] = seed
+            host = batch[top]
+            trailing1 = host.dim() == 4  # a (B, C, D, 1) feed
+            full, res = train_batch_with_device_negatives(
+                DeviceReservoir(batch["__carry__"], swap), sampler_gen,
+                host[..., 0] if trailing1 else host, n_negs)
+            feed = {k: v for k, v in batch.items() if k != "__carry__"}
+            feed[top] = full[..., None] if trailing1 else full
+            loss, aux = net_loss(p, feed, generator)
+            aux["__carry__"] = res.buffer
+            return loss, aux
+
+        return loss_fn
