@@ -172,6 +172,25 @@ Run from the root of a checkout. It
    of each (f32: K2 f32 5, repack 1, K1 f32 2; bf16: K2 sm90 5, repack 1, K1
    sm90 2; int8: K2 sm90 5, repack 1, no K1), frames/s, bytes and load
    time, and the int8 fc6 + fc7 on torch._int_mm against K1's sm90 route.
+17. runs ROADMAP item 11's parallel path (parallel, after device_negatives,
+   same stores): a one-rank NCCL mesh (make_mesh(1, 1) starts the group
+   from an in-memory store; destroyed after): bench.py's B = 128 step
+   through parallel.make_train_step and make_dp_train_step (f32 and bf16
+   gradient wire), 3 steps each, the f32 paths bit-equal to the unsharded
+   step and the bf16 wire within JAX's bounds, the DP step timed against
+   the unsharded one in turns, `vvtpu-torch train --mesh 1` (20 steps on
+   the host store) logging the losses of the run without --mesh, the mesh
+   and gallery-sharded retrieval engines at 20,000 x 4096 bit-equal to the
+   one-device engines; K1 at the ranks' shard shapes (960 x 4096 x 4096 and
+   1920 x 4096 x 2048) against its plain version, timed beside cuBLAS and
+   the bound; then two spawned gloo ranks sharing the card (joined with a
+   timeout): DP 2 x 1 through make_train_step (each step's gradient against
+   the unsharded one at the same params and masks; at dropout 0 the params
+   against one device's grad_microbatch 2), TP 1 x 2 through
+   make_tp_loss_fn, the enc-dec pipeline 1 x 2 at I = H = 512, T = 20 + 10,
+   B = 64, 4 microbatches against reference_encdec_loss (3 steps each), and
+   the mesh engines; their times are the card time-shared by two
+   processes, no scaling numbers.
 
 Exits non-zero, with no result line, without a CUDA card or outside a
 checkout. The last line of stdout is {"ok": true, "device": {...}}; the line
@@ -5237,6 +5256,695 @@ def serving_artifact(dev) -> dict:
     return {**total, "results": results}
 
 
+# the parallel phase (ROADMAP item 11): the flagship step on a one-rank
+# NCCL mesh and on two gloo ranks sharing the card, the 2-stage enc-dec
+# pipeline at scripts/bench_lstm_train.py's widths, K1 at the ranks' shard
+# shapes, and the mesh retrieval engines at GALLERY_ROWS
+PAR_STEPS = 3
+PAR_WARMUP, PAR_TIMED = 5, 20
+PAR_CLI_STEPS = 20
+PAR_PP_BATCH = 64
+PAR_PP_MICRO = 4
+PAR_RANKS = 2
+PAR_RANK_TIMEOUT = 300
+PAR_LOSS_TOL = 1e-5        # relative, against the unsharded run
+PAR_GRAD_TOL = 1e-4        # of the largest magnitude
+# the tower's weight gradient is the cotangent of its bf16 cast, rounded to
+# bf16 on every path: a rank's half (or column block) is rounded once and
+# the unsharded one once, so they may differ by one bf16 rounding
+BF16_ROUNDING = 2.0 ** -8
+# K1's calls on the ranks: the DP half of the B = 128 tower (960 rows) and
+# a TP rank's column block (1920 rows x 2048 columns), bf16 in, f32 out
+K1_SHARDS = ((960, 4096, 4096), (1920, 4096, 2048))
+
+
+def _flagship(dev, dropout: float = 0.9):
+    """bench.py's B = 128 step: config, model, params, role-major batch and
+    the loss a user's train step calls."""
+    from videovector_tpu_torch.models.embedding import VideoEmbeddingModel
+    cfg, params, batch = _train_setup(dev, TRAIN_BATCH, dropout_rate=dropout)
+    model = VideoEmbeddingModel(cfg)
+
+    def loss_fn(p, b, g):
+        return model.loss(p, b, generator=g, train=True, role_major=True)
+    return cfg, model, params, batch, loss_fn
+
+
+def _unsharded(loss_fn, params, batch, solver, steps: int, dev,
+               grad_map=None):
+    """solver/train.py's step (value_and_grad, then solver_update), masks
+    from one generator seeded i at step i, each gradient through
+    `grad_map` when given: (losses, params, the first step's gradients)."""
+    from videovector_tpu_torch.convert import map_params
+    from videovector_tpu_torch.solver.solvers import (
+        init_solver_state, solver_update,
+    )
+    from videovector_tpu_torch.solver.train import value_and_grad
+    vg = value_and_grad(loss_fn)
+    gen = torch.Generator(device=dev)
+    p, st, losses, g0 = params, init_solver_state(solver, params), [], None
+    for i in range(steps):
+        gen.manual_seed(i)
+        (loss, _), g = vg(p, batch, gen)
+        if grad_map is not None:
+            g = map_params(grad_map, g)
+        g0 = g if g0 is None else g0
+        p, st = solver_update(solver, p, g, st)
+        losses.append(loss)
+    return losses, p, g0
+
+
+def _max_rel(a, b) -> float:
+    return (a.float() - b.float()).abs().max().item() / max(
+        b.float().abs().max().item(), 1e-30)
+
+
+def _held_tree(what: str, got: dict, want: dict, tol: float,
+               bf16_keys=(), spread: dict | None = None,
+               failures: list | None = None) -> float:
+    """The largest error of got's leaves against want's, each relative to
+    the leaf's largest magnitude in want, held to tol; a failure is raised,
+    or appended to `failures` (so that a rank reports every check).
+
+    The tower's bf16-cast params named in bf16_keys are gradients rounded
+    to bf16 on both sides: got's as the mean of ranks' roundings of their
+    own gradients, want's once. Each element is held to those roundings,
+    2**-8 x (spread + |want|), plus 1e-5 of the largest magnitude for the
+    f32 sums' order; spread is the mean over the ranks of |their gradient|
+    (default |got|: one rounding of the same sum)."""
+    from videovector_tpu_torch.convert import leaves_with_paths
+    want_l = dict(leaves_with_paths(want))
+    spread_l = dict(leaves_with_paths(spread)) if spread is not None else {}
+    worst, bad = 0.0, []
+    for path, g in leaves_with_paths(got):
+        w = want_l[path]
+        name = f"{what} {'/'.join(path)}"
+        if path[-1] in bf16_keys and path[0] == "tower":
+            sp = spread_l.get(path, g).abs()
+            n = ((g - w).abs() > BF16_ROUNDING * (sp + w.abs())
+                 + 1e-5 * w.abs().max()).sum().item()
+            if n:
+                bad.append(f"{name}: {n} elements past the bf16 roundings")
+            continue
+        err = _max_rel(g, w)
+        worst = max(worst, err)
+        if not err <= tol:
+            bad.append(f"{name}: {err:.3e} of max|ref| > {tol}")
+    if bad and failures is None:
+        raise AssertionError("; ".join(bad))
+    if failures is not None:
+        failures.extend(bad)
+    return worst
+
+
+def _one_rank_steps(dev, mesh, card: str) -> dict:
+    """make_train_step and make_dp_train_step (f32 and bf16 wire) on the
+    one-rank NCCL mesh, 3 steps each, against the unsharded step: f32 bit
+    for bit; the bf16 wire bit for bit against the unsharded step whose
+    gradients are rounded to bf16 and back (a one-rank all_reduce is the
+    identity, so that rounding is all the wire does), and within JAX's
+    bounds of the unsharded step; then the DP step timed against the
+    unsharded one, in turns."""
+    from videovector_tpu_torch.ops.hopper.matmul import matmul
+    from videovector_tpu_torch.parallel import make_train_step
+    from videovector_tpu_torch.parallel.shard_map_dp import make_dp_train_step
+    from videovector_tpu_torch.parallel.train import shard_batch, shard_params
+    from videovector_tpu_torch.solver import SolverConfig
+    from videovector_tpu_torch.solver.solvers import (
+        init_solver_state, solver_update,
+    )
+    from videovector_tpu_torch.solver.train import value_and_grad
+    cfg, model, params, batch, loss_fn = _flagship(dev)
+    solver = SolverConfig(**TRAIN_SOLVER)
+    ref_l, ref_p, _ = _unsharded(loss_fn, params, batch, solver, PAR_STEPS,
+                                 dev)
+    bf_l, bf_p, _ = _unsharded(loss_fn, params, batch, solver, PAR_STEPS,
+                               dev, grad_map=lambda g: g.to(torch.bfloat16)
+                               .float())
+    gen = torch.Generator(device=dev)
+    steps = {"make_train_step": make_train_step(loss_fn, solver, mesh)}
+    for wire in ("f32", "bf16"):
+        steps[f"make_dp_train_step {wire} wire"] = make_dp_train_step(
+            loss_fn, solver, mesh,
+            psum_dtype=torch.bfloat16 if wire == "bf16" else None)
+    out = {"launches": 0}
+    for name, step in steps.items():
+        p = shard_params(params, mesh)
+        st = init_solver_state(solver, p)
+        b = shard_batch(batch, mesh, {"data": 1}) if name == \
+            "make_train_step" else batch
+        losses = []
+        torch.cuda.synchronize()
+        matmul.launches = matmul.launches_sm90 = 0
+        for i in range(PAR_STEPS):
+            gen.manual_seed(i)
+            p, st, met = step(p, st, b, gen)
+            losses.append(met["loss"])
+        torch.cuda.synchronize()
+        if (matmul.launches, matmul.launches_sm90) != (PAR_STEPS,) * 2:
+            raise AssertionError(f"{name}: K1 launches {matmul.launches} "
+                                 f"({matmul.launches_sm90} sm90), expected "
+                                 f"{PAR_STEPS}")
+        out["launches"] += matmul.launches
+        want_l, want_p = (bf_l, bf_p) if "bf16" in name else (ref_l, ref_p)
+        what = ("the unsharded step's with bf16-rounded gradients"
+                if "bf16" in name else "the unsharded step's")
+        same = (all(torch.equal(a, r) for a, r in zip(losses, want_l))
+                and all(torch.equal(p["tower"][k], want_p["tower"][k])
+                        for k in ("w", "b")))
+        log(f"  {name}: losses {[float(x) for x in losses]}, bit-equal to "
+            f"{what} (losses and params): {same}")
+        if not same:
+            raise AssertionError(f"{name}: not bit-equal to {what} on one "
+                                 "rank")
+        if "bf16" in name:
+            loss_err = max(abs(float(a) - float(r)) / abs(float(r))
+                           for a, r in zip(losses, ref_l))
+            w, rw = p["tower"]["w"], ref_p["tower"]["w"]
+            dw = (w - rw).abs().max().item()
+            log(f"  {name} against the unsharded step (JAX's bounds): max "
+                f"rel loss err {loss_err:.2e} (tol 2e-2); max|w - "
+                f"w_unsharded| {dw:.3e} (tol 1e-2 x max|w| = "
+                f"{1e-2 * rw.abs().max().item():.3e})")
+            if not (loss_err <= 2e-2 and dw < 1e-2 * rw.abs().max().item()):
+                raise AssertionError(f"{name}: outside JAX's bounds")
+
+    # the DP step against the unsharded step, in turns; each runs
+    # PAR_WARMUP steps, then PAR_TIMED between CUDA events
+    vg = value_and_grad(loss_fn)
+
+    def unsharded_step(p, st, b, g):
+        (_, _), grads = vg(p, b, g)
+        return solver_update(solver, p, grads, st)
+
+    dp = steps["make_train_step"]
+    sb = shard_batch(batch, mesh, {"data": 1})
+
+    def run(kind):
+        p = shard_params(params, mesh)
+        st = init_solver_state(solver, p)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        for i in range(PAR_WARMUP + PAR_TIMED):
+            if i == PAR_WARMUP:
+                torch.cuda.synchronize()
+                ev[0].record()
+            gen.manual_seed(i)
+            if kind == "dp":
+                p, st, _ = dp(p, st, sb, gen)
+            else:
+                p, st = unsharded_step(p, st, batch, gen)
+        ev[1].record()
+        torch.cuda.synchronize()
+        return ev[0].elapsed_time(ev[1]) / PAR_TIMED
+    t = [run(k) for k in ("plain", "dp", "dp", "plain")]
+    out["dp_ms"], out["plain_ms"] = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+    nbytes = sum(v.numel() for v in params["tower"].values())
+    log(f"  the B={TRAIN_BATCH} step on the one-rank NCCL mesh "
+        f"(make_train_step) {out['dp_ms']:.4f} ms against the unsharded "
+        f"step's {out['plain_ms']:.4f} ms (CUDA events over {PAR_TIMED} "
+        f"steps after {PAR_WARMUP}, in turns: "
+        f"{', '.join(f'{v:.4f}' for v in t)}; {card}); all_reduce a step: "
+        f"{nbytes * 4 / 1e6:.1f} MB in f32, {nbytes * 2 / 1e6:.1f} MB on the "
+        "bf16 wire")
+    return out
+
+
+def _one_rank_cli(dev, stores: tuple) -> int:
+    """`vvtpu-torch train --mesh 1` against the run without --mesh on the
+    host stores (generate_net.py's net, the repo's solver, PAR_CLI_STEPS
+    steps): equal loss lines. Returns the K1 launches of the --mesh run."""
+    import tempfile
+
+    from videovector_tpu_torch.tools import cli
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = Path(tmp_name)
+        net_path = tmp / "net.prototxt"
+        net_path.write_text(_emit()(*stores, buffer_size=5000))
+        losses, launches = {}, {}
+        for tag, extra in (("plain", []), ("mesh", ["--mesh", "1"])):
+            solver = _cli_solver(tmp / f"{tag}.prototxt", net_path,
+                                 tmp / tag, max_iter=PAR_CLI_STEPS,
+                                 test_interval=10 * PAR_CLI_STEPS,
+                                 snapshot=0, display=1)
+            with _CliCapture() as out:
+                rc, launches[tag] = _counted(lambda: cli.main(
+                    ["train", "--solver", str(solver)] + extra))
+            losses[tag] = out.lines("Iteration")
+            losses[tag] = [l for l in losses[tag] if ", loss = " in l]
+            if rc != 0:
+                raise AssertionError(f"cli train {extra}: rc {rc}")
+    log(f"  vvtpu-torch train --mesh 1, {PAR_CLI_STEPS} steps on the "
+        f"{HOST_VIDEOS} x {HOST_SHOTS} store: {len(losses['mesh'])} loss "
+        f"lines, equal to the run without --mesh: "
+        f"{losses['mesh'] == losses['plain']} (last: {losses['mesh'][-1]}); "
+        f"K1 launches {launches['mesh']} (all, sm90, f32)")
+    if losses["mesh"] != losses["plain"] or not losses["mesh"]:
+        raise AssertionError(f"train --mesh 1 {losses['mesh']} vs "
+                             f"{losses['plain']}")
+    return launches["mesh"][2]
+
+
+def _gallery_engines(feats, vids, cls, mesh=None) -> dict:
+    """The chunked engines on the gallery: sort and count over query chunks
+    (with mesh: split over "data"), and with a mesh the gallery-sharded
+    count engine, as Python floats."""
+    from videovector_tpu_torch.metrics import retrieval as R
+    out = {}
+    for m in ("sort", "count"):
+        out[m], _ = _timed(lambda: R.retrieval_stats_chunked(
+            feats, vids, cls, method=m, mesh=mesh, device=feats.device))
+    if mesh is not None:
+        out["gshard count"], _ = _timed(lambda: R.retrieval_stats_chunked(
+            feats, vids, cls, method="count", mesh=mesh, shard_gallery=True,
+            device=feats.device))
+    return {k: {n: float(x) for n, x in v.items()} for k, v in out.items()}
+
+
+def _check_engines(what: str, got: dict, one: dict) -> None:
+    for k, v in got.items():
+        want = one["count" if "count" in k else "sort"]
+        if v != want:
+            raise AssertionError(f"{what} {k}: {v} vs one device {want}")
+    log(f"  {what}: " + "; ".join(f"{k} {v}" for k, v in got.items())
+        + ": bit-equal to the one-device engines")
+
+
+def _k1_shard_times(dev, gen, card: str) -> dict:
+    """K1 at the ranks' shapes (K1_SHARDS: bf16 in, f32 out, bias): against
+    the plain version (the split-K plan at these shapes), timed in turns
+    with the plain version and torch.mm (cuBLAS) over copies of w beyond
+    L2, beside the bound."""
+    from videovector_tpu_torch.ops.hopper import matmul as k1
+    bf = torch.bfloat16
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+           "err": 0.0, "bound_by": "operations"}
+    for m, k, n in K1_SHARDS:
+        x = torch.randn((m, k), generator=gen, device=dev).to(bf)
+        b = torch.randn((n,), generator=gen, device=dev)
+        ws = [(torch.randn((k, n), generator=gen, device=dev) * 0.02).to(bf)
+              for _ in range(max(2, math.ceil(L2_EXCESS * L2_BYTES
+                                              / (k * n * 2))))]
+        if k1.k1_route(x, ws[0], torch.float32) != "sm90":
+            raise AssertionError(f"K1 {m}x{k}x{n}: not on the sm90 route")
+        run = lambda w: k1.matmul(x, w, b)
+        plain = lambda w: k1.matmul_plain(x, w, b)
+        cublas = lambda w: torch.mm(x, w, out_dtype=torch.float32)
+        err = compare(f"K1 shard {m}x{k}x{n}", run(ws[0]), plain(ws[0]))
+        if not torch.equal(run(ws[0]), run(ws[0])):
+            raise AssertionError("K1 shard: two runs of the split-K route "
+                                 "differ")
+        t = [time_graph_ms(fn, ws) for fn in (plain, run, cublas, cublas,
+                                               run, plain)]
+        ms, ms_plain, ms_lib = (t[1] + t[4]) / 2, (t[0] + t[5]) / 2, \
+            (t[2] + t[3]) / 2
+        flops = 2 * m * k * n
+        t_bytes = (m * k * 2 + k * n * 2 + n * 4 + m * n * 4) / PEAK_BYTES
+        bound = max(t_bytes, flops / PEAK_FLOPS) * 1e3
+        _, splits = k1.k1_split_plan(m, n, k, sms)
+        log(f"  K1 {m}x{k}x{n} (bf16 in, f32 out, bias; {splits} splits): "
+            f"kernel {ms:.4f} ms, plain {ms_plain:.4f}, cuBLAS torch.mm "
+            f"{ms_lib:.4f}, bound {bound:.4f} ({flops / 1e9:.1f} GFLOP at "
+            f"{PEAK_FLOPS / 1e12:.0f} TFLOP/s; {bound / ms:.2f} of it); "
+            f"turns {', '.join(f'{v:.4f}' for v in t)}; {card}")
+        for key, v in (("ms", ms), ("plain_ms", ms_plain),
+                       ("library_ms", ms_lib), ("bound_ms", bound)):
+            out[key] += v
+        out["err"] = max(out["err"], err)
+    return out
+
+
+def _rank_dp(dev, mesh) -> dict:
+    """DP 2 x 1 through make_train_step, the rank's 64 windows (K1 on 960
+    rows), 3 steps at dropout 0.9: losses against the unsharded run's, and
+    at every step the gradient averaged over "data" against the unsharded
+    gradient at the same params and masks. Then 3 steps at dropout 0
+    against one device's grad_microbatch = 2 (each microbatch one rank's
+    rows, so that the weight gradient rounds to bf16 as the ranks' does):
+    the params."""
+    from videovector_tpu_torch.ops.hopper.matmul import matmul
+    from videovector_tpu_torch.ops.sharding import all_reduce_grads, axes_of
+    from videovector_tpu_torch.parallel import make_train_step
+    from videovector_tpu_torch.parallel.train import shard_batch, shard_params
+    from videovector_tpu_torch.solver import SolverConfig
+    from videovector_tpu_torch.solver.solvers import (
+        init_solver_state, solver_update,
+    )
+    from videovector_tpu_torch.solver.train import (
+        accumulate_microbatches, value_and_grad,
+    )
+    from videovector_tpu_torch.convert import map_params
+    solver = SolverConfig(**TRAIN_SOLVER)
+    failures, out = [], {}
+    gen = torch.Generator(device=dev)
+    for dropout in (0.9, 0.0):
+        cfg, model, params, batch, loss_fn = _flagship(dev, dropout=dropout)
+        vg = value_and_grad(loss_fn)
+        b = shard_batch(batch, mesh, {"data": 1})
+        rows = b["data"].shape[1]
+        p = shard_params(params, mesh)
+        st = init_solver_state(solver, p)
+        step = make_train_step(loss_fn, solver, mesh)
+        q, qs, losses, ref_l, grad_err = params, st, [], [], 0.0
+        launches = [0, 0]   # the steps' own: the checks' calls not counted
+        evs = [[torch.cuda.Event(enable_timing=True) for _ in range(2)]
+               for _ in range(PAR_STEPS)]
+        for i in range(PAR_STEPS):
+            if dropout:
+                # the sharded gradient against the unsharded one, at the
+                # same params and masks
+                gen.manual_seed(i)
+                with axes_of(mesh, batch=rows):
+                    (_, _), g_rank = vg(p, b, gen)
+                spread = all_reduce_grads(map_params(torch.abs, g_rank),
+                                          mesh)
+                g = all_reduce_grads(g_rank, mesh)   # in place
+                gen.manual_seed(i)
+                (loss, _), g_ref = vg(p, batch, gen)
+                ref_l.append(float(loss))
+                grad_err = max(grad_err, _held_tree(
+                    f"DP step {i} gradients", g, g_ref, PAR_GRAD_TOL,
+                    bf16_keys=("w",), spread=spread, failures=failures))
+            else:
+                # one device, each rank's rows a microbatch
+                g, loss, _ = accumulate_microbatches(
+                    vg, q, batch, {"data": 1}, PAR_RANKS, None)
+                g = map_params(lambda t: t / PAR_RANKS, g)
+                q, qs = solver_update(solver, q, g, qs)
+                ref_l.append(float(loss) / PAR_RANKS)
+            gen.manual_seed(i)
+            torch.cuda.synchronize()
+            matmul.launches = matmul.launches_sm90 = 0
+            evs[i][0].record()
+            p, st, met = step(p, st, b, gen)
+            evs[i][1].record()
+            launches[0] += matmul.launches
+            launches[1] += matmul.launches_sm90
+            losses.append(float(met["loss"]))
+        torch.cuda.synchronize()
+        key = "drop" if dropout else "nodrop"
+        out[key] = {"losses": losses,
+                    "loss_err": max(abs(a - r) / abs(r)
+                                    for a, r in zip(losses, ref_l)),
+                    "ms": sum(e0.elapsed_time(e1) for e0, e1 in evs)
+                    / PAR_STEPS}
+        if dropout:
+            out["grad_err"] = grad_err
+            out["launches"] = tuple(launches)
+        else:
+            out["param_err"] = _held_tree("DP params (gm 2 reference)", p,
+                                          q, PAR_GRAD_TOL,
+                                          failures=failures)
+    out.update(rows=rows * batch["data"].shape[0], failures=failures,
+               loss_err=max(out["drop"]["loss_err"],
+                            out["nodrop"]["loss_err"]),
+               losses=out["drop"]["losses"], ms=out["drop"]["ms"])
+    return out
+
+
+def _rank_tp(dev, mesh) -> dict:
+    """TP 1 x 2 through make_tp_loss_fn (dropout off: its masks are per
+    column block): K1 at 1920 x 4096 -> 2048 on each rank, 3 steps against
+    the unsharded model's."""
+    from videovector_tpu_torch.ops.collectives import all_gather
+    from videovector_tpu_torch.ops.hopper.matmul import matmul
+    from videovector_tpu_torch.ops.sharding import all_reduce_grads, mesh_axis
+    from videovector_tpu_torch.parallel.shard_map_tp import (
+        make_tp_loss_fn, place_tp_params,
+    )
+    from videovector_tpu_torch.solver import SolverConfig
+    from videovector_tpu_torch.solver.solvers import (
+        init_solver_state, solver_update,
+    )
+    from videovector_tpu_torch.solver.train import value_and_grad
+    cfg, model, params, batch, _ = _flagship(dev, dropout=0.0)
+    data = {"data": batch["data"].transpose(0, 1).contiguous()}  # (B, R, D)
+
+    def ref_loss(p, b, g):
+        return model.loss(p, b, generator=None, train=True)
+    solver = SolverConfig(**TRAIN_SOLVER)
+    ref_l, ref_p, ref_g = _unsharded(ref_loss, params, data, solver,
+                                     PAR_STEPS, dev)
+    tp_loss = make_tp_loss_fn(cfg, mesh)
+    vg = value_and_grad(tp_loss)
+    p = place_tp_params(params, mesh)
+    st = init_solver_state(solver, p)
+    ax = mesh_axis(mesh, "model")
+
+    def whole(tree):
+        return {"tower": {"w": all_gather(tree["tower"]["w"], ax, 1),
+                          "b": all_gather(tree["tower"]["b"], ax, 0)}}
+    losses, g0 = [], None
+    torch.cuda.synchronize()
+    matmul.launches = matmul.launches_sm90 = 0
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    for i in range(PAR_STEPS):
+        (loss, _), g = vg(p, data, None)
+        g = all_reduce_grads(g, mesh)
+        g0 = whole(g) if g0 is None else g0
+        p, st = solver_update(solver, p, g, st)
+        losses.append(float(loss))
+    ev[1].record()
+    torch.cuda.synchronize()
+    launches = (matmul.launches, matmul.launches_sm90)
+    failures = []
+    return {"launches": launches,
+            "shape": (data["data"].shape[0] * data["data"].shape[1],
+                      p["tower"]["w"].shape[0], p["tower"]["w"].shape[1]),
+            "loss_err": max(abs(a - float(r)) / abs(float(r))
+                            for a, r in zip(losses, ref_l)),
+            "grad_err": _held_tree("TP gradients", g0, ref_g, PAR_GRAD_TOL,
+                                   bf16_keys=("w",), failures=failures),
+            "param_err": _held_tree("TP params", whole(p), ref_p,
+                                    PAR_GRAD_TOL, failures=failures),
+            "failures": failures,
+            "losses": losses, "ms": ev[0].elapsed_time(ev[1]) / PAR_STEPS}
+
+
+def _encdec_setup(dev):
+    """The pipeline's workload at scripts/bench_lstm_train.py's widths (I =
+    H = 512, T = 20 + 10), B = PAR_PP_BATCH, a 512 -> 2 readout, from a
+    seeded generator."""
+    from videovector_tpu_torch.ops.recurrent import init_lstm_params
+    gen = torch.Generator(device=dev).manual_seed(5)
+    w, (t_obs, t_pred), b = ENCDEC_WIDTH, ENCDEC_T, PAR_PP_BATCH
+    params = {"enc": init_lstm_params(gen, w, w),
+              "dec": init_lstm_params(gen, w, w),
+              "readout": {"w": torch.randn((w, 2), generator=gen,
+                                           device=dev) * 0.05,
+                          "b": torch.zeros(2, device=dev)}}
+    cont_obs = torch.ones((t_obs, b), device=dev)
+    cont_obs[0] = 0
+    batch = {"observed": torch.randn((t_obs, b, w), generator=gen,
+                                     device=dev),
+             "cont_obs": cont_obs,
+             "predicted": torch.randn((t_pred, b, w), generator=gen,
+                                      device=dev),
+             "cont_pred": torch.ones((t_pred, b), device=dev),
+             "gt": torch.randn((t_pred, b, 2), generator=gen, device=dev)}
+    return params, batch
+
+
+def _rank_pp(dev, mesh) -> dict:
+    """The pipeline 1 x 2 (stage r on rank r), PAR_PP_MICRO microbatches, 3
+    SGD steps against reference_encdec_loss's."""
+    from videovector_tpu_torch.ops.sharding import all_reduce_grads
+    from videovector_tpu_torch.parallel.pipeline import (
+        make_pp_loss_fn, reference_encdec_loss,
+    )
+    from videovector_tpu_torch.solver import SolverConfig
+    from videovector_tpu_torch.solver.solvers import (
+        init_solver_state, solver_update,
+    )
+    from videovector_tpu_torch.solver.train import value_and_grad
+    params, batch = _encdec_setup(dev)
+    solver = SolverConfig(**ENCDEC_SOLVER)
+    ref_l, ref_p, ref_g = _unsharded(
+        lambda p, b, g: (reference_encdec_loss(p, b), {}), params, batch,
+        solver, PAR_STEPS, dev)
+    pp = make_pp_loss_fn(mesh, num_microbatches=PAR_PP_MICRO)
+    vg = value_and_grad(lambda p, b, g: (pp(p, b), {}))
+    p, st, losses, g0 = params, init_solver_state(solver, params), [], None
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    for i in range(PAR_STEPS):
+        (loss, _), g = vg(p, batch, None)
+        g = all_reduce_grads(g, mesh)
+        g0 = g if g0 is None else g0
+        p, st = solver_update(solver, p, g, st)
+        losses.append(float(loss))
+    ev[1].record()
+    torch.cuda.synchronize()
+    failures = []
+    return {"loss_err": max(abs(a - float(r)) / abs(float(r))
+                            for a, r in zip(losses, ref_l)),
+            "grad_err": _held_tree("PP gradients", g0, ref_g, PAR_GRAD_TOL,
+                                   failures=failures),
+            "param_err": _held_tree("PP params", p, ref_p, PAR_GRAD_TOL,
+                                    failures=failures),
+            "failures": failures,
+            "losses": losses, "ms": ev[0].elapsed_time(ev[1]) / PAR_STEPS}
+
+
+def _parallel_rank(rank: int, rdzv: str, out: str, one: dict,
+                   dev_type: str) -> None:
+    """One of PAR_RANKS gloo ranks on the one card: DP, TP, the pipeline and
+    the mesh retrieval engines; writes its results (or its traceback) to
+    `out` as JSON."""
+    import datetime
+
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT))
+    result = {"rank": rank}
+    try:
+        from videovector_tpu_torch import _build
+        from videovector_tpu_torch.parallel import make_mesh
+        _build.load_library()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dev = torch.device(dev_type)
+        dist.init_process_group(
+            "gloo", init_method="file://" + rdzv, rank=rank,
+            world_size=PAR_RANKS,
+            timeout=datetime.timedelta(seconds=PAR_RANK_TIMEOUT))
+        result["dp"] = _rank_dp(dev, make_mesh(PAR_RANKS, 1,
+                                               devices=dev_type))
+        result["tp"] = _rank_tp(dev, make_mesh(1, PAR_RANKS,
+                                               devices=dev_type))
+        result["pp"] = _rank_pp(dev, make_mesh(1, PAR_RANKS,
+                                               devices=dev_type))
+        gen = torch.Generator(device=dev).manual_seed(11)
+        feats, vids, cls = _class_gallery(dev, gen, GALLERY_ROWS)
+        t0 = time.perf_counter()
+        result["retrieval"] = _gallery_engines(
+            feats, vids, cls, make_mesh(PAR_RANKS, 1, devices=dev_type))
+        result["retrieval_s"] = time.perf_counter() - t0
+        _check_engines(f"rank {rank}: the mesh engines over {PAR_RANKS} "
+                       "gloo ranks", result["retrieval"], one)
+        dist.destroy_process_group()
+    except BaseException:  # noqa: BLE001 - reported to the parent
+        result["error"] = traceback.format_exc()
+    Path(out).write_text(json.dumps(result))
+
+
+def _two_ranks(one: dict, dev_type: str) -> list[dict]:
+    """PAR_RANKS spawned processes sharing the card over gloo; the parent
+    joins them with a timeout and fails the run on a timeout or an error."""
+    import multiprocessing as mp
+    import tempfile
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [str(Path(tmp) / f"rank{r}.json") for r in range(PAR_RANKS)]
+        procs = [ctx.Process(target=_parallel_rank,
+                             args=(r, str(Path(tmp) / "rdzv"), outs[r], one,
+                                   dev_type))
+                 for r in range(PAR_RANKS)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + PAR_RANK_TIMEOUT
+        # a rank that failed leaves the other waiting in a collective: stop
+        # at the first failure, or at the deadline
+        while any(p.is_alive() for p in procs) and \
+                time.monotonic() < deadline:
+            if any(p.exitcode not in (None, 0) or (
+                    p.exitcode == 0 and '"error"' in Path(o).read_text())
+                    for p, o in zip(procs, outs)):
+                break
+            time.sleep(0.5)
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.kill()
+            p.join()
+        results = [json.loads(Path(o).read_text()) if Path(o).exists()
+                   else {"rank": r, "error": f"no result (exit code "
+                         f"{procs[r].exitcode}, killed: {procs[r] in alive})"}
+                   for r, o in enumerate(outs)]
+    for r in results:
+        if "error" in r:
+            raise AssertionError(f"parallel rank {r['rank']}:\n{r['error']}")
+    return results
+
+
+def parallel(dev, stores: tuple) -> dict:
+    """ROADMAP item 11 on the card. A one-rank NCCL mesh (make_mesh(1, 1)
+    starts the group from an in-memory store; destroyed at the end): the
+    flagship step at full width through make_train_step and
+    make_dp_train_step (f32 and bf16 wire) against the unsharded step,
+    `vvtpu-torch train --mesh 1` against the run without --mesh, the mesh
+    retrieval engines at GALLERY_ROWS against the one-device engines. K1 at
+    the ranks' shard shapes. Then two gloo ranks sharing the card: DP 2 x 1,
+    TP 1 x 2, the pipeline 1 x 2 and the mesh engines. Returns K1's
+    launches in those runs."""
+    import torch.distributed as dist
+
+    from videovector_tpu_torch.parallel import make_mesh
+    card = gpu_name_and_power_limit()
+    t0 = time.perf_counter()
+    mesh = make_mesh(1, 1, devices=dev.type)
+    try:
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        if dist.get_backend() != backend:
+            raise AssertionError(f"one-rank mesh on {dist.get_backend()}")
+        log(f"parallel: a one-rank mesh over {backend} ({card})")
+        out = _one_rank_steps(dev, mesh, card)
+        out["launches_1920"], out["launches"] = out["launches"], 0
+        out["cli_f32"] = _one_rank_cli(dev, stores)
+        gen = torch.Generator(device=dev).manual_seed(11)
+        feats, vids, cls = _class_gallery(dev, gen, GALLERY_ROWS)
+        one = _gallery_engines(feats, vids, cls)
+        log(f"  one-device engines at {GALLERY_ROWS} x 4096 f32: {one}")
+        _check_engines("the mesh engines on one NCCL rank",
+                       _gallery_engines(feats, vids, cls, mesh), one)
+        del feats, vids, cls
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    out["k1"] = _k1_shard_times(dev, torch.Generator(device=dev).manual_seed(3),
+                                card)
+    t1 = time.perf_counter()
+    ranks = _two_ranks(one, dev.type)
+    for r in ranks:
+        dp, tp, pp = r["dp"], r["tp"], r["pp"]
+        log(f"  rank {r['rank']} of {PAR_RANKS} (gloo, the card time-shared "
+            f"by both ranks: these are no scaling numbers): DP {PAR_RANKS} x 1 "
+            f"K1 at {dp['rows']} rows, launches {dp['launches']} (all, "
+            f"sm90); dropout 0.9: losses {dp['losses']} (max rel err "
+            f"{dp['drop']['loss_err']:.2e} against the unsharded, tol "
+            f"{PAR_LOSS_TOL}), each step's gradient {dp['grad_err']:.2e} of "
+            f"max from the unsharded one at the same params (tol "
+            f"{PAR_GRAD_TOL}; the bf16-cast tower weight's within its bf16 "
+            "roundings: each rank's of its own gradient, and the "
+            "unsharded one's); dropout 0 against one device's "
+            f"grad_microbatch {PAR_RANKS}: losses "
+            f"{dp['nodrop']['loss_err']:.2e}, params {dp['param_err']:.2e} "
+            f"of max (tol {PAR_GRAD_TOL}); {dp['ms']:.3f} ms a step. TP 1 x "
+            f"{PAR_RANKS} K1 at {tp['shape']}, launches {tp['launches']}; "
+            f"loss err {tp['loss_err']:.2e}, gradients {tp['grad_err']:.2e}, "
+            f"params {tp['param_err']:.2e}; {tp['ms']:.3f} ms a step. The "
+            f"pipeline 1 x {PAR_RANKS} (I = H = {ENCDEC_WIDTH}, T = "
+            f"{ENCDEC_T[0]} + {ENCDEC_T[1]}, B = {PAR_PP_BATCH}, "
+            f"{PAR_PP_MICRO} microbatches): loss err {pp['loss_err']:.2e}, "
+            f"gradients {pp['grad_err']:.2e}, params {pp['param_err']:.2e}; "
+            f"{pp['ms']:.3f} ms a step. Mesh engines {r['retrieval_s']:.2f} "
+            "s (host clock)")
+        for name, res in (("DP", dp), ("TP", tp), ("PP", pp)):
+            if res["failures"]:
+                raise AssertionError(f"rank {r['rank']} {name}: "
+                                     + "; ".join(res["failures"]))
+            if not res["loss_err"] <= PAR_LOSS_TOL:
+                raise AssertionError(f"{name} losses: {res['loss_err']}")
+        for name, res in (("DP", dp), ("TP", tp)):
+            # one sm90 launch a step, the step's tower on the rank's shard
+            if res["launches"] != [PAR_STEPS, PAR_STEPS]:
+                raise AssertionError(f"{name} K1 launches {res['launches']}, "
+                                     f"expected {PAR_STEPS} (sm90)")
+        out["launches"] += dp["launches"][0] + tp["launches"][0]
+    log(f"parallel: {t1 - t0:.1f} s on one rank, {time.perf_counter() - t1:.1f}"
+        f" s for the {PAR_RANKS} ranks (spawn and CUDA start included)")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -5291,6 +5999,8 @@ def main() -> int:
         interop = caffe_interop(dev, stores)
         torch.cuda.empty_cache()
         dn = device_negatives(dev, stores)
+        torch.cuda.empty_cache()
+        par = parallel(dev, stores)
     torch.cuda.empty_cache()
     zoo = layer_zoo(dev)
     tf32_checks(dev)
@@ -5318,7 +6028,7 @@ def main() -> int:
                  "split-K, bias epilogue, f32 out)", "route": "cuda",
          "source": "videovector_tpu_torch/csrc/matmul_sm90.cu",
          "replaces": "videovector_tpu/ops/pallas/matmul.py:50",
-         "launches": train_launches,
+         "launches": train_launches + par["launches_1920"],
          **{k: stats["K1 train"][k] for k in ("ms", "plain_ms", "bound_ms",
                                              "bound_by", "library_ms")},
          "max_abs_err": stats["K1 train"]["err"]},
@@ -5336,7 +6046,7 @@ def main() -> int:
          "replaces": "videovector_tpu/ops/pallas/matmul.py:50",
          "launches": (net["f32"] + cli["f32"] + ext["k1_f32"] + exh["f32"]
                       + zoo["f32"] + traj["f32"] + interop["k1_f32"]
-                      + dn["f32"] + serve["k1_f32"]),
+                      + dn["f32"] + serve["k1_f32"] + par["cli_f32"]),
          **{k: net["k1"][NET_ROWS][k] for k in ("ms", "plain_ms", "bound_ms",
                                                 "bound_by", "library_ms")},
          "max_abs_err": max([v["err"] for v in net["k1"].values()]
@@ -5353,6 +6063,15 @@ def main() -> int:
                                               "bound_by", "library_ms")},
          "max_abs_err": max([v["core_err"] for v in net["k1"].values()]
                             + [traj["core_err"]])},
+        {"name": "K1 matmul, the parallel ranks' tower shards (DP 2 x 1: "
+                 f"{K1_SHARDS[0][0]} x 4096 x 4096; TP 1 x 2: "
+                 f"{K1_SHARDS[1][0]} x 4096 x {K1_SHARDS[1][2]}; bf16 in, "
+                 "f32 out, bias)", "route": "cuda",
+         "source": "videovector_tpu_torch/csrc/matmul_sm90.cu",
+         "replaces": "videovector_tpu/ops/pallas/matmul.py:50",
+         "launches": par["launches"], "max_abs_err": par["k1"]["err"],
+         **{k: par["k1"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms")}},
         {"name": "K2 conv2d_im2col_gemm (implicit-GEMM conv: cp.async "
                  "gathers + TMA + wgmma, one launch per conv)", "route": "cuda",
          "source": "videovector_tpu_torch/csrc/conv_gemm_sm90.cu",
@@ -5434,7 +6153,14 @@ def main() -> int:
         f"train, tests and the debug_info run); serving_artifact adds one "
         f"counted call of each artifact: K1 sm90 {serve['k1_sm90']}, K1 f32 "
         f"{serve['k1_f32']}, K2 sm90 {serve['k2_sm90']}, K2 f32 "
-        f"{serve['k2_f32']}, repack {serve['repack']})")
+        f"{serve['k2_f32']}, repack {serve['repack']}; parallel adds "
+        f"{par['launches_1920']} K1 sm90 launches at the training tower's "
+        "shape on the one-rank NCCL mesh (make_train_step, "
+        "make_dp_train_step f32 and bf16 wire, 3 steps each), "
+        f"{par['cli_f32']} f32-route launches of `train --mesh 1`, and the "
+        f"{PAR_RANKS} gloo ranks' {par['launches']} sm90 launches at the "
+        "shard shapes (DP and TP; its ms, plain_ms, bound_ms and library_ms "
+        "summed over the two shapes))")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -232,10 +232,36 @@ def test_refusals(mini, tmp_path):
     (["test", "--mesh", "2", "--allow_random_weights"], "item 11"),
 ])
 def test_later_slices_raise_not_implemented(mini, argv, item):
+    """Item 11 has come: --mesh runs over the process group's ranks
+    (tests/test_torch_parallel_driver.py), so a mesh of more than one rank
+    without a group says how to launch them, and --shard_gallery without
+    --mesh is the driver's ValueError."""
     extra = (["--solver", mini["solver"]] if argv[0] == "train"
              else ["--model", mini["net"]])
-    with pytest.raises(NotImplementedError, match=item):
+    err, match = ((ValueError, "requires mesh") if "--shard_gallery" in argv
+                  else (RuntimeError, "torch.distributed.run"))
+    with pytest.raises(err, match=match):
         main(argv[:1] + extra + argv[1:] + ["--cpu"])
+
+
+def test_train_over_a_one_rank_mesh_logs_the_losses_of_no_mesh(mini):
+    """`train --mesh 1` starts its one-rank group itself (no launcher) and
+    logs the run without --mesh's losses, line for line."""
+    import torch.distributed as dist
+    with Lines() as plain:
+        assert main(["train", "--solver", _solver_file(
+            mini, "plain.prototxt", snapshot_prefix=f'"{mini["tmp"]}/p"'),
+            "--cpu"]) == 0
+    try:
+        with Lines() as meshed:
+            assert main(["train", "--solver", _solver_file(
+                mini, "mesh.prototxt",
+                snapshot_prefix=f'"{mini["tmp"]}/m"'), "--mesh", "1",
+                "--cpu"]) == 0
+    finally:
+        dist.destroy_process_group()
+    assert "Training over mesh data=1 model=1" in meshed.lines
+    assert _losses_from(meshed) == _losses_from(plain)
 
 
 def _losses_from(out) -> list:

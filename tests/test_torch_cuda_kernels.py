@@ -1456,3 +1456,57 @@ def test_duplicate_slot_scatter_is_deterministic(dev):
     last = {int(s): i for i, s in enumerate(slots.tolist()) if accept[i]}
     for s, i in last.items():
         assert torch.equal(first[s], feats[i])
+
+
+def test_one_rank_nccl_dp_step_is_bit_equal_to_the_unsharded_step(dev):
+    """parallel.make_train_step on a one-rank NCCL mesh (its group started
+    by make_mesh): the all_reduce of one rank is the identity, so three
+    flagship steps (K1's sm90 route, dropout 0.9) equal solver/train.py's
+    unsharded steps bit for bit."""
+    import torch.distributed as dist
+
+    from videovector_tpu_torch.models.embedding import (
+        VideoEmbeddingConfig, VideoEmbeddingModel,
+    )
+    from videovector_tpu_torch.parallel import make_mesh, make_train_step
+    from videovector_tpu_torch.parallel.train import shard_batch, shard_params
+    from videovector_tpu_torch.solver.solvers import (
+        SolverConfig, init_solver_state, solver_update,
+    )
+    from videovector_tpu_torch.solver.train import value_and_grad
+    cfg = VideoEmbeddingConfig(feature_dim=256, embed_dim=256)
+    m = VideoEmbeddingModel(cfg)
+    s = SolverConfig(base_lr=0.01, momentum=0.9, weight_decay=5e-4)
+    params = m.init(torch.Generator(device=dev).manual_seed(0))
+    rng = np.random.RandomState(0)
+    batches = [_t(rng, 15, 32, 256, dev=dev) for _ in range(3)]
+
+    def loss_fn(p, b, g):
+        return m.loss(p, b, generator=g, train=True, role_major=True)
+
+    gen = torch.Generator(device=dev)
+    p, st = params, init_solver_state(s, params)
+    vg = value_and_grad(loss_fn)
+    ref = []
+    for i, b in enumerate(batches):
+        gen.manual_seed(i)
+        (loss, _), g = vg(p, {"data": b}, gen)
+        p, st = solver_update(s, p, g, st)
+        ref.append(loss)
+    mesh = make_mesh(1, 1)
+    try:
+        assert dist.get_backend() == "nccl"
+        q = shard_params(params, mesh)
+        qs = init_solver_state(s, q)
+        step = make_train_step(loss_fn, s, mesh)
+        before = k1.matmul.launches_sm90
+        for i, b in enumerate(batches):
+            gen.manual_seed(i)
+            q, qs, met = step(q, qs, shard_batch({"data": b}, mesh,
+                                                 {"data": 1}), gen)
+            assert torch.equal(met["loss"], ref[i])
+        assert k1.matmul.launches_sm90 == before + 3
+        for k in ("w", "b"):
+            assert torch.equal(q["tower"][k], p["tower"][k])
+    finally:
+        dist.destroy_process_group()

@@ -245,9 +245,12 @@ def test_driver_refusals_match_jax(tmp_path, case, match):
 
 
 def test_stateful_net_and_mesh_refusals(tmp_path):
+    """A stateful net with device_negatives is refused, as in JAX; a mesh
+    trains since item 11 (tests/test_torch_parallel_driver.py): only
+    shard_gallery without one is refused."""
     td = SolverDriver(_solver(tmp_path), device="cpu").build()
-    with pytest.raises(NotImplementedError, match="item 11"):
-        td.train(mesh=object())
+    with pytest.raises(ValueError, match="requires mesh"):
+        td.train(shard_gallery=True)
     td.train_net.layers.append(parse(
         'layers { name: "rnn" type: LSTM }').get_list("layers")[0])
     with pytest.raises(ValueError, match="stateful"):

@@ -593,10 +593,12 @@ def test_stateful_net_trains_with_its_carry(mini, tmp_path):
     ("shard_gallery", "item 11")])
 def test_later_slices_raise_not_implemented(mini, tmp_path, case, item):
     """Whatever later slices bring raises NotImplementedError naming its
-    ROADMAP item; nothing quietly does something else. Items 7 and 10 have
-    come: snapshot_vis writes its JSON, debug_info logs its stats every
-    `display` iterations, and device_negatives trains with the reservoir
-    carried on the device."""
+    ROADMAP item; nothing quietly does something else. Items 7, 10 and 11
+    have come: snapshot_vis writes its JSON, debug_info logs its stats every
+    `display` iterations, device_negatives trains with the reservoir
+    carried on the device, a one-rank mesh trains as no mesh does (more
+    ranks: tests/test_torch_parallel_driver.py), and shard_gallery without
+    a mesh is JAX's ValueError."""
     fields = dict(max_iter=1, test_interval=0, test_iter=None)
     if case == "snapshot_vis":
         fields["snapshot_vis"] = 5
@@ -611,6 +613,22 @@ def test_later_slices_raise_not_implemented(mini, tmp_path, case, item):
             "context_size: 5", "context_size: 5\n    device_negatives: true")
             .replace("max_same_video_negs: 1", "max_same_video_negs: 0"))
     (_, tmsg) = _solver(mini, **fields)
+    if item == "item 11":
+        import torch.distributed as dist
+
+        from videovector_tpu_torch.parallel import make_mesh
+        d = tdriver.SolverDriver(tmsg, device="cpu").build()
+        if case == "shard_gallery":
+            with pytest.raises(ValueError, match="requires mesh"):
+                d.train(shard_gallery=True)
+            return
+        plain = tdriver.SolverDriver(tmsg, device="cpu").build().train()
+        try:
+            res = d.train(mesh=make_mesh(1, 1, devices="cpu"))
+        finally:
+            dist.destroy_process_group()
+        assert _losses(res) == _losses(plain)
+        return
     if item in ("item 7", "item 10"):
         calls = []
         real = tdriver.Net.debug_info

@@ -213,7 +213,9 @@ def test_main_picks_the_device_and_refuses_the_mesh(project, tmp_path,
     assert text.main(args + ["--cpu"]) == 0
     assert text.main(args + ["--gpu=-1"]) == 0
     assert len(_read(str(tmp_path / "out"), "ip2")[0]) == BATCH
-    with pytest.raises(NotImplementedError, match="item 11"):
+    # --mesh N > 1 needs N ranks: without a process group it says how to
+    # launch them (tests/test_torch_parallel_driver.py runs 2)
+    with pytest.raises(RuntimeError, match="torch.distributed.run"):
         text.main(args + ["--mesh=4", "--cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):

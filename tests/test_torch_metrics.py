@@ -560,12 +560,14 @@ def test_id_range_and_unported_options_raise():
     with pytest.raises(NotImplementedError, match="queue 1, item 5"):
         tr.retrieval_stats_chunked(feats, vids, cls, method="search",
                                    device="cpu")
-    for kw in (dict(mesh=object()), dict(shard_gallery=True)):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            tr.retrieval_stats_chunked(feats, vids, cls, device="cpu", **kw)
-        with pytest.raises(NotImplementedError, match="item 11"):
-            tr.retrieval_stats_report(feats, vids, cls, "unused.csv",
-                                      device="cpu", **kw)
+    # the mesh engines run since item 11 (tests/test_torch_parallel_
+    # retrieval.py); shard_gallery without a mesh is JAX's ValueError
+    with pytest.raises(ValueError, match="requires mesh"):
+        tr.retrieval_stats_chunked(feats, vids, cls, device="cpu",
+                                   shard_gallery=True)
+    with pytest.raises(ValueError, match="requires mesh"):
+        tr.retrieval_stats_report(feats, vids, cls, "unused.csv",
+                                  device="cpu", shard_gallery=True)
     with pytest.raises(ValueError, match="unknown method"):
         tr.retrieval_stats_chunked(feats, vids, cls, method="fast",
                                    device="cpu")

@@ -206,6 +206,8 @@ def test_port_imports_without_jax():
         import videovector_tpu_torch.metrics.classification
         import videovector_tpu_torch.metrics.retrieval
         import videovector_tpu_torch.ops.activations
+        import videovector_tpu_torch.ops.collectives
+        import videovector_tpu_torch.ops.sharding
         import videovector_tpu_torch.ops.conv
         import videovector_tpu_torch.ops.embedding
         import videovector_tpu_torch.ops.hopper.conv_gemm
@@ -219,6 +221,14 @@ def test_port_imports_without_jax():
         import videovector_tpu_torch.ops.recurrent
         import videovector_tpu_torch.ops.reductions
         import videovector_tpu_torch.ops.social
+        import videovector_tpu_torch.parallel
+        import videovector_tpu_torch.parallel.mesh
+        import videovector_tpu_torch.parallel.multihost
+        import videovector_tpu_torch.parallel.multihost_worker
+        import videovector_tpu_torch.parallel.pipeline
+        import videovector_tpu_torch.parallel.shard_map_dp
+        import videovector_tpu_torch.parallel.shard_map_tp
+        import videovector_tpu_torch.parallel.train
         import videovector_tpu_torch.solver
         import videovector_tpu_torch.solver.checkpoint
         import videovector_tpu_torch.solver.driver

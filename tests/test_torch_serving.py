@@ -7,7 +7,7 @@ run on the same batches: the port's artifact against the port's Net.apply
 (equal math: within 1e-5) and against JAX's load_serving (within 1e-5,
 bf16 within 2e-2 of max|ref|); the metas are equal key for key; `info`
 runs in a process with torch and numpy blocked; the multi-device paths
-name ROADMAP item 11; an unknown platform is a ValueError naming it. K1
+name ROADMAP item 11b; an unknown platform is a ValueError naming it. K1
 and K2's custom ops export and reload in a fresh process.
 """
 
@@ -215,15 +215,15 @@ def test_cli_export_run_and_the_refusals(model, tmp_path):
                           model["weights"], "--blobs", "out",
                           "--platforms", "cpu"]) == 0
     assert tserving.main(["run", art, "--iterations", "2"]) == 0
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="item 11b"):
         tserving.main(["export", model["net"], art, "--blobs", "out",
                        "--platforms", "cpu", "--mesh", "2x1"])
-    with pytest.raises(NotImplementedError, match="item 11"):
+    # run --mesh serves data-parallel since item 11
+    # (tests/test_torch_parallel_retrieval.py); 2 ranks need a launch
+    with pytest.raises(RuntimeError, match="torch.distributed.run"):
         tserving.main(["run", art, "--mesh", "2"])
-    for fn in (tserving.mesh_serving, tserving.shard_serving):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            fn(None, None, None) if fn is tserving.shard_serving \
-                else fn(None, None)
+    with pytest.raises(NotImplementedError, match="item 11b"):
+        tserving.mesh_serving(None, None)
     with pytest.raises(ValueError, match="tpu"):
         tserving.export_serving(model["net"], [], ["out"], art,
                                 platforms=["tpu"])

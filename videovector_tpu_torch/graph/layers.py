@@ -35,11 +35,14 @@ from videovector_tpu_torch.core.seeds import iteration_seed
 from videovector_tpu_torch.metrics import retrieval as retrieval_metrics
 from videovector_tpu_torch.metrics.classification import classification_stats
 from videovector_tpu_torch.ops import (
-    activations, conv, losses, lrn, pooling, recurrent, reductions,
+    activations, collectives, conv, losses, lrn, pooling, recurrent,
+    reductions,
 )
 from videovector_tpu_torch.ops.embedding import id_to_weight_lookup
 from videovector_tpu_torch.ops.hopper.conv_gemm import conv2d_nchw
-from videovector_tpu_torch.ops.linear import inner_product, tower_matmul
+from videovector_tpu_torch.ops.linear import (
+    inner_product, shard_matmul, tower_matmul,
+)
 from videovector_tpu_torch.ops.normalization import l2_normalize_rows, mvn
 from videovector_tpu_torch.ops.quant import (
     dequantize_conv_weight, int8_conv2d, int8_inner_product,
@@ -177,6 +180,14 @@ def _inner_product():
             x = x.reshape(x.shape[0], -1)
         cdt = ctx.compute_dtype if reg == 0.0 and ctx.compute_dtype \
             is not None else torch.float32
+        if collectives.axis("model") is not None and \
+                w.shape[1] == int(p.get("num_output")):
+            # a whole weight under a model axis (Net gathers a shared
+            # param it reshapes): the product of the whole, on every rank
+            return [shard_matmul(x, w, b, compute_dtype=cdt,
+                                 plain=ctx.plain)]
+        # under a model axis, w is the rank's column shard: K1 on it, the
+        # columns gathered over "model" (ops/linear.py::tower_matmul)
         return [tower_matmul(x, w, b, compute_dtype=cdt, plain=ctx.plain)]
 
     return init, apply
@@ -396,10 +407,34 @@ def _dropout():
                 f"DROPOUT {cfg.get('name')!r}: TRAIN-phase forward needs "
                 f"generator= (pass a torch.Generator to Net.apply/loss_fn)")
         deterministic = ctx.phase != "TRAIN" or ctx.generator is None
-        return [activations.dropout(inputs[0], rate=rate,
-                                    generator=ctx.generator,
-                                    deterministic=deterministic)]
+        return [activations.dropout(
+            inputs[0], rate=rate, generator=ctx.generator,
+            deterministic=deterministic,
+            layout=None if deterministic else _dropout_layout(
+                inputs[0], cfg.get("name")))]
     return _no_params, apply
+
+
+def _dropout_layout(x, name):
+    """On a batch shard, the (shape, batch axis) in which DROPOUT draws the
+    whole batch's mask (ops.activations.batch_dropout_mask): a blob whose
+    axis 0 is g blocks of the rank's batch rows (g = 1 for a plain blob,
+    the role count for a role-major CONCAT, T for a FLATTEN_BATCH) is drawn
+    as (g, B, ...) with the batch on axis 1; a time-major (T, B, ...) blob
+    on axis 1. Off a batch shard, None: x's shape, axis 0."""
+    if collectives.axis("data") is None:
+        return None
+    lay = collectives.layout()
+    b = lay.get("batch")
+    if not b:
+        return None
+    if lay.get("time_major") and x.dim() > 1 and x.shape[1] == b:
+        return tuple(x.shape), 1
+    if x.dim() >= 1 and x.shape[0] % b == 0:
+        return (x.shape[0] // b, b) + tuple(x.shape[1:]), 1
+    raise ValueError(
+        f"DROPOUT {name!r} on a batch shard: no batch axis of the rank's "
+        f"{b} rows in a {tuple(x.shape)} blob")
 
 
 # ---------------------------------------------------------------------------
@@ -616,6 +651,7 @@ def _retrieval_stats():
     def apply(params, inputs, cfg, ctx):
         p = cfg.get_msg("retrieval_stats_param")
         id_map = ctx.side.get(cfg.get("name"))
+        inputs = _whole_batch(inputs)
         feats = inputs[0].reshape(inputs[0].shape[0], -1)
         vids = inputs[1].reshape(-1).to(torch.int32)
         if bool(p.get("video_level_retrieval", False)):
@@ -709,8 +745,19 @@ def _contrastive():
 def _accuracy():
     def apply(params, inputs, cfg, ctx):
         top_k = int(cfg.get_msg("accuracy_param").get("top_k", 1))
+        # equal rows on every rank of a batch shard: losses.accuracy
+        # averages the ranks' means
         return [losses.accuracy(_rows(inputs[0]), inputs[1], top_k=top_k)]
     return _no_params, apply
+
+
+def _whole_batch(inputs):
+    """A stats layer's bottoms on a batch shard: every rank's rows gathered
+    (ranks, medians and mAP are not means of the ranks' values); they carry
+    no gradient (loss weight 0)."""
+    if collectives.axis("data") is None:
+        return inputs
+    return [collectives.data_gather(x.detach(), 0) for x in inputs]
 
 
 def _rank_tops(out: dict) -> list:
@@ -722,6 +769,7 @@ def _rank_tops(out: dict) -> list:
 def _retrieval_rank_stats():
     def apply(params, inputs, cfg, ctx):
         p = cfg.get_msg("retrieval_rank_stats_param")
+        inputs = _whole_batch(inputs)
         return _rank_tops(retrieval_metrics.retrieval_rank_stats(
             _rows(inputs[0]), _rows(inputs[1]),
             compute_ap=bool(p.get("compute_ap", False)),
@@ -733,6 +781,7 @@ def _retrieval_rank_stats():
 @register("RETRIEVAL_RANK_STATS_FIXED_REF", loss_weights=(0.0,) * 5)
 def _retrieval_rank_stats_fixed_ref():
     def apply(params, inputs, cfg, ctx):
+        inputs = _whole_batch(inputs)
         return _rank_tops(retrieval_metrics.retrieval_rank_stats_fixed_ref(
             _rows(inputs[0]), inputs[1].reshape(-1).to(torch.int32),
             _rows(inputs[2]), inputs[3].reshape(-1).to(torch.int32)))
@@ -742,6 +791,7 @@ def _retrieval_rank_stats_fixed_ref():
 @register("CLASSIFICATION_STATS", loss_weights=(0.0, 0.0, 0.0))
 def _classification_stats():
     def apply(params, inputs, cfg, ctx):
+        inputs = _whole_batch(inputs)
         num_classes = int(cfg.get_msg("classification_stats_param")
                           .get("num_classes", inputs[0].shape[1]))
         out = classification_stats(_rows(inputs[0]), inputs[1],
@@ -767,6 +817,12 @@ def _social_pooling():
     def apply(params, inputs, cfg, ctx):
         # bottoms: features (1, B, D[, 1]), relations (1, B, B)[, mean
         # (1, B, 2)]
+        if collectives.axis("data") is not None:
+            # every agent's row pools over every other agent of its scene
+            raise ValueError(
+                f"SOCIAL_POOLING {cfg.get('name')!r} couples the agents of "
+                "its batch; it does not run on a batch shard (a mesh data "
+                "axis of more than one rank)")
         x = inputs[0]
         feats = x if x.dim() == 2 else x.reshape(x.shape[1], -1)
         b = feats.shape[0]

@@ -44,6 +44,8 @@ from videovector_tpu_torch.metrics.retrieval import (
     retrieval_rank_stats_report, retrieval_stats_report, video_level_average,
 )
 from videovector_tpu_torch.models.mednet import torch_dtype
+from videovector_tpu_torch.ops import collectives
+from videovector_tpu_torch.ops.sharding import is_writer
 from videovector_tpu_torch.utils.logging import get_logger
 
 log = get_logger(__name__)
@@ -500,13 +502,27 @@ class Net:
         self.param_meta = meta
         return params, meta
 
-    def _resolve_params(self, params, meta, lname):
-        """Materialize a layer's param dict, following shared_owner links."""
-        out = dict(params.get(lname, {}))
+    def _resolve_params(self, params, meta, lname, whole: bool = True):
+        """Materialize a layer's param dict, following shared_owner links.
+
+        Under a "model" axis (ops/collectives.py) the 2-D params are the
+        rank's column shards (parallel.train.shard_params): they are
+        gathered over "model" (GSPMD's values) unless `whole` is False,
+        for an INNER_PRODUCT that computes on its shard; a shared param
+        viewed through another shape is gathered either way."""
+        gather = collectives.axis("model") is not None
+
+        def full(arr):
+            return collectives.model_gather(arr, 1) \
+                if gather and arr.dim() == 2 else arr
+        out = {k: full(v) if whole else v
+               for k, v in params.get(lname, {}).items()}
         for pname, m in meta.get(lname, {}).items():
             if m.shared_owner is not None:
                 # owner stores it under the same blob name by construction
                 arr = params[m.shared_owner][pname]
+                if whole or m.shared_shape is not None:
+                    arr = full(arr)
                 if m.shared_shape is not None:
                     # PERMISSIVE count-matched share: view the owner's data
                     # through this consumer's blob shape (Caffe keeps a
@@ -607,7 +623,8 @@ class Net:
                     if b not in blobs and b in fz.syms:
                         blobs[b] = fz.materialize(b)
             outs = LAYERS[ltype].apply(
-                self._resolve_params(params, self.param_meta, lname),
+                self._resolve_params(params, self.param_meta, lname,
+                                     whole=not _column_parallel(layer, ctx)),
                 [blobs[b] for b in bottoms], layer, ctx)
             for i, (t, o) in enumerate(zip(
                     (str(t) for t in layer.get_list("top")), outs)):
@@ -702,7 +719,8 @@ class Net:
             log.info("    [debug_info] %s: mean abs = %g", name, value)
         return stats
 
-    def process_host_sinks(self, blobs: dict, *, append: bool = False):
+    def process_host_sinks(self, blobs: dict, *, append: bool = False,
+                           mesh=None, shard_gallery: bool = False):
         """Dump the sink layers' bottoms (call with `return_blobs=True`
         outputs, or the `return_sink_blobs` map): WRITE_TO_FILE writes a csv
         (ref write_to_file_layer.cpp:36-64), HDF5_OUTPUT an .h5 file (ref
@@ -712,11 +730,24 @@ class Net:
         (write_to_file_layer.cpp:42, retrieval_stats_layer.cpp:150), and so
         does append=False, the default; append=True accumulates
         WRITE_TO_FILE's rows across calls instead (the JAX package's
-        extension for multi-batch eval loops)."""
+        extension for multi-batch eval loops).
+
+        `mesh` (parallel.make_mesh; call on every rank with the whole
+        blobs): the RETRIEVAL_STATS report's query chunks shard over the
+        mesh's "data" axis (metrics.retrieval's mesh engine),
+        `shard_gallery=True` its gallery rows instead; rank 0 writes every
+        file."""
+        writer = is_writer(mesh)
         for sink in self.host_sinks:
             cfg = sink["cfg"]
             bottoms = [blobs[b] for b in sink["bottoms"]]
-            if sink["type"] == "WRITE_TO_FILE":
+            if sink["type"] == "RETRIEVAL_STATS":
+                # every rank takes part in the mesh engines
+                self._retrieval_stats_sink(sink, bottoms, mesh,
+                                           shard_gallery)
+            elif not writer:
+                continue
+            elif sink["type"] == "WRITE_TO_FILE":
                 wp = cfg.get_msg("write_to_file_param")
                 _write_to_file(wp.get("output_file", f"{sink['name']}.csv"),
                                _host(bottoms[0]),
@@ -735,8 +766,6 @@ class Net:
                         f"batch sizes differ ({data.shape[0]} vs "
                         f"{label.shape[0]}; the reference CHECK_EQs them)")
                 write_hdf5(path, {"data": data, "label": label})
-            elif sink["type"] == "RETRIEVAL_STATS":
-                self._retrieval_stats_sink(sink, bottoms)
             elif sink["type"] == "RETRIEVAL_RANK_STATS":
                 p = cfg.get_msg("retrieval_rank_stats_param")
                 ctxf, tgtf = bottoms
@@ -756,7 +785,8 @@ class Net:
                     reff.reshape(reff.shape[0], -1), ref_vids.reshape(-1),
                     p.get("stats_output_file"), device=feats.device)
 
-    def _retrieval_stats_sink(self, sink, bottoms):
+    def _retrieval_stats_sink(self, sink, bottoms, mesh=None,
+                              shard_gallery=False):
         p = sink["cfg"].get_msg("retrieval_stats_param")
         feats = bottoms[0].reshape(bottoms[0].shape[0], -1)
         vids = bottoms[1].reshape(-1).to(torch.int32)
@@ -777,7 +807,7 @@ class Net:
             # compact; ranks exact w.r.t. the quantized distances
             gallery_dtype=str(p.get("gallery_dtype", "float32")
                               or "float32"),
-            device=feats.device)
+            mesh=mesh, shard_gallery=shard_gallery, device=feats.device)
 
     # ------------------------------------------------------------------
     def flat_param_list(self, params):
@@ -789,6 +819,16 @@ class Net:
                 m = self.param_meta.get(lname, {}).get(pname, ParamMeta())
                 out.append((lname, pname, m.lr_mult, m.decay_mult))
         return out
+
+
+def _column_parallel(layer, ctx) -> bool:
+    """An INNER_PRODUCT on K1 (regularization <= 0, not int8), which under
+    a "model" axis computes on the rank's column shard of its weight."""
+    if layer.get("type") != "INNER_PRODUCT":
+        return False
+    reg = float(layer.get_msg("inner_product_param").get("regularization",
+                                                          0.0))
+    return reg <= 0.0 and (ctx.quant or {}).get(layer.get("name")) is None
 
 
 def _host(x) -> np.ndarray:

@@ -24,9 +24,12 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from videovector_tpu_torch.device import DEFAULT, resolve
+from videovector_tpu_torch.ops.collectives import all_gather, all_reduce
 from videovector_tpu_torch.ops.linear import no_tf32
+from videovector_tpu_torch.ops.sharding import is_writer, mesh_axis
 
 _I32_MIN = -2**31
 _I32_MAX = 2**31 - 1
@@ -354,17 +357,25 @@ def _on_device(features, dev: torch.device) -> torch.Tensor:
     return feats.to(dev, dtype)
 
 
-def _check_driver(chunk_driver: str, mesh, shard_gallery: bool) -> None:
-    """chunk_driver keeps the JAX package's values: "scan" and "host" run
-    the same loop here (one query chunk at a time). The mesh engines are not
-    ported yet."""
+def _check_driver(chunk_driver: str, mesh, shard_gallery: bool,
+                  method: str) -> None:
+    """The JAX package's argument checks. chunk_driver keeps its values:
+    "scan" and "host" run the same loop here (one query chunk at a time),
+    and "host" does not compose with mesh= there, so not here either."""
     if chunk_driver not in ("auto", "scan", "host"):
         raise ValueError(f"chunk_driver must be auto, scan or host, got "
                          f"{chunk_driver!r}")
-    if mesh is not None or shard_gallery:
-        raise NotImplementedError(
-            "mesh= and shard_gallery=True wait for the port's parallelism "
-            "(ROADMAP queue 1, item 11)")
+    if chunk_driver == "host" and mesh is not None:
+        raise ValueError("chunk_driver='host' does not compose with mesh= "
+                         "(the sharded engines are scan-driven); drop one")
+    if shard_gallery:
+        if mesh is None:
+            raise ValueError("shard_gallery=True requires mesh=")
+        if method not in ("auto", "count"):
+            raise ValueError("shard_gallery supports only the count "
+                             "engine (rank counts are additive over "
+                             f"gallery shards; sorts are not) — got "
+                             f"method={method!r}")
 
 
 def _auto_uses_count(dev: torch.device, members: int, n: int) -> bool:
@@ -378,13 +389,15 @@ def _auto_uses_count(dev: torch.device, members: int, n: int) -> bool:
 
 
 def _chunk_inputs(features, vids_np, cls_np, method: str, device,
-                  query_chunk):
+                  query_chunk, n_shards: int = 1):
     """What the query-chunk loop of retrieval_stats_chunked and
     retrieval_stats_report needs on `device`: the engine's leading
     arguments (use_count, feats, vids, cls, member table) and the (query
     positions, classes, member-table rows) of each chunk of
     query_chunk(N) rows, the last chunk padded as the JAX package pads it:
-    position N-1, class -1 (include 0) and the all-pad table row."""
+    position N-1, class -1 (include 0) and the all-pad table row. The chunk
+    count is padded to a multiple of `n_shards` with such chunks (the mesh
+    engine's equal blocks of chunks; they add zero partials)."""
     dev = resolve(device)
     feats = _on_device(features, dev)
     n = feats.shape[0]
@@ -393,6 +406,7 @@ def _chunk_inputs(features, vids_np, cls_np, method: str, device,
                  else _auto_uses_count(dev, table.shape[1], n))
     q = query_chunk(n)
     nk = -(-n // q)
+    nk = -(-nk // n_shards) * n_shards
     npad = nk * q - n
     qpos = np.concatenate([np.arange(n, dtype=np.int32),
                            np.full(npad, n - 1, np.int32)])
@@ -403,6 +417,38 @@ def _chunk_inputs(features, vids_np, cls_np, method: str, device,
     chunks = zip(*(torch.as_tensor(a.reshape(nk, q), device=dev)
                    for a in (qpos, qcls, rows)))
     return (use_count, feats, *on_dev), list(chunks)
+
+
+def _gather_host(obj, ax):
+    """Every data rank's host object, in rank order."""
+    out = [None] * ax.size
+    dist.all_gather_object(out, obj, group=ax.group)
+    return out
+
+
+def _my_chunks(chunks, ax):
+    """The rank's block of the chunk list (equal blocks, mesh order)."""
+    per = len(chunks) // ax.size
+    return chunks[ax.index * per:(ax.index + 1) * per]
+
+
+def _partials(ap, acc1, acc5, inc):
+    return torch.stack([torch.sum(ap * inc), torch.sum(acc1 * inc),
+                        torch.sum(acc5 * inc), torch.sum(inc)])
+
+
+def _means(sums) -> dict:
+    denom = max(sums[3], 1.0)
+    return {k: torch.tensor(sums[i] / denom, dtype=torch.float32)
+            for i, k in enumerate(("mean_ap", "hit_at_1", "hit_at_5"))}
+
+
+def _reduce_partials(rows) -> np.ndarray:
+    """The per-chunk f32 partials summed in f64 in chunk order."""
+    sums = np.zeros(4, np.float64)
+    for row in rows:
+        sums += row.astype(np.float64)
+    return sums
 
 
 def retrieval_stats_chunked(features, video_ids, class_ids, *,
@@ -422,7 +468,17 @@ def retrieval_stats_chunked(features, video_ids, class_ids, *,
     - "sort": the (Q, N) stable argsort and cumsums;
     - "auto": sort (`_auto_uses_count`; the JAX package's TPU rule takes
       count, which is the slower engine on a CUDA card).
-    "search", `mesh=` and `shard_gallery=True` raise NotImplementedError.
+    "search" raises NotImplementedError.
+
+    With `mesh=` (parallel.make_mesh; call on every rank) the query chunks
+    split over the mesh's "data" axis: each rank scans its own block of
+    chunks against the whole gallery, and the per-chunk partials come back
+    to every rank in chunk order, so the f64 reduction and the results are
+    bit-equal to one device's. With `shard_gallery=True` (count engine
+    only) the gallery ROWS split over "data" instead (`_gshard_chunk`):
+    each rank holds N/d rows, and each chunk's rank counts are exact
+    integer sums over the ranks; the results equal the one-device count
+    engine's.
 
     features: (N, D) host array or tensor; `gallery_dtype` "bfloat16"
     rounds it to bf16 once (see _cast_gallery_host). It goes to `device`
@@ -439,7 +495,7 @@ def retrieval_stats_chunked(features, video_ids, class_ids, *,
         "remap ids (e.g. np.unique(..., return_inverse=True)) before "
         "retrieval eval")
     features = _cast_gallery_host(features, gallery_dtype)
-    _check_driver(chunk_driver, mesh, shard_gallery)
+    _check_driver(chunk_driver, mesh, shard_gallery, method)
     if method == "search":
         raise NotImplementedError(
             "method='search' (the binary-search engine, a cross-check the "
@@ -447,20 +503,23 @@ def retrieval_stats_chunked(features, video_ids, class_ids, *,
             "item 5); use 'count' or 'sort'")
     if method not in ("auto", "count", "sort"):
         raise ValueError(f"unknown method {method!r}")
-    engine_args, chunks = _chunk_inputs(features, vids_np, cls_np, method,
-                                        device, lambda n: min(query_chunk, n))
-    parts = []
-    for qp, qc, qr in chunks:
-        ap, acc1, acc5, inc = _run_chunk_engine(*engine_args, qp, qc, qr,
-                                                exclude_same_video_shots)
-        parts.append(torch.stack([torch.sum(ap * inc), torch.sum(acc1 * inc),
-                                  torch.sum(acc5 * inc), torch.sum(inc)]))
-    sums = np.zeros(4, np.float64)
-    for row in torch.stack(parts).cpu().numpy():
-        sums += row.astype(np.float64)
-    denom = max(sums[3], 1.0)
-    return {k: torch.tensor(sums[i] / denom, dtype=torch.float32)
-            for i, k in enumerate(("mean_ap", "hit_at_1", "hit_at_5"))}
+    if shard_gallery:
+        gs = _GalleryShard(features, vids_np, cls_np, mesh_axis(mesh, "data"),
+                           device, lambda n: min(query_chunk, n))
+        rows = [_partials(*gs.chunk(qp, qc, qr, exclude_same_video_shots)[:4])
+                for qp, qc, qr in gs.chunks]
+        return _means(_reduce_partials(torch.stack(rows).cpu().numpy()))
+    ax = mesh_axis(mesh, "data") if mesh is not None else None
+    engine_args, chunks = _chunk_inputs(
+        features, vids_np, cls_np, method, device,
+        lambda n: min(query_chunk, n), n_shards=ax.size if ax else 1)
+    parts = [_partials(*_run_chunk_engine(*engine_args, qp, qc, qr,
+                                          exclude_same_video_shots))
+             for qp, qc, qr in (_my_chunks(chunks, ax) if ax else chunks)]
+    parts = torch.stack(parts).cpu().numpy()
+    if ax is not None:
+        parts = np.concatenate(_gather_host(parts, ax))
+    return _means(_reduce_partials(parts))
 
 
 def _report_chunk(use_count: bool, feats, vids, cls, table, qp, qc, qr,
@@ -477,13 +536,128 @@ def _report_chunk(use_count: bool, feats, vids, cls, table, qp, qc, qr,
     q_vid = vids[qp]
     d = _neg2_dot(feats[qp], feats)
     d.masked_fill_(vids[None, :] == q_vid[:, None], float("inf"))
+    top, valid = _argmin_passes(d, k5)
+    return ap, acc1, acc5, inc, top, valid
+
+
+def _argmin_passes(d, k: int):
+    """k iterated argmin + mask passes over d (modified): the indices and
+    whether each pick was finite."""
     tops, valids = [], []
-    for _ in range(k5):
+    for _ in range(k):
         i = torch.argmin(d, dim=1, keepdim=True)
         tops.append(i[:, 0])
         valids.append(torch.isfinite(torch.gather(d, 1, i)[:, 0]))
         d.scatter_(1, i, float("inf"))
-    return ap, acc1, acc5, inc, torch.stack(tops, 1), torch.stack(valids, 1)
+    return torch.stack(tops, 1), torch.stack(valids, 1)
+
+
+class _GalleryShard:
+    """The gallery-sharded count engine (the JAX package's
+    _chunk_counts_gshard and _shard_gallery): this rank's rows of the
+    gallery padded to a multiple of the data axis (pad rows: zero features,
+    video -1, never valid), only they on the device. Every rank scans every
+    query chunk. A chunk's query rows, the class members' distance keys and
+    the candidate counts come from the rank that holds each row, summed
+    over "data" (one owner and zeros, or exact integer counts), so every
+    rank ends a chunk with the one-device count engine's per-query stats."""
+
+    def __init__(self, features, vids_np, cls_np, ax, device, query_chunk):
+        dev = resolve(device)
+        feats = features
+        n = feats.shape[0]
+        ns = -(-n // ax.size)
+        off = ax.index * ns
+        rows = slice(min(off, n), min(off + ns, n))
+        host = (feats[rows] if isinstance(feats, torch.Tensor)
+                else torch.as_tensor(np.asarray(feats[rows])))
+        local = _on_device(host, dev)
+        pad = ns - local.shape[0]
+        if pad:
+            local = torch.cat([local, local.new_zeros((pad,) + tuple(
+                local.shape[1:]))])
+        lv = np.full(ns, -1, np.int32)
+        lv[:rows.stop - rows.start] = vids_np[rows]
+        self.ax, self.n, self.ns, self.off = ax, n, ns, off
+        self.feats, self.vids = local, torch.as_tensor(lv, device=dev)
+        table, row_of_query = _class_member_table(cls_np)
+        self.table = torch.as_tensor(table, device=dev)
+        q = query_chunk(n)
+        nk = -(-n // q)
+        npad = nk * q - n
+        qpos = np.concatenate([np.arange(n, dtype=np.int32),
+                               np.full(npad, n - 1, np.int32)])
+        qcls = np.concatenate([cls_np, np.full(npad, -1, np.int32)])
+        qrows = np.concatenate([row_of_query,
+                                np.full(npad, table.shape[0] - 1, np.int32)])
+        self.chunks = list(zip(*(torch.as_tensor(a.reshape(nk, q),
+                                                 device=dev)
+                                 for a in (qpos, qcls, qrows))))
+
+    def _psum(self, x):
+        return all_reduce(x, self.ax)
+
+    def chunk(self, qp, qc, qr, exclude: bool):
+        """Per-query (ap, acc1, acc5, include) plus (dist, gidx, q_vid) of
+        the rank's rows, for the report's top-5."""
+        feats_l, vids_l, off, ns = self.feats, self.vids, self.off, self.ns
+        rel_idx = self.table[qr.long()]
+        sel_q = (qp >= off) & (qp < off + ns)
+        lq = (qp - off).clamp(0, ns - 1).long()
+        q_feats = self._psum(torch.where(sel_q[:, None], feats_l[lq],
+                                         torch.zeros((), dtype=feats_l.dtype,
+                                                     device=qp.device)))
+        q_vid = self._psum(torch.where(sel_q, vids_l[lq], 0))
+        dist_ = _neg2_dot(q_feats, feats_l)                      # (Q, ns)
+        mono = _mono_i32(dist_)
+        gidx = off + torch.arange(ns, dtype=torch.int32,
+                                  device=qp.device)[None, :]
+        sel_m = (rel_idx >= off) & (rel_idx < off + ns)
+        lm = (rel_idx - off).clamp(0, ns - 1).long()
+        mono_rel = self._psum(torch.where(sel_m, torch.gather(mono, 1, lm),
+                                          0))
+        rel_vid = self._psum(torch.where(sel_m, vids_l[lm], 0))
+        q_pos = qp.to(torch.int32)[:, None]
+        rel_ok = (rel_idx >= 0) & (rel_idx != q_pos)
+        if exclude:
+            rel_ok = rel_ok & (rel_vid != q_vid[:, None])
+        valid = (gidx != q_pos) & (gidx < self.n)
+        if exclude:
+            valid = valid & (vids_l[None, :] != q_vid[:, None])
+        cnt_v = self._psum(_chunked_rank_count(
+            torch.where(valid, mono, _I32_MAX),
+            torch.where(valid, gidx, _I32_MAX), mono_rel, rel_idx))
+        cnt_m = _chunked_rank_count(torch.where(rel_ok, mono_rel, _I32_MAX),
+                                    torch.where(rel_ok, rel_idx, _I32_MAX),
+                                    mono_rel, rel_idx)
+        valrank = (cnt_v + 1).to(torch.float32)
+        matchrank = (cnt_m + 1).to(torch.float32)
+        okf = rel_ok.to(torch.float32)
+        ret_total = torch.sum(okf, dim=1)
+        ap = torch.sum(okf * matchrank / valrank, dim=1)
+        ap = torch.where(ret_total > 0,
+                         ap / torch.clamp(ret_total, min=1.0), 0.0)
+        acc1 = torch.sum(okf * (valrank <= 1.0), dim=1)
+        acc5 = torch.sum(okf * (valrank <= 5.0), dim=1) / 5.0
+        include = (qc >= 0).to(torch.float32)
+        return ap, acc1, acc5, include, dist_, gidx, q_vid
+
+    def report_chunk(self, qp, qc, qr, exclude: bool):
+        """chunk()'s stats plus the exact distributed top-5 from OTHER
+        videos: each rank's top-5 of its rows by argmin passes, the (Q,
+        d·5) pool gathered over "data" in rank order (ascending global
+        index among equal distances, the ranks holding ascending ranges),
+        and 5 more passes over it."""
+        ap, acc1, acc5, inc, d, gidx, q_vid = self.chunk(qp, qc, qr, exclude)
+        d = d.masked_fill((self.vids[None, :] == q_vid[:, None])
+                          | (gidx >= self.n), float("inf"))
+        li, _ = _argmin_passes(d.clone(), min(5, self.ns))
+        cand_d = torch.gather(d, 1, li)
+        cand_i = self.off + li.to(torch.int32)
+        pool_d = all_gather(cand_d, self.ax, 1)
+        pool_i = all_gather(cand_i, self.ax, 1)
+        pi, valid = _argmin_passes(pool_d, min(5, self.n))
+        return ap, acc1, acc5, inc, torch.gather(pool_i, 1, pi), valid
 
 
 def retrieval_stats_report(features, video_ids, class_ids, path: str, *,
@@ -503,7 +677,9 @@ def retrieval_stats_report(features, video_ids, class_ids, path: str, *,
     Query chunks of max(1, min(256, 2²⁵ // N)) rows through the sort or the
     count engine (`method` as in retrieval_stats_chunked, without
     "search") on `device`, the card unless "cpu" is asked for;
-    `gallery_dtype`, `chunk_driver`, `mesh=` and `shard_gallery` as there.
+    `gallery_dtype`, `chunk_driver`, `mesh=` and `shard_gallery` as there
+    (call on every rank; rank 0 writes the file, byte-equal to one
+    device's).
     """
     features = _cast_gallery_host(features, gallery_dtype)
     vids_np, cls_np = _ids_int32(video_ids, class_ids,
@@ -512,15 +688,33 @@ def retrieval_stats_report(features, video_ids, class_ids, path: str, *,
     if method not in ("auto", "count", "sort"):
         raise ValueError(f"unknown method {method!r} (report engines: "
                          f"auto/count/sort)")
-    _check_driver(chunk_driver, mesh, shard_gallery)
-    engine_args, chunks = _chunk_inputs(
-        features, vids_np, cls_np, method, device,
-        lambda n: max(1, min(256, (1 << 25) // max(n, 1))))
-    n, nk = len(vids_np), len(chunks)
-    outs = [_report_chunk(*engine_args, qp, qc, qr, exclude_same_video_shots)
-            for qp, qc, qr in chunks]
+    if shard_gallery and mesh is not None and method == "sort":
+        raise ValueError("shard_gallery supports only the count engine "
+                         "(rank counts are additive over gallery shards; "
+                         "sorts are not)")
+    _check_driver(chunk_driver, mesh, shard_gallery, method)
+    q_of = (lambda n: max(1, min(256, (1 << 25) // max(n, 1))))
+    n = len(vids_np)
+    ax = mesh_axis(mesh, "data") if mesh is not None else None
+    if shard_gallery:
+        gs = _GalleryShard(features, vids_np, cls_np, ax, device, q_of)
+        outs = [gs.report_chunk(qp, qc, qr, exclude_same_video_shots)
+                for qp, qc, qr in gs.chunks]
+    else:
+        engine_args, chunks = _chunk_inputs(
+            features, vids_np, cls_np, method, device, q_of,
+            n_shards=ax.size if ax else 1)
+        outs = [_report_chunk(*engine_args, qp, qc, qr,
+                              exclude_same_video_shots)
+                for qp, qc, qr in (_my_chunks(chunks, ax) if ax else chunks)]
     ap_c, acc1_c, acc5_c, inc_c, top5_c, valid5_c = (
         torch.stack([o[i] for o in outs]).cpu().numpy() for i in range(6))
+    if ax is not None and not shard_gallery:
+        # every rank's block of chunks, in chunk order
+        ap_c, acc1_c, acc5_c, inc_c, top5_c, valid5_c = (
+            np.concatenate(parts) for parts in zip(*_gather_host(
+                (ap_c, acc1_c, acc5_c, inc_c, top5_c, valid5_c), ax)))
+    nk = ap_c.shape[0]
     # per-chunk f32 partials accumulated in f64 in chunk order
     sums = np.zeros(4, np.float64)
     for ci in range(nk):
@@ -528,6 +722,11 @@ def retrieval_stats_report(features, video_ids, class_ids, path: str, *,
                  float(np.sum(acc1_c[ci] * inc_c[ci])),
                  float(np.sum(acc5_c[ci] * inc_c[ci])),
                  float(np.sum(inc_c[ci]))]
+    denom = max(sums[3], 1.0)
+    agg = {"mean_ap": sums[0] / denom, "hit_at_1": sums[1] / denom,
+           "hit_at_5": sums[2] / denom}
+    if not is_writer(mesh):
+        return agg   # rank 0 writes the file
 
     ap = ap_c.reshape(-1)[:n]
     acc1 = acc1_c.reshape(-1)[:n]
@@ -562,10 +761,7 @@ def retrieval_stats_report(features, video_ids, class_ids, path: str, *,
                 + ",".join(str(j) for j in carry) + ","
                 + ",".join(str(c) for c in cls64[carry]) + "\n")
         f.write("".join(lines))
-
-    denom = max(sums[3], 1.0)
-    return {"mean_ap": sums[0] / denom, "hit_at_1": sums[1] / denom,
-            "hit_at_5": sums[2] / denom}
+    return agg
 
 
 def _bucket_video_id(item_idx, num_videos: int, positive_size: int):

@@ -23,7 +23,7 @@ import torch.utils.checkpoint
 
 from videovector_tpu_torch.core import fillers
 from videovector_tpu_torch.models.mednet import torch_dtype
-from videovector_tpu_torch.ops import activations
+from videovector_tpu_torch.ops import activations, collectives
 from videovector_tpu_torch.ops.hopper.matmul import matmul, matmul_plain
 from videovector_tpu_torch.ops.linear import no_tf32, tower_matmul
 from videovector_tpu_torch.ops.losses import max_margin_loss
@@ -104,7 +104,7 @@ class VideoEmbeddingModel:
         cdt = torch_dtype(cfg.compute_dtype)
         wants_grad = torch.is_grad_enabled() and any(
             v.requires_grad for v in (flat, t["w"], t["b"]))
-        if not train and not wants_grad:
+        if not train and not wants_grad and collectives.axis("model") is None:
             mm = matmul_plain if self.plain else matmul
             h = mm(flat.to(cdt), t["w"].to(cdt), t["b"], fuse_relu=True,
                    out_dtype=torch.float32)
@@ -123,9 +123,13 @@ class VideoEmbeddingModel:
                                  "generator= (a torch.Generator)")
             # drawn outside the recomputed region: checkpoint restores the
             # default generator's state only, not an explicit one's
-            mask = activations.dropout_mask(
+            # on a batch shard, the whole batch's mask drawn in x's leading
+            # shape, whose last axis is the batch (the role-major (R, B) or
+            # a plain (B,)), cut to the rank's rows
+            mask = activations.batch_dropout_mask(
                 (flat.shape[0], cfg.embed_dim), 1.0 - cfg.dropout_rate,
-                generator, flat.device)
+                generator, flat.device,
+                layout=((*lead, cfg.embed_dim), len(lead) - 1))
         fn = functools.partial(self._tower, cdt=cdt, mask=mask)
         if cfg.remat_tower:
             h = torch.utils.checkpoint.checkpoint(fn, flat, t["w"], t["b"],
@@ -210,8 +214,10 @@ class VideoEmbeddingModel:
         loss, violations = max_margin_loss(
             s_true_b, s_neg, margin=cfg.margin, norm=cfg.norm, weights=w)
         return loss, {"violations": violations,
-                      "mean_true_score": torch.mean(s_true),
-                      "mean_neg_score": torch.mean(s_neg)}
+                      "mean_true_score": collectives.data_mean(
+                          torch.mean(s_true)),
+                      "mean_neg_score": collectives.data_mean(
+                          torch.mean(s_neg))}
 
     # -- eval ------------------------------------------------------------
     def extract(self, params, feats):

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from videovector_tpu_torch.ops import collectives
+
 
 def relu(x, negative_slope: float = 0.0):
     """ReLU with optional leak (Caffe relu_layer).
@@ -86,6 +88,21 @@ def dropout_mask(shape, keep: float, generator: torch.Generator,
     return torch.rand(shape, generator=generator, device=device) < keep
 
 
+def batch_dropout_mask(shape, keep: float, generator: torch.Generator,
+                       device, layout=None) -> torch.Tensor:
+    """dropout_mask of `shape`. On a batch shard (the "data" axis of
+    ops/collectives.py), with `layout` = (the shape to draw in, its batch
+    axis), the whole batch's mask is drawn in that layout and the rank
+    keeps its rows: the one-device mask's slice, as GSPMD's step draws it,
+    reshaped to `shape`."""
+    if layout is None or collectives.axis("data") is None:
+        return dropout_mask(shape, keep, generator, device)
+    lshape, axis = layout
+    return collectives.data_draw(
+        lshape, axis, lambda s: dropout_mask(s, keep, generator, device)
+    ).reshape(shape)
+
+
 def apply_dropout(x, mask: torch.Tensor, keep: float):
     """where(mask, x / keep, 0). Divides by keep as the JAX op does (a
     multiply by 1/keep rounds differently); keep goes in as a 0-d tensor of
@@ -97,10 +114,13 @@ def apply_dropout(x, mask: torch.Tensor, keep: float):
 
 
 def dropout(x, *, rate: float, generator: torch.Generator | None,
-            deterministic: bool = False):
+            deterministic: bool = False, layout=None):
     """Inverted dropout: keep with prob (1 - rate) and scale kept units by
     1/(1 - rate) at train time; identity at test time or at rate 0 (Caffe
-    dropout_layer, scale_ = 1/(1 - threshold))."""
+    dropout_layer, scale_ = 1/(1 - threshold)). `layout` = (shape,
+    batch_axis): the shape the mask is drawn in (x's elements, in order)
+    and its batch axis, for a batch shard (dropout_mask); default x's shape
+    with the batch on axis 0 (batch_dropout_mask)."""
     if deterministic or rate == 0.0:
         return x
     if rate >= 1.0:
@@ -109,5 +129,5 @@ def dropout(x, *, rate: float, generator: torch.Generator | None,
     if generator is None:
         raise ValueError("dropout at rate > 0 needs a torch.Generator")
     keep = 1.0 - rate
-    return apply_dropout(x, dropout_mask(x.shape, keep, generator, x.device),
-                         keep)
+    mask = batch_dropout_mask(x.shape, keep, generator, x.device, layout)
+    return apply_dropout(x, mask, keep)

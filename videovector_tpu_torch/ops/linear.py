@@ -24,6 +24,7 @@ import contextlib
 
 import torch
 
+from videovector_tpu_torch.ops import collectives
 from videovector_tpu_torch.ops.hopper.matmul import matmul, matmul_plain
 
 
@@ -121,10 +122,28 @@ class _TowerMatmul(torch.autograd.Function):
         return dx, dw, db, None, None
 
 
+def shard_matmul(x, w, b, *, compute_dtype: torch.dtype = torch.bfloat16,
+                 plain: bool = False):
+    """tower_matmul of the operands as given, whatever mesh axes are active
+    (an explicit-collective caller's local product, e.g. on a column
+    shard)."""
+    return _TowerMatmul.apply(x, w, b, compute_dtype, plain)
+
+
 def tower_matmul(x, w, b, *, compute_dtype: torch.dtype = torch.bfloat16,
                  plain: bool = False):
     """x: (M, D), w: (D, E) and b: (E,) f32 -> x.w + b: (M, E) f32, with x
     and w cast to `compute_dtype` for the product; differentiable in all
     three. The forward is one K1 launch for CUDA tensors (its plain
-    version for CPU tensors, or when `plain`)."""
+    version for CPU tensors, or when `plain`).
+
+    Under a "model" axis (ops/collectives.py) w is the rank's column shard
+    (D, E/m) and b the whole (E,): K1 computes the rank's E/m columns, an
+    all_gather over "model" puts them together, and the bias is added
+    after it (in f32, as K1's epilogue adds it). x's gradient is summed
+    over the model ranks."""
+    if collectives.axis("model") is not None:
+        y = collectives.model_gather(_TowerMatmul.apply(
+            collectives.model_copy(x), w, None, compute_dtype, plain), dim=1)
+        return y if b is None else y + b
     return _TowerMatmul.apply(x, w, b, compute_dtype, plain)

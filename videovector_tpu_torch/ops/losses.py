@@ -1,7 +1,10 @@
 """Loss functions; counterpart of videovector_tpu/ops/losses.py.
 
 Each loss returns a scalar normalized exactly as Caffe's layer does (the
-constants differ between losses). Gradients come from autograd, as the JAX
+constants differ between losses). Every normalizer is the rank's own row
+count, equal on every rank of a batch shard, so there each loss is the
+mean of the ranks' losses (ops/collectives.py's data_mean): the whole
+batch's loss, on every rank. Gradients come from autograd, as the JAX
 package's come from JAX's: every hinge is torch.maximum against a zero
 tensor, whose gradient at a tie is 0.5 as jnp.maximum's is (torch.clamp
 would give 1), and |x| is ops.activations.absval, whose gradient at 0 is
@@ -14,6 +17,7 @@ import math
 
 import torch
 
+from videovector_tpu_torch.ops import collectives
 from videovector_tpu_torch.ops.activations import absval
 
 LOG_THRESHOLD = 1e-20  # Caffe's kLOG_THRESHOLD (multinomial_logistic_loss_layer.cpp)
@@ -40,7 +44,9 @@ def max_margin_loss(true_scores, bogus_scores, *, margin: float = 1.0,
       L2: loss = sum(w * h^2) / count
 
     count = h.numel(). Returns (loss, num_violations), the latter the number
-    of elements with s_true < s_bogus, as f32."""
+    of elements with s_true < s_bogus, as f32. On a batch shard both are the
+    whole batch's (ops/collectives.py: equal shards, so the mean of the
+    shards' means; the count summed)."""
     diff = true_scores - bogus_scores
     h = torch.maximum(torch.zeros((), dtype=diff.dtype, device=diff.device),
                       margin - diff)
@@ -55,7 +61,7 @@ def max_margin_loss(true_scores, bogus_scores, *, margin: float = 1.0,
     else:
         raise ValueError(f"Unknown norm {norm!r}")
     num_violations = torch.sum((diff < 0).to(torch.float32))
-    return loss, num_violations
+    return collectives.data_mean(loss), collectives.data_sum(num_violations)
 
 
 def euclidean_loss(pred, target, *, l1: bool = False):
@@ -64,8 +70,8 @@ def euclidean_loss(pred, target, *, l1: bool = False):
     diff = pred - target
     num = pred.shape[0]
     if l1:
-        return torch.sum(absval(diff)) / num
-    return torch.sum(diff * diff) / num / 2.0
+        return collectives.data_mean(torch.sum(absval(diff)) / num)
+    return collectives.data_mean(torch.sum(diff * diff) / num / 2.0)
 
 
 def hinge_loss(scores, labels, *, norm: str = "L1"):
@@ -77,9 +83,9 @@ def hinge_loss(scores, labels, *, norm: str = "L1"):
     sign[torch.arange(num, device=scores.device), lab] = -1.0
     h = torch.maximum(_zero(scores), 1.0 + scores * sign)
     if norm == "L1":
-        return torch.sum(h) / num
+        return collectives.data_mean(torch.sum(h) / num)
     if norm == "L2":
-        return torch.sum(h * h) / num
+        return collectives.data_mean(torch.sum(h * h) / num)
     raise ValueError(f"Unknown norm {norm!r}")
 
 
@@ -93,7 +99,8 @@ def softmax_loss(logits, labels):
     picked = logp.gather(1, lab[:, None])[:, 0]
     floor = torch.full((), math.log(LOG_THRESHOLD), dtype=picked.dtype,
                        device=picked.device)
-    return -torch.sum(torch.maximum(picked, floor)) / num
+    return collectives.data_mean(-torch.sum(torch.maximum(picked, floor))
+                                 / num)
 
 
 def multinomial_logistic_loss(probs, labels):
@@ -102,8 +109,9 @@ def multinomial_logistic_loss(probs, labels):
     num = probs.shape[0]
     lab = _labels(labels, probs.device)
     p = probs.reshape(num, -1).gather(1, lab[:, None])[:, 0]
-    return -torch.sum(torch.log(torch.maximum(
-        p, torch.full((), LOG_THRESHOLD, dtype=p.dtype, device=p.device)))) / num
+    return collectives.data_mean(-torch.sum(torch.log(torch.maximum(
+        p, torch.full((), LOG_THRESHOLD, dtype=p.dtype, device=p.device))))
+        / num)
 
 
 def sigmoid_cross_entropy_loss(logits, targets):
@@ -115,7 +123,7 @@ def sigmoid_cross_entropy_loss(logits, targets):
     loss = torch.sum(torch.nn.functional.softplus(-absval(logits))
                      + torch.maximum(logits, _zero(logits))
                      - logits * targets)
-    return loss / num
+    return collectives.data_mean(loss / num)
 
 
 def infogain_loss(probs, labels, infogain):
@@ -127,7 +135,7 @@ def infogain_loss(probs, labels, infogain):
     p = torch.maximum(p, torch.full((), LOG_THRESHOLD, dtype=p.dtype,
                                     device=p.device))
     h = torch.as_tensor(infogain, device=probs.device)[lab]
-    return -torch.sum(h * torch.log(p)) / num
+    return collectives.data_mean(-torch.sum(h * torch.log(p)) / num)
 
 
 def contrastive_loss(a, b, similar, *, margin: float = 1.0):
@@ -137,7 +145,7 @@ def contrastive_loss(a, b, similar, *, margin: float = 1.0):
     d2 = torch.sum((a - b) ** 2, dim=tuple(range(1, a.dim())))
     y = torch.as_tensor(similar, device=a.device).reshape(-1).to(a.dtype)
     per_pair = y * d2 + (1.0 - y) * torch.maximum(margin - d2, _zero(d2))
-    return torch.sum(per_pair) / a.shape[0] / 2.0
+    return collectives.data_mean(torch.sum(per_pair) / a.shape[0] / 2.0)
 
 
 def accuracy(scores, labels, *, top_k: int = 1):
@@ -149,4 +157,4 @@ def accuracy(scores, labels, *, top_k: int = 1):
     flat = scores.reshape(num, -1)
     top_idx = torch.argsort(flat, dim=1, descending=True, stable=True)[:, :top_k]
     hit = torch.any(top_idx == lab[:, None], dim=1)
-    return torch.mean(hit.to(torch.float32))
+    return collectives.data_mean(torch.mean(hit.to(torch.float32)))

@@ -17,6 +17,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from videovector_tpu_torch.ops import collectives
+
 
 def _pooled_size(size, k, s, p):
     out = int(math.ceil((size + 2 * p - k) / s)) + 1
@@ -77,8 +79,11 @@ def stochastic_uniforms(shape, generator: torch.Generator, device):
     """Uniforms in [1e-6, 1) of `shape` for STOCHASTIC pooling's TRAIN race,
     from `generator`. The one place the pooling draws random numbers: its
     bits differ from jax.random.uniform's, so parity tests replace this
-    function with one that returns JAX's uniforms."""
-    u = torch.rand(shape, generator=generator, device=device)
+    function with one that returns JAX's uniforms. On a batch shard, the
+    whole batch's uniforms cut to the rank's rows (batch axis 0), as
+    dropout's masks are (ops/collectives.py)."""
+    u = collectives.data_draw(
+        shape, 0, lambda s: torch.rand(s, generator=generator, device=device))
     return 1e-6 + u * (1.0 - 1e-6)
 
 

@@ -10,8 +10,11 @@ reach the card through data/prefetch.py (pinned buffers, the copy on a side
 stream, overlapping the step).
 
 An entry point: it runs on the card unless asked for the CPU
-(`device="cpu"`), and raises without a card. The mesh raises
-NotImplementedError naming its ROADMAP item (11); orbax stays with the JAX
+(`device="cpu"`), and raises without a card. `train(mesh=)` trains over a
+parallel.make_mesh mesh, one process a device: each rank feeds its rows of
+every batch, the Net's 2-D params are column-sharded when the mesh has a
+model axis, rank 0 writes the snapshots and logs; `shard_gallery=True`
+shards the RETRIEVAL_STATS report's gallery rows. Orbax stays with the JAX
 package. A data layer with `device_negatives: true` keeps its reservoir on
 the card (data/device_sampler.py): the host ships (B, C, ...) rows, and the
 loss function draws the negatives and updates the reservoir, which rides
@@ -42,6 +45,8 @@ from videovector_tpu_torch.device import DEFAULT, resolve
 from videovector_tpu_torch.graph.data_factory import MergedSource, make_data_source
 from videovector_tpu_torch.graph.layers import DATA_LAYER_TYPES
 from videovector_tpu_torch.graph.net import Net
+from videovector_tpu_torch.ops import collectives
+from videovector_tpu_torch.ops.sharding import MeshRun, rank_rows
 from videovector_tpu_torch.solver.checkpoint import (
     export_caffe_snapshot, load_model,
 )
@@ -58,11 +63,6 @@ def _spec_from_batch(batch) -> dict:
     ShapeDtypeStructs): shape inference without data."""
     return {k: torch.empty(tuple(np.shape(v)), dtype=torch.float32,
                            device="meta") for k, v in batch.items()}
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to videovector_tpu_torch "
-                               f"yet (ROADMAP queue 1, item {item})")
 
 
 _PHASE_NAMES = {"0": "TRAIN", "1": "TEST"}
@@ -358,11 +358,21 @@ class SolverDriver:
               mesh=None, shard_gallery: bool = False) -> TrainResult:
         """Train from the build's params (or a .vvmodel's, `weights_path`,
         or a .vvstate's, `resume_state_path`) up to the solver's max_iter
-        (or `max_iter`). `mesh` and `shard_gallery` wait for the port's
-        parallelism."""
-        if mesh is not None or shard_gallery:
-            raise _not_ported("training over a mesh (mesh=, shard_gallery=)",
-                              "11")
+        (or `max_iter`).
+
+        With `mesh` (parallel.make_mesh, run on every rank), every rank
+        draws the same sampler stream and keeps its rows of each batch (the
+        prefetcher cuts them on each key's batch axis and copies only
+        them); the train loop shards the params (2-D columns over "model"
+        when it spans more than one rank), averages the gradients over
+        "data" and gathers the params whole for snapshots, which rank 0
+        writes; every rank reads a resume. The device_negatives reservoir
+        stays the same on every rank: the ranks' offers are gathered and
+        one update applied everywhere. `shard_gallery` shards the
+        RETRIEVAL_STATS report's gallery rows over "data" in place of its
+        query chunks (metrics.retrieval)."""
+        if shard_gallery and mesh is None:
+            raise ValueError("shard_gallery=True requires mesh=")
         params = (self._finetune_params(weights_path) if weights_path
                   else self.params)
         cfg = self.cfg if max_iter is None else replace(self.cfg,
@@ -393,6 +403,24 @@ class SolverDriver:
         # sink layers in a TRAIN net write their files on every training
         # Forward in the reference (write_to_file_layer.cpp:36-64)
         train_sinks = bool(net.host_sinks)
+        # the batch-axis map for microbatch splits; the role-major feed
+        # moves those keys' batch axis from 0 to 1
+        src_axes = dict(self.train_source.batch_axes())
+        for k in self.role_major_keys:
+            src_axes[k] = 1
+        on_mesh = MeshRun(mesh, src_axes)
+
+        def sinks_of(n, whole_batch=False):
+            if not n.host_sinks:
+                return None
+
+            def fn(blobs):
+                if whole_batch:
+                    # a train step's sink bottoms are the rank's rows
+                    blobs = on_mesh.gather(blobs)
+                n.process_host_sinks(blobs, mesh=mesh,
+                                     shard_gallery=shard_gallery)
+            return fn
 
         stateful = bool(net.stateful_layer_names)
         if stateful and self.device_negatives:
@@ -472,6 +500,14 @@ class SolverDriver:
         hooks = []
         if self.snapshot_vis:
             def vis_hook(p, it):
+                if not on_mesh.writer:
+                    # the forward's collectives run on every rank, the
+                    # file is rank 0's
+                    gen = torch.Generator(device=self.device).manual_seed(it)
+                    with torch.no_grad():
+                        net.apply(p, self._first_batch_on_device(),
+                                  generator=gen)
+                    return
                 os.makedirs(self.snapshot_vis_dir, exist_ok=True)
                 # a TRAIN-phase forward: dropout draws from a generator
                 # seeded by the iteration, so that a dump is reproducible
@@ -492,14 +528,14 @@ class SolverDriver:
 
             hooks.append((self.debug_info_every, debug_hook))
 
-        # the batch-axis map for microbatch splits; the role-major feed
-        # moves those keys' batch axis from 0 to 1
-        src_axes = dict(self.train_source.batch_axes())
-        for k in self.role_major_keys:
-            src_axes[k] = 1
-        rm_transform = (self._transpose_role_major
-                        if self.role_major_keys else None)
-        data_iter = self._data_iter(self.train_source, transform=rm_transform,
+        transform = (self._transpose_role_major
+                     if self.role_major_keys else None)
+        if mesh is not None:
+            # the rank's rows of every key, cut in the prefetch thread
+            # before the copy to the device
+            transform = (on_mesh.rows if transform is None else
+                         lambda b, t=transform: on_mesh.rows(t(b)))
+        data_iter = self._data_iter(self.train_source, transform=transform,
                                     validators=net.batch_validators(),
                                     first=self._first_batch_raw)
         try:
@@ -507,9 +543,8 @@ class SolverDriver:
                 loss_fn, params, data_iter, cfg,
                 lr_mults=self.lr_mults, decay_mults=self.decay_mults,
                 device=self.device, eval_fn=eval_fns, test_data=test_iters,
-                sink_fn=[n.process_host_sinks if n.host_sinks else None
-                         for n in self.test_nets],
-                train_sink_fn=net.process_host_sinks if train_sinks else None,
+                sink_fn=[sinks_of(n) for n in self.test_nets],
+                train_sink_fn=sinks_of(net, whole_batch=True),
                 hooks=hooks,
                 resume_state_path=resume_state_path,
                 param_layer_order=layer_order,
@@ -522,7 +557,10 @@ class SolverDriver:
                 # the carry (LSTM state, device reservoir) threads between
                 # sub-batches on the host: the fused step cannot carry it
                 # (build_fused_step refuses)
-                fused_accum=not (stateful or self.device_negatives))
+                fused_accum=not (stateful or self.device_negatives),
+                mesh=mesh,
+                time_major=any(a == 1 for a in
+                               self.train_source.batch_axes().values()))
         finally:
             # stop the prefetch threads and drop their queued device
             # batches: over infinite sources they would otherwise live until
@@ -559,9 +597,18 @@ class SolverDriver:
                 seeded[0] = seed
             host = batch[top]
             trailing1 = host.dim() == 4  # a (B, C, D, 1) feed
+            ax = collectives.axis("data")
+            if ax is not None:
+                # on a batch shard: every rank's offers, the whole batch's
+                # draws and one update, so that the reservoir stays the
+                # same on every rank (and the one-device one); the rank
+                # keeps its rows of the assembled batch
+                host = collectives.data_gather(host, 0)
             full, res = train_batch_with_device_negatives(
                 DeviceReservoir(batch["__carry__"], swap), sampler_gen,
                 host[..., 0] if trailing1 else host, n_negs)
+            if ax is not None:
+                full = rank_rows(full, ax)
             feed = {k: v for k, v in batch.items() if k != "__carry__"}
             feed[top] = full[..., None] if trailing1 else full
             loss, aux = net_loss(p, feed, generator)

@@ -23,6 +23,7 @@ from a .vvstate or from the reference's .solverstate.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field
 from typing import Any, Callable, Iterator
 
@@ -34,6 +35,7 @@ from videovector_tpu_torch.convert import (
 )
 from videovector_tpu_torch.core.seeds import iteration_seed
 from videovector_tpu_torch.device import DEFAULT, resolve
+from videovector_tpu_torch.ops.sharding import MeshRun, writer_logs
 from videovector_tpu_torch.solver.checkpoint import (
     AsyncSnapshotter, restore, restore_solverstate,
 )
@@ -127,12 +129,13 @@ def accumulate_microbatches(vg_fn, params, batch: dict, axes: dict,
 
 def build_fused_step(grad_fn, cfg: SolverConfig, n_accum: int, gm: int, *,
                      lr_mults=None, decay_mults=None,
-                     batch_axes: dict | None = None):
+                     batch_axes: dict | None = None, grad_reduce=None):
     """One step over n_accum step batches, each cut into gm microbatches:
     the n_accum x gm gradients are averaged, then one solver update (the
     reference's iter_size semantics; equal to the big-batch update up to f32
     summation order) with the per-blob `lr_mults` / `decay_mults` trees
-    (solver_update's). Returns
+    (solver_update's). `grad_reduce` (the mesh's all_reduce over "data")
+    runs once on the averaged gradients, before the update. Returns
     fstep(params, state, batches_tuple, generator) -> (params, state,
     metrics), with batches_tuple holding n_accum batch dicts."""
     n_total = n_accum * gm
@@ -163,6 +166,8 @@ def build_fused_step(grad_fn, cfg: SolverConfig, n_accum: int, gm: int, *,
         grads, loss_sum, aux_all = accumulate_microbatches(
             vg_checked, p, full, axes, n_total, generator)
         grads = map_params(lambda g: g / n_total, grads)
+        if grad_reduce is not None:
+            grads = grad_reduce(grads)
         p2, s2 = solver_update(cfg, p, grads, s, lr_mults=lr_mults,
                                decay_mults=decay_mults)
         # the displayed loss is the microbatch mean (the big-batch mean for
@@ -200,12 +205,22 @@ def auto_grad_microbatch(batch, batch_axes: dict | None = None) -> int:
     return gm
 
 
+def _writer_logs(fn):
+    """train's log lines on a mesh's writer rank alone (writer_logs)."""
+    @functools.wraps(fn)
+    def wrapped(*args, mesh=None, **kw):
+        with writer_logs(mesh):
+            return fn(*args, mesh=mesh, **kw)
+    return wrapped
+
+
 def _as_list(x) -> list:
     if isinstance(x, (list, tuple)):
         return list(x)
     return [x] if x is not None else []
 
 
+@_writer_logs
 def train(loss_fn: Callable, params, data: Iterator[dict], cfg: SolverConfig,
           *, lr_mults=None, decay_mults=None, device=DEFAULT,
           eval_fn: Callable | list | None = None,
@@ -220,7 +235,8 @@ def train(loss_fn: Callable, params, data: Iterator[dict], cfg: SolverConfig,
           fused_accum: bool = True,
           train_output_weights: dict | None = None,
           test_output_weights: list | None = None,
-          initial_carry=None) -> TrainResult:
+          initial_carry=None, mesh=None,
+          time_major: bool = False) -> TrainResult:
     """loss_fn(params, batch, generator) -> (loss, aux dict): the loss of
     one batch, with dropout masks drawn from `generator`, one
     torch.Generator on the device. At the top of each iteration it is
@@ -264,9 +280,22 @@ def train(loss_fn: Callable, params, data: Iterator[dict], cfg: SolverConfig,
     lines carry the reference's " (* w = x loss)" suffix
     (ref:src/caffe/solver.cpp:204-214, :306-314).
     initial_carry: the "__carry__" the first step's batch gets (e.g. a
-    TrainResult.final_carry); None starts from the layers' zero state."""
+    TrainResult.final_carry); None starts from the layers' zero state.
+    mesh: a parallel.make_mesh mesh. Every rank calls train with its rows
+    of each batch (the batch axis of each key from batch_axes, default 0),
+    whole test batches and whole params; the params (and the solver
+    history) are sharded here, 2-D columns over "model" when that axis
+    spans more than one rank (parallel.train.shard_params). The loss runs
+    under the mesh's axes (ops/collectives.py: its outputs are the whole
+    batch's), the gradients are averaged over "data" once a step, the test
+    nets and hooks run under the model axis, and snapshots gather the
+    params whole; rank 0 alone writes them and logs. The result's params
+    and state are whole on every rank. `time_major`: the batch's blobs
+    carry the batch on axis 1 (tracking sources), for DROPOUT's masks."""
     dev = resolve(device)
     params = map_params(lambda t: torch.as_tensor(t, device=dev), params)
+    ms = MeshRun(mesh, batch_axes, time_major)
+    params = ms.shard(params)
     state = init_solver_state(cfg, params)
     start_iter = 0
     if resume_state_path:
@@ -287,8 +316,9 @@ def train(loss_fn: Callable, params, data: Iterator[dict], cfg: SolverConfig,
                                                 param_layer_order)
         else:
             params, state = restore(resume_state_path)
-        params = map_params(lambda t: t.to(dev), params)
-        state["history"] = map_params(lambda t: t.to(dev), state["history"])
+        params = ms.shard(map_params(lambda t: t.to(dev), params))
+        state["history"] = ms.shard(
+            map_params(lambda t: t.to(dev), state["history"]))
         start_iter = state["iter"]
         log.info("Restoring previous solver status from %s (iter %d)",
                  resume_state_path, start_iter)
@@ -303,11 +333,12 @@ def train(loss_fn: Callable, params, data: Iterator[dict], cfg: SolverConfig,
             out["__carry__"] = carry
         return out
 
-    grad_fn = value_and_grad(loss_fn)
+    grad_fn = ms.under_axes(value_and_grad(loss_fn))
     mults = {"lr_mults": lr_mults, "decay_mults": decay_mults}
 
     def step(p, s, batch):
         (loss, aux), grads = grad_fn(p, batch, generator)
+        grads = ms.reduce(grads)
         p2, s2 = solver_update(cfg, p, grads, s, **mults)
         metrics = {"loss": loss, **aux}
         if cfg.snapshot_diff:
@@ -341,6 +372,7 @@ def train(loss_fn: Callable, params, data: Iterator[dict], cfg: SolverConfig,
             n = cfg.test_iter[net_id] if net_id < len(cfg.test_iter) else 1
             sums: dict[str, np.ndarray] = {}
             t_carry = None  # the recurrent state carries across test batches
+            efn = ms.under_axes(efn, data=False)
             for _ in range(n):
                 out = dict(efn(p, on_device(next(tdata), t_carry)))
                 t_carry = out.pop("__carry__", None)
@@ -385,14 +417,18 @@ def train(loss_fn: Callable, params, data: Iterator[dict], cfg: SolverConfig,
     snapshotter = AsyncSnapshotter()
 
     def _snap(at_iter):
-        # host copies now: the writer thread reads them later
-        p_np = params_to_numpy(params)
+        # host copies now: the writer thread reads them later (whole: every
+        # rank gathers, rank 0 writes)
+        p_np = params_to_numpy(ms.whole(params))
         s_np = {"iter": state["iter"],
-                "history": params_to_numpy(state["history"])}
+                "history": params_to_numpy(ms.whole(state["history"]))}
+        diffs = (params_to_numpy(ms.whole(last_grads))
+                 if last_grads is not None else None)
+        if not ms.writer:
+            return
         snapshotter.submit(
             cfg.snapshot_prefix or "snapshot", at_iter, p_np, s_np,
-            diffs=params_to_numpy(last_grads) if last_grads is not None
-            else None,
+            diffs=diffs,
             extra=((lambda: caffe_export(at_iter, p_np, s_np))
                    if caffe_export is not None else None))
 
@@ -410,7 +446,8 @@ def train(loss_fn: Callable, params, data: Iterator[dict], cfg: SolverConfig,
                 run_test(params, it)
             for interval, hook in (hooks or ()):
                 if interval and it % interval == 0:
-                    hook(params, it)
+                    with ms.axes(data=False):
+                        hook(params, it)
 
             generator.manual_seed(iteration_seed(seed, it))
             if cfg.iter_size > 1 and not fused_accum:
@@ -420,6 +457,7 @@ def train(loss_fn: Callable, params, data: Iterator[dict], cfg: SolverConfig,
                                                on_device(next(data), carry))
                     carry = metrics.pop("__carry__", None)
                     sink(metrics)   # every sub-batch's Forward
+                grads_acc = ms.reduce(grads_acc)
                 if cfg.snapshot_diff:
                     last_grads = grads_acc
                 params, state = solver_update(cfg, params, grads_acc, state,
@@ -439,7 +477,8 @@ def train(loss_fn: Callable, params, data: Iterator[dict], cfg: SolverConfig,
                             n_accum, gm)
                         fused_step = build_fused_step(
                             grad_fn, cfg, n_accum, gm, **mults,
-                            batch_axes=batch_axes)
+                            batch_axes=batch_axes,
+                            grad_reduce=ms.reduce if ms.mesh else None)
                 if fused_step is not None:
                     batches = (batch,) + tuple(
                         on_device(next(data)) for _ in range(fused_plan[0] - 1))
@@ -501,14 +540,15 @@ def train(loss_fn: Callable, params, data: Iterator[dict], cfg: SolverConfig,
         if batch is not None:
             generator.manual_seed(iteration_seed(seed, it))
             with torch.no_grad():
-                final_loss = loss_fn(params, on_device(batch, carry),
-                                     generator)[0]
+                final_loss = ms.under_axes(loss_fn)(
+                    params, on_device(batch, carry), generator)[0]
             log.info("Iteration %d, loss = %g", it,
                      float(_host(final_loss).reshape(-1)[0]))
     if cfg.test_interval and it % cfg.test_interval == 0:
         run_test(params, it)
     snapshotter.wait()  # every write is on disk before train returns
-    result.params = params
-    result.state = state
+    result.params = ms.whole(params)
+    result.state = {"iter": state["iter"],
+                    "history": ms.whole(state["history"])}
     result.final_carry = carry
     return result

@@ -17,13 +17,18 @@ Usage:
   python -m videovector_tpu_torch.tools.cli time --model=net.prototxt
   python -m videovector_tpu_torch.tools.cli device_query
 
-`--mesh` and `--shard_gallery` wait for the port's parallelism (ROADMAP
-queue 1, item 11) and raise NotImplementedError.
+`train --mesh DxM` and `test --mesh DxM` run over a (data, model) mesh of
+D x M ranks, one process a device (parallel/mesh.py): launch them with
+`python -m torch.distributed.run --nproc_per_node N -m
+videovector_tpu_torch.tools.cli train --mesh N ...` (NCCL on cards);
+`--mesh 1` needs no launcher. Rank 0 logs and writes the files.
+`--shard_gallery` shards the RETRIEVAL_STATS report's gallery rows.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import glob
 import re
 import sys
@@ -38,6 +43,8 @@ from videovector_tpu_torch.device import resolve
 from videovector_tpu_torch.graph.data_factory import MergedSource, make_data_source
 from videovector_tpu_torch.graph.layers import DATA_LAYER_TYPES, LAYERS
 from videovector_tpu_torch.graph.net import Net
+from videovector_tpu_torch.ops.sharding import MeshRun, writer_logs
+from videovector_tpu_torch.parallel import make_mesh
 from videovector_tpu_torch.solver.checkpoint import load_model
 from videovector_tpu_torch.solver.driver import SolverDriver, _spec_from_batch
 from videovector_tpu_torch.utils.logging import get_logger
@@ -46,18 +53,23 @@ from videovector_tpu_torch.utils.timer import Timer
 log = get_logger(__name__)
 
 
-def _device(args, solver_msg=None) -> torch.device:
+def _wants_cpu(args, solver_msg=None) -> bool:
     """The reference's device selection: SolverParameter.solver_mode CPU/GPU
     and the caffe.bin --gpu flag (ref:tools/caffe.cpp:97-104). `--cpu`,
-    `--gpu=-1` or `solver_mode: CPU` pick the CPU; anything else the card,
-    which must be there."""
+    `--gpu=-1` or `solver_mode: CPU` pick the CPU; anything else the card."""
     cpu = getattr(args, "cpu", False)
     gpu = getattr(args, "gpu", None)
     if gpu is not None and int(gpu) < 0:
         cpu = True  # --gpu=-1 is CPU mode (the later Caffe's convention)
     if not cpu and solver_msg is not None:
         cpu = str(solver_msg.get("solver_mode", "GPU")).upper() == "CPU"
-    if cpu:
+    return cpu
+
+
+def _device(args, solver_msg=None) -> torch.device:
+    """_wants_cpu's device, logged; the card must be there."""
+    gpu = getattr(args, "gpu", None)
+    if _wants_cpu(args, solver_msg):
         log.info("Running in CPU-only mode (solver_mode: CPU / --cpu)")
         return resolve("cpu")
     if gpu is not None:
@@ -68,20 +80,51 @@ def _device(args, solver_msg=None) -> torch.device:
     return resolve("cuda")
 
 
-def _refuse_mesh(args) -> None:
-    if getattr(args, "mesh", "") or getattr(args, "shard_gallery", False):
-        raise NotImplementedError(
-            "--mesh and --shard_gallery are not ported to "
-            "videovector_tpu_torch yet (ROADMAP queue 1, item 11)")
+def _parse_mesh(spec: str, devices):
+    """"DxM" -> parallel.make_mesh(data=D, model=M) on `devices` (make_mesh
+    starts the group for torchrun's ranks and for a one-rank mesh); "" ->
+    None."""
+    if not spec:
+        return None
+    data_sz, _, model_sz = spec.partition("x")
+    return make_mesh(data=int(data_sz), model=int(model_sz or 1),
+                     devices=devices)
 
 
-def cmd_train(args) -> int:
+def _mesh_of(args, solver_msg=None):
+    """The command's `--mesh`, on _wants_cpu's device type."""
+    return _parse_mesh(getattr(args, "mesh", ""),
+                       "cpu" if _wants_cpu(args, solver_msg) else "cuda")
+
+
+def mesh_command(fn):
+    """fn(args, mesh): the mesh of `--mesh` (or None) is made first, then
+    fn runs with its log lines on the writer rank alone (rank 0 logs and
+    writes)."""
+    @functools.wraps(fn)
+    def run(args):
+        solver = getattr(args, "solver", None)
+        mesh = _mesh_of(args, parse_file(solver) if solver else None)
+        with writer_logs(mesh):
+            return fn(args, mesh)
+    return run
+
+
+def mesh_run(mesh, source) -> MeshRun:
+    """A test or extraction pass over `mesh`: every rank draws the same
+    stream from `source` and forwards its rows of each batch (each key's
+    batch axis from the source) under the mesh's axes."""
+    axes = dict(source.batch_axes()) if hasattr(source, "batch_axes") else {}
+    return MeshRun(mesh, axes, any(a == 1 for a in axes.values()))
+
+
+@mesh_command
+def cmd_train(args, mesh) -> int:
     if args.snapshot and args.weights:
         # ref CHECK(!FLAGS_snapshot.size() || !FLAGS_weights.size()),
         # tools/caffe.cpp:82-84: a snapshot already carries the weights
         raise SystemExit("Give a snapshot to resume training or weights "
                          "to finetune but not both.")
-    _refuse_mesh(args)
     dev = _device(args, parse_file(args.solver))
     driver = SolverDriver.from_prototxt(args.solver, device=dev).build()
     snapshot = args.snapshot or None
@@ -89,14 +132,21 @@ def cmd_train(args) -> int:
         snapshot = _latest_snapshot(driver.cfg.snapshot_prefix)
         if snapshot:
             log.info("Auto-resuming from %s", snapshot)
+    if mesh is not None:
+        log.info("Training over mesh data=%d model=%d", mesh.size(0),
+                 mesh.size(1))
     _train_with_restarts(driver, snapshot=snapshot,
-                         weights=args.weights or None,
+                         weights=args.weights or None, mesh=mesh,
+                         shard_gallery=bool(getattr(args, "shard_gallery",
+                                                    False)),
                          max_restarts=getattr(args, "max_restarts", 0))
     log.info("Optimization Done.")
     return 0
 
 
-def _train_with_restarts(driver, *, snapshot, weights, max_restarts: int = 0):
+def _train_with_restarts(driver, *, snapshot, weights, mesh=None,
+                         shard_gallery: bool = False,
+                         max_restarts: int = 0):
     """Failure recovery: on a runtime fault (anything but Ctrl-C), reload
     the newest snapshot and continue, up to `max_restarts` times. The
     reference's recovery is a human re-running `caffe train --snapshot=...`
@@ -107,7 +157,8 @@ def _train_with_restarts(driver, *, snapshot, weights, max_restarts: int = 0):
     while True:
         try:
             return driver.train(resume_state_path=snapshot,
-                                weights_path=weights)
+                                weights_path=weights, mesh=mesh,
+                                shard_gallery=shard_gallery)
         except KeyboardInterrupt:
             raise
         except Exception as e:  # noqa: BLE001 - deliberate catch-all
@@ -153,7 +204,8 @@ def _load_weights(path: str, params, dev):
     return params
 
 
-def cmd_test(args) -> int:
+@mesh_command
+def cmd_test(args, mesh) -> int:
     """Average net outputs over N forward iterations (ref caffe.cpp:127-190).
     """
     if not args.weights and not getattr(args, "allow_random_weights", False):
@@ -162,7 +214,6 @@ def cmd_test(args) -> int:
         # runs
         raise SystemExit("Need model weights to score "
                          "(or pass --allow_random_weights).")
-    _refuse_mesh(args)
     dev = _device(args)
     net = Net(parse_file(args.model), phase="TEST")
     source = MergedSource([make_data_source(l, phase="TEST")
@@ -177,6 +228,8 @@ def cmd_test(args) -> int:
     sinks = bool(net.host_sinks)
     stateful = bool(net.stateful_layer_names)
     validators = net.batch_validators()
+    shard = mesh_run(mesh, source)
+    apply = shard.under_axes(net.apply)
     sums: dict[str, np.ndarray] = {}
     loss_sum = 0.0
     # the LSTM cross-batch state carries across the test forwards, as in
@@ -187,9 +240,10 @@ def cmd_test(args) -> int:
         raw = batch0_raw if i == 0 else source.next_batch()
         for v in validators:  # on the host batch, before it is used
             v(raw)
-        batch = {k: torch.as_tensor(x, device=dev) for k, x in raw.items()}
+        batch = {k: torch.as_tensor(x, device=dev)
+                 for k, x in shard.rows(raw).items()}
         with torch.no_grad():
-            loss, outputs, *rest = net.apply(
+            loss, outputs, *rest = apply(
                 params, batch, state=carry, return_state=stateful,
                 return_sink_blobs=sinks)
         if stateful:
@@ -197,7 +251,9 @@ def cmd_test(args) -> int:
         if sinks:
             # the reference's sink layers truncate and rewrite their files
             # on every TEST forward (retrieval_stats_layer.cpp:150)
-            net.process_host_sinks(rest[0])
+            net.process_host_sinks(
+                shard.gather(rest[0]), mesh=mesh,
+                shard_gallery=bool(getattr(args, "shard_gallery", False)))
         loss_sum += float(loss)
         for k, v in sorted(outputs.items()):  # JAX's jitted dict order
             arr = v.detach().cpu().numpy().reshape(-1)
@@ -522,11 +578,13 @@ def _device_flags(p, what: str) -> None:
 
 def _mesh_flags(p) -> None:
     p.add_argument("--mesh", default="",
-                   help="multi-card mesh as DATAxMODEL: not ported yet "
-                        "(ROADMAP item 11), raises")
+                   help="a mesh as DATAxMODEL (e.g. 4x2, or 4 for 4x1) of "
+                        "ranks, one process a device (launch N > 1 ranks "
+                        "with python -m torch.distributed.run): batch over "
+                        "data, 2-D params over model")
     p.add_argument("--shard_gallery", action="store_true",
-                   help="with --mesh: not ported yet (ROADMAP item 11), "
-                        "raises")
+                   help="with --mesh: shard the RETRIEVAL_STATS report's "
+                        "gallery rows over the data axis")
 
 
 def main(argv=None) -> int:

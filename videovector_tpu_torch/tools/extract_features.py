@@ -24,8 +24,10 @@ The three backends write the JAX tool's bytes:
            the LevelDB <out>_<blob>_leveldb with decimal "%d" keys and
            Datum(channels=1, height=dim, width=1), and text_output.txt
            inside it, a "#features" header, then rows of "%g," values.
-`--mesh` waits for ROADMAP item 11 and raises NotImplementedError before
-anything is written.
+`--mesh N` extracts data-parallel over N ranks, one process a device
+(parallel/mesh.py; launch with python -m torch.distributed.run): every
+rank draws the same stream and forwards its rows of each batch, and rank
+0 writes the stores and text files, byte-equal to a one-rank run's.
 """
 
 from __future__ import annotations
@@ -45,8 +47,11 @@ from videovector_tpu_torch.device import DEFAULT, resolve
 from videovector_tpu_torch.graph.data_factory import MergedSource, make_data_source
 from videovector_tpu_torch.graph.layers import DATA_LAYER_TYPES
 from videovector_tpu_torch.graph.net import Net
+from videovector_tpu_torch.ops.sharding import writer_logs
 from videovector_tpu_torch.solver.driver import _spec_from_batch
-from videovector_tpu_torch.tools.cli import _device, _load_weights, _refuse_mesh
+from videovector_tpu_torch.tools.cli import (
+    _device, _load_weights, _mesh_of, mesh_run,
+)
 from videovector_tpu_torch.utils.logging import get_logger
 
 log = get_logger(__name__)
@@ -56,9 +61,11 @@ BACKENDS = ("vvr", "leveldb", "lmdb")
 
 def extract(model_path: str, weight_paths: list[str], blob_names: list[str],
             out_prefix: str, num_batches: int, backend: str = "vvr",
-            device=None) -> dict:
+            device=None, mesh=None) -> dict:
     """Returns {blob name: rows written}. `device`: where the Net runs (the
-    card when None; raises without one)."""
+    card when None; raises without one). `mesh` (parallel.make_mesh; call
+    on every rank): each rank forwards its rows of every batch, the rows
+    are gathered back, and rank 0 writes."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown feature store backend {backend!r}")
     dev = resolve(DEFAULT if device is None else device)
@@ -88,7 +95,20 @@ def extract(model_path: str, weight_paths: list[str], blob_names: list[str],
     # dataset's first batch and shift every row against the reference
     stream = itertools.islice(itertools.chain([batch0_raw], source),
                               num_batches)
-    prefetcher = DevicePrefetcher(stream, depth=2, device=dev)
+    shard = mesh_run(mesh, source)
+    apply = shard.under_axes(net.apply)
+    prefetcher = DevicePrefetcher(stream, depth=2, device=dev,
+                                  transform=shard.rows)
+    if not shard.writer:
+        # the other ranks forward their rows and join the gathers
+        try:
+            for batch in prefetcher:
+                with torch.inference_mode():
+                    blobs = apply(params, batch, return_blobs=True)[1]
+                shard.gather({n: blobs[n] for n in blob_names})
+        finally:
+            prefetcher.close()
+        return {}
     # "leveldb" is the reference's output format; "vvr" and "lmdb" keep
     # zero-padded keys, so that key order is insertion order
     ref_format = backend == "leveldb"
@@ -112,7 +132,8 @@ def extract(model_path: str, weight_paths: list[str], blob_names: list[str],
     try:
         for batch in prefetcher:
             with torch.inference_mode():
-                blobs = net.apply(params, batch, return_blobs=True)[1]
+                blobs = apply(params, batch, return_blobs=True)[1]
+            blobs = shard.gather({n: blobs[n] for n in blob_names})
             for name in blob_names:
                 feats = blobs[name].float().cpu().numpy()
                 for row in feats.reshape(feats.shape[0], -1):
@@ -157,7 +178,9 @@ def main(argv=None) -> int:
                         help="feature store format (leveldb = the "
                              "reference extract_features output format)")
     parser.add_argument("--mesh", default="",
-                        help="data-parallel extraction (ROADMAP item 11)")
+                        help="data-parallel extraction over N ranks, one "
+                             "process a device (launch with python -m "
+                             "torch.distributed.run); rank 0 writes")
     parser.add_argument("--cpu", action="store_true",
                         help="run on the CPU (the plain versions)")
     parser.add_argument("--gpu", default=None,
@@ -165,9 +188,11 @@ def main(argv=None) -> int:
                              "GPU/CPU + device-id args, "
                              "ref tools/extract_features.cpp:52-66)")
     args = parser.parse_args(argv)
-    _refuse_mesh(args)
-    extract(args.model, args.weights, args.blobs.split(","), args.out,
-            args.num_batches, backend=args.backend, device=_device(args))
+    mesh = _mesh_of(args)
+    with writer_logs(mesh):
+        extract(args.model, args.weights, args.blobs.split(","), args.out,
+                args.num_batches, backend=args.backend, device=_device(args),
+                mesh=mesh)
     return 0
 
 

@@ -19,9 +19,10 @@ standard library alone.
   vvtpu-torch-serve run    out.vvtserve      # smoke-run on random inputs
 
 An artifact holds one device's program: `--platforms cuda` (the default:
-the card, which must be there) or `--platforms cpu`. A multi-device
-artifact (`--mesh`, `mesh_serving`, `shard_serving`) waits for ROADMAP
-item 11.
+the card, which must be there) or `--platforms cpu`. `shard_serving` and
+`run --mesh N` serve one device's artifact data-parallel, one rank a
+device (parallel.make_mesh). A multi-device artifact (`export --mesh`,
+`export_serving(mesh=)`, `mesh_serving`) waits for ROADMAP item 11b.
 """
 
 from __future__ import annotations
@@ -43,7 +44,7 @@ PLATFORMS = ("cuda", "cpu")
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to videovector_tpu_torch yet (ROADMAP queue "
-        "1, item 11: parallelism)")
+        "1, item 11b: the multi-device serving artifact)")
 
 
 def _device(platforms) -> str:
@@ -388,7 +389,51 @@ def mesh_serving(call, meta):
 
 
 def shard_serving(call, meta, mesh):
-    raise _not_ported("shard_serving (data-parallel serving)")
+    """Data-parallel serving: a callable that takes the GLOBAL batch (the
+    same on every rank of `mesh`), runs the one-device artifact on this
+    rank's rows and returns the global outputs on every rank (the ranks'
+    rows gathered over "data"; the shards are independent, so that gather
+    is the only collective).
+
+    The artifact must accept the per-rank batch: export with
+    --symbolic_batch (any divisible global batch), or feed a global batch
+    of artifact_batch x ranks. Tensors split on their recorded batch axis
+    (meta["batch_axes"]: time-major LSTM blobs are (T, B, ...), axis 1;
+    state:* carries axis 0); artifacts without that field default to axis
+    0."""
+    from videovector_tpu_torch.ops.collectives import all_gather
+    from videovector_tpu_torch.ops.sharding import mesh_axis, rank_rows
+
+    if int(meta.get("nr_devices") or 1) > 1:
+        raise ValueError(
+            f"artifact bakes a {meta['nr_devices']}-device program (export "
+            "mesh=...); run it via mesh_serving — shard_serving is for "
+            "single-device artifacts")
+    ax = mesh_axis(mesh, "data")
+    axes = meta.get("batch_axes") or {}
+
+    def _axis(name):
+        a = axes.get(name, 0)
+        if a is None:
+            raise ValueError(
+                f"output {name!r} has no batch axis (per-shard values "
+                "would differ) — export without it for sharded serving")
+        return a
+
+    def sharded_call(batch):
+        import torch
+        local = {}
+        for k, v in batch.items():
+            a = _axis(k)
+            if v.shape[a] % ax.size:
+                raise ValueError(
+                    f"input {k!r} batch {v.shape[a]} (axis {a}) not "
+                    f"divisible by the mesh data axis ({ax.size})")
+            local[k] = rank_rows(torch.as_tensor(v), ax, a)
+        out = call(local)
+        return {n: all_gather(o, ax, _axis(n)) for n, o in out.items()}
+
+    return sharded_call
 
 
 def _time_calls(call, batch, iterations: int, device: str) -> float:
@@ -442,7 +487,7 @@ def main(argv=None) -> int:
                         "live pipeline's throughput math; the default keeps "
                         "f32 reference numerics")
     p.add_argument("--mesh", default="",
-                   help="a multi-device program: waits for ROADMAP item 11")
+                   help="a multi-device program: waits for ROADMAP item 11b")
 
     p = sub.add_parser("info", help="print an artifact's metadata as JSON, "
                                     "without loading the program")
@@ -451,7 +496,9 @@ def main(argv=None) -> int:
     p = sub.add_parser("run", help="smoke-run an artifact on random inputs")
     p.add_argument("artifact")
     p.add_argument("--mesh", default="",
-                   help="data-parallel serving: waits for ROADMAP item 11")
+                   help="data-parallel serving over N ranks (one process a "
+                        "device; see parallel.make_mesh): the global batch "
+                        "is the artifact's batch x N")
     p.add_argument("--iterations", type=int, default=0,
                    help="also time the artifact: N timed calls after a "
                         "warmup, reporting ms/call and items/s")
@@ -460,8 +507,8 @@ def main(argv=None) -> int:
                         "call")
 
     args = parser.parse_args(argv)
-    if getattr(args, "mesh", ""):
-        raise _not_ported("--mesh")
+    if args.command == "export" and args.mesh:
+        raise _not_ported("export --mesh")
     if args.command == "export":
         platforms = [s for s in args.platforms.split(",") if s] or None
         shapes = {}
@@ -483,8 +530,17 @@ def main(argv=None) -> int:
         call, meta = load_serving(args.artifact)
         device = meta["platforms"][0]
         rng = np.random.RandomState(0)
-        batch = {k: rng.randn(*[8 if d == -1 else d for d in shape])
-                 .astype(dtype) for k, (shape, dtype) in meta["inputs"].items()}
+        mult = 1
+        if args.mesh:
+            from videovector_tpu_torch.tools.cli import _parse_mesh
+            mesh = _parse_mesh(args.mesh, device)
+            call = shard_serving(call, meta, mesh)
+            mult = mesh.size(0)
+        axes = meta.get("batch_axes") or {}
+        batch = {k: rng.randn(*[8 * mult if d == -1 else
+                                (d * mult if i == axes.get(k, 0) else d)
+                                for i, d in enumerate(shape)]).astype(dtype)
+                 for k, (shape, dtype) in meta["inputs"].items()}
         if args.memory and device == "cuda":
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
