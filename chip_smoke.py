@@ -191,6 +191,23 @@ Run from the root of a checkout. It
    B = 64, 4 microbatches against reference_encdec_loss (3 steps each), and
    the mesh engines; their times are the card time-shared by two
    processes, no scaling numbers.
+18. runs ROADMAP item 11b's multi-device serving artifact
+   (mesh_serving_artifact, after serving_artifact, same net, .caffemodel
+   and artifacts): `vvtpu-torch-serve export --mesh 1x1` on a one-rank
+   NCCL mesh, its ip2 bit-equal to the one-device f32 artifact's; then two
+   spawned gloo ranks sharing the card each export (`export --mesh`) and
+   serve (load_serving, mesh_serving) a 1 x 2 f32 and a 1 x 2 bf16
+   artifact (fc6 9216 -> 2048 and fc7 4096 -> 2048 a rank on K1, conv1..5
+   whole on K2) and a 2 x 1 --symbolic_batch one (25 rows a rank; at 50
+   and 256 global rows), each held against the one-device artifact of its
+   kind: the f32 ones within 1e-5 of max|ip2|; the bf16 one within 2e-2
+   at the one-device K1 plans and within 1e-5 when the one-device artifact
+   runs at the shards' K1 plans (the order of fc6's sums), the launches of one call (f32: K1 f32 2, K2 f32
+   5, repack 1; bf16: K1 sm90 2, K2 sm90 5, repack 1), no library GEMM or
+   conv in a profiled call, ms a call and frames/s (time-shared, no
+   scaling number); then K1 at the shard shapes 50 x 9216 x 2048 and 50 x
+   4096 x 2048 in f32 and bf16 against its plain version, timed beside
+   torch.mm and the bound.
 
 Exits non-zero, with no result line, without a CUDA card or outside a
 checkout. The last line of stdout is {"ok": true, "device": {...}}; the line
@@ -5109,19 +5126,19 @@ def _int8_fc(net, params, quant, batch, card) -> None:
         + f"); the int8 bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB) [{card}]")
 
 
-def serving_artifact(dev) -> dict:
+def serving_artifact(dev, tmp: Path) -> dict:
     """ROADMAP item 10's serving path on the card: the CaffeNet extraction
-    net at batch BATCH (a .caffemodel of seeded weights, blob ip2) frozen
-    by `vvtpu-torch-serve export` four times (f32, --compute bfloat16,
-    --quantize int8 --calib_batches 4, f32 --symbolic_batch), `info` on
-    each; each artifact loaded and run: f32 against the live Net, bf16
-    within 2e-2, the int8 fc accumulators exact, int8 retrieval metrics
-    within 0.02 of f32's on a class-structured batch, the symbolic one at
-    BATCH and 256 rows; the kernels' launches in one call of each; frames/s,
-    bytes and load time of each. Returns the launches of the counted
-    calls."""
+    net at batch BATCH (a .caffemodel of seeded weights, blob ip2, written
+    into `tmp`) frozen by `vvtpu-torch-serve export` four times (f32,
+    --compute bfloat16, --quantize int8 --calib_batches 4, f32
+    --symbolic_batch), `info` on each; each artifact loaded and run: f32
+    against the live Net, bf16 within 2e-2, the int8 fc accumulators exact,
+    int8 retrieval metrics within 0.02 of f32's on a class-structured
+    batch, the symbolic one at BATCH and 256 rows; the kernels' launches in
+    one call of each; frames/s, bytes and load time of each. Returns the
+    launches of the counted calls, the net's and weights' paths ("inputs"),
+    the artifacts' paths and the batch they ran on."""
     import io
-    import tempfile
 
     from videovector_tpu_torch.config import parse_file
     from videovector_tpu_torch.graph import Net
@@ -5136,109 +5153,107 @@ def serving_artifact(dev) -> dict:
     card = gpu_name_and_power_limit()
     log(f"serving_artifact [{card}]:")
     t_phase = time.perf_counter()
-    counts, results = {}, {}
-    with tempfile.TemporaryDirectory() as tmp_name:
-        tmp = Path(tmp_name)
-        inp = _write_extraction_inputs(tmp, dev)
-        net = Net(parse_file(inp["net"]), "TEST")
-        layer = next(l for l in net.layers
-                     if l.get("type") in DATA_LAYER_TYPES)
-        batch = {k: torch.as_tensor(v, device=dev) for k, v in
-                 make_data_source(layer, phase="TEST").next_batch().items()}
-        params, _ = net.init(torch.Generator(device=dev).manual_seed(0), {
-            k: torch.empty(tuple(v.shape), device="meta")
-            for k, v in batch.items()})
-        params = _load_weights(inp["weights"], params, dev)
-        with torch.no_grad():
-            live = net.apply(params, batch, return_blobs=True)[1]["ip2"]
-        calls = {}
-        for name, extra in SERVE_VARIANTS:
-            path = str(tmp / f"caffenet_{name}{serving.EXTENSION}")
-            t0 = time.perf_counter()
-            serving.main(["export", inp["net"], path, "--weights",
-                          inp["weights"], "--blobs", "ip2"] + extra)
-            export_s = time.perf_counter() - t0
-            info = io.StringIO()
-            with contextlib.redirect_stdout(info):
-                serving.main(["info", path])
-            meta = json.loads(info.getvalue())
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            call, _ = serving.load_serving(path)
-            load_s = time.perf_counter() - t0
-            calls[name] = call
-            counts[name] = _artifact_counts(call, batch)
-            fps = BATCH / time_ms(lambda: call(batch), iters=SERVE_TIMED) * 1e3
-            results[name] = {"bytes": meta["payload_bytes"], "fps": fps}
-            log(f"  {name}: export {export_s:.1f} s; info inputs "
-                f"{meta['inputs']} outputs {meta['outputs']} batch_axes "
-                f"{meta['batch_axes']} quantize {meta['quantize']} compute "
-                f"{meta['compute_dtype']} platforms {meta['platforms']}; "
-                f"{meta['payload_bytes'] / 1e6:.1f} MB payload, loaded in "
-                f"{load_s:.2f} s; launches in one call {counts[name]}; "
-                f"{fps:,.1f} frames/s at batch {BATCH} (CUDA events over "
-                f"{SERVE_TIMED} calls) [{card}]")
+    counts, results, paths = {}, {}, {}
+    inp = _write_extraction_inputs(tmp, dev)
+    net = Net(parse_file(inp["net"]), "TEST")
+    layer = next(l for l in net.layers
+                 if l.get("type") in DATA_LAYER_TYPES)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in
+             make_data_source(layer, phase="TEST").next_batch().items()}
+    params, _ = net.init(torch.Generator(device=dev).manual_seed(0), {
+        k: torch.empty(tuple(v.shape), device="meta")
+        for k, v in batch.items()})
+    params = _load_weights(inp["weights"], params, dev)
+    with torch.no_grad():
+        live = net.apply(params, batch, return_blobs=True)[1]["ip2"]
+    calls = {}
+    for name, extra in SERVE_VARIANTS:
+        path = paths[name] = str(tmp / f"caffenet_{name}{serving.EXTENSION}")
+        t0 = time.perf_counter()
+        serving.main(["export", inp["net"], path, "--weights",
+                      inp["weights"], "--blobs", "ip2"] + extra)
+        export_s = time.perf_counter() - t0
+        info = io.StringIO()
+        with contextlib.redirect_stdout(info):
+            serving.main(["info", path])
+        meta = json.loads(info.getvalue())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call, _ = serving.load_serving(path)
+        load_s = time.perf_counter() - t0
+        calls[name] = call
+        counts[name] = _artifact_counts(call, batch)
+        fps = BATCH / time_ms(lambda: call(batch), iters=SERVE_TIMED) * 1e3
+        results[name] = {"bytes": meta["payload_bytes"], "fps": fps}
+        log(f"  {name}: export {export_s:.1f} s; info inputs "
+            f"{meta['inputs']} outputs {meta['outputs']} batch_axes "
+            f"{meta['batch_axes']} quantize {meta['quantize']} compute "
+            f"{meta['compute_dtype']} platforms {meta['platforms']}; "
+            f"{meta['payload_bytes'] / 1e6:.1f} MB payload, loaded in "
+            f"{load_s:.2f} s; launches in one call {counts[name]}; "
+            f"{fps:,.1f} frames/s at batch {BATCH} (CUDA events over "
+            f"{SERVE_TIMED} calls) [{card}]")
 
-        def feats(name, b=batch):
-            return calls[name](b)["ip2"].float()
+    def feats(name, b=batch):
+        return calls[name](b)["ip2"].float()
 
-        f32 = feats("f32")
-        scale = live.abs().max().item()
-        f32_err = (f32 - live).abs().max().item()
-        log(f"  f32 artifact against the live Net's ip2: max abs diff "
-            f"{f32_err:.3e} (max |ip2| {scale:.3e}; bit-equal "
-            f"{torch.equal(f32, live)})")
-        if f32_err > 1e-5 * scale:
-            raise AssertionError(f"f32 artifact off the live Net: {f32_err}")
-        bf16_err = (feats("bf16") - live).abs().max().item()
-        log(f"  bf16 artifact against the f32 Net: {bf16_err:.3e} of max "
-            f"{scale:.3e}")
-        if bf16_err > 2e-2 * scale:
-            raise AssertionError(f"bf16 artifact off: {bf16_err}")
-        for n in SERVE_SYMBOLIC_BATCHES:
-            b = {k: (v if n == BATCH else torch.cat(
-                [v] * (-(-n // BATCH)))[:n]) for k, v in batch.items()}
-            out = feats("symbolic", b)
-            if tuple(out.shape) != (n, 4096) or not torch.isfinite(out).all():
-                raise AssertionError(f"symbolic artifact at {n}: {out.shape}")
-            if n == BATCH and (out - f32).abs().max().item() > 1e-5 * scale:
-                raise AssertionError("symbolic artifact off the f32 one")
-            log(f"  symbolic artifact at batch {n}: {tuple(out.shape)}, "
-                f"finite")
-        # int8: the fc accumulators, then the retrieval contract
-        # the export's calibration batches: the first batch of the source
-        # it took shapes from, then 3 of a fresh stream
-        calib_src = make_data_source(layer, phase="TEST")
-        calib = [{k: v.cpu().numpy() for k, v in batch.items()}] + [
-            calib_src.next_batch() for _ in range(3)]
-        qnet = Net(parse_file(inp["net"]), "TEST")
-        quant = quantize_weights(params, qnet, calibrate(qnet, params, calib))
-        qnet.quant = quant
-        with torch.no_grad():
-            q_live = qnet.apply(params, batch, return_blobs=True)[1]["ip2"]
-        q_err = (feats("int8") - q_live).abs().max().item()
-        log(f"  int8 artifact against the live int8 Net (the same "
-            f"calibration batches): {q_err:.3e}; modes "
-            f"{ {k: v['mode'] for k, v in quant.items()} }")
-        if q_err > 1e-5 * q_live.abs().max().item():
-            raise AssertionError(f"int8 artifact off the int8 Net: {q_err}")
-        _int8_fc(qnet, params, quant, batch, card)
-        frames, cls = _class_frames(np.random.RandomState(8), BATCH)
-        cb = {"data": torch.as_tensor(frames, device=dev),
-              "label": torch.zeros(BATCH, device=dev)}
-        vids = torch.arange(BATCH, device=dev)
-        clst = torch.as_tensor(cls, device=dev)
-        stats = {n: retrieval_stats(l2_normalize_rows(feats(n, cb)), vids, clst)
-                 for n in ("f32", "int8")}
-        deltas = {k: abs(float(stats["f32"][k]) - float(stats["int8"][k]))
-                  for k in ("mean_ap", "hit_at_1", "hit_at_5")}
-        log(f"  int8 against f32 on a {SERVE_CLASSES}-class batch of "
-            f"{BATCH}: " + ", ".join(
-                f"{k} {float(stats['f32'][k]):.4f} / "
-                f"{float(stats['int8'][k]):.4f}" for k in deltas)
-            + f"; deltas {deltas} (JAX's contract: <= {QUANT_METRIC_TOL})")
-        if max(deltas.values()) > QUANT_METRIC_TOL:
-            raise AssertionError(f"int8 retrieval metrics off: {deltas}")
+    f32 = feats("f32")
+    scale = live.abs().max().item()
+    f32_err = (f32 - live).abs().max().item()
+    log(f"  f32 artifact against the live Net's ip2: max abs diff "
+        f"{f32_err:.3e} (max |ip2| {scale:.3e}; bit-equal "
+        f"{torch.equal(f32, live)})")
+    if f32_err > 1e-5 * scale:
+        raise AssertionError(f"f32 artifact off the live Net: {f32_err}")
+    bf16_err = (feats("bf16") - live).abs().max().item()
+    log(f"  bf16 artifact against the f32 Net: {bf16_err:.3e} of max "
+        f"{scale:.3e}")
+    if bf16_err > 2e-2 * scale:
+        raise AssertionError(f"bf16 artifact off: {bf16_err}")
+    for n in SERVE_SYMBOLIC_BATCHES:
+        b = {k: (v if n == BATCH else torch.cat(
+            [v] * (-(-n // BATCH)))[:n]) for k, v in batch.items()}
+        out = feats("symbolic", b)
+        if tuple(out.shape) != (n, 4096) or not torch.isfinite(out).all():
+            raise AssertionError(f"symbolic artifact at {n}: {out.shape}")
+        if n == BATCH and (out - f32).abs().max().item() > 1e-5 * scale:
+            raise AssertionError("symbolic artifact off the f32 one")
+        log(f"  symbolic artifact at batch {n}: {tuple(out.shape)}, "
+            f"finite")
+    # int8: the fc accumulators, then the retrieval contract
+    # the export's calibration batches: the first batch of the source
+    # it took shapes from, then 3 of a fresh stream
+    calib_src = make_data_source(layer, phase="TEST")
+    calib = [{k: v.cpu().numpy() for k, v in batch.items()}] + [
+        calib_src.next_batch() for _ in range(3)]
+    qnet = Net(parse_file(inp["net"]), "TEST")
+    quant = quantize_weights(params, qnet, calibrate(qnet, params, calib))
+    qnet.quant = quant
+    with torch.no_grad():
+        q_live = qnet.apply(params, batch, return_blobs=True)[1]["ip2"]
+    q_err = (feats("int8") - q_live).abs().max().item()
+    log(f"  int8 artifact against the live int8 Net (the same "
+        f"calibration batches): {q_err:.3e}; modes "
+        f"{ {k: v['mode'] for k, v in quant.items()} }")
+    if q_err > 1e-5 * q_live.abs().max().item():
+        raise AssertionError(f"int8 artifact off the int8 Net: {q_err}")
+    _int8_fc(qnet, params, quant, batch, card)
+    frames, cls = _class_frames(np.random.RandomState(8), BATCH)
+    cb = {"data": torch.as_tensor(frames, device=dev),
+          "label": torch.zeros(BATCH, device=dev)}
+    vids = torch.arange(BATCH, device=dev)
+    clst = torch.as_tensor(cls, device=dev)
+    stats = {n: retrieval_stats(l2_normalize_rows(feats(n, cb)), vids, clst)
+             for n in ("f32", "int8")}
+    deltas = {k: abs(float(stats["f32"][k]) - float(stats["int8"][k]))
+              for k in ("mean_ap", "hit_at_1", "hit_at_5")}
+    log(f"  int8 against f32 on a {SERVE_CLASSES}-class batch of "
+        f"{BATCH}: " + ", ".join(
+            f"{k} {float(stats['f32'][k]):.4f} / "
+            f"{float(stats['int8'][k]):.4f}" for k in deltas)
+        + f"; deltas {deltas} (JAX's contract: <= {QUANT_METRIC_TOL})")
+    if max(deltas.values()) > QUANT_METRIC_TOL:
+        raise AssertionError(f"int8 retrieval metrics off: {deltas}")
     want = {"f32": dict(k2_f32=5, k2_sm90=0, repack=1, k1_f32=2, k1_sm90=0,
                         k1=2),
             "symbolic": dict(k2_f32=5, k2_sm90=0, repack=1, k1_f32=2,
@@ -5253,7 +5268,8 @@ def serving_artifact(dev) -> dict:
     log(f"serving_artifact phase: {time.perf_counter() - t_phase:.1f} s")
     total = {k: sum(c[k] for c in counts.values())
              for k in counts["f32"]}
-    return {**total, "results": results}
+    return {**total, "results": results, "inputs": inp, "paths": paths,
+            "batch": batch}
 
 
 # the parallel phase (ROADMAP item 11): the flagship step on a one-rank
@@ -5828,17 +5844,18 @@ def _parallel_rank(rank: int, rdzv: str, out: str, one: dict,
     Path(out).write_text(json.dumps(result))
 
 
-def _two_ranks(one: dict, dev_type: str) -> list[dict]:
-    """PAR_RANKS spawned processes sharing the card over gloo; the parent
-    joins them with a timeout and fails the run on a timeout or an error."""
+def _two_ranks(target, *args) -> list[dict]:
+    """PAR_RANKS spawned processes sharing the card over gloo, each running
+    target(rank, rendezvous file, result file, *args); the parent joins
+    them with a timeout and fails the run on a timeout or an error."""
     import multiprocessing as mp
     import tempfile
     ctx = mp.get_context("spawn")
     with tempfile.TemporaryDirectory() as tmp:
         outs = [str(Path(tmp) / f"rank{r}.json") for r in range(PAR_RANKS)]
-        procs = [ctx.Process(target=_parallel_rank,
-                             args=(r, str(Path(tmp) / "rdzv"), outs[r], one,
-                                   dev_type))
+        procs = [ctx.Process(target=target,
+                             args=(r, str(Path(tmp) / "rdzv"), outs[r])
+                             + args)
                  for r in range(PAR_RANKS)]
         for p in procs:
             p.start()
@@ -5903,7 +5920,7 @@ def parallel(dev, stores: tuple) -> dict:
     out["k1"] = _k1_shard_times(dev, torch.Generator(device=dev).manual_seed(3),
                                 card)
     t1 = time.perf_counter()
-    ranks = _two_ranks(one, dev.type)
+    ranks = _two_ranks(_parallel_rank, one, dev.type)
     for r in ranks:
         dp, tp, pp = r["dp"], r["tp"], r["pp"]
         log(f"  rank {r['rank']} of {PAR_RANKS} (gloo, the card time-shared "
@@ -5943,6 +5960,281 @@ def parallel(dev, stores: tuple) -> dict:
     log(f"parallel: {t1 - t0:.1f} s on one rank, {time.perf_counter() - t1:.1f}"
         f" s for the {PAR_RANKS} ranks (spawn and CUDA start included)")
     return out
+
+
+# the mesh serving phase (ROADMAP item 11b): serve-artifact-caffenet-b50's
+# net and .caffemodel exported under a mesh: 1 x 1 on a one-rank NCCL mesh,
+# then on the two gloo ranks sharing the card 1 x 2 (f32 and bf16: fc6 and
+# fc7 column-sharded) and 2 x 1 (f32, symbolic batch: the rows sharded),
+# each against the one-device artifact of its kind
+MESH_SERVE_ARTIFACTS = (("1x2_f32", 1, 2, [], "f32"),
+                        ("1x2_bf16", 1, 2, ["--compute", "bfloat16"], "bf16"),
+                        ("2x1_symbolic", 2, 1, ["--symbolic_batch"],
+                         "symbolic"))
+MESH_SERVE_TOL = 1e-5      # relative to max|ip2| of the one-device artifact
+MESH_SERVE_TIMED = 10
+# the launches of one call of each, and their routes
+MESH_SERVE_LAUNCHES = {
+    "f32": dict(k1=2, k1_f32=2, k2=5, k2_f32=5, repack=1),
+    "bf16": dict(k1=2, k1_sm90=2, k2=5, k2_sm90=5, repack=1),
+    "symbolic": dict(k1=2, k1_f32=2, k2=5, k2_f32=5, repack=1)}
+# K1 on a model rank of the 1 x 2 artifacts: fc6's and fc7's column shards
+# (K, N) at BATCH rows
+K1_MESH_SHARDS = ((9216, 2048), (4096, 2048))
+
+
+@contextlib.contextmanager
+def _shard_plans(model_n: int):
+    """K1 plans each product as it plans its column shard on one of
+    `model_n` model ranks (the same block and split-K count), so that a
+    one-device run sums each column in a 1 x model_n artifact's order."""
+    from videovector_tpu_torch.ops.hopper import matmul as k1
+    plans = k1.k1_split_plan, k1.k1_f32_plan
+    k1.k1_split_plan = lambda m, n, k, sms: plans[0](m, n // model_n, k, sms)
+    k1.k1_f32_plan = lambda m, n, k, sms: plans[1](m, n // model_n, k, sms)
+    try:
+        yield
+    finally:
+        k1.k1_split_plan, k1.k1_f32_plan = plans
+
+
+def _mesh_serving_rank(rank: int, rdzv: str, out: str, paths: dict,
+                       dev_type: str) -> None:
+    """One of PAR_RANKS gloo ranks on the one card: each of
+    MESH_SERVE_ARTIFACTS exported by `vvtpu-torch-serve export --mesh`,
+    served through load_serving and mesh_serving against its one-device
+    artifact (and the symbolic one at BATCH and 256 rows; a 1 x 2 one also
+    against the one-device artifact run at the shards' K1 plans), the
+    kernels' launches in one call, one profiled call (no library GEMM or
+    conv) and the ms a call; writes its results (or its traceback) to
+    `out`."""
+    import datetime
+
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+    sys.path.insert(0, str(ROOT))
+    result = {"rank": rank}
+    try:
+        from videovector_tpu_torch import _build
+        from videovector_tpu_torch.tools import serving
+        _build.load_library()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dev = torch.device(dev_type)
+        dist.init_process_group(
+            "gloo", init_method="file://" + rdzv, rank=rank,
+            world_size=PAR_RANKS,
+            timeout=datetime.timedelta(seconds=PAR_RANK_TIMEOUT))
+        with np.load(paths["batch"]) as z:
+            batch = {k: torch.as_tensor(z[k], device=dev) for k in z.files}
+
+        def rows(n):
+            return {k: torch.cat([v] * -(-n // BATCH))[:n]
+                    for k, v in batch.items()}
+        for name, data_n, model_n, extra, ref in MESH_SERVE_ARTIFACTS:
+            path = str(Path(paths["dir"]) / f"caffenet_{name}"
+                       f"{serving.EXTENSION}")
+            t0 = time.perf_counter()
+            serving.main(["export", paths["net"], path, "--weights",
+                          paths["weights"], "--blobs", "ip2", "--platforms",
+                          dev_type, "--mesh", f"{data_n}x{model_n}"] + extra)
+            export_s = time.perf_counter() - t0
+            meta = serving.read_meta(path)
+            call, _ = serving.load_serving(path)
+            run = serving.mesh_serving(call, meta)
+            one, _ = serving.load_serving(paths[ref])
+            errs, pinned = {}, None
+            for n in (BATCH, 256) if "--symbolic_batch" in extra else (BATCH,):
+                got, want = run(rows(n))["ip2"], one(rows(n))["ip2"]
+                if tuple(got.shape) != (n, 4096):
+                    raise AssertionError(f"{name} at {n}: {got.shape}")
+                errs[n] = _rel_err(got, want)
+            if model_n > 1:
+                with _shard_plans(model_n):
+                    pinned = _rel_err(got, one(batch)["ip2"])
+            counts = _artifact_counts(run, batch)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                run(batch)
+                torch.cuda.synchronize()
+            kernels = {e.name for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA}
+            ms = time_ms(lambda: run(batch), iters=MESH_SERVE_TIMED)
+            result[name] = {
+                "export_s": export_s, "bytes": meta["payload_bytes"],
+                "devices": meta["devices"], "errs": errs, "pinned": pinned,
+                "counts": counts, "kernels": len(kernels),
+                "library": sorted(k for k in kernels
+                                  if _is_library_kernel(k)),
+                "ms": ms, "fps": BATCH / ms * 1e3}
+        dist.destroy_process_group()
+    except BaseException:  # noqa: BLE001 - reported to the parent
+        result["error"] = traceback.format_exc()
+    Path(out).write_text(json.dumps(result))
+
+
+def _k1_mesh_shard_times(dev, gen, card: str) -> dict:
+    """K1 at a model rank's calls in the 1 x 2 artifacts (K1_MESH_SHARDS at
+    BATCH rows, bias, f32 out), f32 operands on the f32 route and bf16 on
+    the sm90 route: each against its plain version, timed by CUDA-graph
+    replay in turns with the plain version and torch.mm (cuBLAS, TF32 off)
+    over copies of w beyond L2, beside its bound. Returns, per dtype, the
+    sums over the two shapes."""
+    from videovector_tpu_torch.ops.hopper import matmul as k1
+    out = {}
+    for dt, route, size, peak in ((torch.float32, "f32", 4, PEAK_FLOPS_F32),
+                                  (torch.bfloat16, "sm90", 2, PEAK_FLOPS)):
+        acc = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+               "bound_ms": 0.0, "err": 0.0}
+        t_ops_all = t_bytes_all = 0.0
+        for k, n in K1_MESH_SHARDS:
+            x = torch.randn((BATCH, k), generator=gen, device=dev).to(dt)
+            b = torch.randn((n,), generator=gen, device=dev)
+            ws = [(torch.randn((k, n), generator=gen, device=dev)
+                   * k ** -0.5).to(dt)
+                  for _ in range(max(2, math.ceil(L2_EXCESS * L2_BYTES
+                                                  / (k * n * size))))]
+            if k1.k1_route(x, ws[0], torch.float32) != route:
+                raise AssertionError(f"K1 {BATCH}x{k}x{n} {dt}: not the "
+                                     f"{route} route")
+
+            def run(w, x=x, b=b):
+                return k1.matmul(x, w, b)
+
+            def plain(w, x=x, b=b):
+                return k1.matmul_plain(x, w, b)
+
+            def library(w, x=x, dt=dt):
+                if dt == torch.float32:
+                    return torch.mm(x, w)
+                return torch.mm(x, w, out_dtype=torch.float32)
+            err = compare(f"K1 {route} route, mesh shard {BATCH}x{k}x{n}",
+                          run(ws[0]), plain(ws[0]))
+            t = [time_graph_ms(fn, ws) for fn in (plain, run, library,
+                                                   library, run, plain)]
+            ms, ms_plain, ms_lib = (t[1] + t[4]) / 2, (t[0] + t[5]) / 2, \
+                (t[2] + t[3]) / 2
+            flops = 2 * BATCH * k * n
+            nbytes = size * (BATCH * k + k * n) + 4 * n + 4 * BATCH * n
+            t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+            bound = max(t_ops, t_bytes) * 1e3
+            log(f"  K1 {BATCH}x{k}x{n} ({str(dt)[6:]} in, f32 out, bias; "
+                f"{route} route): kernel {ms:.4f} ms, plain {ms_plain:.4f}, "
+                f"torch.mm {ms_lib:.4f}, bound {bound:.4f} "
+                f"({'operations' if t_ops >= t_bytes else 'bytes'}: "
+                f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB; "
+                f"{bound / ms:.2f} of it); turns "
+                f"{', '.join(f'{v:.4f}' for v in t)} [{card}]")
+            for key, v in (("ms", ms), ("plain_ms", ms_plain),
+                           ("library_ms", ms_lib), ("bound_ms", bound)):
+                acc[key] += v
+            acc["err"] = max(acc["err"], err)
+            t_ops_all += t_ops
+            t_bytes_all += t_bytes
+        acc["bound_by"] = "operations" if t_ops_all >= t_bytes_all \
+            else "bytes"
+        out[route] = acc
+    return out
+
+
+def mesh_serving_artifact(dev, tmp: Path, serve: dict) -> dict:
+    """ROADMAP item 11b on the card: serving_artifact's net and .caffemodel
+    (in `tmp`) exported by `vvtpu-torch-serve export --mesh 1x1` on a
+    one-rank NCCL mesh (make_mesh(1, 1) starts the group; destroyed after),
+    its outputs bit-equal to the one-device f32 artifact's; then two gloo
+    ranks sharing the card export and serve MESH_SERVE_ARTIFACTS
+    (_mesh_serving_rank; their times are the card time-shared by two
+    processes, no scaling numbers); then K1 at the 1 x 2 artifacts' shard
+    shapes. Returns the launches of the ranks' counted calls and K1's
+    times."""
+    import torch.distributed as dist
+
+    from videovector_tpu_torch.parallel import make_mesh
+    from videovector_tpu_torch.tools import serving
+    card = gpu_name_and_power_limit()
+    log(f"mesh_serving_artifact [{card}]:")
+    t0 = time.perf_counter()
+    inp, paths, batch = serve["inputs"], serve["paths"], serve["batch"]
+    path = str(tmp / f"caffenet_1x1{serving.EXTENSION}")
+    make_mesh(1, 1, devices=dev.type)
+    try:
+        backend = dist.get_backend()
+        serving.main(["export", inp["net"], path, "--weights",
+                      inp["weights"], "--blobs", "ip2", "--platforms",
+                      dev.type, "--mesh", "1x1"])
+    finally:
+        dist.destroy_process_group()
+    call, meta = serving.load_serving(path)
+    one, _ = serving.load_serving(paths["f32"])
+    got = serving.mesh_serving(call, meta)(batch)["ip2"]
+    if not torch.equal(got, one(batch)["ip2"]):
+        raise AssertionError("the 1 x 1 artifact differs from the one-device "
+                             "f32 artifact")
+    log(f"  export --mesh 1x1 on a one-rank {backend} mesh: meta mesh "
+        f"{meta['mesh']}, nr_devices {meta['nr_devices']}; ip2 {tuple(got.shape)}"
+        " bit-equal to the one-device f32 artifact's")
+    np.savez(tmp / "mesh_batch.npz",
+             **{k: v.cpu().numpy() for k, v in batch.items()})
+    rank_paths = {"dir": str(tmp), "batch": str(tmp / "mesh_batch.npz"),
+                  "net": inp["net"], "weights": inp["weights"], **paths}
+    t1 = time.perf_counter()
+    ranks = _two_ranks(_mesh_serving_rank, rank_paths, dev.type)
+    t2 = time.perf_counter()
+    total = {k: 0 for k in ("k1_f32", "k1_sm90", "k1_rows", "k2_f32",
+                            "k2_sm90", "repack")}
+    for r in ranks:
+        for name, _, _, _, ref in MESH_SERVE_ARTIFACTS:
+            res = r[name]
+            # bf16: fc6's f32 sums on a column shard take K1's plan at N =
+            # 2048 (twice the splits), and where they differ from the
+            # one-device sums, fc7's bf16 inputs may round apart; at the
+            # shards' plans the one-device artifact sums alike
+            tol = MESH_SERVE_TOL if ref != "bf16" else REL_TOL[torch.bfloat16]
+            log(f"  rank {r['rank']} of {PAR_RANKS}, {name} (gloo, the card "
+                "time-shared by both ranks: no scaling number): export "
+                f"{res['export_s']:.1f} s, {res['bytes'] / 1e6:.1f} MB, "
+                f"devices {res['devices']}; ip2 against the one-device "
+                f"{ref} artifact, max rel err "
+                + ", ".join(f"{v:.3e} at {n} rows"
+                            for n, v in res["errs"].items())
+                + f" (tol {tol})"
+                + ("" if res["pinned"] is None else
+                   f", at the shards' K1 plans {res['pinned']:.3e} (tol "
+                   f"{MESH_SERVE_TOL})")
+                + "; launches in one call "
+                f"{res['counts']}; {res['kernels']} device kernels in a "
+                f"profiled call, library {res['library']}; "
+                f"{res['ms']:.3f} ms a call, {res['fps']:,.1f} frames/s at "
+                f"batch {BATCH} (CUDA events over {MESH_SERVE_TIMED} calls) "
+                f"[{card}]")
+            bad = [f"{n} rows: {v:.3e}" for n, v in res["errs"].items()
+                   if not v <= tol]
+            if res["pinned"] is not None and \
+                    not res["pinned"] <= MESH_SERVE_TOL:
+                bad.append(f"at the shards' plans: {res['pinned']:.3e}")
+            if bad:
+                raise AssertionError(f"rank {r['rank']} {name} off the "
+                                     f"one-device artifact: {bad}")
+            want = MESH_SERVE_LAUNCHES[ref]
+            got = {k: res["counts"][k] for k in want}
+            if got != want:
+                raise AssertionError(f"rank {r['rank']} {name} launches "
+                                     f"{res['counts']}, expected {want}")
+            if res["library"]:
+                raise AssertionError(f"library kernels on {name}: "
+                                     f"{res['library']}")
+            c = res["counts"]
+            total["k1_f32" if ref == "f32" else "k1_rows"] += c["k1_f32"]
+            total["k1_sm90"] += c["k1_sm90"]
+            total["k2_f32"] += c["k2_f32"]
+            total["k2_sm90"] += c["k2_sm90"]
+            total["repack"] += c["repack"]
+    k1 = _k1_mesh_shard_times(dev, torch.Generator(device=dev).manual_seed(5),
+                              card)
+    log(f"mesh_serving_artifact: {t1 - t0:.1f} s on one rank, {t2 - t1:.1f} "
+        f"s for the {PAR_RANKS} ranks (spawn and CUDA start included), "
+        f"{time.perf_counter() - t2:.1f} s for K1's shard times")
+    return {**total, "k1": k1}
 
 
 def main() -> int:
@@ -6012,7 +6304,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     ext = extraction(dev)
     torch.cuda.empty_cache()
-    serve = serving_artifact(dev)
+    with tempfile.TemporaryDirectory() as serve_dir:
+        serve = serving_artifact(dev, Path(serve_dir))
+        torch.cuda.empty_cache()
+        mesh = mesh_serving_artifact(dev, Path(serve_dir), serve)
 
     kernels = [
         {"name": "K1 matmul (TMA + wgmma GEMM, split-K, bias + ReLU "
@@ -6046,7 +6341,8 @@ def main() -> int:
          "replaces": "videovector_tpu/ops/pallas/matmul.py:50",
          "launches": (net["f32"] + cli["f32"] + ext["k1_f32"] + exh["f32"]
                       + zoo["f32"] + traj["f32"] + interop["k1_f32"]
-                      + dn["f32"] + serve["k1_f32"] + par["cli_f32"]),
+                      + dn["f32"] + serve["k1_f32"] + par["cli_f32"]
+                      + mesh["k1_rows"]),
          **{k: net["k1"][NET_ROWS][k] for k in ("ms", "plain_ms", "bound_ms",
                                                 "bound_by", "library_ms")},
          "max_abs_err": max([v["err"] for v in net["k1"].values()]
@@ -6072,11 +6368,28 @@ def main() -> int:
          "launches": par["launches"], "max_abs_err": par["k1"]["err"],
          **{k: par["k1"][k] for k in ("ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms")}},
+        {"name": "K1 matmul, the 1 x 2 mesh serving artifact's column shards "
+                 "at f32 (fc6 50 x 9216 x 2048 + fc7 50 x 4096 x 2048; "
+                 "TMA-fed FFMA GEMM, split-K, bias epilogue)",
+         "route": "cuda",
+         "source": "videovector_tpu_torch/csrc/matmul_f32_sm90.cu",
+         "replaces": "videovector_tpu/ops/pallas/matmul.py:50",
+         "launches": mesh["k1_f32"], "max_abs_err": mesh["k1"]["f32"]["err"],
+         **{k: mesh["k1"]["f32"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                              "bound_by", "library_ms")}},
+        {"name": "K1 matmul, the 1 x 2 mesh serving artifact's column shards "
+                 "in bf16 (fc6 50 x 9216 x 2048 + fc7 50 x 4096 x 2048; TMA "
+                 "+ wgmma GEMM, split-K, bias epilogue)", "route": "cuda",
+         "source": "videovector_tpu_torch/csrc/matmul_sm90.cu",
+         "replaces": "videovector_tpu/ops/pallas/matmul.py:50",
+         "launches": mesh["k1_sm90"], "max_abs_err": mesh["k1"]["sm90"]["err"],
+         **{k: mesh["k1"]["sm90"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                               "bound_by", "library_ms")}},
         {"name": "K2 conv2d_im2col_gemm (implicit-GEMM conv: cp.async "
                  "gathers + TMA + wgmma, one launch per conv)", "route": "cuda",
          "source": "videovector_tpu_torch/csrc/conv_gemm_sm90.cu",
          "replaces": "videovector_tpu/ops/pallas/conv_gemm.py:18",
-         "launches": launches["K2"] + serve["k2_sm90"],
+         "launches": launches["K2"] + serve["k2_sm90"] + mesh["k2_sm90"],
          "max_abs_err": stats["K2"]["err"],
          "ms": stats["K2"]["ms"], "plain_ms": stats["K2"]["plain_ms"],
          "bound_ms": stats["K2"]["bound_ms"], "bound_by": "operations",
@@ -6087,7 +6400,7 @@ def main() -> int:
          "source": "videovector_tpu_torch/csrc/conv_gemm_sm90.cu",
          "replaces": "videovector_tpu/ops/pallas/conv_gemm.py:18",
          "launches": (launches["repack"] + ext["repack"] + interop["repack"]
-                      + serve["repack"]),
+                      + serve["repack"] + mesh["repack"]),
          "max_abs_err": stats["repack"]["err"],
          "ms": stats["repack"]["ms"], "plain_ms": stats["repack"]["plain_ms"],
          "bound_ms": stats["repack"]["bound_ms"], "bound_by": "bytes",
@@ -6097,7 +6410,8 @@ def main() -> int:
          "route": "cuda",
          "source": "videovector_tpu_torch/csrc/conv_gemm_f32_sm90.cu",
          "replaces": "videovector_tpu/ops/pallas/conv_gemm.py:18",
-         "launches": ext["k2_f32"] + interop["k2_f32"] + serve["k2_f32"],
+         "launches": (ext["k2_f32"] + interop["k2_f32"] + serve["k2_f32"]
+                      + mesh["k2_f32"]),
          "max_abs_err": ext["k2"]["f32"]["err"],
          **{k: ext["k2"]["f32"][k] for k in ("ms", "plain_ms", "bound_ms",
                                             "bound_by", "library_ms")}},
@@ -6160,7 +6474,15 @@ def main() -> int:
         f"{par['cli_f32']} f32-route launches of `train --mesh 1`, and the "
         f"{PAR_RANKS} gloo ranks' {par['launches']} sm90 launches at the "
         "shard shapes (DP and TP; its ms, plain_ms, bound_ms and library_ms "
-        "summed over the two shapes))")
+        "summed over the two shapes); mesh_serving_artifact adds one counted "
+        f"call of each mesh artifact on each of the {PAR_RANKS} gloo ranks: "
+        f"the 1 x 2 f32 artifact's {mesh['k1_f32']} K1 f32-route launches at "
+        f"the column shards and the 1 x 2 bf16 artifact's {mesh['k1_sm90']} "
+        "sm90 ones (their rows: fc6 + fc7 shards at 50 rows, times summed "
+        "over the two shapes, library torch.mm), the 2 x 1 symbolic "
+        f"artifact's {mesh['k1_rows']} f32-route launches at 25 rows (in the "
+        f"Net's f32 row), K2 f32 {mesh['k2_f32']}, K2 sm90 "
+        f"{mesh['k2_sm90']}, repack {mesh['repack']})")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

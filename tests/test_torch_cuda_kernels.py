@@ -1510,3 +1510,144 @@ def test_one_rank_nccl_dp_step_is_bit_equal_to_the_unsharded_step(dev):
             assert torch.equal(q["tower"][k], p["tower"][k])
     finally:
         dist.destroy_process_group()
+
+
+SERVE_NET = """
+name: "serve"
+input: "x"
+input_dim: 6 input_dim: 16 input_dim: 12 input_dim: 12
+layers { name: "c1" type: CONVOLUTION bottom: "x" top: "h"
+  convolution_param { num_output: 32 kernel_size: 3 pad: 1
+    weight_filler { type: "gaussian" std: 0.1 }
+    bias_filler { type: "constant" value: 0.1 } } }
+layers { name: "r1" type: RELU bottom: "h" top: "h" }
+layers { name: "fc" type: INNER_PRODUCT bottom: "h" top: "f"
+  inner_product_param { num_output: 64 weight_filler { type: "xavier" }
+    bias_filler { type: "constant" value: 0.05 } } }
+layers { name: "r2" type: RELU bottom: "f" top: "f" }
+layers { name: "fc2" type: INNER_PRODUCT bottom: "f" top: "out"
+  inner_product_param { num_output: 16
+    weight_filler { type: "xavier" } } }
+"""
+
+
+def _serve_net(tmp_path, dev):
+    """SERVE_NET's prototxt, a .caffemodel of its seeded init, its
+    one-device artifact, and a batch on `dev`."""
+    from videovector_tpu_torch.config import parse as tparse
+    from videovector_tpu_torch.graph import Net
+    from videovector_tpu_torch.solver.checkpoint import snapshot
+    from videovector_tpu_torch.tools import serving
+    net_path = tmp_path / "serve.prototxt"
+    net_path.write_text(SERVE_NET)
+    params, _ = Net(tparse(SERVE_NET), "TEST").init(
+        torch.Generator().manual_seed(3),
+        {"x": np.zeros((6, 16, 12, 12), np.float32)})
+    weights, _ = snapshot(str(tmp_path / "w"), 1, params)
+    one = str(tmp_path / "one.vvtserve")
+    assert serving.main(["export", str(net_path), one, "--weights", weights,
+                         "--blobs", "out"]) == 0
+    batch = {"x": torch.randn(6, 16, 12, 12, device=dev,
+                              generator=torch.Generator(device=dev)
+                              .manual_seed(1))}
+    return str(net_path), weights, one, batch
+
+
+def test_one_rank_nccl_mesh_artifact_equals_the_one_device_one(dev,
+                                                               tmp_path):
+    """`vvtpu-torch-serve export --mesh 1x1` on a one-rank NCCL mesh (its
+    group started by make_mesh) of a conv + fc net: the artifact's outputs
+    are the one-device artifact's bits, and a call launches K2 once and K1
+    twice (counted)."""
+    import torch.distributed as dist
+
+    from videovector_tpu_torch.tools import serving
+    net, weights, one_path, batch = _serve_net(tmp_path, dev)
+    mesh_path = str(tmp_path / "mesh.vvtserve")
+    try:
+        assert serving.main(["export", net, mesh_path, "--weights", weights,
+                             "--blobs", "out", "--mesh", "1x1"]) == 0
+        assert dist.get_backend() == "nccl"
+    finally:
+        dist.destroy_process_group()
+    one, _ = serving.load_serving(one_path)
+    call, meta = serving.load_serving(mesh_path)
+    assert (meta["mesh"], meta["nr_devices"]) == ({"data": 1, "model": 1}, 1)
+    want = one(batch)["out"]
+    before = (k1.matmul.launches, k2.conv2d_im2col_gemm.launches)
+    got = serving.mesh_serving(call, meta)(batch)["out"]
+    torch.cuda.synchronize()
+    assert (k1.matmul.launches - before[0],
+            k2.conv2d_im2col_gemm.launches - before[1]) == (2, 1)
+    assert torch.equal(got, want)
+
+
+def test_two_card_mesh_artifact_over_nccl_and_gloo(dev, tmp_path):
+    """A 1 x 2 artifact of the conv + fc net on two cards, one rank a card
+    under python -m torch.distributed.run (tests/torch_card_ranks.py),
+    exported over NCCL and over gloo (CUDA tensors): each rank's program
+    names its own card; either artifact served over either backend gives
+    the one-device artifact's outputs within 1e-5 of their largest
+    magnitude, every serving the same bits, and each rank's call launches
+    K2 once and K1 twice (fc's and fc2's column shards); ranks put on each
+    other's cards refuse their programs."""
+    import os
+    import pickle
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from videovector_tpu_torch.tools import serving
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards (one rank a card)")
+    net, weights, one_path, batch = _serve_net(tmp_path, dev)
+    np.savez(tmp_path / "batch.npz", x=batch["x"].cpu().numpy())
+    root = Path(__file__).resolve().parent.parent
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(root)] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    arts = {b: str(tmp_path / f"{b}.vvtserve") for b in ("nccl", "gloo")}
+
+    def ranks(*args):
+        out = str(tmp_path / f"res{len(list(tmp_path.glob('res*')))}")
+        run = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node", "2", str(root / "tests" / "torch_card_ranks.py"),
+             args[0], args[1], out, *args[2:]],
+            env=env, cwd=tmp_path, capture_output=True, text=True,
+            timeout=300)
+        assert run.returncode == 0, run.stdout[-3000:] + run.stderr[-3000:]
+        res = []
+        for r in range(2):
+            with open(f"{out}.{r}.pkl", "rb") as f:
+                res.append(pickle.load(f))
+        return res
+
+    for b in arts:
+        for r, res in enumerate(ranks("export", b, arts[b], net, weights,
+                                      "out", "1x2")):
+            assert (res["backend"], res["device"]) == (b, f"cuda:{r}")
+            assert res["meta"]["devices"] == ["cuda:0", "cuda:1"]
+    one, _ = serving.load_serving(one_path)
+    want = one(batch)["out"].cpu().numpy()
+    served = {b: ranks("serve", b, str(tmp_path / "batch.npz"), *arts.values())
+              for b in ("nccl", "gloo")}
+    first = served["nccl"][0][arts["nccl"]]["outs"]["out"]
+    for b, res in served.items():
+        for r, rank in enumerate(res):
+            assert (rank["backend"], rank["device"]) == (b, f"cuda:{r}")
+            for art in arts.values():
+                got = rank[art]
+                assert got["launches"] == (2, 1)
+                assert got["outs"]["out"].shape == want.shape
+                np.testing.assert_allclose(got["outs"]["out"], want, rtol=0,
+                                           atol=1e-5 * np.abs(want).max())
+                np.testing.assert_array_equal(got["outs"]["out"], first)
+    for r, rank in enumerate(ranks("serve", "nccl",
+                                   str(tmp_path / "batch.npz"),
+                                   arts["nccl"], "--swap")):
+        assert rank["device"] == f"cuda:{1 - r}"
+        assert rank[arts["nccl"]]["error"] == (
+            f"rank {r}'s program was exported on cuda:{r}, which its buffers "
+            f"and constants name; this rank serves on cuda:{1 - r}: serve "
+            "one rank a device in the exporting ranks' order")

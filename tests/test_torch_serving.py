@@ -6,9 +6,12 @@ from the same prototxt and .vvmodel weights by both packages, loaded, and
 run on the same batches: the port's artifact against the port's Net.apply
 (equal math: within 1e-5) and against JAX's load_serving (within 1e-5,
 bf16 within 2e-2 of max|ref|); the metas are equal key for key; `info`
-runs in a process with torch and numpy blocked; the multi-device paths
-name ROADMAP item 11b; an unknown platform is a ValueError naming it. K1
-and K2's custom ops export and reload in a fresh process.
+runs in a process with torch and numpy blocked; `export --mesh 1x1` gives
+the one-device program, a larger mesh asks for a launch of its ranks, and
+mesh_serving passes a one-device call through
+(tests/test_torch_parallel_serving.py runs the larger meshes); an unknown
+platform is a ValueError naming it. K1 and K2's custom ops export and
+reload in a fresh process.
 """
 
 import json
@@ -215,15 +218,35 @@ def test_cli_export_run_and_the_refusals(model, tmp_path):
                           model["weights"], "--blobs", "out",
                           "--platforms", "cpu"]) == 0
     assert tserving.main(["run", art, "--iterations", "2"]) == 0
-    with pytest.raises(NotImplementedError, match="item 11b"):
+    # a multi-device export needs its ranks launched
+    # (tests/test_torch_parallel_serving.py)
+    with pytest.raises(RuntimeError, match="torch.distributed.run"):
         tserving.main(["export", model["net"], art, "--blobs", "out",
                        "--platforms", "cpu", "--mesh", "2x1"])
     # run --mesh serves data-parallel since item 11
     # (tests/test_torch_parallel_retrieval.py); 2 ranks need a launch
     with pytest.raises(RuntimeError, match="torch.distributed.run"):
         tserving.main(["run", art, "--mesh", "2"])
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        tserving.mesh_serving(None, None)
+    call, meta = tserving.load_serving(art)
+    assert tserving.mesh_serving(call, meta) is call
+    # a one-rank mesh (its group started in-process) exports the
+    # one-device program
+    import torch.distributed as dist
+    one = str(tmp_path / "one.vvtserve")
+    try:
+        assert tserving.main(["export", model["net"], one, "--weights",
+                              model["weights"], "--blobs", "out",
+                              "--platforms", "cpu", "--mesh", "1x1"]) == 0
+    finally:
+        dist.destroy_process_group()
+    call1, meta1 = tserving.load_serving(one)
+    assert (meta1["mesh"], meta1["nr_devices"]) == (
+        {"data": 1, "model": 1}, 1)
+    assert {k: v for k, v in meta1.items() if k != "mesh"} == \
+        {k: v for k, v in meta.items() if k != "mesh"}
+    batch = _batch(4)
+    assert torch.equal(tserving.mesh_serving(call1, meta1)(batch)["out"],
+                       call(batch)["out"])
     with pytest.raises(ValueError, match="tpu"):
         tserving.export_serving(model["net"], [], ["out"], art,
                                 platforms=["tpu"])

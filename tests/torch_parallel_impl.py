@@ -364,3 +364,93 @@ def retrieval(feats, vids, cls, out_dir, data_n, model_n):
         errs.append(str(e))
     out["errors"] = errs
     return out
+
+def _stored_groups(call) -> list:
+    """The group names the collectives of this rank's stored program
+    hold."""
+    stored = set()
+    for node in call.program(dist.get_rank()).graph.nodes:
+        if getattr(node.target, "namespace", None) == "_c10d_functional":
+            stored |= {a for a in node.args if isinstance(a, str)
+                       and a.startswith("mesh:")}
+    return sorted(stored)
+
+
+def serve_mesh(net, weights, blobs, out, data_n, model_n, batches, kw=None):
+    """export_serving(mesh=data_n x model_n) on every rank, then the
+    artifact through load_serving and mesh_serving on each global batch
+    (a stateful artifact's state from zeros, then each batch's state
+    outputs fed to the next): the outputs, the export's meta, the loaded
+    meta, the export mesh's group names and the group names the rank's
+    stored program holds."""
+    from videovector_tpu_torch.tools import serving
+    mesh = make_mesh(data_n, model_n, devices="cpu")
+    names = {a: mesh_axis(mesh, a).group.group_name for a in ("data", "model")}
+    meta = serving.export_serving(net, [weights], blobs, out, mesh=mesh,
+                                  **(kw or {}))
+    call, loaded = serving.load_serving(out)
+    stored = _stored_groups(call) if meta["nr_devices"] > 1 else []
+    run = serving.mesh_serving(call, loaded)
+    outs = []
+    state = {k: np.zeros(meta["inputs"][k][0], np.float32)
+             for k in meta["state"]}
+    for b in batches:
+        got = run({**b, **state})
+        state = {k: got[k] for k in meta["state"]}
+        outs.append({k: _np(v) for k, v in got.items()})
+    return {"outs": outs, "meta": meta, "loaded": loaded, "names": names,
+            "stored": stored}
+
+
+def mesh_rebound(artifact, batches, extra_groups):
+    """The artifact served in a process that made `extra_groups` process
+    groups before its mesh, so that its groups' names differ from the
+    exporting process's: the outputs, the group names the stored program
+    holds, and this mesh's group names."""
+    from videovector_tpu_torch.tools import serving
+    for _ in range(extra_groups):
+        dist.new_group()
+    call, meta = serving.load_serving(artifact)
+    stored = _stored_groups(call)
+    run = serving.mesh_serving(call, meta)
+    outs = [{k: _np(v) for k, v in run(b).items()} for b in batches]
+    names = {a: mesh_axis(run.mesh, a).group.group_name
+             for a in ("data", "model")}
+    return {"outs": outs, "stored": stored, "names": names}
+
+
+def mesh_refusals(artifact, two_device, batch):
+    """What a 4-rank group refuses of the 2 x 2 `artifact` and the 1 x 2
+    `two_device` one, in order: the other world size, run --mesh,
+    shard_serving, a batch D does not divide, the call outside
+    mesh_serving, a group name of no axis, an export whose mesh is not the
+    group, a program exported on another device; then `run --iterations 2` on the artifact (its log lines)."""
+    from videovector_tpu_torch.tools import serving
+    call, meta = serving.load_serving(artifact)
+    two_call, two_meta = serving.load_serving(two_device)
+    rows3 = {k: v[:3] for k, v in batch.items()}
+    mesh = make_mesh(4, 1, devices="cpu")
+    attempts = [
+        lambda: serving.mesh_serving(two_call, two_meta),
+        lambda: serving.main(["run", artifact, "--mesh", "2"]),
+        lambda: serving.shard_serving(call, meta, mesh),
+        lambda: serving.mesh_serving(call, meta)(rows3),
+        lambda: call(batch),
+        lambda: serving.mesh_serving(call, dict(meta, groups={
+            "mesh:data": "data"})),
+        lambda: serving.export_serving(meta["model"], [], ["outn"],
+                                       artifact + ".x", mesh=make_mesh(
+                                           1, 2, devices="cpu")),
+        lambda: serving.mesh_serving(call, dict(meta, devices=[
+            "cuda:1"] * 4)),
+    ]
+    errs = []
+    for fn in attempts:
+        try:
+            fn()
+            errs.append(None)
+        except (ValueError, RuntimeError, SystemExit) as e:
+            errs.append(f"{type(e).__name__}: {e}")
+    with _Lines() as lr:
+        assert serving.main(["run", artifact, "--iterations", "2"]) == 0
+    return errs, lr.lines

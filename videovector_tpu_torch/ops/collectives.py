@@ -25,6 +25,12 @@ a replicated input over the ranks that used it in column shards
 gloo has no all_gather for CUDA tensors. There the gathers are an
 all_reduce of a zero tensor with the rank's slot filled, which is exact
 (every element is one rank's value plus zeros).
+
+Under `active_axes(traced=True)` the collectives are being traced into a
+program (tools/serving.py's multi-device artifact, through torch.export,
+which records each in-place all_reduce as a `_c10d_functional` op on its
+group's name): every gather then takes the slot form, so that the program
+does not depend on the backend it was traced over.
 """
 
 from __future__ import annotations
@@ -54,16 +60,18 @@ _LAYOUT: dict[str, Any] = {}
 
 @contextlib.contextmanager
 def active_axes(*, data: Axis | None = None, model: Axis | None = None,
-                batch: int | None = None, time_major: bool = False):
+                batch: int | None = None, time_major: bool = False,
+                traced: bool = False):
     """Run the block with the given mesh axes active (None: not sharded on
     that axis). `batch` is the rank's batch rows, which the dropout layer
-    needs to find a blob's batch axis."""
+    needs to find a blob's batch axis; `traced`: the block is being traced
+    into a program (see the module docstring)."""
     saved = dict(_ACTIVE), dict(_LAYOUT)
     _ACTIVE.clear()
     _ACTIVE.update({k: v for k, v in (("data", data), ("model", model))
                     if v is not None})
     _LAYOUT.clear()
-    _LAYOUT.update(batch=batch, time_major=time_major)
+    _LAYOUT.update(batch=batch, time_major=time_major, traced=traced)
     try:
         yield
     finally:
@@ -87,7 +95,8 @@ def layout() -> dict:
 # -- raw collectives (no autograd) ------------------------------------------
 
 def _gathers_by_reduce(x: torch.Tensor, group) -> bool:
-    return x.is_cuda and dist.get_backend(group) == "gloo"
+    return bool(_LAYOUT.get("traced")) or (
+        x.is_cuda and dist.get_backend(group) == "gloo")
 
 
 def all_reduce(x: torch.Tensor, ax: Axis, *, mean: bool = False):

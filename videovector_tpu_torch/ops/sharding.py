@@ -63,13 +63,14 @@ def writer_logs(mesh):
 
 
 def axes_of(mesh, *, data: bool = True, model: bool = True,
-            batch: int | None = None, time_major: bool = False):
+            batch: int | None = None, time_major: bool = False,
+            traced: bool = False):
     """A context (ops/collectives.active_axes) in which the ops see the
     mesh's axes: "data" when the batch is sharded (`batch`: the rank's rows),
-    "model" when the 2-D params are."""
+    "model" when the 2-D params are; `traced`: for torch.export."""
     return active_axes(data=mesh_axis(mesh, "data") if data else None,
                        model=mesh_axis(mesh, "model") if model else None,
-                       batch=batch, time_major=time_major)
+                       batch=batch, time_major=time_major, traced=traced)
 
 
 def rank_rows(x, ax: Axis, dim: int = 0, what: str = "batch"):

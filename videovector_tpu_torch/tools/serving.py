@@ -18,17 +18,39 @@ standard library alone.
   vvtpu-torch-serve info   out.vvtserve
   vvtpu-torch-serve run    out.vvtserve      # smoke-run on random inputs
 
-An artifact holds one device's program: `--platforms cuda` (the default:
-the card, which must be there) or `--platforms cpu`. `shard_serving` and
+An artifact is for one platform: `--platforms cuda` (the default: the
+card, which must be there) or `--platforms cpu`. `shard_serving` and
 `run --mesh N` serve one device's artifact data-parallel, one rank a
-device (parallel.make_mesh). A multi-device artifact (`export --mesh`,
-`export_serving(mesh=)`, `mesh_serving`) waits for ROADMAP item 11b.
+device (parallel.make_mesh).
+
+A multi-device artifact (`export --mesh DxM`, `export_serving(mesh=)`)
+is exported by D*M ranks, one a device, as JAX's needs D*M devices: each
+rank traces the forward on its shard (every 2-D param cut to its columns
+when M > 1, as JAX's export shards every 2-D leaf over "model"; the batch
+cut to its rows over "data") with the mesh's collectives in the program
+(ops/collectives.py, traced: `_c10d_functional` ops beside K1 and K2), and
+rank 0 writes every rank's program into one file. A program names a
+collective's process group by a string that depends on the groups its
+process made before, so the trace's names are rewritten to the axis they
+belong to ("mesh:data", "mesh:model"; the meta's "groups"), and
+`mesh_serving` binds them to its own mesh's groups before the first call.
+A rank's program also names the device it was traced on (its buffers,
+its constants): it is served by the rank of that index on that device,
+as a launch of one process a device in the exporting order gives:
+
+  python -m torch.distributed.run --nproc_per_node 4 -m \
+      videovector_tpu_torch.tools.serving export net.prototxt out.vvtserve \
+      --weights w.caffemodel --blobs=ip2 --mesh 2x2
+  python -m torch.distributed.run --nproc_per_node 4 -m \
+      videovector_tpu_torch.tools.serving run out.vvtserve
 """
 
 from __future__ import annotations
 
 import argparse
+import io
 import json
+import os
 import struct
 import sys
 
@@ -39,12 +61,8 @@ log = get_logger(__name__)
 MAGIC = b"VVTSERV1"
 EXTENSION = ".vvtserve"
 PLATFORMS = ("cuda", "cpu")
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to videovector_tpu_torch yet (ROADMAP queue "
-        "1, item 11b: the multi-device serving artifact)")
+# the group names a multi-device program is written with, one a mesh axis
+GROUPS = {f"mesh:{axis}": axis for axis in ("data", "model")}
 
 
 def _device(platforms) -> str:
@@ -179,7 +197,16 @@ def export_serving(model_path: str, weight_paths: list[str],
     sums) of the live extraction pipeline, with the INNER_PRODUCT and
     CONVOLUTION weights frozen in bf16 (the casts the Net would make on
     every call). A stateful (LSTM) net's cross-batch carry becomes the
-    inputs and outputs "state:<layer>:{c,h}"."""
+    inputs and outputs "state:<layer>:{c,h}".
+
+    mesh (parallel.make_mesh's "data" x "model" mesh, every rank of the
+    group calling this) exports a multi-device artifact: each rank's
+    program computes on its shard (module docstring); rank 0 writes the
+    file, and the call returns on every rank once it is written. The meta
+    adds "mesh" and "nr_devices", as JAX's does, and, with more than one
+    device, each rank's program's bytes ("payloads", in rank order), the
+    device each was traced on ("devices") and the axis of each group name
+    ("groups"). Load it with `mesh_serving` on as many ranks."""
     import numpy as np
     import torch
 
@@ -190,13 +217,17 @@ def export_serving(model_path: str, weight_paths: list[str],
     )
     from videovector_tpu_torch.graph.layers import DATA_LAYER_TYPES
     from videovector_tpu_torch.graph.net import Net
+    from videovector_tpu_torch.ops.sharding import is_writer, mesh_device
     from videovector_tpu_torch.tools.cli import _load_weights
-    from videovector_tpu_torch.tools.export_model import export, save
 
-    if mesh is not None:
-        raise _not_ported("a multi-device serving export (mesh=)")
-    platform = _device(platforms)
-    dev = resolve(platform)
+    platform = _device(platforms or (mesh and [mesh.device_type]))
+    if mesh is None:
+        dev = resolve(platform)
+    elif mesh.device_type != platform:
+        raise ValueError(f"a {mesh.device_type} mesh exports for "
+                         f"{mesh.device_type}, not {platform}")
+    else:
+        dev = mesh_device(mesh)
     net_msg = parse_file(model_path)
     net = Net(net_msg, phase="TEST", compute_dtype=compute_dtype)
 
@@ -296,18 +327,18 @@ def export_serving(model_path: str, weight_paths: list[str],
                     getattr(st0[ln], part), dtype=torch.float32)
                 in_axes[f"state:{ln}:{part}"] = 0   # an LstmState is (B, H)
 
-    serve = _serve_module(net, params, blob_names, stateful, quant)
+    def serve_of(p):
+        return _serve_module(net, p, blob_names, stateful, quant)
+
+    serve = serve_of(params)
+    # the whole module's output axes, before any mesh axis is active (the
+    # collectives cannot run on fake tensors)
     out_axes, out_shapes = _output_axes(serve, inputs, in_axes)
-    dynamic = None
-    if symbolic_batch:
-        batch_dim = torch.export.Dim("batch", min=1, max=1 << 20)
-        dynamic = ({k: {in_axes[k]: batch_dim} for k in inputs},)
-    with torch.no_grad():
-        program = export(serve, (inputs,), dynamic_shapes=dynamic)
-    import io
-    buf = io.BytesIO()
-    save(program, buf)
-    payload = buf.getvalue()
+    if mesh is None:
+        payloads = [_program(serve, inputs, in_axes, symbolic_batch)]
+    else:
+        payloads, sizes, devices = _mesh_programs(
+            serve_of, params, inputs, in_axes, symbolic_batch, mesh)
 
     meta = {
         "inputs": {k: [[-1 if symbolic_batch and i == in_axes[k] else int(d)
@@ -327,15 +358,124 @@ def export_serving(model_path: str, weight_paths: list[str],
         "quantize": quantize or "none",
         "compute_dtype": compute_dtype or "float32",
     }
-    meta_bytes = json.dumps(meta).encode()
-    with open(out_path, "wb") as f:
-        f.write(MAGIC)
-        f.write(struct.pack("<I", len(meta_bytes)))
-        f.write(meta_bytes)
-        f.write(payload)
-    log.info("Exported %s -> %s (%d bytes, platforms=%s)", model_path,
-             out_path, len(payload), platform)
+    if mesh is not None:
+        meta["mesh"] = {"data": mesh.size(0), "model": mesh.size(1)}
+        meta["nr_devices"] = mesh.size()
+        if mesh.size() > 1:
+            meta.update(payloads=sizes, devices=devices, groups=GROUPS)
+    if is_writer(mesh):
+        meta_bytes = json.dumps(meta).encode()
+        with open(out_path, "wb") as f:
+            f.write(MAGIC)
+            f.write(struct.pack("<I", len(meta_bytes)))
+            f.write(meta_bytes)
+            for p in payloads:
+                f.write(p)
+        log.info("Exported %s -> %s (%d bytes, platforms=%s, devices=%d)",
+                 model_path, out_path, sum(len(p) for p in payloads),
+                 platform, meta["nr_devices"])
+    if meta["nr_devices"] > 1:
+        import torch.distributed as dist
+        dist.barrier()   # the file is there when any rank returns
     return meta
+
+
+def _program(serve, inputs: dict, in_axes: dict, symbolic_batch: bool,
+             groups: dict | None = None) -> bytes:
+    """The torch.export payload of serve(inputs), its batch axes one
+    torch.export.Dim when symbolic_batch, its collectives' group names
+    renamed through `groups`."""
+    import torch
+
+    from videovector_tpu_torch.tools.export_model import export, save
+    dynamic = None
+    if symbolic_batch:
+        batch_dim = torch.export.Dim("batch", min=1, max=1 << 20)
+        dynamic = ({k: {in_axes[k]: batch_dim} for k in inputs},)
+    with torch.no_grad():
+        program = export(serve, (inputs,), dynamic_shapes=dynamic)
+    if groups:
+        _rename_groups(program.graph_module, groups)
+    buf = io.BytesIO()
+    save(program, buf)
+    return buf.getvalue()
+
+
+def _mesh_programs(serve_of, params, inputs: dict, in_axes: dict,
+                   symbolic_batch: bool, mesh) -> tuple[list, list, list]:
+    """(payloads, sizes, devices): this rank traces serve_of(its params'
+    shard) on its rows of `inputs` under the mesh's axes; rank 0 receives
+    every rank's program in rank order (the other ranks' `payloads` is
+    empty), every rank each program's size and the device it was traced
+    on.
+
+    The rows are cut, and the outputs gathered back over "data", outside
+    the program (mesh_serving): the symbolic batch is then the rank's,
+    which any global batch that divides by D gives, and the program holds
+    no data collective but where the Net itself gathers (the stats layers'
+    whole batch)."""
+    import torch.distributed as dist
+
+    from videovector_tpu_torch.ops.sharding import (
+        axes_of, local_rows, mesh_axis, mesh_device, shard_params,
+    )
+    n = mesh.size()
+    if dist.get_world_size() != n:
+        raise ValueError(
+            f"a {mesh.size(0)}x{mesh.size(1)} export runs on {n} ranks, one "
+            f"a device; the process group has {dist.get_world_size()}")
+    data = mesh_axis(mesh, "data")
+    # fresh tensors: a view's storage offset would be traced into the
+    # program's example metadata
+    rows = {k: v.clone() for k, v in _data_rows(inputs, data,
+                                                 in_axes).items()}
+    names = {mesh_axis(mesh, axis).group.group_name: baked
+             for baked, axis in GROUPS.items()}
+    serve = serve_of(shard_params(params, mesh,
+                                  model_axis=mesh.size(1) > 1))
+    with axes_of(mesh, batch=local_rows(rows, in_axes), traced=True):
+        payload = _program(serve, rows, in_axes, symbolic_batch, names)
+    if n == 1:
+        return [payload], None, None
+    info = [None] * n
+    dist.all_gather_object(info, (len(payload), str(mesh_device(mesh))))
+    got = [None] * n if dist.get_rank() == 0 else None
+    dist.gather_object(payload, got, dst=0)
+    return got or [], [size for size, _ in info], [d for _, d in info]
+
+
+def _rename_groups(gm, names: dict) -> None:
+    """Rewrite the process-group name of every `_c10d_functional` op in
+    the graph module `gm` through `names` (old -> new); a collective on a
+    group not in `names` raises."""
+    for node in gm.graph.nodes:
+        op = node.target
+        if node.op != "call_function" or \
+                getattr(op, "namespace", None) != "_c10d_functional":
+            continue
+        for i, arg in enumerate(op._schema.arguments):
+            if arg.name == "group_name":
+                if node.args[i] not in names:
+                    raise ValueError(
+                        f"{op} on process group {node.args[i]!r}, which is "
+                        f"none of the mesh's axes' ({sorted(names)})")
+                node.update_arg(i, names[node.args[i]])
+    gm.recompile()
+
+
+def _data_rows(batch: dict, ax, axes: dict) -> dict:
+    """The rank's rows of each input, cut on its batch axis (`axes`,
+    default 0) over the mesh's data axis `ax`."""
+    from videovector_tpu_torch.ops.sharding import rank_rows
+    out = {}
+    for k, v in batch.items():
+        a = axes.get(k, 0)
+        if v.shape[a] % ax.size:
+            raise ValueError(
+                f"input {k!r} batch {v.shape[a]} (axis {a}) not divisible "
+                f"by the mesh data axis ({ax.size})")
+        out[k] = rank_rows(v, ax, a)
+    return out
 
 
 def _read_header(f, path: str) -> dict:
@@ -358,19 +498,45 @@ def read_meta(path: str) -> dict:
     return meta
 
 
+class MeshPrograms:
+    """A multi-device artifact's programs, bound to no mesh yet: calling it
+    raises; mesh_serving(call, meta) loads the rank's program and binds it
+    to its mesh."""
+
+    def __init__(self, path: str, start: int, meta: dict):
+        self.path, self.start, self.meta = path, start, meta
+
+    def program(self, rank: int):
+        """The ExportedProgram of `rank`."""
+        from videovector_tpu_torch.tools.export_model import load_exported
+        sizes = self.meta["payloads"]
+        with open(self.path, "rb") as f:
+            f.seek(self.start + sum(sizes[:rank]))
+            return load_exported(io.BytesIO(f.read(sizes[rank])))
+
+    def __call__(self, batch):
+        m = self.meta["mesh"]
+        raise RuntimeError(
+            f"{self.path} holds a {self.meta['nr_devices']}-device program "
+            f"(mesh {m['data']}x{m['model']}), one part a rank: run it "
+            "through mesh_serving(call, meta) on that many ranks, one a "
+            "device")
+
+
 def load_serving(path: str):
     """(call_fn, meta): call_fn({name: array or tensor}) -> {blob: tensor},
     the inputs moved to the artifact's device as f32. Needs no prototxt or
     weights: the port's op registrations are imported, then the program is
-    deserialized."""
-    import io
-
+    deserialized. A multi-device artifact's call_fn is its MeshPrograms,
+    which runs through mesh_serving alone."""
     import torch
 
     from videovector_tpu_torch.tools.export_model import load_exported
 
     with open(path, "rb") as f:
         meta = _read_header(f, path)
+        if int(meta.get("nr_devices") or 1) > 1:
+            return MeshPrograms(path, f.tell(), meta), meta
         program = load_exported(io.BytesIO(f.read()))
     dev = torch.device(meta["platforms"][0])
     module = program.module()
@@ -385,7 +551,57 @@ def load_serving(path: str):
 
 
 def mesh_serving(call, meta):
-    raise _not_ported("mesh_serving (a multi-device artifact)")
+    """Load-side twin of `export_serving(mesh=)`: a callable that takes the
+    global batch (the same on every rank) and returns the global outputs
+    on every rank. It runs on meta["nr_devices"] ranks, one a device
+    (python -m torch.distributed.run), on a make_mesh of the artifact's
+    shape and platform; it cuts the rank's rows, runs the rank's program
+    with its group names bound to this mesh's groups, and gathers each
+    output that has a batch axis over "data". A rank whose device is not
+    the one its program was exported on raises. A one-device artifact's
+    call comes back as it is."""
+    ndev = int(meta.get("nr_devices") or 1)
+    if ndev == 1:
+        return call
+    import torch
+    import torch.distributed as dist
+
+    from videovector_tpu_torch.ops.collectives import all_gather
+    from videovector_tpu_torch.ops.sharding import mesh_axis, mesh_device
+    from videovector_tpu_torch.parallel import make_mesh
+    world = dist.get_world_size() if dist.is_initialized() else \
+        int(os.environ.get("WORLD_SIZE", 1))
+    if world != ndev:
+        raise ValueError(
+            f"artifact was exported for {ndev} devices; {world} available "
+            f"(one rank a device: python -m torch.distributed.run "
+            f"--nproc_per_node {ndev} ...)")
+    m = meta["mesh"]
+    mesh = make_mesh(data=int(m["data"]), model=int(m["model"]),
+                     devices=meta["platforms"][0])
+    rank, dev = dist.get_rank(), mesh_device(mesh)
+    if torch.device(meta["devices"][rank]) != dev:
+        raise ValueError(
+            f"rank {rank}'s program was exported on {meta['devices'][rank]}, "
+            f"which its buffers and constants name; this rank serves on "
+            f"{dev}: serve one rank a device in the exporting ranks' order")
+    module = call.program(rank).module()
+    _rename_groups(module, {baked: mesh_axis(mesh, axis).group.group_name
+                            for baked, axis in meta["groups"].items()})
+    data = mesh_axis(mesh, "data")
+    axes = meta.get("batch_axes") or {}
+
+    def run(batch: dict) -> dict:
+        feed = {k: torch.as_tensor(v, dtype=torch.float32, device=dev)
+                for k, v in _data_rows(batch, data, axes).items()}
+        with torch.no_grad():
+            out = module(feed)
+        return {n: o if data.size == 1 or axes.get(n, 0) is None
+                else all_gather(o, data, axes.get(n, 0))
+                for n, o in out.items()}
+
+    run.mesh = mesh
+    return run
 
 
 def shard_serving(call, meta, mesh):
@@ -402,7 +618,7 @@ def shard_serving(call, meta, mesh):
     state:* carries axis 0); artifacts without that field default to axis
     0."""
     from videovector_tpu_torch.ops.collectives import all_gather
-    from videovector_tpu_torch.ops.sharding import mesh_axis, rank_rows
+    from videovector_tpu_torch.ops.sharding import mesh_axis
 
     if int(meta.get("nr_devices") or 1) > 1:
         raise ValueError(
@@ -421,16 +637,7 @@ def shard_serving(call, meta, mesh):
         return a
 
     def sharded_call(batch):
-        import torch
-        local = {}
-        for k, v in batch.items():
-            a = _axis(k)
-            if v.shape[a] % ax.size:
-                raise ValueError(
-                    f"input {k!r} batch {v.shape[a]} (axis {a}) not "
-                    f"divisible by the mesh data axis ({ax.size})")
-            local[k] = rank_rows(torch.as_tensor(v), ax, a)
-        out = call(local)
+        out = call(_data_rows(batch, ax, {k: _axis(k) for k in batch}))
         return {n: all_gather(o, ax, _axis(n)) for n, o in out.items()}
 
     return sharded_call
@@ -487,7 +694,11 @@ def main(argv=None) -> int:
                         "live pipeline's throughput math; the default keeps "
                         "f32 reference numerics")
     p.add_argument("--mesh", default="",
-                   help="a multi-device program: waits for ROADMAP item 11b")
+                   help="DxM: a multi-device program (2-D weights column-"
+                        "sharded over the M model ranks, the batch over the "
+                        "D data ranks), exported by D*M ranks (python -m "
+                        "torch.distributed.run --nproc_per_node D*M); run "
+                        "it on as many")
 
     p = sub.add_parser("info", help="print an artifact's metadata as JSON, "
                                     "without loading the program")
@@ -507,40 +718,62 @@ def main(argv=None) -> int:
                         "call")
 
     args = parser.parse_args(argv)
-    if args.command == "export" and args.mesh:
-        raise _not_ported("export --mesh")
     if args.command == "export":
+        from videovector_tpu_torch.ops.sharding import writer_logs
+        from videovector_tpu_torch.tools.cli import _parse_mesh
         platforms = [s for s in args.platforms.split(",") if s] or None
         shapes = {}
         for spec in args.input_shape:
             name, _, dims = spec.partition("=")
             shapes[name] = tuple(int(d) for d in dims.split(","))
-        export_serving(args.model, args.weights, args.blobs.split(","),
-                       args.out, platforms=platforms,
-                       symbolic_batch=args.symbolic_batch,
-                       input_shapes=shapes or None,
-                       quantize=args.quantize or None,
-                       calib_batches=args.calib_batches,
-                       compute_dtype=args.compute or None)
+        mesh = _parse_mesh(args.mesh, _device(platforms))
+        with writer_logs(mesh):
+            export_serving(args.model, args.weights, args.blobs.split(","),
+                           args.out, platforms=platforms,
+                           symbolic_batch=args.symbolic_batch,
+                           input_shapes=shapes or None,
+                           quantize=args.quantize or None,
+                           calib_batches=args.calib_batches,
+                           compute_dtype=args.compute or None, mesh=mesh)
     elif args.command == "info":
         print(json.dumps(read_meta(args.artifact), indent=2, sort_keys=True))
     elif args.command == "run":
-        import numpy as np
-        import torch
-        call, meta = load_serving(args.artifact)
-        device = meta["platforms"][0]
-        rng = np.random.RandomState(0)
-        mult = 1
+        _run(args)
+    return 0
+
+
+def _run(args) -> None:
+    """`run`: the artifact on random inputs (8 rows a data rank where its
+    batch is symbolic), through mesh_serving or shard_serving where asked,
+    logged by rank 0."""
+    import numpy as np
+    import torch
+
+    from videovector_tpu_torch.ops.sharding import writer_logs
+    call, meta = load_serving(args.artifact)
+    device = meta["platforms"][0]
+    rng = np.random.RandomState(0)
+    # the symbolic batch's multiple, and the static batch's
+    per, grow = 1, 1
+    mesh = None
+    if int(meta.get("nr_devices") or 1) > 1:
         if args.mesh:
-            from videovector_tpu_torch.tools.cli import _parse_mesh
-            mesh = _parse_mesh(args.mesh, device)
-            call = shard_serving(call, meta, mesh)
-            mult = mesh.size(0)
-        axes = meta.get("batch_axes") or {}
-        batch = {k: rng.randn(*[8 * mult if d == -1 else
-                                (d * mult if i == axes.get(k, 0) else d)
-                                for i, d in enumerate(shape)]).astype(dtype)
-                 for k, (shape, dtype) in meta["inputs"].items()}
+            raise SystemExit("--mesh: this artifact already bakes a "
+                             f"{meta['nr_devices']}-device program; it "
+                             "runs on its export mesh via mesh_serving")
+        call = mesh_serving(call, meta)
+        mesh, per = call.mesh, meta["mesh"]["data"]
+    elif args.mesh:
+        from videovector_tpu_torch.tools.cli import _parse_mesh
+        mesh = _parse_mesh(args.mesh, device)
+        call = shard_serving(call, meta, mesh)
+        per = grow = mesh.size(0)
+    axes = meta.get("batch_axes") or {}
+    batch = {k: rng.randn(*[8 * per if d == -1 else
+                            (d * grow if i == axes.get(k, 0) else d)
+                            for i, d in enumerate(shape)]).astype(dtype)
+             for k, (shape, dtype) in meta["inputs"].items()}
+    with writer_logs(mesh):
         if args.memory and device == "cuda":
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -566,7 +799,6 @@ def main(argv=None) -> int:
             else:
                 log.info("Serving: %.3f ms/call (%.1f calls/s)",
                          dt * 1e3, 1.0 / dt)
-    return 0
 
 
 if __name__ == "__main__":
