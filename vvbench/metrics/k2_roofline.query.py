@@ -1,0 +1,23 @@
+"""K2's share of its roofline in serving: conv1..conv5's least time at the
+query's batch (operations at the bf16 peak, bytes at HBM bandwidth, each
+input read once and each output written once, the larger bounding) over
+the device time of K2 and conv1's space-to-depth repack, by kernel name."""
+
+from vvbench import flops
+
+SOURCE = "device_trace"
+LAYER = "kernels"
+MOVES = "query_frames_per_s"
+KERNELS = ("vv::conv90::conv_wgmma", "vv::conv90::space_to_depth")
+
+
+def read(reading):
+    t = reading.trace
+    if t is None:
+        return None
+    busy, n = t.kernel_seconds(KERNELS)
+    if n == 0 or busy <= 0:
+        return None
+    least = flops.k2_least_s(reading.layer["frames_per_query"],
+                             reading.config)
+    return 100.0 * t.counts["queries"] * least / busy
