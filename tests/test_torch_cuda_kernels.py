@@ -1053,6 +1053,60 @@ def test_pipeline_query_ignores_the_process_tf32_setting(dev):
     assert torch.equal(on[0], off[0]) and torch.equal(on[1], off[1])
 
 
+def test_query_spans_hold_the_kernels_launches_and_no_device_work(dev):
+    """One profiled query of the full-width pipeline: K2's five convs, K1's
+    three products and conv1's repack are spans (`vvtpu.k2`, `vvtpu.k1`,
+    `vvtpu.s2d` inside conv1's `vvtpu.k2`), each with its ctypes call as
+    the child `.launch`, and the counter `vvtpu.cast_bytes` reads 2 bytes
+    a weight. A span's range on the device's timeline is a user annotation,
+    never a device operation."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from videovector_tpu_torch.models.retrieval_pipeline import (
+        RetrievalPipeline,
+    )
+    from videovector_tpu_torch.utils import timer
+    pipe = RetrievalPipeline(device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    params = pipe.init(gen)
+    pix = torch.randint(0, 256, (4, 256, 256, 3), generator=gen, device=dev,
+                        dtype=torch.uint8)
+    zeros = torch.zeros(4, dtype=torch.int32, device=dev)
+    gallery = torch.nn.functional.normalize(
+        torch.randn((2048, 4096), generator=gen, device=dev), dim=1)
+    ids = torch.arange(2048, dtype=torch.int32, device=dev)
+
+    def query():
+        out = pipe.query(params, pix, zeros + 14, zeros + 14, zeros.bool(),
+                         gallery, ids)
+        torch.cuda.synchronize()
+        return out
+    query()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        query()
+    rec = timer.recorded()
+    spans = rec.spans
+    names = [s.name for s in spans]
+    assert names.count("vvtpu.k2") == 5 and names.count("vvtpu.k1") == 3
+    assert names.count("vvtpu.s2d") == 1
+    for kernel, launches in (("vvtpu.k2", 5), ("vvtpu.k1", 3),
+                             ("vvtpu.s2d", 1)):
+        found = [s for s in spans if s.name == kernel + ".launch"]
+        assert len(found) == launches
+        assert all(spans[s.parent].name == kernel for s in found)
+    (s2d,) = [s for s in spans if s.name == "vvtpu.s2d"]
+    assert spans[s2d.parent].name == "vvtpu.k2"
+    weights = sum(v["w"].numel() for v in params["mednet"].values()) + \
+        params["tower"]["w"].numel()
+    assert rec.counters["vvtpu.cast_bytes"] == 2 * weights
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.name.startswith("vvtpu.")]
+    assert all(getattr(e, "is_user_annotation", False) for e in device), \
+        sorted({e.name for e in device})
+
+
 def test_rank_stats_dist_ignores_the_process_tf32_setting(dev):
     """retrieval_rank_stats_fixed_ref's -2 x.y^T, and so its order and
     ranks, are the same with TF32 on in the process as with it off."""

@@ -22,7 +22,7 @@ import torch
 import torch.utils.checkpoint
 
 from videovector_tpu_torch.core import fillers
-from videovector_tpu_torch.models.mednet import torch_dtype
+from videovector_tpu_torch.models.mednet import cast_param, torch_dtype
 from videovector_tpu_torch.ops import activations, collectives
 from videovector_tpu_torch.ops.hopper.matmul import matmul, matmul_plain
 from videovector_tpu_torch.ops.linear import no_tf32, tower_matmul
@@ -106,8 +106,8 @@ class VideoEmbeddingModel:
             v.requires_grad for v in (flat, t["w"], t["b"]))
         if not train and not wants_grad and collectives.axis("model") is None:
             mm = matmul_plain if self.plain else matmul
-            h = mm(flat.to(cdt), t["w"].to(cdt), t["b"], fuse_relu=True,
-                   out_dtype=torch.float32)
+            h = mm(flat.to(cdt), cast_param(t["w"], cdt), t["b"],
+                   fuse_relu=True, out_dtype=torch.float32)
             h = h.to(torch_dtype(cfg.activation_dtype))
             return h.reshape(*lead, cfg.embed_dim)
         mask = None

@@ -27,6 +27,7 @@ from videovector_tpu_torch.ops.hopper.conv_gemm import (
 from videovector_tpu_torch.ops.hopper.matmul import matmul, matmul_plain
 from videovector_tpu_torch.ops.lrn import channel_window_sum
 from videovector_tpu_torch.ops.pooling import _pool_geometry, max_pool
+from videovector_tpu_torch.utils.timer import count
 
 
 @dataclass(frozen=True)
@@ -69,6 +70,15 @@ def torch_dtype(name: str) -> torch.dtype:
     if name not in dtypes:
         raise ValueError(f"compute dtype must be float32 or bfloat16, got {name!r}")
     return dtypes[name]
+
+
+def cast_param(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """t in `dtype`: t itself where it is in `dtype` already, else a copy,
+    whose bytes the counter `vvtpu.cast_bytes` adds up."""
+    out = t.to(dtype)
+    if out is not t:
+        count("vvtpu.cast_bytes", out.nbytes)
+    return out
 
 
 class MedNet:
@@ -117,7 +127,7 @@ class MedNet:
         x = images
         for spec in self.cfg.convs:
             p = params[spec.name]
-            x = conv(x.to(cdt), p["w"].to(cdt), p["b"],
+            x = conv(x.to(cdt), cast_param(p["w"], cdt), p["b"],
                      stride=(spec.stride, spec.stride),
                      pad=(spec.pad, spec.pad), groups=spec.group,
                      fuse_relu=True, out_dtype=cdt)
@@ -129,8 +139,8 @@ class MedNet:
         x = x.reshape(x.shape[0], -1)        # H, W, C order: fc6's row order
         for name in ("fc6", "fc7"):
             p = params[name]
-            x = mm(x.to(cdt), p["w"].to(cdt), p["b"], fuse_relu=True,
-                   out_dtype=torch.float32)
+            x = mm(x.to(cdt), cast_param(p["w"], cdt), p["b"],
+                   fuse_relu=True, out_dtype=torch.float32)
             if upto == name:
                 return x
         return x

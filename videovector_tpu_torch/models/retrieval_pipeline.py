@@ -9,6 +9,10 @@ videovector_tpu/models/retrieval_pipeline.py.
 
 Top-k breaks ties as lax.top_k does, lower gallery index first, through a
 stable descending sort.
+
+Under a profiler each stage is a span (utils/timer.py): `vvtpu.query`
+(its request id the pipeline's count of queries) around the call, and
+`vvtpu.query.transform`, `.mednet`, `.tower`, `.scores` and `.topk`.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from videovector_tpu_torch.models.embedding import (
 from videovector_tpu_torch.models.mednet import MedNet, MedNetConfig
 from videovector_tpu_torch.ops.linear import no_tf32
 from videovector_tpu_torch.ops.normalization import l2_normalize_rows
+from videovector_tpu_torch.utils.timer import span
 
 
 @dataclass
@@ -69,6 +74,7 @@ class RetrievalPipeline:
         self.transform = make_batch_transform(
             TransformConfig(crop_size=cfg.crop), mean, cfg.image_hw,
             layout=cfg.pixels_layout, device=self.device)
+        self.queries = 0    # the request id of the `vvtpu.query` spans
 
     def init(self, generator: torch.Generator):
         """Random params from `generator`, placed on the pipeline's device."""
@@ -81,23 +87,30 @@ class RetrievalPipeline:
     def embed_frames(self, params, pixels_u8, h_off, w_off, mirror):
         """uint8 frames ((N,H,W,C) for pixels_layout NHWC, (N,C,H,W) for
         NCHW) -> (N, E) unit embeddings (f32)."""
-        x = self.transform(pixels_u8, h_off, w_off, mirror)
-        if self.cfg.pixels_layout == "NCHW":
-            x = x.permute(0, 2, 3, 1)                          # -> NHWC
-        fc7 = self.mednet.forward(params["mednet"], x)         # (N, 4096)
-        emb = self.embedder.embed({"tower": params["tower"]}, fc7)
-        return l2_normalize_rows(emb)
+        with span("vvtpu.query.transform"):
+            x = self.transform(pixels_u8, h_off, w_off, mirror)
+            if self.cfg.pixels_layout == "NCHW":
+                x = x.permute(0, 2, 3, 1)                      # -> NHWC
+        with span("vvtpu.query.mednet"):
+            fc7 = self.mednet.forward(params["mednet"], x)     # (N, 4096)
+        with span("vvtpu.query.tower"):
+            emb = self.embedder.embed({"tower": params["tower"]}, fc7)
+            return l2_normalize_rows(emb)
 
     @torch.no_grad()
     def query(self, params, pixels_u8, h_off, w_off, mirror, gallery,
               gallery_ids):
         """Frames -> embeddings -> scores vs the gallery -> (top-k ids,
         top-k scores). gallery: (G, E) unit rows on the device."""
-        emb = self.embed_frames(params, pixels_u8, h_off, w_off, mirror)
-        with no_tf32():     # f32 scores, as JAX's; they decide the top-k
-            scores = torch.matmul(emb, gallery.T)
-        top_scores, top_idx = top_k_stable(scores, self.cfg.top_k)
-        return gallery_ids[top_idx], top_scores
+        self.queries += 1
+        with span("vvtpu.query", req=self.queries):
+            emb = self.embed_frames(params, pixels_u8, h_off, w_off, mirror)
+            # f32 scores, as JAX's; they decide the top-k
+            with span("vvtpu.query.scores"), no_tf32():
+                scores = torch.matmul(emb, gallery.T)
+            with span("vvtpu.query.topk"):
+                top_scores, top_idx = top_k_stable(scores, self.cfg.top_k)
+                return gallery_ids[top_idx], top_scores
 
     # ------------------------------------------------------------------
     def build_gallery(self, params, frame_batches, video_ids_per_batch):

@@ -53,6 +53,7 @@ from videovector_tpu_torch.ops.hopper.matmul import (
     DTYPE_CODES, INT_MAX, bias_f32, check_cuda_operands, dtype_code,
 )
 from videovector_tpu_torch.ops.linear import no_tf32
+from videovector_tpu_torch.utils.timer import span
 
 # the sm90 route's tiles (csrc/conv_gemm_sm90.cu): output columns per block
 # (wgmma widths), and rows per block (64 per consumer warpgroup)
@@ -154,9 +155,15 @@ def space_to_depth(x, w, stride: int):
     """`space_to_depth_plain`'s repack: for CUDA tensors (contiguous, both
     bf16 or both f32) one launch of csrc/conv_gemm_sm90.cu's repack kernel,
     counted in `space_to_depth.launches`; for CPU tensors the plain
-    version."""
-    if x.device.type == "cpu":
-        return space_to_depth_plain(x, w, stride)
+    version. The host's time in it is the span `vvtpu.s2d`, the ctypes
+    call `vvtpu.s2d.launch`."""
+    with span("vvtpu.s2d"):
+        if x.device.type == "cpu":
+            return space_to_depth_plain(x, w, stride)
+        return _space_to_depth(x, w, stride)
+
+
+def _space_to_depth(x, w, stride: int):
     check_cuda_operands(x, w)
     n, h, wd, c = x.shape
     k, o = w.shape[0], w.shape[3]
@@ -171,10 +178,13 @@ def space_to_depth(x, w, stride: int):
                       stride * stride * c), dtype=x.dtype, device=x.device)
     ws = torch.empty((kb, kb, stride * stride * c, o), dtype=w.dtype,
                      device=w.device)
-    rc = _build.load_library().vv_space_to_depth(
-        x.data_ptr(), w.data_ptr(), xs.data_ptr(), ws.data_ptr(), n, h, wd, c,
-        o, k, stride, DTYPE_CODES[x.dtype], x.device.index or 0,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    lib = _build.load_library()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with span("vvtpu.s2d.launch"):
+        rc = lib.vv_space_to_depth(
+            x.data_ptr(), w.data_ptr(), xs.data_ptr(), ws.data_ptr(), n, h,
+            wd, c, o, k, stride, DTYPE_CODES[x.dtype], x.device.index or 0,
+            stream)
     _build.check(rc, "K2 space_to_depth")
     space_to_depth.launches += 1
     return xs, ws
@@ -319,8 +329,9 @@ def _conv_hopper(route, x, w, b, stride, pad, fuse_relu, out_dtype):
             torch.cuda.current_stream(x.device).cuda_stream)
     if route == "sm90":
         block_m, block_n, _ = k2_sm90_plan(m, o // groups, groups, sms)
-        rc = lib.vv_conv_gemm_sm90(*args, *geom, block_m, block_n,
-                                   DTYPE_CODES[out_dtype], *tail)
+        with span("vvtpu.k2.launch"):
+            rc = lib.vv_conv_gemm_sm90(*args, *geom, block_m, block_n,
+                                       DTYPE_CODES[out_dtype], *tail)
         _build.check(rc, "K2 conv_gemm (sm90 route)")
         conv2d_im2col_gemm.launches_sm90 += 1
     else:
@@ -328,9 +339,10 @@ def _conv_hopper(route, x, w, b, stride, pad, fuse_relu, out_dtype):
                                                kh * kw * cg, sms)
         ws = (torch.empty((splits, m, o), dtype=torch.float32, device=x.device)
               if splits > 1 else None)
-        rc = lib.vv_conv_gemm_f32_sm90(
-            *args, ws.data_ptr() if ws is not None else None, *geom, block_m,
-            block_n, splits, *tail)
+        with span("vvtpu.k2.launch"):
+            rc = lib.vv_conv_gemm_f32_sm90(
+                *args, ws.data_ptr() if ws is not None else None, *geom,
+                block_m, block_n, splits, *tail)
         _build.check(rc, "K2 conv_gemm (f32 route)")
         conv2d_im2col_gemm.launches_f32 += 1
     conv2d_im2col_gemm.launches += 1
@@ -357,12 +369,14 @@ def _conv_kernel(x, w, b, out, stride, pad, groups, fuse_relu):
         wg = w[g * og:(g + 1) * og]
         outg = out[:, g * og:(g + 1) * og]
         bg = None if bias is None else bias[g * og:(g + 1) * og]
-        rc = lib.vv_conv_gemm(
-            xg.data_ptr(), wg.data_ptr(), bg.data_ptr() if bg is not None else None,
-            outg.data_ptr(), n, cg, h, wd, og, kh, kw, stride[0], stride[1],
-            pad[0], pad[1], oh, ow, *xg.stride(), *wg.stride(), *outg.stride(),
-            DTYPE_CODES[x.dtype], DTYPE_CODES[out.dtype], int(fuse_relu),
-            x.device.index or 0, stream)
+        with span("vvtpu.k2.launch"):
+            rc = lib.vv_conv_gemm(
+                xg.data_ptr(), wg.data_ptr(),
+                bg.data_ptr() if bg is not None else None, outg.data_ptr(), n,
+                cg, h, wd, og, kh, kw, stride[0], stride[1], pad[0], pad[1],
+                oh, ow, *xg.stride(), *wg.stride(), *outg.stride(),
+                DTYPE_CODES[x.dtype], DTYPE_CODES[out.dtype], int(fuse_relu),
+                x.device.index or 0, stream)
         _build.check(rc, "K2 conv_gemm")
         conv2d_im2col_gemm.launches += 1
     return out
@@ -413,9 +427,10 @@ def conv2d_gemm_nhwc(x, w, b=None, *, stride=(1, 1), pad=(0, 0),
     """x: (N, H, W, C); w: (kh, kw, C/groups, O) HWIO; b: (O,) ->
     act(conv + b): (N, oh, ow, O) in out_dtype, contiguous NHWC."""
     if _device_kind(x) == "cpu":
-        return conv2d_gemm_nhwc_plain(x, w, b, stride=stride, pad=pad,
-                                      groups=groups, fuse_relu=fuse_relu,
-                                      out_dtype=out_dtype)
+        with span("vvtpu.k2"):
+            return conv2d_gemm_nhwc_plain(x, w, b, stride=stride, pad=pad,
+                                          groups=groups, fuse_relu=fuse_relu,
+                                          out_dtype=out_dtype)
     _check(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), groups, out_dtype)
     check_cuda_operands(x, w, b)
     return torch.ops.vvtpu.k2_conv2d_nhwc(x, w, b, list(stride), list(pad),
@@ -430,8 +445,15 @@ def k2_conv2d_nhwc(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
                    stride: list[int], pad: list[int], groups: int,
                    fuse_relu: bool, out_dtype: torch.dtype) -> torch.Tensor:
     """K2 as a custom op: `conv2d_gemm_nhwc`'s launch on CUDA tensors (the
-    route from `k2_route`, counted), its plain version on CPU tensors."""
-    stride, pad = tuple(stride), tuple(pad)
+    route from `k2_route`, counted), its plain version on CPU tensors; the
+    host's time in it is the span `vvtpu.k2`, each ctypes call
+    `vvtpu.k2.launch` (conv1's repack, `vvtpu.s2d`, runs inside it)."""
+    with span("vvtpu.k2"):
+        return _k2_conv2d_nhwc(x, w, b, tuple(stride), tuple(pad), groups,
+                               fuse_relu, out_dtype)
+
+
+def _k2_conv2d_nhwc(x, w, b, stride, pad, groups, fuse_relu, out_dtype):
     if x.device.type == "cpu":
         return conv2d_gemm_nhwc_plain(x, w, b, stride=stride, pad=pad,
                                       groups=groups, fuse_relu=fuse_relu,

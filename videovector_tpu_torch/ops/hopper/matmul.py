@@ -35,6 +35,7 @@ from typing import Optional
 import torch
 
 from videovector_tpu_torch import _build
+from videovector_tpu_torch.utils.timer import span
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 INT_MAX = 2**31 - 1
@@ -168,7 +169,9 @@ def matmul(x, w, b=None, *, fuse_relu: bool = False, out_dtype=torch.float32):
     cores, float32 on FFMA); the sum is f32; any strides. CUDA tensors go
     through `vvtpu::k1_matmul`; CPU tensors run `matmul_plain`."""
     if x.device.type == "cpu":
-        return matmul_plain(x, w, b, fuse_relu=fuse_relu, out_dtype=out_dtype)
+        with span("vvtpu.k1"):
+            return matmul_plain(x, w, b, fuse_relu=fuse_relu,
+                                out_dtype=out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"K1 runs on CUDA or (plain) CPU tensors, not {x.device}")
     _check(x, w, out_dtype)
@@ -183,7 +186,13 @@ def matmul(x, w, b=None, *, fuse_relu: bool = False, out_dtype=torch.float32):
 def k1_matmul(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
               fuse_relu: bool, out_dtype: torch.dtype) -> torch.Tensor:
     """K1 as a custom op: `matmul`'s launch on CUDA tensors (the route
-    from `k1_route`, counted), `matmul_plain` on CPU tensors."""
+    from `k1_route`, counted), `matmul_plain` on CPU tensors; the host's
+    time in it is the span `vvtpu.k1`, the ctypes call `vvtpu.k1.launch`."""
+    with span("vvtpu.k1"):
+        return _k1_matmul(x, w, b, fuse_relu, out_dtype)
+
+
+def _k1_matmul(x, w, b, fuse_relu, out_dtype):
     if x.device.type == "cpu":
         return matmul_plain(x, w, b, fuse_relu=fuse_relu, out_dtype=out_dtype)
     _check(x, w, out_dtype)
@@ -213,19 +222,22 @@ def k1_matmul(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
                 w.stride(0), out.stride(0), out.stride(1))
         tail = (splits, DTYPE_CODES[out_dtype], int(fuse_relu), device, stream)
         if route == "sm90":
-            rc = lib.vv_matmul_sm90(*args, block_m, *tail)
+            with span("vvtpu.k1.launch"):
+                rc = lib.vv_matmul_sm90(*args, block_m, *tail)
             _build.check(rc, "K1 matmul (sm90 route)")
             matmul.launches_sm90 += 1
         else:
-            rc = lib.vv_matmul_f32_sm90(*args, *tail)
+            with span("vvtpu.k1.launch"):
+                rc = lib.vv_matmul_f32_sm90(*args, *tail)
             _build.check(rc, "K1 matmul (f32 route)")
             matmul.launches_f32 += 1
     else:
-        rc = lib.vv_matmul(
-            x.data_ptr(), w.data_ptr(), bias_ptr, out.data_ptr(), m, n, k,
-            x.stride(0), x.stride(1), w.stride(0), w.stride(1), out.stride(0),
-            out.stride(1), DTYPE_CODES[x.dtype], DTYPE_CODES[out_dtype],
-            int(fuse_relu), device, stream)
+        with span("vvtpu.k1.launch"):
+            rc = lib.vv_matmul(
+                x.data_ptr(), w.data_ptr(), bias_ptr, out.data_ptr(), m, n,
+                k, x.stride(0), x.stride(1), w.stride(0), w.stride(1),
+                out.stride(0), out.stride(1), DTYPE_CODES[x.dtype],
+                DTYPE_CODES[out_dtype], int(fuse_relu), device, stream)
         _build.check(rc, "K1 matmul")
     matmul.launches += 1
     return out

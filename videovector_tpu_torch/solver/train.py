@@ -19,6 +19,12 @@ loop hands it, detached, to the next step's batch (truncated BPTT, as the
 reference's backward never crosses a batch), to each iter_size sub-batch,
 to the display forward, and from test batch to test batch. It resumes
 from a .vvstate or from the reference's .solverstate.
+
+Under a profiler the loop's parts are spans (utils/timer.py):
+`vvtpu.train.step` (its request id the iteration) with the children
+`.forward`, `.backward` and `.update`, and beside it `vvtpu.train.feed`
+(a batch taken and put on the device), `.test`, `.snapshot`, `.display`
+and `.hooks`.
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ from videovector_tpu_torch.solver.solvers import (
     SolverConfig, init_solver_state, learning_rate, solver_update,
 )
 from videovector_tpu_torch.utils.logging import get_logger
+from videovector_tpu_torch.utils.timer import span
 
 log = get_logger(__name__)
 
@@ -86,10 +93,11 @@ def value_and_grad(loss_fn: Callable):
     and its graph is freed)."""
     def vg(params, batch, generator):
         p = map_params(lambda t: t.detach().requires_grad_(True), params)
-        with torch.enable_grad():
+        with span("vvtpu.train.step.forward"), torch.enable_grad():
             loss, aux = loss_fn(p, batch, generator)
         paths, leaves = zip(*leaves_with_paths(p))
-        gs = torch.autograd.grad(loss, leaves, allow_unused=True)
+        with span("vvtpu.train.step.backward"):
+            gs = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = tree_from_paths(
             (path, torch.zeros_like(leaf) if g is None else g)
             for path, leaf, g in zip(paths, leaves, gs))
@@ -168,8 +176,9 @@ def build_fused_step(grad_fn, cfg: SolverConfig, n_accum: int, gm: int, *,
         grads = map_params(lambda g: g / n_total, grads)
         if grad_reduce is not None:
             grads = grad_reduce(grads)
-        p2, s2 = solver_update(cfg, p, grads, s, lr_mults=lr_mults,
-                               decay_mults=decay_mults)
+        with span("vvtpu.train.step.update"):
+            p2, s2 = solver_update(cfg, p, grads, s, lr_mults=lr_mults,
+                                   decay_mults=decay_mults)
         # the displayed loss is the microbatch mean (the big-batch mean for
         # equal microbatches); other outputs are the last microbatch's
         # (counts such as `violations` must not average; the sinks' files
@@ -339,7 +348,8 @@ def train(loss_fn: Callable, params, data: Iterator[dict], cfg: SolverConfig,
     def step(p, s, batch):
         (loss, aux), grads = grad_fn(p, batch, generator)
         grads = ms.reduce(grads)
-        p2, s2 = solver_update(cfg, p, grads, s, **mults)
+        with span("vvtpu.train.step.update"):
+            p2, s2 = solver_update(cfg, p, grads, s, **mults)
         metrics = {"loss": loss, **aux}
         if cfg.snapshot_diff:
             metrics["__diff__"] = grads
@@ -440,30 +450,39 @@ def train(loss_fn: Callable, params, data: Iterator[dict], cfg: SolverConfig,
     try:
         while it < cfg.max_iter:
             if cfg.snapshot and it > start_iter and it % cfg.snapshot == 0:
-                _snap(it)
+                with span("vvtpu.train.snapshot"):
+                    _snap(it)
             if cfg.test_interval and it % cfg.test_interval == 0 and (
                     it > start_iter or cfg.test_initialization):
-                run_test(params, it)
-            for interval, hook in (hooks or ()):
-                if interval and it % interval == 0:
-                    with ms.axes(data=False):
-                        hook(params, it)
+                with span("vvtpu.train.test"):
+                    run_test(params, it)
+            with span("vvtpu.train.hooks"):
+                for interval, hook in (hooks or ()):
+                    if interval and it % interval == 0:
+                        with ms.axes(data=False):
+                            hook(params, it)
 
             generator.manual_seed(iteration_seed(seed, it))
             if cfg.iter_size > 1 and not fused_accum:
-                grads_acc = None
-                for _ in range(cfg.iter_size):
-                    grads_acc, metrics = accum(params, grads_acc,
-                                               on_device(next(data), carry))
-                    carry = metrics.pop("__carry__", None)
-                    sink(metrics)   # every sub-batch's Forward
-                grads_acc = ms.reduce(grads_acc)
-                if cfg.snapshot_diff:
-                    last_grads = grads_acc
-                params, state = solver_update(cfg, params, grads_acc, state,
-                                              **mults)
+                # the sub-batches are fed inside the step, between their
+                # gradients
+                with span("vvtpu.train.step", req=it):
+                    grads_acc = None
+                    for _ in range(cfg.iter_size):
+                        with span("vvtpu.train.feed"):
+                            sub = on_device(next(data), carry)
+                        grads_acc, metrics = accum(params, grads_acc, sub)
+                        carry = metrics.pop("__carry__", None)
+                        sink(metrics)   # every sub-batch's Forward
+                    grads_acc = ms.reduce(grads_acc)
+                    if cfg.snapshot_diff:
+                        last_grads = grads_acc
+                    with span("vvtpu.train.step.update"):
+                        params, state = solver_update(cfg, params, grads_acc,
+                                                      state, **mults)
             else:
-                batch = on_device(next(data))
+                with span("vvtpu.train.feed"):
+                    batch = on_device(next(data))
                 if fused_accum and fused_plan is None:
                     n_accum = max(1, cfg.iter_size)
                     gm = (auto_grad_microbatch(batch, batch_axes)
@@ -480,14 +499,18 @@ def train(loss_fn: Callable, params, data: Iterator[dict], cfg: SolverConfig,
                             batch_axes=batch_axes,
                             grad_reduce=ms.reduce if ms.mesh else None)
                 if fused_step is not None:
-                    batches = (batch,) + tuple(
-                        on_device(next(data)) for _ in range(fused_plan[0] - 1))
-                    params, state, metrics = fused_step(params, state, batches,
-                                                        generator)
+                    with span("vvtpu.train.feed"):
+                        batches = (batch,) + tuple(
+                            on_device(next(data))
+                            for _ in range(fused_plan[0] - 1))
+                    with span("vvtpu.train.step", req=it):
+                        params, state, metrics = fused_step(
+                            params, state, batches, generator)
                 else:
                     if carry is not None:
                         batch["__carry__"] = carry
-                    params, state, metrics = step(params, state, batch)
+                    with span("vvtpu.train.step", req=it):
+                        params, state, metrics = step(params, state, batch)
                 # the recurrent cross-batch state (ref lstm_layer.cpp:171-173)
                 # comes back through aux, detached
                 carry = metrics.pop("__carry__", None)
@@ -495,27 +518,30 @@ def train(loss_fn: Callable, params, data: Iterator[dict], cfg: SolverConfig,
                 sink(metrics)
 
             if cfg.display and it % cfg.display == 0:
-                loss = float(_host(metrics["loss"]).reshape(-1)[0])
-                log.info("Iteration %d, loss = %g", it, loss)
-                entry: dict[str, float] = {"loss": loss}
-                i = 1
-                for k in sorted(metrics):
-                    if k == "loss":
-                        continue
-                    # one line per element of each output (the reference's
-                    # score_index loop, solver.cpp:195-217)
-                    w = (train_output_weights or {}).get(k, 0.0)
-                    vec = _host(metrics[k]).astype(np.float64).reshape(-1)
-                    for j, x in enumerate(vec):
-                        log.info("    Train net output #%d: %s = %g%s", i, k,
-                                 x, suffix(w, x))
-                        entry[k if vec.size == 1 else f"{k}[{j}]"] = float(x)
-                        i += 1
-                # the reference prints the lr after the outputs (from
-                # ComputeUpdateValue, which runs after Solve's display)
-                log.info("Iteration %d, lr = %g",
-                         it, float(learning_rate(cfg, it)))
-                result.metrics_history.append((it, entry))
+                with span("vvtpu.train.display"):
+                    loss = float(_host(metrics["loss"]).reshape(-1)[0])
+                    log.info("Iteration %d, loss = %g", it, loss)
+                    entry: dict[str, float] = {"loss": loss}
+                    i = 1
+                    for k in sorted(metrics):
+                        if k == "loss":
+                            continue
+                        # one line per element of each output (the
+                        # reference's score_index loop, solver.cpp:195-217)
+                        w = (train_output_weights or {}).get(k, 0.0)
+                        vec = _host(metrics[k]).astype(np.float64) \
+                            .reshape(-1)
+                        for j, x in enumerate(vec):
+                            log.info("    Train net output #%d: %s = %g%s",
+                                     i, k, x, suffix(w, x))
+                            entry[k if vec.size == 1 else f"{k}[{j}]"] = \
+                                float(x)
+                            i += 1
+                    # the reference prints the lr after the outputs (from
+                    # ComputeUpdateValue, which runs after Solve's display)
+                    log.info("Iteration %d, lr = %g",
+                             it, float(learning_rate(cfg, it)))
+                    result.metrics_history.append((it, entry))
             it += 1
     except KeyboardInterrupt:
         # an emergency snapshot (the reference loses what followed its last
@@ -527,7 +553,8 @@ def train(loss_fn: Callable, params, data: Iterator[dict], cfg: SolverConfig,
         raise
 
     if cfg.snapshot_after_train and cfg.snapshot_prefix:
-        _snap(it)
+        with span("vvtpu.train.snapshot"):
+            _snap(it)
     # the reference's post-loop passes: a display-gated extra forward of the
     # train net (to print the final loss; it consumes one batch, as the
     # reference's Net::Forward does) and a final test gated on
@@ -545,7 +572,8 @@ def train(loss_fn: Callable, params, data: Iterator[dict], cfg: SolverConfig,
             log.info("Iteration %d, loss = %g", it,
                      float(_host(final_loss).reshape(-1)[0]))
     if cfg.test_interval and it % cfg.test_interval == 0:
-        run_test(params, it)
+        with span("vvtpu.train.test"):
+            run_test(params, it)
     snapshotter.wait()  # every write is on disk before train returns
     result.params = ms.whole(params)
     result.state = {"iter": state["iter"],
