@@ -1107,6 +1107,176 @@ def test_query_spans_hold_the_kernels_launches_and_no_device_work(dev):
         sorted({e.name for e in device})
 
 
+def _serving(dev, seed=7, rows=4096):
+    """A full-width pipeline on the card, its params, a gallery of `rows`
+    unit rows with permuted ids, and the generator that drew them."""
+    from videovector_tpu_torch.models.retrieval_pipeline import (
+        RetrievalPipeline,
+    )
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pipe = RetrievalPipeline(device=dev)
+    params = pipe.init(gen)
+    gallery = torch.nn.functional.normalize(
+        torch.randn((rows, 4096), generator=gen, device=dev), dim=1)
+    ids = torch.randperm(rows, generator=gen, device=dev).to(torch.int32)
+    return pipe, params, gallery, ids, gen
+
+
+def _clip(gen, n, dev):
+    """One query's n frames with their own crop offsets and mirrors."""
+    pix = torch.randint(0, 256, (n, 256, 256, 3), generator=gen, device=dev,
+                        dtype=torch.uint8)
+    h, w = (torch.randint(0, 30, (n,), generator=gen, device=dev)
+            for _ in range(2))
+    return pix, h, w, torch.randint(0, 2, (n,), generator=gen,
+                                     device=dev) > 0
+
+
+def _eager_query(dev, params, frames, gallery, ids):
+    """A fresh pipeline's first query, which runs eagerly."""
+    from videovector_tpu_torch.models.retrieval_pipeline import (
+        RetrievalPipeline,
+    )
+    pipe = RetrievalPipeline(device=dev)
+    out = pipe.query(params, *frames, gallery, ids)
+    assert pipe._graph is None
+    return out
+
+
+def _counted(fn):
+    """fn()'s result and the counters it added (`vvtpu.query.graph_replays`,
+    `vvtpu.cast_bytes`), profiled or not."""
+    from videovector_tpu_torch.utils import timer
+    with timer.tally() as counts:
+        out = fn()
+    torch.cuda.synchronize()
+    return out, counts
+
+
+def _equal(a, b):
+    return torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_replayed_queries_equal_the_eager_query_bit_for_bit(dev):
+    """Eight queries at one shape, each with its own clip, offsets and
+    mirrors: the first runs eagerly, the second is captured and replayed,
+    the rest replayed; every answer is bit-equal to a fresh pipeline's
+    eager one, and stays as it was after the later calls. After updates
+    in place to the gallery and a weight, the replay sees them."""
+    pipe, params, gallery, ids, gen = _serving(dev)
+    clips = [_clip(gen, 50, dev) for _ in range(8)]
+    held, copies, replays = [], [], []
+    for frames in clips:
+        out, counts = _counted(
+            lambda: pipe.query(params, *frames, gallery, ids))
+        held.append(out)
+        copies.append(tuple(t.clone() for t in out))
+        replays.append(counts.get("vvtpu.query.graph_replays", 0))
+    assert replays == [0] + [1] * 7
+    for frames, out, copy in zip(clips, held, copies):
+        assert out[0].shape == (50, 5) and out[1].shape == (50, 5)
+        assert _equal(out, copy)
+        assert _equal(out, _eager_query(dev, params, frames, gallery, ids))
+    gallery.mul_(-1.0)
+    params["mednet"]["conv1"]["w"].mul_(2.0)
+    out, counts = _counted(
+        lambda: pipe.query(params, *clips[0], gallery, ids))
+    assert counts["vvtpu.query.graph_replays"] == 1
+    assert _equal(out, _eager_query(dev, params, clips[0], gallery, ids))
+    assert not _equal(out, held[0])
+
+
+@pytest.mark.parametrize("change", ["gallery", "params", "batch"])
+def test_another_gallery_params_or_batch_runs_eagerly(dev, change):
+    """After a capture, a query with another gallery tensor, another
+    params dict or another batch size is not replayed and answers as the
+    eager query does; its second call captures it in the first one's
+    place, bit-equal again."""
+    pipe, params, gallery, ids, gen = _serving(dev)
+    frames = _clip(gen, 50, dev)
+    for _ in range(2):
+        pipe.query(params, *frames, gallery, ids)
+    first = pipe._graph.key
+    if change == "gallery":
+        gallery = torch.nn.functional.normalize(
+            torch.randn(gallery.shape, generator=gen, device=dev), dim=1)
+    elif change == "params":
+        params = pipe.init(gen)
+    else:
+        frames = _clip(gen, 20, dev)
+    want = _eager_query(dev, params, frames, gallery, ids)
+    for replayed in (0, 1):
+        out, counts = _counted(
+            lambda: pipe.query(params, *frames, gallery, ids))
+        assert counts.get("vvtpu.query.graph_replays", 0) == replayed
+        assert _equal(out, want)
+    assert pipe._graph.key != first
+
+
+def test_plain_host_offsets_and_first_calls_never_capture(dev):
+    """`plain=True`, Python-int offsets and a pipeline's first call run
+    eagerly every time: no graph is kept and none replayed."""
+    from videovector_tpu_torch.models.retrieval_pipeline import (
+        RetrievalPipeline,
+    )
+    pipe, params, gallery, ids, gen = _serving(dev)
+    pix, h, w, mirror = _clip(gen, 8, dev)
+    plain = RetrievalPipeline(device=dev, plain=True)
+    calls = [lambda: plain.query(params, pix, h, w, mirror, gallery, ids),
+             lambda: pipe.query(params, pix, 14, 14, False, gallery, ids)]
+    for call in calls:
+        for _ in range(3):
+            _, counts = _counted(call)
+            assert "vvtpu.query.graph_replays" not in counts
+    assert plain._graph is None and pipe._graph is None
+    _, counts = _counted(lambda: pipe.query(params, pix, h, w, mirror,
+                                            gallery, ids))
+    assert "vvtpu.query.graph_replays" not in counts
+    assert pipe._graph is None
+
+
+def test_a_replayed_query_under_the_profiler_shows_its_kernels(dev):
+    """A profiled query that is a replay: K2 (conv_wgmma and conv1's
+    space_to_depth), K1 (gemm_tma_wgmma) and cuBLAS's score GEMM are in the
+    device trace by name, inside the span `vvtpu.query.replay` with no
+    wrapper's span; `vvtpu.query.graph_replays` reads 1 and
+    `vvtpu.cast_bytes` what the eager query casts. A profiled second call
+    is not captured."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from videovector_tpu_torch.utils import timer
+    pipe, params, gallery, ids, gen = _serving(dev)
+    frames = _clip(gen, 50, dev)
+
+    def query():
+        out = pipe.query(params, *frames, gallery, ids)
+        torch.cuda.synchronize()
+        return out
+    query()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        query()
+    eager = timer.recorded()
+    assert pipe._graph is None and "vvtpu.k2" in {s.name for s in eager.spans}
+    query()                                       # captured
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = query()
+    rec = timer.recorded()
+    assert rec.counters["vvtpu.query.graph_replays"] == 1
+    assert rec.counters["vvtpu.cast_bytes"] == \
+        eager.counters["vvtpu.cast_bytes"]
+    names = [s.name for s in rec.spans]
+    assert names == ["vvtpu.query", "vvtpu.query.replay"]
+    device = {e.name for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA}
+    for kernel in ("vv::conv90::conv_wgmma", "vv::conv90::space_to_depth",
+                   "vv::sm90::gemm_tma_wgmma"):
+        assert any(kernel in n for n in device), (kernel, sorted(device))
+    assert any("gemm" in n and "vv::" not in n for n in device), \
+        sorted(device)
+    assert _equal(out, _eager_query(dev, params, frames, gallery, ids))
+
+
 def test_rank_stats_dist_ignores_the_process_tf32_setting(dev):
     """retrieval_rank_stats_fixed_ref's -2 x.y^T, and so its order and
     ranks, are the same with TF32 on in the process as with it off."""

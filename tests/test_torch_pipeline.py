@@ -259,3 +259,72 @@ def test_port_imports_without_jax():
                          text=True, timeout=120,
                          cwd=Path(__file__).resolve().parent.parent)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def _key_args(rng, n=4, offsets=torch.int64):
+    """(params, pixels, h, w, mirror, gallery, ids) of the tiny port
+    pipeline on the CPU."""
+    tp = _tiny(trp, tmed, temb, "NHWC")
+    params = tp.init(torch.Generator().manual_seed(0))
+    pix = torch.as_tensor(_frames(rng, n, "NHWC"))
+    h, w = (torch.as_tensor(rng.randint(0, 5, n), dtype=offsets)
+            for _ in range(2))
+    mirror = torch.as_tensor(rng.randint(0, 2, n) > 0)
+    gallery = torch.nn.functional.normalize(torch.randn(20, 16), dim=1)
+    return tp, [params, pix, h, w, mirror, gallery,
+                torch.arange(20, dtype=torch.int32)]
+
+
+def test_query_on_the_cpu_never_captures(rng):
+    """On the CPU every query runs eagerly: no graph is kept, none is
+    replayed, and a repeated query answers as a fresh pipeline's first."""
+    from videovector_tpu_torch.utils import timer
+    tp, args = _key_args(rng)
+    first = trp.RetrievalPipeline(tp.cfg, device="cpu")
+    first.mednet, first.embedder = tp.mednet, tp.embedder
+    ref = first.query(*args)
+    with timer.tally() as counts:
+        outs = [tp.query(*args) for _ in range(3)]
+    assert tp._graph is None
+    assert "vvtpu.query.graph_replays" not in counts
+    for ids, scores in outs:
+        assert torch.equal(ids, ref[0]) and torch.equal(scores, ref[1])
+
+
+@pytest.mark.parametrize("change, same", [
+    ("nothing", True),
+    ("another params dict of the same tensors", True),
+    ("a weight updated in place", True),
+    ("a new pixels tensor of the same shape", True),
+    ("another gallery tensor", False),
+    ("another params tensor", False),
+    ("another frames shape", False),
+    ("another offsets dtype", False),
+])
+def test_query_graph_key(rng, change, same):
+    """The key a captured query is valid for: the same resident tensors
+    (by address, wherever their dicts) and the same input layouts give
+    the same key; another gallery or weight tensor, frames shape or
+    offsets dtype another."""
+    _, args = _key_args(rng)
+    key = trp.query_graph_key(*args)
+    params, pix, h, w, mirror, gallery, ids = args
+    if change == "another params dict of the same tensors":
+        params = {"mednet": dict(params["mednet"]),
+                  "tower": dict(params["tower"])}
+    elif change == "a weight updated in place":
+        params["tower"]["w"].mul_(2.0)
+    elif change == "a new pixels tensor of the same shape":
+        pix = pix.clone()
+    elif change == "another gallery tensor":
+        gallery = gallery.clone()
+    elif change == "another params tensor":
+        params = {"mednet": params["mednet"],
+                  "tower": {"w": params["tower"]["w"].clone(),
+                            "b": params["tower"]["b"]}}
+    elif change == "another frames shape":
+        pix = torch.cat([pix, pix[:1]])
+    elif change == "another offsets dtype":
+        h, w = h.int(), w.int()
+    got = trp.query_graph_key(params, pix, h, w, mirror, gallery, ids)
+    assert (got == key) is same

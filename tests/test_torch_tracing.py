@@ -282,3 +282,24 @@ def test_train_spans_on_every_path_of_the_loop(tmp_path, path):
     assert len(idx["vvtpu.train.hooks"]) == 3
     names = {e.name for e in prof.events()}
     assert set(idx) <= names
+
+
+def test_tally_collects_counts_with_or_without_a_profiler():
+    """`tally` collects what `count` adds in its block, profiled or not;
+    a tally inside it takes its own block's counts; the profiled table
+    gets its counts as before, and nothing while no profiler records."""
+    before = timer.recorded()
+    with timer.tally() as outer:
+        timer.count("vvtpu.a", 2)
+        with timer.tally() as inner:
+            timer.count("vvtpu.a", 3)
+        timer.count("vvtpu.b", 1)
+    timer.count("vvtpu.a", 5)
+    assert outer == {"vvtpu.a": 2, "vvtpu.b": 1}
+    assert inner == {"vvtpu.a": 3}
+    assert timer.recorded() == before
+    with _cpu_profile(), timer.tally() as profiled:
+        with timer.span("vvtpu.mark"):
+            timer.count("vvtpu.a", 4)
+    assert profiled == {"vvtpu.a": 4}
+    assert timer.recorded().counters == {"vvtpu.a": 4}

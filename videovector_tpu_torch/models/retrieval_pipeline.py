@@ -10,9 +10,23 @@ videovector_tpu/models/retrieval_pipeline.py.
 Top-k breaks ties as lax.top_k does, lower gallery index first, through a
 stable descending sort.
 
+On the card a query is one CUDA graph replay once its inputs repeat: a
+call with the `query_graph_key` of the last query run eagerly captures
+the whole query (while no profiler records), and every later call with
+that key copies its frames, offsets and mirrors into the graph's
+buffers, replays it and returns copies of its outputs. The graph reads
+the params and the gallery where they lie, so updates made to them in
+place are seen. It runs the same kernels in the same order as the eager
+query, so the answers are the same bits. A pipeline keeps one graph, the
+newest key's; any other call (the CPU, `plain`, host offsets, a new
+gallery, params or batch size) runs eagerly.
+
 Under a profiler each stage is a span (utils/timer.py): `vvtpu.query`
 (its request id the pipeline's count of queries) around the call, and
-`vvtpu.query.transform`, `.mednet`, `.tower`, `.scores` and `.topk`.
+`vvtpu.query.transform`, `.mednet`, `.tower`, `.scores` and `.topk`, or
+`vvtpu.query.replay` around a replay, which also adds 1 to the counter
+`vvtpu.query.graph_replays` and again what the captured query counted
+(`vvtpu.cast_bytes`).
 """
 
 from __future__ import annotations
@@ -22,7 +36,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from videovector_tpu_torch.convert import map_params
+from videovector_tpu_torch.convert import leaves_with_paths, map_params
 from videovector_tpu_torch.data.transformer import (
     TransformConfig, make_batch_transform,
 )
@@ -33,7 +47,7 @@ from videovector_tpu_torch.models.embedding import (
 from videovector_tpu_torch.models.mednet import MedNet, MedNetConfig
 from videovector_tpu_torch.ops.linear import no_tf32
 from videovector_tpu_torch.ops.normalization import l2_normalize_rows
-from videovector_tpu_torch.utils.timer import span
+from videovector_tpu_torch.utils.timer import count, span, tally
 
 
 @dataclass
@@ -55,6 +69,45 @@ def top_k_stable(scores: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+def query_graph_key(params, pixels_u8, h_off, w_off, mirror, gallery,
+                    gallery_ids) -> tuple:
+    """What a captured query is valid for: the per-query inputs' shapes,
+    dtypes and strides, and the address, shape, strides and dtype of every
+    tensor the graph reads where it lies (each leaf of `params`, by its
+    path, the gallery and its ids)."""
+    def layout(t):
+        return t.shape, t.stride(), t.dtype
+
+    resident = list(leaves_with_paths(params))
+    resident += [("gallery", gallery), ("gallery_ids", gallery_ids)]
+    return (tuple(layout(t) for t in (pixels_u8, h_off, w_off, mirror)),
+            tuple((path, t.data_ptr(), *layout(t)) for path, t in resident))
+
+
+class _QueryGraph:
+    """One query captured in a CUDA graph: its key, the buffers its
+    per-query inputs are copied into, its outputs, and what `count` added
+    while it was captured."""
+
+    def __init__(self, key, run, inputs):
+        self.key = key
+        self.inputs = [t.clone() for t in inputs]
+        self.graph = torch.cuda.CUDAGraph()
+        with tally() as self.counts, torch.cuda.graph(self.graph):
+            self.outputs = run(*self.inputs)
+
+    def replay(self, inputs):
+        with span("vvtpu.query.replay"):
+            for buf, t in zip(self.inputs, inputs):
+                buf.copy_(t)
+            self.graph.replay()
+            count("vvtpu.query.graph_replays", 1)
+            for name, n in self.counts.items():
+                count(name, n)
+            # copies, so that a later replay does not overwrite this answer
+            return tuple(t.clone() for t in self.outputs)
+
+
 class RetrievalPipeline:
     def __init__(self, cfg: RetrievalPipelineConfig = RetrievalPipelineConfig(),
                  *, mean: np.ndarray | None = None, device=DEFAULT,
@@ -65,6 +118,7 @@ class RetrievalPipeline:
         device)."""
         self.cfg = cfg
         self.device = resolve(device)
+        self.plain = plain
         self.mednet = MedNet(MedNetConfig(
             input_hw=(cfg.crop, cfg.crop), fc7=4096,
             compute_dtype=cfg.compute_dtype), plain=plain)
@@ -75,6 +129,8 @@ class RetrievalPipeline:
             TransformConfig(crop_size=cfg.crop), mean, cfg.image_hw,
             layout=cfg.pixels_layout, device=self.device)
         self.queries = 0    # the request id of the `vvtpu.query` spans
+        self._graph = None      # the captured query (_QueryGraph)
+        self._last_key = None   # the key of the last query run eagerly
 
     def init(self, generator: torch.Generator):
         """Random params from `generator`, placed on the pipeline's device."""
@@ -101,16 +157,50 @@ class RetrievalPipeline:
     def query(self, params, pixels_u8, h_off, w_off, mirror, gallery,
               gallery_ids):
         """Frames -> embeddings -> scores vs the gallery -> (top-k ids,
-        top-k scores). gallery: (G, E) unit rows on the device."""
+        top-k scores). gallery: (G, E) unit rows on the device. On the card
+        a call whose key repeats replays a CUDA graph (module docstring)."""
         self.queries += 1
+        inputs = (pixels_u8, h_off, w_off, mirror)
         with span("vvtpu.query", req=self.queries):
-            emb = self.embed_frames(params, pixels_u8, h_off, w_off, mirror)
-            # f32 scores, as JAX's; they decide the top-k
-            with span("vvtpu.query.scores"), no_tf32():
-                scores = torch.matmul(emb, gallery.T)
-            with span("vvtpu.query.topk"):
-                top_scores, top_idx = top_k_stable(scores, self.cfg.top_k)
-                return gallery_ids[top_idx], top_scores
+            graph = self._graph_for(params, inputs, gallery, gallery_ids)
+            if graph is not None:
+                return graph.replay(inputs)
+            return self._query(params, *inputs, gallery, gallery_ids)
+
+    def _query(self, params, pixels_u8, h_off, w_off, mirror, gallery,
+               gallery_ids):
+        emb = self.embed_frames(params, pixels_u8, h_off, w_off, mirror)
+        # f32 scores, as JAX's; they decide the top-k
+        with span("vvtpu.query.scores"), no_tf32():
+            scores = torch.matmul(emb, gallery.T)
+        with span("vvtpu.query.topk"):
+            top_scores, top_idx = top_k_stable(scores, self.cfg.top_k)
+            return gallery_ids[top_idx], top_scores
+
+    def _graph_for(self, params, inputs, gallery, gallery_ids):
+        """The captured query to replay for this call, captured here if
+        the last query run eagerly had its key and no profiler records;
+        None to run this one eagerly."""
+        if self.device.type != "cuda" or self.plain or not all(
+                isinstance(t, torch.Tensor) and t.is_cuda for t in inputs):
+            return None
+        key = query_graph_key(params, *inputs, gallery, gallery_ids)
+        if self._graph is not None and self._graph.key == key:
+            return self._graph
+        if (key != self._last_key
+                or torch.autograd.profiler._is_profiler_enabled):
+            self._last_key = key
+            return None
+        self._graph = None              # the old graph's memory goes first
+        # so that a later profiler sees the graph's kernels by name
+        from torch.profiler._utils import _init_for_cuda_graphs
+        _init_for_cuda_graphs()
+
+        def run(*captured):
+            return self._query(params, *captured, gallery, gallery_ids)
+        with torch.cuda.device(self.device):
+            self._graph = _QueryGraph(key, run, inputs)
+        return self._graph
 
     # ------------------------------------------------------------------
     def build_gallery(self, params, frame_batches, video_ids_per_batch):

@@ -22,7 +22,10 @@ trace); it and the counters also go into an in-memory table that
 and a request id that its children inherit. The table holds one profiled
 stretch: the first span or count that finds the profiler on after one
 that found it off starts a new one (so two stretches with no span or
-count between them share one table).
+count between them share one table). `tally()` collects what `count`
+adds in its block whether or not a profiler records, so that work which
+runs again without the code that counts it (a replayed CUDA graph) can
+be counted again.
 """
 
 from __future__ import annotations
@@ -169,6 +172,12 @@ class _Recorder:
             stack = self.local.stack = []
         return stack
 
+    def tallies(self) -> list:
+        tallies = getattr(self.local, "tallies", None)
+        if tallies is None:
+            tallies = self.local.tallies = []
+        return tallies
+
 
 _RECORDER = _Recorder()
 _NULL_SPAN = contextlib.nullcontext()
@@ -219,14 +228,32 @@ def span(name: str, req=None):
 
 
 def count(name: str, n) -> None:
-    """Adds `n` to the counter `name` of the profiled stretch; nothing while
-    no profiler records."""
+    """Adds `n` to the counter `name` of the profiled stretch (nothing while
+    no profiler records) and of the innermost `tally` open in this thread.
+    """
+    tallies = getattr(_RECORDER.local, "tallies", None)
+    if tallies:
+        tallies[-1][name] = tallies[-1].get(name, 0) + n
     if not torch.autograd.profiler._is_profiler_enabled:
         _RECORDER.on = False
         return
     stretch = _RECORDER.current()
     with stretch.lock:
         stretch.counters[name] = stretch.counters.get(name, 0) + n
+
+
+@contextlib.contextmanager
+def tally():
+    """Yields a dict that collects, by name, what `count` adds in this
+    thread inside the block, whether or not a profiler records; a tally
+    opened inside the block takes what is counted inside its own."""
+    counts: dict[str, float] = {}
+    tallies = _RECORDER.tallies()
+    tallies.append(counts)
+    try:
+        yield counts
+    finally:
+        tallies.pop()
 
 
 def recorded() -> Recorded:
