@@ -1235,6 +1235,126 @@ def test_plain_host_offsets_and_first_calls_never_capture(dev):
     assert pipe._graph is None
 
 
+@pytest.mark.parametrize("shape,k,stride,pad", [
+    ((50, 224, 224, 3), 7, 2, 3),       # GoogLeNet's conv1
+    ((3, 31, 23, 3), 7, 2, 3),          # ragged, not square
+    ((1, 20, 17, 3), 5, 3, 2),
+    ((2, 228, 228, 3), 11, 4, 0),       # a step past the image, no pad
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_padded_space_to_depth_kernel_equals_plain(dev, shape, k, stride,
+                                                   pad, dtype):
+    """The repack with padding, and channels rounded up to a 16-byte chunk,
+    moves bits: equal to the plain version's."""
+    gen = torch.Generator(device=dev).manual_seed(k + pad)
+    x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    w = torch.randn((k, k, 3, 64), generator=gen, device=dev).to(dtype)
+    before = k2.space_to_depth.launches
+    xs, ws = k2.space_to_depth(x, w, stride, pad)
+    assert k2.space_to_depth.launches == before + 1
+    ref_x, ref_w = k2.space_to_depth_plain(x, w, stride, pad)
+    torch.cuda.synchronize()
+    assert xs.shape == ref_x.shape and ws.shape == ref_w.shape
+    assert torch.equal(xs, ref_x) and torch.equal(ws, ref_w)
+
+
+def test_caffenet_conv1_repack_is_unchanged(dev):
+    """CaffeNet's conv1 (11x11/4, no pad, 227 at batch 50): the repack
+    writes what it wrote before it took padding, the reshape of the image
+    and of the kernel padded at their ends, 48 channels; the conv over it
+    stays on the sm90 route, bit-equal from one call to the next."""
+    gen = torch.Generator(device=dev).manual_seed(21)
+    x = _randn(gen, 50, 227, 227, 3, dev=dev)
+    w = _randn(gen, 11, 11, 3, 96, dev=dev)
+    xs, ws = k2.space_to_depth(x, w, 4)
+    old_x = torch.nn.functional.pad(x, (0, 0, 0, 1, 0, 1)).reshape(
+        50, 57, 4, 57, 4, 3).permute(0, 1, 3, 2, 4, 5).reshape(50, 57, 57, 48)
+    old_w = torch.nn.functional.pad(w, (0, 0, 0, 0, 0, 1, 0, 1)).reshape(
+        3, 4, 3, 4, 3, 96).permute(0, 2, 1, 3, 4, 5).reshape(3, 3, 48, 96)
+    torch.cuda.synchronize()
+    assert torch.equal(xs, old_x) and torch.equal(ws, old_w)
+    b = torch.randn(96, generator=gen, device=dev)
+    kw = dict(stride=(4, 4), fuse_relu=True, out_dtype=torch.bfloat16)
+    before = (k2.conv2d_im2col_gemm.launches_sm90, k2.space_to_depth.launches)
+    got = k2.conv2d_gemm_nhwc(x, w, b, **kw)
+    again = k2.conv2d_gemm_nhwc(x, w, b, **kw)
+    assert (k2.conv2d_im2col_gemm.launches_sm90,
+            k2.space_to_depth.launches) == (before[0] + 2, before[1] + 2)
+    _close(got, k2.conv2d_gemm_nhwc_plain(x, w, b, **kw))
+    assert torch.equal(got, again)
+
+
+def _googlenet_serving(dev, seed=17, rows=4096):
+    """A full-width GoogLeNet pipeline on the card, its params, a gallery
+    of `rows` unit rows of 1,024 with permuted ids, and the generator."""
+    from videovector_tpu_torch.models.retrieval_pipeline import (
+        RetrievalPipeline, RetrievalPipelineConfig,
+    )
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cfg = RetrievalPipelineConfig(backbone="googlenet", crop=224,
+                                  embed_dim=1024)
+    pipe = RetrievalPipeline(cfg, device=dev)
+    params = pipe.init(gen)
+    gallery = torch.nn.functional.normalize(
+        torch.randn((rows, 1024), generator=gen, device=dev), dim=1)
+    ids = torch.randperm(rows, generator=gen, device=dev).to(torch.int32)
+    return pipe, params, gallery, ids, gen
+
+
+def test_googlenet_convs_all_take_the_sm90_route(dev):
+    """One GoogLeNet forward at 50 frames: 57 K2 launches, all on the sm90
+    route, conv1 after one repack, none on the core; the pool5 features
+    within 2e-2 (relative L2) of the plain forward's (each conv rounds to
+    bf16 on both sides, summed in another order)."""
+    from videovector_tpu_torch.models.googlenet import GoogLeNet
+    pipe, params, _, _, gen = _googlenet_serving(dev)
+    frames = _clip(gen, 50, dev)
+    x = pipe.transform(*frames)
+    counts = (k2.conv2d_im2col_gemm.launches,
+              k2.conv2d_im2col_gemm.launches_sm90,
+              k2.space_to_depth.launches)
+    got = pipe.googlenet.forward(params["googlenet"], x)
+    after = (k2.conv2d_im2col_gemm.launches,
+             k2.conv2d_im2col_gemm.launches_sm90,
+             k2.space_to_depth.launches)
+    assert [a - b for a, b in zip(after, counts)] == [57, 57, 1]
+    plain = GoogLeNet(pipe.googlenet.cfg, plain=True).forward(
+        params["googlenet"], x)
+    torch.cuda.synchronize()
+    assert got.shape == (50, 1024)
+    assert float((got - plain).norm() / plain.norm()) < 2e-2
+
+
+def test_googlenet_replays_equal_the_eager_query_bit_for_bit(dev):
+    """GoogLeNet's query through the same graph capture as CaffeNet's:
+    the first call eager, the second captured and replayed, the rest
+    replayed; each answer, and the pool5 features `features` holds after
+    it (a replay's the graph's own buffer), bit-equal to a fresh
+    pipeline's eager ones; each replay adds the capture's
+    `vvtpu.concat_bytes` (123.56 MB at 50 frames)."""
+    from videovector_tpu_torch.models.retrieval_pipeline import (
+        RetrievalPipeline,
+    )
+    pipe, params, gallery, ids, gen = _googlenet_serving(dev)
+    clips = [_clip(gen, 50, dev) for _ in range(4)]
+    replays, concat = [], []
+    for frames in clips:
+        out, counts = _counted(
+            lambda: pipe.query(params, *frames, gallery, ids))
+        replays.append(counts.get("vvtpu.query.graph_replays", 0))
+        concat.append(counts.get("vvtpu.concat_bytes", 0))
+        fresh = RetrievalPipeline(pipe.cfg, device=dev)
+        want = fresh.query(params, *frames, gallery, ids)
+        assert fresh._graph is None
+        assert out[0].shape == (50, 5) and _equal(out, want)
+        assert pipe.features.shape == (50, 1024)
+        assert torch.equal(pipe.features, fresh.features)
+        if replays[-1]:
+            assert pipe.features is pipe._graph.features
+    assert replays == [0, 1, 1, 1]
+    assert concat == [123_558_400] * 4
+
+
 def test_a_replayed_query_under_the_profiler_shows_its_kernels(dev):
     """A profiled query that is a replay: K2 (conv_wgmma and conv1's
     space_to_depth), K1 (gemm_tma_wgmma) and cuBLAS's score GEMM are in the
@@ -1302,19 +1422,22 @@ def test_golden_fixtures_through_the_f32_routes(dev):
     the CPU test holds the plain versions."""
     import torch_golden as tg
     c1 = k1.matmul.launches_f32, k2.conv2d_im2col_gemm.launches, \
-        k2.conv2d_im2col_gemm.launches_f32
+        k2.conv2d_im2col_gemm.launches_f32, k2.space_to_depth.launches
     blobs, golden = tg.mini_golden(dev)
     for name, want in golden.items():
         np.testing.assert_allclose(blobs[name], want, rtol=1e-5, atol=1e-5,
                                    err_msg=name)
     tg.assert_fullscale_within_bounds(tg.fullscale_errors(
         tg.fullscale_blobs(dev)))
-    # two nets: 2 fc each on K1's f32 route; the mini net's 2 convs on K2's
-    # core (3 channels with padding; 6 outputs a group), one launch per
-    # group, the full tower's 5 on the f32 route, one launch each
+    # two nets: 2 fc each on K1's f32 route; the mini net's conv1 (3
+    # channels, 5x5/2 with pad 2) on the f32 route after its padded
+    # repack, its conv2 on K2's core (6 outputs a group), one launch per
+    # group; the full tower's 5 on the f32 route, one launch each, conv1
+    # after its repack
     assert k1.matmul.launches_f32 - c1[0] == 4
-    assert k2.conv2d_im2col_gemm.launches - c1[1] == 3 + 5
-    assert k2.conv2d_im2col_gemm.launches_f32 - c1[2] == 5
+    assert k2.conv2d_im2col_gemm.launches - c1[1] == 1 + 2 + 5
+    assert k2.conv2d_im2col_gemm.launches_f32 - c1[2] == 1 + 5
+    assert k2.space_to_depth.launches - c1[3] == 2
 
 
 # -- item 9: the LSTM family, social pooling, the trajectory project ----------

@@ -331,14 +331,16 @@ CAFFENET_K2 = {
     *((f"f32_{name}", "f32") for name in CAFFENET_K2),
     ("f32_odd_channel_stride", "core"),
     ("f32_misaligned_data", "core"),
-    ("f32_cg3_padded", "core"),
+    ("f32_cg3_padded", "f32"),
     ("f32_og_not_multiple_of_4", "core"),
     ("f32_w_not_contiguous", "core"),
     ("odd_channel_stride", "core"),
     ("misaligned_data", "core"),
     ("cg_12_stride_1", "core"),
-    ("conv1_padded", "core"),
-    ("conv1_ragged_step", "core"),
+    ("conv1_padded", "sm90"),
+    ("conv1_ragged_step", "sm90"),
+    ("googlenet_conv1", "sm90"),
+    ("cg3_stride_1", "core"),
     ("og_not_multiple_of_8", "core"),
     ("w_not_contiguous", "core"),
     ("conv1_w_not_contiguous", "core"),
@@ -359,7 +361,7 @@ def test_k2_route(case, route):
         x = torch.zeros(2, 13, 13, 260)[..., 1:257]   # data 4 bytes past 16
     elif case == "f32_cg3_padded":
         x, w = torch.zeros(2, 227, 227, 3), torch.zeros(11, 11, 3, 96)
-        s, p = 4, 2                                   # no repack: padded
+        s, p = 4, 2                                   # repacked, pad and all
     elif case == "f32_og_not_multiple_of_4":
         w = torch.zeros(3, 3, 256, 6)                 # 6 outputs
     elif case == "f32_w_not_contiguous":
@@ -382,6 +384,12 @@ def test_k2_route(case, route):
     elif case == "conv1_ragged_step":
         x, w = _bf16(2, 228, 228, 3), _bf16(11, 11, 3, 96)   # (228-11) % 4
         s = 4
+    elif case == "googlenet_conv1":
+        x, w = _bf16(2, 224, 224, 3), _bf16(7, 7, 3, 64)     # 12 channels
+        s, p = 2, 3                                   # repacked: 16, padded
+    elif case == "cg3_stride_1":
+        x, w = _bf16(2, 28, 28, 3), _bf16(3, 3, 3, 64)  # nothing to repack
+        s, p = 1, 1
     elif case == "og_not_multiple_of_8":
         w = _bf16(3, 3, 128, 12)                      # 2 groups of 6 outputs
     elif case == "w_not_contiguous":

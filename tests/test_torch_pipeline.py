@@ -193,6 +193,7 @@ def test_port_imports_without_jax():
         import videovector_tpu_torch.data.weights
         import videovector_tpu_torch.data.wire
         import videovector_tpu_torch.models.embedding
+        import videovector_tpu_torch.models.googlenet
         import videovector_tpu_torch.models.mednet
         import videovector_tpu_torch.models.retrieval_pipeline
         import videovector_tpu_torch.models.trajectory
@@ -289,6 +290,18 @@ def test_query_on_the_cpu_never_captures(rng):
     assert "vvtpu.query.graph_replays" not in counts
     for ids, scores in outs:
         assert torch.equal(ids, ref[0]) and torch.equal(scores, ref[1])
+
+
+def test_features_hold_the_last_queries_fc7(rng):
+    """After a query `features` holds the backbone's features of its
+    frames: CaffeNet's fc7, as MedNet's forward gives them on the
+    transformed frames."""
+    tp, args = _key_args(rng)
+    assert tp.features is None
+    tp.query(*args)
+    params, pix, h, w, mirror = args[:5]
+    want = tp.mednet.forward(params["mednet"], tp.transform(pix, h, w, mirror))
+    assert torch.equal(tp.features, want)
 
 
 @pytest.mark.parametrize("change, same", [

@@ -13,9 +13,10 @@
 // kEpiConv: round, add the rounded bias, round, ReLU). f32 operands with an
 // f32 output take conv_gemm_f32_sm90.cu, every other K2 call (odd strides,
 // f32 in with bf16 out) the core (conv_gemm.cu); the wrapper
-// ops/hopper/conv_gemm.py picks the route from the operands, and repacks
-// CaffeNet's conv1 (3 channels: 6 bytes a pixel, which neither a 16-byte
-// copy nor TMA can address) by space-to-depth into a 3x3 conv over 48.
+// ops/hopper/conv_gemm.py picks the route from the operands, and repacks a
+// strided conv over 3 channels (6 bytes a pixel, which neither a 16-byte copy
+// nor TMA can address) by space-to-depth: CaffeNet's conv1 into a 3x3 conv
+// over 48 channels, GoogLeNet's (7x7/2, pad 3) into a 4x4 conv over 16.
 //
 // What bounds it on the H100. At batch 50 CaffeNet's convs are 66.6 GFLOP
 // over about 110 MB of HBM traffic (inputs, weights and outputs each once):
@@ -52,7 +53,8 @@
 // - The epilogue applies kEpiConv in registers and writes NHWC with paired
 //   (4-byte bf16, 8-byte f32) stores, masked at M and at the group's Og.
 // - conv1's space-to-depth repack is one more launch (`space_to_depth`
-//   below) that writes x and w in the repacked layouts, 16 bytes a thread.
+//   below) that writes x and w in the repacked layouts, 16 bytes a thread,
+//   reading the conv's padding and the chunk's spare channels as zero.
 // PERF.md (section 6) has the measured times against these bounds and what
 // holds the kernel back from them.
 #include <algorithm>
@@ -276,20 +278,23 @@ int run(const CUtensorMap& tw, const bf16* x, const float* bias, void* out,
                        : launch_bn<2, TO>(tw, x, bias, o, g, groups, block_n, relu, s);
 }
 
-// The space-to-depth repack of an unpadded stride-s conv (the wrapper's
+// The space-to-depth repack of a stride-s conv padded by P (the wrapper's
 // `space_to_depth`, whose plain version says what it computes), in one
 // launch: threads [0, x_chunks) write one 16-byte chunk of xs each, the rest
-// one element of ws. xs[n, bi, bj, (a s + b) C + c] = x[n, bi s + a,
-// bj s + b, c] and ws[bi, bj, (a s + b) C + c, o] = w[bi s + a, bj s + b, c,
-// o], zero past the image or the kernel. All four tensors contiguous, of
-// type T: bf16 for this route, f32 for conv_gemm_f32_sm90.cu's.
+// one element of ws. xs[n, bi, bj, (a s + b) C + c] = x[n, bi s + a - P,
+// bj s + b - P, c] and ws[bi, bj, (a s + b) C + c, o] = w[bi s + a, bj s + b,
+// c, o], zero past the image or the kernel: the padding is read as zero
+// here, so no padded copy of x is made. A repacked pixel has E channels, s s
+// C rounded up to a 16-byte chunk; the channels past s s C are zero in both.
+// All four tensors contiguous, of type T: bf16 for this route, f32 for
+// conv_gemm_f32_sm90.cu's.
 template <typename T>
 __global__ void space_to_depth(const T* __restrict__ x, const T* __restrict__ w,
                                T* __restrict__ xs, T* __restrict__ ws, int H, int W,
-                               int C, int O, int k, int s, int HB, int WB, int KB,
-                               long long x_chunks, long long total) {
-  constexpr int V = 16 / sizeof(T);  // elements in a 16-byte chunk
-  const int E = s * s * C;           // channels of a repacked pixel, a multiple of V
+                               int C, int O, int k, int s, int P, int HB, int WB,
+                               int KB, int E, long long x_chunks, long long total) {
+  constexpr int V = 16 / sizeof(T);  // elements in a 16-byte chunk; E % V == 0
+  const int EC = s * s * C;          // channels of a block that hold pixels
   for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
        i < total; i += static_cast<long long>(gridDim.x) * blockDim.x) {
     if (i < x_chunks) {
@@ -302,9 +307,13 @@ __global__ void space_to_depth(const T* __restrict__ x, const T* __restrict__ w,
       alignas(16) T v[V];
 #pragma unroll
       for (int u = 0; u < V; ++u) {
-        const int c = (e0 + u) % C, ab = (e0 + u) / C;
-        const int y = bi * s + ab / s, xx = bj * s + ab % s;
-        v[u] = y < H && xx < W ? x[((n * H + y) * W + xx) * C + c] : zero<T>();
+        const int e = e0 + u;
+        const int c = e % C, ab = e / C;
+        const int y = bi * s + ab / s - P, xx = bj * s + ab % s - P;
+        v[u] = e < EC && static_cast<unsigned>(y) < static_cast<unsigned>(H) &&
+                       static_cast<unsigned>(xx) < static_cast<unsigned>(W)
+                   ? x[((n * H + y) * W + xx) * C + c]
+                   : zero<T>();
       }
       *reinterpret_cast<uint4*>(xs + p * E + e0) = *reinterpret_cast<const uint4*>(v);
     } else {
@@ -315,7 +324,7 @@ __global__ void space_to_depth(const T* __restrict__ x, const T* __restrict__ w,
       const int bj = static_cast<int>(t / E % KB), bi = static_cast<int>(t / E / KB);
       const int c = e % C, ab = e / C;
       const int y = bi * s + ab / s, xx = bj * s + ab % s;
-      ws[j] = y < k && xx < k ? w[((y * k + xx) * C + c) * O + o] : zero<T>();
+      ws[j] = e < EC && y < k && xx < k ? w[((y * k + xx) * C + c) * O + o] : zero<T>();
     }
   }
 }
@@ -380,16 +389,16 @@ extern "C" int vv_conv_gemm_sm90(const void* x, const void* w, const void* bias,
 }
 
 // x (N, H, W, C) and w (k, k, C, O) contiguous, both bf16 (dtype 1) or both
-// f32 (dtype 0) -> xs (N, HB, WB, s s C) and ws (KB, KB, s s C, O) of the
-// same type, KB = ceil(k / s), HB = (H + KB s - k) / s (WB likewise); needs
-// (H - k) % s == (W - k) % s == 0 and s s C a multiple of a 16-byte chunk (8
-// bf16, 4 f32). Returns a CUDA error code as an int.
+// f32 (dtype 0), for a stride-s conv padded by pad on every side -> xs (N,
+// HB, WB, E) and ws (KB, KB, E, O) of the same type, KB = ceil(k / s), HB =
+// (H + 2 pad - k) / s + KB (WB likewise), E = s s C rounded up to a 16-byte
+// chunk (8 bf16, 4 f32). Returns a CUDA error code as an int.
 extern "C" int vv_space_to_depth(const void* x, const void* w, void* xs, void* ws,
                                  int N, int H, int W, int C, int O, int k, int s,
-                                 int dtype, int device, void* stream) {
+                                 int pad, int dtype, int device, void* stream) {
   const int vec = dtype == vv::kBF16 ? 8 : 4;
-  if (N <= 0 || C <= 0 || O <= 0 || k <= 0 || s <= 0 || H < k || W < k ||
-      (H - k) % s != 0 || (W - k) % s != 0 || (s * s * C) % vec != 0 ||
+  if (N <= 0 || C <= 0 || O <= 0 || k <= 0 || s <= 0 || pad < 0 ||
+      H + 2 * pad < k || W + 2 * pad < k ||
       (dtype != vv::kBF16 && dtype != vv::kF32) ||
       reinterpret_cast<uintptr_t>(xs) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -397,21 +406,22 @@ extern "C" int vv_space_to_depth(const void* x, const void* w, void* xs, void* w
   if (err != cudaSuccess) return static_cast<int>(err);
   int sms = 0;
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  const int kb = (k + s - 1) / s, pad = kb * s - k;
-  const int hb = (H + pad) / s, wb = (W + pad) / s;
-  const long long x_chunks = static_cast<long long>(N) * hb * wb * (s * s * C / vec);
-  const long long total = x_chunks + static_cast<long long>(kb) * kb * s * s * C * O;
+  const int kb = (k + s - 1) / s;
+  const int hb = (H + 2 * pad - k) / s + kb, wb = (W + 2 * pad - k) / s + kb;
+  const int e = (s * s * C + vec - 1) / vec * vec;
+  const long long x_chunks = static_cast<long long>(N) * hb * wb * (e / vec);
+  const long long total = x_chunks + static_cast<long long>(kb) * kb * e * O;
   const int blocks = static_cast<int>(std::min((total + 255) / 256, 16LL * sms));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == vv::kBF16)
     vv::conv90::space_to_depth<vv::bf16><<<blocks, 256, 0, st>>>(
         static_cast<const vv::bf16*>(x), static_cast<const vv::bf16*>(w),
-        static_cast<vv::bf16*>(xs), static_cast<vv::bf16*>(ws), H, W, C, O, k, s, hb,
-        wb, kb, x_chunks, total);
+        static_cast<vv::bf16*>(xs), static_cast<vv::bf16*>(ws), H, W, C, O, k, s, pad,
+        hb, wb, kb, e, x_chunks, total);
   else
     vv::conv90::space_to_depth<float><<<blocks, 256, 0, st>>>(
         static_cast<const float*>(x), static_cast<const float*>(w),
-        static_cast<float*>(xs), static_cast<float*>(ws), H, W, C, O, k, s, hb, wb,
-        kb, x_chunks, total);
+        static_cast<float*>(xs), static_cast<float*>(ws), H, W, C, O, k, s, pad, hb,
+        wb, kb, e, x_chunks, total);
   return static_cast<int>(cudaGetLastError());
 }

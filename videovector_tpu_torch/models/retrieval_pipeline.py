@@ -3,9 +3,15 @@ videovector_tpu/models/retrieval_pipeline.py.
 
   uint8 frames (N, H, W, C) on the device
     -> crop/mirror/mean transform       (data/transformer.py)
-    -> MedNet conv1..fc7                (models/mednet.py: K2 convs, K1 fc)
+    -> the backbone: MedNet conv1..fc7  (models/mednet.py: K2 convs, K1 fc)
+       or GoogLeNet to pool5            (models/googlenet.py: K2 convs)
     -> embedding tower + L2 normalize   (models/embedding.py: K1)
     -> scores vs a device-resident gallery (torch.matmul), top-k
+
+`RetrievalPipelineConfig.backbone` picks the backbone: "caffenet" (the
+default; 4,096 features, params under "mednet") or "googlenet" (BVLC's
+widths, 1,024 features, params under "googlenet"). The tower's input
+width is the backbone's.
 
 Top-k breaks ties as lax.top_k does, lower gallery index first, through a
 stable descending sort.
@@ -23,10 +29,15 @@ gallery, params or batch size) runs eagerly.
 
 Under a profiler each stage is a span (utils/timer.py): `vvtpu.query`
 (its request id the pipeline's count of queries) around the call, and
-`vvtpu.query.transform`, `.mednet`, `.tower`, `.scores` and `.topk`, or
+`vvtpu.query.transform`, `.mednet` (`.googlenet` for that backbone),
+`.tower`, `.scores` and `.topk`, or
 `vvtpu.query.replay` around a replay, which also adds 1 to the counter
 `vvtpu.query.graph_replays` and again what the captured query counted
 (`vvtpu.cast_bytes`).
+
+`features` holds the backbone's (N, D) f32 features of the last frames
+embedded; after a replay it is the graph's own buffer, which the next
+replay overwrites.
 """
 
 from __future__ import annotations
@@ -44,6 +55,7 @@ from videovector_tpu_torch.device import DEFAULT, resolve
 from videovector_tpu_torch.models.embedding import (
     VideoEmbeddingConfig, VideoEmbeddingModel,
 )
+from videovector_tpu_torch.models.googlenet import GoogLeNet, GoogLeNetConfig
 from videovector_tpu_torch.models.mednet import MedNet, MedNetConfig
 from videovector_tpu_torch.ops.linear import no_tf32
 from videovector_tpu_torch.ops.normalization import l2_normalize_rows
@@ -59,6 +71,8 @@ class RetrievalPipelineConfig:
     compute_dtype: str = "bfloat16"
     # "NHWC": frames in decode order (H, W, C); "NCHW" accepts Caffe blobs
     pixels_layout: str = "NHWC"
+    # "caffenet" or "googlenet"
+    backbone: str = "caffenet"
 
 
 def top_k_stable(scores: torch.Tensor, k: int):
@@ -119,11 +133,24 @@ class RetrievalPipeline:
         self.cfg = cfg
         self.device = resolve(device)
         self.plain = plain
-        self.mednet = MedNet(MedNetConfig(
-            input_hw=(cfg.crop, cfg.crop), fc7=4096,
-            compute_dtype=cfg.compute_dtype), plain=plain)
+        # backbone_key: the attribute that holds the backbone, and its
+        # params' key
+        if cfg.backbone == "caffenet":
+            self.backbone_key = "mednet"
+            self.mednet = MedNet(MedNetConfig(
+                input_hw=(cfg.crop, cfg.crop), fc7=4096,
+                compute_dtype=cfg.compute_dtype), plain=plain)
+            feature_dim = 4096
+        elif cfg.backbone == "googlenet":
+            self.backbone_key = "googlenet"
+            self.googlenet = GoogLeNet(GoogLeNetConfig(
+                compute_dtype=cfg.compute_dtype), plain=plain)
+            feature_dim = self.googlenet.cfg.feature_dim
+        else:
+            raise ValueError("backbone must be 'caffenet' or 'googlenet', "
+                             f"got {cfg.backbone!r}")
         self.embedder = VideoEmbeddingModel(VideoEmbeddingConfig(
-            feature_dim=4096, embed_dim=cfg.embed_dim,
+            feature_dim=feature_dim, embed_dim=cfg.embed_dim,
             compute_dtype=cfg.compute_dtype, dropout_rate=0.0), plain=plain)
         self.transform = make_batch_transform(
             TransformConfig(crop_size=cfg.crop), mean, cfg.image_hw,
@@ -131,10 +158,16 @@ class RetrievalPipeline:
         self.queries = 0    # the request id of the `vvtpu.query` spans
         self._graph = None      # the captured query (_QueryGraph)
         self._last_key = None   # the key of the last query run eagerly
+        self.features = None    # the last frames' features (docstring)
+
+    @property
+    def backbone(self):
+        """The backbone model: `self.mednet` or `self.googlenet`."""
+        return getattr(self, self.backbone_key)
 
     def init(self, generator: torch.Generator):
         """Random params from `generator`, placed on the pipeline's device."""
-        params = {"mednet": self.mednet.init(generator),
+        params = {self.backbone_key: self.backbone.init(generator),
                   "tower": self.embedder.init(generator)["tower"]}
         return map_params(lambda t: t.to(self.device), params)
 
@@ -147,10 +180,12 @@ class RetrievalPipeline:
             x = self.transform(pixels_u8, h_off, w_off, mirror)
             if self.cfg.pixels_layout == "NCHW":
                 x = x.permute(0, 2, 3, 1)                      # -> NHWC
-        with span("vvtpu.query.mednet"):
-            fc7 = self.mednet.forward(params["mednet"], x)     # (N, 4096)
+        key = self.backbone_key
+        with span("vvtpu.query." + key):
+            feats = self.backbone.forward(params[key], x)     # (N, D) f32
+            self.features = feats
         with span("vvtpu.query.tower"):
-            emb = self.embedder.embed({"tower": params["tower"]}, fc7)
+            emb = self.embedder.embed({"tower": params["tower"]}, feats)
             return l2_normalize_rows(emb)
 
     @torch.no_grad()
@@ -164,7 +199,9 @@ class RetrievalPipeline:
         with span("vvtpu.query", req=self.queries):
             graph = self._graph_for(params, inputs, gallery, gallery_ids)
             if graph is not None:
-                return graph.replay(inputs)
+                out = graph.replay(inputs)
+                self.features = graph.features
+                return out
             return self._query(params, *inputs, gallery, gallery_ids)
 
     def _query(self, params, pixels_u8, h_off, w_off, mirror, gallery,
@@ -200,6 +237,7 @@ class RetrievalPipeline:
             return self._query(params, *captured, gallery, gallery_ids)
         with torch.cuda.device(self.device):
             self._graph = _QueryGraph(key, run, inputs)
+        self._graph.features = self.features   # the graph's buffer
         return self._graph
 
     # ------------------------------------------------------------------

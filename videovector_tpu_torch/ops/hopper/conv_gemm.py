@@ -14,9 +14,10 @@ their tiles. Three hand-written routes, picked from the operands alone by
 - "core": csrc/conv_gemm.cu on the GEMM core K1's core route uses
   (csrc/gemm_core.cuh), one launch per group, for everything else (odd
   strides or channel counts, f32 operands with a bf16 output).
-On both Hopper routes a conv over too few channels for 16-byte gathers
-(CaffeNet's conv1, 3 channels) is repacked by `space_to_depth` when its
-geometry allows. Each source note says what bounds its kernel on the H100.
+On both Hopper routes a strided conv over too few channels for 16-byte
+gathers (CaffeNet's conv1 and GoogLeNet's, 3 channels) is repacked by
+`space_to_depth`, padding included. Each source note says what bounds its
+kernel on the H100.
 
 Three entry points: `conv2d_im2col_gemm`, the JAX signature (NCHW/OIHW,
 f32 out, no groups, always the core); `conv2d_gemm_nhwc`, MedNet's conv
@@ -129,41 +130,61 @@ def _conv_plain(x, w, b, stride, pad, groups, fuse_relu, out_dtype):
     return torch.cat(outs, dim=3).permute(0, 3, 1, 2)
 
 
-def space_to_depth_plain(x, w, stride: int):
-    """An unpadded stride-`stride` conv of x (N, H, W, C) with w (k, k, C, O)
-    as a stride-1 conv of xs (N, H', W', s*s*C) with ws (kb, kb, s*s*C, O),
-    kb = ceil(k / s): each s x s block of pixels becomes one pixel, and the
-    kernel is zero-padded to kb*s taps. Needs (H - k) % s == 0 and
-    (W - k) % s == 0; the input is padded by kb*s - k rows and columns at
-    the end, which meet only the zero taps. CaffeNet's conv1 (11x11/4 over
-    227x227x3) becomes a 3x3 conv over 57x57x48."""
+def _space_to_depth_shape(h, wd, c, k, stride, pad, itemsize):
+    """(kb, hb, wb, e, ep) of the repack: the repacked kernel's taps kb =
+    ceil(k / s); the blocks hb x wb that the stride-1 conv over them reads
+    (its output, (h + 2 pad - k) // s + 1, plus kb - 1); the s*s*C channels
+    of a block and that count rounded up to a 16-byte chunk."""
+    kb = -(-k // stride)
+    hb = (h + 2 * pad - k) // stride + kb
+    wb = (wd + 2 * pad - k) // stride + kb
+    e = stride * stride * c
+    chunk = 16 // itemsize
+    return kb, hb, wb, e, -(-e // chunk) * chunk
+
+
+def space_to_depth_plain(x, w, stride: int, pad: int = 0):
+    """A stride-`stride` conv of x (N, H, W, C) with w (k, k, C, O), padded
+    by `pad` on every side, as an unpadded stride-1 conv of xs (N, HB, WB,
+    E) with ws (kb, kb, E, O), kb = ceil(k / s): each s x s block of the
+    padded image becomes one pixel, and the kernel is zero-padded to kb*s
+    taps. xs[n, bi, bj, (a s + b) C + c] = x[n, bi s + a - pad, bj s + b -
+    pad, c], zero outside the image; HB = (H + 2 pad - k) // s + kb, so the
+    output is the original conv's, and rows or columns the original steps
+    past are cut. E is s*s*C rounded up to a 16-byte chunk of x's dtype (8
+    bf16, 4 f32), the extra channels zero in xs and in ws. CaffeNet's conv1
+    (11x11/4 over 227x227x3) becomes a 3x3 conv over 57x57x48; GoogLeNet's
+    (7x7/2, pad 3, over 224x224x3) a 4x4 conv over 115x115x16 in bf16."""
     n, h, wd, c = x.shape
     k, o = w.shape[0], w.shape[3]
-    kb = -(-k // stride)
-    e = kb * stride - k
-    hb, wb = (h + e) // stride, (wd + e) // stride
-    xs = F.pad(x, (0, 0, 0, e, 0, e)) \
+    kb, hb, wb, e, ep = _space_to_depth_shape(h, wd, c, k, stride, pad,
+                                              x.element_size())
+    t = kb * stride - k
+    # negative end pads cut what the conv steps past
+    xs = F.pad(x, (0, 0, pad, wb * stride - pad - wd,
+                   pad, hb * stride - pad - h)) \
         .reshape(n, hb, stride, wb, stride, c).permute(0, 1, 3, 2, 4, 5) \
-        .reshape(n, hb, wb, stride * stride * c)
-    ws = F.pad(w, (0, 0, 0, 0, 0, e, 0, e)) \
+        .reshape(n, hb, wb, e)
+    ws = F.pad(w, (0, 0, 0, 0, 0, t, 0, t)) \
         .reshape(kb, stride, kb, stride, c, o).permute(0, 2, 1, 3, 4, 5) \
-        .reshape(kb, kb, stride * stride * c, o)
-    return xs, ws
+        .reshape(kb, kb, e, o)
+    return (F.pad(xs, (0, ep - e)), F.pad(ws, (0, 0, 0, ep - e)))
 
 
-def space_to_depth(x, w, stride: int):
+def space_to_depth(x, w, stride: int, pad: int = 0):
     """`space_to_depth_plain`'s repack: for CUDA tensors (contiguous, both
     bf16 or both f32) one launch of csrc/conv_gemm_sm90.cu's repack kernel,
-    counted in `space_to_depth.launches`; for CPU tensors the plain
-    version. The host's time in it is the span `vvtpu.s2d`, the ctypes
-    call `vvtpu.s2d.launch`."""
+    which zero-pads as it gathers (no padded copy of x is made), counted in
+    `space_to_depth.launches`; for CPU tensors the plain version. The
+    host's time in it is the span `vvtpu.s2d`, the ctypes call
+    `vvtpu.s2d.launch`."""
     with span("vvtpu.s2d"):
         if x.device.type == "cpu":
-            return space_to_depth_plain(x, w, stride)
-        return _space_to_depth(x, w, stride)
+            return space_to_depth_plain(x, w, stride, pad)
+        return _space_to_depth(x, w, stride, pad)
 
 
-def _space_to_depth(x, w, stride: int):
+def _space_to_depth(x, w, stride: int, pad: int):
     check_cuda_operands(x, w)
     n, h, wd, c = x.shape
     k, o = w.shape[0], w.shape[3]
@@ -172,19 +193,17 @@ def _space_to_depth(x, w, stride: int):
         raise ValueError("space_to_depth on the card wants contiguous x (N, H, "
                          "W, C) and w (k, k, C, O), both bf16 or both f32, got "
                          f"{tuple(x.shape)} {x.dtype}, {tuple(w.shape)} {w.dtype}")
-    kb = -(-k // stride)
-    e = kb * stride - k
-    xs = torch.empty((n, (h + e) // stride, (wd + e) // stride,
-                      stride * stride * c), dtype=x.dtype, device=x.device)
-    ws = torch.empty((kb, kb, stride * stride * c, o), dtype=w.dtype,
-                     device=w.device)
+    kb, hb, wb, _, ep = _space_to_depth_shape(h, wd, c, k, stride, pad,
+                                              x.element_size())
+    xs = torch.empty((n, hb, wb, ep), dtype=x.dtype, device=x.device)
+    ws = torch.empty((kb, kb, ep, o), dtype=w.dtype, device=w.device)
     lib = _build.load_library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with span("vvtpu.s2d.launch"):
         rc = lib.vv_space_to_depth(
             x.data_ptr(), w.data_ptr(), xs.data_ptr(), ws.data_ptr(), n, h,
-            wd, c, o, k, stride, DTYPE_CODES[x.dtype], x.device.index or 0,
-            stream)
+            wd, c, o, k, stride, pad, DTYPE_CODES[x.dtype],
+            x.device.index or 0, stream)
     _build.check(rc, "K2 space_to_depth")
     space_to_depth.launches += 1
     return xs, ws
@@ -195,16 +214,14 @@ space_to_depth.launches = 0
 
 def _space_to_depth_fits(x, w, stride, pad, groups) -> bool:
     """Whether `space_to_depth` takes this NHWC/HWIO conv onto a Hopper
-    route: one group, no padding, one stride > 1 for a square kernel that
-    steps exactly across the image, and s*s*C channels in 16-byte chunks
-    (8 bf16 or 4 f32)."""
-    h, wd, c = x.shape[1:]
+    route: one group, one stride > 1 and one pad for a square kernel, and
+    a non-empty output. The repack pads the image and rounds its channels
+    up to 16-byte chunks itself."""
+    h, wd = x.shape[1:3]
     k = w.shape[0]
-    s = stride[0]
-    return (groups == 1 and tuple(pad) == (0, 0) and stride[1] == s > 1
-            and w.shape[1] == k and h >= k and wd >= k
-            and (h - k) % s == 0 and (wd - k) % s == 0
-            and (s * s * c) % (16 // x.element_size()) == 0)
+    s, p = stride[0], pad[0]
+    return (groups == 1 and stride[1] == s > 1 and pad[1] == p >= 0
+            and w.shape[1] == k and h + 2 * p >= k and wd + 2 * p >= k)
 
 
 def k2_route(x: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype, *,
@@ -308,8 +325,8 @@ def _conv_hopper(route, x, w, b, stride, pad, fuse_relu, out_dtype):
     output."""
     check_cuda_operands(x, w, b)
     if w.shape[2] % (16 // x.element_size()):
-        x, w = space_to_depth(x, w, stride[0])
-        stride = (1, 1)
+        x, w = space_to_depth(x, w, stride[0], pad[0])
+        stride, pad = (1, 1), (0, 0)
     n, h, wd, c = x.shape
     kh, kw, cg, o = w.shape
     groups = c // cg
