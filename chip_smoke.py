@@ -15,7 +15,9 @@ Run from the root of a checkout. It
    information) against its plain version and torch.matmul (cuBLAS); K2 at
    CaffeNet's five convs (batch 50 and 256) against its plain version, its
    core route and F.conv2d (cuDNN), checking that two runs give the same
-   bits;
+   bits; and the NHWC max-pool kernel at GoogLeNet's 13 and CaffeNet's 3
+   pools (bf16, batch 50), bit-equal to its plain version, against it and
+   F.max_pool2d (ceil_mode, the yardstick) and its bytes bound;
 3. drives RetrievalPipeline at full width (the default config: 256x256 uint8
    frames, 227 crop, CaffeNet conv1..fc7, 4096-d tower, bf16) with random
    weights from a seeded torch.Generator: a 4-video gallery padded to 20,000
@@ -242,6 +244,7 @@ GALLERY_ROWS = 20_000
 N_QUERIES = 3
 K1_PER_EMBED = 3          # fc6, fc7, tower
 K2_PER_EMBED = 5          # conv1..conv5, one sm90 launch each
+POOL_PER_EMBED = 3        # CaffeNet's max pools, one launch each
 # CaffeNet's convs: name, input hw, C, O, kernel, stride, pad, groups
 CAFFENET_CONVS = (("conv1", 227, 3, 96, 11, 4, 0, 1),
                   ("conv2", 27, 96, 256, 5, 1, 2, 2),
@@ -687,6 +690,99 @@ def repack_phase(k2, x, w, s, stats) -> str:
             f" ms, bound {stats['repack']['bound_ms']:.4f} ms, equal bits)")
 
 
+def _pool_cases():
+    """tests/torch_pool_cases.py (the serving path's 16 max pools and the
+    bit comparison), loaded from its file."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_pool_cases", ROOT / "tests" / "torch_pool_cases.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def pool_phase(dev, gen) -> dict:
+    """The NHWC max-pool kernel (csrc/max_pool_nhwc.cu) at the serving
+    path's 16 pools, bf16 at batch 50: bit-equal to its plain version (a
+    -inf F.pad + aten's max_pool2d) and from one call to the next, then
+    timed by CUDA-graph replay in turns with the plain version and
+    F.max_pool2d with ceil_mode (aten alone, timed only as the yardstick),
+    beside its bound (input read and output written once at HBM's rate).
+    Then one GoogLeNet forward at batch 50 (random weights, bf16), whose
+    pool launches are counted and checked to be its 13. Returns the sums
+    over GoogLeNet's 13 pools and over CaffeNet's 3, the largest
+    |kernel - plain| over each net's pools, and the forward's launches."""
+    from videovector_tpu_torch.models.googlenet import GoogLeNet
+    from videovector_tpu_torch.ops import pooling
+    cases = _pool_cases()
+    out = {net: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                 "library_ms": 0.0} for net in ("googlenet", "caffenet")}
+    log(f"max-pool kernel at the serving path's pools (NHWC bf16, batch "
+        f"{BATCH}; device time a call from CUDA graphs over two inputs, in "
+        "turns: kernel, plain, F.max_pool2d(ceil_mode), twice; bound: input "
+        f"and output bytes once at {PEAK_BYTES / 1e12:.2f} TB/s):")
+    for case in cases.GEOMETRIES:
+        hwc, kernel, stride, pad = cases.pool_args(case)
+        xs = [torch.randn((BATCH, *hwc), generator=gen, device=dev)
+              .to(torch.bfloat16) for _ in range(2)]
+        before = pooling.max_pool_nhwc.launches
+        got = pooling.max_pool_nhwc(xs[0], kernel, stride, pad)
+        if pooling.max_pool_nhwc.launches != before + 1:
+            raise AssertionError(f"max pool {case[0]}: not one launch")
+        want = pooling.max_pool_nhwc_plain(xs[0], kernel, stride, pad)
+        aten = torch.nn.functional.max_pool2d(
+            xs[0].permute(0, 3, 1, 2), kernel, stride, pad,
+            ceil_mode=True).permute(0, 2, 3, 1)
+        torch.cuda.synchronize()
+        if not (cases.same_bits(got, want) and cases.same_bits(
+                pooling.max_pool_nhwc(xs[0], kernel, stride, pad), got)):
+            raise AssertionError(f"max pool {case[0]}: kernel differs from "
+                                 "plain, or between two calls")
+        net = case[0].split("-")[0]
+        out[net]["err"] = max(out[net]["err"], (got.float() - want.float())
+                              .abs().max().item())
+        fns = {"kernel": lambda x: pooling.max_pool_nhwc(x, kernel, stride,
+                                                         pad),
+               "plain": lambda x: pooling.max_pool_nhwc_plain(
+                   x, kernel, stride, pad),
+               "aten": lambda x: torch.nn.functional.max_pool2d(
+                   x.permute(0, 3, 1, 2), kernel, stride, pad,
+                   ceil_mode=True)}
+        order = ("kernel", "plain", "aten", "aten", "plain", "kernel")
+        t = [time_graph_ms(fns[k], xs, iters=20) for k in order]
+        ms = {k: (t[order.index(k)] + t[len(order) - 1 - order.index(k)]) / 2
+              for k in fns}
+        nbytes = (xs[0].numel() + got.numel()) * 2
+        bound = nbytes / PEAK_BYTES * 1e3
+        for key, v in (("ms", ms["kernel"]), ("plain_ms", ms["plain"]),
+                       ("library_ms", ms["aten"]), ("bound_ms", bound)):
+            out[net][key] += v
+        log(f"  {case[0]} {hwc} k{kernel[0]} s{stride[0]} p{pad[0]}: kernel "
+            f"{ms['kernel']:.4f} ms ({nbytes / ms['kernel'] / 1e6:.0f} GB/s, "
+            f"{bound / ms['kernel']:.3f} of the bound {bound:.4f}), plain "
+            f"{ms['plain']:.4f}, F.max_pool2d {ms['aten']:.4f} (same shape "
+            f"{tuple(aten.shape) == tuple(got.shape)}; equal bits, turns "
+            f"{', '.join(f'{v:.4f}' for v in t)})")
+    for net, v in out.items():
+        log(f"  {net}'s pools together: kernel {v['ms']:.4f} ms, bound "
+            f"{v['bound_ms']:.4f} ({v['bound_ms'] / v['ms']:.3f} of it), "
+            f"plain {v['plain_ms']:.4f}, F.max_pool2d {v['library_ms']:.4f}, "
+            f"max_abs_err {v['err']:.3e}")
+    net = GoogLeNet()
+    params = net.init(torch.Generator(device=dev).manual_seed(3))
+    images = torch.randn((BATCH, 224, 224, 3), generator=gen, device=dev)
+    before = pooling.max_pool_nhwc.launches
+    net.forward(params, images)
+    torch.cuda.synchronize()
+    out["googlenet"]["launches"] = pooling.max_pool_nhwc.launches - before
+    log(f"  a GoogLeNet forward at batch {BATCH}: "
+        f"{out['googlenet']['launches']} pool launches")
+    if out["googlenet"]["launches"] != 13:
+        raise AssertionError("a GoogLeNet forward launched the pool kernel "
+                             f"{out['googlenet']['launches']} times, not 13")
+    return out
+
+
 def frames(rng, n):
     return rng.randint(0, 256, (n, 256, 256, 3)).astype(np.uint8)
 
@@ -702,6 +798,7 @@ def slice_phase(dev):
         conv2d_im2col_gemm, space_to_depth,
     )
     from videovector_tpu_torch.ops.hopper.matmul import matmul
+    from videovector_tpu_torch.ops.pooling import max_pool_nhwc
 
     cfg = RetrievalPipelineConfig()
     mean = np.full((3, 256, 256), 110, np.float32)
@@ -723,6 +820,7 @@ def slice_phase(dev):
     matmul.launches = matmul.launches_sm90 = 0
     conv2d_im2col_gemm.launches = conv2d_im2col_gemm.launches_sm90 = 0
     space_to_depth.launches = 0
+    max_pool_nhwc.launches = 0
     t0 = time.perf_counter()
     gal, ids = pipe.build_gallery(params, [(v, h, w, m) for v in videos],
                                   [np.full(BATCH, i) for i in range(len(videos))])
@@ -733,7 +831,8 @@ def slice_phase(dev):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {"K1": matmul.launches, "K2": conv2d_im2col_gemm.launches,
-                "repack": space_to_depth.launches}
+                "repack": space_to_depth.launches,
+                "pool": max_pool_nhwc.launches}
     k2_sm90 = conv2d_im2col_gemm.launches_sm90
     n_embed = len(videos) + N_QUERIES
     log(f"main path: {len(videos)} gallery batches + {N_QUERIES} queries of "
@@ -741,7 +840,7 @@ def slice_phase(dev):
         f"included); launches {launches}, on the sm90 routes: K1 "
         f"{matmul.launches_sm90}, K2 {k2_sm90}")
     expect = {"K1": K1_PER_EMBED * n_embed, "K2": K2_PER_EMBED * n_embed,
-              "repack": n_embed}
+              "repack": n_embed, "pool": POOL_PER_EMBED * n_embed}
     if launches != expect:
         raise AssertionError(f"launch counts {launches} != expected {expect}")
     if matmul.launches_sm90 != matmul.launches:
@@ -6264,6 +6363,7 @@ def main() -> int:
 
     with torch.no_grad():
         stats = kernel_phases(dev, torch.Generator(device=dev).manual_seed(1))
+        pools = pool_phase(dev, torch.Generator(device=dev).manual_seed(2))
         launches, pipe, params, inputs = slice_phase(dev)
         for pix, hwm in inputs.values():
             device_breakdown(pipe, params, pix, hwm)
@@ -6425,6 +6525,19 @@ def main() -> int:
          **{k: ext["k2"]["core"][k] for k in ("ms", "plain_ms", "bound_ms",
                                              "bound_by", "library_ms")}},
     ]
+    kernels += [
+        {"name": f"max_pool_nhwc, {net}'s {n} pools (Caffe's ceil geometry "
+                 "on NHWC, windows clipped to the image: no padded copy, no "
+                 "indices; bf16)", "route": "cuda",
+         "source": "videovector_tpu_torch/csrc/max_pool_nhwc.cu",
+         "replaces": None, "launches": n_launches,
+         "max_abs_err": pools[net]["err"],
+         **{k: pools[net][k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "library_ms")},
+         "bound_by": "bytes"}
+        for net, n, n_launches in (
+            ("googlenet", 13, pools["googlenet"]["launches"]),
+            ("caffenet", 3, launches["pool"]))]
     log("(ms, plain_ms, bound_ms, library_ms: summed over the serving "
         f"path's shapes at batch {BATCH}: K1 fc6 + fc7 + tower with w cycled "
         "beyond L2, library cuBLAS torch.matmul; K2 conv1..conv5, library "
@@ -6482,7 +6595,11 @@ def main() -> int:
         "over the two shapes, library torch.mm), the 2 x 1 symbolic "
         f"artifact's {mesh['k1_rows']} f32-route launches at 25 rows (in the "
         f"Net's f32 row), K2 f32 {mesh['k2_f32']}, K2 sm90 "
-        f"{mesh['k2_sm90']}, repack {mesh['repack']})")
+        f"{mesh['k2_sm90']}, repack {mesh['repack']}. max_pool_nhwc: "
+        f"GoogLeNet's 13 and CaffeNet's 3 pools at batch {BATCH} in bf16, "
+        "library F.max_pool2d with ceil_mode; its launches GoogLeNet's in one "
+        "forward, CaffeNet's on the main path (3 an embed); it replaces no TPU kernel (the "
+        "JAX package pools with XLA's reduce_window))")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

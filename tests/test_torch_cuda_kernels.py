@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_pool_cases import GEOMETRIES, IDS, pool_args, same_bits
 from videovector_tpu_torch.ops.hopper import conv_gemm as k2
 from videovector_tpu_torch.ops.hopper import matmul as k1
 
@@ -1998,3 +1999,204 @@ def test_two_card_mesh_artifact_over_nccl_and_gloo(dev, tmp_path):
             f"rank {r}'s program was exported on cuda:{r}, which its buffers "
             f"and constants name; this rank serves on cuda:{1 - r}: serve "
             "one rank a device in the exporting ranks' order")
+
+
+# -- the NHWC max pool (csrc/max_pool_nhwc.cu, vvtpu::max_pool_nhwc) ----------
+
+POOL_DTYPES = [torch.bfloat16, torch.float32, torch.float16]
+
+
+def _pool_values(shape, dtype, dev, seed):
+    """Small integers and halves of both signs, zeros as +0.0 or -0.0: the
+    windows hold ties and signed zeros, which only a scan in aten's order
+    returns bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randint(-3, 4, shape, generator=g, device=dev).float() / 2
+    neg = torch.rand(shape, generator=g, device=dev) < 0.5
+    return torch.where((x == 0) & neg, -0.0, x).to(dtype)
+
+
+def _pooled(x, kernel, stride, pad):
+    """The kernel's output and the counters and launches it added."""
+    from videovector_tpu_torch.ops import pooling
+    before = pooling.max_pool_nhwc.launches
+    out, counts = _counted(lambda: pooling.max_pool(
+        x, kernel=kernel, stride=stride, pad=pad, layout="NHWC"))
+    return out, counts, pooling.max_pool_nhwc.launches - before
+
+
+@pytest.mark.parametrize("dtype", POOL_DTYPES)
+@pytest.mark.parametrize("case", GEOMETRIES, ids=IDS)
+def test_max_pool_kernel_equals_plain(dev, case, dtype):
+    """Each serving pool at 50 frames: one launch, counted in both counters,
+    bit-equal to the plain version (F.pad + aten's max_pool2d on the card)
+    and from one call to the next."""
+    from videovector_tpu_torch.ops import pooling
+    hwc, kernel, stride, pad = pool_args(case)
+    x = _pool_values((50, *hwc), dtype, dev, seed=sum(hwc) + stride[0])
+    got, counts, launches = _pooled(x, kernel, stride, pad)
+    assert launches == 1 and got.is_contiguous()
+    assert counts == {"vvtpu.max_pool.calls": 1,
+                      "vvtpu.max_pool.launches": 1}
+    want = pooling.max_pool_nhwc_plain(x, kernel, stride, pad)
+    again = pooling.max_pool_nhwc(x, kernel, stride, pad)
+    torch.cuda.synchronize()
+    assert same_bits(got, want) and same_bits(again, got)
+
+
+@pytest.mark.parametrize("dtype", POOL_DTYPES)
+@pytest.mark.parametrize("kind", ["odd_channels", "nan", "misaligned",
+                                  "channel_slice", "all_neg_inf",
+                                  "five_by_five", "subnormals"])
+def test_max_pool_kernel_edges_equal_plain(dev, kind, dtype):
+    """The scalar instantiation (13 channels, a base one element past an
+    aligned address, a channel slice whose pixel stride is not a 16-byte
+    multiple), planted NaNs, whole windows of -inf, a 5x5/3 window (the
+    kernel's generic loop) and subnormals of both signs (which a compare
+    that flushed them to zero would take for ties), each bit-equal to the
+    plain version."""
+    from videovector_tpu_torch.ops import pooling
+    kernel, stride, pad = (3, 3), (2, 2), (1, 1)
+    x = _pool_values((4, 29, 29, 64), dtype, dev, seed=len(kind))
+    if kind == "odd_channels":
+        x = x[..., :13].contiguous()
+    elif kind == "nan":
+        x[0, 3, 4, 5] = x[1, 0, 0, 7] = x[3, 28, 28, 63] = float("nan")
+        stride = (1, 1)
+    elif kind == "misaligned":
+        flat = torch.empty(x.numel() + 1, dtype=dtype, device=dev)
+        x = flat[1:].view(x.shape).copy_(x)
+    elif kind == "channel_slice":
+        x = x[..., 3:58]
+    elif kind == "all_neg_inf":
+        x[:, :6, :6] = -float("inf")
+    elif kind == "subnormals":
+        g = torch.Generator(device=dev).manual_seed(9)
+        bits = torch.randint(1, 128, x.shape, generator=g, device=dev)
+        sign = torch.randint(0, 2, x.shape, generator=g, device=dev)
+        ints = {2: torch.int16, 4: torch.int32}[x.element_size()]
+        x = (bits | sign << (8 * x.element_size() - 1)).to(ints).view(dtype)
+    else:
+        kernel, stride, pad = (5, 5), (3, 3), (2, 2)
+    got, _, launches = _pooled(x, kernel, stride, pad)
+    want = pooling.max_pool_nhwc_plain(x, kernel, stride, pad)
+    torch.cuda.synchronize()
+    assert launches == 1 and same_bits(got, want)
+    if kind == "nan":
+        assert want.isnan().sum() >= 3
+
+
+@pytest.mark.parametrize("dtype", POOL_DTYPES)
+def test_max_pool_cut_strips_equal_plain(dev, dtype):
+    """The 3x3 route (4-row strips at stride 1, single rows at stride 2)
+    over maps whose output rows 4 does not divide, so the last strip is
+    cut, with planted NaNs and a block of -inf: bit-equal to the plain
+    version."""
+    from videovector_tpu_torch.ops import pooling
+    for hw, stride, pad in ((13, 1, 1), (15, 2, 0), (14, 2, 0), (7, 1, 1)):
+        x = _pool_values((3, hw, hw + 2, 40), dtype, dev, seed=hw)
+        x[0, 2, 3, 4] = x[2, hw - 1, 0, 39] = float("nan")
+        x[1, :3, :4] = -float("inf")
+        args = ((3, 3), (stride, stride), (pad, pad))
+        got, _, launches = _pooled(x, *args)
+        want = pooling.max_pool_nhwc_plain(x, *args)
+        torch.cuda.synchronize()
+        assert launches == 1 and same_bits(got, want), (hw, stride)
+
+
+def _device_kernels(fn):
+    """fn()'s device kernels by name, one entry a launch."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+@pytest.mark.parametrize("backbone", ["googlenet", "caffenet"])
+def test_a_forward_pools_on_the_kernel_alone(dev, backbone, monkeypatch):
+    """A profiled backbone forward at 50 frames: 13 (GoogLeNet) or 3
+    (CaffeNet) launches of vv::pool::max_pool_nhwc, no aten max pool, and
+    the fills of the two LRNs' zero pads alone (none of a pool's -inf pad);
+    its features equal, bit for bit, those of the same forward with the
+    plain version in each pool's place."""
+    import importlib
+
+    from videovector_tpu_torch.ops import pooling
+    if backbone == "googlenet":
+        pipe, params, _, _, gen = _googlenet_serving(dev)
+        net, pools = pipe.googlenet, 13
+    else:
+        pipe, params, _, _, gen = _serving(dev)
+        net, pools = pipe.mednet, 3
+    x = pipe.transform(*_clip(gen, 50, dev))
+    p = params[pipe.backbone_key]
+    names = _device_kernels(lambda: net.forward(p, x))
+    assert sum("vv::pool::max_pool_nhwc" in n for n in names) == pools, names
+    assert not any("max_pool" in n and "vv::" not in n for n in names)
+    fills = [n for n in names if "FillFunctor" in n]
+    assert len(fills) == 2, fills
+    got = net.forward(p, x)
+    monkeypatch.setattr(
+        importlib.import_module(type(net).__module__), "max_pool",
+        lambda x, *, kernel, stride, pad=(0, 0), layout: (
+            pooling.max_pool_nhwc_plain(x, kernel, stride, pad)))
+    want = net.forward(p, x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("backbone", ["googlenet", "caffenet"])
+def test_replays_count_the_pools_and_equal_the_eager_query(dev, backbone):
+    """Three queries of one pipeline (eager, captured and replayed,
+    replayed): each adds its pools to `vvtpu.max_pool.calls` and
+    `vvtpu.max_pool.launches` (a replay its capture's counts) and answers
+    as a fresh pipeline's eager query, bit for bit."""
+    from videovector_tpu_torch.models.retrieval_pipeline import (
+        RetrievalPipeline,
+    )
+    if backbone == "googlenet":
+        pipe, params, gallery, ids, gen = _googlenet_serving(dev)
+        pools = 13
+    else:
+        pipe, params, gallery, ids, gen = _serving(dev)
+        pools = 3
+    for replayed in (0, 1, 1):
+        frames = _clip(gen, 50, dev)
+        out, counts = _counted(
+            lambda: pipe.query(params, *frames, gallery, ids))
+        assert counts.get("vvtpu.query.graph_replays", 0) == replayed
+        assert counts["vvtpu.max_pool.calls"] == pools
+        assert counts["vvtpu.max_pool.launches"] == pools
+        fresh = RetrievalPipeline(pipe.cfg, device=dev)
+        assert _equal(out, fresh.query(params, *frames, gallery, ids))
+
+
+def test_an_exported_mednet_launches_the_pool_kernel(dev, tmp_path):
+    """A MedNet forward exported on the card holds three
+    vvtpu.max_pool_nhwc nodes; the reloaded program launches the kernel
+    three times a call and gives the eager forward's bits."""
+    from videovector_tpu_torch.models.mednet import MedNet
+    from videovector_tpu_torch.ops import pooling
+    from videovector_tpu_torch.tools.export_model import (
+        load_exported, save_exported,
+    )
+    pipe, params, _, _, gen = _serving(dev)
+    x = pipe.transform(*_clip(gen, 50, dev))
+    net = MedNet(pipe.mednet.cfg)
+    with torch.no_grad():
+        eager = net.forward(params["mednet"], x)
+        path = str(tmp_path / "mednet.pt2")
+        save_exported(path, lambda im: net.forward(params["mednet"], im), x)
+        ep = load_exported(path)
+        targets = [str(n.target) for n in ep.graph.nodes]
+        assert sum("vvtpu.max_pool_nhwc" in t for t in targets) == 3
+        before = pooling.max_pool_nhwc.launches
+        got = ep.module()(x)
+        torch.cuda.synchronize()
+    assert pooling.max_pool_nhwc.launches - before == 3
+    assert torch.equal(got, eager)

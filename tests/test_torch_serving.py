@@ -11,9 +11,11 @@ the one-device program, a larger mesh asks for a launch of its ranks, and
 mesh_serving passes a one-device call through
 (tests/test_torch_parallel_serving.py runs the larger meshes); an unknown
 platform is a ValueError naming it. K1 and K2's custom ops export and
-reload in a fresh process.
+reload in a fresh process, and so does a MedNet forward with its NHWC max
+pools as `vvtpu::max_pool_nhwc` nodes.
 """
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -285,6 +287,43 @@ def test_the_custom_ops_export_and_reload_in_a_fresh_process(tmp_path):
         "assert any('vvtpu.k2_conv2d_nhwc' in n for n in names), names\n"
         f"x = torch.as_tensor(np.load({str(tmp_path / 'x.npy')!r}))\n"
         f"np.save({str(tmp_path / 'y.npy')!r}, ep.module()(x).numpy())\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    np.testing.assert_array_equal(np.load(tmp_path / "y.npy"), want.numpy())
+
+
+def test_a_mednet_program_exports_its_pools_as_the_custom_op(tmp_path):
+    """A narrow MedNet (CaffeNet's 3x3/2 pools after conv1, conv2 and
+    conv5) exported on the CPU: the program holds three
+    vvtpu.max_pool_nhwc nodes and no aten max pool, and a process that has
+    imported nothing of the port but load_exported runs it, equal to the
+    plain forward."""
+    from videovector_tpu_torch.models.mednet import (
+        CAFFENET_CONVS, MedNet, MedNetConfig,
+    )
+    from videovector_tpu_torch.tools.export_model import save_exported
+    convs = tuple(dataclasses.replace(c, num_output=16)
+                  for c in CAFFENET_CONVS)
+    cfg = MedNetConfig(convs=convs, fc6=24, fc7=12, input_hw=(67, 67),
+                       compute_dtype="float32")
+    params = MedNet(cfg).init(torch.Generator().manual_seed(0))
+    x = torch.randn((3, 67, 67, 3), generator=torch.Generator().manual_seed(1))
+    path = str(tmp_path / "mednet.pt2")
+    with torch.no_grad():
+        save_exported(path, lambda im: MedNet(cfg).forward(params, im), x)
+        want = MedNet(cfg, plain=True).forward(params, x)
+    np.save(tmp_path / "x.npy", x.numpy())
+    code = (
+        "import sys, numpy as np, torch\n"
+        "from videovector_tpu_torch.tools.export_model import load_exported\n"
+        f"ep = load_exported({path!r})\n"
+        "names = [str(n.target) for n in ep.graph.nodes]\n"
+        "assert sum('vvtpu.max_pool_nhwc' in n for n in names) == 3, names\n"
+        "assert not any('max_pool2d' in n for n in names), names\n"
+        f"x = torch.as_tensor(np.load({str(tmp_path / 'x.npy')!r}))\n"
+        "with torch.no_grad():\n"
+        f"    np.save({str(tmp_path / 'y.npy')!r}, ep.module()(x).numpy())\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300, cwd=ROOT)
     assert out.returncode == 0, out.stderr

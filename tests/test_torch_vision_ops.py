@@ -6,7 +6,9 @@ values and the gradient of sum(out * cotangent) with respect to the input.
 Tolerances: 1e-6 relative to max|ref| for values and gradients of f32 ops
 (the two sum in other orders; the neuron ops are elementwise), exact where
 the op only moves values (col2im on integers, max pooling, the STOCHASTIC
-race's pick). STOCHASTIC pooling's TRAIN branch gets JAX's uniforms through
+race's pick). The NHWC max pool is also compared at the serving path's 16
+pool geometries (tests/torch_pool_cases.py) in bf16 and f32. STOCHASTIC
+pooling's TRAIN branch gets JAX's uniforms through
 `pooling.stochastic_uniforms`, as dropout gets JAX's masks.
 """
 
@@ -16,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_pool_cases as pool_cases
 from videovector_tpu.ops import activations as jact
 from videovector_tpu.ops import conv as jconv
 from videovector_tpu.ops import lrn as jlrn
@@ -94,6 +97,77 @@ def test_max_pool_matches_jax(geom):
         lambda a: tpool.max_pool(a, kernel=kernel, stride=stride, pad=pad), x)
     _close(tout, jout, 0)
     _close(tdx, jdx, 0)
+
+
+def _nhwc_pool_both(x, kernel, stride, pad):
+    """(port, JAX) max pools of (N, H, W, C) torch x: the port's
+    `max_pool(layout="NHWC")`, JAX's NCHW pool on the permuted input in
+    x's dtype, both back as NHWC torch tensors of x's dtype."""
+    got = tpool.max_pool(x, kernel=kernel, stride=stride, pad=pad,
+                         layout="NHWC")
+    jdt = {torch.bfloat16: jnp.bfloat16, torch.float32: jnp.float32}[x.dtype]
+    jx = jnp.asarray(x.permute(0, 3, 1, 2).float().numpy()).astype(jdt)
+    jout = jpool.max_pool(jx, kernel=kernel, stride=stride, pad=pad)
+    assert jout.dtype == jdt
+    want = torch.from_numpy(np.array(jout.astype(jnp.float32)))
+    return got, want.to(x.dtype).permute(0, 2, 3, 1)
+
+
+def _equal_values(got, want):
+    """Equal shapes, dtypes and values at 0 tolerance, NaN where the other
+    has NaN. XLA's max takes +0.0 over -0.0 where aten's scan keeps the
+    first of the tie, so a window of both zeros reads 0 either way but its
+    sign may differ (tests/test_torch_max_pool.py holds the port's signs to
+    aten's)."""
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert torch.equal(got.isnan(), want.isnan())
+    keep = ~want.isnan()
+    assert torch.equal(got[keep].float(), want[keep].float())
+
+
+def _pool_values(shape, dtype, seed):
+    """Small integers and halves of both signs, zeros as +0.0 or -0.0."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randint(-3, 4, shape, generator=g).float() / 2
+    neg = torch.rand(shape, generator=g) < 0.5
+    return torch.where((x == 0) & neg, torch.tensor(-0.0), x).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", pool_cases.GEOMETRIES, ids=pool_cases.IDS)
+def test_nhwc_max_pool_matches_jax_at_the_serving_pools(case, dtype):
+    """GoogLeNet's 13 and CaffeNet's 3 pools (tests/torch_pool_cases.py),
+    the inception modules' 3x3/1 pad-1 pool among them."""
+    hwc, kernel, stride, pad = pool_cases.pool_args(case)
+    x = _pool_values((2, *hwc), dtype, seed=sum(hwc) + stride[0])
+    _equal_values(*_nhwc_pool_both(x, kernel, stride, pad))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kind", ["nan", "negative_zero", "all_neg_inf"])
+def test_nhwc_max_pool_matches_jax_at_edge_values(kind, dtype):
+    """Planted NaNs (a window that holds one reads NaN in both), windows of
+    -0.0 and negatives alone (both read -0.0, bit for bit), and whole
+    windows of -inf beside the padding (both read -inf), at the inception
+    pool's 3x3/1 pad 1 and at 3x3/2 pad 1."""
+    x = _pool_values((2, 14, 14, 24), dtype, seed=len(kind))
+    for stride in ((1, 1), (2, 2)):
+        if kind == "nan":
+            x[0, 3, 4, 5] = x[1, 0, 0, 7] = x[1, 13, 13, 0] = float("nan")
+        elif kind == "negative_zero":
+            x = torch.where(x >= 0, torch.tensor(-0.0, dtype=dtype), x)
+        else:
+            x[0, :5, :5] = -float("inf")
+        got, want = _nhwc_pool_both(x, (3, 3), stride, (1, 1))
+        _equal_values(got, want)
+        if kind == "nan":
+            assert want.isnan().sum() >= 3
+        elif kind == "negative_zero":
+            assert pool_cases.same_bits(got, want)
+            assert (want.view(torch.int16 if dtype == torch.bfloat16
+                              else torch.int32) < 0).all()
+        else:
+            assert (want[0, :2, :2] == -float("inf")).all()
 
 
 @pytest.mark.parametrize("geom", POOL_GEOMS)

@@ -39,6 +39,7 @@ SIGNATURES = {
     "vv_conv_gemm_sm90": [_P] * 4 + [_I] * 14 + [_L] * 3 + [_I] * 5 + [_P],
     "vv_conv_gemm_f32_sm90": [_P] * 5 + [_I] * 14 + [_L] * 3 + [_I] * 5 + [_P],
     "vv_space_to_depth": [_P] * 4 + [_I] * 10 + [_P],
+    "vv_max_pool_nhwc": [_P] * 2 + [_I] * 12 + [_L] * 4 + [_I] * 2 + [_P],
 }
 
 

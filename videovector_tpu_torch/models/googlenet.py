@@ -23,11 +23,11 @@ flat dict keyed by BVLC's layer names ("conv1/7x7_s2",
 runs on K2 (ops/hopper/conv_gemm.py) with the bias + ReLU epilogue fused,
 bf16 out in bf16 mode; conv1's 3 channels are repacked by K2's
 space-to-depth, padding included, so all 57 convs take the sm90 route on
-the card. `plain=True` routes the same calls to the kernels' plain
-versions. The branches meet in `torch.cat`: the counter
-`vvtpu.concat_bytes` adds the bytes each concatenation writes, and each
-module runs inside the span `vvtpu.inception`, its request id the module's
-index.
+the card, and all 13 max pools run on ops/pooling.py's NHWC kernel.
+`plain=True` routes the same calls to the kernels' plain versions. The
+branches meet in `torch.cat`: the counter `vvtpu.concat_bytes` adds the
+bytes each concatenation writes, and each module runs inside the span
+`vvtpu.inception`, its request id the module's index.
 """
 
 from __future__ import annotations
@@ -43,7 +43,7 @@ from videovector_tpu_torch.ops.hopper.conv_gemm import (
     conv2d_gemm_nhwc, conv2d_gemm_nhwc_plain,
 )
 from videovector_tpu_torch.ops.lrn import channel_window_sum
-from videovector_tpu_torch.ops.pooling import max_pool
+from videovector_tpu_torch.ops.pooling import max_pool, max_pool_nhwc_plain
 from videovector_tpu_torch.utils.timer import count, span
 
 @dataclass(frozen=True)
@@ -113,12 +113,6 @@ class GoogLeNetConfig:
         return out
 
 
-def _pool(x: torch.Tensor, stride: int, pad: int = 0) -> torch.Tensor:
-    """A 3x3 max pool of NHWC x with Caffe's geometry."""
-    return max_pool(x, kernel=(3, 3), stride=(stride, stride), pad=(pad, pad),
-                    layout="NHWC")
-
-
 def lrn(x: torch.Tensor) -> torch.Tensor:
     """Cross-channel LRN (size 5, alpha 1e-4, beta 0.75) on NHWC, in x's
     dtype, as MedNet's."""
@@ -147,14 +141,14 @@ class GoogLeNet:
         """images: (N, H, W, C) f32 (preprocessed) -> pool5 features (N,
         feature_dim) in f32."""
         cdt = torch_dtype(self.cfg.compute_dtype)
-        x = _pool(self._conv(params, "conv1/7x7_s2", images.to(cdt), 2, 3), 2)
-        x = self._conv(params, "conv2/3x3_reduce", lrn(x))
-        x = _pool(lrn(self._conv(params, "conv2/3x3", x, pad=1)), 2)
+        x = self._conv(params, "conv1/7x7_s2", images.to(cdt), 2, 3)
+        x = self._conv(params, "conv2/3x3_reduce", lrn(self._pool(x, 2)))
+        x = self._pool(lrn(self._conv(params, "conv2/3x3", x, pad=1)), 2)
         for i, m in enumerate(self.cfg.inceptions):
             with span("vvtpu.inception", req=i):
                 x = self._inception(params, m, x)
             if m.pool:
-                x = _pool(x, 2)
+                x = self._pool(x, 2)
         # pool5: BVLC's 7x7/1 average, over the whole 7 x 7 map at 224
         return x.float().mean(dim=(1, 2))
 
@@ -167,6 +161,14 @@ class GoogLeNet:
                     stride=(stride, stride), pad=(pad, pad), fuse_relu=True,
                     out_dtype=cdt)
 
+    def _pool(self, x, stride: int, pad: int = 0):
+        """A 3x3 max pool of NHWC x with Caffe's geometry: ops/pooling.py's
+        kernel on the card (its plain version when `plain`)."""
+        if self.plain:
+            return max_pool_nhwc_plain(x, (3, 3), (stride, stride), (pad, pad))
+        return max_pool(x, kernel=(3, 3), stride=(stride, stride),
+                        pad=(pad, pad), layout="NHWC")
+
     def _branches(self, params, m: InceptionSpec, x):
         """A module's four branches, in BVLC's order."""
         p = f"inception_{m.name}/"
@@ -174,7 +176,7 @@ class GoogLeNet:
         return (conv(p + "1x1", x),
                 conv(p + "3x3", conv(p + "3x3_reduce", x), pad=1),
                 conv(p + "5x5", conv(p + "5x5_reduce", x), pad=2),
-                conv(p + "pool_proj", _pool(x, 1, 1)))
+                conv(p + "pool_proj", self._pool(x, 1, 1)))
 
     def _inception(self, params, m: InceptionSpec, x):
         """One module: its branches concatenated along channels."""

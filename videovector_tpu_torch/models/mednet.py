@@ -7,7 +7,8 @@ H, W, C order (the flatten before fc6 is HWC, not CHW).
 
 Every convolution runs on K2 (ops/hopper/conv_gemm.py) with the bias + ReLU
 epilogue fused (in bf16, one launch per conv on its sm90 route); fc6 and
-fc7 run on K1 (ops/hopper/matmul.py). `plain=True` routes the same calls to the kernels'
+fc7 run on K1 (ops/hopper/matmul.py), and the max pools on ops/pooling.py's
+NHWC kernel. `plain=True` routes the same calls to the kernels'
 plain PyTorch versions, for comparing the two on one device.
 
 In bf16 mode each conv emits bf16 and the bias + ReLU, pooling and LRN run
@@ -26,7 +27,9 @@ from videovector_tpu_torch.ops.hopper.conv_gemm import (
 )
 from videovector_tpu_torch.ops.hopper.matmul import matmul, matmul_plain
 from videovector_tpu_torch.ops.lrn import channel_window_sum
-from videovector_tpu_torch.ops.pooling import _pool_geometry, max_pool
+from videovector_tpu_torch.ops.pooling import (
+    _pool_geometry, max_pool, max_pool_nhwc_plain,
+)
 from videovector_tpu_torch.utils.timer import count
 
 
@@ -131,7 +134,9 @@ class MedNet:
                      stride=(spec.stride, spec.stride),
                      pad=(spec.pad, spec.pad), groups=spec.group,
                      fuse_relu=True, out_dtype=cdt)
-            if spec.pool:
+            if spec.pool and self.plain:
+                x = max_pool_nhwc_plain(x, (3, 3), (2, 2))
+            elif spec.pool:
                 x = max_pool(x, kernel=(3, 3), stride=(2, 2), layout="NHWC")
             if spec.lrn:
                 summed = channel_window_sum(x * x, 3, 5)

@@ -8,6 +8,17 @@ this gives CaffeNet's 55 -> 27 -> 13 -> 6 chain. AVE divides by the window
 area clipped to the PADDED bounds, not to the image (pooling_layer.cpp
 :169-196): F.avg_pool2d's count_include_pad / ceil_mode give other divisors
 at the edges, so the divisor is built here as the JAX module builds it.
+
+MAX on NHWC (`max_pool(layout="NHWC")`, MedNet's and GoogLeNet's pools)
+goes through the custom op `vvtpu::max_pool_nhwc`: on a CUDA tensor one
+launch of csrc/max_pool_nhwc.cu, which clips each window to the image, so
+no padded copy is made and no index is written; on a CPU tensor its plain
+version `max_pool_nhwc_plain` (a -inf F.pad, then F.max_pool2d), equal bit
+for bit. `torch.export` records the op as one node and a CUDA graph
+captures its launch. The counter `vvtpu.max_pool.calls` adds each NHWC
+call, `vvtpu.max_pool.launches` each kernel launch (utils/timer.py), and
+`max_pool_nhwc.launches` counts the launches as a plain integer. NCHW (the
+graph engine's POOLING) pools as the plain version does.
 """
 
 from __future__ import annotations
@@ -17,7 +28,10 @@ import math
 import torch
 import torch.nn.functional as F
 
+from videovector_tpu_torch import _build
 from videovector_tpu_torch.ops import collectives
+from videovector_tpu_torch.ops.hopper.matmul import check_cuda_operands
+from videovector_tpu_torch.utils.timer import count
 
 
 def _pooled_size(size, k, s, p):
@@ -43,14 +57,94 @@ def _padded(x, pad_h, pad_w, value):
     return F.pad(x, (pad_w[0], pad_w[1], pad_h[0], pad_h[1]), value=value)
 
 
-def max_pool(x, *, kernel, stride, pad=(0, 0), layout: str = "NCHW"):
-    """x: (N, C, H, W), or (N, H, W, C) with layout="NHWC"."""
-    nchw = x if layout == "NCHW" else x.permute(0, 3, 1, 2)
-    h, w = nchw.shape[2], nchw.shape[3]
+def _max_pool_nchw(x, kernel, stride, pad):
+    """Caffe's MAX of (N, C, H, W) x: a -inf pad of the ceil-mode windows'
+    extent, then F.max_pool2d."""
+    h, w = x.shape[2], x.shape[3]
     _, _, pad_h, pad_w = _pool_geometry(h, w, kernel, stride, pad)
-    out = F.max_pool2d(_padded(nchw, pad_h, pad_w, -math.inf),
-                       kernel_size=tuple(kernel), stride=tuple(stride))
-    return out if layout == "NCHW" else out.permute(0, 2, 3, 1)
+    return F.max_pool2d(_padded(x, pad_h, pad_w, -math.inf),
+                        kernel_size=tuple(kernel), stride=tuple(stride))
+
+
+def max_pool(x, *, kernel, stride, pad=(0, 0), layout: str = "NCHW"):
+    """x: (N, C, H, W), or (N, H, W, C) with layout="NHWC" (through
+    `max_pool_nhwc`, counted in `vvtpu.max_pool.calls`)."""
+    if layout == "NCHW":
+        return _max_pool_nchw(x, kernel, stride, pad)
+    count("vvtpu.max_pool.calls", 1)
+    return max_pool_nhwc(x, kernel, stride, pad)
+
+
+def max_pool_nhwc_plain(x, kernel, stride, pad=(0, 0)):
+    """Caffe's MAX of (N, H, W, C) x, in plain PyTorch: the NCHW pool on
+    the permuted view."""
+    return _max_pool_nchw(x.permute(0, 3, 1, 2), kernel, stride,
+                          pad).permute(0, 2, 3, 1)
+
+
+def max_pool_nhwc(x, kernel, stride, pad=(0, 0)):
+    """Caffe's MAX of (N, H, W, C) x -> contiguous (N, OH, OW, C) in x's
+    dtype, through `vvtpu::max_pool_nhwc`: one launch of
+    csrc/max_pool_nhwc.cu on a CUDA tensor (f32, bf16 or f16), the plain
+    version on a CPU tensor."""
+    return torch.ops.vvtpu.max_pool_nhwc(x, list(kernel), list(stride),
+                                         list(pad))
+
+
+max_pool_nhwc.launches = 0
+POOL_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def _pooled_shape(x, kernel, stride, pad):
+    if x.dim() != 4:
+        raise ValueError(f"max_pool_nhwc wants (N, H, W, C), got "
+                         f"{tuple(x.shape)}")
+    oh, ow, _, _ = _pool_geometry(x.shape[1], x.shape[2], kernel, stride, pad)
+    if oh < 1 or ow < 1:
+        raise ValueError(f"pool output would be empty: {tuple(x.shape)} "
+                         f"kernel {kernel} stride {stride} pad {pad}")
+    return x.shape[0], oh, ow, x.shape[3]
+
+
+@torch.library.custom_op(
+    "vvtpu::max_pool_nhwc", mutates_args=(),
+    schema="(Tensor x, int[] kernel, int[] stride, int[] pad) -> Tensor")
+def _max_pool_nhwc_op(x: torch.Tensor, kernel: list[int], stride: list[int],
+                      pad: list[int]) -> torch.Tensor:
+    """`max_pool_nhwc` as a custom op: the kernel's launch on a CUDA tensor,
+    the plain version on a CPU tensor."""
+    if x.device.type == "cpu":
+        return max_pool_nhwc_plain(x, kernel, stride, pad).contiguous()
+    return _max_pool_nhwc_kernel(x, tuple(kernel), tuple(stride), tuple(pad))
+
+
+@_max_pool_nhwc_op.register_fake
+def _max_pool_nhwc_fake(x, kernel, stride, pad):
+    return x.new_empty(_pooled_shape(x, kernel, stride, pad))
+
+
+def _max_pool_nhwc_kernel(x, kernel, stride, pad):
+    """One launch of csrc/max_pool_nhwc.cu, counted."""
+    if x.device.type != "cuda":
+        raise ValueError(f"max_pool_nhwc runs on CUDA or (plain) CPU "
+                         f"tensors, not {x.device}")
+    if x.dtype not in POOL_DTYPE_CODES:
+        raise TypeError(f"max_pool_nhwc takes float32, bfloat16 or float16, "
+                        f"got {x.dtype}")
+    check_cuda_operands(x)
+    n, oh, ow, c = _pooled_shape(x, kernel, stride, pad)
+    out = torch.empty((n, oh, ow, c), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    lib = _build.load_library()
+    rc = lib.vv_max_pool_nhwc(
+        x.data_ptr(), out.data_ptr(), n, x.shape[1], x.shape[2], c, oh, ow,
+        *kernel, *stride, *pad, *x.stride(), POOL_DTYPE_CODES[x.dtype],
+        x.device.index or 0, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(rc, "max_pool_nhwc")
+    max_pool_nhwc.launches += 1
+    count("vvtpu.max_pool.launches", 1)
+    return out
 
 
 def _window_sum(x, kernel, stride, pad_h, pad_w):

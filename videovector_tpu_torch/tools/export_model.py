@@ -7,9 +7,10 @@ jax.export).
                                            ExportedProgram (`.module()` runs it)
 
 The program holds K1 and K2 as the custom ops `vvtpu::k1_matmul` and
-`vvtpu::k2_conv2d_nhwc` (ops/hopper/), so exporting on CUDA tensors traces
-them without launching, and running the loaded program launches them.
-`load_exported` imports their registrations first. The batch axis can be
+`vvtpu::k2_conv2d_nhwc` (ops/hopper/), and an NHWC max pool as
+`vvtpu::max_pool_nhwc` (ops/pooling.py), so exporting on CUDA tensors
+traces them without launching, and running the loaded program launches
+them. `load_exported` imports their registrations first. The batch axis can be
 made symbolic by the caller through `dynamic_shapes` (torch.export.Dim).
 """
 
@@ -32,6 +33,7 @@ def register_ops() -> None:
     program holding them deserializes."""
     import videovector_tpu_torch.ops.hopper.conv_gemm  # noqa: F401
     import videovector_tpu_torch.ops.hopper.matmul  # noqa: F401
+    import videovector_tpu_torch.ops.pooling  # noqa: F401
 
 
 def export(fn, example_args: tuple, *, dynamic_shapes=None):
