@@ -436,6 +436,18 @@ PEAK_OPS_INT8 = 1979e12
 
 
 
+def _tally():
+    """`timer.tally()`: collects what `count` adds in its block (the
+    kernels' launch counters among it)."""
+    from videovector_tpu_torch.utils import timer
+    return timer.tally()
+
+
+def _got(counts, *names) -> tuple:
+    """The counters `vvtpu.<name>` of a tally, 0 where absent."""
+    return tuple(counts.get("vvtpu." + n, 0) for n in names)
+
+
 def log(*args) -> None:
     print(*args, flush=True)
 
@@ -547,9 +559,10 @@ def kernel_phases(dev, gen):
         run = lambda w: k1.matmul(x, w, b, fuse_relu=relu)
         plain = lambda w: k1.matmul_plain(x, w, b, fuse_relu=relu)
         cublas = lambda w: torch.matmul(x, w)
-        before = k1.matmul.launches_sm90
-        err = compare(f"K1 {name} {m}x{k}x{n}", run(ws[0]), plain(ws[0]))
-        if k1.matmul.launches_sm90 != before + 1:
+        with _tally() as counts:
+            got = run(ws[0])
+        err = compare(f"K1 {name} {m}x{k}x{n}", got, plain(ws[0]))
+        if _got(counts, "k1.sm90_launches") != (1,):
             raise AssertionError(f"K1 {name}: the sm90 route did not launch")
         if m == BATCH and name == "fc6":
             got = [k1.matmul(x, ws[0], b, fuse_relu=True, out_dtype=bf)
@@ -627,12 +640,9 @@ def kernel_phases(dev, gen):
             run = lambda _=None: k2.conv2d_gemm_nhwc(x, w, b, **kw)
             core = lambda _=None: k2.conv2d_gemm_nhwc(x_core, w, b, **kw)
             plain = lambda _=None: k2.conv2d_gemm_nhwc_plain(x, w, b, **kw)
-            before = (k2.conv2d_im2col_gemm.launches,
-                      k2.conv2d_im2col_gemm.launches_sm90)
-            got = run()
-            if (k2.conv2d_im2col_gemm.launches,
-                    k2.conv2d_im2col_gemm.launches_sm90) != \
-                    (before[0] + 1, before[1] + 1):
+            with _tally() as counts:
+                got = run()
+            if _got(counts, "k2.launches", "k2.sm90_launches") != (1, 1):
                 raise AssertionError(f"K2 {name}: not one sm90 launch")
             err = compare(f"K2 {name} b{batch} g={g} sm90 vs plain", got,
                           plain())
@@ -725,9 +735,9 @@ def pool_phase(dev, gen) -> dict:
         hwc, kernel, stride, pad = cases.pool_args(case)
         xs = [torch.randn((BATCH, *hwc), generator=gen, device=dev)
               .to(torch.bfloat16) for _ in range(2)]
-        before = pooling.max_pool_nhwc.launches
-        got = pooling.max_pool_nhwc(xs[0], kernel, stride, pad)
-        if pooling.max_pool_nhwc.launches != before + 1:
+        with _tally() as counts:
+            got = pooling.max_pool_nhwc(xs[0], kernel, stride, pad)
+        if _got(counts, "max_pool.launches") != (1,):
             raise AssertionError(f"max pool {case[0]}: not one launch")
         want = pooling.max_pool_nhwc_plain(xs[0], kernel, stride, pad)
         aten = torch.nn.functional.max_pool2d(
@@ -771,10 +781,10 @@ def pool_phase(dev, gen) -> dict:
     net = GoogLeNet()
     params = net.init(torch.Generator(device=dev).manual_seed(3))
     images = torch.randn((BATCH, 224, 224, 3), generator=gen, device=dev)
-    before = pooling.max_pool_nhwc.launches
-    net.forward(params, images)
+    with _tally() as counts:
+        net.forward(params, images)
     torch.cuda.synchronize()
-    out["googlenet"]["launches"] = pooling.max_pool_nhwc.launches - before
+    (out["googlenet"]["launches"],) = _got(counts, "max_pool.launches")
     log(f"  a GoogLeNet forward at batch {BATCH}: "
         f"{out['googlenet']['launches']} pool launches")
     if out["googlenet"]["launches"] != 13:
@@ -791,19 +801,14 @@ def slice_phase(dev):
     from videovector_tpu_torch.data.transformer import (
         TransformConfig, sample_transform_params,
     )
+    from videovector_tpu_torch.device import plain_versions
     from videovector_tpu_torch.models.retrieval_pipeline import (
         RetrievalPipeline, RetrievalPipelineConfig,
     )
-    from videovector_tpu_torch.ops.hopper.conv_gemm import (
-        conv2d_im2col_gemm, space_to_depth,
-    )
-    from videovector_tpu_torch.ops.hopper.matmul import matmul
-    from videovector_tpu_torch.ops.pooling import max_pool_nhwc
 
     cfg = RetrievalPipelineConfig()
     mean = np.full((3, 256, 256), 110, np.float32)
     pipe = RetrievalPipeline(cfg, mean=mean, device=dev)
-    plain = RetrievalPipeline(cfg, mean=mean, device=dev, plain=True)
     params = pipe.init(torch.Generator(device=dev).manual_seed(0))
 
     rng = np.random.RandomState(0)
@@ -816,35 +821,34 @@ def slice_phase(dev):
     pad_ids = np.arange(1000, 1000 + len(pad), dtype=np.int32)
     torch.cuda.synchronize()
 
-    # the main path, counted: gallery build, then the queries
-    matmul.launches = matmul.launches_sm90 = 0
-    conv2d_im2col_gemm.launches = conv2d_im2col_gemm.launches_sm90 = 0
-    space_to_depth.launches = 0
-    max_pool_nhwc.launches = 0
+    # the main path, counted: gallery build, then the queries (the offsets
+    # are host arrays, so every query runs eagerly)
     t0 = time.perf_counter()
-    gal, ids = pipe.build_gallery(params, [(v, h, w, m) for v in videos],
-                                  [np.full(BATCH, i) for i in range(len(videos))])
-    gallery = torch.cat([gal, torch.as_tensor(pad, device=dev)])
-    gallery_ids = torch.cat([ids, torch.as_tensor(pad_ids, device=dev)])
-    results = [pipe.query(params, videos[q], h, w, m, gallery, gallery_ids)
-               for q in range(N_QUERIES)]
+    with _tally() as counts:
+        gal, ids = pipe.build_gallery(
+            params, [(v, h, w, m) for v in videos],
+            [np.full(BATCH, i) for i in range(len(videos))])
+        gallery = torch.cat([gal, torch.as_tensor(pad, device=dev)])
+        gallery_ids = torch.cat([ids, torch.as_tensor(pad_ids, device=dev)])
+        results = [pipe.query(params, videos[q], h, w, m, gallery,
+                              gallery_ids) for q in range(N_QUERIES)]
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {"K1": matmul.launches, "K2": conv2d_im2col_gemm.launches,
-                "repack": space_to_depth.launches,
-                "pool": max_pool_nhwc.launches}
-    k2_sm90 = conv2d_im2col_gemm.launches_sm90
+    launches = dict(zip(("K1", "K2", "repack", "pool"), _got(
+        counts, "k1.launches", "k2.launches", "s2d.launches",
+        "max_pool.launches")))
+    k1_sm90, k2_sm90 = _got(counts, "k1.sm90_launches", "k2.sm90_launches")
     n_embed = len(videos) + N_QUERIES
     log(f"main path: {len(videos)} gallery batches + {N_QUERIES} queries of "
         f"{BATCH} frames in {seconds:.3f} s (host clock, first calls "
         f"included); launches {launches}, on the sm90 routes: K1 "
-        f"{matmul.launches_sm90}, K2 {k2_sm90}")
+        f"{k1_sm90}, K2 {k2_sm90}")
     expect = {"K1": K1_PER_EMBED * n_embed, "K2": K2_PER_EMBED * n_embed,
               "repack": n_embed, "pool": POOL_PER_EMBED * n_embed}
     if launches != expect:
         raise AssertionError(f"launch counts {launches} != expected {expect}")
-    if matmul.launches_sm90 != matmul.launches:
-        raise AssertionError(f"{matmul.launches - matmul.launches_sm90} K1 "
+    if k1_sm90 != launches["K1"]:
+        raise AssertionError(f"{launches['K1'] - k1_sm90} K1 "
                              "launches of the path left the sm90 route")
     if k2_sm90 != launches["K2"]:
         raise AssertionError(f"{launches['K2'] - k2_sm90} K2 launches of the "
@@ -869,7 +873,8 @@ def slice_phase(dev):
 
     # kernels vs plain versions through the whole path (bf16 bound)
     emb = pipe.embed_frames(params, videos[0], h, w, m)
-    ref = plain.embed_frames(params, videos[0], h, w, m)
+    with plain_versions():
+        ref = pipe.embed_frames(params, videos[0], h, w, m)
     norms = emb.norm(dim=1)
     if not torch.isfinite(emb).all() or (norms - 1).abs().max().item() > 1e-4:
         raise AssertionError(f"embeddings not finite unit rows: {norms}")
@@ -889,7 +894,10 @@ def slice_phase(dev):
             train=False, rng=rng)
         inputs[batch] = (pix, (hb, wb, mb))
         run = lambda: pipe.embed_frames(params, pix, hb, wb, mb)
-        ref_run = lambda: plain.embed_frames(params, pix, hb, wb, mb)
+
+        def ref_run():
+            with plain_versions():
+                return pipe.embed_frames(params, pix, hb, wb, mb)
         iters = 30 if batch == BATCH else 6
         t = [time_ms(ref_run, iters), time_ms(run, iters),
              time_ms(run, iters), time_ms(ref_run, iters)]
@@ -976,7 +984,7 @@ def _train_setup(dev, batch: int, **model_kw):
     return cfg, params, {"data": data}
 
 
-def _train(cfg, params, batch, steps, *, gm=1, plain=False, hooks=None,
+def _train(cfg, params, batch, steps, *, gm=1, hooks=None,
            display=0, data=None, test_interval=0, eval_fn=None,
            test_data=None):
     """`steps` iterations of solver.train.train on the card through the
@@ -985,7 +993,7 @@ def _train(cfg, params, batch, steps, *, gm=1, plain=False, hooks=None,
     from videovector_tpu_torch.models.embedding import VideoEmbeddingModel
     from videovector_tpu_torch.solver import SolverConfig
     from videovector_tpu_torch.solver.train import train
-    model = VideoEmbeddingModel(cfg, plain=plain)
+    model = VideoEmbeddingModel(cfg)
 
     def loss_fn(p, b, generator):
         return model.loss(p, b, generator=generator, train=True,
@@ -1036,11 +1044,13 @@ def training_parity(dev) -> None:
     """Three steps through train() with K1 and with the plain tower, from the
     same params, dropout off: losses within 1e-3 relative and updated
     params within 2e-2 of the largest update."""
+    from videovector_tpu_torch.device import plain_versions
     cfg, params, batch = _train_setup(dev, TRAIN_BATCH, dropout_rate=0.0)
     runs = {}
     for plain in (False, True):
-        res = _train(cfg, params, batch, 3, plain=plain, display=1,
-                     data=iter([batch] * 3))
+        with plain_versions() if plain else contextlib.nullcontext():
+            res = _train(cfg, params, batch, 3, display=1,
+                         data=iter([batch] * 3))
         runs[plain] = (res, [m["loss"] for _, m in res.metrics_history])
     (rk, lk), (rp, lp) = runs[False], runs[True]
     w0 = params["tower"]["w"]
@@ -1070,15 +1080,15 @@ def training_main_path(dev) -> tuple[int, float]:
     (device busy against host wall, top kernels, and no library GEMM on the
     tower forward's shapes). Then one remat_tower step pair (two K1 launches
     a step). Returns the K1 launches and the step's ms."""
-    from videovector_tpu_torch.ops.hopper.matmul import matmul
     cfg, params, batch = _train_setup(dev, TRAIN_BATCH)
     timer = _StepTimer(5, 25, profiled=5)
     steps = TRAIN_MAIN_STEPS
     torch.cuda.synchronize()
-    matmul.launches = matmul.launches_sm90 = 0
-    res = _train(cfg, params, batch, steps, hooks=[(1, timer.hook)])
+    with _tally() as counts:
+        res = _train(cfg, params, batch, steps, hooks=[(1, timer.hook)])
     torch.cuda.synchronize()
-    launches = {"K1": matmul.launches, "K1 sm90": matmul.launches_sm90}
+    launches = dict(zip(("K1", "K1 sm90"), _got(counts, "k1.launches",
+                                                 "k1.sm90_launches")))
     if launches != {"K1": steps, "K1 sm90": steps}:
         raise AssertionError(f"training K1 launches {launches}, expected "
                              f"{steps} (one per step), all sm90")
@@ -1096,12 +1106,13 @@ def training_main_path(dev) -> tuple[int, float]:
     training_profile(timer.prof, timer.profiled, wall)
 
     cfg_r, params_r, batch_r = _train_setup(dev, TRAIN_BATCH, remat_tower=True)
-    matmul.launches = matmul.launches_sm90 = 0
-    _train(cfg_r, params_r, batch_r, 2)
+    with _tally() as counts:
+        _train(cfg_r, params_r, batch_r, 2)
     torch.cuda.synchronize()
-    if (matmul.launches, matmul.launches_sm90) != (4, 4):
-        raise AssertionError(f"remat_tower: K1 launches {matmul.launches} "
-                             f"({matmul.launches_sm90} sm90), expected 4")
+    remat = _got(counts, "k1.launches", "k1.sm90_launches")
+    if remat != (4, 4):
+        raise AssertionError(f"remat_tower: K1 launches {remat[0]} "
+                             f"({remat[1]} sm90), expected 4")
     log("remat_tower: 2 steps, 4 K1 launches (the forward recomputed in "
         "backward), all sm90")
     return launches["K1"] + 4, ms
@@ -1202,18 +1213,18 @@ def training_cells(dev) -> None:
     """The large-batch points for the auto-microbatch rule: B=1024 with gm 1
     and 8, B=8192 with gm 64; CUDA events over 2 steps after 1. K1 launches
     once per microbatch, on the sm90 route."""
-    from videovector_tpu_torch.ops.hopper.matmul import matmul
     steps = 4
     for batch, gm in ((1024, 1), (1024, 8), (8192, 64)):
         cfg, params, data = _train_setup(dev, batch)
         timer = _StepTimer(1, 3)
-        matmul.launches = matmul.launches_sm90 = 0
-        _train(cfg, params, data, steps, gm=gm, hooks=[(1, timer.hook)])
+        with _tally() as counts:
+            _train(cfg, params, data, steps, gm=gm, hooks=[(1, timer.hook)])
         torch.cuda.synchronize()
-        if (matmul.launches, matmul.launches_sm90) != (steps * gm,) * 2:
+        launched = _got(counts, "k1.launches", "k1.sm90_launches")
+        if launched != (steps * gm,) * 2:
             raise AssertionError(
-                f"training B={batch} gm={gm}: K1 launches {matmul.launches} "
-                f"({matmul.launches_sm90} sm90), expected {steps * gm}")
+                f"training B={batch} gm={gm}: K1 launches {launched[0]} "
+                f"({launched[1]} sm90), expected {steps * gm}")
         ms = timer.ms_per_step()
         log(f"training B={batch} gm={gm}: {ms:.3f} ms a step = "
             f"{batch * TRAIN_NEG / ms * 1e3:,.0f} triplets/s (host wall "
@@ -1295,21 +1306,21 @@ def eval_through_train(dev) -> int:
     [0, 1]; then, on the trained params, the eval with K1 against the plain
     tower, and one eval timed with CUDA events and split into K1 and the
     dense retrieval_stats. Returns the eval's K1 launches."""
+    from videovector_tpu_torch.device import plain_versions
     from videovector_tpu_torch.metrics import retrieval_stats
     from videovector_tpu_torch.models.embedding import VideoEmbeddingModel
     from videovector_tpu_torch.ops.hopper.matmul import matmul
     steps, interval = 10, 5
     cfg, params, batch = _train_setup(dev, TRAIN_BATCH)
     windows = _test_windows(dev, torch.Generator(device=dev).manual_seed(5), 2)
-    model, plain = VideoEmbeddingModel(cfg), VideoEmbeddingModel(cfg, plain=True)
+    model = VideoEmbeddingModel(cfg)
     inner = _flagship_eval_fn(model)
     per_eval = []
 
     def eval_fn(p, b):
-        before = (matmul.launches, matmul.launches_sm90)
-        out = inner(p, b)
-        per_eval.append((matmul.launches - before[0],
-                         matmul.launches_sm90 - before[1]))
+        with _tally() as counts:
+            out = inner(p, b)
+        per_eval.append(_got(counts, "k1.launches", "k1.sm90_launches"))
         return out
     lines = _Collect()
     logging.getLogger("videovector_tpu_torch.solver.train").addHandler(lines)
@@ -1341,7 +1352,8 @@ def eval_through_train(dev) -> int:
     vids = w["video_ids"]
     with torch.no_grad():
         emb = model.extract(p, w["data"])
-        ref = plain.extract(p, w["data"])
+        with plain_versions():
+            ref = model.extract(p, w["data"])
         compare(f"test eval embeddings {TEST_BATCH}x4096, K1 vs plain", emb,
                 ref)
         outs = [retrieval_stats(e, vids, vids) for e in (emb, ref)]
@@ -1632,7 +1644,6 @@ def host_fed_training(dev, resident_ms: float, stores: tuple) -> dict:
     from videovector_tpu_torch.models.embedding import (
         VideoEmbeddingConfig, VideoEmbeddingModel,
     )
-    from videovector_tpu_torch.ops.hopper.matmul import matmul
     from videovector_tpu_torch.solver import SolverConfig
     from videovector_tpu_torch.solver.train import train
 
@@ -1705,10 +1716,11 @@ def host_fed_training(dev, resident_ms: float, stores: tuple) -> dict:
 
         def eval_fn(p, b):
             # the RETRIEVAL_STATS layer casts the float video ids to int32
-            before = (matmul.launches, matmul.launches_sm90)
+            names = ("k1.launches", "k1.sm90_launches")
+            before = _got(counts, *names)
             out = inner(p, {**b, "video_ids": b["video_ids"].to(torch.int32)})
-            per_eval.append((matmul.launches - before[0],
-                             matmul.launches_sm90 - before[1]))
+            per_eval.append(tuple(
+                a - b for a, b in zip(_got(counts, *names), before)))
             return out
 
         def loss_fn(p, b, generator):
@@ -1717,17 +1729,17 @@ def host_fed_training(dev, resident_ms: float, stores: tuple) -> dict:
         timer = _HostFedTimer(HOST_TIMED, HOST_PROFILED)
         data, tests = iter(sampler), timer.tests(test_source)
         torch.cuda.synchronize()
-        matmul.launches = matmul.launches_sm90 = 0
-        first = train(loss_fn, params, data, solver, device="cuda",
-                      batch_axes={"data": 0}, eval_fn=eval_fn,
-                      test_data=tests, hooks=[(1, timer.hook)])
-        state = tmp / f"flagship_iter_{HOST_STEPS}.vvstate"
-        resumed = train(loss_fn, params, data, dataclasses.replace(
-            solver, max_iter=HOST_STEPS + HOST_RESUMED), device="cuda",
-            batch_axes={"data": 0}, eval_fn=eval_fn, test_data=tests,
-            resume_state_path=str(state))
+        with _tally() as counts:
+            first = train(loss_fn, params, data, solver, device="cuda",
+                          batch_axes={"data": 0}, eval_fn=eval_fn,
+                          test_data=tests, hooks=[(1, timer.hook)])
+            state = tmp / f"flagship_iter_{HOST_STEPS}.vvstate"
+            resumed = train(loss_fn, params, data, dataclasses.replace(
+                solver, max_iter=HOST_STEPS + HOST_RESUMED), device="cuda",
+                batch_axes={"data": 0}, eval_fn=eval_fn, test_data=tests,
+                resume_state_path=str(state))
         torch.cuda.synchronize()
-        launches = (matmul.launches, matmul.launches_sm90)
+        launches = _got(counts, "k1.launches", "k1.sm90_launches")
 
     steps = HOST_STEPS + HOST_RESUMED
     n_tests = len(range(0, HOST_STEPS, HOST_INTERVAL))
@@ -1907,7 +1919,6 @@ def net_training(dev, resident_ms: float, stores: tuple) -> dict:
         MergedSource, make_data_source,
     )
     from videovector_tpu_torch.graph.layers import DATA_LAYER_TYPES
-    from videovector_tpu_torch.ops.hopper.matmul import matmul
     from videovector_tpu_torch.solver import (
         SolverConfig, init_solver_state, solver_update,
     )
@@ -2001,14 +2012,14 @@ def net_training(dev, resident_ms: float, stores: tuple) -> dict:
             net.init(torch.Generator(device=dev).manual_seed(seed), batch0)
         timer = _StepTimer(5, 25, profiled=5)
         torch.cuda.synchronize()
-        matmul.launches = matmul.launches_sm90 = matmul.launches_f32 = 0
-        res = train(_net_loss_fn(net), params, itertools.repeat(batch),
-                    dataclasses.replace(quiet, max_iter=TRAIN_MAIN_STEPS),
-                    lr_mults=lr, decay_mults=decay, device="cuda",
-                    batch_axes={"data": 0}, hooks=[(1, timer.hook)])
+        with _tally() as tallied:
+            res = train(_net_loss_fn(net), params, itertools.repeat(batch),
+                        dataclasses.replace(quiet, max_iter=TRAIN_MAIN_STEPS),
+                        lr_mults=lr, decay_mults=decay, device="cuda",
+                        batch_axes={"data": 0}, hooks=[(1, timer.hook)])
         torch.cuda.synchronize()
         sm90 = TRAIN_MAIN_STEPS if dtype == "bfloat16" else 0
-        counts = (matmul.launches, matmul.launches_sm90, matmul.launches_f32)
+        counts = _got(tallied, "k1.launches", "k1.sm90_launches", "k1.f32_launches")
         if counts != (TRAIN_MAIN_STEPS, sm90, TRAIN_MAIN_STEPS - sm90):
             raise AssertionError(f"resident Net {dtype}: K1 launches (all, "
                                  f"sm90, f32) {counts}")
@@ -2038,16 +2049,15 @@ def _net_main_path(dev, train_net, test_net, params, lr, decay, solver, data,
     import dataclasses
     import tempfile
 
-    from videovector_tpu_torch.ops.hopper.matmul import matmul
     from videovector_tpu_torch.solver.train import train
     per_eval = []
+    names = ("k1.launches", "k1.sm90_launches", "k1.f32_launches")
 
     def eval_fn(p, b):
-        before = (matmul.launches, matmul.launches_sm90, matmul.launches_f32)
+        before = _got(counts, *names)
         _, outs = test_net.apply(p, b)
-        per_eval.append((matmul.launches - before[0],
-                         matmul.launches_sm90 - before[1],
-                         matmul.launches_f32 - before[2]))
+        per_eval.append(tuple(
+            a - b for a, b in zip(_got(counts, *names), before)))
         return outs
     loss_fn = _net_loss_fn(train_net)
     timer = _HostFedTimer(HOST_TIMED, HOST_PROFILED)
@@ -2059,14 +2069,15 @@ def _net_main_path(dev, train_net, test_net, params, lr, decay, solver, data,
         kw = dict(lr_mults=lr, decay_mults=decay, device="cuda",
                   batch_axes={"data": 0}, eval_fn=eval_fn, test_data=tests)
         torch.cuda.synchronize()
-        matmul.launches = matmul.launches_sm90 = matmul.launches_f32 = 0
-        first = train(loss_fn, params, data, cfg, hooks=[(1, timer.hook)], **kw)
-        state = Path(tmp_name) / f"net_iter_{NET_STEPS}.vvstate"
-        resumed = train(loss_fn, params, data, dataclasses.replace(
-            cfg, max_iter=NET_STEPS + NET_RESUMED),
-            resume_state_path=str(state), **kw)
+        with _tally() as counts:
+            first = train(loss_fn, params, data, cfg,
+                          hooks=[(1, timer.hook)], **kw)
+            state = Path(tmp_name) / f"net_iter_{NET_STEPS}.vvstate"
+            resumed = train(loss_fn, params, data, dataclasses.replace(
+                cfg, max_iter=NET_STEPS + NET_RESUMED),
+                resume_state_path=str(state), **kw)
         torch.cuda.synchronize()
-        launches = (matmul.launches, matmul.launches_sm90, matmul.launches_f32)
+        launches = _got(counts, *names)
 
     steps = NET_STEPS + NET_RESUMED
     n_tests = len(range(0, NET_STEPS, NET_INTERVAL))
@@ -2107,21 +2118,23 @@ def _net_main_path(dev, train_net, test_net, params, lr, decay, solver, data,
 
 def net_parity(dev, msg, params, batch, quiet) -> None:
     """Three steps of the f32 Net with K1 and three with K1's plain version
-    (the Net's plain switch), the same params, batch and dropout masks:
+    (inside `plain_versions()`), the same params, batch and dropout masks:
     losses within 1e-3 relative, params within 2e-2 of the largest update
     (the tolerances of the hand-written step's K1-vs-plain check)."""
     import dataclasses
 
+    from videovector_tpu_torch.device import plain_versions
     from videovector_tpu_torch.graph import Net
     from videovector_tpu_torch.solver.train import train
     runs = {}
     for plain in (False, True):
-        net = Net(msg, "TRAIN", plain=plain)
+        net = Net(msg, "TRAIN")
         net.init(torch.Generator(device=dev).manual_seed(0), batch)
         lr, decay = net.param_multipliers()
-        res = train(_net_loss_fn(net), params, iter([batch] * 3),
-                    dataclasses.replace(quiet, max_iter=3, display=1),
-                    lr_mults=lr, decay_mults=decay, device="cuda")
+        with plain_versions() if plain else contextlib.nullcontext():
+            res = train(_net_loss_fn(net), params, iter([batch] * 3),
+                        dataclasses.replace(quiet, max_iter=3, display=1),
+                        lr_mults=lr, decay_mults=decay, device="cuda")
         runs[plain] = (res.params["fc7"], [m["loss"] for _, m in
                                            res.metrics_history])
     (pk, lk), (pp, lp) = runs[False], runs[True]
@@ -2156,7 +2169,6 @@ def net_vs_hand_model(dev, stores, params, batch) -> None:
     from videovector_tpu_torch.models.embedding import (
         VideoEmbeddingConfig, VideoEmbeddingModel,
     )
-    from videovector_tpu_torch.ops.hopper.matmul import matmul
     net = Net(_net_message(*stores, dropout=0.0), "TRAIN",
               compute_dtype="bfloat16")
     net.init(torch.Generator(device=dev).manual_seed(0), batch)
@@ -2167,14 +2179,13 @@ def net_vs_hand_model(dev, stores, params, batch) -> None:
                      for k, v in params["fc7"].items()}}
     p_hand = {"tower": {k: v.detach().clone().requires_grad_()
                         for k, v in params["fc7"].items()}}
-    before = matmul.launches_sm90
-    with torch.enable_grad():
+    with torch.enable_grad(), _tally() as counts:
         l_net = net.loss_fn(p_net, batch)
         l_hand, _ = model.loss(p_hand, batch, train=True)
         l_net.backward()
         l_hand.backward()
     torch.cuda.synchronize()
-    if matmul.launches_sm90 != before + 2:
+    if _got(counts, "k1.sm90_launches") != (2,):
         raise AssertionError("Net vs hand model: not one sm90 K1 launch each")
     loss_err = abs(l_net.item() - l_hand.item()) / abs(l_hand.item())
     gw, rw = p_net["fc7"]["w"].grad, p_hand["tower"]["w"].grad
@@ -2261,14 +2272,14 @@ def _driver_marks(timer):
 
 
 def _counted(fn):
-    """fn() with K1's counts set to 0 just before and read just after:
-    (fn's value, (launches, sm90 launches, f32 launches))."""
-    from videovector_tpu_torch.ops.hopper.matmul import matmul
+    """fn() and K1's launches while it ran: (fn's value, (launches, sm90
+    launches, f32 launches))."""
     torch.cuda.synchronize()
-    matmul.launches = matmul.launches_sm90 = matmul.launches_f32 = 0
-    out = fn()
+    with _tally() as counts:
+        out = fn()
     torch.cuda.synchronize()
-    return out, (matmul.launches, matmul.launches_sm90, matmul.launches_f32)
+    return out, _got(counts, "k1.launches", "k1.sm90_launches",
+                     "k1.f32_launches")
 
 
 def cli_training(dev, stores: tuple) -> dict:
@@ -2540,26 +2551,15 @@ def _is_library_kernel(name: str) -> bool:
             or ("gemm" in low and "vv::" not in name))
 
 
-def _k2_counts() -> tuple:
-    from videovector_tpu_torch.ops.hopper import conv_gemm as k2
-    return (k2.conv2d_im2col_gemm.launches,
-            k2.conv2d_im2col_gemm.launches_sm90, k2.space_to_depth.launches,
-            k2.conv2d_im2col_gemm.launches_f32)
+def _k2_counts(counts) -> tuple:
+    """K2's launches in a tally: (all, sm90, repack, f32)."""
+    return _got(counts, "k2.launches", "k2.sm90_launches", "s2d.launches",
+                "k2.f32_launches")
 
 
-def _k1_counts() -> tuple:
-    from videovector_tpu_torch.ops.hopper.matmul import matmul
-    return matmul.launches, matmul.launches_sm90, matmul.launches_f32
-
-
-def _zero_counts() -> None:
-    from videovector_tpu_torch.ops.hopper import conv_gemm as k2
-    from videovector_tpu_torch.ops.hopper.matmul import matmul
-    torch.cuda.synchronize()
-    matmul.launches = matmul.launches_sm90 = matmul.launches_f32 = 0
-    k2.conv2d_im2col_gemm.launches = k2.conv2d_im2col_gemm.launches_f32 = 0
-    k2.conv2d_im2col_gemm.launches_sm90 = k2.space_to_depth.launches = 0
-    k2.conv2d_nchw.layout_copies = 0
+def _k1_counts(counts) -> tuple:
+    """K1's launches in a tally: (all, sm90, f32)."""
+    return _got(counts, "k1.launches", "k1.sm90_launches", "k1.f32_launches")
 
 
 def _extraction_net(store: str, mean_file: str) -> str:
@@ -2707,6 +2707,7 @@ def _k2_f32_times(dev, gen) -> dict:
     F.conv2d f32 (TF32 off), beside the bound (operations at the f32 FMA
     peak, or bytes); the copy alone, and the f32 route on a channels_last x
     (as the Net feeds conv2..conv5), apart."""
+    from videovector_tpu_torch.device import plain_versions
     from videovector_tpu_torch.ops.hopper import conv_gemm as k2
     card = gpu_name_and_power_limit()
     out = {k: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
@@ -2723,15 +2724,18 @@ def _k2_f32_times(dev, gen) -> dict:
         b = torch.randn(o, generator=gen, device=dev) * 0.1
         kw = dict(stride=(s, s), pad=(p, p), groups=g)
         ohw = (hw + 2 * p - k) // s + 1
-        before = _k2_counts()
-        got = k2.conv2d_nchw(x, w, b, **kw)
-        after = _k2_counts()
+        with _tally() as counts:
+            got = k2.conv2d_nchw(x, w, b, **kw)
         want = (1, 0, int(name == "conv1"), 1)
-        if tuple(a - z for a, z in zip(after, before)) != want:
+        if _k2_counts(counts) != want:
             raise AssertionError(f"K2 f32 {name}: launches (all, sm90, "
-                                 f"repack, f32) {after} from {before}, not "
-                                 f"{want} more")
-        ref = k2.conv2d_nchw(x, w, b, plain=True, **kw)
+                                 f"repack, f32) {_k2_counts(counts)}, not "
+                                 f"{want}")
+
+        def plain(_=None):
+            with plain_versions():
+                return k2.conv2d_nchw(x, w, b, **kw)
+        ref = plain()
         out["f32"]["err"] = max(out["f32"]["err"], compare(
             f"K2 f32 route {name} b{BATCH}", got, ref))
         if not torch.equal(got, k2.conv2d_nchw(x, w, b, **kw)):
@@ -2743,7 +2747,7 @@ def _k2_f32_times(dev, gen) -> dict:
         out["core"]["err"] = max(out["core"]["err"], compare(
             f"K2 core route {name} b{BATCH}", core(0), ref))
         fns = {"f32": lambda _: k2.conv2d_nchw(x, w, b, **kw), "core": core,
-               "plain": lambda _: k2.conv2d_nchw(x, w, b, plain=True, **kw),
+               "plain": plain,
                "cudnn": lambda _: torch.nn.functional.conv2d(
                    x, w, b, stride=s, padding=p, groups=g)}
         compare(f"  cuDNN f32 {name} (a yardstick)", fns["cudnn"](0), ref)
@@ -2856,7 +2860,7 @@ def extraction(dev) -> dict:
     import tempfile
     from torch.profiler import ProfilerActivity, profile
     from videovector_tpu_torch.config import parse_file
-    from videovector_tpu_torch.ops.hopper import conv_gemm as k2
+    from videovector_tpu_torch.device import plain_versions
     from videovector_tpu_torch.data.records import RecordWriter
     from videovector_tpu_torch.data.weights import NetWeights, load_into_params
     from videovector_tpu_torch.data.wire import Datum
@@ -2882,15 +2886,15 @@ def extraction(dev) -> dict:
                 f"--blobs={','.join(EXTRACT_BLOBS)}", "--backend=vvr"]
         out = str(tmp / "features")
         # the main path, counted
-        _zero_counts()
-        with _BatchMarks() as marks:
+        torch.cuda.synchronize()
+        with _BatchMarks() as marks, _tally() as counts:
             t0 = time.perf_counter()
             rc = extract_features.main(
                 argv + [f"--out={out}", f"--num_batches={EXTRACT_BATCHES}"])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        k2c, k1c = _k2_counts(), _k1_counts()
-        copies = k2.conv2d_nchw.layout_copies
+        k2c, k1c = _k2_counts(counts), _k1_counts(counts)
+        (copies,) = _got(counts, "k2.layout_copies")
         want_k2 = (K2_F32_PER_BATCH * EXTRACT_BATCHES, 0,
                    K2_REPACK_PER_BATCH * EXTRACT_BATCHES,
                    K2_F32_PER_BATCH * EXTRACT_BATCHES)
@@ -2926,10 +2930,9 @@ def extraction(dev) -> dict:
                             if l.get("type") == "DATA")
         params = load_into_params(NetWeights.load(inp["weights"]),
                                   inp["params"])
-        plain = Net(msg, "TEST", plain=True)
+        plain = Net(msg, "TEST")
         src = make_data_source(source_layer, phase="TEST")
-        _zero_counts()
-        with torch.inference_mode():
+        with plain_versions(), _tally() as counts, torch.inference_mode():
             for i in range(EXTRACT_BATCHES):
                 batch = {k: torch.as_tensor(v, device=dev)
                          for k, v in src.next_batch().items()}
@@ -2938,20 +2941,20 @@ def extraction(dev) -> dict:
                     got = torch.as_tensor(feats[name][i * BATCH:(i + 1) * BATCH],
                                           device=dev)
                     ref = blobs[name].reshape(BATCH, -1)
-                    compare(f"extracted {name} batch {i} vs "
-                            "Net(plain=True)", got, ref)
-        if _k2_counts() != (0, 0, 0, 0) or _k1_counts() != (0, 0, 0):
-            raise AssertionError("Net(plain=True) launched a kernel")
+                    compare(f"extracted {name} batch {i} vs the Net's "
+                            "plain versions", got, ref)
+        if _k2_counts(counts) != (0, 0, 0, 0) or \
+                _k1_counts(counts) != (0, 0, 0):
+            raise AssertionError("the Net's plain versions launched a kernel")
 
         # the bf16 Net against the f32 one, batch 0, counted apart
         batch0 = {k: torch.as_tensor(v, device=dev) for k, v in
                   make_data_source(source_layer, phase="TEST")
                   .next_batch().items()}
         net16 = Net(msg, "TEST", compute_dtype="bfloat16")
-        _zero_counts()
-        with torch.inference_mode():
+        with _tally() as counts, torch.inference_mode():
             _, b16 = net16.apply(params, batch0, return_blobs=True)
-        k2c16, k1c16 = _k2_counts(), _k1_counts()
+        k2c16, k1c16 = _k2_counts(counts), _k1_counts(counts)
         log(f"  bf16 Net, batch 0: K2 launches (all, sm90, repack, f32) "
             f"{k2c16}, "
             f"want {EXTRACT_BF16_K2}; K1 (all, sm90, f32) {k1c16}, want "
@@ -3339,6 +3342,7 @@ def _eval_split(dev, msg, params, test_batch, card) -> dict:
     operands), the distance product (-2 q.g^T, TEST_BATCH x
     EXH_GALLERY_ROWS x HOST_DIM, f32 with TF32 off) and the stable argsort
     of its rows."""
+    from videovector_tpu_torch.device import plain_versions
     from videovector_tpu_torch.graph import Net
     from videovector_tpu_torch.metrics.retrieval import _neg2_dot
     from videovector_tpu_torch.ops.linear import no_tf32, tower_matmul
@@ -3351,10 +3355,11 @@ def _eval_split(dev, msg, params, test_batch, card) -> dict:
         q, g = blobs["ctxn"], blobs["gn"]
         dist = _neg2_dot(q, g)
         m, k = x.shape
+        got = tower_matmul(x, w, bias, compute_dtype=torch.float32)
+        with plain_versions():
+            ref = tower_matmul(x, w, bias, compute_dtype=torch.float32)
         err = compare(f"K1 f32 route {m}x{k}x{w.shape[1]} (the TEST fc7)",
-                      tower_matmul(x, w, bias, compute_dtype=torch.float32),
-                      tower_matmul(x, w, bias, compute_dtype=torch.float32,
-                                   plain=True))
+                      got, ref)
         ms = {"forward": time_ms(lambda: net.apply(p, b), iters=5, warmup=1),
               "fc7": time_ms(lambda: tower_matmul(
                   x, w, bias, compute_dtype=torch.float32), iters=5,
@@ -4770,12 +4775,12 @@ def _interop_extraction(tmp: Path, dev) -> dict:
                K1_PER_EXTRACT_BATCH * EXTRACT_BATCHES)
     feats, images_s = {}, {}
     for backend in ("vvr", "lmdb", "leveldb"):
-        _zero_counts()
-        with _BatchMarks() as marks:
+        torch.cuda.synchronize()
+        with _BatchMarks() as marks, _tally() as tallied:
             rc = extract_features.main(argv + [f"--out={out}",
                                                f"--backend={backend}"])
             torch.cuda.synchronize()
-        k2c, k1c = _k2_counts(), _k1_counts()
+        k2c, k1c = _k2_counts(tallied), _k1_counts(tallied)
         images_s[backend] = BATCH * (EXTRACT_BATCHES - 1) / (
             marks.marks[-1] - marks.marks[0])
         log(f"  extract --backend={backend}: rc {rc}; K2 (all, sm90, repack, "
@@ -5171,10 +5176,11 @@ def _class_frames(rng, n: int) -> tuple[np.ndarray, np.ndarray]:
 
 def _artifact_counts(call, batch) -> dict:
     """The kernels' launches in one artifact call."""
-    _zero_counts()
-    call(batch)
     torch.cuda.synchronize()
-    k2c, k1c = _k2_counts(), _k1_counts()
+    with _tally() as counts:
+        call(batch)
+    torch.cuda.synchronize()
+    k2c, k1c = _k2_counts(counts), _k1_counts(counts)
     return {"k2": k2c[0], "k2_sm90": k2c[1], "repack": k2c[2],
             "k2_f32": k2c[3], "k1": k1c[0], "k1_sm90": k1c[1],
             "k1_f32": k1c[2]}
@@ -5480,7 +5486,6 @@ def _one_rank_steps(dev, mesh, card: str) -> dict:
     identity, so that rounding is all the wire does), and within JAX's
     bounds of the unsharded step; then the DP step timed against the
     unsharded one, in turns."""
-    from videovector_tpu_torch.ops.hopper.matmul import matmul
     from videovector_tpu_torch.parallel import make_train_step
     from videovector_tpu_torch.parallel.shard_map_dp import make_dp_train_step
     from videovector_tpu_torch.parallel.train import shard_batch, shard_params
@@ -5510,17 +5515,18 @@ def _one_rank_steps(dev, mesh, card: str) -> dict:
             "make_train_step" else batch
         losses = []
         torch.cuda.synchronize()
-        matmul.launches = matmul.launches_sm90 = 0
-        for i in range(PAR_STEPS):
-            gen.manual_seed(i)
-            p, st, met = step(p, st, b, gen)
-            losses.append(met["loss"])
+        with _tally() as counts:
+            for i in range(PAR_STEPS):
+                gen.manual_seed(i)
+                p, st, met = step(p, st, b, gen)
+                losses.append(met["loss"])
         torch.cuda.synchronize()
-        if (matmul.launches, matmul.launches_sm90) != (PAR_STEPS,) * 2:
-            raise AssertionError(f"{name}: K1 launches {matmul.launches} "
-                                 f"({matmul.launches_sm90} sm90), expected "
+        launched = _got(counts, "k1.launches", "k1.sm90_launches")
+        if launched != (PAR_STEPS,) * 2:
+            raise AssertionError(f"{name}: K1 launches {launched[0]} "
+                                 f"({launched[1]} sm90), expected "
                                  f"{PAR_STEPS}")
-        out["launches"] += matmul.launches
+        out["launches"] += launched[0]
         want_l, want_p = (bf_l, bf_p) if "bf16" in name else (ref_l, ref_p)
         what = ("the unsharded step's with bf16-rounded gradients"
                 if "bf16" in name else "the unsharded step's")
@@ -5697,7 +5703,6 @@ def _rank_dp(dev, mesh) -> dict:
     against one device's grad_microbatch = 2 (each microbatch one rank's
     rows, so that the weight gradient rounds to bf16 as the ranks' does):
     the params."""
-    from videovector_tpu_torch.ops.hopper.matmul import matmul
     from videovector_tpu_torch.ops.sharding import all_reduce_grads, axes_of
     from videovector_tpu_torch.parallel import make_train_step
     from videovector_tpu_torch.parallel.train import shard_batch, shard_params
@@ -5749,12 +5754,13 @@ def _rank_dp(dev, mesh) -> dict:
                 ref_l.append(float(loss) / PAR_RANKS)
             gen.manual_seed(i)
             torch.cuda.synchronize()
-            matmul.launches = matmul.launches_sm90 = 0
-            evs[i][0].record()
-            p, st, met = step(p, st, b, gen)
-            evs[i][1].record()
-            launches[0] += matmul.launches
-            launches[1] += matmul.launches_sm90
+            with _tally() as counts:
+                evs[i][0].record()
+                p, st, met = step(p, st, b, gen)
+                evs[i][1].record()
+            launched = _got(counts, "k1.launches", "k1.sm90_launches")
+            launches[0] += launched[0]
+            launches[1] += launched[1]
             losses.append(float(met["loss"]))
         torch.cuda.synchronize()
         key = "drop" if dropout else "nodrop"
@@ -5782,7 +5788,6 @@ def _rank_tp(dev, mesh) -> dict:
     column block): K1 at 1920 x 4096 -> 2048 on each rank, 3 steps against
     the unsharded model's."""
     from videovector_tpu_torch.ops.collectives import all_gather
-    from videovector_tpu_torch.ops.hopper.matmul import matmul
     from videovector_tpu_torch.ops.sharding import all_reduce_grads, mesh_axis
     from videovector_tpu_torch.parallel.shard_map_tp import (
         make_tp_loss_fn, place_tp_params,
@@ -5811,18 +5816,18 @@ def _rank_tp(dev, mesh) -> dict:
                           "b": all_gather(tree["tower"]["b"], ax, 0)}}
     losses, g0 = [], None
     torch.cuda.synchronize()
-    matmul.launches = matmul.launches_sm90 = 0
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     ev[0].record()
-    for i in range(PAR_STEPS):
-        (loss, _), g = vg(p, data, None)
-        g = all_reduce_grads(g, mesh)
-        g0 = whole(g) if g0 is None else g0
-        p, st = solver_update(solver, p, g, st)
-        losses.append(float(loss))
+    with _tally() as counts:
+        for i in range(PAR_STEPS):
+            (loss, _), g = vg(p, data, None)
+            g = all_reduce_grads(g, mesh)
+            g0 = whole(g) if g0 is None else g0
+            p, st = solver_update(solver, p, g, st)
+            losses.append(float(loss))
     ev[1].record()
     torch.cuda.synchronize()
-    launches = (matmul.launches, matmul.launches_sm90)
+    launches = _got(counts, "k1.launches", "k1.sm90_launches")
     failures = []
     return {"launches": launches,
             "shape": (data["data"].shape[0] * data["data"].shape[1],

@@ -7,13 +7,18 @@ On the card (where JAX is absent, so the repo's conftest cannot load):
     python -m pytest tests/test_torch_cuda_kernels.py -m cuda --noconftest -q
 """
 
+import collections
+import contextlib
+
 import numpy as np
 import pytest
 import torch
 
 from torch_pool_cases import GEOMETRIES, IDS, pool_args, same_bits
+from videovector_tpu_torch.device import plain_versions
 from videovector_tpu_torch.ops.hopper import conv_gemm as k2
 from videovector_tpu_torch.ops.hopper import matmul as k1
+from videovector_tpu_torch.utils import timer
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
@@ -46,6 +51,21 @@ def _close(got, ref, rel=None):
     assert err <= rel * ref.float().abs().max().item(), err
 
 
+def _counted(fn):
+    """fn()'s result and what `count` added while it ran (`timer.tally`:
+    the kernels' launch counters, `vvtpu.query.graph_replays`,
+    `vvtpu.cast_bytes`, ...), profiled or not."""
+    with timer.tally() as counts:
+        out = fn()
+    torch.cuda.synchronize()
+    return out, counts
+
+
+def _got(counts, *names):
+    """The counters `vvtpu.<name>` of a tally, 0 where absent."""
+    return tuple(counts.get("vvtpu." + n, 0) for n in names)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("mkn", [(1, 1, 1), (100, 300, 70), (50, 1000, 513),
@@ -55,9 +75,9 @@ def test_k1_matches_plain(dev, dtype, out_dtype, mkn):
     m, k, n = mkn
     x, w, b = _t(rng, m, k, dev=dev, dtype=dtype), \
         _t(rng, k, n, dev=dev, dtype=dtype), _t(rng, n, dev=dev)
-    before = k1.matmul.launches
-    got = k1.matmul(x, w, b, fuse_relu=True, out_dtype=out_dtype)
-    assert k1.matmul.launches == before + 1
+    got, counts = _counted(
+        lambda: k1.matmul(x, w, b, fuse_relu=True, out_dtype=out_dtype))
+    assert _got(counts, "k1.launches") == (1,)
     _close(got, k1.matmul_plain(x, w, b, fuse_relu=True, out_dtype=out_dtype))
 
 
@@ -82,6 +102,51 @@ def test_k1_rejects(dev):
         k1.matmul(xb.requires_grad_(), xb)
 
 
+def test_each_precondition_runs_once_an_eager_call(dev, monkeypatch):
+    """K1's and K2's checks (shapes and dtypes, one device, no autograd
+    graph to extend) run once in an eager call of `matmul` and of
+    `conv2d_gemm_nhwc`, on the sm90 and core routes and with conv1's
+    repack; `conv2d_nchw`'s forward, an autograd Function's, needs no
+    autograd check and runs the other two once."""
+    calls = collections.Counter()
+
+    def counted(kernel, mod, name):
+        real = getattr(mod, name)
+
+        def wrapper(*args, **kwargs):
+            calls[kernel, name] += 1
+            return real(*args, **kwargs)
+        monkeypatch.setattr(mod, name, wrapper)
+    for kernel, mod in (("k1", k1), ("k2", k2)):
+        for name in ("_check", "same_device", "forward_only"):
+            counted(kernel, mod, name)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x, w = _randn(gen, 50, 256, dev=dev), _randn(gen, 256, 128, dev=dev)
+    b = torch.randn(128, generator=gen, device=dev)
+    conv1 = _randn(gen, 4, 227, 227, 3, dev=dev), \
+        _randn(gen, 11, 11, 3, 96, dev=dev), dict(stride=(4, 4))
+    grouped = _randn(gen, 4, 27, 27, 96, dev=dev), \
+        _randn(gen, 5, 5, 48, 256, dev=dev), dict(pad=(2, 2), groups=2)
+    every = {(m, n): 1 for m in ("k1", "k2")
+             for n in ("_check", "same_device", "forward_only")}
+    cases = [("k1", lambda: k1.matmul(x, w, b, fuse_relu=True)),
+             ("k1", lambda: k1.matmul(x, w.T.contiguous().T, b))]
+    cases += [("k2", lambda a=a, kw=kw: k2.conv2d_gemm_nhwc(
+        a[0], a[1], None, fuse_relu=True, out_dtype=torch.bfloat16, **kw))
+        for a, kw in ((conv1[:2], conv1[2]), (grouped[:2], grouped[2]),
+                      ((grouped[0], _core_view(grouped[1])), grouped[2]))]
+    for kernel, call in cases:
+        calls.clear()
+        call()
+        assert calls == {k: v for k, v in every.items() if k[0] == kernel}
+    calls.clear()
+    k2.conv2d_nchw(grouped[0].permute(0, 3, 1, 2).float(),
+                   grouped[1].permute(3, 2, 0, 1).float(), None,
+                   pad=(2, 2), groups=2)
+    assert calls == {("k2", "_check"): 1, ("k2", "same_device"): 1}
+    torch.cuda.synchronize()
+
+
 def _randn(gen, *shape, dev):
     return torch.randn(shape, generator=gen, device=dev).bfloat16()
 
@@ -101,15 +166,15 @@ def test_k1_sm90_matches_plain_and_core(dev, m, k, n):
     assert k1.k1_route(x, w_core, torch.float32) == "core"
     for out_dtype in (torch.float32, torch.bfloat16):
         for bias, relu in ((None, False), (b, True)):
-            before = (k1.matmul.launches, k1.matmul.launches_sm90)
-            got = k1.matmul(x, w, bias, fuse_relu=relu, out_dtype=out_dtype)
-            assert (k1.matmul.launches, k1.matmul.launches_sm90) == \
-                (before[0] + 1, before[1] + 1)
+            got, counts = _counted(lambda: k1.matmul(
+                x, w, bias, fuse_relu=relu, out_dtype=out_dtype))
+            assert _got(counts, "k1.launches", "k1.sm90_launches") == (1, 1)
             _close(got, k1.matmul_plain(x, w, bias, fuse_relu=relu,
                                         out_dtype=out_dtype))
-            _close(got, k1.matmul(x, w_core, bias, fuse_relu=relu,
-                                  out_dtype=out_dtype))
-            assert k1.matmul.launches_sm90 == before[1] + 1
+            core, counts = _counted(lambda: k1.matmul(
+                x, w_core, bias, fuse_relu=relu, out_dtype=out_dtype))
+            _close(got, core)
+            assert _got(counts, "k1.launches", "k1.sm90_launches") == (1, 0)
 
 
 @pytest.mark.parametrize("mkn", [(50, 9216, 4096), (256, 1000, 520)])
@@ -171,12 +236,10 @@ def test_k1_f32_matches_plain_and_core(dev, mkn, split, monkeypatch):
     for out_dtype in (torch.float32, torch.bfloat16):
         for bias, relu in ((None, False), (b, True)):
             kw = dict(fuse_relu=relu, out_dtype=out_dtype)
-            before = (k1.matmul.launches, k1.matmul.launches_f32,
-                      k1.matmul.launches_sm90)
-            runs = [k1.matmul(x, w, bias, **kw) for _ in range(2)]
-            assert (k1.matmul.launches, k1.matmul.launches_f32,
-                    k1.matmul.launches_sm90) == \
-                (before[0] + 2, before[1] + 2, before[2])
+            runs, counts = _counted(
+                lambda: [k1.matmul(x, w, bias, **kw) for _ in range(2)])
+            assert _got(counts, "k1.launches", "k1.f32_launches",
+                        "k1.sm90_launches") == (2, 2, 0)
             _close(runs[0], k1.matmul_plain(x, w, bias, **kw))
             core = k1.matmul(x_core, w, bias, **kw)
             _close(runs[0], core)
@@ -200,9 +263,9 @@ def test_k1_f32_bit_for_bit_on_integers(dev, mkn, split, monkeypatch):
                         dtype=torch.float32, device=dev)
     _f32_splits(monkeypatch, m, k, n, dev, split)
     for out_dtype in (torch.float32, torch.bfloat16):
-        before = k1.matmul.launches_f32
-        got = k1.matmul(x, w, b, fuse_relu=True, out_dtype=out_dtype)
-        assert k1.matmul.launches_f32 == before + 1
+        got, counts = _counted(
+            lambda: k1.matmul(x, w, b, fuse_relu=True, out_dtype=out_dtype))
+        assert _got(counts, "k1.f32_launches") == (1,)
         ref = k1.matmul_plain(x, w, b, fuse_relu=True, out_dtype=out_dtype)
         torch.cuda.synchronize()
         assert torch.equal(got, ref)
@@ -237,9 +300,8 @@ def test_k2_nhwc_groups_match_plain(dev, dtype, geom):
     b = _t(rng, o, dev=dev)
     kw = dict(stride=(s, s), pad=(p, p), groups=g, fuse_relu=True,
               out_dtype=dtype)
-    before = k2.conv2d_im2col_gemm.launches
-    got = k2.conv2d_gemm_nhwc(x, w, b, **kw)
-    assert k2.conv2d_im2col_gemm.launches == before + g
+    got, counts = _counted(lambda: k2.conv2d_gemm_nhwc(x, w, b, **kw))
+    assert _got(counts, "k2.launches") == (g,)
     _close(got, k2.conv2d_gemm_nhwc_plain(x, w, b, **kw))
 
 
@@ -291,15 +353,14 @@ def test_k2_sm90_matches_plain_and_core(dev, name):
     for out_dtype in (torch.float32, torch.bfloat16):
         for bias, relu in ((None, False), (b, True)):
             kw = dict(geo, fuse_relu=relu, out_dtype=out_dtype)
-            before = (k2.conv2d_im2col_gemm.launches,
-                      k2.conv2d_im2col_gemm.launches_sm90)
-            got = k2.conv2d_gemm_nhwc(x, w, bias, **kw)
-            assert (k2.conv2d_im2col_gemm.launches,
-                    k2.conv2d_im2col_gemm.launches_sm90) == \
-                (before[0] + 1, before[1] + 1)
+            got, counts = _counted(
+                lambda: k2.conv2d_gemm_nhwc(x, w, bias, **kw))
+            assert _got(counts, "k2.launches", "k2.sm90_launches") == (1, 1)
             _close(got, k2.conv2d_gemm_nhwc_plain(x, w, bias, **kw))
-            _close(got, k2.conv2d_gemm_nhwc(x, w_core, bias, **kw))
-            assert k2.conv2d_im2col_gemm.launches_sm90 == before[1] + 1
+            core, counts = _counted(
+                lambda: k2.conv2d_gemm_nhwc(x, w_core, bias, **kw))
+            _close(got, core)
+            assert _got(counts, "k2.sm90_launches") == (0,)
             assert torch.equal(got, k2.conv2d_gemm_nhwc(x, w, bias, **kw))
 
 
@@ -317,10 +378,9 @@ def test_k2_sm90_bit_for_bit_on_integers(dev, name):
                         dtype=torch.float32, device=dev)
     kw = dict(stride=(s, s), pad=(p, p), groups=xs[3] // ws[2], fuse_relu=True)
     for out_dtype in (torch.float32, torch.bfloat16):
-        before = k2.conv2d_im2col_gemm.launches_sm90
-        got = k2.conv2d_gemm_nhwc(x.bfloat16(), w.bfloat16(), b,
-                                  out_dtype=out_dtype, **kw)
-        assert k2.conv2d_im2col_gemm.launches_sm90 == before + 1
+        got, counts = _counted(lambda: k2.conv2d_gemm_nhwc(
+            x.bfloat16(), w.bfloat16(), b, out_dtype=out_dtype, **kw))
+        assert _got(counts, "k2.sm90_launches") == (1,)
         ref = k2.conv2d_gemm_nhwc_plain(x, w, b, out_dtype=out_dtype, **kw)
         torch.cuda.synchronize()
         assert torch.equal(got, ref)
@@ -338,9 +398,8 @@ def test_k2_sm90_every_tile_shape(dev, block_m, block_n, monkeypatch):
                                                         plan(*a)[2]))
     for out_dtype in (torch.float32, torch.bfloat16):
         kw = dict(geo, fuse_relu=True, out_dtype=out_dtype)
-        before = k2.conv2d_im2col_gemm.launches_sm90
-        got = k2.conv2d_gemm_nhwc(x, w, b, **kw)
-        assert k2.conv2d_im2col_gemm.launches_sm90 == before + 1
+        got, counts = _counted(lambda: k2.conv2d_gemm_nhwc(x, w, b, **kw))
+        assert _got(counts, "k2.sm90_launches") == (1,)
         _close(got, k2.conv2d_gemm_nhwc_plain(x, w, b, **kw))
 
 
@@ -352,9 +411,8 @@ def test_space_to_depth_kernel_equals_plain(dev, shape, k, stride):
     gen = torch.Generator(device=dev).manual_seed(9)
     x = _randn(gen, *shape, dev=dev)
     w = _randn(gen, k, k, shape[3], 16, dev=dev)
-    before = k2.space_to_depth.launches
-    xs, ws = k2.space_to_depth(x, w, stride)
-    assert k2.space_to_depth.launches == before + 1
+    (xs, ws), counts = _counted(lambda: k2.space_to_depth(x, w, stride))
+    assert _got(counts, "s2d.launches") == (1,)
     ref_x, ref_w = k2.space_to_depth_plain(x, w, stride)
     torch.cuda.synchronize()
     assert torch.equal(xs, ref_x) and torch.equal(ws, ref_w)
@@ -373,9 +431,8 @@ def test_space_to_depth_f32_kernel_equals_plain(dev, shape, k, stride):
     gen = torch.Generator(device=dev).manual_seed(9)
     x = torch.randn(shape, generator=gen, device=dev)
     w = torch.randn((k, k, shape[3], 16), generator=gen, device=dev)
-    before = k2.space_to_depth.launches
-    xs, ws = k2.space_to_depth(x, w, stride)
-    assert k2.space_to_depth.launches == before + 1
+    (xs, ws), counts = _counted(lambda: k2.space_to_depth(x, w, stride))
+    assert _got(counts, "s2d.launches") == (1,)
     ref_x, ref_w = k2.space_to_depth_plain(x, w, stride)
     torch.cuda.synchronize()
     assert xs.dtype == torch.float32
@@ -411,9 +468,8 @@ def _k2_f32_operands(gen, geom, dev, batch=None):
     return x, w, b, dict(stride=(s, s), pad=(p, p), groups=xs[3] // ws[2])
 
 
-def _f32_launches():
-    return (k2.conv2d_im2col_gemm.launches, k2.conv2d_im2col_gemm.launches_f32,
-            k2.space_to_depth.launches)
+def _f32_launches(counts):
+    return _got(counts, "k2.launches", "k2.f32_launches", "s2d.launches")
 
 
 @pytest.mark.parametrize("name", list(K2_F32_GEOMS))
@@ -430,10 +486,8 @@ def test_k2_f32_matches_plain_and_core(dev, name):
     repack = int(w.shape[2] % 4 != 0)
     for bias, relu in ((None, False), (b, True)):
         kw = dict(geo, fuse_relu=relu)
-        before = _f32_launches()
-        got = k2.conv2d_gemm_nhwc(x, w, bias, **kw)
-        assert _f32_launches() == (before[0] + 1, before[1] + 1,
-                                   before[2] + repack)
+        got, counts = _counted(lambda: k2.conv2d_gemm_nhwc(x, w, bias, **kw))
+        assert _f32_launches(counts) == (1, 1, repack)
         _close(got, k2.conv2d_gemm_nhwc_plain(x, w, bias, **kw))
         _close(got, k2.conv2d_gemm_nhwc(x, w_core, bias, **kw))
         assert torch.equal(got, k2.conv2d_gemm_nhwc(x, w, bias, **kw))
@@ -449,9 +503,8 @@ def test_k2_f32_caffenet_convs_match_plain_and_core(dev, name, batch):
     x, w, b, geo = _k2_f32_operands(gen, K2_F32_GEOMS[name], dev, batch)
     for bias, relu in ((None, False), (b, True)):
         kw = dict(geo, fuse_relu=relu)
-        before = _f32_launches()[1]
-        got = k2.conv2d_gemm_nhwc(x, w, bias, **kw)
-        assert _f32_launches()[1] == before + 1
+        got, counts = _counted(lambda: k2.conv2d_gemm_nhwc(x, w, bias, **kw))
+        assert _f32_launches(counts)[1] == 1
         _close(got, k2.conv2d_gemm_nhwc_plain(x, w, bias, **kw))
         _close(got, k2.conv2d_gemm_nhwc(x, _core_view(w), bias, **kw))
         assert torch.equal(got, k2.conv2d_gemm_nhwc(x, w, bias, **kw))
@@ -468,9 +521,8 @@ def test_k2_f32_every_tile_and_split(dev, tile, splits, monkeypatch):
         gen, ((3, 10, 10, 32), (3, 3, 16, 192), 1, 1), dev)
     monkeypatch.setattr(k2, "k2_f32_plan", lambda *a: (*tile, splits))
     kw = dict(geo, fuse_relu=True)
-    before = _f32_launches()[1]
-    got = k2.conv2d_gemm_nhwc(x, w, b, **kw)
-    assert _f32_launches()[1] == before + 1
+    got, counts = _counted(lambda: k2.conv2d_gemm_nhwc(x, w, b, **kw))
+    assert _f32_launches(counts)[1] == 1
     _close(got, k2.conv2d_gemm_nhwc_plain(x, w, b, **kw))
     assert torch.equal(got, k2.conv2d_gemm_nhwc(x, w, b, **kw))
 
@@ -492,9 +544,8 @@ def test_k2_f32_bit_for_bit_on_integers(dev, name, splits, monkeypatch):
     monkeypatch.setattr(k2, "k2_f32_plan",
                         lambda *a: (*plan(*a)[:2], min(splits, -(-a[3] // 32))))
     kw = dict(stride=(s, s), pad=(p, p), groups=xs[3] // ws[2], fuse_relu=True)
-    before = _f32_launches()[1]
-    got = k2.conv2d_gemm_nhwc(x, w, b, **kw)
-    assert _f32_launches()[1] == before + 1
+    got, counts = _counted(lambda: k2.conv2d_gemm_nhwc(x, w, b, **kw))
+    assert _f32_launches(counts)[1] == 1
     ref = k2.conv2d_gemm_nhwc_plain(x, w, b, **kw)
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
@@ -509,9 +560,9 @@ def test_k2_f32_misaligned_view_takes_the_core(dev):
         .view(x.shape).copy_(x)
     assert k2.k2_route(x_off, w, torch.float32, stride=geo["stride"],
                        pad=geo["pad"]) == "core"
-    before = _f32_launches()
-    got = k2.conv2d_gemm_nhwc(x_off, w, b, fuse_relu=True, **geo)
-    assert _f32_launches()[:2] == (before[0] + geo["groups"], before[1])
+    got, counts = _counted(
+        lambda: k2.conv2d_gemm_nhwc(x_off, w, b, fuse_relu=True, **geo))
+    assert _f32_launches(counts)[:2] == (geo["groups"], 0)
     _close(got, k2.conv2d_gemm_nhwc_plain(x, w, b, fuse_relu=True, **geo))
 
 
@@ -533,9 +584,9 @@ def test_conv2d_nchw_f32_ignores_the_process_tf32_setting(dev, name):
         for tf32 in (False, True):
             torch.backends.cuda.matmul.allow_tf32 = tf32
             torch.backends.cudnn.allow_tf32 = tf32
-            before = _f32_launches()[1]
-            ys.append(k2.conv2d_nchw(x, w, b, **kw))
-            assert _f32_launches()[1] == before + 1
+            y, counts = _counted(lambda: k2.conv2d_nchw(x, w, b, **kw))
+            ys.append(y)
+            assert _f32_launches(counts)[1] == 1
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = flags
@@ -574,10 +625,11 @@ def test_tower_function_on_k1(dev, m, kn):
     out = {}
     for plain in (False, True):
         w, b = w0.clone().requires_grad_(), b0.clone().requires_grad_()
-        before = (k1.matmul.launches, k1.matmul.launches_sm90)
-        h = tower_matmul(x, w, b, compute_dtype=torch.bfloat16, plain=plain)
-        assert (k1.matmul.launches, k1.matmul.launches_sm90) == (
-            (before[0] + 1, before[1] + 1) if not plain else before)
+        with plain_versions() if plain else contextlib.nullcontext():
+            h, counts = _counted(lambda: tower_matmul(
+                x, w, b, compute_dtype=torch.bfloat16))
+        assert _got(counts, "k1.launches", "k1.sm90_launches") == (
+            (0, 0) if plain else (1, 1))
         n_mm = _mm_calls(lambda: h.backward(g))
         assert n_mm == 1            # dW only: x does not ask for a gradient
         out[plain] = (h.detach(), w.grad, b.grad)
@@ -619,11 +671,11 @@ def test_test_eval_tower_on_k1_at_673_rows(dev):
     w, b = params["tower"]["w"].bfloat16(), params["tower"]["b"]
     assert k1.k1_route(x, w, torch.float32) == "sm90"
     with torch.no_grad():
-        before = (k1.matmul.launches, k1.matmul.launches_sm90)
-        emb = VideoEmbeddingModel(cfg).extract(params, feats)
-        assert (k1.matmul.launches, k1.matmul.launches_sm90) == \
-            (before[0] + 1, before[1] + 1)
-        ref = VideoEmbeddingModel(cfg, plain=True).extract(params, feats)
+        emb, counts = _counted(
+            lambda: VideoEmbeddingModel(cfg).extract(params, feats))
+        assert _got(counts, "k1.launches", "k1.sm90_launches") == (1, 1)
+        with plain_versions():
+            ref = VideoEmbeddingModel(cfg).extract(params, feats)
         _close(emb, ref)
         _close(k1.matmul(x, w, b, fuse_relu=True),
                k1.matmul_plain(x, w, b, fuse_relu=True))
@@ -714,7 +766,7 @@ def test_training_step_ignores_the_process_tf32_setting(dev):
 def test_net_on_k1_matches_the_net_on_plain(dev, dtype):
     """generate_net.py's TRAIN and TEST nets at small widths (D = 256, E =
     128, B = 16) through the port's Net with K1 and with its plain version
-    (Net(plain=True)), on the same params and batch: one K1 launch per
+    (inside `plain_versions()`), on the same params and batch: one K1 launch per
     forward, on the f32 route for f32 operands and the sm90 route for
     bf16; loss within 1e-4 relative, fc7's gradients and the TEST net's
     normalized embeddings within 1e-3 of their largest magnitude."""
@@ -738,22 +790,23 @@ def test_net_on_k1_matches_the_net_on_plain(dev, dtype):
                                        device=dev).float()}
     outs = []
     for plain in (False, True):
-        net = Net(msg, "TRAIN", compute_dtype=cd, plain=plain)
-        params, _ = net.init(torch.Generator(device=dev).manual_seed(0), batch)
-        p = {k: {n: v.requires_grad_() for n, v in d.items()}
-             for k, d in params.items()}
-        before = (k1.matmul.launches, k1.matmul.launches_sm90,
-                  k1.matmul.launches_f32)
-        loss = net.loss_fn(p, batch, torch.Generator(device=dev).manual_seed(1))
-        loss.backward()
-        test_net = Net(msg, "TEST", compute_dtype=cd, plain=plain)
-        test_net.init(torch.Generator(device=dev).manual_seed(0), test)
-        with torch.no_grad():
-            _, tout = test_net.apply(p, test, return_blobs=True)
-        torch.cuda.synchronize()
-        launched = (k1.matmul.launches - before[0],
-                    k1.matmul.launches_sm90 - before[1],
-                    k1.matmul.launches_f32 - before[2])
+        with plain_versions() if plain else contextlib.nullcontext():
+            net = Net(msg, "TRAIN", compute_dtype=cd)
+            params, _ = net.init(torch.Generator(device=dev).manual_seed(0),
+                                 batch)
+            p = {k: {n: v.requires_grad_() for n, v in d.items()}
+                 for k, d in params.items()}
+            with timer.tally() as counts:
+                loss = net.loss_fn(
+                    p, batch, torch.Generator(device=dev).manual_seed(1))
+                loss.backward()
+                test_net = Net(msg, "TEST", compute_dtype=cd)
+                test_net.init(torch.Generator(device=dev).manual_seed(0), test)
+                with torch.no_grad():
+                    _, tout = test_net.apply(p, test, return_blobs=True)
+            torch.cuda.synchronize()
+        launched = _got(counts, "k1.launches", "k1.sm90_launches",
+                        "k1.f32_launches")
         assert launched == ((0, 0, 0) if plain else
                             (2, 2, 0) if dtype == "bfloat16" else (2, 0, 2))
         outs.append((loss.item(), p["fc7"]["w"].grad, p["fc7"]["b"].grad,
@@ -792,11 +845,12 @@ def test_fused_net_matches_unfused_on_the_card(dev):
         params, _ = net.init(torch.Generator(device=dev).manual_seed(0), batch)
         p = {k: {n: v.requires_grad_() for n, v in d.items()}
              for k, d in params.items()}
-        before = k1.matmul.launches
-        loss = net.loss_fn(p, batch, torch.Generator(device=dev).manual_seed(1))
-        loss.backward()
+        with timer.tally() as counts:
+            loss = net.loss_fn(p, batch,
+                               torch.Generator(device=dev).manual_seed(1))
+            loss.backward()
         torch.cuda.synchronize()
-        assert k1.matmul.launches == before + 1
+        assert _got(counts, "k1.launches") == (1,)
         res.append((loss.item(), p["fc7"]["w"].grad, p["fc7"]["b"].grad,
                     net._last_absorbed))
     (l0, w0, b0, a0), (l1, w1, b1, a1) = res
@@ -845,10 +899,9 @@ CAFFENET_NCHW = {
 }
 
 
-def _k2_counts():
-    return (k2.conv2d_im2col_gemm.launches,
-            k2.conv2d_im2col_gemm.launches_sm90, k2.space_to_depth.launches,
-            k2.conv2d_im2col_gemm.launches_f32)
+def _k2_counts(counts):
+    return _got(counts, "k2.launches", "k2.sm90_launches", "s2d.launches",
+                "k2.f32_launches")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -871,17 +924,15 @@ def test_k2_net_entry_matches_plain(dev, name, dtype):
     out = {}
     for plain in (False, True):
         x, w, b = (t.clone().requires_grad_() for t in (x0, w0, b0))
-        before = _k2_counts()
-        y = k2.conv2d_nchw(x, w, b, plain=plain, **kw)
-        after = _k2_counts()
+        with plain_versions() if plain else contextlib.nullcontext():
+            y, counts = _counted(lambda: k2.conv2d_nchw(x, w, b, **kw))
+            y.backward(cot)
         if plain:
-            assert after == before
+            assert _k2_counts(counts) == (0, 0, 0, 0)
         else:
             f32 = dtype == torch.float32
-            assert after == (before[0] + 1, before[1] + (not f32),
-                             before[2] + (name == "conv1"), before[3] + f32)
+            assert _k2_counts(counts) == (1, not f32, name == "conv1", f32)
             assert y.is_contiguous(memory_format=torch.channels_last)
-        y.backward(cot)
         out[plain] = (y.detach(), x.grad, w.grad, b.grad)
     (y, dx, dw, db), (y_ref, dx_ref, dw_ref, db_ref) = out[False], out[True]
     assert y.dtype == dtype
@@ -899,18 +950,14 @@ def _card_extraction(dev, compute_dtype, plain, params, batch):
     from videovector_tpu_torch.config import parse
     from videovector_tpu_torch.graph import Net
     net = Net(parse(extraction_net(widths=WIDE8)), "TEST",
-              compute_dtype=compute_dtype, plain=plain)
-    k1_before = (k1.matmul.launches, k1.matmul.launches_sm90,
-                 k1.matmul.launches_f32)
-    k2_before = _k2_counts()
-    with torch.inference_mode():
-        _, blobs = net.apply(params, batch, return_blobs=True)
-    torch.cuda.synchronize()
-    k1_delta = tuple(a - b for a, b in zip(
-        (k1.matmul.launches, k1.matmul.launches_sm90, k1.matmul.launches_f32),
-        k1_before))
-    k2_delta = tuple(a - b for a, b in zip(_k2_counts(), k2_before))
-    return blobs, k1_delta, k2_delta
+              compute_dtype=compute_dtype)
+    with plain_versions() if plain else contextlib.nullcontext(), \
+            torch.inference_mode():
+        (_, blobs), counts = _counted(
+            lambda: net.apply(params, batch, return_blobs=True))
+    k1_delta = _got(counts, "k1.launches", "k1.sm90_launches",
+                    "k1.f32_launches")
+    return blobs, k1_delta, _k2_counts(counts)
 
 
 # the narrowed extraction net at widths the sm90 route takes (every channel
@@ -940,7 +987,7 @@ def _extraction_params(dev, seed=3):
 @pytest.mark.parametrize("compute_dtype", [None, "bfloat16"])
 def test_extraction_net_on_the_kernels_matches_plain(dev, compute_dtype):
     """The narrowed extraction Net (CaffeNet's layers and geometry) on K1
-    and K2 against Net(plain=True) on the card. f32: 5 K2 launches on the
+    and K2 against its plain versions on the card. f32: 5 K2 launches on the
     f32 route + conv1's repack, fc6, fc7 on K1's f32 route; bf16: 5 sm90
     K2 launches + conv1's repack, fc6, fc7 on sm90."""
     params, batch = _extraction_params(dev)
@@ -1066,7 +1113,6 @@ def test_query_spans_hold_the_kernels_launches_and_no_device_work(dev):
     from videovector_tpu_torch.models.retrieval_pipeline import (
         RetrievalPipeline,
     )
-    from videovector_tpu_torch.utils import timer
     pipe = RetrievalPipeline(device=dev)
     gen = torch.Generator(device=dev).manual_seed(5)
     params = pipe.init(gen)
@@ -1144,16 +1190,6 @@ def _eager_query(dev, params, frames, gallery, ids):
     return out
 
 
-def _counted(fn):
-    """fn()'s result and the counters it added (`vvtpu.query.graph_replays`,
-    `vvtpu.cast_bytes`), profiled or not."""
-    from videovector_tpu_torch.utils import timer
-    with timer.tally() as counts:
-        out = fn()
-    torch.cuda.synchronize()
-    return out, counts
-
-
 def _equal(a, b):
     return torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
@@ -1215,25 +1251,40 @@ def test_another_gallery_params_or_batch_runs_eagerly(dev, change):
 
 
 def test_plain_host_offsets_and_first_calls_never_capture(dev):
-    """`plain=True`, Python-int offsets and a pipeline's first call run
-    eagerly every time: no graph is kept and none replayed."""
+    """`plain_versions()`, Python-int offsets and a pipeline's first call
+    run eagerly every time: no graph is kept and none replayed; a graph
+    captured outside `plain_versions()` is not replayed inside it."""
     from videovector_tpu_torch.models.retrieval_pipeline import (
         RetrievalPipeline,
     )
     pipe, params, gallery, ids, gen = _serving(dev)
     pix, h, w, mirror = _clip(gen, 8, dev)
-    plain = RetrievalPipeline(device=dev, plain=True)
-    calls = [lambda: plain.query(params, pix, h, w, mirror, gallery, ids),
+    plain = RetrievalPipeline(device=dev)
+
+    def plain_query():
+        with plain_versions():
+            return plain.query(params, pix, h, w, mirror, gallery, ids)
+    calls = [plain_query,
              lambda: pipe.query(params, pix, 14, 14, False, gallery, ids)]
     for call in calls:
         for _ in range(3):
             _, counts = _counted(call)
             assert "vvtpu.query.graph_replays" not in counts
+            if call is plain_query:
+                assert not [k for k in counts if k.endswith("launches")]
     assert plain._graph is None and pipe._graph is None
     _, counts = _counted(lambda: pipe.query(params, pix, h, w, mirror,
                                             gallery, ids))
     assert "vvtpu.query.graph_replays" not in counts
     assert pipe._graph is None
+    for _ in range(2):
+        pipe.query(params, pix, h, w, mirror, gallery, ids)
+    assert pipe._graph is not None
+    with plain_versions():
+        _, counts = _counted(lambda: pipe.query(params, pix, h, w, mirror,
+                                                gallery, ids))
+    assert "vvtpu.query.graph_replays" not in counts
+    assert not [k for k in counts if k.endswith("launches")]
 
 
 @pytest.mark.parametrize("shape,k,stride,pad", [
@@ -1250,9 +1301,9 @@ def test_padded_space_to_depth_kernel_equals_plain(dev, shape, k, stride,
     gen = torch.Generator(device=dev).manual_seed(k + pad)
     x = torch.randn(shape, generator=gen, device=dev).to(dtype)
     w = torch.randn((k, k, 3, 64), generator=gen, device=dev).to(dtype)
-    before = k2.space_to_depth.launches
-    xs, ws = k2.space_to_depth(x, w, stride, pad)
-    assert k2.space_to_depth.launches == before + 1
+    (xs, ws), counts = _counted(
+        lambda: k2.space_to_depth(x, w, stride, pad))
+    assert _got(counts, "s2d.launches") == (1,)
     ref_x, ref_w = k2.space_to_depth_plain(x, w, stride, pad)
     torch.cuda.synchronize()
     assert xs.shape == ref_x.shape and ws.shape == ref_w.shape
@@ -1276,11 +1327,9 @@ def test_caffenet_conv1_repack_is_unchanged(dev):
     assert torch.equal(xs, old_x) and torch.equal(ws, old_w)
     b = torch.randn(96, generator=gen, device=dev)
     kw = dict(stride=(4, 4), fuse_relu=True, out_dtype=torch.bfloat16)
-    before = (k2.conv2d_im2col_gemm.launches_sm90, k2.space_to_depth.launches)
-    got = k2.conv2d_gemm_nhwc(x, w, b, **kw)
-    again = k2.conv2d_gemm_nhwc(x, w, b, **kw)
-    assert (k2.conv2d_im2col_gemm.launches_sm90,
-            k2.space_to_depth.launches) == (before[0] + 2, before[1] + 2)
+    (got, again), counts = _counted(
+        lambda: [k2.conv2d_gemm_nhwc(x, w, b, **kw) for _ in range(2)])
+    assert _got(counts, "k2.sm90_launches", "s2d.launches") == (2, 2)
     _close(got, k2.conv2d_gemm_nhwc_plain(x, w, b, **kw))
     assert torch.equal(got, again)
 
@@ -1311,16 +1360,12 @@ def test_googlenet_convs_all_take_the_sm90_route(dev):
     pipe, params, _, _, gen = _googlenet_serving(dev)
     frames = _clip(gen, 50, dev)
     x = pipe.transform(*frames)
-    counts = (k2.conv2d_im2col_gemm.launches,
-              k2.conv2d_im2col_gemm.launches_sm90,
-              k2.space_to_depth.launches)
-    got = pipe.googlenet.forward(params["googlenet"], x)
-    after = (k2.conv2d_im2col_gemm.launches,
-             k2.conv2d_im2col_gemm.launches_sm90,
-             k2.space_to_depth.launches)
-    assert [a - b for a, b in zip(after, counts)] == [57, 57, 1]
-    plain = GoogLeNet(pipe.googlenet.cfg, plain=True).forward(
-        params["googlenet"], x)
+    got, counts = _counted(
+        lambda: pipe.googlenet.forward(params["googlenet"], x))
+    assert _got(counts, "k2.launches", "k2.sm90_launches",
+                "s2d.launches") == (57, 57, 1)
+    with plain_versions():
+        plain = GoogLeNet(pipe.googlenet.cfg).forward(params["googlenet"], x)
     torch.cuda.synchronize()
     assert got.shape == (50, 1024)
     assert float((got - plain).norm() / plain.norm()) < 2e-2
@@ -1365,7 +1410,6 @@ def test_a_replayed_query_under_the_profiler_shows_its_kernels(dev):
     is not captured."""
     from torch.profiler import ProfilerActivity, profile
 
-    from videovector_tpu_torch.utils import timer
     pipe, params, gallery, ids, gen = _serving(dev)
     frames = _clip(gen, 50, dev)
 
@@ -1422,23 +1466,20 @@ def test_golden_fixtures_through_the_f32_routes(dev):
     operands, else the core) and every INNER_PRODUCT on K1's f32 route, as
     the CPU test holds the plain versions."""
     import torch_golden as tg
-    c1 = k1.matmul.launches_f32, k2.conv2d_im2col_gemm.launches, \
-        k2.conv2d_im2col_gemm.launches_f32, k2.space_to_depth.launches
-    blobs, golden = tg.mini_golden(dev)
-    for name, want in golden.items():
-        np.testing.assert_allclose(blobs[name], want, rtol=1e-5, atol=1e-5,
-                                   err_msg=name)
-    tg.assert_fullscale_within_bounds(tg.fullscale_errors(
-        tg.fullscale_blobs(dev)))
+    with timer.tally() as counts:
+        blobs, golden = tg.mini_golden(dev)
+        for name, want in golden.items():
+            np.testing.assert_allclose(blobs[name], want, rtol=1e-5,
+                                       atol=1e-5, err_msg=name)
+        tg.assert_fullscale_within_bounds(tg.fullscale_errors(
+            tg.fullscale_blobs(dev)))
     # two nets: 2 fc each on K1's f32 route; the mini net's conv1 (3
     # channels, 5x5/2 with pad 2) on the f32 route after its padded
     # repack, its conv2 on K2's core (6 outputs a group), one launch per
     # group; the full tower's 5 on the f32 route, one launch each, conv1
     # after its repack
-    assert k1.matmul.launches_f32 - c1[0] == 4
-    assert k2.conv2d_im2col_gemm.launches - c1[1] == 1 + 2 + 5
-    assert k2.conv2d_im2col_gemm.launches_f32 - c1[2] == 1 + 5
-    assert k2.space_to_depth.launches - c1[3] == 2
+    assert _got(counts, "k1.f32_launches", "k2.launches", "k2.f32_launches",
+                "s2d.launches") == (4, 1 + 2 + 5, 1 + 5, 2)
 
 
 # -- item 9: the LSTM family, social pooling, the trajectory project ----------
@@ -1479,11 +1520,10 @@ def test_trajectory_net_on_the_card_matches_the_cpu(dev, tmp_path):
     for d in ("cpu", dev):
         p = {ln: {pn: t.detach().to(d).requires_grad_()
                   for pn, t in lp.items()} for ln, lp in params.items()}
-        before = k1.matmul.launches
-        loss = net.loss_fn(p, {k: torch.as_tensor(v, device=d)
-                               for k, v in batch.items()})
+        loss, counts = _counted(lambda: net.loss_fn(
+            p, {k: torch.as_tensor(v, device=d) for k, v in batch.items()}))
         if d == dev:
-            assert k1.matmul.launches == before + 1
+            assert _got(counts, "k1.launches") == (1,)
         loss.backward()
         out[str(d)] = (loss.item(), {f"{ln}/{pn}": t.grad.cpu() for ln, lp
                                      in p.items() for pn, t in lp.items()})
@@ -1652,12 +1692,12 @@ def test_lmdb_fed_net_step_equals_the_vvr_fed_one(dev, tmp_path):
         params, _ = net.init(torch.Generator(device=dev).manual_seed(0), batch)
         p = {k: {n: v.requires_grad_() for n, v in d.items()}
              for k, d in params.items()}
-        before = (k1.matmul.launches, k1.matmul.launches_f32)
-        loss = net.loss_fn(p, batch, torch.Generator(device=dev).manual_seed(1))
-        loss.backward()
+        with timer.tally() as counts:
+            loss = net.loss_fn(p, batch,
+                               torch.Generator(device=dev).manual_seed(1))
+            loss.backward()
         torch.cuda.synchronize()
-        assert (k1.matmul.launches - before[0],
-                k1.matmul.launches_f32 - before[1]) == (1, 1)
+        assert _got(counts, "k1.launches", "k1.f32_launches") == (1, 1)
         runs.append((batch["data"], loss.detach(), p["fc7"]["w"].grad,
                      p["fc7"]["b"].grad))
     for a, b in zip(*runs):
@@ -1690,20 +1730,13 @@ def test_extraction_into_lmdb_and_leveldb_equals_vvr_on_the_card(dev,
     batches, n = 3, 3 * BATCH
     feats = {}
     for backend in ("vvr", "lmdb", "leveldb"):
-        k1_before = (k1.matmul.launches, k1.matmul.launches_sm90,
-                     k1.matmul.launches_f32)
-        k2_before = _k2_counts()
-        counts = extract_features.extract(
+        counts, launched = _counted(lambda: extract_features.extract(
             str(net), [], ["ip2"], str(tmp_path / "out"), batches,
-            backend=backend, device="cuda")
-        torch.cuda.synchronize()
+            backend=backend, device="cuda"))
         assert counts == {"ip2": n}
-        assert tuple(a - b for a, b in zip(
-            (k1.matmul.launches, k1.matmul.launches_sm90,
-             k1.matmul.launches_f32), k1_before)) == (2 * batches, 0,
-                                                      2 * batches)
-        assert tuple(a - b for a, b in zip(_k2_counts(), k2_before)) == \
-            (5 * batches, 0, batches, 5 * batches)
+        assert _got(launched, "k1.launches", "k1.sm90_launches",
+                    "k1.f32_launches") == (2 * batches, 0, 2 * batches)
+        assert _k2_counts(launched) == (5 * batches, 0, batches, 5 * batches)
         path = str(tmp_path / {"vvr": "out_ip2.vvr", "lmdb": "out_ip2_lmdb",
                                "leveldb": "out_ip2_leveldb"}[backend])
         r = open_store(path)
@@ -1761,11 +1794,8 @@ def test_k1_and_k2_export_as_custom_ops_equal_to_eager(dev, tmp_path):
         targets = {str(n.target) for n in ep.graph.nodes}
         assert any("vvtpu.k1_matmul" in t for t in targets), targets
         assert any("vvtpu.k2_conv2d_nhwc" in t for t in targets), targets
-        before = (k1.matmul.launches_f32, k2.conv2d_im2col_gemm.launches_f32)
-        got = ep.module()(x)
-        torch.cuda.synchronize()
-    assert (k1.matmul.launches_f32 - before[0],
-            k2.conv2d_im2col_gemm.launches_f32 - before[1]) == (1, 1)
+        got, counts = _counted(lambda: ep.module()(x))
+    assert _got(counts, "k1.f32_launches", "k2.f32_launches") == (1, 1)
     assert torch.equal(got, eager)
 
 
@@ -1847,13 +1877,13 @@ def test_one_rank_nccl_dp_step_is_bit_equal_to_the_unsharded_step(dev):
         q = shard_params(params, mesh)
         qs = init_solver_state(s, q)
         step = make_train_step(loss_fn, s, mesh)
-        before = k1.matmul.launches_sm90
-        for i, b in enumerate(batches):
-            gen.manual_seed(i)
-            q, qs, met = step(q, qs, shard_batch({"data": b}, mesh,
-                                                 {"data": 1}), gen)
-            assert torch.equal(met["loss"], ref[i])
-        assert k1.matmul.launches_sm90 == before + 3
+        with timer.tally() as counts:
+            for i, b in enumerate(batches):
+                gen.manual_seed(i)
+                q, qs, met = step(q, qs, shard_batch({"data": b}, mesh,
+                                                     {"data": 1}), gen)
+                assert torch.equal(met["loss"], ref[i])
+        assert _got(counts, "k1.sm90_launches") == (3,)
         for k in ("w", "b"):
             assert torch.equal(q["tower"][k], p["tower"][k])
     finally:
@@ -1922,11 +1952,9 @@ def test_one_rank_nccl_mesh_artifact_equals_the_one_device_one(dev,
     call, meta = serving.load_serving(mesh_path)
     assert (meta["mesh"], meta["nr_devices"]) == ({"data": 1, "model": 1}, 1)
     want = one(batch)["out"]
-    before = (k1.matmul.launches, k2.conv2d_im2col_gemm.launches)
-    got = serving.mesh_serving(call, meta)(batch)["out"]
-    torch.cuda.synchronize()
-    assert (k1.matmul.launches - before[0],
-            k2.conv2d_im2col_gemm.launches - before[1]) == (2, 1)
+    got, counts = _counted(
+        lambda: serving.mesh_serving(call, meta)(batch)["out"])
+    assert _got(counts, "k1.launches", "k2.launches") == (2, 1)
     assert torch.equal(got, want)
 
 
@@ -2019,10 +2047,9 @@ def _pool_values(shape, dtype, dev, seed):
 def _pooled(x, kernel, stride, pad):
     """The kernel's output and the counters and launches it added."""
     from videovector_tpu_torch.ops import pooling
-    before = pooling.max_pool_nhwc.launches
     out, counts = _counted(lambda: pooling.max_pool(
         x, kernel=kernel, stride=stride, pad=pad, layout="NHWC"))
-    return out, counts, pooling.max_pool_nhwc.launches - before
+    return out, counts, counts.get("vvtpu.max_pool.launches", 0)
 
 
 @pytest.mark.parametrize("dtype", POOL_DTYPES)
@@ -2181,7 +2208,6 @@ def test_an_exported_mednet_launches_the_pool_kernel(dev, tmp_path):
     vvtpu.max_pool_nhwc nodes; the reloaded program launches the kernel
     three times a call and gives the eager forward's bits."""
     from videovector_tpu_torch.models.mednet import MedNet
-    from videovector_tpu_torch.ops import pooling
     from videovector_tpu_torch.tools.export_model import (
         load_exported, save_exported,
     )
@@ -2195,8 +2221,6 @@ def test_an_exported_mednet_launches_the_pool_kernel(dev, tmp_path):
         ep = load_exported(path)
         targets = [str(n.target) for n in ep.graph.nodes]
         assert sum("vvtpu.max_pool_nhwc" in t for t in targets) == 3
-        before = pooling.max_pool_nhwc.launches
-        got = ep.module()(x)
-        torch.cuda.synchronize()
-    assert pooling.max_pool_nhwc.launches - before == 3
+        got, counts = _counted(lambda: ep.module()(x))
+    assert _got(counts, "max_pool.launches") == (3,)
     assert torch.equal(got, eager)

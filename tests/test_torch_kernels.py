@@ -10,6 +10,7 @@ rounds."""
 import numpy as np
 import pytest
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 import jax
 import jax.numpy as jnp
@@ -276,12 +277,20 @@ def test_k1_validates_before_dispatch():
         k1.matmul(x, torch.ones(7, 4))
     with pytest.raises(TypeError):
         k1.matmul(x.double(), torch.ones(8, 4, dtype=torch.float64))
-    # a non-CPU, non-CUDA tensor neither launches nor falls back
-    with pytest.raises(ValueError, match="CUDA"):
-        k1.matmul(x.to("meta"), torch.ones(8, 4, device="meta"))
-    with pytest.raises(ValueError, match="CUDA"):
-        k2.conv2d_im2col_gemm(torch.ones(1, 1, 3, 3, device="meta"),
-                              torch.ones(1, 1, 1, 1, device="meta"))
+    # "meta" tensors take the plain versions: shapes, no data
+    assert k1.matmul(x.to("meta"), torch.ones(8, 4, device="meta")).shape \
+        == (4, 4)
+    assert k2.conv2d_im2col_gemm(torch.ones(1, 1, 3, 3, device="meta"),
+                                 torch.ones(1, 1, 1, 1, device="meta")) \
+        .shape == (1, 1, 3, 3)
+    # a tensor on any other device neither launches nor falls back
+    with FakeTensorMode():
+        with pytest.raises(ValueError, match="CUDA"):
+            k1.matmul(torch.ones(4, 8, device="mps"),
+                      torch.ones(8, 4, device="mps"))
+        with pytest.raises(ValueError, match="CUDA"):
+            k2.conv2d_im2col_gemm(torch.ones(1, 1, 3, 3, device="mps"),
+                                  torch.ones(1, 1, 1, 1, device="mps"))
 
 
 def test_k2_matches_pallas_conv_gemm(rng):

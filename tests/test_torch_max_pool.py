@@ -9,9 +9,9 @@ then the rows, as its strips fold them), NaN, signed zeros, all-(-inf)
 windows and odd channel counts included. The op's fake implementation
 gives the output's shape on "meta" tensors and under FakeTensorMode. The
 counter `vvtpu.max_pool.calls` adds each NHWC call (a GoogLeNet forward
-13, CaffeNet's 3, a plain model's and NCHW's none) and
-`vvtpu.max_pool.launches` no launch on the CPU. The card's tests are in
-tests/test_torch_cuda_kernels.py.
+13, CaffeNet's 3, inside `device.plain_versions()` as well; NCHW's none)
+and `vvtpu.max_pool.launches` no launch on the CPU. The card's tests are
+in tests/test_torch_cuda_kernels.py.
 """
 
 import math
@@ -25,6 +25,7 @@ from torch_pool_cases import (
     CAFFENET, GEOMETRIES, GOOGLENET, IDS, clipped_window_max, pool_args,
     same_bits, strip_window_max,
 )
+from videovector_tpu_torch.device import plain_versions
 from videovector_tpu_torch.ops import pooling
 from videovector_tpu_torch.ops.pooling import _pool_geometry, max_pool
 from videovector_tpu_torch.utils import timer
@@ -69,12 +70,12 @@ def test_nhwc_pool_equals_the_old_chain_and_the_kernels_scan(case, dtype):
     hwc, kernel, stride, pad = pool_args(case)
     x = _values((2, *hwc), dtype, seed=sum(hwc) + stride[0])
     want = _old_chain(x, kernel, stride, pad)
-    launches = pooling.max_pool_nhwc.launches
-    for got in _both_entries(x, kernel, stride, pad):
-        assert same_bits(got, want)
-    for scan in (clipped_window_max, strip_window_max):
-        assert same_bits(scan(x, kernel, stride, pad), want)
-    assert pooling.max_pool_nhwc.launches == launches
+    with timer.tally() as counts:
+        for got in _both_entries(x, kernel, stride, pad):
+            assert same_bits(got, want)
+        for scan in (clipped_window_max, strip_window_max):
+            assert same_bits(scan(x, kernel, stride, pad), want)
+    assert "vvtpu.max_pool.launches" not in counts
 
 
 @pytest.mark.parametrize("case", GEOMETRIES, ids=IDS)
@@ -151,9 +152,10 @@ def test_googlenet_runs_its_13_pools_through_the_op(monkeypatch):
     assert seen == _geometries(GOOGLENET)
     assert counts.get("vvtpu.max_pool.calls") == 13
     assert "vvtpu.max_pool.launches" not in counts
-    with timer.tally() as counts:
-        GoogLeNet(plain=True).forward(params, images[:, :64, :64])
-    assert "vvtpu.max_pool.calls" not in counts
+    with timer.tally() as counts, plain_versions():
+        GoogLeNet().forward(params, images[:, :64, :64])
+    assert counts.get("vvtpu.max_pool.calls") == 13
+    assert "vvtpu.max_pool.launches" not in counts
 
 
 def test_caffenet_runs_its_3_pools_through_the_op(monkeypatch):
@@ -167,9 +169,10 @@ def test_caffenet_runs_its_3_pools_through_the_op(monkeypatch):
         fc7 = MedNet(cfg).forward(params, images)
     assert seen == _geometries(CAFFENET)
     assert counts.get("vvtpu.max_pool.calls") == 3
-    with timer.tally() as counts:
-        plain = MedNet(cfg, plain=True).forward(params, images)
-    assert "vvtpu.max_pool.calls" not in counts
+    with timer.tally() as counts, plain_versions():
+        plain = MedNet(cfg).forward(params, images)
+    assert counts.get("vvtpu.max_pool.calls") == 3
+    assert "vvtpu.max_pool.launches" not in counts
     assert torch.equal(fc7, plain)
 
 

@@ -299,6 +299,7 @@ def test_a_mednet_program_exports_its_pools_as_the_custom_op(tmp_path):
     vvtpu.max_pool_nhwc nodes and no aten max pool, and a process that has
     imported nothing of the port but load_exported runs it, equal to the
     plain forward."""
+    from videovector_tpu_torch.device import plain_versions
     from videovector_tpu_torch.models.mednet import (
         CAFFENET_CONVS, MedNet, MedNetConfig,
     )
@@ -312,7 +313,8 @@ def test_a_mednet_program_exports_its_pools_as_the_custom_op(tmp_path):
     path = str(tmp_path / "mednet.pt2")
     with torch.no_grad():
         save_exported(path, lambda im: MedNet(cfg).forward(params, im), x)
-        want = MedNet(cfg, plain=True).forward(params, x)
+        with plain_versions():
+            want = MedNet(cfg).forward(params, x)
     np.save(tmp_path / "x.npy", x.numpy())
     code = (
         "import sys, numpy as np, torch\n"

@@ -9,6 +9,7 @@ profiler node. The kernels' `.launch` spans run only on the card
 (tests/test_torch_cuda_kernels.py)."""
 
 import itertools
+import threading
 from collections import defaultdict
 
 import pytest
@@ -303,3 +304,20 @@ def test_tally_collects_counts_with_or_without_a_profiler():
             timer.count("vvtpu.a", 4)
     assert profiled == {"vvtpu.a": 4}
     assert timer.recorded().counters == {"vvtpu.a": 4}
+
+
+def test_tally_collects_counts_from_other_threads():
+    """A tally takes what `count` adds inside its block on any thread (a
+    checkpointed recompute on the card runs on autograd's), and nothing
+    after it."""
+    with timer.tally() as counts:
+        worker = threading.Thread(target=timer.count, args=("vvtpu.a", 2))
+        worker.start()
+        worker.join(timeout=30)
+        assert not worker.is_alive()
+        timer.count("vvtpu.a", 1)
+    worker = threading.Thread(target=timer.count, args=("vvtpu.a", 4))
+    worker.start()
+    worker.join(timeout=30)
+    assert not worker.is_alive()
+    assert counts == {"vvtpu.a": 3}

@@ -48,9 +48,8 @@ def _export(artifact, net, weights, blob, mesh) -> dict:
 
 
 def _serve(batch, *artifacts) -> dict:
-    from videovector_tpu_torch.ops.hopper import conv_gemm as k2
-    from videovector_tpu_torch.ops.hopper import matmul as k1
     from videovector_tpu_torch.tools import serving
+    from videovector_tpu_torch.utils import timer
     with np.load(batch) as z:
         feed = {k: z[k] for k in z.files}
     res = {}
@@ -58,13 +57,12 @@ def _serve(batch, *artifacts) -> dict:
         try:
             call, meta = serving.load_serving(art)
             run = serving.mesh_serving(call, meta)
-            before = k1.matmul.launches, k2.conv2d_im2col_gemm.launches
-            got = run(feed)
+            with timer.tally() as counts:
+                got = run(feed)
             torch.cuda.synchronize()
             res[art] = {"outs": {k: v.cpu().numpy() for k, v in got.items()},
-                        "launches": (k1.matmul.launches - before[0],
-                                     k2.conv2d_im2col_gemm.launches
-                                     - before[1])}
+                        "launches": (counts.get("vvtpu.k1.launches", 0),
+                                     counts.get("vvtpu.k2.launches", 0))}
         except ValueError as e:
             res[art] = {"error": str(e)}
     return res

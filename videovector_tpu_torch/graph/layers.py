@@ -7,8 +7,8 @@ A layer is a pair of functions:
   apply(params, inputs, cfg, ctx) -> outputs    (list of tensors)
 
 `cfg` is the LayerParameter `Message`; `ctx` carries the phase, the dropout
-generator, the host-loaded side tables, the GEMM and conv operand dtype
-and the switch to K1's and K2's plain versions. Autograd replaces every Backward. Data-layer
+generator, the host-loaded side tables and the GEMM and conv operand
+dtype. Autograd replaces every Backward. Data-layer
 types are not here: the Net treats their tops as graph inputs fed by the
 data pipeline (see graph/net.py, graph/data_factory.py).
 
@@ -61,10 +61,6 @@ class ApplyContext:
     # (solver prototxt `compute_dtype` -> Net(compute_dtype=...)), the
     # cast discipline of models/embedding.py's compute_dtype
     compute_dtype: torch.dtype | None = None
-    # run K1's and K2's plain PyTorch versions in place of the kernels (to
-    # compare the two on one device, and for the shape pass on "meta"
-    # tensors)
-    plain: bool = False
     # int8 PTQ side table {layer_name: ...} of the JAX package's serving
     # exporter; not ported yet (ROADMAP item 10)
     quant: Any = None
@@ -184,11 +180,10 @@ def _inner_product():
                 w.shape[1] == int(p.get("num_output")):
             # a whole weight under a model axis (Net gathers a shared
             # param it reshapes): the product of the whole, on every rank
-            return [shard_matmul(x, w, b, compute_dtype=cdt,
-                                 plain=ctx.plain)]
+            return [shard_matmul(x, w, b, compute_dtype=cdt)]
         # under a model axis, w is the rank's column shard: K1 on it, the
         # columns gathered over "model" (ops/linear.py::tower_matmul)
-        return [tower_matmul(x, w, b, compute_dtype=cdt, plain=ctx.plain)]
+        return [tower_matmul(x, w, b, compute_dtype=cdt)]
 
     return init, apply
 
@@ -273,14 +268,12 @@ def _convolution():
         if q is not None and q.get("mode", "int8") == "weight_only":
             return [conv2d_nchw(x, dequantize_conv_weight(q), b,
                                 stride=stride, pad=pad, groups=groups,
-                                compute_dtype=torch.bfloat16,
-                                plain=ctx.plain)]
+                                compute_dtype=torch.bfloat16)]
         if q is not None:
             return [int8_conv2d(x, q, b, stride=stride, pad=pad,
                                 groups=groups)]
         return [conv2d_nchw(x, params["w"], b, stride=stride, pad=pad,
-                            groups=groups, compute_dtype=ctx.compute_dtype,
-                            plain=ctx.plain)]
+                            groups=groups, compute_dtype=ctx.compute_dtype)]
 
     return init, apply
 

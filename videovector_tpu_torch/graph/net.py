@@ -123,18 +123,15 @@ class Net:
 
     compute_dtype: None (f32, the reference's numerics), "float32" or
     "bfloat16" (the INNER_PRODUCT and CONVOLUTION operands; sums stay f32).
-    plain: run K1's and K2's plain versions in place of the kernels on CUDA
-    tensors. fuse_scoring: the
+    fuse_scoring: the
     scoring-head fusion (graph/fuse.py; also off under
     VVTPU_DISABLE_FUSION=1)."""
 
     def __init__(self, net_msg: Message, phase: str = "TRAIN", *,
                  level: int = 0, stages: tuple = (), side: dict | None = None,
-                 compute_dtype=None, plain: bool = False,
-                 fuse_scoring: bool = True):
+                 compute_dtype=None, fuse_scoring: bool = True):
         self.compute_dtype = (torch_dtype(compute_dtype)
                               if compute_dtype is not None else None)
-        self.plain = plain
         self.fuse_scoring = bool(fuse_scoring) and fusion_enabled()
         # input blobs the caller feeds role-major: the batch carries
         # (R, B, feat...) for a blob whose logical shape is (B, R, feat...).
@@ -389,11 +386,9 @@ class Net:
         return validators
 
     # ------------------------------------------------------------------
-    def _context(self, generator=None, *, plain=None,
-                 device=None) -> ApplyContext:
+    def _context(self, generator=None, *, device=None) -> ApplyContext:
         return ApplyContext(phase=self.phase, generator=generator,
                             side=self.side, compute_dtype=self.compute_dtype,
-                            plain=self.plain if plain is None else plain,
                             quant=self.quant, device=device)
 
     def init(self, generator: torch.Generator, batch_spec: dict[str, Any]):
@@ -405,9 +400,9 @@ class Net:
         AppendParam net.cpp:405-464).
 
         Shapes are inferred without real work: each layer up to the last
-        one that holds params runs on "meta" tensors (no data; K1's plain
-        version, which reaches no kernel). The layers after it need no
-        input shapes."""
+        one that holds params runs on "meta" tensors (no data; the kernels'
+        entry points run their plain versions there). The layers after it
+        need no input shapes."""
         blobs: dict[str, torch.Tensor] = {}
         for name in self.input_names:
             if name not in batch_spec:
@@ -418,7 +413,7 @@ class Net:
         meta: dict[str, dict[str, ParamMeta]] = {}
         shared_owner_by_name: dict[str, tuple[str, str]] = {}
         # dropout draws on "meta" tensors consume nothing from this one
-        ctx = self._context(torch.Generator(), plain=True, device="meta")
+        ctx = self._context(torch.Generator(), device="meta")
         compute = [l for l in self.layers
                    if l.get("type") not in DATA_LAYER_TYPES]
         last = max((i for i, l in enumerate(compute)

@@ -24,7 +24,7 @@ import torch.utils.checkpoint
 from videovector_tpu_torch.core import fillers
 from videovector_tpu_torch.models.mednet import cast_param, torch_dtype
 from videovector_tpu_torch.ops import activations, collectives
-from videovector_tpu_torch.ops.hopper.matmul import matmul, matmul_plain
+from videovector_tpu_torch.ops.hopper.matmul import matmul
 from videovector_tpu_torch.ops.linear import no_tf32, tower_matmul
 from videovector_tpu_torch.ops.losses import max_margin_loss
 from videovector_tpu_torch.ops.normalization import l2_normalize_rows
@@ -76,13 +76,10 @@ class VideoEmbeddingConfig:
 
 
 class VideoEmbeddingModel:
-    """Params are a plain dict {"tower": {"w": (D, E), "b": (E,)}}.
-    `plain=True` runs K1's plain version in place of the kernel (to compare
-    the two on one device)."""
+    """Params are a plain dict {"tower": {"w": (D, E), "b": (E,)}}."""
 
-    def __init__(self, cfg: VideoEmbeddingConfig, *, plain: bool = False):
+    def __init__(self, cfg: VideoEmbeddingConfig):
         self.cfg = cfg
-        self.plain = plain
 
     def init(self, generator: torch.Generator):
         cfg = self.cfg
@@ -105,8 +102,7 @@ class VideoEmbeddingModel:
         wants_grad = torch.is_grad_enabled() and any(
             v.requires_grad for v in (flat, t["w"], t["b"]))
         if not train and not wants_grad and collectives.axis("model") is None:
-            mm = matmul_plain if self.plain else matmul
-            h = mm(flat.to(cdt), cast_param(t["w"], cdt), t["b"],
+            h = matmul(flat.to(cdt), cast_param(t["w"], cdt), t["b"],
                    fuse_relu=True, out_dtype=torch.float32)
             h = h.to(torch_dtype(cfg.activation_dtype))
             return h.reshape(*lead, cfg.embed_dim)
@@ -140,8 +136,7 @@ class VideoEmbeddingModel:
 
     def _tower(self, flat, w, b, *, cdt, mask):
         cfg = self.cfg
-        h = activations.relu(tower_matmul(flat, w, b, compute_dtype=cdt,
-                                          plain=self.plain))
+        h = activations.relu(tower_matmul(flat, w, b, compute_dtype=cdt))
         if mask is not None:
             h = activations.apply_dropout(h, mask, 1.0 - cfg.dropout_rate)
         return h.to(torch_dtype(cfg.activation_dtype))

@@ -24,10 +24,11 @@ runs on K2 (ops/hopper/conv_gemm.py) with the bias + ReLU epilogue fused,
 bf16 out in bf16 mode; conv1's 3 channels are repacked by K2's
 space-to-depth, padding included, so all 57 convs take the sm90 route on
 the card, and all 13 max pools run on ops/pooling.py's NHWC kernel.
-`plain=True` routes the same calls to the kernels' plain versions. The
-branches meet in `torch.cat`: the counter `vvtpu.concat_bytes` adds the
-bytes each concatenation writes, and each module runs inside the span
-`vvtpu.inception`, its request id the module's index.
+Each entry point runs its plain version on the CPU and inside
+`device.plain_versions()`. The branches meet in `torch.cat`: the counter
+`vvtpu.concat_bytes` adds the bytes each concatenation writes, and each
+module runs inside the span `vvtpu.inception`, its request id the
+module's index.
 """
 
 from __future__ import annotations
@@ -39,11 +40,9 @@ import torch
 
 from videovector_tpu_torch.core import fillers
 from videovector_tpu_torch.models.mednet import cast_param, torch_dtype
-from videovector_tpu_torch.ops.hopper.conv_gemm import (
-    conv2d_gemm_nhwc, conv2d_gemm_nhwc_plain,
-)
-from videovector_tpu_torch.ops.lrn import channel_window_sum
-from videovector_tpu_torch.ops.pooling import max_pool, max_pool_nhwc_plain
+from videovector_tpu_torch.ops.hopper.conv_gemm import conv2d_gemm_nhwc
+from videovector_tpu_torch.ops.lrn import lrn_nhwc
+from videovector_tpu_torch.ops.pooling import max_pool
 from videovector_tpu_torch.utils.timer import count, span
 
 @dataclass(frozen=True)
@@ -113,18 +112,14 @@ class GoogLeNetConfig:
         return out
 
 
-def lrn(x: torch.Tensor) -> torch.Tensor:
-    """Cross-channel LRN (size 5, alpha 1e-4, beta 0.75) on NHWC, in x's
-    dtype, as MedNet's."""
-    summed = channel_window_sum(x * x, 3, 5)
-    return x * torch.pow(1.0 + (1e-4 / 5) * summed, -0.75)
+# the name GoogLeNet's forward looks up for its two LRNs (a fault check
+# patches it)
+lrn = lrn_nhwc
 
 
 class GoogLeNet:
-    def __init__(self, cfg: GoogLeNetConfig = GoogLeNetConfig(), *,
-                 plain: bool = False):
+    def __init__(self, cfg: GoogLeNetConfig = GoogLeNetConfig()):
         self.cfg = cfg
-        self.plain = plain
 
     def init(self, generator: torch.Generator):
         """BVLC's fillers: xavier weights (uniform within sqrt(3 / fan_in))
@@ -155,17 +150,14 @@ class GoogLeNet:
     def _conv(self, params, name, x, stride=1, pad=0):
         """The conv `name` with its bias and ReLU, in the compute dtype."""
         cdt = torch_dtype(self.cfg.compute_dtype)
-        conv = conv2d_gemm_nhwc_plain if self.plain else conv2d_gemm_nhwc
         p = params[name]
-        return conv(x, cast_param(p["w"], cdt), p["b"],
+        return conv2d_gemm_nhwc(x, cast_param(p["w"], cdt), p["b"],
                     stride=(stride, stride), pad=(pad, pad), fuse_relu=True,
                     out_dtype=cdt)
 
     def _pool(self, x, stride: int, pad: int = 0):
         """A 3x3 max pool of NHWC x with Caffe's geometry: ops/pooling.py's
-        kernel on the card (its plain version when `plain`)."""
-        if self.plain:
-            return max_pool_nhwc_plain(x, (3, 3), (stride, stride), (pad, pad))
+        kernel on the card."""
         return max_pool(x, kernel=(3, 3), stride=(stride, stride),
                         pad=(pad, pad), layout="NHWC")
 

@@ -8,8 +8,8 @@ H, W, C order (the flatten before fc6 is HWC, not CHW).
 Every convolution runs on K2 (ops/hopper/conv_gemm.py) with the bias + ReLU
 epilogue fused (in bf16, one launch per conv on its sm90 route); fc6 and
 fc7 run on K1 (ops/hopper/matmul.py), and the max pools on ops/pooling.py's
-NHWC kernel. `plain=True` routes the same calls to the kernels'
-plain PyTorch versions, for comparing the two on one device.
+NHWC kernel; each entry point runs its plain version on the CPU and
+inside `device.plain_versions()`.
 
 In bf16 mode each conv emits bf16 and the bias + ReLU, pooling and LRN run
 in bf16; fc6 and fc7 sum in f32 and add their bias in f32.
@@ -22,14 +22,10 @@ from dataclasses import dataclass
 import torch
 
 from videovector_tpu_torch.core import fillers
-from videovector_tpu_torch.ops.hopper.conv_gemm import (
-    conv2d_gemm_nhwc, conv2d_gemm_nhwc_plain,
-)
-from videovector_tpu_torch.ops.hopper.matmul import matmul, matmul_plain
-from videovector_tpu_torch.ops.lrn import channel_window_sum
-from videovector_tpu_torch.ops.pooling import (
-    _pool_geometry, max_pool, max_pool_nhwc_plain,
-)
+from videovector_tpu_torch.ops.hopper.conv_gemm import conv2d_gemm_nhwc
+from videovector_tpu_torch.ops.hopper.matmul import matmul
+from videovector_tpu_torch.ops.lrn import lrn_nhwc
+from videovector_tpu_torch.ops.pooling import _pool_geometry, max_pool
 from videovector_tpu_torch.utils.timer import count
 
 
@@ -85,10 +81,8 @@ def cast_param(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 
 class MedNet:
-    def __init__(self, cfg: MedNetConfig = MedNetConfig(), *,
-                 plain: bool = False):
+    def __init__(self, cfg: MedNetConfig = MedNetConfig()):
         self.cfg = cfg
-        self.plain = plain
 
     def init(self, generator: torch.Generator, in_channels: int = 3):
         """Gaussian weights (conv std 0.01, fc std 0.005) and zero biases, on
@@ -125,26 +119,21 @@ class MedNet:
         """images: (N, H, W, C) f32 (preprocessed) -> features (N, fc6|fc7)
         in f32. `upto`: fc6 | fc7 (fc7 output == Caffe's ip2 after ReLU)."""
         cdt = torch_dtype(self.cfg.compute_dtype)
-        conv = conv2d_gemm_nhwc_plain if self.plain else conv2d_gemm_nhwc
-        mm = matmul_plain if self.plain else matmul
         x = images
         for spec in self.cfg.convs:
             p = params[spec.name]
-            x = conv(x.to(cdt), cast_param(p["w"], cdt), p["b"],
+            x = conv2d_gemm_nhwc(x.to(cdt), cast_param(p["w"], cdt), p["b"],
                      stride=(spec.stride, spec.stride),
                      pad=(spec.pad, spec.pad), groups=spec.group,
                      fuse_relu=True, out_dtype=cdt)
-            if spec.pool and self.plain:
-                x = max_pool_nhwc_plain(x, (3, 3), (2, 2))
-            elif spec.pool:
+            if spec.pool:
                 x = max_pool(x, kernel=(3, 3), stride=(2, 2), layout="NHWC")
             if spec.lrn:
-                summed = channel_window_sum(x * x, 3, 5)
-                x = x * torch.pow(1.0 + (1e-4 / 5) * summed, -0.75)
+                x = lrn_nhwc(x)
         x = x.reshape(x.shape[0], -1)        # H, W, C order: fc6's row order
         for name in ("fc6", "fc7"):
             p = params[name]
-            x = mm(x.to(cdt), cast_param(p["w"], cdt), p["b"],
+            x = matmul(x.to(cdt), cast_param(p["w"], cdt), p["b"],
                    fuse_relu=True, out_dtype=torch.float32)
             if upto == name:
                 return x

@@ -24,8 +24,8 @@ buffers, replays it and returns copies of its outputs. The graph reads
 the params and the gallery where they lie, so updates made to them in
 place are seen. It runs the same kernels in the same order as the eager
 query, so the answers are the same bits. A pipeline keeps one graph, the
-newest key's; any other call (the CPU, `plain`, host offsets, a new
-gallery, params or batch size) runs eagerly.
+newest key's; any other call (the CPU, `device.plain_versions()`, host
+offsets, a new gallery, params or batch size) runs eagerly.
 
 Under a profiler each stage is a span (utils/timer.py): `vvtpu.query`
 (its request id the pipeline's count of queries) around the call, and
@@ -51,7 +51,7 @@ from videovector_tpu_torch.convert import leaves_with_paths, map_params
 from videovector_tpu_torch.data.transformer import (
     TransformConfig, make_batch_transform,
 )
-from videovector_tpu_torch.device import DEFAULT, resolve
+from videovector_tpu_torch.device import DEFAULT, resolve, runs_kernel
 from videovector_tpu_torch.models.embedding import (
     VideoEmbeddingConfig, VideoEmbeddingModel,
 )
@@ -124,34 +124,30 @@ class _QueryGraph:
 
 class RetrievalPipeline:
     def __init__(self, cfg: RetrievalPipelineConfig = RetrievalPipelineConfig(),
-                 *, mean: np.ndarray | None = None, device=DEFAULT,
-                 plain: bool = False):
+                 *, mean: np.ndarray | None = None, device=DEFAULT):
         """Runs on the card unless `device` asks for the CPU; without a card
-        a CUDA device raises here. `plain=True` runs every kernel's plain
-        PyTorch version instead of the kernel (to compare the two on one
-        device)."""
+        a CUDA device raises here."""
         self.cfg = cfg
         self.device = resolve(device)
-        self.plain = plain
         # backbone_key: the attribute that holds the backbone, and its
         # params' key
         if cfg.backbone == "caffenet":
             self.backbone_key = "mednet"
             self.mednet = MedNet(MedNetConfig(
                 input_hw=(cfg.crop, cfg.crop), fc7=4096,
-                compute_dtype=cfg.compute_dtype), plain=plain)
+                compute_dtype=cfg.compute_dtype))
             feature_dim = 4096
         elif cfg.backbone == "googlenet":
             self.backbone_key = "googlenet"
             self.googlenet = GoogLeNet(GoogLeNetConfig(
-                compute_dtype=cfg.compute_dtype), plain=plain)
+                compute_dtype=cfg.compute_dtype))
             feature_dim = self.googlenet.cfg.feature_dim
         else:
             raise ValueError("backbone must be 'caffenet' or 'googlenet', "
                              f"got {cfg.backbone!r}")
         self.embedder = VideoEmbeddingModel(VideoEmbeddingConfig(
             feature_dim=feature_dim, embed_dim=cfg.embed_dim,
-            compute_dtype=cfg.compute_dtype, dropout_rate=0.0), plain=plain)
+            compute_dtype=cfg.compute_dtype, dropout_rate=0.0))
         self.transform = make_batch_transform(
             TransformConfig(crop_size=cfg.crop), mean, cfg.image_hw,
             layout=cfg.pixels_layout, device=self.device)
@@ -217,9 +213,11 @@ class RetrievalPipeline:
     def _graph_for(self, params, inputs, gallery, gallery_ids):
         """The captured query to replay for this call, captured here if
         the last query run eagerly had its key and no profiler records;
-        None to run this one eagerly."""
-        if self.device.type != "cuda" or self.plain or not all(
-                isinstance(t, torch.Tensor) and t.is_cuda for t in inputs):
+        None to run this one eagerly (so inside `device.plain_versions()`).
+        """
+        if self.device.type != "cuda" or not all(
+                isinstance(t, torch.Tensor) and runs_kernel(t)
+                for t in inputs):
             return None
         key = query_graph_key(params, *inputs, gallery, gallery_ids)
         if self._graph is not None and self._graph.key == key:

@@ -25,20 +25,21 @@ f32 out, no groups, always the core); `conv2d_gemm_nhwc`, MedNet's conv
 `conv2d_nchw`, the graph engine's CONVOLUTION (NCHW/OIHW, groups,
 differentiable, JAX's Net numerics: one rounding of the f32 sum plus the
 f32 bias).
-`conv2d_im2col_gemm.launches` counts every K2 launch of any route,
-`conv2d_im2col_gemm.launches_sm90` and `.launches_f32` those of the sm90
-and f32 routes; `conv2d_nchw.layout_copies` counts the channels_last
-copies `conv2d_nchw` makes of inputs that arrive in another layout.
+The counters (utils/timer.py): `vvtpu.k2.launches` every K2 launch,
+`vvtpu.k2.sm90_launches` and `vvtpu.k2.f32_launches` those of the sm90
+and f32 routes, `vvtpu.s2d.launches` the repacks, `vvtpu.k2.layout_copies`
+the channels_last copies `conv2d_nchw` makes of its inputs.
 The epilogue is MedNet's (`conv_epilogue_plain`), not K1's: a bf16 output
 rounds the sum, adds the rounded bias, rounds again, then applies ReLU.
-Each runs its plain version (`*_plain`: im2col + matmul) for CPU tensors and
-launches a kernel for CUDA tensors; on any other device it raises.
-`conv2d_gemm_nhwc` (and so `conv2d_nchw`) reaches the kernels through the
-custom op `vvtpu::k2_conv2d_nhwc`: its real implementation picks the route
-(reading the operands' addresses), repacks conv1 and launches, counting
-each launch; its fake implementation gives the output's shape and dtype
-alone, so `torch.export` traces K2 into a serving artifact
-(tools/serving.py) as one node, and the artifact's launches count too.
+Each launches a kernel where `device.runs_kernel` says so, else runs its
+plain version (`*_plain`: im2col + matmul). `conv2d_gemm_nhwc` and
+`conv2d_nchw` reach the kernels through the custom op
+`vvtpu::k2_conv2d_nhwc`: its real implementation checks the operands,
+picks the route (reading their addresses), repacks conv1 and launches,
+counting each launch; its fake implementation checks their shapes and
+dtypes and gives the output's, so `torch.export` traces K2 into a serving
+artifact (tools/serving.py) as one node, and the artifact's launches count
+too.
 """
 
 from __future__ import annotations
@@ -49,12 +50,13 @@ import torch
 import torch.nn.functional as F
 
 from videovector_tpu_torch import _build
+from videovector_tpu_torch.device import runs_kernel
 from videovector_tpu_torch.ops.conv import im2col
 from videovector_tpu_torch.ops.hopper.matmul import (
-    DTYPE_CODES, INT_MAX, bias_f32, check_cuda_operands, dtype_code,
+    DTYPE_CODES, INT_MAX, bias_f32, dtype_code, forward_only, same_device,
 )
 from videovector_tpu_torch.ops.linear import no_tf32
-from videovector_tpu_torch.utils.timer import span
+from videovector_tpu_torch.utils.timer import count, span
 
 # the sm90 route's tiles (csrc/conv_gemm_sm90.cu): output columns per block
 # (wgmma widths), and rows per block (64 per consumer warpgroup)
@@ -172,27 +174,32 @@ def space_to_depth_plain(x, w, stride: int, pad: int = 0):
 
 
 def space_to_depth(x, w, stride: int, pad: int = 0):
-    """`space_to_depth_plain`'s repack: for CUDA tensors (contiguous, both
-    bf16 or both f32) one launch of csrc/conv_gemm_sm90.cu's repack kernel,
-    which zero-pads as it gathers (no padded copy of x is made), counted in
-    `space_to_depth.launches`; for CPU tensors the plain version. The
-    host's time in it is the span `vvtpu.s2d`, the ctypes call
+    """`space_to_depth_plain`'s repack: where `runs_kernel(x)` (contiguous,
+    both bf16 or both f32) one launch of csrc/conv_gemm_sm90.cu's repack
+    kernel, which zero-pads as it gathers (no padded copy of x is made),
+    counted in `vvtpu.s2d.launches`; else the plain version. The host's
+    time in it is the span `vvtpu.s2d`, the ctypes call
     `vvtpu.s2d.launch`."""
     with span("vvtpu.s2d"):
-        if x.device.type == "cpu":
+        if not runs_kernel(x):
             return space_to_depth_plain(x, w, stride, pad)
+        forward_only(x, w)
+        same_device(x, w)
+        k, c = w.shape[0], x.shape[3]
+        if not (x.dtype == w.dtype and x.dtype in DTYPE_CODES
+                and x.is_contiguous() and w.is_contiguous()
+                and w.shape[1] == k and w.shape[2] == c):
+            raise ValueError(
+                "space_to_depth on the card wants contiguous x (N, H, W, C) "
+                "and w (k, k, C, O), both bf16 or both f32, got "
+                f"{tuple(x.shape)} {x.dtype}, {tuple(w.shape)} {w.dtype}")
         return _space_to_depth(x, w, stride, pad)
 
 
 def _space_to_depth(x, w, stride: int, pad: int):
-    check_cuda_operands(x, w)
+    """One launch of the repack kernel on operands that fit it."""
     n, h, wd, c = x.shape
     k, o = w.shape[0], w.shape[3]
-    if not (x.dtype == w.dtype and x.dtype in DTYPE_CODES and x.is_contiguous()
-            and w.is_contiguous() and w.shape[1] == k and w.shape[2] == c):
-        raise ValueError("space_to_depth on the card wants contiguous x (N, H, "
-                         "W, C) and w (k, k, C, O), both bf16 or both f32, got "
-                         f"{tuple(x.shape)} {x.dtype}, {tuple(w.shape)} {w.dtype}")
     kb, hb, wb, _, ep = _space_to_depth_shape(h, wd, c, k, stride, pad,
                                               x.element_size())
     xs = torch.empty((n, hb, wb, ep), dtype=x.dtype, device=x.device)
@@ -205,11 +212,8 @@ def _space_to_depth(x, w, stride: int, pad: int):
             wd, c, o, k, stride, pad, DTYPE_CODES[x.dtype],
             x.device.index or 0, stream)
     _build.check(rc, "K2 space_to_depth")
-    space_to_depth.launches += 1
+    count("vvtpu.s2d.launches", 1)
     return xs, ws
-
-
-space_to_depth.launches = 0
 
 
 def _space_to_depth_fits(x, w, stride, pad, groups) -> bool:
@@ -322,10 +326,10 @@ def _conv_hopper(route, x, w, b, stride, pad, fuse_relu, out_dtype):
     """Launches the sm90 or the f32 route once for an NHWC/HWIO conv whose
     operands `k2_route` sent there, after conv1's repack where the channels
     per group do not fill 16-byte chunks; returns the (N, oh, ow, O)
-    output."""
-    check_cuda_operands(x, w, b)
+    output. `k2_route` has checked that the repack fits the operands."""
     if w.shape[2] % (16 // x.element_size()):
-        x, w = space_to_depth(x, w, stride[0], pad[0])
+        with span("vvtpu.s2d"):
+            x, w = _space_to_depth(x, w, stride[0], pad[0])
         stride, pad = (1, 1), (0, 0)
     n, h, wd, c = x.shape
     kh, kw, cg, o = w.shape
@@ -350,7 +354,7 @@ def _conv_hopper(route, x, w, b, stride, pad, fuse_relu, out_dtype):
             rc = lib.vv_conv_gemm_sm90(*args, *geom, block_m, block_n,
                                        DTYPE_CODES[out_dtype], *tail)
         _build.check(rc, "K2 conv_gemm (sm90 route)")
-        conv2d_im2col_gemm.launches_sm90 += 1
+        count("vvtpu.k2.sm90_launches", 1)
     else:
         block_m, block_n, splits = k2_f32_plan(m, o // groups, groups,
                                                kh * kw * cg, sms)
@@ -361,15 +365,15 @@ def _conv_hopper(route, x, w, b, stride, pad, fuse_relu, out_dtype):
                 *args, ws.data_ptr() if ws is not None else None, *geom,
                 block_m, block_n, splits, *tail)
         _build.check(rc, "K2 conv_gemm (f32 route)")
-        conv2d_im2col_gemm.launches_f32 += 1
-    conv2d_im2col_gemm.launches += 1
+        count("vvtpu.k2.f32_launches", 1)
+    count("vvtpu.k2.launches", 1)
     return out
 
 
 def _conv_kernel(x, w, b, out, stride, pad, groups, fuse_relu):
     """Launches the core route once per group on logical NCHW/OIHW/NCHW views (any
-    strides), writing each group's channel slice of `out`."""
-    check_cuda_operands(x, w, b, out)
+    strides), writing each group's channel slice of `out`, on operands its
+    caller has checked."""
     n, c, h, wd = x.shape
     o, cg, kh, kw = w.shape
     oh, ow = out.shape[2], out.shape[3]
@@ -395,14 +399,8 @@ def _conv_kernel(x, w, b, out, stride, pad, groups, fuse_relu):
                 DTYPE_CODES[x.dtype], DTYPE_CODES[out.dtype], int(fuse_relu),
                 x.device.index or 0, stream)
         _build.check(rc, "K2 conv_gemm")
-        conv2d_im2col_gemm.launches += 1
+        count("vvtpu.k2.launches", 1)
     return out
-
-
-def _device_kind(x) -> str:
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"K2 runs on CUDA or (plain) CPU tensors, not {x.device}")
-    return x.device.type
 
 
 def conv2d_im2col_gemm_plain(x, w, b=None, *, stride=(1, 1), pad=(0, 0)):
@@ -414,20 +412,17 @@ def conv2d_im2col_gemm_plain(x, w, b=None, *, stride=(1, 1), pad=(0, 0)):
 def conv2d_im2col_gemm(x, w, b=None, *, stride=(1, 1), pad=(0, 0)):
     """x: (N, C, H, W); w: (O, C, kh, kw); b: (O,) -> (N, O, oh, ow) f32.
     Groups unsupported on this entry point (as in the JAX module)."""
-    if _device_kind(x) == "cpu":
+    if not runs_kernel(x):
         return conv2d_im2col_gemm_plain(x, w, b, stride=stride, pad=pad)
     if x.dim() == 4 and w.dim() == 4 and x.shape[1] != w.shape[1]:
         raise ValueError("conv_gemm path does not support groups")
     _check(x, w, 1, torch.float32)
+    forward_only(x, w, b)
+    same_device(x, w, b)
     oh, ow = _out_hw(x.shape[2], x.shape[3], w.shape[2], w.shape[3], stride, pad)
     out = torch.empty((x.shape[0], w.shape[0], oh, ow), dtype=torch.float32,
                       device=x.device)
     return _conv_kernel(x, w, b, out, stride, pad, 1, False)
-
-
-conv2d_im2col_gemm.launches = 0
-conv2d_im2col_gemm.launches_sm90 = 0
-conv2d_im2col_gemm.launches_f32 = 0
 
 
 def conv2d_gemm_nhwc_plain(x, w, b=None, *, stride=(1, 1), pad=(0, 0),
@@ -443,15 +438,15 @@ def conv2d_gemm_nhwc(x, w, b=None, *, stride=(1, 1), pad=(0, 0),
                      out_dtype=torch.float32):
     """x: (N, H, W, C); w: (kh, kw, C/groups, O) HWIO; b: (O,) ->
     act(conv + b): (N, oh, ow, O) in out_dtype, contiguous NHWC."""
-    if _device_kind(x) == "cpu":
-        with span("vvtpu.k2"):
-            return conv2d_gemm_nhwc_plain(x, w, b, stride=stride, pad=pad,
-                                          groups=groups, fuse_relu=fuse_relu,
-                                          out_dtype=out_dtype)
-    _check(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), groups, out_dtype)
-    check_cuda_operands(x, w, b)
-    return torch.ops.vvtpu.k2_conv2d_nhwc(x, w, b, list(stride), list(pad),
-                                          int(groups), fuse_relu, out_dtype)
+    if runs_kernel(x):
+        forward_only(x, w, b)
+        return torch.ops.vvtpu.k2_conv2d_nhwc(
+            x, w, b, list(stride), list(pad), int(groups), fuse_relu,
+            out_dtype)
+    with span("vvtpu.k2"):
+        return conv2d_gemm_nhwc_plain(x, w, b, stride=stride, pad=pad,
+                                      groups=groups, fuse_relu=fuse_relu,
+                                      out_dtype=out_dtype)
 
 
 @torch.library.custom_op(
@@ -466,17 +461,18 @@ def k2_conv2d_nhwc(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
     host's time in it is the span `vvtpu.k2`, each ctypes call
     `vvtpu.k2.launch` (conv1's repack, `vvtpu.s2d`, runs inside it)."""
     with span("vvtpu.k2"):
-        return _k2_conv2d_nhwc(x, w, b, tuple(stride), tuple(pad), groups,
-                               fuse_relu, out_dtype)
+        if x.device.type == "cpu":
+            return conv2d_gemm_nhwc_plain(x, w, b, stride=stride, pad=pad,
+                                          groups=groups, fuse_relu=fuse_relu,
+                                          out_dtype=out_dtype)
+        return _k2_launch(x, w, b, tuple(stride), tuple(pad), groups,
+                          fuse_relu, out_dtype)
 
 
-def _k2_conv2d_nhwc(x, w, b, stride, pad, groups, fuse_relu, out_dtype):
-    if x.device.type == "cpu":
-        return conv2d_gemm_nhwc_plain(x, w, b, stride=stride, pad=pad,
-                                      groups=groups, fuse_relu=fuse_relu,
-                                      out_dtype=out_dtype)
+def _k2_launch(x, w, b, stride, pad, groups, fuse_relu, out_dtype):
     xv, wv = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
     _check(xv, wv, groups, out_dtype)
+    same_device(x, w, b)
     route = k2_route(x, w, out_dtype, stride=stride, pad=pad)
     if route != "core":
         return _conv_hopper(route, x, w, b, stride, pad, fuse_relu, out_dtype)
@@ -490,37 +486,36 @@ def _k2_conv2d_nhwc(x, w, b, stride, pad, groups, fuse_relu, out_dtype):
 
 @k2_conv2d_nhwc.register_fake
 def _k2_conv2d_nhwc_fake(x, w, b, stride, pad, groups, fuse_relu, out_dtype):
+    _check(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), groups, out_dtype)
     oh, ow = _out_hw(x.shape[1], x.shape[2], w.shape[0], w.shape[1], stride,
                      pad)
     return x.new_empty((x.shape[0], oh, ow, w.shape[3]), dtype=out_dtype)
 
 
-def _conv_nchw_f32(x, w, b, stride, pad, groups, plain):
+def _conv_nchw_f32(x, w, b, stride, pad, groups):
     """conv(x, w) + b with an f32 sum and the f32 bias added in f32, as an
-    (N, O, oh, ow) f32 tensor: K2 for CUDA tensors, through channels_last
-    views (a copy of x unless it is channels_last already, counted in
-    `conv2d_nchw.layout_copies`), so that its output has NHWC strides: the
-    f32 route for f32 operands, the sm90 route for bf16 ones, the core for
-    what neither addresses; the plain version for CPU or "meta" tensors, or
-    when `plain`."""
-    if plain or x.device.type == "meta" or _device_kind(x) == "cpu":
+    (N, O, oh, ow) f32 tensor: where `runs_kernel(x)`, K2 through
+    channels_last views (a copy of x unless it is channels_last already,
+    counted in `vvtpu.k2.layout_copies`), so that its output has NHWC
+    strides: the f32 route for f32 operands, the sm90 route for bf16 ones,
+    the core for what neither addresses; else the plain version."""
+    if not runs_kernel(x):
         return _conv_plain(x, w, b, stride, pad, groups, False, torch.float32)
-    _check(x, w, groups, torch.float32)
     if not x.is_contiguous(memory_format=torch.channels_last):
-        conv2d_nchw.layout_copies += 1
-    y = conv2d_gemm_nhwc(
+        count("vvtpu.k2.layout_copies", 1)
+    y = torch.ops.vvtpu.k2_conv2d_nhwc(
         x.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1),
-        w.permute(2, 3, 1, 0).contiguous(), b, stride=stride, pad=pad,
-        groups=groups, out_dtype=torch.float32)
+        w.permute(2, 3, 1, 0).contiguous(), b, list(stride), list(pad),
+        groups, False, torch.float32)
     return y.permute(0, 3, 1, 2)
 
 
 class _ConvNCHW(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, b, stride, pad, groups, cdt, plain):
+    def forward(ctx, x, w, b, stride, pad, groups, cdt):
         xc, wc = x.to(cdt), w.to(cdt)
         with no_tf32():
-            y = _conv_nchw_f32(xc, wc, b, stride, pad, groups, plain)
+            y = _conv_nchw_f32(xc, wc, b, stride, pad, groups)
         ctx.save_for_backward(xc, wc)
         ctx.geometry = (stride, pad, groups)
         ctx.dtypes = (x.dtype, w.dtype)
@@ -543,11 +538,11 @@ class _ConvNCHW(torch.autograd.Function):
                 dw = dw.to(wc.dtype).to(ctx.dtypes[1])
         if ctx.needs_input_grad[2]:
             db = dy.sum((0, 2, 3))
-        return dx, dw, db, None, None, None, None, None
+        return dx, dw, db, None, None, None, None
 
 
 def conv2d_nchw(x, w, b=None, *, stride=(1, 1), pad=(0, 0), groups: int = 1,
-                compute_dtype: torch.dtype | None = None, plain: bool = False):
+                compute_dtype: torch.dtype | None = None):
     """The graph engine's convolution: x (N, C, H, W), w (O, C/groups, kh,
     kw) OIHW, b (O,) f32 -> (N, O, oh, ow) in the compute dtype (x's dtype
     when None), differentiable in all three.
@@ -556,15 +551,12 @@ def conv2d_nchw(x, w, b=None, *, stride=(1, 1), pad=(0, 0), groups: int = 1,
     and the result is rounded once, as the JAX Net's CONVOLUTION
     (ops/conv.py::conv2d with preferred_element_type f32). So a bf16 conv
     takes K2's f32 output and casts it, rather than K2's bf16 epilogue
-    (MedNet's: round, add the rounded bias, round again). On a CUDA tensor
-    the forward is K2 (`_conv_nchw_f32`; the output keeps K2's NHWC
-    strides, as a channels_last tensor); `plain` runs its plain version.
+    (MedNet's: round, add the rounded bias, round again). Where
+    `runs_kernel(x)` the forward is K2 (`_conv_nchw_f32`; the output keeps
+    K2's NHWC strides, as a channels_last tensor), else its plain version.
     The backward is plain PyTorch with TF32 off (the JAX package has no
     backward kernel): dx and dw in f32, each rounded to its operand's
     compute dtype, as the cotangents of JAX's casts are."""
     cdt = compute_dtype if compute_dtype is not None else x.dtype
     return _ConvNCHW.apply(x, w, b, tuple(stride), tuple(pad), int(groups),
-                           cdt, plain)
-
-
-conv2d_nchw.layout_copies = 0
+                           cdt)

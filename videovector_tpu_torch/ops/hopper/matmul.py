@@ -13,16 +13,16 @@ routes, picked from the operands alone by `k1_route`:
   else (transposed or odd-strided views, on f32 FMA or bf16 WMMA tiles).
 Each source note says what bounds its kernel on the H100.
 
-`matmul` launches a kernel for CUDA tensors and runs `matmul_plain`, the
-plain PyTorch version, for CPU tensors; on any other device it raises.
-It reaches the kernels through the custom op `vvtpu::k1_matmul`, whose
-real implementation picks the route (reading the operands' addresses) and
-launches, and whose fake implementation gives the output's shape and dtype
-alone: so `torch.export` traces K1 into a serving artifact
+`matmul` launches a kernel where `device.runs_kernel` says so, else runs
+`matmul_plain`, the plain PyTorch version. It reaches the kernels through
+the custom op `vvtpu::k1_matmul`, whose real implementation checks the
+operands, picks the route (reading their addresses) and launches, and
+whose fake implementation checks their shapes and dtypes and gives the
+output's: so `torch.export` traces K1 into a serving artifact
 (tools/serving.py) as one node, and the artifact launches it when it runs.
-`matmul.launches` counts every launch, `matmul.launches_sm90` and
-`matmul.launches_f32` those of the sm90 and f32 routes, inside the op, so
-an artifact's launches count too. The kernels are forward only, as the
+The op counts each launch in `vvtpu.k1.launches`, those of the sm90 and
+f32 routes in `vvtpu.k1.sm90_launches` and `vvtpu.k1.f32_launches`
+(utils/timer.py), an artifact's too. The kernels are forward only, as the
 Pallas kernel is: the training tower reaches K1 through
 ops.linear.tower_matmul, an autograd Function whose backward is
 torch.matmul.
@@ -35,7 +35,8 @@ from typing import Optional
 import torch
 
 from videovector_tpu_torch import _build
-from videovector_tpu_torch.utils.timer import span
+from videovector_tpu_torch.device import runs_kernel
+from videovector_tpu_torch.utils.timer import count, span
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 INT_MAX = 2**31 - 1
@@ -55,21 +56,24 @@ def dtype_code(dtype: torch.dtype, what: str) -> int:
     return DTYPE_CODES[dtype]
 
 
-def check_cuda_operands(*tensors: torch.Tensor | None) -> None:
-    """The common launch preconditions: CUDA tensors on one device, and no
-    autograd graph to extend (inside an autograd Function's forward, grad
-    mode is off and the check passes)."""
+def same_device(*tensors: torch.Tensor | None) -> None:
+    """A launch's operands (None skipped) lie on one device."""
     dev = tensors[0].device
     for t in tensors:
-        if t is None:
-            continue
-        if t.device != dev:
+        if t is not None and t.device != dev:
             raise ValueError(f"operands on different devices: {t.device} vs {dev}")
-        if t.requires_grad and torch.is_grad_enabled():
-            raise NotImplementedError(
-                "the Hopper kernels are forward only: call them under "
-                "torch.no_grad(), or through ops.linear.tower_matmul, whose "
-                "autograd Function carries the backward")
+
+
+def forward_only(*tensors: torch.Tensor | None) -> None:
+    """No autograd graph to extend. Checked in the entry points: a custom
+    op's real implementation, like an autograd Function's forward, runs
+    with grad mode off."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in tensors):
+        raise NotImplementedError(
+            "the Hopper kernels are forward only: call them under "
+            "torch.no_grad(), or through ops.linear.tower_matmul, whose "
+            "autograd Function carries the backward")
 
 
 def bias_f32(b: torch.Tensor | None, n: int) -> torch.Tensor | None:
@@ -166,17 +170,13 @@ def matmul(x, w, b=None, *, fuse_relu: bool = False, out_dtype=torch.float32):
     """x: (M, K), w: (K, N), b: (N,) optional -> act(x.w + b): (M, N).
 
     x and w share a dtype, float32 or bfloat16 (bfloat16 runs on the tensor
-    cores, float32 on FFMA); the sum is f32; any strides. CUDA tensors go
-    through `vvtpu::k1_matmul`; CPU tensors run `matmul_plain`."""
-    if x.device.type == "cpu":
-        with span("vvtpu.k1"):
-            return matmul_plain(x, w, b, fuse_relu=fuse_relu,
-                                out_dtype=out_dtype)
-    if x.device.type != "cuda":
-        raise ValueError(f"K1 runs on CUDA or (plain) CPU tensors, not {x.device}")
-    _check(x, w, out_dtype)
-    check_cuda_operands(x, w, b)
-    return torch.ops.vvtpu.k1_matmul(x, w, b, fuse_relu, out_dtype)
+    cores, float32 on FFMA); the sum is f32; any strides. Where
+    `runs_kernel(x)`, through `vvtpu::k1_matmul`; else `matmul_plain`."""
+    if runs_kernel(x):
+        forward_only(x, w, b)
+        return torch.ops.vvtpu.k1_matmul(x, w, b, fuse_relu, out_dtype)
+    with span("vvtpu.k1"):
+        return matmul_plain(x, w, b, fuse_relu=fuse_relu, out_dtype=out_dtype)
 
 
 @torch.library.custom_op(
@@ -189,13 +189,15 @@ def k1_matmul(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
     from `k1_route`, counted), `matmul_plain` on CPU tensors; the host's
     time in it is the span `vvtpu.k1`, the ctypes call `vvtpu.k1.launch`."""
     with span("vvtpu.k1"):
-        return _k1_matmul(x, w, b, fuse_relu, out_dtype)
+        if x.device.type == "cpu":
+            return matmul_plain(x, w, b, fuse_relu=fuse_relu,
+                                out_dtype=out_dtype)
+        return _k1_launch(x, w, b, fuse_relu, out_dtype)
 
 
-def _k1_matmul(x, w, b, fuse_relu, out_dtype):
-    if x.device.type == "cpu":
-        return matmul_plain(x, w, b, fuse_relu=fuse_relu, out_dtype=out_dtype)
+def _k1_launch(x, w, b, fuse_relu, out_dtype):
     _check(x, w, out_dtype)
+    same_device(x, w, b)
     m, k = x.shape
     n = w.shape[1]
     if max(m, n, k) > INT_MAX:
@@ -225,12 +227,12 @@ def _k1_matmul(x, w, b, fuse_relu, out_dtype):
             with span("vvtpu.k1.launch"):
                 rc = lib.vv_matmul_sm90(*args, block_m, *tail)
             _build.check(rc, "K1 matmul (sm90 route)")
-            matmul.launches_sm90 += 1
+            count("vvtpu.k1.sm90_launches", 1)
         else:
             with span("vvtpu.k1.launch"):
                 rc = lib.vv_matmul_f32_sm90(*args, *tail)
             _build.check(rc, "K1 matmul (f32 route)")
-            matmul.launches_f32 += 1
+            count("vvtpu.k1.f32_launches", 1)
     else:
         with span("vvtpu.k1.launch"):
             rc = lib.vv_matmul(
@@ -239,18 +241,15 @@ def _k1_matmul(x, w, b, fuse_relu, out_dtype):
                 out.stride(0), out.stride(1), DTYPE_CODES[x.dtype],
                 DTYPE_CODES[out_dtype], int(fuse_relu), device, stream)
         _build.check(rc, "K1 matmul")
-    matmul.launches += 1
+    count("vvtpu.k1.launches", 1)
     return out
 
 
 @k1_matmul.register_fake
 def _k1_matmul_fake(x, w, b, fuse_relu, out_dtype):
+    _check(x, w, out_dtype)
     return x.new_empty((x.shape[0], w.shape[1]), dtype=out_dtype)
 
-
-matmul.launches = 0
-matmul.launches_sm90 = 0
-matmul.launches_f32 = 0
 
 # The Pallas module zero-pads to block multiples here; this kernel masks the
 # ragged edges itself, so the name stays for readers and the function is one.

@@ -25,7 +25,7 @@ import contextlib
 import torch
 
 from videovector_tpu_torch.ops import collectives
-from videovector_tpu_torch.ops.hopper.matmul import matmul, matmul_plain
+from videovector_tpu_torch.ops.hopper.matmul import matmul
 
 
 @contextlib.contextmanager
@@ -100,10 +100,9 @@ def inner_product(x, w, b=None, *, regularization: float = 0.0):
 
 class _TowerMatmul(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, b, cdt, plain):
+    def forward(ctx, x, w, b, cdt):
         xc, wc = x.to(cdt), w.to(cdt)
-        mm = matmul_plain if plain else matmul
-        h = mm(xc, wc, b, out_dtype=torch.float32)
+        h = matmul(xc, wc, b, out_dtype=torch.float32)
         ctx.save_for_backward(xc, wc)
         ctx.x_dtype = x.dtype
         return h
@@ -119,23 +118,21 @@ class _TowerMatmul(torch.autograd.Function):
                 dw = (xc.float().T @ dy).to(wc.dtype).float()
         if ctx.needs_input_grad[2]:
             db = dy.sum(0)
-        return dx, dw, db, None, None
+        return dx, dw, db, None
 
 
-def shard_matmul(x, w, b, *, compute_dtype: torch.dtype = torch.bfloat16,
-                 plain: bool = False):
+def shard_matmul(x, w, b, *, compute_dtype: torch.dtype = torch.bfloat16):
     """tower_matmul of the operands as given, whatever mesh axes are active
     (an explicit-collective caller's local product, e.g. on a column
     shard)."""
-    return _TowerMatmul.apply(x, w, b, compute_dtype, plain)
+    return _TowerMatmul.apply(x, w, b, compute_dtype)
 
 
-def tower_matmul(x, w, b, *, compute_dtype: torch.dtype = torch.bfloat16,
-                 plain: bool = False):
+def tower_matmul(x, w, b, *, compute_dtype: torch.dtype = torch.bfloat16):
     """x: (M, D), w: (D, E) and b: (E,) f32 -> x.w + b: (M, E) f32, with x
     and w cast to `compute_dtype` for the product; differentiable in all
-    three. The forward is one K1 launch for CUDA tensors (its plain
-    version for CPU tensors, or when `plain`).
+    three. The forward is `matmul`: one K1 launch for CUDA tensors (its
+    plain version for CPU tensors, or inside `device.plain_versions()`).
 
     Under a "model" axis (ops/collectives.py) w is the rank's column shard
     (D, E/m) and b the whole (E,): K1 computes the rank's E/m columns, an
@@ -144,6 +141,6 @@ def tower_matmul(x, w, b, *, compute_dtype: torch.dtype = torch.bfloat16,
     over the model ranks."""
     if collectives.axis("model") is not None:
         y = collectives.model_gather(_TowerMatmul.apply(
-            collectives.model_copy(x), w, None, compute_dtype, plain), dim=1)
+            collectives.model_copy(x), w, None, compute_dtype), dim=1)
         return y if b is None else y + b
-    return _TowerMatmul.apply(x, w, b, compute_dtype, plain)
+    return _TowerMatmul.apply(x, w, b, compute_dtype)

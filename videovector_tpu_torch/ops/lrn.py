@@ -8,6 +8,8 @@ and power layers, :40-70)."""
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -41,12 +43,16 @@ def _check_odd(local_size: int) -> None:
 
 
 def lrn_cross_channel(x, *, local_size: int = 5, alpha: float = 1.0,
-                      beta: float = 0.75):
-    """x: (N, C, H, W)."""
+                      beta: float = 0.75, axis: int = 1):
+    """x: (N, C, H, W), or channels on another `axis`."""
     _check_odd(local_size)
-    summed = channel_window_sum(x * x, 1, local_size)
+    summed = channel_window_sum(x * x, axis, local_size)
     scale = 1.0 + (alpha / local_size) * summed
     return x * torch.pow(scale, -beta)
+
+
+# CaffeNet's and GoogLeNet's LRN (size 5, alpha 1e-4, beta 0.75) on NHWC x
+lrn_nhwc = functools.partial(lrn_cross_channel, alpha=1e-4, axis=3)
 
 
 def lrn_within_channel(x, *, local_size: int = 5, alpha: float = 1.0,

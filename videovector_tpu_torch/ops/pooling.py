@@ -10,14 +10,13 @@ area clipped to the PADDED bounds, not to the image (pooling_layer.cpp
 at the edges, so the divisor is built here as the JAX module builds it.
 
 MAX on NHWC (`max_pool(layout="NHWC")`, MedNet's and GoogLeNet's pools)
-goes through the custom op `vvtpu::max_pool_nhwc`: on a CUDA tensor one
-launch of csrc/max_pool_nhwc.cu, which clips each window to the image, so
-no padded copy is made and no index is written; on a CPU tensor its plain
-version `max_pool_nhwc_plain` (a -inf F.pad, then F.max_pool2d), equal bit
-for bit. `torch.export` records the op as one node and a CUDA graph
-captures its launch. The counter `vvtpu.max_pool.calls` adds each NHWC
-call, `vvtpu.max_pool.launches` each kernel launch (utils/timer.py), and
-`max_pool_nhwc.launches` counts the launches as a plain integer. NCHW (the
+launches csrc/max_pool_nhwc.cu where `device.runs_kernel` says so, which
+clips each window to the image (no padded copy, no index written); else
+its plain version `max_pool_nhwc_plain` (a -inf F.pad, then F.max_pool2d),
+equal bit for bit: on a CPU tensor inside the custom op
+`vvtpu::max_pool_nhwc`, as the launch is, so that `torch.export` records
+one node either way. The counter `vvtpu.max_pool.calls` adds each NHWC
+call, `vvtpu.max_pool.launches` each launch (utils/timer.py). NCHW (the
 graph engine's POOLING) pools as the plain version does.
 """
 
@@ -29,8 +28,8 @@ import torch
 import torch.nn.functional as F
 
 from videovector_tpu_torch import _build
+from videovector_tpu_torch.device import runs_kernel
 from videovector_tpu_torch.ops import collectives
-from videovector_tpu_torch.ops.hopper.matmul import check_cuda_operands
 from videovector_tpu_torch.utils.timer import count
 
 
@@ -84,14 +83,15 @@ def max_pool_nhwc_plain(x, kernel, stride, pad=(0, 0)):
 
 def max_pool_nhwc(x, kernel, stride, pad=(0, 0)):
     """Caffe's MAX of (N, H, W, C) x -> contiguous (N, OH, OW, C) in x's
-    dtype, through `vvtpu::max_pool_nhwc`: one launch of
-    csrc/max_pool_nhwc.cu on a CUDA tensor (f32, bf16 or f16), the plain
-    version on a CPU tensor."""
-    return torch.ops.vvtpu.max_pool_nhwc(x, list(kernel), list(stride),
-                                         list(pad))
+    dtype: where `runs_kernel(x)`, one launch of csrc/max_pool_nhwc.cu
+    (f32, bf16 or f16) through `vvtpu::max_pool_nhwc`; else the plain
+    version (module docstring)."""
+    if runs_kernel(x) or x.device.type == "cpu":
+        return torch.ops.vvtpu.max_pool_nhwc(x, list(kernel), list(stride),
+                                             list(pad))
+    return max_pool_nhwc_plain(x, kernel, stride, pad).contiguous()
 
 
-max_pool_nhwc.launches = 0
 POOL_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
@@ -131,7 +131,6 @@ def _max_pool_nhwc_kernel(x, kernel, stride, pad):
     if x.dtype not in POOL_DTYPE_CODES:
         raise TypeError(f"max_pool_nhwc takes float32, bfloat16 or float16, "
                         f"got {x.dtype}")
-    check_cuda_operands(x)
     n, oh, ow, c = _pooled_shape(x, kernel, stride, pad)
     out = torch.empty((n, oh, ow, c), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
@@ -142,7 +141,6 @@ def _max_pool_nhwc_kernel(x, kernel, stride, pad):
         *kernel, *stride, *pad, *x.stride(), POOL_DTYPE_CODES[x.dtype],
         x.device.index or 0, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "max_pool_nhwc")
-    max_pool_nhwc.launches += 1
     count("vvtpu.max_pool.launches", 1)
     return out
 

@@ -23,9 +23,9 @@ and a request id that its children inherit. The table holds one profiled
 stretch: the first span or count that finds the profiler on after one
 that found it off starts a new one (so two stretches with no span or
 count between them share one table). `tally()` collects what `count`
-adds in its block whether or not a profiler records, so that work which
-runs again without the code that counts it (a replayed CUDA graph) can
-be counted again.
+adds in its block on any thread (autograd's too), whether or not a
+profiler records, so that work which runs again without the code that
+counts it (a replayed CUDA graph) can be counted again.
 """
 
 from __future__ import annotations
@@ -153,12 +153,15 @@ class _Stretch:
 
 class _Recorder:
     """The process's table: the newest stretch, whether the last span or
-    count found the profiler on, and each thread's open spans."""
+    count found the profiler on, each thread's open spans, and the open
+    tallies (with a lock for them)."""
 
     def __init__(self):
         self.stretch = _Stretch()
         self.on = False
         self.local = threading.local()
+        self.tallies: list[dict] = []
+        self.tally_lock = threading.Lock()
 
     def current(self) -> _Stretch:
         if not self.on:
@@ -171,12 +174,6 @@ class _Recorder:
         if stack is None:
             stack = self.local.stack = []
         return stack
-
-    def tallies(self) -> list:
-        tallies = getattr(self.local, "tallies", None)
-        if tallies is None:
-            tallies = self.local.tallies = []
-        return tallies
 
 
 _RECORDER = _Recorder()
@@ -229,11 +226,12 @@ def span(name: str, req=None):
 
 def count(name: str, n) -> None:
     """Adds `n` to the counter `name` of the profiled stretch (nothing while
-    no profiler records) and of the innermost `tally` open in this thread.
+    no profiler records) and of the innermost `tally` open in the process.
     """
-    tallies = getattr(_RECORDER.local, "tallies", None)
-    if tallies:
-        tallies[-1][name] = tallies[-1].get(name, 0) + n
+    if _RECORDER.tallies:
+        with _RECORDER.tally_lock:
+            for last in _RECORDER.tallies[-1:]:
+                last[name] = last.get(name, 0) + n
     if not torch.autograd.profiler._is_profiler_enabled:
         _RECORDER.on = False
         return
@@ -244,16 +242,18 @@ def count(name: str, n) -> None:
 
 @contextlib.contextmanager
 def tally():
-    """Yields a dict that collects, by name, what `count` adds in this
-    thread inside the block, whether or not a profiler records; a tally
+    """Yields a dict that collects, by name, what `count` adds inside the
+    block on any thread, whether or not a profiler records; a tally
     opened inside the block takes what is counted inside its own."""
     counts: dict[str, float] = {}
-    tallies = _RECORDER.tallies()
-    tallies.append(counts)
+    with _RECORDER.tally_lock:
+        _RECORDER.tallies.append(counts)
     try:
         yield counts
     finally:
-        tallies.pop()
+        with _RECORDER.tally_lock:
+            _RECORDER.tallies[:] = [t for t in _RECORDER.tallies
+                                    if t is not counts]
 
 
 def recorded() -> Recorded:
