@@ -17,7 +17,11 @@ Run from the root of a checkout. It
    core route and F.conv2d (cuDNN), checking that two runs give the same
    bits; and the NHWC max-pool kernel at GoogLeNet's 13 and CaffeNet's 3
    pools (bf16, batch 50), bit-equal to its plain version, against it and
-   F.max_pool2d (ceil_mode, the yardstick) and its bytes bound;
+   F.max_pool2d (ceil_mode, the yardstick) and its bytes bound; and the
+   NHWC LRN kernel at GoogLeNet's 2 and CaffeNet's 2 LRNs (bf16, batch
+   50), within one bf16 step of its plain version run in f32, against its
+   plain version, F.local_response_norm (the yardstick) and its bytes
+   bound;
 3. drives RetrievalPipeline at full width (the default config: 256x256 uint8
    frames, 227 crop, CaffeNet conv1..fc7, 4096-d tower, bf16) with random
    weights from a seeded torch.Generator: a 4-video gallery padded to 20,000
@@ -490,6 +494,16 @@ def time_graph_ms(fn, args: list, iters: int = 10) -> float:
     return time_ms(graph.replay, iters=iters, warmup=2) / len(args)
 
 
+def time_in_turns(fns: dict, args: list) -> tuple[dict, list]:
+    """Each of three fns timed by `time_graph_ms` over `args` in turns (the
+    first, second, third, then back), against drift: the mean of each
+    one's two turns, and the six turns."""
+    order = (*fns, *reversed(fns))
+    t = [time_graph_ms(fns[k], args, iters=20) for k in order]
+    return {k: (t[i] + t[len(order) - 1 - i]) / 2
+            for i, k in enumerate(fns)}, t
+
+
 def conv_bound_ms(n, hw, c, o, k, s, p, g) -> tuple[float, str]:
     """The least time the card could take for one bf16 conv with bias
     (NHWC in, bf16 out): the larger of its bytes (input, weights, bias and
@@ -758,10 +772,7 @@ def pool_phase(dev, gen) -> dict:
                "aten": lambda x: torch.nn.functional.max_pool2d(
                    x.permute(0, 3, 1, 2), kernel, stride, pad,
                    ceil_mode=True)}
-        order = ("kernel", "plain", "aten", "aten", "plain", "kernel")
-        t = [time_graph_ms(fns[k], xs, iters=20) for k in order]
-        ms = {k: (t[order.index(k)] + t[len(order) - 1 - order.index(k)]) / 2
-              for k in fns}
+        ms, t = time_in_turns(fns, xs)
         nbytes = (xs[0].numel() + got.numel()) * 2
         bound = nbytes / PEAK_BYTES * 1e3
         for key, v in (("ms", ms["kernel"]), ("plain_ms", ms["plain"]),
@@ -790,6 +801,105 @@ def pool_phase(dev, gen) -> dict:
     if out["googlenet"]["launches"] != 13:
         raise AssertionError("a GoogLeNet forward launched the pool kernel "
                              f"{out['googlenet']['launches']} times, not 13")
+    return out
+
+
+# the serving path's LRNs (size 5, alpha 1e-4, beta 0.75) at a 224 and a
+# 227 crop: net, name, (H, W, C)
+LRN_SHAPES = (("googlenet", "norm1", (56, 56, 64)),
+              ("googlenet", "norm2", (56, 56, 192)),
+              ("caffenet", "norm1", (27, 27, 96)),
+              ("caffenet", "norm2", (13, 13, 256)))
+LRN_PER_EMBED = 2         # CaffeNet's LRNs, one launch each
+
+
+def bf16_steps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The largest distance between two bf16 tensors in bf16 steps (signed
+    zeros equal)."""
+    def key(t):
+        i = t.view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return int((key(a) - key(b)).abs().max().item())
+
+
+def lrn_phase(dev, gen) -> dict:
+    """The NHWC LRN kernel (csrc/lrn_nhwc.cu) at the serving path's four
+    LRNs, bf16 at batch 50: within one bf16 step of the plain version run
+    in f32 and rounded once, within bf16's tolerance of the plain version
+    in bf16 (the chain the kernel replaced) and the same bits from one call
+    to the next; then timed by CUDA-graph replay in turns with the plain
+    version and F.local_response_norm on the NCHW view (aten alone, timed
+    only as the yardstick), beside its bound (x read and y written once at
+    HBM's rate). Then one GoogLeNet forward at batch 50, whose LRN calls and
+    launches are counted and checked to be its 2 (CaffeNet's, 2 an embed,
+    are checked on the main path). Returns the sums over each net's two
+    LRNs, their largest step from the f32 version and |kernel - plain|, and
+    GoogLeNet's launches."""
+    import torch.nn.functional as F
+
+    from videovector_tpu_torch.device import plain_versions
+    from videovector_tpu_torch.models.googlenet import GoogLeNet
+    from videovector_tpu_torch.ops import lrn
+    out = {net: {"err": 0.0, "steps": 0, "ms": 0.0, "plain_ms": 0.0,
+                 "bound_ms": 0.0, "library_ms": 0.0}
+           for net in ("googlenet", "caffenet")}
+    log(f"LRN kernel at the serving path's LRNs (NHWC bf16, batch {BATCH}, "
+        "size 5, alpha 1e-4, beta 0.75; device time a call from CUDA graphs "
+        "over two inputs, in turns: kernel, plain, F.local_response_norm, "
+        "twice; bound: input and output bytes once at "
+        f"{PEAK_BYTES / 1e12:.2f} TB/s):")
+    for net, name, hwc in LRN_SHAPES:
+        xs = [(torch.randn((BATCH, *hwc), generator=gen, device=dev) * 40)
+              .to(torch.bfloat16) for _ in range(2)]
+        with _tally() as counts:
+            got = lrn.lrn_nhwc(xs[0])
+        if _got(counts, "lrn.calls", "lrn.launches") != (1, 1):
+            raise AssertionError(f"lrn {net} {name}: not one launch")
+        once = lrn.lrn_nhwc_plain(xs[0].float()).to(torch.bfloat16)
+        with plain_versions():
+            plain = lrn.lrn_nhwc(xs[0])
+        steps = bf16_steps(got, once)
+        if steps > 1 or not torch.equal(lrn.lrn_nhwc(xs[0]), got):
+            raise AssertionError(f"lrn {net} {name}: {steps} bf16 steps from "
+                                 "the f32 version, or two calls differ")
+        err = compare(f"lrn {net} {name} against the bf16 chain", got, plain)
+        out[net]["err"] = max(out[net]["err"], err)
+        out[net]["steps"] = max(out[net]["steps"], steps)
+        fns = {"kernel": lrn.lrn_nhwc, "plain": lrn.lrn_nhwc_plain,
+               "library": lambda x: F.local_response_norm(
+                   x.permute(0, 3, 1, 2), 5, alpha=1e-4, beta=0.75)}
+        ms, t = time_in_turns(fns, xs)
+        nbytes = 2 * xs[0].numel() * 2
+        bound = nbytes / PEAK_BYTES * 1e3
+        for key, v in (("ms", ms["kernel"]), ("plain_ms", ms["plain"]),
+                       ("library_ms", ms["library"]), ("bound_ms", bound)):
+            out[net][key] += v
+        log(f"  {net} {name} {hwc}: kernel {ms['kernel']:.4f} ms "
+            f"({nbytes / ms['kernel'] / 1e6:.0f} GB/s, "
+            f"{bound / ms['kernel']:.3f} of the bound {bound:.4f}), plain "
+            f"{ms['plain']:.4f}, F.local_response_norm {ms['library']:.4f}; "
+            f"{steps} bf16 steps from the f32 version (turns "
+            f"{', '.join(f'{v:.4f}' for v in t)})")
+    for net, v in out.items():
+        log(f"  {net}'s two LRNs together: kernel {v['ms']:.4f} ms, bound "
+            f"{v['bound_ms']:.4f} ({v['bound_ms'] / v['ms']:.3f} of it), "
+            f"plain {v['plain_ms']:.4f}, F.local_response_norm "
+            f"{v['library_ms']:.4f}, max_abs_err against the bf16 chain "
+            f"{v['err']:.3e}")
+    net = GoogLeNet()
+    params = net.init(torch.Generator(device=dev).manual_seed(3))
+    images = torch.randn((BATCH, 224, 224, 3), generator=gen, device=dev)
+    with _tally() as counts:
+        net.forward(params, images)
+    torch.cuda.synchronize()
+    calls, out["googlenet"]["launches"] = _got(counts, "lrn.calls",
+                                               "lrn.launches")
+    log(f"  a GoogLeNet forward at batch {BATCH}: {calls} LRN calls, "
+        f"{out['googlenet']['launches']} launches")
+    if (calls, out["googlenet"]["launches"]) != (2, 2):
+        raise AssertionError(f"a GoogLeNet forward made {calls} LRN calls "
+                             f"and {out['googlenet']['launches']} launches, "
+                             "not 2 and 2")
     return out
 
 
@@ -834,9 +944,9 @@ def slice_phase(dev):
                               gallery_ids) for q in range(N_QUERIES)]
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = dict(zip(("K1", "K2", "repack", "pool"), _got(
+    launches = dict(zip(("K1", "K2", "repack", "pool", "lrn"), _got(
         counts, "k1.launches", "k2.launches", "s2d.launches",
-        "max_pool.launches")))
+        "max_pool.launches", "lrn.launches")))
     k1_sm90, k2_sm90 = _got(counts, "k1.sm90_launches", "k2.sm90_launches")
     n_embed = len(videos) + N_QUERIES
     log(f"main path: {len(videos)} gallery batches + {N_QUERIES} queries of "
@@ -844,7 +954,8 @@ def slice_phase(dev):
         f"included); launches {launches}, on the sm90 routes: K1 "
         f"{k1_sm90}, K2 {k2_sm90}")
     expect = {"K1": K1_PER_EMBED * n_embed, "K2": K2_PER_EMBED * n_embed,
-              "repack": n_embed, "pool": POOL_PER_EMBED * n_embed}
+              "repack": n_embed, "pool": POOL_PER_EMBED * n_embed,
+              "lrn": LRN_PER_EMBED * n_embed}
     if launches != expect:
         raise AssertionError(f"launch counts {launches} != expected {expect}")
     if k1_sm90 != launches["K1"]:
@@ -6369,6 +6480,7 @@ def main() -> int:
     with torch.no_grad():
         stats = kernel_phases(dev, torch.Generator(device=dev).manual_seed(1))
         pools = pool_phase(dev, torch.Generator(device=dev).manual_seed(2))
+        lrns = lrn_phase(dev, torch.Generator(device=dev).manual_seed(4))
         launches, pipe, params, inputs = slice_phase(dev)
         for pix, hwm in inputs.values():
             device_breakdown(pipe, params, pix, hwm)
@@ -6543,6 +6655,18 @@ def main() -> int:
         for net, n, n_launches in (
             ("googlenet", 13, pools["googlenet"]["launches"]),
             ("caffenet", 3, launches["pool"]))]
+    kernels += [
+        {"name": f"lrn_nhwc, {net}'s 2 LRNs (Caffe's across-channels LRN on "
+                 "NHWC, window clipped to the channels: one read of x, "
+                 "squares, sums and scale in f32, one rounding; bf16)",
+         "route": "cuda", "source": "videovector_tpu_torch/csrc/lrn_nhwc.cu",
+         "replaces": None, "launches": n_launches,
+         "max_abs_err": lrns[net]["err"],
+         **{k: lrns[net][k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "library_ms")},
+         "bound_by": "bytes"}
+        for net, n_launches in (("googlenet", lrns["googlenet"]["launches"]),
+                                ("caffenet", launches["lrn"]))]
     log("(ms, plain_ms, bound_ms, library_ms: summed over the serving "
         f"path's shapes at batch {BATCH}: K1 fc6 + fc7 + tower with w cycled "
         "beyond L2, library cuBLAS torch.matmul; K2 conv1..conv5, library "
@@ -6604,7 +6728,11 @@ def main() -> int:
         f"GoogLeNet's 13 and CaffeNet's 3 pools at batch {BATCH} in bf16, "
         "library F.max_pool2d with ceil_mode; its launches GoogLeNet's in one "
         "forward, CaffeNet's on the main path (3 an embed); it replaces no TPU kernel (the "
-        "JAX package pools with XLA's reduce_window))")
+        "JAX package pools with XLA's reduce_window). lrn_nhwc: GoogLeNet's "
+        f"and CaffeNet's 2 LRNs at batch {BATCH} in bf16, library "
+        "F.local_response_norm on the NCHW view; its launches GoogLeNet's in "
+        "one forward, CaffeNet's on the main path (2 an embed); it replaces "
+        "no TPU kernel (the JAX package's LRN is XLA's elementwise ops))")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2148,9 +2148,9 @@ def _device_kernels(fn):
 def test_a_forward_pools_on_the_kernel_alone(dev, backbone, monkeypatch):
     """A profiled backbone forward at 50 frames: 13 (GoogLeNet) or 3
     (CaffeNet) launches of vv::pool::max_pool_nhwc, no aten max pool, and
-    the fills of the two LRNs' zero pads alone (none of a pool's -inf pad);
-    its features equal, bit for bit, those of the same forward with the
-    plain version in each pool's place."""
+    no fill (neither a pool's -inf pad nor, since their kernel, the LRNs'
+    zero pads); its features equal, bit for bit, those of the same forward
+    with the plain version in each pool's place."""
     import importlib
 
     from videovector_tpu_torch.ops import pooling
@@ -2166,7 +2166,7 @@ def test_a_forward_pools_on_the_kernel_alone(dev, backbone, monkeypatch):
     assert sum("vv::pool::max_pool_nhwc" in n for n in names) == pools, names
     assert not any("max_pool" in n and "vv::" not in n for n in names)
     fills = [n for n in names if "FillFunctor" in n]
-    assert len(fills) == 2, fills
+    assert not fills, fills
     got = net.forward(p, x)
     monkeypatch.setattr(
         importlib.import_module(type(net).__module__), "max_pool",
@@ -2181,7 +2181,8 @@ def test_a_forward_pools_on_the_kernel_alone(dev, backbone, monkeypatch):
 def test_replays_count_the_pools_and_equal_the_eager_query(dev, backbone):
     """Three queries of one pipeline (eager, captured and replayed,
     replayed): each adds its pools to `vvtpu.max_pool.calls` and
-    `vvtpu.max_pool.launches` (a replay its capture's counts) and answers
+    `vvtpu.max_pool.launches`, and its two LRNs to `vvtpu.lrn.calls` and
+    `vvtpu.lrn.launches` (a replay its capture's counts), and answers
     as a fresh pipeline's eager query, bit for bit."""
     from videovector_tpu_torch.models.retrieval_pipeline import (
         RetrievalPipeline,
@@ -2199,14 +2200,16 @@ def test_replays_count_the_pools_and_equal_the_eager_query(dev, backbone):
         assert counts.get("vvtpu.query.graph_replays", 0) == replayed
         assert counts["vvtpu.max_pool.calls"] == pools
         assert counts["vvtpu.max_pool.launches"] == pools
+        assert counts["vvtpu.lrn.calls"] == counts["vvtpu.lrn.launches"] == 2
         fresh = RetrievalPipeline(pipe.cfg, device=dev)
         assert _equal(out, fresh.query(params, *frames, gallery, ids))
 
 
 def test_an_exported_mednet_launches_the_pool_kernel(dev, tmp_path):
     """A MedNet forward exported on the card holds three
-    vvtpu.max_pool_nhwc nodes; the reloaded program launches the kernel
-    three times a call and gives the eager forward's bits."""
+    vvtpu.max_pool_nhwc nodes and two vvtpu.lrn_nhwc nodes; the reloaded
+    program launches the pool kernel three times a call and the LRN kernel
+    twice, and gives the eager forward's bits."""
     from videovector_tpu_torch.models.mednet import MedNet
     from videovector_tpu_torch.tools.export_model import (
         load_exported, save_exported,
@@ -2221,6 +2224,163 @@ def test_an_exported_mednet_launches_the_pool_kernel(dev, tmp_path):
         ep = load_exported(path)
         targets = [str(n.target) for n in ep.graph.nodes]
         assert sum("vvtpu.max_pool_nhwc" in t for t in targets) == 3
+        assert sum("vvtpu.lrn_nhwc" in t for t in targets) == 2
         got, counts = _counted(lambda: ep.module()(x))
-    assert _got(counts, "max_pool.launches") == (3,)
+    assert _got(counts, "max_pool.launches", "lrn.launches") == (3, 2)
     assert torch.equal(got, eager)
+
+
+# -- the NHWC LRN (csrc/lrn_nhwc.cu, vvtpu::lrn_nhwc) -------------------------
+
+LRN_DTYPES = [torch.bfloat16, torch.float32, torch.float16]
+# the serving path's LRNs at 50 frames: GoogLeNet's norm1 and norm2 (224
+# crop), CaffeNet's (227 crop)
+LRN_SHAPES = {"googlenet-norm1": (50, 56, 56, 64),
+              "googlenet-norm2": (50, 56, 56, 192),
+              "caffenet-norm1": (50, 27, 27, 96),
+              "caffenet-norm2": (50, 13, 13, 256)}
+
+
+def _lrn_values(shape, dtype, dev, seed):
+    """Activations of both signs at a conv's scale (tens), so that the
+    window's sum moves the scale well away from 1, a tenth of them zero."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(shape, generator=g, device=dev) * 40
+    return torch.where(torch.rand(shape, generator=g, device=dev) < 0.1,
+                       0.0, x).to(dtype)
+
+
+def _steps(a, b):
+    """The largest distance between two bf16 or f16 tensors in steps of
+    their type (signed zeros equal)."""
+    def key(t):
+        i = t.view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return (key(a) - key(b)).abs().max().item()
+
+
+def _lrn(x, **kw):
+    """`lrn_nhwc`'s output and the counts it added."""
+    from videovector_tpu_torch.ops import lrn
+    return _counted(lambda: lrn.lrn_nhwc(x, **kw))
+
+
+def _matches_f32_version(got, x, local_size=5, alpha=1e-4, beta=0.75):
+    """got against the plain version run in f32 and rounded once: within one
+    step of bf16 or f16, within 1e-6 relative in f32."""
+    from videovector_tpu_torch.ops import lrn
+    once = lrn.lrn_nhwc_plain(x.float(), local_size, alpha, beta)
+    torch.cuda.synchronize()
+    assert got.shape == x.shape and got.dtype == x.dtype
+    assert got.is_contiguous()
+    if x.dtype == torch.float32:
+        assert ((got - once).abs() <= 1e-6 * once.abs()).all()
+    else:
+        assert _steps(got, once.to(x.dtype)) <= 1
+
+
+@pytest.mark.parametrize("dtype", LRN_DTYPES)
+@pytest.mark.parametrize("name", list(LRN_SHAPES))
+def test_lrn_kernel_matches_the_f32_version(dev, name, dtype):
+    """Each serving LRN at 50 frames: one launch, counted in both counters,
+    within one step of the f32 version (within bf16's tolerance of the bf16
+    chain it replaced) and the same bits from one call to the next."""
+    from videovector_tpu_torch.ops import lrn
+    x = _lrn_values(LRN_SHAPES[name], dtype, dev, seed=len(name))
+    got, counts = _lrn(x)
+    assert counts == {"vvtpu.lrn.calls": 1, "vvtpu.lrn.launches": 1}
+    _matches_f32_version(got, x)
+    assert torch.equal(lrn.lrn_nhwc(x), got)
+    if dtype == torch.bfloat16:
+        _close(got, lrn.lrn_nhwc_plain(x))
+
+
+@pytest.mark.parametrize("dtype", LRN_DTYPES)
+@pytest.mark.parametrize("kind", ["odd_channels", "fewer_channels_than_window",
+                                  "one_chunk_wide_window", "misaligned",
+                                  "channel_slice", "nchw_view",
+                                  "strided_pixels"])
+def test_lrn_kernel_edges_match_the_f32_version(dev, kind, dtype):
+    """The scalar kernel (13 channels; 3 channels under a window of 5; a base
+    one element past an aligned address; a channel slice; the NHWC view of
+    an NCHW tensor), and the chunk kernel on 8 channels under a window of 9,
+    which reaches past the pixel's channels on both sides, and on every
+    other column (a pixel stride of two pixels): one launch each, within
+    one step of the f32 version."""
+    x = _lrn_values((4, 9, 11, 96), dtype, dev, seed=len(kind))
+    kw = {}
+    if kind == "odd_channels":
+        x = x[..., :13].contiguous()
+    elif kind == "fewer_channels_than_window":
+        x = x[..., :3].contiguous()
+    elif kind == "one_chunk_wide_window":
+        x, kw = x[..., :8].contiguous(), {"local_size": 9}
+    elif kind == "misaligned":
+        flat = torch.empty(x.numel() + 1, dtype=dtype, device=dev)
+        x = flat[1:].view(x.shape).copy_(x)
+    elif kind == "channel_slice":
+        x = x[..., 3:67]
+    elif kind == "nchw_view":
+        x = x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    else:
+        x = x[:, :, ::2]
+    got, counts = _lrn(x, **kw)
+    assert counts["vvtpu.lrn.launches"] == 1
+    _matches_f32_version(got, x, **kw)
+
+
+@pytest.mark.parametrize("dtype", LRN_DTYPES)
+@pytest.mark.parametrize("local_size,alpha,beta", [
+    (1, 1e-3, 0.5), (3, 2e-4, 0.5), (5, 1e-3, 1.0), (7, 5e-5, 0.75),
+    (9, 3e-4, 0.6), (11, 1e-4, 0.75), (17, 2e-5, 0.9), (19, 1e-4, 0.75)])
+def test_lrn_kernel_window_sizes_match_the_f32_version(dev, local_size, alpha,
+                                                       beta, dtype):
+    """Other windows, alphas and betas over 64 channels: every size the
+    chunk kernel instantiates (up to 17 in bf16 and f16, 9 in f32) and
+    larger ones, which take the scalar kernel."""
+    x = _lrn_values((3, 7, 9, 64), dtype, dev, seed=local_size)
+    kw = {"local_size": local_size, "alpha": alpha, "beta": beta}
+    got, counts = _lrn(x, **kw)
+    assert counts["vvtpu.lrn.launches"] == 1
+    _matches_f32_version(got, x, **kw)
+
+
+def test_lrn_plain_versions_launch_nothing_and_grad_raises(dev):
+    """Inside `plain_versions()` a call counts and launches nothing, giving
+    the plain version's bits; a call that autograd records raises, as K1's
+    and K2's entry points do."""
+    from videovector_tpu_torch.device import plain_versions
+    from videovector_tpu_torch.ops import lrn
+    x = _lrn_values((2, 5, 6, 64), torch.bfloat16, dev, seed=1)
+    with plain_versions():
+        got, counts = _lrn(x)
+    assert counts == {"vvtpu.lrn.calls": 1}
+    assert torch.equal(got, lrn.lrn_nhwc_plain(x))
+    with pytest.raises(NotImplementedError, match="forward only"):
+        lrn.lrn_nhwc(x.float().requires_grad_())
+    with torch.no_grad():
+        _, counts = _lrn(x.float().requires_grad_())
+    assert counts["vvtpu.lrn.launches"] == 1
+
+
+@pytest.mark.parametrize("backbone", ["googlenet", "caffenet"])
+def test_a_forward_normalizes_on_the_lrn_kernel(dev, backbone):
+    """A profiled backbone forward at 50 frames: two LRN calls and two
+    launches of vv::lrn::lrn_nhwc_chunks; inside `plain_versions()` two
+    calls and no launch."""
+    from videovector_tpu_torch.device import plain_versions
+    if backbone == "googlenet":
+        pipe, params, _, _, gen = _googlenet_serving(dev)
+        net = pipe.googlenet
+    else:
+        pipe, params, _, _, gen = _serving(dev)
+        net = pipe.mednet
+    x = pipe.transform(*_clip(gen, 50, dev))
+    p = params[pipe.backbone_key]
+    _, counts = _counted(lambda: net.forward(p, x))
+    assert _got(counts, "lrn.calls", "lrn.launches") == (2, 2)
+    names = _device_kernels(lambda: net.forward(p, x))
+    assert sum("vv::lrn::lrn_nhwc_chunks" in n for n in names) == 2, names
+    with plain_versions():
+        _, counts = _counted(lambda: net.forward(p, x))
+    assert _got(counts, "lrn.calls", "lrn.launches") == (2, 0)

@@ -29,6 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 # C signatures of the kernels' entry points (csrc/*.cu). Every pointer and
 # the stream is a c_void_p: an undeclared pointer would be cut to 32 bits.
 SIGNATURES = {
@@ -40,6 +41,8 @@ SIGNATURES = {
     "vv_conv_gemm_f32_sm90": [_P] * 5 + [_I] * 14 + [_L] * 3 + [_I] * 5 + [_P],
     "vv_space_to_depth": [_P] * 4 + [_I] * 10 + [_P],
     "vv_max_pool_nhwc": [_P] * 2 + [_I] * 12 + [_L] * 4 + [_I] * 2 + [_P],
+    "vv_lrn_nhwc": [_P] * 2 + [_I] * 4 + [_L] * 4 + [_I] + [_F] * 2
+    + [_I] * 2 + [_P],
 }
 
 

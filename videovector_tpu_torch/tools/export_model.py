@@ -7,8 +7,9 @@ jax.export).
                                            ExportedProgram (`.module()` runs it)
 
 The program holds K1 and K2 as the custom ops `vvtpu::k1_matmul` and
-`vvtpu::k2_conv2d_nhwc` (ops/hopper/), and an NHWC max pool as
-`vvtpu::max_pool_nhwc` (ops/pooling.py), so exporting on CUDA tensors
+`vvtpu::k2_conv2d_nhwc` (ops/hopper/), an NHWC max pool as
+`vvtpu::max_pool_nhwc` (ops/pooling.py) and an NHWC LRN as
+`vvtpu::lrn_nhwc` (ops/lrn.py), so exporting on CUDA tensors
 traces them without launching, and running the loaded program launches
 them. `load_exported` imports their registrations first. The batch axis can be
 made symbolic by the caller through `dynamic_shapes` (torch.export.Dim).
@@ -33,6 +34,7 @@ def register_ops() -> None:
     program holding them deserializes."""
     import videovector_tpu_torch.ops.hopper.conv_gemm  # noqa: F401
     import videovector_tpu_torch.ops.hopper.matmul  # noqa: F401
+    import videovector_tpu_torch.ops.lrn  # noqa: F401
     import videovector_tpu_torch.ops.pooling  # noqa: F401
 
 
