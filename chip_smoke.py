@@ -903,6 +903,168 @@ def lrn_phase(dev, gen) -> dict:
     return out
 
 
+I3D_FRAMES = 250          # one whole clip, as the benchmark's I3D cell
+
+
+def _i3d_calls(dev):
+    """One 250-frame clip (uint8, 256 x 256, one crop and mirror) served
+    through RetrievalPipeline(backbone="i3d").query at 224 (random weights,
+    BatchNorm folded, bf16) against a 20,000-row gallery, three times with
+    the same inputs: eagerly with its convs and pools recorded, then
+    captured and replayed, then replayed. Returns (the eager call's
+    features, [(conv args, kwargs)], [(pool args, kwargs)], the counters of
+    the eager call and of the last replay)."""
+    from videovector_tpu_torch.models import i3d
+    from videovector_tpu_torch.models.retrieval_pipeline import (
+        RetrievalPipeline, RetrievalPipelineConfig,
+    )
+    convs, pools = [], []
+    conv, pool = i3d.conv3d_gemm_ndhwc, i3d.max_pool
+
+    def conv_rec(x, w, b=None, **kw):
+        convs.append(((x.shape, w, b), kw))
+        return conv(x, w, b, **kw)
+
+    def pool_rec(x, **kw):
+        pools.append((x.shape, kw))
+        return pool(x, **kw)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    pipe = RetrievalPipeline(RetrievalPipelineConfig(
+        backbone="i3d", crop=224, embed_dim=1024), device=dev)
+    params = pipe.init(gen)
+    gallery = torch.nn.functional.normalize(
+        torch.randn((GALLERY_ROWS, 1024), generator=gen, device=dev), dim=1)
+    ids = torch.arange(GALLERY_ROWS, dtype=torch.int32, device=dev)
+    clip = (torch.randint(0, 256, (I3D_FRAMES, 256, 256, 3), generator=gen,
+                          device=dev, dtype=torch.uint8),
+            torch.tensor([13], device=dev), torch.tensor([21], device=dev),
+            torch.tensor([True], device=dev))
+    answers, counts = [], []
+    for turn in range(3):
+        if turn == 0:
+            i3d.conv3d_gemm_ndhwc, i3d.max_pool = conv_rec, pool_rec
+        try:
+            with _tally() as c:
+                answers.append(pipe.query(params, *clip, gallery, ids))
+            torch.cuda.synchronize()
+        finally:
+            i3d.conv3d_gemm_ndhwc, i3d.max_pool = conv, pool
+        counts.append(c)
+        if turn == 0:
+            feats = pipe.features.clone()
+    replays = [c.get("vvtpu.query.graph_replays", 0) for c in counts]
+    if replays != [0, 1, 1] or not all(
+            torch.equal(a, b) for a, b in zip(answers[0], answers[2])):
+        raise AssertionError(f"I3D's query replays {replays}, or a replay's "
+                             "answer differs from the eager one")
+    return feats, convs, pools, counts[0], counts[2]
+
+
+def i3d_phase(dev, gen) -> dict:
+    """I3D's kernels at one 250-frame clip (bf16): the launches of one
+    query through RetrievalPipeline, eager and replayed (57 K2 on the sm90
+    route, 20 of them deep, one 3D repack, none on the core; 13 pools, 11
+    deep); then each conv's K2 call, on inputs of its shape, against its
+    plain version (within one bf16 step; the depth route's 20 and the 2D
+    route's 37 apart) and each pool's against its plain version (equal
+    bits), timed by CUDA-graph replay in turns with the plain version and
+    one PyTorch call (cuDNN's F.conv3d, F.max_pool3d) beside its bound
+    (the larger of operations at 989 TFLOP/s and bytes at 3.35 TB/s, each
+    input, weight and output byte once). Returns the sums by kind, each
+    with its launches a query."""
+    from videovector_tpu_torch.ops import pooling
+    from videovector_tpu_torch.ops.hopper import conv_gemm as k2
+    import torch.nn.functional as F
+    feats, convs, pools, eager, replay = _i3d_calls(dev)
+    names = ("k2.launches", "k2.sm90_launches", "k2.f32_launches",
+             "k2.depth_launches", "s2d.launches", "max_pool.launches",
+             "max_pool.depth_launches")
+    launches = _got(eager, *names)
+    log(f"I3D query at {I3D_FRAMES} frames, eager: K2 {launches[0]} "
+        f"launches ({launches[1]} sm90, {launches[2]} f32, {launches[3]} "
+        f"deep), repack {launches[4]}, pools {launches[5]} ({launches[6]} "
+        f"deep); a replay counts {_got(replay, *names)}; features "
+        f"{tuple(feats.shape)} finite {bool(torch.isfinite(feats).all())}")
+    if launches != (57, 57, 0, 20, 1, 13, 11) or (
+            _got(replay, *names) != launches):
+        raise AssertionError(f"I3D query launches {launches}, a replay's "
+                             f"{_got(replay, *names)}")
+    k2_all, _, _, deep, _, pool_all, pool_deep = _got(replay, *names)
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    out = {kind: dict.fromkeys(keys, 0.0) | {"err": 0.0, "n": 0,
+                                             "launches": n}
+           for kind, n in (("depth", deep), ("flat", k2_all - deep),
+                           ("pool_deep", pool_deep),
+                           ("pool_flat", pool_all - pool_deep))}
+    log("I3D's convs (kernel, plain, cuDNN F.conv3d on the padded NCDHW "
+        "view; device ms a call by CUDA-graph replay in turns):")
+    for (shape, w, b), kw in convs:
+        stride, pad = kw["stride"], kw["pad"]
+        xs = [torch.randn(shape, generator=gen, device=dev).abs()
+              .to(torch.bfloat16) for _ in range(2)]
+        wt = w.permute(4, 3, 0, 1, 2).contiguous()
+        flat = [v for p in reversed(pad) for v in p]
+        fns = {"kernel": lambda x: k2.conv3d_gemm_ndhwc(x, w, b, **kw),
+               "plain": lambda x: k2.conv3d_gemm_ndhwc_plain(x, w, b, **kw),
+               "library": lambda x: F.conv3d(
+                   F.pad(x.permute(0, 4, 1, 2, 3), flat), wt, b.to(w.dtype),
+                   stride=stride)}
+        got = fns["kernel"](xs[0])
+        err = compare(f"  conv {tuple(w.shape)} over {tuple(shape)}", got,
+                      fns["plain"](xs[0]))
+        ms, _ = time_in_turns(fns, xs)
+        oshape = got.shape
+        taps = w.shape[0] * w.shape[1] * w.shape[2]
+        ops = 2.0 * got.numel() * taps * w.shape[3]
+        nbytes = (xs[0].numel() + w.numel() + got.numel()) * 2 + b.numel() * 4
+        bound = max(ops / PEAK_FLOPS, nbytes / PEAK_BYTES) * 1e3
+        kind = "depth" if w.shape[0] > 1 else "flat"
+        for key, v in (("ms", ms["kernel"]), ("plain_ms", ms["plain"]),
+                       ("library_ms", ms["library"]), ("bound_ms", bound)):
+            out[kind][key] += v
+        out[kind]["err"] = max(out[kind]["err"], err)
+        out[kind]["n"] += 1
+        log(f"    -> {tuple(oshape)}: kernel {ms['kernel']:.4f} ms, "
+            f"{bound / ms['kernel']:.3f} of its bound {bound:.4f}, plain "
+            f"{ms['plain']:.4f}, F.conv3d {ms['library']:.4f}")
+    log("I3D's pools (kernel, plain, F.max_pool3d on the -inf padded NCDHW "
+        "view):")
+    for shape, kw in pools:
+        window, stride, pad = kw["kernel"], kw["stride"], kw["pad"]
+        xs = [torch.randn(shape, generator=gen, device=dev)
+              .to(torch.bfloat16) for _ in range(2)]
+        flat = [v for p in reversed(pad) for v in p]
+        fns = {"kernel": lambda x: pooling.max_pool(x, **kw),
+               "plain": lambda x: pooling.max_pool_ndhwc_plain(
+                   x, window, stride, pad),
+               "library": lambda x: F.max_pool3d(F.pad(
+                   x.permute(0, 4, 1, 2, 3), flat, value=-math.inf),
+                   tuple(window), tuple(stride))}
+        got = fns["kernel"](xs[0])
+        torch.cuda.synchronize()
+        if not torch.equal(got, fns["plain"](xs[0])):
+            raise AssertionError(f"I3D pool {window} over {tuple(shape)}: "
+                                 "kernel differs from plain")
+        ms, _ = time_in_turns(fns, xs)
+        bound = (xs[0].numel() + got.numel()) * 2 / PEAK_BYTES * 1e3
+        kind = "pool_deep" if window[0] > 1 else "pool_flat"
+        for key, v in (("ms", ms["kernel"]), ("plain_ms", ms["plain"]),
+                       ("library_ms", ms["library"]), ("bound_ms", bound)):
+            out[kind][key] += v
+        out[kind]["n"] += 1
+        log(f"  pool {tuple(window)}/{tuple(stride)} over {tuple(shape)}: "
+            f"kernel {ms['kernel']:.4f} ms, {bound / ms['kernel']:.3f} of "
+            f"its bound {bound:.4f}, plain {ms['plain']:.4f}, F.max_pool3d "
+            f"{ms['library']:.4f} (equal bits)")
+    for kind, v in out.items():
+        log(f"  I3D's {v['n']} {kind} together ({v['launches']} launches a "
+            f"query): kernel {v['ms']:.4f} ms, "
+            f"bound {v['bound_ms']:.4f} ({v['bound_ms'] / v['ms']:.3f} of "
+            f"it), plain {v['plain_ms']:.4f}, library {v['library_ms']:.4f}, "
+            f"max_abs_err {v['err']:.3e}")
+    return out
+
+
 def frames(rng, n):
     return rng.randint(0, 256, (n, 256, 256, 3)).astype(np.uint8)
 
@@ -6481,6 +6643,8 @@ def main() -> int:
         stats = kernel_phases(dev, torch.Generator(device=dev).manual_seed(1))
         pools = pool_phase(dev, torch.Generator(device=dev).manual_seed(2))
         lrns = lrn_phase(dev, torch.Generator(device=dev).manual_seed(4))
+        i3d = i3d_phase(dev, torch.Generator(device=dev).manual_seed(8))
+        torch.cuda.empty_cache()
         launches, pipe, params, inputs = slice_phase(dev)
         for pix, hwm in inputs.values():
             device_breakdown(pipe, params, pix, hwm)
@@ -6667,6 +6831,32 @@ def main() -> int:
          "bound_by": "bytes"}
         for net, n_launches in (("googlenet", lrns["googlenet"]["launches"]),
                                 ("caffenet", launches["lrn"]))]
+    kernels += [
+        {"name": f"K2, I3D's {i3d[kind]['n']} {what} at one "
+                 f"{I3D_FRAMES}-frame clip (bf16)", "route": "cuda",
+         "source": src, "replaces": None,
+         "launches": i3d[kind]["launches"],
+         "max_abs_err": i3d[kind]["err"],
+         **{k: i3d[kind][k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "library_ms")},
+         "bound_by": "operations"}
+        for kind, what, src in (
+            ("depth", "deep convs (the depth route: 19 3x3x3 and conv1 "
+             "after its 3D repack, repack timed apart)",
+             "videovector_tpu_torch/csrc/conv3d_gemm_sm90.cu"),
+            ("flat", "1x1x1 convs (frames folded into the batch, the 2D "
+             "sm90 route)", "videovector_tpu_torch/csrc/conv_gemm_sm90.cu"))]
+    kernels += [
+        {"name": f"max_pool, I3D's {i3d[kind]['n']} {what} pools at one "
+                 f"{I3D_FRAMES}-frame clip (TF's SAME, windows clipped to "
+                 "the clip; bf16)", "route": "cuda",
+         "source": "videovector_tpu_torch/csrc/max_pool_nhwc.cu",
+         "replaces": None, "launches": i3d[kind]["launches"],
+         "max_abs_err": 0.0,
+         **{k: i3d[kind][k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "library_ms")},
+         "bound_by": "bytes"}
+        for kind, what in (("pool_deep", "NDHWC"), ("pool_flat", "1x3x3"))]
     log("(ms, plain_ms, bound_ms, library_ms: summed over the serving "
         f"path's shapes at batch {BATCH}: K1 fc6 + fc7 + tower with w cycled "
         "beyond L2, library cuBLAS torch.matmul; K2 conv1..conv5, library "

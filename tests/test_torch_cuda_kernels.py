@@ -2384,3 +2384,194 @@ def test_a_forward_normalizes_on_the_lrn_kernel(dev, backbone):
     with plain_versions():
         _, counts = _counted(lambda: net.forward(p, x))
     assert _got(counts, "lrn.calls", "lrn.launches") == (2, 0)
+
+
+# -- I3D: K2's depth route (csrc/conv3d_gemm_sm90.cu), the 3D repack and the
+# -- NDHWC max pool (csrc/max_pool_nhwc.cu, vvtpu::max_pool_ndhwc) -----------
+
+# (N, T, H, W, C), kernel, stride, pad (before, after) per axis, O
+CONV3D_CASES = [
+    ((1, 9, 14, 14, 64), (3, 3, 3), (1, 1, 1), ((1, 1),) * 3, 192),
+    ((2, 7, 9, 11, 16), (3, 3, 3), (1, 1, 1), ((1, 1),) * 3, 32),
+    ((1, 8, 10, 12, 24), (4, 4, 4), (1, 1, 1), ((0, 0),) * 3, 64),
+    ((1, 9, 13, 11, 32), (3, 3, 3), (2, 2, 2), ((1, 1), (0, 1), (1, 0)), 64),
+    ((1, 6, 7, 7, 96), (2, 3, 3), (1, 1, 1), ((0, 1), (1, 1), (1, 1)), 136),
+]
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", CONV3D_CASES,
+                         ids=[f"k{c[1][0]}s{c[2][0]}c{c[0][4]}"
+                              for c in CONV3D_CASES])
+def test_k2_depth_route_matches_plain(dev, case, out_dtype):
+    """One launch of the depth route a conv (counted on the sm90 route and
+    as a depth launch), within one bf16 step of the plain version (both sum
+    in f32, in other orders), and the same bits from one call to the
+    next."""
+    shape, kernel, stride, pad, o = case
+    gen = torch.Generator(device=dev).manual_seed(sum(shape))
+    x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    w = (torch.randn((*kernel, shape[4], o), generator=gen, device=dev)
+         * 0.1).to(torch.bfloat16)
+    b = torch.randn(o, generator=gen, device=dev)
+
+    def conv():
+        return k2.conv3d_gemm_ndhwc(x, w, b, stride=stride, pad=pad,
+                                    fuse_relu=True, out_dtype=out_dtype)
+    got, counts = _counted(conv)
+    assert _got(counts, "k2.launches", "k2.sm90_launches",
+                "k2.depth_launches", "s2d.launches") == (1, 1, 1, 0)
+    want = k2.conv3d_gemm_ndhwc_plain(x, w, b, stride=stride, pad=pad,
+                                      fuse_relu=True, out_dtype=out_dtype)
+    _close(got, want)
+    assert torch.equal(got, conv())
+
+
+def test_i3d_conv1_repacks_onto_the_depth_route(dev):
+    """Conv3d_1a_7x7 (stride 2, TF's SAME pads 2 before and 3 after) over a
+    small clip: the 3D repack kernel bit-equal to its plain version, then
+    one repack and one depth launch, within one bf16 step of the plain
+    strided conv."""
+    from videovector_tpu_torch.ops.conv import same_pads
+    gen = torch.Generator(device=dev).manual_seed(31)
+    x = torch.randn((1, 20, 40, 36, 3), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    w = (torch.randn((7, 7, 7, 3, 64), generator=gen, device=dev)
+         * 0.05).to(torch.bfloat16)
+    b = torch.randn(64, generator=gen, device=dev)
+    pad = tuple(same_pads(n, 7, 2) for n in x.shape[1:4])
+    (xs, ws), counts = _counted(lambda: k2.space_to_depth_3d(x, w, 2, pad))
+    assert _got(counts, "s2d.launches") == (1,)
+    pxs, pws = k2.space_to_depth_3d_plain(x, w, 2, pad)
+    assert torch.equal(xs, pxs) and torch.equal(ws, pws)
+    assert xs.shape == (1, 13, 23, 21, 24) and ws.shape == (4, 4, 4, 24, 64)
+    got, counts = _counted(lambda: k2.conv3d_gemm_ndhwc(
+        x, w, b, stride=(2, 2, 2), pad=pad, fuse_relu=True,
+        out_dtype=torch.bfloat16))
+    assert _got(counts, "k2.launches", "k2.sm90_launches",
+                "k2.depth_launches", "s2d.launches") == (1, 1, 1, 1)
+    assert got.shape == (1, 10, 20, 18, 64)
+    _close(got, k2.conv3d_gemm_ndhwc_plain(
+        x, w, b, stride=(2, 2, 2), pad=pad, fuse_relu=True,
+        out_dtype=torch.bfloat16))
+
+
+# name, (T, H, W, C), window, stride
+NDHWC_POOLS = [
+    ("module", (9, 14, 14, 64), (3, 3, 3), (1, 1, 1)),
+    ("module-ragged", (6, 5, 7, 24), (3, 3, 3), (1, 1, 1)),
+    ("4a", (25, 28, 28, 48), (3, 3, 3), (2, 2, 2)),
+    ("5a", (13, 14, 14, 32), (2, 2, 2), (2, 2, 2)),
+    ("other", (7, 5, 6, 16), (3, 2, 3), (2, 1, 2)),
+    ("odd-channels", (5, 6, 6, 6), (3, 3, 3), (1, 1, 1)),
+]
+
+
+@pytest.mark.parametrize("dtype", POOL_DTYPES)
+@pytest.mark.parametrize("case", NDHWC_POOLS, ids=[c[0] for c in NDHWC_POOLS])
+def test_ndhwc_pool_kernel_equals_plain(dev, case, dtype):
+    """One launch of the NDHWC kernel (counted as a deep one) at TF's SAME
+    pads, bit-equal to the plain version (a -inf F.pad and F.max_pool3d) on
+    values with ties, signed zeros and a few NaNs."""
+    from videovector_tpu_torch.ops import pooling
+    from videovector_tpu_torch.ops.conv import same_pads
+    _, shape, window, stride = case
+    x = _pool_values((2, *shape), dtype, dev, sum(shape))
+    x.view(-1)[::97] = float("nan")
+    pad = tuple(same_pads(n, k, s) for n, k, s in zip(shape, window, stride))
+    got, counts = _counted(lambda: pooling.max_pool(
+        x, kernel=window, stride=stride, pad=pad, layout="NDHWC"))
+    assert _got(counts, "max_pool.calls", "max_pool.launches",
+                "max_pool.depth_launches") == (1, 1, 1)
+    assert same_bits(got, pooling.max_pool_ndhwc_plain(x, window, stride,
+                                                       pad))
+
+
+def test_a_pool_one_frame_deep_runs_the_nhwc_kernel(dev):
+    """MaxPool3d_2a (1x3x3 at 1,2,2, SAME) over the frames: one launch of
+    the NHWC kernel, none of the NDHWC one, bit-equal to the plain 3D
+    pool."""
+    from videovector_tpu_torch.ops import pooling
+    x = _pool_values((1, 6, 112, 112, 64), torch.bfloat16, dev, 5)
+    pad = ((0, 0), (0, 1), (0, 1))
+    got, counts = _counted(lambda: pooling.max_pool(
+        x, kernel=(1, 3, 3), stride=(1, 2, 2), pad=pad, layout="NDHWC"))
+    assert _got(counts, "max_pool.launches",
+                "max_pool.depth_launches") == (1, 0)
+    assert same_bits(got, pooling.max_pool_ndhwc_plain(
+        x, (1, 3, 3), (1, 2, 2), pad))
+
+
+def _i3d_serving(dev, seed=23, rows=4096):
+    """A full-width I3D pipeline on the card, its params (BatchNorm
+    folded), a gallery of `rows` unit rows of 1,024 with permuted ids, and
+    the generator."""
+    from videovector_tpu_torch.models.retrieval_pipeline import (
+        RetrievalPipeline, RetrievalPipelineConfig,
+    )
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cfg = RetrievalPipelineConfig(backbone="i3d", crop=224, embed_dim=1024)
+    pipe = RetrievalPipeline(cfg, device=dev)
+    params = pipe.init(gen)
+    gallery = torch.nn.functional.normalize(
+        torch.randn((rows, 1024), generator=gen, device=dev), dim=1)
+    ids = torch.randperm(rows, generator=gen, device=dev).to(torch.int32)
+    return pipe, params, gallery, ids, gen
+
+
+def _i3d_clip(gen, frames, dev):
+    """One clip's frames with one crop offset pair and mirror flag."""
+    pix = torch.randint(0, 256, (frames, 256, 256, 3), generator=gen,
+                        device=dev, dtype=torch.uint8)
+    h, w = (torch.randint(0, 33, (1,), generator=gen, device=dev)
+            for _ in range(2))
+    return pix, h, w, torch.randint(0, 2, (1,), generator=gen,
+                                     device=dev) > 0
+
+
+def test_i3d_convs_and_pools_all_take_the_kernels(dev):
+    """One I3D forward over a 64-frame clip: 57 K2 launches, all on the sm90
+    route, 20 of them deep (the 19 3x3x3 convs and conv1 after one repack),
+    none on the core; 13 pools, all launched, 11 of them on the NDHWC
+    kernel; the features within 2e-2 (relative L2) of the plain forward's."""
+    pipe, params, _, _, gen = _i3d_serving(dev)
+    pix, h, w, m = _i3d_clip(gen, 64, dev)
+    x = pipe.transform(pix, h.expand(64), w.expand(64), m.expand(64))
+    x = x.reshape(1, 64, 224, 224, 3)
+    got, counts = _counted(lambda: pipe.i3d.forward(params["i3d"], x))
+    assert _got(counts, "k2.launches", "k2.sm90_launches",
+                "k2.depth_launches", "s2d.launches") == (57, 57, 20, 1)
+    assert _got(counts, "max_pool.calls", "max_pool.launches",
+                "max_pool.depth_launches") == (13, 13, 11)
+    with plain_versions():
+        plain = pipe.i3d.forward(params["i3d"], x)
+    torch.cuda.synchronize()
+    assert got.shape == (1, 1024)
+    assert float((got - plain).norm() / plain.norm()) < 2e-2
+
+
+def test_i3d_replays_equal_the_eager_query_bit_for_bit(dev):
+    """I3D's query of one clip through the graph capture: the first call
+    eager, the second captured and replayed, the third replayed; each
+    answer and the features `features` holds after it bit-equal to a fresh
+    pipeline's eager ones; a replay adds its capture's counts."""
+    from videovector_tpu_torch.models.retrieval_pipeline import (
+        RetrievalPipeline,
+    )
+    pipe, params, gallery, ids, gen = _i3d_serving(dev)
+    replays = []
+    for _ in range(3):
+        clip = _i3d_clip(gen, 64, dev)
+        out, counts = _counted(lambda: pipe.query(params, *clip, gallery,
+                                                  ids))
+        replays.append(counts.get("vvtpu.query.graph_replays", 0))
+        assert _got(counts, "k2.depth_launches",
+                    "max_pool.depth_launches") == (20, 11)
+        fresh = RetrievalPipeline(pipe.cfg, device=dev)
+        want = fresh.query(params, *clip, gallery, ids)
+        assert fresh._graph is None
+        assert out[0].shape == (1, 5) and _equal(out, want)
+        # the head's 7 windows at 64 frames: the last map is 8 frames deep
+        assert pipe.features.shape == (1, 7, 1024)
+        assert torch.equal(pipe.features, fresh.features)
+    assert replays == [0, 1, 1]

@@ -170,6 +170,29 @@ def test_nhwc_max_pool_matches_jax_at_edge_values(kind, dtype):
             assert (want[0, :2, :2] == -float("inf")).all()
 
 
+@pytest.mark.parametrize("kernel,stride,pad", [((3, 3), (2, 2), (0, 0)),
+                                               ((3, 3), (1, 1), (1, 1)),
+                                               ((2, 2), (2, 2), (0, 0))])
+def test_nhwc_max_pool_gradient_matches_jax(kernel, stride, pad):
+    """A CPU NHWC pool that autograd records takes the plain version, whose
+    gradient of sum(pool(x) * g) equals jax.grad of JAX's pool on distinct
+    values (no ties): overlapping windows add into x's gradient in both."""
+    gen = torch.Generator().manual_seed(sum(kernel) + pad[0])
+    x = torch.randn((2, 9, 11, 6), generator=gen, requires_grad=True)
+    out = tpool.max_pool(x, kernel=kernel, stride=stride, pad=pad,
+                         layout="NHWC")
+    g = torch.randn(out.shape, generator=gen)
+    (out * g).sum().backward()
+
+    def loss(jx):
+        y = jpool.max_pool(jx, kernel=kernel, stride=stride, pad=pad)
+        return jnp.sum(y * jnp.asarray(g.permute(0, 3, 1, 2).numpy()))
+    want = jax.grad(loss)(jnp.asarray(x.detach().permute(0, 3, 1, 2)
+                                      .numpy()))
+    assert torch.allclose(x.grad, torch.from_numpy(np.array(want))
+                          .permute(0, 2, 3, 1), atol=1e-6, rtol=0)
+
+
 @pytest.mark.parametrize("geom", POOL_GEOMS)
 def test_avg_pool_divides_by_the_padded_window(geom):
     h, w, kernel, stride, pad = geom

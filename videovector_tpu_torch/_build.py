@@ -40,7 +40,10 @@ SIGNATURES = {
     "vv_conv_gemm_sm90": [_P] * 4 + [_I] * 14 + [_L] * 3 + [_I] * 5 + [_P],
     "vv_conv_gemm_f32_sm90": [_P] * 5 + [_I] * 14 + [_L] * 3 + [_I] * 5 + [_P],
     "vv_space_to_depth": [_P] * 4 + [_I] * 10 + [_P],
+    "vv_conv3d_gemm_sm90": [_P] * 4 + [_I] * 18 + [_L] * 4 + [_I] * 5 + [_P],
+    "vv_space_to_depth_3d": [_P] * 4 + [_I] * 16 + [_P],
     "vv_max_pool_nhwc": [_P] * 2 + [_I] * 12 + [_L] * 4 + [_I] * 2 + [_P],
+    "vv_max_pool_ndhwc": [_P] * 2 + [_I] * 17 + [_L] * 5 + [_I] * 2 + [_P],
     "vv_lrn_nhwc": [_P] * 2 + [_I] * 4 + [_L] * 4 + [_I] + [_F] * 2
     + [_I] * 2 + [_P],
 }

@@ -43,6 +43,17 @@
 //   chunk, a misaligned base or a channel stride other than 1.
 // - No padded copy, no index output, no shared memory, no allocation; it
 //   launches on the caller's stream.
+//
+// The same file pools NDHWC clips (I3D's 3D pools, `vv_max_pool_ndhwc`):
+// a KT x KH x KW window over (frame, row, column) with the pads before each
+// axis given and the output's sizes fixing those after (TF's SAME), each
+// window clipped to the clip and scanned frame by frame, each frame
+// row-major, as F.max_pool3d scans its -inf padded copy. Bytes bound it as
+// in 2D (I3D's 11 such pools at one 250-frame clip: 0.13 ms at 3.35
+// TB/s). A 3x3x3 window at stride 1 (the modules' pools, 9 of the 11) goes
+// by strips of 4 output frames, each input frame's nine voxels read once a
+// strip; any other window one chunk a thread, or one element a thread
+// where the chunks are not 16-byte vectors.
 #include <cmath>
 #include <cstdint>
 #include <cstring>
@@ -271,6 +282,131 @@ cudaError_t launch(const void* xv, void* outv, const Geom& g, int n, cudaStream_
   return cudaGetLastError();
 }
 
+// The 3D pools (NDHWC, I3D's): a window of KT x KH x KW over (frame, row,
+// column), each clipped to the clip, scanned frame by frame, each frame
+// row-major, as F.max_pool3d scans its padded copy.
+struct Geom3 {
+  int T, H, W, C, OT, OH, OW, KT, KH, KW, ST, SH, SW, PT, PH, PW;
+  long long sxn, sxt, sxh, sxw, sxc;  // x's element strides
+};
+
+// Any window: thread (n, ot, oh, ow, chunk) writes one chunk (V = 1: one
+// element) of output voxel (n, ot, oh, ow), scanning its clipped window.
+template <typename T, int V>
+__global__ void __launch_bounds__(256)
+    max_pool_ndhwc(const T* __restrict__ x, T* __restrict__ out, Geom3 g, unsigned total) {
+  const unsigned i = blockIdx.x * 256u + threadIdx.x;
+  if (i >= total) return;
+  const int cv = g.C / V;
+  Place q;  // q.n: the (image, output frame) pair
+  place(i, g.OW * cv, cv, g.OH, V, q);
+  const int ot = q.n % g.OT, n = q.n / g.OT;
+  const int t0 = ot * g.ST - g.PT, h0 = q.row * g.SH - g.PH, w0 = q.ow * g.SW - g.PW;
+  const T* base = x + n * g.sxn + q.c0 * g.sxc;
+  const int ts = max(t0, 0), te = min(t0 + g.KT, g.T);
+  const int ys = max(h0, 0), ye = min(h0 + g.KH, g.H);
+  const int xs = max(w0, 0), xe = min(w0 + g.KW, g.W);
+  if constexpr (V > 1) {
+    Max4 m;
+    reset<T>(m);
+    for (int t = ts; t < te; ++t)
+      for (int y = ys; y < ye; ++y)
+        for (int xx = xs; xx < xe; ++xx)
+          fold_chunk(base + t * g.sxt + y * g.sxh + xx * g.sxw, m);
+    store(out + static_cast<long long>(i) * V, m);
+  } else {
+    T m = neg_inf<T>();
+    for (int t = ts; t < te; ++t)
+      for (int y = ys; y < ye; ++y)
+        for (int xx = xs; xx < xe; ++xx)
+          fold_one(base[t * g.sxt + y * g.sxh + xx * g.sxw], m);
+    out[i] = m;
+  }
+}
+
+// A 3x3x3 window at stride 1 (the modules' pools), on 16-byte chunks:
+// thread (n, strip, oh, ow, chunk) writes one chunk of R consecutive output
+// frames ot0 .. ot0 + R - 1 at (oh, ow). It reads each frame of the strip
+// once, R + 2 frames of nine voxels, takes that frame's window maximum
+// row-major, and folds it into the outputs whose windows hold the frame,
+// in frame order: every output takes the first of its window's maxima in
+// the scan's order (the last NaN where there is one), as the one-window
+// scan does.
+template <typename T, int R>
+__global__ void __launch_bounds__(256)
+    max_pool_ndhwc_frames(const T* __restrict__ x, T* __restrict__ out, Geom3 g,
+                          unsigned total, int strips) {
+  constexpr int V = Lanes<T>::V;
+  const unsigned i = blockIdx.x * 256u + threadIdx.x;
+  if (i >= total) return;
+  const int cv = g.C / V;
+  Place q;  // q.n: the (image, strip) pair
+  place(i, g.OW * cv, cv, g.OH, V, q);
+  const int strip = q.n % strips, n = q.n / strips;
+  const int ot0 = strip * R;
+  const int t0 = ot0 - g.PT, h0 = q.row - g.PH, w0 = q.ow - g.PW;
+  const T* base = x + n * g.sxn + q.c0;
+  Max4 m[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) reset<T>(m[r]);
+#pragma unroll
+  for (int f = 0; f < R + 2; ++f) {
+    const int t = t0 + f;
+    if (static_cast<unsigned>(t) >= static_cast<unsigned>(g.T)) continue;
+    Max4 h;
+    reset<T>(h);
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const int y = h0 + a;
+      if (static_cast<unsigned>(y) >= static_cast<unsigned>(g.H)) continue;
+#pragma unroll
+      for (int b = 0; b < 3; ++b) {
+        const int xx = w0 + b;
+        if (static_cast<unsigned>(xx) >= static_cast<unsigned>(g.W)) continue;
+        fold_chunk(base + t * g.sxt + y * g.sxh + xx * g.sxw, h);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      if (f >= r && f < r + 3) fold<T>(h, m[r]);
+  }
+  T* o = out + (((static_cast<long long>(n) * g.OT + ot0) * g.OH + q.row) * g.OW + q.ow) *
+                   g.C + q.c0;
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    if (ot0 + r < g.OT) store(o + static_cast<long long>(r) * g.OH * g.OW * g.C, m[r]);
+}
+
+// The 16-byte route where x's chunks are 16-byte vectors: a 3x3x3 window
+// at stride 1 by strips of 4 frames, any other one chunk a thread; else
+// one element a thread.
+template <typename T>
+cudaError_t launch3(const void* xv, void* outv, const Geom3& g, int n, cudaStream_t st) {
+  constexpr int V = Lanes<T>::V;
+  const T* x = static_cast<const T*>(xv);
+  T* out = static_cast<T*>(outv);
+  const bool vec = g.C % V == 0 && g.sxc == 1 && g.sxn % V == 0 && g.sxt % V == 0 &&
+                   g.sxh % V == 0 && g.sxw % V == 0 &&
+                   reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  if (vec && g.KT == 3 && g.KH == 3 && g.KW == 3 && g.ST == 1 && g.SH == 1 && g.SW == 1) {
+    constexpr int R = 4;
+    const int strips = (g.OT + R - 1) / R;
+    const long long total = static_cast<long long>(n) * strips * g.OH * g.OW * (g.C / V);
+    max_pool_ndhwc_frames<T, R><<<blocks_for(total), 256, 0, st>>>(
+        x, out, g, static_cast<unsigned>(total), strips);
+    return cudaGetLastError();
+  }
+  const long long total =
+      static_cast<long long>(n) * g.OT * g.OH * g.OW * g.C / (vec ? V : 1);
+  const unsigned t = static_cast<unsigned>(total);
+  if (vec)
+    max_pool_ndhwc<T, V><<<blocks_for(total), 256, 0, st>>>(x, out, g, t);
+  else
+    max_pool_ndhwc<T, 1><<<blocks_for(total), 256, 0, st>>>(x, out, g, t);
+  return cudaGetLastError();
+}
+
 }  // namespace pool
 }  // namespace vv
 
@@ -296,4 +432,33 @@ extern "C" int vv_max_pool_nhwc(const void* x, void* out, int N, int H, int W, i
   if (dtype == kBF16) return static_cast<int>(launch<__nv_bfloat16>(x, out, g, N, st));
   if (dtype == kF16) return static_cast<int>(launch<__half>(x, out, g, N, st));
   return static_cast<int>(launch<float>(x, out, g, N, st));
+}
+
+// x (N, T, H, W, C) of `dtype` (0 f32, 1 bf16, 2 f16) with element strides
+// sxn, sxt, sxh, sxw, sxc; out (N, OT, OH, OW, C) contiguous, of the same
+// type. PT, PH, PW are the pads before each axis; the output sizes, from
+// the caller's geometry, fix the pads after. Every window is clipped to
+// the clip. Returns a CUDA error code as an int.
+extern "C" int vv_max_pool_ndhwc(const void* x, void* out, int N, int T, int H, int W,
+                                 int C, int OT, int OH, int OW, int KT, int KH, int KW,
+                                 int ST, int SH, int SW, int PT, int PH, int PW,
+                                 long long sxn, long long sxt, long long sxh,
+                                 long long sxw, long long sxc, int dtype, int device,
+                                 void* stream) {
+  using namespace vv::pool;
+  if (N <= 0 || T <= 0 || H <= 0 || W <= 0 || C <= 0 || OT <= 0 || OH <= 0 || OW <= 0 ||
+      KT <= 0 || KH <= 0 || KW <= 0 || ST <= 0 || SH <= 0 || SW <= 0 || PT < 0 ||
+      PH < 0 || PW < 0 || PT >= KT || PH >= KH || PW >= KW ||
+      (dtype != kF32 && dtype != kBF16 && dtype != kF16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (static_cast<long long>(N) * OT * OH * OW * C >= 0x7fffffffLL)  // items fit an int
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Geom3 g{T, H, W, C, OT, OH, OW, KT, KH, KW, ST, SH, SW, PT, PH, PW,
+                sxn, sxt, sxh, sxw, sxc};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == kBF16) return static_cast<int>(launch3<__nv_bfloat16>(x, out, g, N, st));
+  if (dtype == kF16) return static_cast<int>(launch3<__half>(x, out, g, N, st));
+  return static_cast<int>(launch3<float>(x, out, g, N, st));
 }

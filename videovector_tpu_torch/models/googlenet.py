@@ -28,7 +28,9 @@ Each entry point runs its plain version on the CPU and inside
 `device.plain_versions()`. The branches meet in `torch.cat`: the counter
 `vvtpu.concat_bytes` adds the bytes each concatenation writes, and each
 module runs inside the span `vvtpu.inception`, its request id the
-module's index.
+module's index. The module loop (`InceptionNet`) and the widths
+(`BVLC_INCEPTIONS`) are shared with I3D (models/i3d.py), GoogLeNet
+inflated into time.
 """
 
 from __future__ import annotations
@@ -39,7 +41,9 @@ from dataclasses import dataclass
 import torch
 
 from videovector_tpu_torch.core import fillers
-from videovector_tpu_torch.models.mednet import cast_param, torch_dtype
+from videovector_tpu_torch.models.mednet import (
+    Backbone, cast_param, torch_dtype,
+)
 from videovector_tpu_torch.ops.hopper.conv_gemm import conv2d_gemm_nhwc
 from videovector_tpu_torch.ops.lrn import lrn_nhwc
 from videovector_tpu_torch.ops.pooling import max_pool
@@ -117,7 +121,39 @@ class GoogLeNetConfig:
 lrn = lrn_nhwc
 
 
-class GoogLeNet:
+class InceptionNet(Backbone):
+    """The module loop that GoogLeNet and I3D (models/i3d.py) share: each
+    module of `cfg.inceptions` runs inside the span `vvtpu.inception` (its
+    request id the module's index) as its four branches concatenated along
+    channels, the last axis, whose bytes the counter `vvtpu.concat_bytes`
+    adds; the pool that ends a stage follows a module with `pool` set. A
+    net gives the branches (`_branches`) and the stage's pool
+    (`_stage_pool`, by the stage's index from 0)."""
+
+    def _branches(self, params, m: InceptionSpec, x):
+        raise NotImplementedError
+
+    def _stage_pool(self, x, stage: int):
+        raise NotImplementedError
+
+    def _modules(self, params, x):
+        stage = 0
+        for i, m in enumerate(self.cfg.inceptions):
+            with span("vvtpu.inception", req=i):
+                x = self._inception(params, m, x)
+            if m.pool:
+                x = self._stage_pool(x, stage)
+                stage += 1
+        return x
+
+    def _inception(self, params, m: InceptionSpec, x):
+        """One module: its branches concatenated along channels."""
+        out = torch.cat(self._branches(params, m, x), dim=-1)
+        count("vvtpu.concat_bytes", out.nbytes)
+        return out
+
+
+class GoogLeNet(InceptionNet):
     def __init__(self, cfg: GoogLeNetConfig = GoogLeNetConfig()):
         self.cfg = cfg
 
@@ -139,11 +175,7 @@ class GoogLeNet:
         x = self._conv(params, "conv1/7x7_s2", images.to(cdt), 2, 3)
         x = self._conv(params, "conv2/3x3_reduce", lrn(self._pool(x, 2)))
         x = self._pool(lrn(self._conv(params, "conv2/3x3", x, pad=1)), 2)
-        for i, m in enumerate(self.cfg.inceptions):
-            with span("vvtpu.inception", req=i):
-                x = self._inception(params, m, x)
-            if m.pool:
-                x = self._pool(x, 2)
+        x = self._modules(params, x)
         # pool5: BVLC's 7x7/1 average, over the whole 7 x 7 map at 224
         return x.float().mean(dim=(1, 2))
 
@@ -170,11 +202,9 @@ class GoogLeNet:
                 conv(p + "5x5", conv(p + "5x5_reduce", x), pad=2),
                 conv(p + "pool_proj", self._pool(x, 1, 1)))
 
-    def _inception(self, params, m: InceptionSpec, x):
-        """One module: its branches concatenated along channels."""
-        out = torch.cat(self._branches(params, m, x), dim=3)
-        count("vvtpu.concat_bytes", out.nbytes)
-        return out
+    def _stage_pool(self, x, stage: int):
+        """BVLC's 3x3/2 max pool after modules 3b and 4e."""
+        return self._pool(x, 2)
 
     @staticmethod
     def params_from_graph_engine(net_params: dict) -> dict:

@@ -80,7 +80,24 @@ def cast_param(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return out
 
 
-class MedNet:
+class Backbone:
+    """What RetrievalPipeline asks of a backbone besides `init` (the params
+    it serves) and `forward`: the transform of its input, (pixels - mean) *
+    scale, and whether it reads whole clips. A frame backbone maps (N, H,
+    W, C) images to (N, D) features and the pipeline keeps those."""
+
+    pixel_mean: float | None = None     # None: the pipeline's caller's mean
+    pixel_scale = 1.0
+    clip_input = False
+
+    def served_features(self, params, x):
+        """(what the pipeline keeps as its `features`, the (N, D) f32
+        features its tower reads)."""
+        feats = self.forward(params, x)
+        return feats, feats
+
+
+class MedNet(Backbone):
     def __init__(self, cfg: MedNetConfig = MedNetConfig()):
         self.cfg = cfg
 

@@ -5,13 +5,23 @@ videovector_tpu/models/retrieval_pipeline.py.
     -> crop/mirror/mean transform       (data/transformer.py)
     -> the backbone: MedNet conv1..fc7  (models/mednet.py: K2 convs, K1 fc)
        or GoogLeNet to pool5            (models/googlenet.py: K2 convs)
+       or I3D over whole clips          (models/i3d.py: K2's 2D and depth
+                                         routes)
     -> embedding tower + L2 normalize   (models/embedding.py: K1)
     -> scores vs a device-resident gallery (torch.matmul), top-k
 
 `RetrievalPipelineConfig.backbone` picks the backbone: "caffenet" (the
-default; 4,096 features, params under "mednet") or "googlenet" (BVLC's
-widths, 1,024 features, params under "googlenet"). The tower's input
-width is the backbone's.
+default; 4,096 features, params under "mednet"), "googlenet" (BVLC's
+widths, 1,024 features, params under "googlenet") or "i3d" (1,024
+features a clip, params under "i3d", BatchNorm folded). The tower's input
+width is the backbone's. What else differs the backbone declares
+(models/mednet.py::Backbone): the transform's mean and scale (I3D reads
+RGB in [-1, 1]: 127.5 unless the caller gives a mean, and 1 / 127.5),
+whether it reads whole clips, and the features the pipeline keeps. The
+frame backbones embed each frame; a clip backbone's call of N T frames
+with N crop offsets and mirror flags is N clips of T consecutive frames,
+each offset and flag taken by every frame of its clip, and it gives N
+embeddings and N rows of top-k.
 
 Top-k breaks ties as lax.top_k does, lower gallery index first, through a
 stable descending sort.
@@ -29,15 +39,17 @@ offsets, a new gallery, params or batch size) runs eagerly.
 
 Under a profiler each stage is a span (utils/timer.py): `vvtpu.query`
 (its request id the pipeline's count of queries) around the call, and
-`vvtpu.query.transform`, `.mednet` (`.googlenet` for that backbone),
-`.tower`, `.scores` and `.topk`, or
+`vvtpu.query.transform`, `.mednet` (`.googlenet` or `.i3d` for those
+backbones), `.tower`, `.scores` and `.topk`, or
 `vvtpu.query.replay` around a replay, which also adds 1 to the counter
 `vvtpu.query.graph_replays` and again what the captured query counted
 (`vvtpu.cast_bytes`).
 
-`features` holds the backbone's (N, D) f32 features of the last frames
-embedded; after a replay it is the graph's own buffer, which the next
-replay overwrites.
+`features` holds what the backbone's `served_features` keeps of the last
+frames embedded, in f32: the (N, D) features a frame backbone gives (for
+I3D its head's (N, windows, D), the 2-frame windows of the last map,
+whose mean over time the tower reads); after a replay it is the graph's
+own buffer, which the next replay overwrites.
 """
 
 from __future__ import annotations
@@ -56,6 +68,7 @@ from videovector_tpu_torch.models.embedding import (
     VideoEmbeddingConfig, VideoEmbeddingModel,
 )
 from videovector_tpu_torch.models.googlenet import GoogLeNet, GoogLeNetConfig
+from videovector_tpu_torch.models.i3d import I3D, I3DConfig
 from videovector_tpu_torch.models.mednet import MedNet, MedNetConfig
 from videovector_tpu_torch.ops.linear import no_tf32
 from videovector_tpu_torch.ops.normalization import l2_normalize_rows
@@ -71,7 +84,7 @@ class RetrievalPipelineConfig:
     compute_dtype: str = "bfloat16"
     # "NHWC": frames in decode order (H, W, C); "NCHW" accepts Caffe blobs
     pixels_layout: str = "NHWC"
-    # "caffenet" or "googlenet"
+    # "caffenet", "googlenet" or "i3d"
     backbone: str = "caffenet"
 
 
@@ -142,15 +155,23 @@ class RetrievalPipeline:
             self.googlenet = GoogLeNet(GoogLeNetConfig(
                 compute_dtype=cfg.compute_dtype))
             feature_dim = self.googlenet.cfg.feature_dim
+        elif cfg.backbone == "i3d":
+            self.backbone_key = "i3d"
+            self.i3d = I3D(I3DConfig(compute_dtype=cfg.compute_dtype))
+            feature_dim = self.i3d.cfg.feature_dim
         else:
-            raise ValueError("backbone must be 'caffenet' or 'googlenet', "
-                             f"got {cfg.backbone!r}")
+            raise ValueError("backbone must be 'caffenet', 'googlenet' or "
+                             f"'i3d', got {cfg.backbone!r}")
         self.embedder = VideoEmbeddingModel(VideoEmbeddingConfig(
             feature_dim=feature_dim, embed_dim=cfg.embed_dim,
             compute_dtype=cfg.compute_dtype, dropout_rate=0.0))
+        if mean is None and self.backbone.pixel_mean is not None:
+            mean = np.full((3, *cfg.image_hw), self.backbone.pixel_mean,
+                           np.float32)
         self.transform = make_batch_transform(
-            TransformConfig(crop_size=cfg.crop), mean, cfg.image_hw,
-            layout=cfg.pixels_layout, device=self.device)
+            TransformConfig(crop_size=cfg.crop,
+                            scale=self.backbone.pixel_scale),
+            mean, cfg.image_hw, layout=cfg.pixels_layout, device=self.device)
         self.queries = 0    # the request id of the `vvtpu.query` spans
         self._graph = None      # the captured query (_QueryGraph)
         self._last_key = None   # the key of the last query run eagerly
@@ -158,11 +179,13 @@ class RetrievalPipeline:
 
     @property
     def backbone(self):
-        """The backbone model: `self.mednet` or `self.googlenet`."""
+        """The backbone model: `self.mednet`, `self.googlenet` or
+        `self.i3d`."""
         return getattr(self, self.backbone_key)
 
     def init(self, generator: torch.Generator):
-        """Random params from `generator`, placed on the pipeline's device."""
+        """Random params from `generator`, placed on the pipeline's device
+        (the backbone's `init`: I3D's BatchNorm folded into its convs)."""
         params = {self.backbone_key: self.backbone.init(generator),
                   "tower": self.embedder.init(generator)["tower"]}
         return map_params(lambda t: t.to(self.device), params)
@@ -171,15 +194,22 @@ class RetrievalPipeline:
     @torch.no_grad()
     def embed_frames(self, params, pixels_u8, h_off, w_off, mirror):
         """uint8 frames ((N,H,W,C) for pixels_layout NHWC, (N,C,H,W) for
-        NCHW) -> (N, E) unit embeddings (f32)."""
+        NCHW) -> (N, E) unit embeddings (f32); for a clip backbone, N T
+        frames of N clips with (N,) offsets and flags -> (N, E)."""
+        clips = self.backbone.clip_input
         with span("vvtpu.query.transform"):
+            if clips:
+                h_off, w_off, mirror, t = self._per_frame(
+                    pixels_u8, h_off, w_off, mirror)
             x = self.transform(pixels_u8, h_off, w_off, mirror)
             if self.cfg.pixels_layout == "NCHW":
                 x = x.permute(0, 2, 3, 1)                      # -> NHWC
+            if clips:
+                x = x.reshape(-1, t, *x.shape[1:])             # -> NDHWC
         key = self.backbone_key
         with span("vvtpu.query." + key):
-            feats = self.backbone.forward(params[key], x)     # (N, D) f32
-            self.features = feats
+            self.features, feats = self.backbone.served_features(
+                params[key], x)
         with span("vvtpu.query.tower"):
             emb = self.embedder.embed({"tower": params["tower"]}, feats)
             return l2_normalize_rows(emb)
@@ -199,6 +229,20 @@ class RetrievalPipeline:
                 self.features = graph.features
                 return out
             return self._query(params, *inputs, gallery, gallery_ids)
+
+    def _per_frame(self, pixels_u8, h_off, w_off, mirror):
+        """Each clip's crop offsets and mirror flag repeated for its
+        frames, and the frames a clip: as many clips as offsets."""
+        per = [torch.as_tensor(v, device=self.device).reshape(-1)
+               for v in (h_off, w_off, mirror)]
+        n = per[0].shape[0]
+        if any(v.shape[0] != n for v in per) or n < 1 or (
+                pixels_u8.shape[0] % n):
+            raise ValueError(
+                f"{pixels_u8.shape[0]} frames are not whole clips of the "
+                f"offsets and flags {[tuple(v.shape) for v in per]}")
+        t = pixels_u8.shape[0] // n
+        return (*(v[:, None].expand(n, t).reshape(-1) for v in per), t)
 
     def _query(self, params, pixels_u8, h_off, w_off, mirror, gallery,
                gallery_ids):
@@ -240,10 +284,12 @@ class RetrievalPipeline:
 
     # ------------------------------------------------------------------
     def build_gallery(self, params, frame_batches, video_ids_per_batch):
-        """Average frame embeddings per video -> (num_videos, E) unit gallery
-        and its int32 ids (sorted), both on the device.
-        frame_batches: iterable of (pixels, h_off, w_off, mirror) tuples;
-        video_ids_per_batch: the matching iterable of per-batch id arrays."""
+        """Average frame (for I3D, clip) embeddings per video ->
+        (num_videos, E) unit gallery and its int32 ids (sorted), both on the
+        device. frame_batches: iterable of (pixels, h_off, w_off, mirror)
+        tuples as `embed_frames` takes them; video_ids_per_batch: the
+        matching iterable of id arrays, one id a frame (for I3D, a
+        clip)."""
         sums: dict[int, np.ndarray] = {}
         counts: dict[int, int] = {}
         for (pix, h, w, m), vids in zip(frame_batches, video_ids_per_batch):

@@ -4,7 +4,9 @@ videovector_tpu/ops/conv.py.
 Every function here is plain PyTorch. `im2col` feeds K2's plain version
 (ops/hopper/conv_gemm.py), `conv2d` is the library convolution the JAX
 module wraps, and `col2im` is im2col's adjoint (the IM2COL layer's
-backward in the reference).
+backward in the reference). `im2col_ndhwc` feeds the plain version of
+K2's depth route, and `same_pads` is TF's SAME padding, which I3D's convs
+and pools use (models/i3d.py).
 """
 
 from __future__ import annotations
@@ -39,3 +41,24 @@ def col2im(cols, *, input_hw, kernel=(1, 1), stride=(1, 1), pad=(0, 0)):
     n = cols.shape[0]
     return F.fold(cols.reshape(n, cols.shape[1], -1), tuple(input_hw),
                   tuple(kernel), padding=tuple(pad), stride=tuple(stride))
+
+
+def same_pads(n: int, k: int, s: int) -> tuple[int, int]:
+    """TF's SAME padding of an axis of n for a window of k at stride s: the
+    output is ceil(n / s), and the pads (before, after) that give it split
+    their total, max((out - 1) s + k - n, 0), with the odd one after."""
+    total = max((-(-n // s) - 1) * s + k - n, 0)
+    return total // 2, total - total // 2
+
+
+def im2col_ndhwc(x, kernel, stride, pad):
+    """(N, T, H, W, C) -> (N, OT, OH, OW, kt kh kw C), zero-padded by
+    pad = ((before, after),) * 3 along (T, H, W): each output voxel's
+    window in (d, i, j, c) order, the order of DHWIO weights flattened."""
+    (pt, pt1), (ph, ph1), (pw, pw1) = pad
+    xp = F.pad(x, (0, 0, pw, pw1, ph, ph1, pt, pt1))
+    for axis, (k, s) in enumerate(zip(kernel, stride), start=1):
+        xp = xp.unfold(axis, k, s)           # appends the window's axis
+    # (N, OT, OH, OW, C, kt, kh, kw) -> (..., kt, kh, kw, C)
+    cols = xp.permute(0, 1, 2, 3, 5, 6, 7, 4)
+    return cols.reshape(*cols.shape[:4], -1)

@@ -19,16 +19,24 @@ gathers (CaffeNet's conv1 and GoogLeNet's, 3 channels) is repacked by
 `space_to_depth`, padding included. Each source note says what bounds its
 kernel on the H100.
 
-Three entry points: `conv2d_im2col_gemm`, the JAX signature (NCHW/OIHW,
+Four entry points: `conv2d_im2col_gemm`, the JAX signature (NCHW/OIHW,
 f32 out, no groups, always the core); `conv2d_gemm_nhwc`, MedNet's conv
-(NHWC/HWIO, groups, bias + ReLU epilogue, chosen out dtype); and
+(NHWC/HWIO, groups, bias + ReLU epilogue, chosen out dtype);
 `conv2d_nchw`, the graph engine's CONVOLUTION (NCHW/OIHW, groups,
 differentiable, JAX's Net numerics: one rounding of the f32 sum plus the
-f32 bias).
+f32 bias); and `conv3d_gemm_ndhwc`, I3D's conv (NDHWC/DHWIO, a pad before
+and after each axis, bias + ReLU epilogue, chosen out dtype), whose
+kernels one frame deep fold the frames into the batch and take
+`conv2d_gemm_nhwc`, and whose deeper kernels take the depth route: the
+sm90 kernel with a depth tap in its gathers (csrc/conv3d_gemm_sm90.cu,
+bf16 operands), after `space_to_depth_3d` for a strided conv over too
+few channels (I3D's conv1).
 The counters (utils/timer.py): `vvtpu.k2.launches` every K2 launch,
 `vvtpu.k2.sm90_launches` and `vvtpu.k2.f32_launches` those of the sm90
-and f32 routes, `vvtpu.s2d.launches` the repacks, `vvtpu.k2.layout_copies`
-the channels_last copies `conv2d_nchw` makes of its inputs.
+and f32 routes, `vvtpu.k2.depth_launches` those with a kernel more than
+one frame deep (all on the sm90 route), `vvtpu.s2d.launches` the repacks
+(3D ones too), `vvtpu.k2.layout_copies` the channels_last copies
+`conv2d_nchw` makes of its inputs.
 The epilogue is MedNet's (`conv_epilogue_plain`), not K1's: a bf16 output
 rounds the sum, adds the rounded bias, rounds again, then applies ReLU.
 Each launches a kernel where `device.runs_kernel` says so, else runs its
@@ -51,7 +59,7 @@ import torch.nn.functional as F
 
 from videovector_tpu_torch import _build
 from videovector_tpu_torch.device import runs_kernel
-from videovector_tpu_torch.ops.conv import im2col
+from videovector_tpu_torch.ops.conv import im2col, im2col_ndhwc
 from videovector_tpu_torch.ops.hopper.matmul import (
     DTYPE_CODES, INT_MAX, bias_f32, dtype_code, forward_only, same_device,
 )
@@ -490,6 +498,258 @@ def _k2_conv2d_nhwc_fake(x, w, b, stride, pad, groups, fuse_relu, out_dtype):
     oh, ow = _out_hw(x.shape[1], x.shape[2], w.shape[0], w.shape[1], stride,
                      pad)
     return x.new_empty((x.shape[0], oh, ow, w.shape[3]), dtype=out_dtype)
+
+
+def _out_dhw(sizes, kernel, stride, pad) -> tuple:
+    """(OT, OH, OW) of a 3D conv or pool over `sizes` with `pad` ((before,
+    after) per axis)."""
+    out = tuple((n + b + a - k) // s + 1
+                for n, k, s, (b, a) in zip(sizes, kernel, stride, pad))
+    if min(out) < 1:
+        raise ValueError(f"3D window output would be empty: {tuple(sizes)} "
+                         f"k={tuple(kernel)} s={tuple(stride)} pad={pad}")
+    return out
+
+
+def _pairs(pad) -> tuple:
+    """((before, after),) * 3 from the 6 ints of the custom op's schema,
+    or from pairs."""
+    flat = [int(p) for ax in pad for p in (ax if isinstance(ax, (tuple, list))
+                                           else (ax,))]
+    if len(flat) != 6 or min(flat) < 0:
+        raise ValueError(f"pad wants (before, after) >= 0 for each of 3 "
+                         f"axes, got {pad}")
+    return tuple(zip(flat[0::2], flat[1::2]))
+
+
+def _check3(x, w, out_dtype):
+    if x.dim() != 5 or w.dim() != 5:
+        raise ValueError(f"conv3d wants 5-D x (N, T, H, W, C) and w (KT, KH, "
+                         f"KW, C, O), got {tuple(x.shape)}, {tuple(w.shape)}")
+    if x.shape[4] != w.shape[3]:
+        raise ValueError(f"channels {x.shape[4]} do not fit weight "
+                         f"{tuple(w.shape)}")
+    if x.dtype != w.dtype:
+        raise TypeError(f"x and w dtypes differ: {x.dtype} vs {w.dtype}")
+    dtype_code(x.dtype, "x")
+    dtype_code(out_dtype, "out_dtype")
+
+
+def conv3d_gemm_ndhwc_plain(x, w, b=None, *, stride=(1, 1, 1),
+                            pad=((0, 0),) * 3, fuse_relu: bool = False,
+                            out_dtype=torch.float32):
+    """Plain K2 on NDHWC/DHWIO: `im2col_ndhwc` of x in f32 (the pads read
+    as zero), one f32 matmul with w flattened to (KT KH KW C, O), and K2's
+    epilogue."""
+    _check3(x, w, out_dtype)
+    pad = _pairs(pad)
+    _out_dhw(x.shape[1:4], w.shape[:3], stride, pad)
+    cols = im2col_ndhwc(x.float(), tuple(w.shape[:3]), tuple(stride), pad)
+    with no_tf32():
+        acc = cols.reshape(-1, cols.shape[-1]) @ w.float().reshape(
+            -1, w.shape[4])
+    y = conv_epilogue_plain(acc, b, fuse_relu, out_dtype)
+    return y.reshape(*cols.shape[:4], w.shape[4])
+
+
+def conv3d_gemm_ndhwc(x, w, b=None, *, stride=(1, 1, 1), pad=((0, 0),) * 3,
+                      fuse_relu: bool = False, out_dtype=torch.float32):
+    """x: (N, T, H, W, C); w: (KT, KH, KW, C, O) DHWIO; b: (O,); pad:
+    (before, after) for each of T, H, W -> act(conv + b): (N, OT, OH, OW,
+    O) in out_dtype, contiguous NDHWC. A kernel one frame deep at frame
+    stride 1 with no frame pads, equal pads on each side of H and W, folds
+    T into N (a view of contiguous x) and runs `conv2d_gemm_nhwc`; any
+    other runs the depth route where `runs_kernel(x)` (the custom op
+    `vvtpu::k2_conv3d_ndhwc`), else `conv3d_gemm_ndhwc_plain`."""
+    pad = _pairs(pad)
+    (pt, pt1), (ph, ph1), (pw, pw1) = pad
+    if (w.dim() == 5 and x.dim() == 5 and w.shape[0] == 1 and stride[0] == 1
+            and pt == pt1 == 0 and ph == ph1 and pw == pw1):
+        n, t = x.shape[:2]
+        y = conv2d_gemm_nhwc(x.reshape(n * t, *x.shape[2:]), w[0], b,
+                             stride=tuple(stride[1:]), pad=(ph, pw),
+                             fuse_relu=fuse_relu, out_dtype=out_dtype)
+        return y.reshape(n, t, *y.shape[1:])
+    if runs_kernel(x):
+        forward_only(x, w, b)
+        return torch.ops.vvtpu.k2_conv3d_ndhwc(
+            x, w, b, [int(s) for s in stride], [p for ax in pad for p in ax],
+            fuse_relu, out_dtype)
+    with span("vvtpu.k2"):
+        return conv3d_gemm_ndhwc_plain(x, w, b, stride=stride, pad=pad,
+                                       fuse_relu=fuse_relu,
+                                       out_dtype=out_dtype)
+
+
+def _space_to_depth_3d_shape(sizes, k, stride, pad, c, itemsize):
+    """(kb, blocks, e, ep) of the 3D repack: the repacked kernel's taps kb =
+    ceil(k / s) an axis; the blocks (TB, HB, WB) that the stride-1 conv
+    over them reads (its output plus kb - 1 an axis); the s^3 C channels of
+    a block and that count rounded up to a 16-byte chunk."""
+    kb = -(-k // stride)
+    out = _out_dhw(sizes, (k,) * 3, (stride,) * 3, pad)
+    e = stride ** 3 * c
+    chunk = 16 // itemsize
+    return kb, tuple(o + kb - 1 for o in out), e, -(-e // chunk) * chunk
+
+
+def space_to_depth_3d_plain(x, w, stride: int, pad):
+    """A stride-`stride` 3D conv of x (N, T, H, W, C) with w (k, k, k, C,
+    O), padded by pad ((before, after) per axis), as an unpadded stride-1
+    conv of xs (N, TB, HB, WB, E) with ws (kb, kb, kb, E, O), kb = ceil(k /
+    s): each s x s x s block of the padded clip becomes one voxel, and the
+    kernel is zero-padded to kb s taps an axis. xs[n, bt, bi, bj, ((a s +
+    b) s + c') C + c] = x[n, bt s + a - pt, bi s + b - ph, bj s + c' - pw,
+    c], zero outside the clip; (TB, HB, WB) is the original conv's output
+    plus kb - 1, so the output is the original conv's. E is s^3 C rounded
+    up to a 16-byte chunk of x's dtype, the extra channels zero in xs and
+    in ws. I3D's conv1 (7x7x7/2 over 3 channels, TF's SAME pads 2 before
+    and 3 after) becomes a 4x4x4 conv over 24 channels."""
+    n, t, h, wd, c = x.shape
+    k, o = w.shape[0], w.shape[4]
+    pad = _pairs(pad)
+    kb, (tb, hb, wb), e, ep = _space_to_depth_3d_shape(
+        (t, h, wd), k, stride, pad, c, x.element_size())
+    s = stride
+    (pt, _), (ph, _), (pw, _) = pad
+    # negative end pads cut what the conv steps past
+    xs = F.pad(x, (0, 0, pw, wb * s - pw - wd, ph, hb * s - ph - h,
+                   pt, tb * s - pt - t)) \
+        .reshape(n, tb, s, hb, s, wb, s, c).permute(0, 1, 3, 5, 2, 4, 6, 7) \
+        .reshape(n, tb, hb, wb, e)
+    z = kb * s - k
+    ws = F.pad(w, (0, 0, 0, 0, 0, z, 0, z, 0, z)) \
+        .reshape(kb, s, kb, s, kb, s, c, o).permute(0, 2, 4, 1, 3, 5, 6, 7) \
+        .reshape(kb, kb, kb, e, o)
+    return F.pad(xs, (0, ep - e)), F.pad(ws, (0, 0, 0, ep - e))
+
+
+def space_to_depth_3d(x, w, stride: int, pad):
+    """`space_to_depth_3d_plain`'s repack: where `runs_kernel(x)`
+    (contiguous, both bf16 or both f32) one launch of
+    csrc/conv3d_gemm_sm90.cu's repack kernel, which zero-pads as it
+    gathers, counted in `vvtpu.s2d.launches`; else the plain version. The
+    host's time in it is the span `vvtpu.s2d`."""
+    with span("vvtpu.s2d"):
+        if not runs_kernel(x):
+            return space_to_depth_3d_plain(x, w, stride, pad)
+        forward_only(x, w)
+        same_device(x, w)
+        k, c = w.shape[0], x.shape[4]
+        if not (x.dim() == 5 and w.dim() == 5 and x.dtype == w.dtype
+                and x.dtype in DTYPE_CODES and x.is_contiguous()
+                and w.is_contiguous() and w.shape[1] == w.shape[2] == k
+                and w.shape[3] == c):
+            raise ValueError(
+                "space_to_depth_3d on the card wants contiguous x (N, T, H, "
+                "W, C) and w (k, k, k, C, O), both bf16 or both f32, got "
+                f"{tuple(x.shape)} {x.dtype}, {tuple(w.shape)} {w.dtype}")
+        return _space_to_depth_3d(x, w, stride, _pairs(pad))
+
+
+def _space_to_depth_3d(x, w, stride: int, pad):
+    """One launch of the 3D repack kernel on operands that fit it."""
+    n, t, h, wd, c = x.shape
+    k, o = w.shape[0], w.shape[4]
+    kb, (tb, hb, wb), _, ep = _space_to_depth_3d_shape(
+        (t, h, wd), k, stride, pad, c, x.element_size())
+    xs = torch.empty((n, tb, hb, wb, ep), dtype=x.dtype, device=x.device)
+    ws = torch.empty((kb, kb, kb, ep, o), dtype=w.dtype, device=w.device)
+    lib = _build.load_library()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with span("vvtpu.s2d.launch"):
+        rc = lib.vv_space_to_depth_3d(
+            x.data_ptr(), w.data_ptr(), xs.data_ptr(), ws.data_ptr(), n, t, h,
+            wd, c, o, k, stride, pad[0][0], pad[1][0], pad[2][0], tb, hb, wb,
+            DTYPE_CODES[x.dtype], x.device.index or 0, stream)
+    _build.check(rc, "K2 space_to_depth_3d")
+    count("vvtpu.s2d.launches", 1)
+    return xs, ws
+
+
+@torch.library.custom_op(
+    "vvtpu::k2_conv3d_ndhwc", mutates_args=(),
+    schema="(Tensor x, Tensor w, Tensor? b, int[] stride, int[] pad, "
+           "bool fuse_relu, ScalarType out_dtype) -> Tensor")
+def k2_conv3d_ndhwc(x: torch.Tensor, w: torch.Tensor,
+                    b: Optional[torch.Tensor], stride: list[int],
+                    pad: list[int], fuse_relu: bool,
+                    out_dtype: torch.dtype) -> torch.Tensor:
+    """K2's depth route as a custom op: `conv3d_gemm_ndhwc`'s launch on
+    CUDA tensors (counted), its plain version on CPU tensors; the host's
+    time in it is the span `vvtpu.k2`, the ctypes call `vvtpu.k2.launch`
+    (conv1's repack, `vvtpu.s2d`, runs inside it). `pad` is (before,
+    after) for T, H, W, flattened."""
+    with span("vvtpu.k2"):
+        if x.device.type == "cpu":
+            return conv3d_gemm_ndhwc_plain(x, w, b, stride=stride, pad=pad,
+                                           fuse_relu=fuse_relu,
+                                           out_dtype=out_dtype)
+        return _k2_launch_3d(x, w, b, tuple(stride), _pairs(pad), fuse_relu,
+                             out_dtype)
+
+
+@k2_conv3d_ndhwc.register_fake
+def _k2_conv3d_ndhwc_fake(x, w, b, stride, pad, fuse_relu, out_dtype):
+    _check3(x, w, out_dtype)
+    out = _out_dhw(x.shape[1:4], w.shape[:3], stride, _pairs(pad))
+    return x.new_empty((x.shape[0], *out, w.shape[4]), dtype=out_dtype)
+
+
+def _k2_launch_3d(x, w, b, stride, pad, fuse_relu, out_dtype):
+    """One launch of the depth route (after conv1's repack where the
+    channels do not fill 16-byte chunks); raises on operands it cannot
+    address: there is no 3D core route."""
+    _check3(x, w, out_dtype)
+    same_device(x, w, b)
+    if x.dtype != torch.bfloat16 or out_dtype not in (torch.float32,
+                                                       torch.bfloat16):
+        raise ValueError(f"K2's depth route takes bf16 operands with an f32 "
+                         f"or bf16 output, got {x.dtype} -> {out_dtype}")
+    c = x.shape[4]
+    if c % 8:
+        k = w.shape[0]
+        if not (len(set(stride)) == 1 and stride[0] > 1
+                and tuple(w.shape[:3]) == (k, k, k)):
+            raise ValueError(f"K2's depth route repacks only a cubic kernel "
+                             f"at one stride > 1 over {c} channels, got "
+                             f"{tuple(w.shape)} stride {stride}")
+        with span("vvtpu.s2d"):
+            x, w = _space_to_depth_3d(x.contiguous(), w.contiguous(),
+                                      stride[0], pad)
+        stride, pad = (1, 1, 1), ((0, 0),) * 3
+    n, t, h, wd, c = x.shape
+    kt, kh, kw, _, o = w.shape
+    addressable = (x.stride(4) == 1
+                   and all(st % 8 == 0 for st in x.stride()[:4])
+                   and x.data_ptr() % 16 == 0 and w.is_contiguous()
+                   and w.data_ptr() % 16 == 0 and o % 8 == 0)
+    if not addressable:
+        raise ValueError("K2's depth route wants NDHWC x with unit channel "
+                         "stride, other strides multiples of 8, 16-byte "
+                         "aligned data, contiguous w and O a multiple of 8; "
+                         f"got x strides {x.stride()}, w {tuple(w.shape)}")
+    ot, oh, ow = _out_dhw((t, h, wd), (kt, kh, kw), stride, pad)
+    m = n * ot * oh * ow
+    if max(m, kt * kh * kw * c, o) > INT_MAX:
+        raise ValueError("conv GEMM dims beyond int32")
+    out = torch.empty((n, ot, oh, ow, o), dtype=out_dtype, device=x.device)
+    bias = bias_f32(b, o)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    block_m, block_n, _ = k2_sm90_plan(m, o, 1, sms)
+    lib = _build.load_library()
+    with span("vvtpu.k2.launch"):
+        rc = lib.vv_conv3d_gemm_sm90(
+            x.data_ptr(), w.data_ptr(),
+            bias.data_ptr() if bias is not None else None, out.data_ptr(),
+            n, t, h, wd, c, o, kt, kh, kw, *stride, pad[0][0], pad[1][0],
+            pad[2][0], ot, oh, ow, *x.stride()[:4], block_m, block_n,
+            DTYPE_CODES[out_dtype], int(fuse_relu), x.device.index or 0,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(rc, "K2 conv3d_gemm (sm90 depth route)")
+    for name in ("launches", "sm90_launches", "depth_launches"):
+        count("vvtpu.k2." + name, 1)
+    return out
 
 
 def _conv_nchw_f32(x, w, b, stride, pad, groups):
