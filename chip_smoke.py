@@ -811,6 +811,10 @@ LRN_SHAPES = (("googlenet", "norm1", (56, 56, 64)),
               ("caffenet", "norm1", (27, 27, 96)),
               ("caffenet", "norm2", (13, 13, 256)))
 LRN_PER_EMBED = 2         # CaffeNet's LRNs, one launch each
+# the query's top-k selection: (rows, gallery rows) of the f32 scores, the
+# serve cells' (the 1M gallery's and the 20k one's), and k
+TOPK_SHAPES = ((BATCH, 1_000_000), (BATCH, GALLERY_ROWS))
+TOP_K = 5
 
 
 def bf16_steps(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -900,6 +904,55 @@ def lrn_phase(dev, gen) -> dict:
         raise AssertionError(f"a GoogLeNet forward made {calls} LRN calls "
                              f"and {out['googlenet']['launches']} launches, "
                              "not 2 and 2")
+    return out
+
+
+def topk_phase(dev, gen) -> dict:
+    """The per-row top-k selection kernel (csrc/top_k_rows.cu) at the
+    serving query's f32 scores, k 5: 50 x 1,000,000 (the 1M gallery) and
+    50 x 20,000: values and indices against the stable sort
+    (`top_k_stable_plain`, the plain version), one launch a call, then
+    timed by CUDA-graph replay in turns with the sort and torch.topk (the
+    library's yardstick only: the port never calls it, as it promises no
+    order at ties), beside its bound (the scores read once at HBM's rate).
+    Returns, by shape, the times, the largest |kernel - sort| of a value
+    and the indices that differ."""
+    from videovector_tpu_torch.models import retrieval_pipeline as rp
+    out = {}
+    log(f"top-k selection at the query's scores (f32, k {TOP_K}; device "
+        "time a call from CUDA graphs over two inputs, in turns: kernel, "
+        "stable sort, torch.topk, twice; bound: the scores read once at "
+        f"{PEAK_BYTES / 1e12:.2f} TB/s):")
+    for rows, cols in TOPK_SHAPES:
+        xs = [torch.randn((rows, cols), generator=gen, device=dev)
+              for _ in range(2)]
+        with _tally() as counts:
+            got = rp.top_k_stable(xs[0], TOP_K)
+        if _got(counts, "topk.calls", "topk.launches") != (1, 1):
+            raise AssertionError(f"top-k {rows} x {cols}: not one launch")
+        want = rp.top_k_stable_plain(xs[0], TOP_K)
+        torch.cuda.synchronize()
+        mismatches = int((got[1] != want[1]).sum())
+        err = float((got[0] - want[0]).abs().max())
+        if mismatches or err:
+            raise AssertionError(f"top-k {rows} x {cols}: {mismatches} "
+                                 f"indices differ, values by {err}")
+        fns = {"kernel": lambda x: rp.top_k_stable(x, TOP_K),
+               "plain": lambda x: rp.top_k_stable_plain(x, TOP_K),
+               "library": lambda x: torch.topk(x, TOP_K, dim=-1)}
+        ms, t = time_in_turns(fns, xs)
+        nbytes = rows * cols * 4
+        bound = nbytes / PEAK_BYTES * 1e3
+        out[(rows, cols)] = {"ms": ms["kernel"], "plain_ms": ms["plain"],
+                             "library_ms": ms["library"], "bound_ms": bound,
+                             "err": err, "mismatches": mismatches}
+        log(f"  {rows} x {cols}: kernel {ms['kernel']:.4f} ms "
+            f"({nbytes / ms['kernel'] / 1e6:.0f} GB/s, "
+            f"{bound / ms['kernel']:.3f} of the bound {bound:.4f}), stable "
+            f"sort {ms['plain']:.4f}, torch.topk {ms['library']:.4f}; "
+            f"max_abs_err {err:.1e}, {mismatches} indices differ (turns "
+            f"{', '.join(f'{v:.4f}' for v in t)})")
+        del xs
     return out
 
 
@@ -1106,9 +1159,9 @@ def slice_phase(dev):
                               gallery_ids) for q in range(N_QUERIES)]
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = dict(zip(("K1", "K2", "repack", "pool", "lrn"), _got(
+    launches = dict(zip(("K1", "K2", "repack", "pool", "lrn", "topk"), _got(
         counts, "k1.launches", "k2.launches", "s2d.launches",
-        "max_pool.launches", "lrn.launches")))
+        "max_pool.launches", "lrn.launches", "topk.launches")))
     k1_sm90, k2_sm90 = _got(counts, "k1.sm90_launches", "k2.sm90_launches")
     n_embed = len(videos) + N_QUERIES
     log(f"main path: {len(videos)} gallery batches + {N_QUERIES} queries of "
@@ -1117,7 +1170,7 @@ def slice_phase(dev):
         f"{k1_sm90}, K2 {k2_sm90}")
     expect = {"K1": K1_PER_EMBED * n_embed, "K2": K2_PER_EMBED * n_embed,
               "repack": n_embed, "pool": POOL_PER_EMBED * n_embed,
-              "lrn": LRN_PER_EMBED * n_embed}
+              "lrn": LRN_PER_EMBED * n_embed, "topk": N_QUERIES}
     if launches != expect:
         raise AssertionError(f"launch counts {launches} != expected {expect}")
     if k1_sm90 != launches["K1"]:
@@ -6643,6 +6696,7 @@ def main() -> int:
         stats = kernel_phases(dev, torch.Generator(device=dev).manual_seed(1))
         pools = pool_phase(dev, torch.Generator(device=dev).manual_seed(2))
         lrns = lrn_phase(dev, torch.Generator(device=dev).manual_seed(4))
+        topks = topk_phase(dev, torch.Generator(device=dev).manual_seed(9))
         i3d = i3d_phase(dev, torch.Generator(device=dev).manual_seed(8))
         torch.cuda.empty_cache()
         launches, pipe, params, inputs = slice_phase(dev)
@@ -6832,6 +6886,19 @@ def main() -> int:
         for net, n_launches in (("googlenet", lrns["googlenet"]["launches"]),
                                 ("caffenet", launches["lrn"]))]
     kernels += [
+        {"name": f"top_k_rows, the query's top-{TOP_K} of {rows} x {cols} f32 "
+                 "scores (each score read once, k candidates a thread in "
+                 "registers, slices merged by a second stage; the stable "
+                 "sort's order)", "route": "cuda",
+         "source": "videovector_tpu_torch/csrc/top_k_rows.cu",
+         "replaces": None, "launches": n_launches,
+         "max_abs_err": topks[(rows, cols)]["err"],
+         "index_mismatches": topks[(rows, cols)]["mismatches"],
+         **{k: topks[(rows, cols)][k] for k in ("ms", "plain_ms", "bound_ms",
+                                               "library_ms")},
+         "bound_by": "bytes"}
+        for (rows, cols), n_launches in zip(TOPK_SHAPES, (1, launches["topk"]))]
+    kernels += [
         {"name": f"K2, I3D's {i3d[kind]['n']} {what} at one "
                  f"{I3D_FRAMES}-frame clip (bf16)", "route": "cuda",
          "source": src, "replaces": None,
@@ -6922,7 +6989,13 @@ def main() -> int:
         f"and CaffeNet's 2 LRNs at batch {BATCH} in bf16, library "
         "F.local_response_norm on the NCHW view; its launches GoogLeNet's in "
         "one forward, CaffeNet's on the main path (2 an embed); it replaces "
-        "no TPU kernel (the JAX package's LRN is XLA's elementwise ops))")
+        "no TPU kernel (the JAX package's LRN is XLA's elementwise ops). "
+        f"top_k_rows: the query's top-{TOP_K} at 50 x 1,000,000 and 50 x "
+        f"{GALLERY_ROWS} f32 scores, plain the stable torch.sort it "
+        "replaced, library torch.topk (a yardstick only: no order at ties); "
+        "its launches the phase's one at 1M and the main path's queries at "
+        f"{GALLERY_ROWS}; it replaces no TPU kernel (the JAX package leaves "
+        "lax.top_k to XLA))")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2575,3 +2575,114 @@ def test_i3d_replays_equal_the_eager_query_bit_for_bit(dev):
         assert pipe.features.shape == (1, 7, 1024)
         assert torch.equal(pipe.features, fresh.features)
     assert replays == [0, 1, 1]
+
+
+# -- the per-row top-k selection (csrc/top_k_rows.cu, vvtpu::top_k_rows) ------
+
+def _topk_scores(case, dev):
+    """Scores of one case on the card (a view where the case says so)."""
+    gen = torch.Generator(device=dev).manual_seed(len(case))
+    if case == "misaligned view":
+        # rows of 20,011 scores start at every 4-byte offset mod 16, and
+        # the view drops the first column besides
+        return torch.randn((5, 20_011), generator=gen, device=dev)[:, 1:]
+    rows, cols = TOPK_SHAPES[case]
+    x = torch.randn((rows, cols), generator=gen, device=dev)
+    if case == "ties":
+        x = torch.round(x * 2) / 4
+        x[1] = 0.25                                       # a constant row
+    elif case == "specials":
+        x = torch.round(x * 2) / 4
+        x[0, ::7] = 0.0
+        x[0, 3::7] = -0.0
+        x[1, ::11] = float("inf")
+        x[1, 5::11] = float("-inf")
+        x[2, 4000] = float("nan")
+        x[2, 17] = float("nan")
+        x[3] = torch.where(x[3] > 0, -0.0, 0.0)            # only zeros
+    return x
+
+
+TOPK_SHAPES = {"1x20000": (1, 20_000), "50x20000": (50, 20_000),
+               "50x1000000": (50, 1_000_000), "3x4099": (3, 4_099),
+               "3x40099": (3, 40_099), "ties": (4, 50_000),
+               "specials": (4, 9_001), "short rows": (4, 3)}
+TOPK_CASES = [*TOPK_SHAPES, "misaligned view"]
+
+
+def _bits_equal(got, want):
+    """Values bit for bit (NaN and signed zeros included) and indices."""
+    torch.cuda.synchronize()
+    assert got[0].shape == want[0].shape and got[1].dtype == torch.int64
+    assert torch.equal(got[1], want[1]), (got[1] != want[1]).sum().item()
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+
+
+@pytest.mark.parametrize("k", [1, 5, 32])
+@pytest.mark.parametrize("case", TOPK_CASES)
+def test_top_k_kernel_equals_the_stable_sort(dev, case, k):
+    """The selection kernel against `top_k_stable_plain` (torch's stable
+    sort) on the same scores: values and indices bit-equal, at the
+    serving shapes, ragged tails, a view whose rows start off 16-byte
+    alignment, rows shorter than k, heavy ties, a constant row, signed
+    zeros, +-inf and NaN; one launch a call."""
+    from videovector_tpu_torch.models import retrieval_pipeline as rp
+    scores = _topk_scores(case, dev)
+    got, counts = _counted(lambda: rp.top_k_stable(scores, k))
+    assert _got(counts, "topk.calls", "topk.launches") == (1, 1)
+    assert got[0].shape == (scores.shape[0], min(k, scores.shape[1]))
+    _bits_equal(got, rp.top_k_stable_plain(scores, k))
+    if case == "specials":
+        _bits_equal(got, tuple(t.to(dev) for t in rp.top_k_stable_plain(
+            scores.cpu(), k)))
+
+
+def test_top_k_kernel_replays_in_a_graph_and_refuses_what_it_cannot(dev):
+    """Captured in a CUDA graph, the kernel pair answers as the eager call
+    for new scores copied into the captured input; inside
+    `plain_versions()` a call counts and launches nothing; a call that
+    autograd records, a k above 32 and scores other than f32 raise."""
+    from videovector_tpu_torch.device import plain_versions
+    from videovector_tpu_torch.models import retrieval_pipeline as rp
+    gen = torch.Generator(device=dev).manual_seed(5)
+    scores = torch.randn((50, 20_000), generator=gen, device=dev)
+    rp.top_k_stable(scores, 5)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = rp.top_k_stable(scores, 5)
+    for _ in range(2):
+        scores.copy_(torch.randn((50, 20_000), generator=gen, device=dev))
+        graph.replay()
+        _bits_equal(out, rp.top_k_stable_plain(scores, 5))
+    with plain_versions():
+        got, counts = _counted(lambda: rp.top_k_stable(scores, 5))
+    assert counts == {"vvtpu.topk.calls": 1}
+    _bits_equal(got, rp.top_k_stable_plain(scores, 5))
+    with pytest.raises(NotImplementedError, match="forward only"):
+        rp.top_k_stable(scores.clone().requires_grad_(), 5)
+    with pytest.raises(ValueError, match="0 to 32"):
+        rp.top_k_stable(scores, 33)
+    with pytest.raises(TypeError, match="f32"):
+        rp.top_k_stable(scores.to(torch.bfloat16), 5)
+
+
+def test_a_served_query_selects_on_the_kernel_eager_and_replayed(
+        dev, monkeypatch):
+    """Three queries against a 20,000-row gallery (eager, captured and
+    replayed, replayed): each counts one top-k call and one launch (a
+    replay its capture's) and answers, bit for bit, as a fresh pipeline's
+    eager query and as one whose top-k is the stable sort."""
+    from videovector_tpu_torch.models import retrieval_pipeline as rp
+    pipe, params, gallery, ids, gen = _serving(dev, rows=20_000)
+    for replayed in (0, 1, 1):
+        frames = _clip(gen, 50, dev)
+        out, counts = _counted(
+            lambda: pipe.query(params, *frames, gallery, ids))
+        assert counts.get("vvtpu.query.graph_replays", 0) == replayed
+        assert _got(counts, "topk.calls", "topk.launches") == (1, 1)
+        assert _equal(out, _eager_query(dev, params, frames, gallery, ids))
+        with monkeypatch.context() as m:
+            m.setattr(rp, "top_k_stable", rp.top_k_stable_plain)
+            sorted_ = _eager_query(dev, params, frames, gallery, ids)
+        assert _equal(out, sorted_)

@@ -222,6 +222,7 @@ def test_port_imports_without_jax():
         import videovector_tpu_torch.ops.recurrent
         import videovector_tpu_torch.ops.reductions
         import videovector_tpu_torch.ops.social
+        import videovector_tpu_torch.ops.topk
         import videovector_tpu_torch.parallel
         import videovector_tpu_torch.parallel.mesh
         import videovector_tpu_torch.parallel.multihost
@@ -341,3 +342,70 @@ def test_query_graph_key(rng, change, same):
         h, w = h.int(), w.int()
     got = trp.query_graph_key(params, pix, h, w, mirror, gallery, ids)
     assert (got == key) is same
+
+
+@pytest.mark.parametrize("shape, k, want", [
+    ((50, 1000), 5, (50, 5)), ((1, 20000), 5, (1, 5)), ((3, 4), 5, (3, 4)),
+    ((2, 3, 40), 32, (2, 3, 32)), ((7,), 1, (1,))])
+def test_top_k_rows_fake_gives_shapes_and_dtypes(shape, k, want):
+    """The custom op's fake, which a capture and `torch.export` see: f32
+    values and int64 indices of min(k, G) a row, on meta tensors and fake
+    ones; a k above 32 or scores other than f32 raise there already."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from videovector_tpu_torch.ops import topk
+    vals, idx = torch.ops.vvtpu.top_k_rows(torch.empty(shape, device="meta"),
+                                           k)
+    assert (vals.shape, vals.dtype, idx.shape, idx.dtype) == (
+        want, torch.float32, want, torch.int64)
+    with FakeTensorMode():
+        vals, idx = topk.top_k_rows(torch.empty(shape), k)
+        assert (vals.shape, vals.dtype, idx.dtype) == (want, torch.float32,
+                                                       torch.int64)
+    with pytest.raises(ValueError, match="0 to 32"):
+        torch.ops.vvtpu.top_k_rows(torch.empty(shape, device="meta"), 33)
+    with pytest.raises(TypeError, match="f32"):
+        torch.ops.vvtpu.top_k_rows(
+            torch.empty(shape, device="meta", dtype=torch.bfloat16), k)
+
+
+def _tied_scores(rng, rows, cols):
+    """Scores rounded to a few values, so that most of a row ties."""
+    return torch.as_tensor(np.round(rng.randn(rows, cols) * 2) / 4,
+                           dtype=torch.float32)
+
+
+@pytest.mark.parametrize("k", [1, 5, 32])
+def test_top_k_stable_on_the_cpu_is_lax_top_k_at_ties(rng, k):
+    """On the CPU `top_k_stable` is `top_k_stable_plain`, bit for bit, and
+    both give lax.top_k's values and indices on heavily tied rows with
+    +-inf and NaN; at signed zeros they tie -0.0 with +0.0 and take the
+    lower index first (XLA ranks +0.0 first)."""
+    scores = _tied_scores(rng, 6, 300)
+    scores[1] = 0.25                                       # a constant row
+    scores[2, [3, 90, 200]] = torch.tensor([np.inf, -np.inf, np.nan])
+    scores[3, 7] = np.nan
+    vals, idx = trp.top_k_stable(scores, k)
+    pvals, pidx = trp.top_k_stable_plain(scores, k)
+    assert torch.equal(idx, pidx) and vals.numpy().tobytes() == (
+        pvals.numpy().tobytes())
+    jvals, jidx = jax.lax.top_k(jnp.asarray(scores.numpy()), k)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+    np.testing.assert_array_equal(vals.numpy(), np.asarray(jvals))
+    zeros = torch.tensor([[-1.0, -0.0, 0.0, -0.0, 0.0, -2.0]])
+    vals, idx = trp.top_k_stable(zeros, 5)
+    assert idx.tolist() == [[1, 2, 3, 4, 0]]
+    assert torch.signbit(vals).tolist() == [[True, False, True, False, True]]
+    short = trp.top_k_stable(scores[:, :3], k)
+    assert short[1].shape == (6, min(k, 3))
+
+
+def test_a_cpu_query_counts_its_top_k_call(rng):
+    """A query on the CPU counts one `vvtpu.topk.calls` and launches
+    nothing."""
+    from videovector_tpu_torch.utils import timer
+    tp, args = _key_args(rng)
+    with timer.tally() as counts:
+        tp.query(*args)
+    assert counts["vvtpu.topk.calls"] == 1
+    assert "vvtpu.topk.launches" not in counts

@@ -46,6 +46,7 @@ SIGNATURES = {
     "vv_max_pool_ndhwc": [_P] * 2 + [_I] * 17 + [_L] * 5 + [_I] * 2 + [_P],
     "vv_lrn_nhwc": [_P] * 2 + [_I] * 4 + [_L] * 4 + [_I] + [_F] * 2
     + [_I] * 2 + [_P],
+    "vv_top_k_rows": [_P, _L] + [_I] * 4 + [_P] * 3 + [_I, _P],
 }
 
 

@@ -23,8 +23,10 @@ with N crop offsets and mirror flags is N clips of T consecutive frames,
 each offset and flag taken by every frame of its clip, and it gives N
 embeddings and N rows of top-k.
 
-Top-k breaks ties as lax.top_k does, lower gallery index first, through a
-stable descending sort.
+Top-k breaks ties as lax.top_k does, lower gallery index first: on the
+card through the per-row selection kernel (ops/topk.py), which reads the
+scores once, elsewhere through a stable descending sort, with the same
+bits.
 
 On the card a query is one CUDA graph replay once its inputs repeat: a
 call with the `query_graph_key` of the last query run eagerly captures
@@ -72,6 +74,7 @@ from videovector_tpu_torch.models.i3d import I3D, I3DConfig
 from videovector_tpu_torch.models.mednet import MedNet, MedNetConfig
 from videovector_tpu_torch.ops.linear import no_tf32
 from videovector_tpu_torch.ops.normalization import l2_normalize_rows
+from videovector_tpu_torch.ops.topk import top_k_rows
 from videovector_tpu_torch.utils.timer import count, span, tally
 
 
@@ -91,7 +94,17 @@ class RetrievalPipelineConfig:
 def top_k_stable(scores: torch.Tensor, k: int):
     """(values, indices) of the k largest per row; among equal scores the
     lower index comes first (lax.top_k's order, which torch.topk does not
-    promise)."""
+    promise). Where `runs_kernel(scores)`, the selection kernel
+    (ops/topk.py, up to 32 a row), else `top_k_stable_plain`; the same
+    bits either way. The counter `vvtpu.topk.calls` adds each call."""
+    count("vvtpu.topk.calls", 1)
+    if runs_kernel(scores):
+        return top_k_rows(scores, k)
+    return top_k_stable_plain(scores, k)
+
+
+def top_k_stable_plain(scores: torch.Tensor, k: int):
+    """`top_k_stable` as a stable descending sort of each whole row."""
     vals, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
     return vals[..., :k], idx[..., :k]
 

@@ -36,6 +36,7 @@ def register_ops() -> None:
     import videovector_tpu_torch.ops.hopper.matmul  # noqa: F401
     import videovector_tpu_torch.ops.lrn  # noqa: F401
     import videovector_tpu_torch.ops.pooling  # noqa: F401
+    import videovector_tpu_torch.ops.topk  # noqa: F401
 
 
 def export(fn, example_args: tuple, *, dynamic_shapes=None):
