@@ -1118,6 +1118,197 @@ def i3d_phase(dev, gen) -> dict:
     return out
 
 
+TIMESFORMER_FRAMES = 96   # one whole clip, as the benchmark's TimeSformer cell
+
+
+def _timesformer_calls(dev, gen):
+    """One 96-frame clip (uint8, 256 x 256, one crop and mirror) served
+    through RetrievalPipeline(backbone="timesformer").query at 224 (the
+    benchmark's draws, linear weights cast to bf16 once) against a
+    20,000-row gallery, three times with the same inputs: eager, captured
+    and replayed, replayed. Returns (pipe, params, clip, the eager call's
+    counters, the last replay's)."""
+    from videovector_tpu_torch.models.retrieval_pipeline import (
+        RetrievalPipeline, RetrievalPipelineConfig,
+    )
+    from vvbench.drivers import serve_timesformer
+    cfg = json.loads((ROOT / "vvbench" / "configs"
+                      / "timesformer-l-retrieval.json").read_text())
+    pipe = RetrievalPipeline(RetrievalPipelineConfig(
+        backbone="timesformer", crop=224, embed_dim=768), device=dev)
+    drawn = serve_timesformer.make_params(gen, cfg, dev)
+    params = {"timesformer": pipe.timesformer.cast_weights(
+        drawn["timesformer"]), "tower": drawn["tower"]}
+    del drawn
+    gallery = torch.nn.functional.normalize(
+        torch.randn((GALLERY_ROWS, 768), generator=gen, device=dev), dim=1)
+    ids = torch.arange(GALLERY_ROWS, dtype=torch.int32, device=dev)
+    clip = (torch.randint(0, 256, (TIMESFORMER_FRAMES, 256, 256, 3),
+                          generator=gen, device=dev, dtype=torch.uint8),
+            torch.tensor([13], device=dev), torch.tensor([21], device=dev),
+            torch.tensor([True], device=dev))
+    answers, counts = [], []
+    for _ in range(3):
+        with _tally() as c:
+            answers.append(pipe.query(params, *clip, gallery, ids))
+        torch.cuda.synchronize()
+        counts.append(c)
+    replays = [c.get("vvtpu.query.graph_replays", 0) for c in counts]
+    if replays != [0, 1, 1] or not all(
+            torch.equal(a, b) for a, b in zip(answers[0], answers[2])):
+        raise AssertionError(f"TimeSformer's query replays {replays}, or a "
+                             "replay's answer differs from the eager one")
+    return pipe, params, (clip, gallery, ids), counts[0], counts[2]
+
+
+def _device_time_by_name(fn, calls: int = 5, top: int = 14) -> list:
+    """fn() `calls` times under torch.profiler: the device ms a call of each
+    kernel name (the `top` largest), and the whole."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            sec = (e.time_range.end - e.time_range.start) / 1e3 / calls
+            by_name[e.name] = by_name.get(e.name, 0.0) + sec
+    total = sum(by_name.values())
+    rows = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return [("all", total)] + rows
+
+
+def timesformer_phase(dev, gen) -> dict:
+    """TimeSformer-L's kernels at one 96-frame clip (bf16): the launches of
+    one query through RetrievalPipeline, eager and replayed (86 K1 on the
+    sm90 route, 12 of them with GELU, 24 attention launches, 12 a kind, no
+    byte copied to lay out the attention's sequences); the attention
+    kernel for each kind at the published shapes against its plain version
+    (the token rows and, for the spatial kind, the class query's f32
+    outputs that the class mean reads) and timed by CUDA-graph replay in
+    turns with the plain version and F.scaled_dot_product_attention (the
+    library's yardstick only, on q, k and v already laid out as (sequence,
+    head, token, 64): the port never calls it), beside its bound (q, k and
+    v read once and the output written once at 3.35 TB/s); K1's GELU at
+    fc1's 18,816 x 768 x 3,072 likewise beside torch.mm + F.gelu; the whole
+    backbone's forward by CUDA-graph replay; and a replayed query's device
+    time by kernel name (where a clip's time goes). Returns the times and
+    the eager query's launches of each kind and of K1 with GELU."""
+    import torch.nn.functional as F
+
+    from videovector_tpu_torch.device import plain_versions
+    from videovector_tpu_torch.ops import attention as ta
+    from videovector_tpu_torch.ops.hopper import matmul as k1
+    pipe, params, (clip, gallery, ids), eager, replay = _timesformer_calls(
+        dev, gen)
+    names = ("k1.launches", "k1.sm90_launches", "k1.gelu_launches",
+             "attn.launches", "attn.temporal_launches",
+             "attn.spatial_launches", "attn.layout_bytes")
+    launches = _got(eager, *names)
+    log(f"TimeSformer query at {TIMESFORMER_FRAMES} frames, eager: K1 "
+        f"{launches[0]} launches ({launches[1]} sm90, {launches[2]} GELU), "
+        f"attention {launches[3]} ({launches[4]} temporal, {launches[5]} "
+        f"spatial), attention layout bytes {launches[6]}; a replay counts "
+        f"{_got(replay, *names)}; features "
+        f"{tuple(pipe.features.shape)} finite "
+        f"{bool(torch.isfinite(pipe.features).all())}")
+    if launches != (86, 86, 12, 24, 12, 12, 0) or (
+            _got(replay, *names) != launches):
+        raise AssertionError(f"TimeSformer query launches {launches}, a "
+                             f"replay's {_got(replay, *names)}")
+    out = {}
+    log("TimeSformer's attention (kernel, plain, F.scaled_dot_product_"
+        "attention on pre-laid q, k, v; device ms a call by CUDA-graph "
+        "replay in turns; bound: q, k, v read and the output written once "
+        f"at {PEAK_BYTES / 1e12:.2f} TB/s):")
+    for kind, rows, seqs in (
+            ("temporal", 196 * 96, ta.Sequences.temporal(1, 196, 96)),
+            ("spatial", 196 * 96 + 1, ta.Sequences.spatial(1, 196, 96))):
+        xs = [torch.randn((rows, 3 * 768), generator=gen, device=dev)
+              .to(torch.bfloat16) for _ in range(2)]
+        idx = seqs.token_rows(dev)
+        if seqs.extra:
+            idx = torch.cat([seqs.extra_rows(dev)[:, None], idx], dim=1)
+
+        def laid(x, idx=idx):
+            q, k, v = x[idx].view(idx.shape[0], idx.shape[1], 3, 12,
+                                  64).permute(2, 0, 3, 1, 4)
+            return q.contiguous(), k.contiguous(), v.contiguous()
+        lib_in = [laid(x) for x in xs]
+        got = ta.attention(xs[0], 12, seqs)
+        with plain_versions():
+            want = ta.attention(xs[0], 12, seqs)
+        held = seqs.token_rows(dev).reshape(-1)
+        err = compare(f"  {kind}: {seqs.sequences} x 12 sequences of "
+                      f"{idx.shape[1]}", got[0][held], want[0][held])
+        if seqs.extra:
+            # the class query's f32 outputs, whose mean over the frames the
+            # served class row reads: bf16 operands and probabilities
+            compare(f"  {kind}: the class query's {seqs.sequences} x 12 "
+                    "outputs (f32)", got[1], want[1], rel=1e-2)
+        fns = {"kernel": lambda i: ta.attention(xs[i], 12, seqs),
+               "plain": lambda i: ta.attention_plain(xs[i], 12, seqs,
+                                                     0.125),
+               "library": lambda i: F.scaled_dot_product_attention(
+                   *lib_in[i])}
+        ms, t = time_in_turns(fns, [0, 1])
+        nbytes = rows * 3 * 768 * 2 + 196 * 96 * 768 * 2
+        bound = nbytes / PEAK_BYTES * 1e3
+        out[kind] = {"ms": ms["kernel"], "plain_ms": ms["plain"],
+                     "library_ms": ms["library"], "bound_ms": bound,
+                     "err": err, "launches": launches[4 if kind ==
+                                                      "temporal" else 5]}
+        rate = nbytes / ms["kernel"] / 1e6
+        log(f"    kernel {ms['kernel']:.4f} ms ({rate:.0f} GB/s, "
+            f"{bound / ms['kernel']:.3f} of the bound "
+            f"{bound:.4f}), plain {ms['plain']:.4f}, sdpa "
+            f"{ms['library']:.4f} (turns {', '.join(f'{v:.4f}' for v in t)})")
+        del xs, lib_in
+    m, k, n = 196 * 96, 768, 3072
+    xs = [torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+          for _ in range(2)]
+    w = (torch.randn((k, n), generator=gen, device=dev) * k ** -0.5).to(
+        torch.bfloat16)
+    b = torch.randn(n, generator=gen, device=dev) * 0.05
+    got = k1.matmul(xs[0], w, b, fuse_gelu=True, out_dtype=torch.bfloat16)
+    with plain_versions():
+        want = k1.matmul(xs[0], w, b, fuse_gelu=True,
+                         out_dtype=torch.bfloat16)
+    err = compare(f"  K1 GELU {m} x {k} x {n}", got, want)
+    fns = {"kernel": lambda x: k1.matmul(x, w, b, fuse_gelu=True,
+                                         out_dtype=torch.bfloat16),
+           "plain": lambda x: k1.matmul_plain(x, w, b, fuse_gelu=True,
+                                              out_dtype=torch.bfloat16),
+           "library": lambda x: F.gelu(torch.addmm(b.to(x.dtype), x, w))}
+    ms, t = time_in_turns(fns, xs)
+    ops, nbytes = 2.0 * m * k * n, (m * k + k * n + m * n) * 2 + n * 4
+    bound = max(ops / PEAK_FLOPS, nbytes / PEAK_BYTES) * 1e3
+    out["k1_gelu"] = {"ms": ms["kernel"], "plain_ms": ms["plain"],
+                      "library_ms": ms["library"], "bound_ms": bound,
+                      "err": err, "launches": launches[2]}
+    log(f"  K1 GELU (fc1): kernel {ms['kernel']:.4f} ms, "
+        f"{bound / ms['kernel']:.3f} of its bound {bound:.4f} (operations), "
+        f"plain {ms['plain']:.4f}, torch.addmm + F.gelu {ms['library']:.4f}")
+    del xs
+    x = pipe.transform(clip[0], clip[1].expand(96), clip[2].expand(96),
+                       clip[3].expand(96)).reshape(1, 96, 224, 224, 3)
+    fwd = time_graph_ms(lambda a: pipe.timesformer.forward(
+        params["timesformer"], a), [x], iters=5)
+    out["backbone_ms"] = fwd
+    log(f"  TimeSformer-L's forward at one 96-frame clip: {fwd:.3f} ms a "
+        "clip (CUDA-graph replay)")
+    rows = _device_time_by_name(
+        lambda: pipe.query(params, *clip, gallery, ids))
+    out["by_name"] = rows
+    log("  a replayed query's device time by kernel name (ms a query):")
+    for name, ms_ in rows:
+        log(f"    {ms_:.4f}  {name[:110]}")
+    return out
+
+
 def frames(rng, n):
     return rng.randint(0, 256, (n, 256, 256, 3)).astype(np.uint8)
 
@@ -6699,6 +6890,9 @@ def main() -> int:
         topks = topk_phase(dev, torch.Generator(device=dev).manual_seed(9))
         i3d = i3d_phase(dev, torch.Generator(device=dev).manual_seed(8))
         torch.cuda.empty_cache()
+        timesformer = timesformer_phase(
+            dev, torch.Generator(device=dev).manual_seed(10))
+        torch.cuda.empty_cache()
         launches, pipe, params, inputs = slice_phase(dev)
         for pix, hwm in inputs.values():
             device_breakdown(pipe, params, pix, hwm)
@@ -6924,6 +7118,28 @@ def main() -> int:
                                      "library_ms")},
          "bound_by": "bytes"}
         for kind, what in (("pool_deep", "NDHWC"), ("pool_flat", "1x3x3"))]
+    kernels += [
+        {"name": f"attention, TimeSformer-L's {what} heads at one "
+                 f"{TIMESFORMER_FRAMES}-frame clip (bf16, one block)",
+         "route": "cuda",
+         "source": "videovector_tpu_torch/csrc/attention_sm90.cu",
+         "replaces": None, "launches": timesformer[kind]["launches"],
+         "max_abs_err": timesformer[kind]["err"],
+         **{k: timesformer[kind][k] for k in ("ms", "plain_ms", "bound_ms",
+                                             "library_ms")},
+         "bound_by": "bytes"}
+        for kind, what in (("temporal", "196 x 12 temporal"),
+                           ("spatial", "96 x 12 spatial"))]
+    kernels.append(
+        {"name": "K1 with the GELU epilogue, TimeSformer-L's fc1 (18,816 x "
+                 "768 x 3,072, bf16)", "route": "cuda",
+         "source": "videovector_tpu_torch/csrc/matmul_sm90.cu",
+         "replaces": "videovector_tpu/ops/pallas/matmul.py:50",
+         "launches": timesformer["k1_gelu"]["launches"],
+         "max_abs_err": timesformer["k1_gelu"]["err"],
+         **{k: timesformer["k1_gelu"][k] for k in ("ms", "plain_ms",
+                                                  "bound_ms", "library_ms")},
+         "bound_by": "operations"})
     log("(ms, plain_ms, bound_ms, library_ms: summed over the serving "
         f"path's shapes at batch {BATCH}: K1 fc6 + fc7 + tower with w cycled "
         "beyond L2, library cuBLAS torch.matmul; K2 conv1..conv5, library "

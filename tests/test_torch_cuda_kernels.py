@@ -2686,3 +2686,227 @@ def test_a_served_query_selects_on_the_kernel_eager_and_replayed(
             m.setattr(rp, "top_k_stable", rp.top_k_stable_plain)
             sorted_ = _eager_query(dev, params, frames, gallery, ids)
         assert _equal(out, sorted_)
+
+
+# -- the attention kernel (csrc/attention_sm90.cu, vvtpu::attention) and K1's
+# -- GELU epilogue (matmul_sm90.cu's twins), for TimeSformer --------------------
+
+# (kind, clips, patches, frames, class row): TimeSformer-L's published
+# shapes (196 x 12 sequences of 96, 96 x 12 of 196 plus the class row),
+# two clips, and small and ragged ones
+ATTN_CASES = {"temporal 196x96": ("temporal", 1, 196, 96, False),
+              "spatial 96x197": ("spatial", 1, 196, 96, True),
+              "temporal 2 clips": ("temporal", 2, 196, 8, False),
+              "spatial 2 clips": ("spatial", 2, 49, 8, True),
+              "spatial no class row": ("spatial", 2, 49, 8, False),
+              "one token": ("temporal", 1, 3, 1, False),
+              "255 and the class row": ("spatial", 1, 255, 2, True)}
+
+
+def _attn_case(case, dev):
+    from videovector_tpu_torch.ops import attention as ta
+    kind, clips, patches, frames, extra = ATTN_CASES[case]
+    seqs = getattr(ta.Sequences, kind)(clips, patches, frames)
+    if kind == "spatial" and not extra:
+        seqs = ta.Sequences(**{**seqs.__dict__, "extra_base": -1})
+    rows = clips * (patches * frames + (kind == "spatial"))
+    gen = torch.Generator(device=dev).manual_seed(len(case))
+    # unit-variance q and k: logits of std 1 at scale 1/8
+    qkv = torch.randn((rows, 3 * 768), generator=gen, device=dev).to(
+        torch.bfloat16)
+    return seqs, qkv
+
+
+@pytest.mark.parametrize("case", list(ATTN_CASES))
+def test_attention_kernel_matches_plain(dev, case):
+    """The kernel against its plain version (f32 scores, softmax and sums
+    from the same bf16 operands) over every row a sequence holds: outputs
+    within one bf16 step of max|plain| (the kernel rounds P to bf16 for
+    its second product), the class row's f32 outputs within 1e-2 of
+    max|plain|; one launch, counted by kind."""
+    from videovector_tpu_torch.ops import attention as ta
+    seqs, qkv = _attn_case(case, dev)
+    (out, cls), counts = _counted(lambda: ta.attention(qkv, 12, seqs))
+    assert _got(counts, "attn.calls", "attn.launches",
+                f"attn.{seqs.kind}_launches") == (1, 1, 1)
+    with plain_versions():
+        want, want_cls = ta.attention(qkv, 12, seqs)
+    held = seqs.token_rows(dev).reshape(-1)
+    _close(out[held], want[held])
+    assert torch.isfinite(out[held].float()).all()
+    assert cls.shape == want_cls.shape
+    if seqs.extra:
+        _close(cls, want_cls, rel=1e-2)
+
+
+def test_attention_kernel_replays_in_a_graph_and_refuses_what_it_cannot(dev):
+    """Captured in a CUDA graph, the kernel answers as the eager call for
+    new qkv copied into the captured input; two launches give the same
+    bits; inside `plain_versions()` a call launches nothing and counts
+    itself and the plain version's gather of its sequences' q, k and v and
+    scatter of their outputs; a call that autograd records, f32 qkv, heads
+    of 32 and sequences of 256 tokens with the class row raise."""
+    from videovector_tpu_torch.ops import attention as ta
+    seqs, qkv = _attn_case("spatial 2 clips", dev)
+    first = ta.attention(qkv, 12, seqs)
+    again = ta.attention(qkv, 12, seqs)
+    torch.cuda.synchronize()
+    held = seqs.token_rows(dev).reshape(-1)
+    assert torch.equal(first[0][held], again[0][held])
+    assert torch.equal(first[1], again[1])
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ta.attention(qkv, 12, seqs)
+    for seed in (1, 2):
+        qkv.copy_(torch.randn(qkv.shape, generator=torch.Generator(
+            device=dev).manual_seed(seed), device=dev))
+        graph.replay()
+        want = ta.attention(qkv, 12, seqs)
+        torch.cuda.synchronize()
+        assert torch.equal(out[0][held], want[0][held])
+        assert torch.equal(out[1], want[1])
+    with plain_versions():
+        _, counts = _counted(lambda: ta.attention(qkv, 12, seqs))
+    gathered = seqs.sequences * (seqs.length + seqs.extra) * 3
+    scattered = seqs.sequences * seqs.length
+    assert counts == {"vvtpu.attn.calls": 1, "vvtpu.attn.layout_bytes":
+                      (gathered + scattered) * 768 * 2}
+    with pytest.raises(NotImplementedError, match="forward only"):
+        ta.attention(qkv.clone().float().requires_grad_(), 12, seqs)
+    with pytest.raises(ValueError, match="bf16"):
+        ta.attention(qkv.float(), 12, seqs)
+    with pytest.raises(ValueError, match="heads of 64"):
+        ta.attention(qkv, 24, seqs)
+    long = ta.Sequences.spatial(1, 255, 1)
+    too_long = ta.Sequences(**{**long.__dict__, "length": 256,
+                               "token_stride": 1})
+    with pytest.raises(ValueError, match="256 tokens"):
+        ta.attention(torch.zeros((257, 2304), dtype=torch.bfloat16,
+                                 device=dev), 12, too_long)
+
+
+def _steps_apart(got, want):
+    """The largest distance in bf16 steps between two bf16 tensors."""
+    a = got.view(torch.int16).int()
+    b = want.view(torch.int16).int()
+    sign = (a < 0) != (b < 0)
+    return int(torch.where(sign, a.abs() + b.abs(), (a - b).abs()).max())
+
+
+@pytest.mark.parametrize("mkn", [(18_816, 768, 3072), (18_817, 768, 3072),
+                                 (50, 4096, 4096), (37, 200, 136)])
+def test_k1_gelu_matches_its_f32_sum_through_gelu(dev, mkn):
+    """K1 with the GELU epilogue (TimeSformer's fc1 at 18,816 x 768 x
+    3,072, one split; a 50-row product on the split-K reduce's twin; a
+    ragged one) against K1's own f32 sum of the same operands through
+    F.gelu (exact erf) and one rounding: within one bf16 step, almost all
+    equal; one sm90 launch counted as GELU's."""
+    rng = np.random.RandomState(1)
+    m, k, n = mkn
+    x, w = (_t(rng, m, k, dev=dev, dtype=torch.bfloat16),
+            _t(rng, k, n, dev=dev, dtype=torch.bfloat16) * k ** -0.5)
+    b = _t(rng, n, dev=dev)
+    got, counts = _counted(lambda: k1.matmul(x, w, b, fuse_gelu=True,
+                                             out_dtype=torch.bfloat16))
+    assert _got(counts, "k1.launches", "k1.sm90_launches",
+                "k1.gelu_launches") == (1, 1, 1)
+    acc = k1.matmul(x, w, b, out_dtype=torch.float32)
+    want = torch.nn.functional.gelu(acc).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    assert _steps_apart(got, want) <= 1
+    assert float((got != want).float().mean()) < 1e-3
+    with plain_versions():
+        plain = k1.matmul(x, w, b, fuse_gelu=True, out_dtype=torch.bfloat16)
+    _close(got, plain)
+    with pytest.raises(ValueError, match="sm90 route alone"):
+        k1.matmul(x.float(), w.float(), b, fuse_gelu=True)
+
+
+@pytest.mark.parametrize("mkn", [(50, 9216, 4096), (50, 4096, 4096),
+                                 (1, 768, 768), (18_817, 768, 2304)])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_k1_relu_and_bias_launches_keep_their_bits(dev, mkn, out_dtype):
+    """CaffeNet's fc6 and fc7 and the tower (50 rows), TimeSformer's tower
+    and qkv: the ReLU launch is the no-activation launch's ReLU bit for
+    bit, and two launches of each give the same bits, beside the GELU
+    twins in the same library."""
+    rng = np.random.RandomState(2)
+    m, k, n = mkn
+    x, w = (_t(rng, m, k, dev=dev, dtype=torch.bfloat16),
+            _t(rng, k, n, dev=dev, dtype=torch.bfloat16) * k ** -0.5)
+    b = _t(rng, n, dev=dev)
+    runs = [(k1.matmul(x, w, b, fuse_relu=True, out_dtype=out_dtype),
+             k1.matmul(x, w, b, out_dtype=out_dtype)) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+    assert torch.equal(runs[0][0], torch.relu(runs[0][1]))
+
+
+def _timesformer_serving(dev, seed=29, rows=20_000):
+    """A full-width TimeSformer-L pipeline on the card with the benchmark's
+    draws (f32, for the reference) and the params it serves (linear
+    weights in bf16), a gallery of `rows` unit rows of 768 with permuted
+    ids, the configuration and the generator."""
+    import json
+    from pathlib import Path
+
+    from videovector_tpu_torch.models.retrieval_pipeline import (
+        RetrievalPipeline, RetrievalPipelineConfig,
+    )
+    from vvbench.drivers import serve_timesformer
+    cfg = json.loads((Path(__file__).resolve().parents[1] / "vvbench"
+                      / "configs" / "timesformer-l-retrieval.json")
+                     .read_text())
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pipe = RetrievalPipeline(RetrievalPipelineConfig(
+        backbone="timesformer", crop=224, embed_dim=768), device=dev)
+    drawn = serve_timesformer.make_params(gen, cfg, dev)
+    params = {"timesformer": pipe.timesformer.cast_weights(
+        drawn["timesformer"]), "tower": drawn["tower"]}
+    gallery = torch.nn.functional.normalize(
+        torch.randn((rows, 768), generator=gen, device=dev), dim=1)
+    ids = torch.randperm(rows, generator=gen, device=dev).to(torch.int32)
+    return pipe, drawn, params, gallery, ids, cfg, gen
+
+
+def test_timesformer_query_eager_and_replayed_against_the_reference(dev):
+    """TimeSformer-L's query of one 96-frame clip: the first call eager,
+    the second captured and replayed, the third replayed; each answer and
+    the features after it bit-equal to a fresh pipeline's eager ones; 86
+    K1 launches on the sm90 route (12 with GELU), 24 attention launches (12
+    a kind), no token re-ordered, a replay counting its capture's; the
+    features and picks within the cell's limits of the f32 reference."""
+    from videovector_tpu_torch.models.retrieval_pipeline import (
+        RetrievalPipeline,
+    )
+    from vvbench.drivers import serve_query, serve_timesformer
+    from vvbench.reference import timesformer as ref
+    pipe, drawn, params, gallery, ids, cfg, gen = _timesformer_serving(dev)
+    row_of_id = torch.full((gallery.shape[0],), -1, dtype=torch.long,
+                           device=dev)
+    row_of_id[ids.long()] = torch.arange(gallery.shape[0], device=dev)
+    replays = []
+    for _ in range(3):
+        clip = _i3d_clip(gen, 96, dev)
+        out, counts = _counted(lambda: pipe.query(params, *clip, gallery,
+                                                  ids))
+        replays.append(counts.get("vvtpu.query.graph_replays", 0))
+        assert _got(counts, "k1.launches", "k1.sm90_launches",
+                    "k1.gelu_launches", "attn.launches",
+                    "attn.temporal_launches", "attn.spatial_launches",
+                    "attn.layout_bytes") == (86, 86, 12, 24, 12, 12, 0)
+        fresh = RetrievalPipeline(pipe.cfg, device=dev)
+        want = fresh.query(params, *clip, gallery, ids)
+        assert fresh._graph is None
+        assert out[0].shape == (1, 5) and _equal(out, want)
+        assert pipe.features.shape == (1, 65, 768)
+        assert torch.equal(pipe.features, fresh.features)
+        feats: list = []
+        s = ref.scores(ref.embed(drawn, *clip, cfg, feats_out=feats),
+                       gallery)
+        gap = serve_timesformer.feature_gap(pipe.features, feats[0])
+        pick = serve_query.compare(*out, s, row_of_id, 5)["pick_gap"]
+        assert gap < cfg["limits"]["feature_gap"], gap
+        assert pick < cfg["limits"]["pick_gap"], pick
+    assert replays == [0, 1, 1]

@@ -1,5 +1,6 @@
-"""The kernels' entry points (K1's `matmul`, K2's `conv2d_gemm_nhwc`,
-`conv2d_nchw` and `space_to_depth`, the NHWC `max_pool`) choose between
+"""The kernels' entry points (K1's `matmul`, with and without GELU, K2's
+`conv2d_gemm_nhwc`, `conv2d_nchw` and `space_to_depth`, the NHWC
+`max_pool`, `attention`) choose between
 kernel and plain version in one rule, `device.runs_kernel`: CPU tensors
 give the plain version's bits and count no launch, "meta" tensors give the
 output's shape, any other device raises, and CUDA tensors reach the custom
@@ -15,6 +16,7 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from videovector_tpu_torch import device
+from videovector_tpu_torch.ops import attention as ta
 from videovector_tpu_torch.ops import pooling
 from videovector_tpu_torch.ops.hopper import conv_gemm as k2
 from videovector_tpu_torch.ops.hopper import matmul as k1
@@ -26,6 +28,7 @@ def _operands(*shapes):
     return [torch.randn(s, generator=g) for s in shapes]
 
 
+ATTN_SEQS = ta.Sequences.spatial(2, 3, 2)
 # name -> (operand shapes, the entry point, its plain version, the op)
 ENTRIES = {
     "matmul": (
@@ -64,7 +67,24 @@ ENTRIES = {
                                    pad=(1, 1), layout="NHWC"),
         lambda x: pooling.max_pool_nhwc_plain(x, (3, 3), (2, 2), (1, 1)),
         "vvtpu.max_pool_nhwc"),
+    "matmul_gelu": (
+        ((6, 8), (8, 5), (5,)),
+        lambda x, w, b: k1.matmul(x, w, b, fuse_gelu=True),
+        lambda x, w, b: k1.matmul_plain(x, w, b, fuse_gelu=True),
+        "vvtpu.k1_matmul"),
+    # two clips of 3 patches x 2 frames, their class rows, two heads of 4
+    "attention": (
+        ((14, 24),),
+        lambda qkv: ta.attention(qkv, 2, ATTN_SEQS),
+        lambda qkv: ta.attention_plain(qkv, 2, ATTN_SEQS, 0.5),
+        "vvtpu.attention"),
 }
+# what each entry point counts on the CPU: the calls it counts on any
+# device, and the attention's plain version's gather of its 4 sequences of
+# 4 rows of q, k and v and scatter of their 12 token rows (8 f32 a row)
+CALLS = {"max_pool_nhwc": {"vvtpu.max_pool.calls": 1},
+         "attention": {"vvtpu.attn.calls": 1,
+                       "vvtpu.attn.layout_bytes": (48 + 12) * 8 * 4}}
 NAMES = list(ENTRIES)
 
 
@@ -81,8 +101,7 @@ def test_cpu_tensors_give_the_plain_versions_bits_and_no_launch(name):
     for g, w in zip(_tensors(got), _tensors(plain(*ops))):
         assert g.dtype == w.dtype and torch.equal(g, w)
     assert not [k for k in counts if k.endswith("launches")], counts
-    assert counts == ({"vvtpu.max_pool.calls": 1}
-                      if name == "max_pool_nhwc" else {})
+    assert counts == CALLS.get(name, {})
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -117,6 +136,8 @@ class _OpLog(TorchDispatchMode):
 
 # the plain function each entry point's plain branch calls
 PLAIN = {"matmul": (k1, "matmul_plain"),
+         "matmul_gelu": (k1, "matmul_plain"),
+         "attention": (ta, "attention_plain"),
          "conv2d_gemm_nhwc": (k2, "conv2d_gemm_nhwc_plain"),
          "conv2d_nchw": (k2, "_conv_plain"),
          "space_to_depth": (k2, "space_to_depth_plain"),

@@ -196,6 +196,7 @@ def test_port_imports_without_jax():
         import videovector_tpu_torch.models.googlenet
         import videovector_tpu_torch.models.mednet
         import videovector_tpu_torch.models.retrieval_pipeline
+        import videovector_tpu_torch.models.timesformer
         import videovector_tpu_torch.models.trajectory
         import videovector_tpu_torch.device
         import videovector_tpu_torch.graph
@@ -207,6 +208,7 @@ def test_port_imports_without_jax():
         import videovector_tpu_torch.metrics.classification
         import videovector_tpu_torch.metrics.retrieval
         import videovector_tpu_torch.ops.activations
+        import videovector_tpu_torch.ops.attention
         import videovector_tpu_torch.ops.collectives
         import videovector_tpu_torch.ops.sharding
         import videovector_tpu_torch.ops.conv

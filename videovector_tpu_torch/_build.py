@@ -47,6 +47,8 @@ SIGNATURES = {
     "vv_lrn_nhwc": [_P] * 2 + [_I] * 4 + [_L] * 4 + [_I] + [_F] * 2
     + [_I] * 2 + [_P],
     "vv_top_k_rows": [_P, _L] + [_I] * 4 + [_P] * 3 + [_I, _P],
+    "vv_attention": [_P] * 3 + [_I] * 2 + [_L] * 2 + [_I] * 3 + [_L] * 5
+    + [_F, _I, _P],
 }
 
 

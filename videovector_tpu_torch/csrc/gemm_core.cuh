@@ -14,9 +14,13 @@
 // - f32 operands: FMA register tiles in f32, so f32 results keep f32 accuracy.
 //
 // Epilogue, in f32 arithmetic with rounding to the output type TO, in one of
-// two modes (`Epilogue`), which agree for an f32 output (act(x.w + b)):
+// three modes (`Epilogue`), the first two of which agree for an f32 output
+// (act(x.w + b)):
 // - kEpiK1 (K1): round(act(acc + bias[n])), one rounding at the end, as the
 //   Pallas `_matmul_kernel` does;
+// - kEpiK1Gelu (K1's sm90 route only): round(gelu(acc + bias[n])), GELU
+//   with the exact erf, 0.5 v (1 + erf(v / sqrt(2))), in f32 before the one
+//   rounding (TimeSformer's fc1);
 // - kEpiConv (K2): v = round(acc); if bias: v = round(v + round(bias[n]));
 //   then act: the bf16 conv of models/mednet.py, which emits bf16 and adds
 //   the bias and applies ReLU in bf16.
@@ -218,13 +222,18 @@ __device__ __forceinline__ void k_loop(const T* __restrict__ a,
   }
 }
 
-enum Epilogue { kEpiK1 = 0, kEpiConv = 1 };
+enum Epilogue { kEpiK1 = 0, kEpiConv = 1, kEpiK1Gelu = 2 };
 
-// The epilogue of output column n on its f32 sum (modes above).
+// The epilogue of output column n on its f32 sum (modes above); `relu` is
+// not read in kEpiK1Gelu.
 template <int EPI, typename TO>
 __device__ __forceinline__ TO epilogue(float acc, const float* __restrict__ bias,
                                        int n, int relu) {
   float v;
+  if constexpr (EPI == kEpiK1Gelu) {
+    v = bias ? acc + bias[n] : acc;
+    return from_f32<TO>(0.5f * v * (1.f + erff(v * 0.70710678118654752f)));
+  }
   if (EPI == kEpiK1) {
     v = bias ? acc + bias[n] : acc;
   } else {

@@ -1,5 +1,5 @@
-// K1 on Hopper's own units: a TMA + wgmma GEMM with split-K, bias + ReLU
-// epilogue (sm_90a).
+// K1 on Hopper's own units: a TMA + wgmma GEMM with split-K, bias + ReLU or
+// bias + GELU epilogue (sm_90a).
 //
 // Replaces videovector_tpu/ops/pallas/matmul.py `matmul` (:50, kernel body
 // `_matmul_kernel` :26) for bf16 operands that TMA can address: x (M, K)
@@ -38,6 +38,12 @@
 //   issue wgmma m64n128k16 with both operands in shared memory, A K-major and
 //   B (w's N-contiguous rows) MN-major through the transpose bit, both in
 //   the 128-byte swizzle that TMA writes. Sums stay in registers.
+// - GELU (TimeSformer's fc1, 18,816 x 768 x 3,072 a clip: 3,528 output
+//   tiles, one split). Exact erf on the f32 sum plus bias, then the one
+//   rounding, in twins of the kernels (`gemm_tma_wgmma_gelu`,
+//   `splitk_reduce_gelu`), so that the ReLU and no-activation kernels are
+//   the same code as without it. Without it fc1 would write its 115.6 MB
+//   and aten would read them back for the activation.
 #include <cstdint>
 
 #include "gemm_core.cuh"
@@ -64,14 +70,14 @@ struct Tile {
 // Block (m-tile, n-tile, split): sums x[m0:m0+BM, ks] . w[ks, n0:n0+BN] over
 // the split's K tiles [split * k_tiles / splits, (split + 1) * k_tiles /
 // splits). PARTIAL: writes the f32 sums to ws[split]; otherwise applies K1's
-// epilogue and writes out.
-template <int NC, typename TO, bool PARTIAL>
-__global__ void __launch_bounds__(Tile<NC>::THREADS)
-    gemm_tma_wgmma(const __grid_constant__ CUtensorMap tx,
-                   const __grid_constant__ CUtensorMap tw,
-                   const float* __restrict__ bias, TO* __restrict__ out,
-                   float* __restrict__ ws, int M, int N, int k_tiles,
-                   int splits, long long som, long long son, int relu) {
+// epilogue EPI (gemm_core.cuh: kEpiK1, bias + ReLU or none, in
+// gemm_tma_wgmma; kEpiK1Gelu in gemm_tma_wgmma_gelu) and writes out.
+template <int NC, typename TO, bool PARTIAL, int EPI>
+__device__ __forceinline__ void gemm_body(const CUtensorMap* tx, const CUtensorMap* tw,
+                                          const float* __restrict__ bias,
+                                          TO* __restrict__ out, float* __restrict__ ws,
+                                          int M, int N, int k_tiles, int splits,
+                                          long long som, long long son, int relu) {
   using T = Tile<NC>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -105,9 +111,9 @@ __global__ void __launch_bounds__(Tile<NC>::THREADS)
         mbar_wait(empty + 8 * s, ((t / T::STAGES) & 1) ^ 1);
         mbar_expect_tx(full + 8 * s, T::STAGE_BYTES);
         const int k0 = (t_begin + t) * BK;
-        tma_load(a_dst, &tx, full + 8 * s, k0, m0);
-        tma_load(b_dst, &tw, full + 8 * s, n0, k0);
-        tma_load(b_dst + BOX_BYTES, &tw, full + 8 * s, n0 + BOX_N, k0);
+        tma_load(a_dst, tx, full + 8 * s, k0, m0);
+        tma_load(b_dst, tw, full + 8 * s, n0, k0);
+        tma_load(b_dst + BOX_BYTES, tw, full + 8 * s, n0 + BOX_N, k0);
       }
     }
     return;
@@ -155,18 +161,43 @@ __global__ void __launch_bounds__(Tile<NC>::THREADS)
         if constexpr (PARTIAL)
           ws[(static_cast<long long>(split) * M + m) * N + n] = v;
         else
-          out[m * som + n * son] = epilogue<kEpiK1, TO>(v, bias, n, relu);
+          out[m * som + n * son] = epilogue<EPI, TO>(v, bias, n, relu);
       }
     }
   }
 }
 
 template <int NC, typename TO, bool PARTIAL>
+__global__ void __launch_bounds__(Tile<NC>::THREADS)
+    gemm_tma_wgmma(const __grid_constant__ CUtensorMap tx,
+                   const __grid_constant__ CUtensorMap tw,
+                   const float* __restrict__ bias, TO* __restrict__ out,
+                   float* __restrict__ ws, int M, int N, int k_tiles,
+                   int splits, long long som, long long son, int relu) {
+  gemm_body<NC, TO, PARTIAL, kEpiK1>(&tx, &tw, bias, out, ws, M, N, k_tiles, splits,
+                                     som, son, relu);
+}
+
+// K1 with the GELU epilogue (the partial sums of a split product take
+// gemm_tma_wgmma<..., true> and splitk_reduce_gelu)
+template <int NC, typename TO>
+__global__ void __launch_bounds__(Tile<NC>::THREADS)
+    gemm_tma_wgmma_gelu(const __grid_constant__ CUtensorMap tx,
+                        const __grid_constant__ CUtensorMap tw,
+                        const float* __restrict__ bias, TO* __restrict__ out,
+                        float* __restrict__ ws, int M, int N, int k_tiles,
+                        int splits, long long som, long long son, int relu) {
+  gemm_body<NC, TO, false, kEpiK1Gelu>(&tx, &tw, bias, out, ws, M, N, k_tiles,
+                                       splits, som, son, relu);
+}
+
+template <int NC, typename TO, bool PARTIAL, bool GELU = false>
 int launch_gemm(const CUtensorMap& tx, const CUtensorMap& tw, const float* bias,
                 TO* out, float* ws, int M, int N, int k_tiles, int splits,
                 long long som, long long son, int relu, cudaStream_t s) {
   using T = Tile<NC>;
   auto kernel = gemm_tma_wgmma<NC, TO, PARTIAL>;
+  if constexpr (GELU) kernel = gemm_tma_wgmma_gelu<NC, TO>;
   const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -176,22 +207,30 @@ int launch_gemm(const CUtensorMap& tx, const CUtensorMap& tw, const float* bias,
   return static_cast<int>(cudaGetLastError());
 }
 
+// act: 0 none, 1 ReLU (kEpiK1, whose kernels read it as their relu flag),
+// 2 GELU (kEpiK1Gelu)
 template <int NC, typename TO>
 int run(const void* x, const void* w, const float* bias, TO* out, float* ws,
         int M, int N, int K, long long sxm, long long swk, int splits,
-        long long som, long long son, int relu, int sms, cudaStream_t s) {
+        long long som, long long son, int act, int sms, cudaStream_t s) {
   CUtensorMap tx, tw;
   int rc = encode(&tx, x, M, K, sxm, Tile<NC>::BM, BK);
   if (rc == 0) rc = encode(&tw, w, K, N, swk, BK, BOX_N);
   if (rc != 0) return rc;
   const int k_tiles = (K + BK - 1) / BK;
+  const bool gelu = act == 2;
   if (splits == 1)
-    return launch_gemm<NC, TO, false>(tx, tw, bias, out, nullptr, M, N, k_tiles,
-                                      1, som, son, relu, s);
+    return gelu ? launch_gemm<NC, TO, false, true>(tx, tw, bias, out, nullptr, M, N,
+                                                   k_tiles, 1, som, son, 0, s)
+                : launch_gemm<NC, TO, false>(tx, tw, bias, out, nullptr, M, N,
+                                             k_tiles, 1, som, son, act, s);
   rc = launch_gemm<NC, TO, true>(tx, tw, bias, out, ws, M, N, k_tiles, splits,
-                                 som, son, relu, s);
+                                 som, son, act, s);
   if (rc != 0) return rc;
-  return launch_splitk_reduce<TO>(ws, bias, out, M, N, splits, som, son, relu, sms, s);
+  return gelu ? launch_splitk_reduce<TO, kEpiK1Gelu>(ws, bias, out, M, N, splits, som,
+                                                     son, 0, sms, s)
+              : launch_splitk_reduce<TO>(ws, bias, out, M, N, splits, som, son, act,
+                                         sms, s);
 }
 
 }  // namespace sm90
@@ -199,12 +238,13 @@ int run(const void* x, const void* w, const float* bias, TO* out, float* ws,
 
 // x (M, K) and w (K, N) bf16 with unit inner stride; out (M, N) f32 or bf16;
 // ws: f32 (splits, M, N) when splits > 1. block_m 64 or 128 and splits come
-// from the wrapper's plan. Returns a CUDA error code as an int.
+// from the wrapper's plan; act 0 (no activation), 1 (ReLU) or 2 (exact-erf
+// GELU). Returns a CUDA error code as an int.
 extern "C" int vv_matmul_sm90(const void* x, const void* w, const void* bias,
                               void* out, void* ws, int M, int N, int K,
                               long long sxm, long long swk, long long som,
                               long long son, int block_m, int splits,
-                              int dtype_out, int relu, int device, void* stream) {
+                              int dtype_out, int act, int device, void* stream) {
   using namespace vv::sm90;
   const int k_tiles = (K + BK - 1) / BK;
   const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
@@ -212,6 +252,7 @@ extern "C" int vv_matmul_sm90(const void* x, const void* w, const void* bias,
                        swk % 8 == 0;
   if (M <= 0 || N <= 0 || K <= 0 || !aligned || (block_m != 64 && block_m != 128) ||
       splits < 1 || splits > k_tiles || (splits > 1 && ws == nullptr) ||
+      act < 0 || act > 2 ||
       (dtype_out != vv::kF32 && dtype_out != vv::kBF16))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
@@ -224,11 +265,11 @@ extern "C" int vv_matmul_sm90(const void* x, const void* w, const void* bias,
   if (dtype_out == vv::kBF16) {
     vv::bf16* o = static_cast<vv::bf16*>(out);
     return block_m == 64
-               ? run<1>(x, w, b, o, wsf, M, N, K, sxm, swk, splits, som, son, relu, sms, s)
-               : run<2>(x, w, b, o, wsf, M, N, K, sxm, swk, splits, som, son, relu, sms, s);
+               ? run<1>(x, w, b, o, wsf, M, N, K, sxm, swk, splits, som, son, act, sms, s)
+               : run<2>(x, w, b, o, wsf, M, N, K, sxm, swk, splits, som, son, act, sms, s);
   }
   float* o = static_cast<float*>(out);
   return block_m == 64
-             ? run<1>(x, w, b, o, wsf, M, N, K, sxm, swk, splits, som, son, relu, sms, s)
-             : run<2>(x, w, b, o, wsf, M, N, K, sxm, swk, splits, som, son, relu, sms, s);
+             ? run<1>(x, w, b, o, wsf, M, N, K, sxm, swk, splits, som, son, act, sms, s)
+             : run<2>(x, w, b, o, wsf, M, N, K, sxm, swk, splits, som, son, act, sms, s);
 }

@@ -219,32 +219,55 @@ inline int encode(CUtensorMap* map, const void* ptr, int rows, int cols,
          CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
 }
 
-// out = K1 epilogue of the sum over splits of ws (splits, M, N), taken in
-// split order: no atomics, so two runs give the same bits.
-template <typename TO>
-__global__ void splitk_reduce(const float* __restrict__ ws,
-                              const float* __restrict__ bias,
-                              TO* __restrict__ out, int M, int N, int splits,
-                              long long som, long long son, int relu) {
+// out = K1 epilogue (EPI: kEpiK1, or kEpiK1Gelu in splitk_reduce_gelu) of the
+// sum over splits of ws (splits, M, N), taken in split order: no atomics, so
+// two runs give the same bits.
+template <int EPI, typename TO>
+__device__ __forceinline__ void splitk_reduce_body(const float* __restrict__ ws,
+                                                   const float* __restrict__ bias,
+                                                   TO* __restrict__ out, int M, int N,
+                                                   int splits, long long som,
+                                                   long long son, int relu) {
   const long long total = static_cast<long long>(M) * N;
   for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
        i < total; i += static_cast<long long>(gridDim.x) * blockDim.x) {
     float acc = ws[i];
     for (int s = 1; s < splits; ++s) acc += ws[s * total + i];
     const int m = static_cast<int>(i / N), n = static_cast<int>(i % N);
-    out[m * som + n * son] = epilogue<kEpiK1, TO>(acc, bias, n, relu);
+    out[m * som + n * son] = epilogue<EPI, TO>(acc, bias, n, relu);
   }
 }
 
-// Launches splitk_reduce on stream s; returns cudaGetLastError() as an int.
 template <typename TO>
+__global__ void splitk_reduce(const float* __restrict__ ws,
+                              const float* __restrict__ bias,
+                              TO* __restrict__ out, int M, int N, int splits,
+                              long long som, long long son, int relu) {
+  splitk_reduce_body<kEpiK1, TO>(ws, bias, out, M, N, splits, som, son, relu);
+}
+
+template <typename TO>
+__global__ void splitk_reduce_gelu(const float* __restrict__ ws,
+                                   const float* __restrict__ bias,
+                                   TO* __restrict__ out, int M, int N, int splits,
+                                   long long som, long long son) {
+  splitk_reduce_body<kEpiK1Gelu, TO>(ws, bias, out, M, N, splits, som, son, 0);
+}
+
+// Launches splitk_reduce (splitk_reduce_gelu for EPI kEpiK1Gelu) on stream s;
+// returns cudaGetLastError() as an int.
+template <typename TO, int EPI = kEpiK1>
 int launch_splitk_reduce(const float* ws, const float* bias, TO* out, int M,
                          int N, int splits, long long som, long long son,
                          int relu, int sms, cudaStream_t s) {
   const long long total = static_cast<long long>(M) * N;
   const int blocks = static_cast<int>(std::min((total + 255) / 256, 8LL * sms));
-  splitk_reduce<TO><<<blocks, 256, 0, s>>>(ws, bias, out, M, N, splits, som, son,
-                                           relu);
+  if constexpr (EPI == kEpiK1Gelu)
+    splitk_reduce_gelu<TO><<<blocks, 256, 0, s>>>(ws, bias, out, M, N, splits, som,
+                                                  son);
+  else
+    splitk_reduce<TO><<<blocks, 256, 0, s>>>(ws, bias, out, M, N, splits, som, son,
+                                             relu);
   return static_cast<int>(cudaGetLastError());
 }
 

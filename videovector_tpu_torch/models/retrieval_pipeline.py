@@ -7,16 +7,21 @@ videovector_tpu/models/retrieval_pipeline.py.
        or GoogLeNet to pool5            (models/googlenet.py: K2 convs)
        or I3D over whole clips          (models/i3d.py: K2's 2D and depth
                                          routes)
+       or TimeSformer over whole clips  (models/timesformer.py: K1 and
+                                         the attention kernel)
     -> embedding tower + L2 normalize   (models/embedding.py: K1)
     -> scores vs a device-resident gallery (torch.matmul), top-k
 
 `RetrievalPipelineConfig.backbone` picks the backbone: "caffenet" (the
 default; 4,096 features, params under "mednet"), "googlenet" (BVLC's
-widths, 1,024 features, params under "googlenet") or "i3d" (1,024
-features a clip, params under "i3d", BatchNorm folded). The tower's input
+widths, 1,024 features, params under "googlenet"), "i3d" (1,024
+features a clip, params under "i3d", BatchNorm folded) or "timesformer"
+(TimeSformer-L, 768 features a clip at the config's crop, params under
+"timesformer", linear weights in the compute dtype). The tower's input
 width is the backbone's. What else differs the backbone declares
 (models/mednet.py::Backbone): the transform's mean and scale (I3D reads
-RGB in [-1, 1]: 127.5 unless the caller gives a mean, and 1 / 127.5),
+RGB in [-1, 1]: 127.5 unless the caller gives a mean, and 1 / 127.5;
+TimeSformer 0.45 and 1 / 0.225 of 255),
 whether it reads whole clips, and the features the pipeline keeps. The
 frame backbones embed each frame; a clip backbone's call of N T frames
 with N crop offsets and mirror flags is N clips of T consecutive frames,
@@ -41,8 +46,8 @@ offsets, a new gallery, params or batch size) runs eagerly.
 
 Under a profiler each stage is a span (utils/timer.py): `vvtpu.query`
 (its request id the pipeline's count of queries) around the call, and
-`vvtpu.query.transform`, `.mednet` (`.googlenet` or `.i3d` for those
-backbones), `.tower`, `.scores` and `.topk`, or
+`vvtpu.query.transform`, `.mednet` (`.googlenet`, `.i3d` or
+`.timesformer` for those backbones), `.tower`, `.scores` and `.topk`, or
 `vvtpu.query.replay` around a replay, which also adds 1 to the counter
 `vvtpu.query.graph_replays` and again what the captured query counted
 (`vvtpu.cast_bytes`).
@@ -50,7 +55,9 @@ backbones), `.tower`, `.scores` and `.topk`, or
 `features` holds what the backbone's `served_features` keeps of the last
 frames embedded, in f32: the (N, D) features a frame backbone gives (for
 I3D its head's (N, windows, D), the 2-frame windows of the last map,
-whose mean over time the tower reads); after a replay it is the graph's
+whose mean over time the tower reads; for TimeSformer (N, 1 + 64, D), the
+final norm's class row, which the tower reads, and its rows of 64 patch
+tokens spread over the clip); after a replay it is the graph's
 own buffer, which the next replay overwrites.
 """
 
@@ -72,6 +79,9 @@ from videovector_tpu_torch.models.embedding import (
 from videovector_tpu_torch.models.googlenet import GoogLeNet, GoogLeNetConfig
 from videovector_tpu_torch.models.i3d import I3D, I3DConfig
 from videovector_tpu_torch.models.mednet import MedNet, MedNetConfig
+from videovector_tpu_torch.models.timesformer import (
+    TimeSformer, TimeSformerConfig,
+)
 from videovector_tpu_torch.ops.linear import no_tf32
 from videovector_tpu_torch.ops.normalization import l2_normalize_rows
 from videovector_tpu_torch.ops.topk import top_k_rows
@@ -87,7 +97,7 @@ class RetrievalPipelineConfig:
     compute_dtype: str = "bfloat16"
     # "NHWC": frames in decode order (H, W, C); "NCHW" accepts Caffe blobs
     pixels_layout: str = "NHWC"
-    # "caffenet", "googlenet" or "i3d"
+    # "caffenet", "googlenet", "i3d" or "timesformer"
     backbone: str = "caffenet"
 
 
@@ -172,9 +182,14 @@ class RetrievalPipeline:
             self.backbone_key = "i3d"
             self.i3d = I3D(I3DConfig(compute_dtype=cfg.compute_dtype))
             feature_dim = self.i3d.cfg.feature_dim
+        elif cfg.backbone == "timesformer":
+            self.backbone_key = "timesformer"
+            self.timesformer = TimeSformer(TimeSformerConfig(
+                crop=cfg.crop, compute_dtype=cfg.compute_dtype))
+            feature_dim = self.timesformer.cfg.feature_dim
         else:
-            raise ValueError("backbone must be 'caffenet', 'googlenet' or "
-                             f"'i3d', got {cfg.backbone!r}")
+            raise ValueError("backbone must be 'caffenet', 'googlenet', "
+                             f"'i3d' or 'timesformer', got {cfg.backbone!r}")
         self.embedder = VideoEmbeddingModel(VideoEmbeddingConfig(
             feature_dim=feature_dim, embed_dim=cfg.embed_dim,
             compute_dtype=cfg.compute_dtype, dropout_rate=0.0))
@@ -192,13 +207,14 @@ class RetrievalPipeline:
 
     @property
     def backbone(self):
-        """The backbone model: `self.mednet`, `self.googlenet` or
-        `self.i3d`."""
+        """The backbone model: `self.mednet`, `self.googlenet`,
+        `self.i3d` or `self.timesformer`."""
         return getattr(self, self.backbone_key)
 
     def init(self, generator: torch.Generator):
         """Random params from `generator`, placed on the pipeline's device
-        (the backbone's `init`: I3D's BatchNorm folded into its convs)."""
+        (the backbone's `init`: I3D's BatchNorm folded into its convs,
+        TimeSformer's linear weights in the compute dtype)."""
         params = {self.backbone_key: self.backbone.init(generator),
                   "tower": self.embedder.init(generator)["tower"]}
         return map_params(lambda t: t.to(self.device), params)

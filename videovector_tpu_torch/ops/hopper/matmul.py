@@ -2,8 +2,10 @@
 
 Counterpart of videovector_tpu/ops/pallas/matmul.py: out = round(act(x.w +
 b)), an f32 sum with the bias and ReLU applied in f32 and one rounding to
-the output type at the end, as the Pallas kernel does. Three hand-written
-routes, picked from the operands alone by `k1_route`:
+the output type at the end, as the Pallas kernel does. The sm90 route also
+takes GELU as its activation (`fuse_gelu`: exact erf, in f32 before the
+rounding; TimeSformer's fc1), which the Pallas kernel has not. Three
+hand-written routes, picked from the operands alone by `k1_route`:
 - "sm90": csrc/matmul_sm90.cu, a TMA + wgmma GEMM with split-K
   (`k1_split_plan`), for bf16 operands that TMA can address;
 - "f32": csrc/matmul_f32_sm90.cu, a TMA-fed FFMA GEMM with split-K
@@ -21,11 +23,11 @@ whose fake implementation checks their shapes and dtypes and gives the
 output's: so `torch.export` traces K1 into a serving artifact
 (tools/serving.py) as one node, and the artifact launches it when it runs.
 The op counts each launch in `vvtpu.k1.launches`, those of the sm90 and
-f32 routes in `vvtpu.k1.sm90_launches` and `vvtpu.k1.f32_launches`
-(utils/timer.py), an artifact's too. The kernels are forward only, as the
-Pallas kernel is: the training tower reaches K1 through
-ops.linear.tower_matmul, an autograd Function whose backward is
-torch.matmul.
+f32 routes in `vvtpu.k1.sm90_launches` and `vvtpu.k1.f32_launches`, those
+with GELU in `vvtpu.k1.gelu_launches` (utils/timer.py), an artifact's too.
+The kernels are forward only, as the Pallas kernel is: the training tower
+reaches K1 through ops.linear.tower_matmul, an autograd Function whose
+backward is torch.matmul.
 """
 
 from __future__ import annotations
@@ -85,13 +87,23 @@ def bias_f32(b: torch.Tensor | None, n: int) -> torch.Tensor | None:
 
 
 def epilogue_plain(acc: torch.Tensor, b: torch.Tensor | None, fuse_relu: bool,
-                   out_dtype: torch.dtype) -> torch.Tensor:
+                   out_dtype: torch.dtype, fuse_gelu: bool = False
+                   ) -> torch.Tensor:
     """K1's epilogue on an f32 sum: act(acc + b) in f32, rounded once to
-    out_dtype (the Pallas `_matmul_kernel`'s last K step)."""
+    out_dtype (the Pallas `_matmul_kernel`'s last K step); act is ReLU,
+    GELU with the exact erf, or none."""
+    _check_act(fuse_relu, fuse_gelu)
     y = acc if b is None else acc + b.float()
     if fuse_relu:
         y = torch.relu(y)
+    elif fuse_gelu:
+        y = torch.nn.functional.gelu(y.float())
     return y.to(out_dtype)
+
+
+def _check_act(fuse_relu: bool, fuse_gelu: bool) -> None:
+    if fuse_relu and fuse_gelu:
+        raise ValueError("K1's epilogue takes ReLU or GELU, not both")
 
 
 def _check(x: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype) -> None:
@@ -104,11 +116,12 @@ def _check(x: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype) -> None:
 
 
 def matmul_plain(x, w, b=None, *, fuse_relu: bool = False,
-                 out_dtype=torch.float32):
+                 out_dtype=torch.float32, fuse_gelu: bool = False):
     """Plain PyTorch K1: f32 product of the given operands, then the epilogue.
     """
     _check(x, w, out_dtype)
-    return epilogue_plain(x.float() @ w.float(), b, fuse_relu, out_dtype)
+    return epilogue_plain(x.float() @ w.float(), b, fuse_relu, out_dtype,
+                          fuse_gelu)
 
 
 def _tma_ok(t: torch.Tensor, dtype: torch.dtype) -> bool:
@@ -166,37 +179,46 @@ def k1_f32_plan(m: int, n: int, k: int, sms: int) -> tuple[tuple[int, int], int]
     return (F32_BM, F32_BN), splits
 
 
-def matmul(x, w, b=None, *, fuse_relu: bool = False, out_dtype=torch.float32):
+def matmul(x, w, b=None, *, fuse_relu: bool = False, out_dtype=torch.float32,
+           fuse_gelu: bool = False):
     """x: (M, K), w: (K, N), b: (N,) optional -> act(x.w + b): (M, N).
 
     x and w share a dtype, float32 or bfloat16 (bfloat16 runs on the tensor
-    cores, float32 on FFMA); the sum is f32; any strides. Where
-    `runs_kernel(x)`, through `vvtpu::k1_matmul`; else `matmul_plain`."""
+    cores, float32 on FFMA); the sum is f32; any strides. act is ReLU
+    (`fuse_relu`), exact-erf GELU (`fuse_gelu`, on the card the sm90 route
+    only: bf16 operands TMA can address) or none. Where `runs_kernel(x)`,
+    through `vvtpu::k1_matmul`; else `matmul_plain`."""
     if runs_kernel(x):
         forward_only(x, w, b)
-        return torch.ops.vvtpu.k1_matmul(x, w, b, fuse_relu, out_dtype)
+        return torch.ops.vvtpu.k1_matmul(x, w, b, fuse_relu, out_dtype,
+                                         fuse_gelu)
     with span("vvtpu.k1"):
-        return matmul_plain(x, w, b, fuse_relu=fuse_relu, out_dtype=out_dtype)
+        return matmul_plain(x, w, b, fuse_relu=fuse_relu, out_dtype=out_dtype,
+                            fuse_gelu=fuse_gelu)
 
 
+# `fuse_gelu` came last, with a default, so that calls recorded before it
+# (serving artifacts) read as before
 @torch.library.custom_op(
     "vvtpu::k1_matmul", mutates_args=(),
     schema="(Tensor x, Tensor w, Tensor? b, bool fuse_relu, "
-           "ScalarType out_dtype) -> Tensor")
+           "ScalarType out_dtype, bool fuse_gelu=False) -> Tensor")
 def k1_matmul(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
-              fuse_relu: bool, out_dtype: torch.dtype) -> torch.Tensor:
+              fuse_relu: bool, out_dtype: torch.dtype,
+              fuse_gelu: bool = False) -> torch.Tensor:
     """K1 as a custom op: `matmul`'s launch on CUDA tensors (the route
     from `k1_route`, counted), `matmul_plain` on CPU tensors; the host's
     time in it is the span `vvtpu.k1`, the ctypes call `vvtpu.k1.launch`."""
     with span("vvtpu.k1"):
         if x.device.type == "cpu":
             return matmul_plain(x, w, b, fuse_relu=fuse_relu,
-                                out_dtype=out_dtype)
-        return _k1_launch(x, w, b, fuse_relu, out_dtype)
+                                out_dtype=out_dtype, fuse_gelu=fuse_gelu)
+        return _k1_launch(x, w, b, fuse_relu, out_dtype, fuse_gelu)
 
 
-def _k1_launch(x, w, b, fuse_relu, out_dtype):
+def _k1_launch(x, w, b, fuse_relu, out_dtype, fuse_gelu):
     _check(x, w, out_dtype)
+    _check_act(fuse_relu, fuse_gelu)
     same_device(x, w, b)
     m, k = x.shape
     n = w.shape[1]
@@ -211,6 +233,10 @@ def _k1_launch(x, w, b, fuse_relu, out_dtype):
     stream = torch.cuda.current_stream(x.device).cuda_stream
     device = x.device.index or 0
     route = k1_route(x, w, out_dtype)
+    if fuse_gelu and route != "sm90":
+        raise ValueError(f"K1's GELU epilogue is on its sm90 route alone "
+                         f"(bf16 operands TMA can address); these operands "
+                         f"take the {route} route")
     if route in ("sm90", "f32"):
         sms = torch.cuda.get_device_properties(x.device).multi_processor_count
         if route == "sm90":
@@ -222,12 +248,15 @@ def _k1_launch(x, w, b, fuse_relu, out_dtype):
         args = (x.data_ptr(), w.data_ptr(), bias_ptr, out.data_ptr(),
                 ws.data_ptr() if ws is not None else None, m, n, k, x.stride(0),
                 w.stride(0), out.stride(0), out.stride(1))
-        tail = (splits, DTYPE_CODES[out_dtype], int(fuse_relu), device, stream)
+        act = 2 if fuse_gelu else int(fuse_relu)
+        tail = (splits, DTYPE_CODES[out_dtype], act, device, stream)
         if route == "sm90":
             with span("vvtpu.k1.launch"):
                 rc = lib.vv_matmul_sm90(*args, block_m, *tail)
             _build.check(rc, "K1 matmul (sm90 route)")
             count("vvtpu.k1.sm90_launches", 1)
+            if fuse_gelu:
+                count("vvtpu.k1.gelu_launches", 1)
         else:
             with span("vvtpu.k1.launch"):
                 rc = lib.vv_matmul_f32_sm90(*args, *tail)
@@ -246,8 +275,9 @@ def _k1_launch(x, w, b, fuse_relu, out_dtype):
 
 
 @k1_matmul.register_fake
-def _k1_matmul_fake(x, w, b, fuse_relu, out_dtype):
+def _k1_matmul_fake(x, w, b, fuse_relu, out_dtype, fuse_gelu=False):
     _check(x, w, out_dtype)
+    _check_act(fuse_relu, fuse_gelu)
     return x.new_empty((x.shape[0], w.shape[1]), dtype=out_dtype)
 
 
